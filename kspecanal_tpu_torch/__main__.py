@@ -1,0 +1,3 @@
+from kspecanal_tpu_torch.cli import main
+
+raise SystemExit(main())

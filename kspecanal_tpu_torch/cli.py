@@ -1,0 +1,93 @@
+"""Command-line entry point of the port: the reference's spelling of
+``KEY value`` token pairs, parsed by ``kspecanal_tpu.cli.parse_args`` (no new
+token), run on a CUDA device through ``kspecanal_tpu_torch.session``.
+
+    python -m kspecanal_tpu_torch zeroSpan centerFreq 92e6 fftSize 2048 \
+        window kaiser curScanNonOverlap 0.5 tpuSource synth tpuHeadless true
+"""
+from __future__ import annotations
+
+import signal
+import sys
+from typing import List, Optional
+
+import torch
+
+from kspecanal_tpu.cli import RunOptions, make_source, parse_args, print_info
+from kspecanal_tpu.utils.logging import log_info, set_iter_logging
+from kspecanal_tpu_torch import session as sess_mod
+
+
+def _check_ported(run: RunOptions) -> None:
+    """Refuse run options whose machinery is not ported yet, before any
+    source is built (a device source would build JAX arrays)."""
+    if run.source in ("devicesynth", "devicenoise"):
+        raise sess_mod.not_ported(f"tpuSource {run.source}",
+                                  sess_mod.TODO_DEVICE_SOURCES)
+    if run.state_file:
+        raise sess_mod.not_ported("tpuStateFile", sess_mod.TODO_STATE)
+    if run.profile_dir:
+        raise sess_mod.not_ported("tpuProfile", sess_mod.TODO_PROFILE)
+    if run.mesh_time > 1 or run.mesh_band > 1:
+        raise sess_mod.not_ported("tpuMeshTime / tpuMeshBand",
+                                  sess_mod.TODO_MULTI_GPU)
+    if run.renderer.startswith("png:"):
+        raise sess_mod.not_ported("tpuRenderer png:", sess_mod.TODO_GUI)
+
+
+def main(argv: Optional[List[str]] = None, device=None) -> int:
+    """Run the CLI on ``device`` (default ``"cuda"``, which must exist;
+    the CPU runs the kernels' plain versions only when asked for by
+    ``device="cpu"``)."""
+    cfg, run = parse_args(sys.argv[1:] if argv is None else argv)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: kspecanal_tpu_torch runs on "
+                               "the card (pass device='cpu' to run its "
+                               "plain PyTorch path)")
+        device = "cuda"
+    _check_ported(run)
+    set_iter_logging(run.log_iter)
+    print_info(cfg)
+    source = make_source(cfg, run)
+    if run.decimate > 1:
+        from kspecanal_tpu.io.sources import DecimatingSource
+        source = DecimatingSource(source, run.decimate)
+        log_info(f"tpuDecimate: capturing at "
+                 f"{cfg.sampling_rate * run.decimate:g} sps, merging "
+                 f"{run.decimate} adjacent samples per output sample")
+    if run.prefetch:
+        from kspecanal_tpu.io.prefetch import PrefetchingSource
+        source = PrefetchingSource(source, block_size=cfg.full_size)
+
+    renderer = None
+    if run.renderer == "term":
+        from kspecanal_tpu_torch.render_term import TerminalRenderer
+        renderer = TerminalRenderer(cfg)
+    elif not run.headless and run.renderer == "gui":
+        log_info("GUI renderer not ported (ROADMAP.md 'Still to port' item "
+                 f"{sess_mod.TODO_GUI}); running headless")
+
+    sess = sess_mod.Session(cfg, source, renderer, device=device,
+                            catch_up=run.catch_up)
+
+    def _sigint(signum, stack):  # kspecanal.py:1118-1123
+        log_info("sigint: quiting on user request...")
+        sess.stop = True
+
+    signal.signal(signal.SIGINT, _sigint)
+    rc = 0
+    try:
+        sess_mod.do_run(sess)
+    except FileNotFoundError as e:
+        log_info(f"ERROR: {e}")
+        rc = 1
+    finally:
+        source.close()
+        sess.save_baseline()
+        sess.timer.log_report()
+    return rc
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

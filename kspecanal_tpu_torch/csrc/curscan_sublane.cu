@@ -1,0 +1,215 @@
+// Fused curscan kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces: kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane (the Pallas
+// sublane-layout curscan kernel of the JAX package, entry
+// curscan_fused_sublane).
+//
+// What it computes, per IQ block b (one thread block each):
+//   for every window start s = starts[w] (any static offset, aligned or not):
+//     a[m]  = window[m] * x[s + m]                     (u8 planes: x - 127)
+//     X     = DFT_N(a)  as two stages, N = n1 * 128:
+//               stage 1  B[k1][m2] = sum_m1 a[m1*128 + m2] W_n1^(m1 k1)
+//               twiddle  C[k1][m2] = B[k1][m2] W_N^(m2 k1)
+//               stage 2  D[k1][k2] = sum_m2 C[k1][m2] W_128^(m2 k2)
+//               X[k1 + n1*k2] = D[k1][k2]
+//     acc   = fold(acc, weights[w] * |X|)  AVG/RAW: weighted sum, MAX/MIN:
+//             extrema; weights[] carries winAdj*2/N (and the closed-form
+//             decay weights for AVG/RAW)
+//   out[b][(k + N/2) % N] = acc[k]       natural order, fftshifted
+//
+// What bounds it on the H100: arithmetic, not HBM.  The direct two-stage
+// DFT costs N*(n1 + 128) complex multiply-adds per window, about 18 M real
+// FMA per 16384-sample block at fft 2048 (15 windows), against 8
+// bytes/sample of float32 input (2 bytes/sample of u8): some 140 FMA per
+// input byte, far above the ~10 FP32 FMA (20 FLOP) per byte at which the
+// card's 67 TFLOP/s FP32 rate and 3.35 TB/s of HBM balance.  In this form
+// the stage-2 loop's instruction throughput binds first: every complex
+// multiply-add there is fed by a shared-memory load.  Every input sample is
+// read from device memory once per window that covers it (through L1/L2;
+// the overlapping windows of one block hit cache) and only N floats per
+// block are written.
+//
+// What the design does about it: everything between the load and the
+// output stays on chip.  The frame, the stage-1 result and the roots of
+// unity live in shared memory; each thread owns up to ROWS output rows of
+// one column and keeps their partial sums and the running fold in
+// registers, so the fold needs no shared-memory traffic and no atomics.
+// Within a warp the stage-1 roots and the stage-2 inputs are warp-uniform
+// (broadcast loads).  Windows are processed in order, so the result is
+// deterministic.  This is the simple, exact-in-f32 form; tensor-core
+// (wgmma) precision classes and a cheaper stage 2 are later work.
+//
+// Shared memory: (3*N + 128) * 8 bytes; N = 8192 needs 197,632 bytes of
+// the 232,448 a block may use, which is the largest fft_size this kernel
+// takes (ops/cuda_curscan.MAX_FFT_SIZE).
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int N2 = 128;   // stage-2 length: the kernel's fixed second factor
+constexpr int ROWS = 8;   // stage rows per thread; blockDim = 128 * ceil(n1/ROWS)
+
+enum Fold { FOLD_SUM = 0, FOLD_MAX = 1, FOLD_MIN = 2 };
+
+__device__ __forceinline__ float sample(const float* p, int i) {
+  return __ldg(p + i);
+}
+
+__device__ __forceinline__ float sample(const uint8_t* p, int i) {
+  return static_cast<float>(__ldg(p + i)) - 127.0f;
+}
+
+// acc += x * f (complex)
+__device__ __forceinline__ void cmac(float2& acc, float2 x, float2 f) {
+  acc.x = fmaf(x.x, f.x, fmaf(-x.y, f.y, acc.x));
+  acc.y = fmaf(x.x, f.y, fmaf(x.y, f.x, acc.y));
+}
+
+__device__ __forceinline__ float2 cmul(float2 x, float2 f) {
+  return make_float2(x.x * f.x - x.y * f.y, x.x * f.y + x.y * f.x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+curscan_sublane_kernel(const T* __restrict__ re, const T* __restrict__ im,
+                       float* __restrict__ out,
+                       const int* __restrict__ starts,
+                       const float* __restrict__ weights,
+                       const float* __restrict__ window,
+                       const float2* __restrict__ roots,
+                       int full_size, int n, int n_windows, int fold) {
+  extern __shared__ float2 smem[];
+  float2* a = smem;           // windowed frame, a[m1 * 128 + m2]
+  float2* c = a + n;          // stage 1 after twiddle, c[k1 * 128 + m2]
+  float2* w_n = c + n;        // exp(-2 pi i j / N)
+  float2* w_128 = w_n + n;    // exp(-2 pi i j / 128) = w_n[j * n1]
+
+  const int n1 = n / N2;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int col = tid % N2;   // m2 in stage 1, k2 in stage 2
+  const int grp = tid / N2;   // this thread's rows: k1 = grp + r * ngrp
+  const int ngrp = nthreads / N2;
+
+  for (int j = tid; j < n; j += nthreads) w_n[j] = roots[j];
+  for (int j = tid; j < N2; j += nthreads) w_128[j] = roots[j * n1];
+
+  const size_t base = static_cast<size_t>(blockIdx.x) * full_size;
+  const T* xr = re + base;
+  const T* xi = im + base;
+
+  float acc[ROWS];
+  const float init = fold == FOLD_MAX ? -CUDART_INF_F
+                   : fold == FOLD_MIN ? CUDART_INF_F : 0.0f;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) acc[r] = init;
+
+  for (int w = 0; w < n_windows; ++w) {
+    const int s = starts[w];
+    const float wt = weights[w];
+
+    // Load + decode + window.  a[] was last read in the previous window's
+    // stage 1, which every thread finished before that window's 2nd barrier.
+    for (int m = tid; m < n; m += nthreads) {
+      const float g = __ldg(window + m);
+      a[m] = make_float2(sample(xr, s + m) * g, sample(xi, s + m) * g);
+    }
+    __syncthreads();
+
+    // Stage 1 (length-n1 DFT down each of the 128 columns) + twiddle.
+    float2 b[ROWS];
+    int e[ROWS];   // (m1 * k1) mod n1, stepped without an integer division
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      b[r] = make_float2(0.0f, 0.0f);
+      e[r] = 0;
+    }
+    for (int m1 = 0; m1 < n1; ++m1) {
+      const float2 x = a[m1 * N2 + col];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int k1 = grp + r * ngrp;
+        if (k1 < n1) {
+          cmac(b[r], x, w_n[e[r] * N2]);
+          e[r] += k1;
+          if (e[r] >= n1) e[r] -= n1;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int k1 = grp + r * ngrp;
+      if (k1 < n1) c[k1 * N2 + col] = cmul(b[r], w_n[(col * k1) % n]);
+    }
+    __syncthreads();
+
+    // Stage 2 (length-128 DFT along each of the n1 rows), |.|, fold.
+    float2 d[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) d[r] = make_float2(0.0f, 0.0f);
+    for (int m2 = 0; m2 < N2; ++m2) {
+      const float2 f = w_128[(m2 * col) & (N2 - 1)];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int k1 = grp + r * ngrp;
+        if (k1 < n1) cmac(d[r], c[k1 * N2 + m2], f);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float mag = wt * sqrtf(d[r].x * d[r].x + d[r].y * d[r].y);
+      acc[r] = fold == FOLD_SUM ? acc[r] + mag
+             : fold == FOLD_MAX ? fmaxf(acc[r], mag) : fminf(acc[r], mag);
+    }
+  }
+
+  float* o = out + static_cast<size_t>(blockIdx.x) * n;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int k1 = grp + r * ngrp;
+    if (k1 < n1) o[(k1 + n1 * col + n / 2) % n] = acc[r];
+  }
+}
+
+template <typename T>
+int launch(const void* re, const void* im, void* out, const void* starts,
+           const void* weights, const void* window, const void* roots,
+           int t, int full_size, int n, int n_windows, int fold,
+           cudaStream_t stream) {
+  const int n1 = n / N2;
+  const int threads = N2 * ((n1 + ROWS - 1) / ROWS);
+  const size_t smem = (3 * static_cast<size_t>(n) + N2) * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(
+      curscan_sublane_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  curscan_sublane_kernel<T><<<t, threads, smem, stream>>>(
+      static_cast<const T*>(re), static_cast<const T*>(im),
+      static_cast<float*>(out), static_cast<const int*>(starts),
+      static_cast<const float*>(weights), static_cast<const float*>(window),
+      static_cast<const float2*>(roots), full_size, n, n_windows, fold);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  Planes are (t, full_size)
+// row-major, float32 or uint8 (is_u8); out is (t, n) float32.  Returns the
+// CUDA error code of the launch (0 on success); the kernel runs
+// asynchronously on `stream`.
+extern "C" int kspec_curscan_sublane(const void* re, const void* im, int is_u8,
+                                     void* out, const void* starts,
+                                     const void* weights, const void* window,
+                                     const void* roots, int t, int full_size,
+                                     int n, int n_windows, int fold,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_u8)
+    return launch<uint8_t>(re, im, out, starts, weights, window, roots, t,
+                           full_size, n, n_windows, fold, s);
+  return launch<float>(re, im, out, starts, weights, window, roots, t,
+                       full_size, n, n_windows, fold, s);
+}

@@ -1,0 +1,1 @@
+"""Mode state machines of the port (zero-span)."""

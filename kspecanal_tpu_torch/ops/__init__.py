@@ -1,0 +1,1 @@
+"""Tensor ops of the port: display transforms, spectra and the curscan kernel."""

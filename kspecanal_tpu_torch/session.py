@@ -1,0 +1,262 @@
+"""Session loops of the port — the zero-span part of
+``kspecanal_tpu.session`` (``do_run``, kspecanal.py:1126-1136) as a host
+shell around the tensor pipeline.
+
+A session loop pumps an IQ source into the zero-span step functions on
+``Session.device`` and hands numpy views to an optional renderer callback.
+Cooperative stop mirrors the reference's ``cmd.stop`` flag checked at loop
+tops (kspecanal.py:465); SIGINT wiring lives in cli.py.  Modes and options
+not ported yet raise an error that names their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from kspecanal_tpu.config import MODE_SCAN, MODE_ZEROSPAN, SpecConfig
+from kspecanal_tpu.io.replay import load_sig_lvls, save_sig_lvls
+from kspecanal_tpu.io.sources import IQSource, split_u8_planes
+from kspecanal_tpu.utils.logging import log_info, log_iter, log_warn
+from kspecanal_tpu.utils.profiling import StageTimer
+from kspecanal_tpu_torch.models import zerospan as zs
+from kspecanal_tpu_torch.ops.peaks import find_peaks
+
+# Entries of the "Still to port" queue in ROADMAP.md named by the errors
+# of what is not ported yet.
+TODO_DEVICE_SOURCES = "1 (device sources)"
+TODO_SAVE_PLAY = "2 (zeroSpanSave / zeroSpanPlay)"
+TODO_STATE = "3 (io/state checkpoints)"
+TODO_PROFILE = "4 (torch.profiler trace)"
+TODO_SCAN = "5 (scan path)"
+TODO_MULTI_GPU = "9 (multi-GPU)"
+TODO_GUI = "10 (matplotlib renderer)"
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to kspecanal_tpu_torch yet: ROADMAP.md "
+        f"'Still to port' item {item}")
+
+
+class Session:
+    """Run state of a mode: config, source, device, baseline, stop flag,
+    timing."""
+
+    def __init__(self, cfg: SpecConfig, source: Optional[IQSource] = None,
+                 renderer: Optional[Callable] = None, *, device,
+                 catch_up: int = 0):
+        self.cfg = cfg
+        self.source = source
+        self.renderer = renderer
+        self.device = torch.device(device)
+        # Batched catch-up: blocks per step in run_zero_span (tpuCatchUp K);
+        # host staging is bounded per path by _catchup_block_cap.
+        self.catch_up = max(0, min(int(catch_up), 65536))
+        self.stop = False            # cmd.stop analog (kspecanal.py:970)
+        self.adj: Optional[np.ndarray] = None   # Fft.Adj baseline
+        self.final_avg: Optional[np.ndarray] = None
+        self.iter_times: list = []
+        self.timer = StageTimer()    # per-stage wall/throughput accounting
+        if cfg.adj_sig_lvls:
+            self._load_baseline()
+
+    # -- baseline handling (kspecanal.py:736-768, :400-411) --------------
+    def _load_baseline(self):
+        cfg = self.cfg
+        try:
+            start, end, avg = load_sig_lvls(cfg.adj_sig_lvls)
+        except Exception:
+            log_warn(f"_load_siglvls: Failed... {cfg.adj_sig_lvls}")
+            self.cfg = dataclasses.replace(cfg, adj_sig_lvls="")
+            return
+        if (start == cfg.start_freq) and (end == cfg.end_freq):
+            log_info(f"_load_siglvls: success... {cfg.adj_sig_lvls}")
+            self.adj = np.asarray(avg, np.float32)
+        else:
+            log_warn(f"_load_siglvls: savedRange[{start}-{end}] != "
+                     f"curFreqRange[{cfg.start_freq}-{cfg.end_freq}]; disabled")
+
+    def save_baseline(self):
+        if self.cfg.save_sig_lvls and self.final_avg is not None:
+            save_sig_lvls(self.cfg.save_sig_lvls, self.cfg.start_freq,
+                          self.cfg.end_freq, self.final_avg)
+            log_info(f"_save_siglvls: success... {self.cfg.save_sig_lvls}")
+
+    def _emit(self, view: Optional[zs.ZeroSpanView], iteration: int):
+        """Hand the renderer a view of host numpy arrays, with the peaks of
+        the curve drawn last (cur, else avg, min, max; kspecanal.py:485-504)
+        printed as the reference prints them (:250,:260)."""
+        if self.renderer is None:
+            return
+        cfg = self.cfg
+        view = zs.ZeroSpanView(*(v.cpu().numpy() for v in view))
+        peaks = []
+        if cfg.b_plt_levels:
+            lvls = None
+            for key, arr in (("b_data_max", view.max_lvls),
+                             ("b_data_min", view.min_lvls),
+                             ("b_data_avg", view.avg_lvls),
+                             ("b_data_cur", view.cur_lvls)):
+                if getattr(cfg, key):
+                    lvls = arr
+            if lvls is not None:
+                freqs = view.x_freqs
+                peaks = find_peaks(freqs, lvls, cfg.plt_highs_num_markers,
+                                   cfg.plt_highs_delta4marking)
+                delta = cfg.plt_highs_delta4marking * (freqs[-1] - freqs[0])
+                print("PlotHighs: Freqs {} to {} : delta4Marking {} : "
+                      "min {} max {}".format(freqs[0], freqs[-1], delta,
+                                             np.min(lvls), np.max(lvls)))
+                for p in peaks:
+                    print("plotHighs:Marked: {}, {}".format(p.freq, p.level))
+        self.renderer(self, view, peaks, iteration, None)
+
+
+# ---------------------------------------------------------------------------
+# Zero-span (kspecanal.py:426-506)
+# ---------------------------------------------------------------------------
+
+def _to_device(sess: Session, re: np.ndarray, im: np.ndarray):
+    return (torch.from_numpy(re).to(sess.device),
+            torch.from_numpy(im).to(sess.device))
+
+
+def run_zero_span(sess: Session, max_iters: Optional[int] = None
+                  ) -> zs.ZeroSpanState:
+    """The zero-span loop: one block per step at the reference's cadence,
+    or ``catch_up`` blocks per step.  Sources with ``read_raw`` ship
+    undecoded u8 planes (2 B/sample), which the curscan kernel decodes."""
+    cfg = sess.cfg
+    if sess.source is None:
+        raise ValueError("zero-span needs an IQ source")
+    sess.source.retune(cfg.center_freq, cfg.sampling_rate, cfg.gain)
+    state = zs.init_state(cfg, sess.device)
+    adj = (None if sess.adj is None
+           else torch.as_tensor(sess.adj).to(sess.device))
+    n = cfg.prg_loop_cnt if max_iters is None else max_iters
+    if sess.catch_up > 1:
+        return _run_zero_span_catchup(sess, state, adj, n)
+    raw_read = getattr(sess.source, "read_raw", None)
+    prev = time.time()
+    for i in range(n):
+        if sess.stop:
+            break
+        cur = time.time()
+        sess.iter_times.append(cur - prev)
+        log_iter(f"ZeroSpan:{i}:{cur - prev}")  # kspecanal.py:462
+        prev = cur
+        with sess.timer.stage("acquire", cfg.full_size):
+            if raw_read is not None:
+                re, im = split_u8_planes(raw_read(cfg.full_size))
+            else:
+                re, im = sess.source.read(cfg.full_size)
+            re, im = _to_device(sess, re, im)
+        if getattr(sess.source, "exhausted", False):
+            # A non-wrapping file ran dry: finish this (padded) block, stop.
+            log_warn("zeroSpan: source exhausted; stopping")
+            sess.stop = True
+        with sess.timer.stage("dsp", cfg.full_size):
+            if raw_read is not None:   # u8: the batched step at K=1
+                state, view = zs.zero_span_steps(state, re[None], im[None],
+                                                 cfg, adj)
+            else:
+                state, view = zs.zero_span_step(state, re, im, cfg, adj)
+        with sess.timer.stage("render"):
+            sess._emit(view, i)
+    sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    return state
+
+
+# Host staging bound for ONE copy of one catch-up batch (bytes of IQ
+# payload): raw u8 ships 2 B/sample, float32 planes 8 B/sample.
+_CATCHUP_STAGING_BYTES = 1 << 29
+
+
+def _catchup_block_cap(sess: Session, cfg: SpecConfig) -> int:
+    bps = 2 if getattr(sess.source, "read_raw", None) is not None else 8
+    return max(1, min(sess.catch_up,
+                      _CATCHUP_STAGING_BYTES // (bps * cfg.full_size)))
+
+
+def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
+                           n: int) -> zs.ZeroSpanState:
+    """K blocks per step (``tpuCatchUp K``), emitting the last view of each
+    batch; curve and ring math is exactly the serial fold.  Acquisition is
+    double-buffered: batch k+1 is read, split and copied to the device on a
+    worker thread while batch k computes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cfg = sess.cfg
+    raw_read = getattr(sess.source, "read_raw", None)
+    want_view = sess.renderer is not None
+
+    def acquire(k):
+        if raw_read is not None:
+            with sess.timer.stage("acquire.read", k * cfg.full_size):
+                raw = np.stack([raw_read(cfg.full_size) for _ in range(k)])
+            with sess.timer.stage("acquire.split", k * cfg.full_size):
+                re, im = split_u8_planes(raw)
+        else:
+            with sess.timer.stage("acquire.read", k * cfg.full_size):
+                blocks = [sess.source.read(cfg.full_size) for _ in range(k)]
+                re = np.stack([b[0] for b in blocks])
+                im = np.stack([b[1] for b in blocks])
+        with sess.timer.stage("acquire.xfer", k * cfg.full_size):
+            return _to_device(sess, re, im)
+
+    ex = ThreadPoolExecutor(1, thread_name_prefix="catchup-acquire")
+    cap = _catchup_block_cap(sess, cfg)
+    done = 0
+    pending = None       # (future, k) staged ahead by the worker
+    prev = time.time()
+    try:
+        while done < n and not sess.stop:
+            k = min(cap, n - done)
+            cur = time.time()
+            sess.iter_times.append(cur - prev)
+            log_iter(f"ZeroSpan:{done}:{cur - prev}")
+            prev = cur
+            with sess.timer.stage("acquire", k * cfg.full_size):
+                if pending is not None:
+                    payload, k = pending[0].result(), pending[1]
+                    pending = None
+                else:
+                    payload = acquire(k)
+            if getattr(sess.source, "exhausted", False):
+                log_warn("zeroSpan: source exhausted; stopping")
+                sess.stop = True
+            nxt = min(cap, n - done - k)
+            if nxt > 0 and not sess.stop:
+                pending = (ex.submit(acquire, nxt), nxt)
+            with sess.timer.stage("dsp", k * cfg.full_size):
+                state, view = zs.zero_span_steps(state, payload[0],
+                                                 payload[1], cfg, adj,
+                                                 want_view)
+            done += k
+            with sess.timer.stage("render"):
+                sess._emit(view, done - 1)
+    finally:
+        if pending is not None:
+            pending[0].cancel()
+        ex.shutdown(wait=True)
+    # Reading the final state back waits for every queued step: its own
+    # stage, so the tail shows in the accounting.
+    with sess.timer.stage("drain"):
+        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Dispatch (do_run, kspecanal.py:1126-1136)
+# ---------------------------------------------------------------------------
+
+def do_run(sess: Session, max_iters: Optional[int] = None):
+    mode = sess.cfg.prg_mode
+    if mode == MODE_ZEROSPAN:
+        return run_zero_span(sess, max_iters)
+    raise not_ported(f"prgMode {mode}",
+                     TODO_SCAN if mode == MODE_SCAN else TODO_SAVE_PLAY)
