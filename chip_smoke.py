@@ -1,27 +1,38 @@
 """Smoke test of the PyTorch/CUDA port (``kspecanal_tpu_torch``) on one
 NVIDIA card: builds the CUDA kernels from ``kspecanal_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, drives the
-zero-span waterfall path through its entry points and checks the results.
+zero-span waterfall path and the scan path through their entry points and
+checks the results.
 
     python3 chip_smoke.py
 
 Phases (any failure raises; the exit code is then non-zero):
   1. environment: torch, CUDA, nvcc, the card and its power limit;
-  2. build of the kernels, with ptxas' register/shared-memory report;
-  3. the curscan kernel against its plain version (``torch.fft``) at the
-     main path's config (fft 2048, kaiser, 50% overlap, 2.4 Msps) in all
-     four cumulate modes, u8 input bit-identical to decoded float32, the
+  2. build of the kernels (one nvcc per source, in parallel), with ptxas'
+     register/shared-memory report;
+  3. the sublane kernel against its plain version (``torch.fft``) at the
+     zero-span path's config (fft 2048, kaiser, 50% overlap, 2.4 Msps) in
+     all four cumulate modes, u8 input bit-identical to decoded float32, the
      error of both against a complex128 reference, and fft 2048 at 90%
      overlap, fft 256 hanning and the largest fft the kernel takes;
-  4. ``parallel.stream`` over 16384 blocks (268 M samples, ~112 s of
+  4. the scan kernels against their plain versions: the packed kernel at
+     quickFullScan's geometry (fft 64, ones, 90%) in all four modes, fft 128
+     at 50% and fft 32 at 25%, one sweep and 16 sweeps of blocks, u8
+     bit-identical; the sublane kernel at fmScan's geometry (fft 16384,
+     ones, 90%) and at the lane kernel's cell (fft 16384, kaiser, 50%);
+  5. ``parallel.stream`` over 16384 blocks (268 M samples, ~112 s of
      2.4 Msps IQ made on the card) in chunks of 1024, against the plain
      path on the same data;
-  5. the main path: ``kspecanal_tpu_torch.cli.main`` serial, catch-up and
-     on a u8 capture file; every run must launch the kernel and put the
+  6. the zero-span path: ``kspecanal_tpu_torch.cli.main`` serial, catch-up
+     and on a u8 capture file; every run must launch the kernel and put the
      synth peaks of its final average on 91/92/93 MHz;
-  6. kernel and plain times at T=4096 (CUDA events, median of 10).
-The line before the last lists each kernel with its launches on the main
-path, its error and times; the last line is the device record.
+  7. the scan path through ``cli.main``: fmScan serial, catch-up and from a
+     u8 capture file, fmScan at the lane kernel's cell, quickFullScan serial
+     and catch-up with sweep read-ahead; each must launch its kernel and put
+     the strongest peaks of its final average on integer MHz;
+  8. kernel and plain times (CUDA events, median of 10).
+The line before the last lists each kernel with its launches on its path,
+its error and times; the last line is the device record.
 """
 import json
 import os
@@ -40,6 +51,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MAIN_ARGS = ["zeroSpan", "centerFreq", "92e6", "fftSize", "2048", "window",
              "kaiser", "curScanNonOverlap", "0.5", "tpuLogIter", "false"]
 PEAKS_HZ = (91e6, 92e6, 93e6)
+FM_ARGS = ["fmScan", "tpuLogIter", "false"]
+QFS_ARGS = ["quickFullScan", "tpuLogIter", "false"]
+LANE_CELL_ARGS = FM_ARGS + ["window", "kaiser", "curScanNonOverlap", "0.5"]
+BOUND = ("bound: |err| <= 5e-5*|plain| + 1e-6*peak per bin, and max-rel "
+         "< 1e-5")
 
 
 def check(cond, msg):
@@ -86,8 +102,7 @@ def spectra_error(got, want):
 def phase_kernels(cc, spec, gen):
     """Kernel vs plain on the card.  Returns the main config's AVG max abs
     error."""
-    print("== kernel vs plain (bound: |err| <= 5e-5*|plain| + 1e-6*peak per "
-          "bin, and max-rel < 1e-5)")
+    print(f"== sublane kernel vs plain ({BOUND})")
     main_err = None
     cases = [(cfg_of(2048, 0.5, m), 256) for m in ("AVG", "MAX", "MIN", "RAW")]
     cases += [(cfg_of(2048, 0.1, m), 64) for m in ("AVG", "MIN")]
@@ -126,6 +141,65 @@ def phase_kernels(cc, spec, gen):
               f"{1 - nono:.1f}: {'bit-identical' if same else 'DIFFER'}")
         check(same, "u8 kernel input bit-identical to decoded f32")
     return main_err
+
+
+def compare(kernel, plain, cfg, t, gen, what):
+    """One kernel-vs-plain case on noise planes; returns the max abs
+    error."""
+    re, im = noise(cfg, t, False, gen)
+    got = kernel(re, im, cfg)
+    want = plain(re, im, cfg)
+    torch.cuda.synchronize()
+    check(got.shape == (t, cfg.fft_size) and bool(got.isfinite().all()),
+          f"{what} output shape/finite")
+    mx, mrel, bin_rel, ok = spectra_error(got, want)
+    print(f"{what}: fft {cfg.fft_size} ovl {1 - cfg.cur_scan_non_overlap:.2f} "
+          f"{cfg.window} {cfg.cur_scan_cumu_mode} W={cfg.num_windows} T={t}: "
+          f"max_abs {mx:.3e} max_rel {mrel:.3e} worst_bin_rel {bin_rel:.3e} "
+          f"{'PASS' if ok and mrel < 1e-5 else 'FAIL'}")
+    check(ok and mrel < 1e-5, f"{what} vs plain at {cfg.fft_size}/"
+          f"{cfg.cur_scan_non_overlap}/{cfg.cur_scan_cumu_mode}/T={t}")
+    return mx
+
+
+def phase_scan_kernels(cc, cp, spec, gen):
+    """The scan path's kernels vs plain.  Returns the max abs errors of the
+    packed kernel at quickFullScan (AVG, 16 sweeps), the sublane kernel at
+    fmScan (AVG, T=288) and at the lane kernel's cell."""
+    qfs = cfg_of(64, 0.1, "AVG", "WIN.ONES")
+    print(f"== scan kernels vs plain ({BOUND}); quickFullScan geometry: "
+          f"{qfs.num_windows} windows over {qfs.full_size} samples, "
+          f"{len({s % 64 for s in qfs.window_starts})} start residues")
+    packed = (cp.curscan_fused_packed, cp.curscan_fused_packed_plain)
+    sublane = (cc.curscan_fused_sublane, cc.curscan_fused_sublane_plain)
+    errs = {}
+    for t in (1226, 1226 * 16):     # one and 16 quickFullScan sweeps
+        for mode in ("AVG", "MAX", "MIN", "RAW"):
+            cfg = cfg_of(64, 0.1, mode, "WIN.ONES")
+            mx = compare(*packed, cfg, t, gen, "packed")
+            if mode == "AVG":
+                errs["packed"] = mx
+        compare(*packed, cfg_of(128, 0.5, "AVG"), t, gen, "packed")
+        compare(*packed, cfg_of(32, 0.25, "RAW"), t, gen, "packed")
+        for nono in (0.1, 0.5):
+            cfg = cfg_of(64 if nono == 0.1 else 128, nono, "AVG", "WIN.ONES")
+            re, im = noise(cfg, t, True, gen)
+            same = torch.equal(
+                cp.curscan_fused_packed(re, im, cfg),
+                cp.curscan_fused_packed(spec.decode_u8(re),
+                                        spec.decode_u8(im), cfg))
+            print(f"packed u8 planes vs decoded f32, fft {cfg.fft_size} T={t}:"
+                  f" {'bit-identical' if same else 'DIFFER'}")
+            check(same, "packed u8 input bit-identical to decoded f32")
+    for t in (18, 288):                # one and 16 fmScan sweeps
+        for mode in ("AVG", "MAX", "MIN"):
+            mx = compare(*sublane, cfg_of(16384, 0.1, mode, "WIN.ONES"), t,
+                         gen, "sublane")
+            if mode == "AVG" and t == 288:
+                errs["fm"] = mx
+    errs["lane_cell"] = compare(*sublane, cfg_of(16384, 0.5, "AVG"), 64, gen,
+                                "sublane at the lane kernel's cell")
+    return errs
 
 
 def stream_iq(cfg, blocks, gen):
@@ -268,6 +342,106 @@ def phase_sessions(cc, cli, tmp):
     return cc.launches
 
 
+def write_scan_capture(path, cfg, plan, sweeps, seed):
+    """An rtl_sdr capture (u8, value-127 offset, I then Q) of ``sweeps``
+    whole sweeps as a stepping receiver records them: band after band,
+    ``full_size`` samples each, with a tone at every integer MHz of the band
+    over noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(cfg.full_size) / cfg.sampling_rate
+    with open(path, "wb") as f:
+        for _ in range(sweeps):
+            for b in plan.bands:
+                lo = b.center_freq - cfg.sampling_rate / 2
+                hi = b.center_freq + cfg.sampling_rate / 2
+                x = (rng.standard_normal(cfg.full_size)
+                     + 1j * rng.standard_normal(cfg.full_size))
+                for mhz in range(int(np.ceil(lo / 1e6)),
+                                 int(np.floor(hi / 1e6)) + 1):
+                    x += 30 * np.exp(2j * np.pi * (mhz * 1e6 - b.center_freq)
+                                     * t + 1j * rng.uniform(0, 2 * np.pi))
+                raw = np.empty(2 * cfg.full_size, np.uint8)
+                raw[0::2] = np.clip(np.round(x.real + 127), 0, 255)
+                raw[1::2] = np.clip(np.round(x.imag + 127), 0, 255)
+                raw.tofile(f)
+
+
+def scan_peaks(cfg, plan, avg):
+    """The three strongest peaks of a final scan average, compressed for
+    display as the session's views are, and the display cell (Hz)."""
+    from kspecanal_tpu_torch.ops import dsp
+    from kspecanal_tpu_torch.ops.peaks import find_peaks
+    x, y = dsp.compress_xy(
+        torch.as_tensor(np.asarray(plan.freqs_all, np.float32)),
+        torch.as_tensor(avg, dtype=torch.float32), cfg.plt_compress,
+        cfg.x_res)
+    x, y = x.numpy(), y.numpy()
+    peaks = find_peaks(x, y, cfg.plt_highs_num_markers,
+                       cfg.plt_highs_delta4marking)
+    return sorted(p.freq for p in peaks[:3]), (x[-1] - x[0]) / (len(x) - 1)
+
+
+def phase_scan_sessions(cc, cp, cli, tmp):
+    """The scan path through the entry point.  Returns the launches of each
+    kernel entry: fmScan's sublane runs, quickFullScan's packed runs and the
+    lane kernel's cell."""
+    from kspecanal_tpu.cli import parse_args
+    from kspecanal_tpu_torch.session import make_plan_cached
+    fm_cfg = parse_args(FM_ARGS)[0]
+    cap = os.path.join(tmp, "fm_capture.iq")
+    write_scan_capture(cap, fm_cfg, make_plan_cached(fm_cfg), 2, seed=8)
+    synth = ["tpuSource", "synth"]
+    runs = [
+        ("fmScan serial", "fm", FM_ARGS + synth + ["prgLoopCnt", "2"]),
+        ("fmScan catch-up", "fm", FM_ARGS + synth + [
+            "prgLoopCnt", "16", "tpuCatchUp", "8"]),
+        ("fmScan u8 file", "fm", FM_ARGS + ["tpuSource", f"file:{cap}",
+                                            "prgLoopCnt", "2"]),
+        ("fmScan kaiser 50% (lane kernel's cell)", "lane_cell",
+         LANE_CELL_ARGS + synth + ["prgLoopCnt", "2"]),
+        ("quickFullScan serial", "qfs", QFS_ARGS + synth + ["prgLoopCnt",
+                                                            "2"]),
+        ("quickFullScan catch-up, sweep read-ahead", "qfs",
+         QFS_ARGS + synth + ["prgLoopCnt", "32", "tpuCatchUp", "16",
+                             "tpuPrefetch", "true"]),
+    ]
+    print("== scan sessions through kspecanal_tpu_torch.cli.main")
+    launches = {"fm": 0, "lane_cell": 0, "qfs": 0}
+    for i, (name, kind, args) in enumerate(runs):
+        cfg = parse_args(args)[0]
+        plan = make_plan_cached(cfg)
+        lvls = os.path.join(tmp, f"scan_lvls_{i}.bin")
+        sweeps = cfg.prg_loop_cnt
+        cc.launches = cp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["tpuHeadless", "true", "saveSigLvls", lvls])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sub, packed = cc.launches, cp.launches
+        check(rc == 0, f"{name} session rc")
+        avg = load_avg(lvls)
+        check(avg.shape == (plan.total_entries,) and np.isfinite(avg).all(),
+              f"{name} final average")
+        peaks, cell = scan_peaks(cfg, plan, avg)
+        on = len(peaks) == 3 and all(
+            abs(p - round(p / 1e6) * 1e6) <= cell for p in peaks)
+        samples = sweeps * plan.num_bands * cfg.full_size
+        print(f"  {name}: {sweeps} sweeps of {plan.num_bands} bands x "
+              f"{cfg.full_size} (fft {cfg.fft_size}) in {dt:.3f} s: "
+              f"{sweeps / dt:.3f} sweeps/s, {samples / dt / 1e6:.2f} "
+              f"Msamp/s end to end (host source included); launches "
+              f"sublane {sub} packed {packed}; peaks "
+              f"{[round(p / 1e6, 4) for p in peaks]} MHz (cell "
+              f"{cell / 1e3:.1f} kHz) {'PASS' if on else 'FAIL'}")
+        want_sub, want_packed = (0, 1) if kind == "qfs" else (1, 0)
+        check(bool(sub) == want_sub and bool(packed) == want_packed,
+              f"{name} launched its kernel (and only it)")
+        check(on, f"{name} peaks on integer MHz")
+        launches[kind] += sub + packed
+    return launches
+
+
 def time_ms(fn, warm=3, reps=10):
     for _ in range(warm):
         fn()
@@ -284,23 +458,42 @@ def time_ms(fn, warm=3, reps=10):
     return statistics.median(times)
 
 
-def phase_timing(cc, gen, gpu):
-    cfg = cfg_of()
-    t = 4096
+def phase_timing(cc, cp, gen, gpu):
+    """Kernel vs plain times (ms): the zero-span config at T=4096, fmScan's
+    at T=288 (16 sweeps), the lane kernel's cell at T=288 and quickFullScan's
+    at T=1226*16 (16 sweeps)."""
+    sublane = (cc.curscan_fused_sublane, cc.curscan_fused_sublane_plain)
+    packed = (cp.curscan_fused_packed, cp.curscan_fused_packed_plain)
+    cases = [("zero-span fft 2048 kaiser 50%", cfg_of(), 4096, sublane,
+              (False, True)),
+             ("fmScan fft 16384 ones 90%",
+              cfg_of(16384, 0.1, "AVG", "WIN.ONES"), 288, sublane, (False,)),
+             ("lane kernel's cell fft 16384 kaiser 50%",
+              cfg_of(16384, 0.5, "AVG"), 288, sublane, (False,)),
+             ("quickFullScan fft 64 ones 90%",
+              cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226 * 16, packed,
+              (False, True))]
     out = {}
-    print("== timing at T=4096 blocks, fft 2048 kaiser 50% (CUDA events, "
-          "3 warm-ups, median of 10)")
-    for u8 in (False, True):
-        re, im = noise(cfg, t, u8, gen)
-        ks = time_ms(lambda: cc.curscan_fused_sublane(re, im, cfg))
-        ps = time_ms(lambda: cc.curscan_fused_sublane_plain(re, im, cfg))
-        gs = t * cfg.full_size / 1e9
-        kind = "u8" if u8 else "f32"
-        print(f"  {kind}: kernel {ks:.3f} ms = {gs / ks * 1e3:.2f} Gsamp/s, "
-              f"plain torch.fft {ps:.3f} ms = {gs / ps * 1e3:.2f} Gsamp/s "
-              f"[{gpu}]")
-        out[kind] = (ks, ps)
+    print("== timing (CUDA events, 3 warm-ups, median of 10)")
+    for name, cfg, t, (kernel, plain), dtypes in cases:
+        for u8 in dtypes:
+            re, im = noise(cfg, t, u8, gen)
+            ks = time_ms(lambda: kernel(re, im, cfg))
+            ps = time_ms(lambda: plain(re, im, cfg))
+            gs = t * cfg.full_size / 1e9
+            kind = "u8" if u8 else "f32"
+            print(f"  {name}, T={t}, {kind}: kernel {ks:.3f} ms = "
+                  f"{gs / ks * 1e3:.2f} Gsamp/s, plain {ps:.3f} ms = "
+                  f"{gs / ps * 1e3:.2f} Gsamp/s [{gpu}]")
+            out[name, kind] = (ks, ps)
+            del re, im
     return out
+
+
+def phase_done(name, t0):
+    now = time.perf_counter()
+    print(f"-- {name}: {now - t0:.1f} s")
+    return now
 
 
 def main():
@@ -311,6 +504,7 @@ def main():
     from kspecanal_tpu_torch import cli
     from kspecanal_tpu_torch.ops import _build
     from kspecanal_tpu_torch.ops import cuda_curscan as cc
+    from kspecanal_tpu_torch.ops import cuda_packed as cp
     from kspecanal_tpu_torch.ops import spectrum as spec
     from kspecanal_tpu_torch.parallel import stream as st
 
@@ -335,17 +529,46 @@ def main():
             print(f"  {ln.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(20260817)
+    t0 = time.perf_counter()
     main_err = phase_kernels(cc, spec, gen)
+    t0 = phase_done("sublane kernel vs plain", t0)
+    scan_errs = phase_scan_kernels(cc, cp, spec, gen)
+    t0 = phase_done("scan kernels vs plain", t0)
     phase_stream(cc, st, gen)
+    t0 = phase_done("stream", t0)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_sessions(cc, cli, tmp)
-    times = phase_timing(cc, gen, gpu)
-    print(json.dumps({"kernels": [{
-        "name": "curscan_sublane", "route": "cuda",
-        "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu",
-        "replaces": "kspecanal_tpu/ops/pallas_curscan.py:423",
-        "launches": launches, "max_abs_err": main_err,
-        "ms": times["f32"][0], "plain_ms": times["f32"][1]}]}))
+        t0 = phase_done("zero-span sessions", t0)
+        scan_launches = phase_scan_sessions(cc, cp, cli, tmp)
+        t0 = phase_done("scan sessions", t0)
+    times = phase_timing(cc, cp, gen, gpu)
+    phase_done("timing", t0)
+    sublane = {"name": "curscan_sublane", "route": "cuda",
+               "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu"}
+    zs_t = times["zero-span fft 2048 kaiser 50%", "f32"]
+    fm_t = times["fmScan fft 16384 ones 90%", "f32"]
+    lane_t = times["lane kernel's cell fft 16384 kaiser 50%", "f32"]
+    qfs_t = times["quickFullScan fft 64 ones 90%", "f32"]
+    print(json.dumps({"kernels": [
+        {**sublane, "replaces": "kspecanal_tpu/ops/pallas_curscan.py:423",
+         "config": "zero-span fft 2048 kaiser 50%, T=4096",
+         "launches": launches, "max_abs_err": main_err,
+         "ms": zs_t[0], "plain_ms": zs_t[1]},
+        {**sublane, "replaces": "kspecanal_tpu/ops/pallas_curscan.py:423",
+         "config": "fmScan fft 16384 ones 90%, T=288",
+         "launches": scan_launches["fm"], "max_abs_err": scan_errs["fm"],
+         "ms": fm_t[0], "plain_ms": fm_t[1]},
+        {**sublane, "replaces": "kspecanal_tpu/ops/pallas_curscan.py:116",
+         "config": "lane kernel's cell: fft 16384 kaiser 50% f32, T=288",
+         "launches": scan_launches["lane_cell"],
+         "max_abs_err": scan_errs["lane_cell"],
+         "ms": lane_t[0], "plain_ms": lane_t[1]},
+        {"name": "curscan_packed", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_packed.cu",
+         "replaces": "kspecanal_tpu/ops/pallas_curscan.py:872",
+         "config": "quickFullScan fft 64 ones 90%, T=1226*16",
+         "launches": scan_launches["qfs"], "max_abs_err": scan_errs["packed"],
+         "ms": qfs_t[0], "plain_ms": qfs_t[1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

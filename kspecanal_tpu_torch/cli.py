@@ -4,6 +4,9 @@ token), run on a CUDA device through ``kspecanal_tpu_torch.session``.
 
     python -m kspecanal_tpu_torch zeroSpan centerFreq 92e6 fftSize 2048 \
         window kaiser curScanNonOverlap 0.5 tpuSource synth tpuHeadless true
+    python -m kspecanal_tpu_torch fmScan tpuSource synth tpuHeadless true
+    python -m kspecanal_tpu_torch quickFullScan tpuSource synth \
+        tpuCatchUp 16 tpuPrefetch true tpuHeadless true
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import List, Optional
 import torch
 
 from kspecanal_tpu.cli import RunOptions, make_source, parse_args, print_info
+from kspecanal_tpu.config import MODE_SCAN
 from kspecanal_tpu.utils.logging import log_info, set_iter_logging
 from kspecanal_tpu_torch import session as sess_mod
 
@@ -56,9 +60,15 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         log_info(f"tpuDecimate: capturing at "
                  f"{cfg.sampling_rate * run.decimate:g} sps, merging "
                  f"{run.decimate} adjacent samples per output sample")
+    sweep_prefetch = False
     if run.prefetch:
-        from kspecanal_tpu.io.prefetch import PrefetchingSource
-        source = PrefetchingSource(source, block_size=cfg.full_size)
+        if cfg.prg_mode == MODE_SCAN:
+            # Every per-band retune would flush a block read-ahead; scan
+            # mode reads whole sweeps ahead instead (SweepPrefetcher).
+            sweep_prefetch = True
+        else:
+            from kspecanal_tpu.io.prefetch import PrefetchingSource
+            source = PrefetchingSource(source, block_size=cfg.full_size)
 
     renderer = None
     if run.renderer == "term":
@@ -69,7 +79,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                  f"{sess_mod.TODO_GUI}); running headless")
 
     sess = sess_mod.Session(cfg, source, renderer, device=device,
-                            catch_up=run.catch_up)
+                            catch_up=run.catch_up,
+                            sweep_prefetch=sweep_prefetch,
+                            render_every=run.render_every)
 
     def _sigint(signum, stack):  # kspecanal.py:1118-1123
         log_info("sigint: quiting on user request...")

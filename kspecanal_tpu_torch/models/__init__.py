@@ -1,1 +1,1 @@
-"""Mode state machines of the port (zero-span)."""
+"""Mode state machines of the port (zero-span, scan)."""

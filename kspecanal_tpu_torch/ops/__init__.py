@@ -1,1 +1,2 @@
-"""Tensor ops of the port: display transforms, spectra and the curscan kernel."""
+"""Tensor ops of the port: display transforms, spectra and the curscan
+kernels."""

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``kspecanal_tpu_torch/csrc``).
 
 At the first CUDA call, :func:`load` compiles every ``csrc/*.cu`` with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface and
+``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started together),
+links the objects into one shared library with a plain C interface and
 loads it with ``ctypes``.  The library's name carries a hash of the sources
 and flags, so an edit rebuilds; the output goes to
 ``kspecanal_tpu_torch/build/``.  Only the installed CUDA toolkit is used.
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""         # compiler output of the build this process ran
@@ -55,21 +56,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkspec_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the output of the first that
+    fails.  Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def _compile(so: Path) -> None:
     global build_log, build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, so)
+    try:
+        build_log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                              for src, o in zip(_sources(), objs)])
+        build_log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                                *(str(o) for o in objs)]])
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+        build_seconds = time.perf_counter() - t0
 
 
 def load() -> ctypes.CDLL:
@@ -86,5 +104,8 @@ def load() -> ctypes.CDLL:
         ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, ptr]
     lib.kspec_curscan_sublane.restype = i32
+    lib.kspec_curscan_packed.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.kspec_curscan_packed.restype = i32
     _lib = lib
     return lib

@@ -1,14 +1,16 @@
 """Fused curscan on the card: the wrapper of the hand-written CUDA kernel
 ``csrc/curscan_sublane.cu``, the port of
 ``kspecanal_tpu.ops.pallas_curscan.curscan_fused_sublane`` (the sublane
-Pallas kernel, ``_kernel_sublane``).
+Pallas kernel, ``_kernel_sublane``).  It also serves the one cell of the lane
+kernel ``_kernel`` (``curscan_fused``: float32, fft >= 16384, 128-aligned
+starts), whose function it computes in another layout.
 
 Per IQ block ``(full_size,)`` the kernel frames at every window start,
 decodes u8 planes in its loads, windows, runs the two-stage DFT
 (``n1 x 128``), takes ``|.|``, folds the windows (AVG/RAW weighted sum,
 MAX/MIN extrema, ``winAdj*2/N`` folded in) and writes the natural-order,
 fftshifted ``(fft_size,)`` spectrum.  It computes in float32 at every
-``tpuPrecision``.
+``tpuPrecision``, with float64 DFT sums above fft 8192.
 
 For a CUDA tensor :func:`curscan_fused_sublane` launches the kernel or
 raises; for a CPU tensor it runs :func:`curscan_fused_sublane_plain`, the
@@ -28,11 +30,13 @@ from kspecanal_tpu.config import (CUMU_AVG, CUMU_MAX, CUMU_MIN, CUMU_RAW,
 from kspecanal_tpu_torch.ops import spectrum
 
 _N2 = 128
-# Shared memory of one block is (3*N + 128) * 8 bytes (frame, stage-1
-# result, roots of unity); 8192 is the largest power of two that fits the
-# 232,448 bytes a Hopper block may use, and keeps n1 <= 64 so a block has at
-# most 1024 threads.
-MAX_FFT_SIZE = 8192
+# Shared memory of one thread block: the windowed frame (N float2) plus up
+# to 32 stage-1 rows and the two root tables, (32 * 128 + N/128 + 128)
+# complex values of 8 bytes (float32 sums, fft <= 8192) or 16 bytes (float64
+# sums above).  fft 16384 needs 200,704 of the 232,448 bytes a Hopper block
+# may use; 32768 would need 333,824, so 16384 is the largest power of two the
+# kernel takes.
+MAX_FFT_SIZE = 16384
 _FOLD = {CUMU_AVG: 0, CUMU_RAW: 0, CUMU_MAX: 1, CUMU_MIN: 2}
 
 launches = 0
@@ -77,11 +81,9 @@ def _tables(n: int, window: str, starts: tuple, mode: str,
             dev(np.stack([roots.real, roots.imag], axis=-1), np.float32))
 
 
-def _check(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig):
-    if not supports_fused_sublane(cfg):
-        raise ValueError(f"config not supported by the sublane curscan "
-                         f"kernel (fft_size {cfg.fft_size}, full_size "
-                         f"{cfg.full_size})")
+def check_planes(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig):
+    """Raise unless the planes are what a curscan kernel takes: both float32
+    or both uint8, one device, contiguous ``(T, full_size)``."""
     if iq_re.dtype not in (torch.float32, torch.uint8) \
             or iq_im.dtype != iq_re.dtype:
         raise TypeError(f"planes must both be float32 or both uint8, got "
@@ -104,7 +106,11 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
     current stream without synchronising; CPU tensors run the plain
     version."""
     global launches
-    _check(iq_re, iq_im, cfg)
+    if not supports_fused_sublane(cfg):
+        raise ValueError(f"config not supported by the sublane curscan "
+                         f"kernel (fft_size {cfg.fft_size}, full_size "
+                         f"{cfg.full_size})")
+    check_planes(iq_re, iq_im, cfg)
     dev = iq_re.device
     if dev.type == "cpu":
         return curscan_fused_sublane_plain(iq_re, iq_im, cfg)

@@ -137,6 +137,28 @@ def cumulate(mode: str, cur: Optional[torch.Tensor],
     raise ValueError(f"unknown cumuMode {mode!r}")
 
 
+def cumulate_range(mode: str, cur: torch.Tensor, c_start: int, c_end: int,
+                   new: torch.Tensor, n_start: int,
+                   n_end: int) -> torch.Tensor:
+    """Range-wise cumulate of ``new[n_start:n_end]`` into
+    ``cur[c_start:c_end]`` (the general signature of ``data_cumu``,
+    kspecanal.py:124-147); returns a new tensor, ``cur`` is untouched."""
+    seg = new[n_start:n_end]
+    if mode != CUMU_RAW:
+        old = cur[c_start:c_end]
+        if mode == CUMU_AVG:
+            seg = (old + seg) / 2.0
+        elif mode == CUMU_MAX:
+            seg = torch.maximum(old, seg)
+        elif mode == CUMU_MIN:
+            seg = torch.minimum(old, seg)
+        else:
+            raise ValueError(f"unknown cumuMode {mode!r}")
+    out = cur.clone()
+    out[c_start:c_end] = seg
+    return out
+
+
 def reduce_windows(mode: str, mags: torch.Tensor,
                    weights: Optional[np.ndarray]) -> torch.Tensor:
     """Collapse the window axis (``-2``) of ``(..., W, fft_size)`` per-window

@@ -10,8 +10,8 @@ Per-window math (kspecanal.py:373,391,396):
 IQ travels as two planes (re, im), float32 or raw uint8 with the
 value-127 offset (octave/load_rtlsdr.m).  The ``torch.fft`` chain here is
 the plain path: the CPU route, and the comparator of the hand-written
-curscan kernel (``ops/cuda_curscan.py``) that :func:`curscan_auto_batched`
-launches for CUDA tensors.
+curscan kernels (``ops/cuda_curscan.py``, ``ops/cuda_packed.py``) that
+:func:`curscan_auto_batched` launches for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -103,16 +103,54 @@ def psd_welch(iq_re: torch.Tensor, iq_im: torch.Tensor,
     return torch.fft.fftshift(pxx, dim=-1)
 
 
+def curscan_direct_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                           cfg: SpecConfig) -> torch.Tensor:
+    """Small-FFT curscan as a direct DFT matmul: frames ``(B, W, n)`` times
+    the ``(n, n)`` DFT matrix (float32, as JAX's HIGHEST-precision dot), then
+    the same normalize/cumulate/fftshift as :func:`curscan`.  Float planes
+    only."""
+    n = cfg.fft_size
+    k = np.arange(n)
+    dft = np.exp(-2j * np.pi * np.outer(k, k) / n)
+
+    def table(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=iq_re.device)
+
+    fr, fi = table(dft.real), table(dft.imag)
+    win = table(window_lut(cfg.window, n))
+    ar = frame_signal(iq_re, cfg.window_starts, n) * win
+    ai = frame_signal(iq_im, cfg.window_starts, n) * win
+    xr = ar @ fr.T - ai @ fi.T
+    xi = ai @ fr.T + ar @ fi.T
+    mags = (win_adj(cfg.window, n) * 2.0 / n) * torch.sqrt(xr * xr + xi * xi)
+    w = cumu_weights(cfg.cur_scan_cumu_mode, cfg.num_windows)
+    return torch.fft.fftshift(
+        reduce_windows(cfg.cur_scan_cumu_mode, mags, w), dim=-1)
+
+
 def curscan_auto_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
                          cfg: SpecConfig) -> torch.Tensor:
-    """Batched curscan ``(T, full_size)`` -> ``(T, fft_size)``.
+    """Batched curscan ``(T, full_size)`` -> ``(T, fft_size)``, the
+    counterpart of the JAX dispatcher's TPU ladder:
 
-    Configs the sublane kernel supports go to its wrapper with the planes
-    as given (u8 planes pass straight through and decode in the kernel's
-    loads): for CUDA tensors that launches the hand-written kernel, for
-    CPU tensors it runs the kernel's plain version.  Every other config
-    runs the ``torch.fft`` chain, decoding u8 once."""
-    from kspecanal_tpu_torch.ops import cuda_curscan
+      * configs the sublane kernel K1 supports (fft a multiple of 128 from
+        256 to ``cuda_curscan.MAX_FFT_SIZE``; this covers the lane kernel's
+        cell too) go to its wrapper;
+      * else configs the packed kernel K2 supports (fft <= 128, the
+        quickFullScan regime) go to its wrapper;
+      * else, on the card, fft <= 256 decodes and takes the direct DFT
+        matmul, and everything else the ``torch.fft`` chain.
+
+    Planes reach a kernel's wrapper as given (u8 decodes in the kernel's
+    loads): for CUDA tensors the wrapper launches its kernel, for CPU
+    tensors it runs its plain version, the ``torch.fft`` chain.  CPU tensors
+    outside both kernels take the chain too."""
+    from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed
     if cuda_curscan.supports_fused_sublane(cfg):
         return cuda_curscan.curscan_fused_sublane(iq_re, iq_im, cfg)
-    return curscan_batched(decode_u8(iq_re), decode_u8(iq_im), cfg)
+    if cuda_packed.supports_fused_packed(cfg):
+        return cuda_packed.curscan_fused_packed(iq_re, iq_im, cfg)
+    iq_re, iq_im = decode_u8(iq_re), decode_u8(iq_im)
+    if iq_re.device.type == "cuda" and cfg.fft_size <= 256:
+        return curscan_direct_batched(iq_re, iq_im, cfg)
+    return curscan_batched(iq_re, iq_im, cfg)

@@ -1,8 +1,8 @@
-"""Session loops of the port — the zero-span part of
+"""Session loops of the port — the zero-span and scan parts of
 ``kspecanal_tpu.session`` (``do_run``, kspecanal.py:1126-1136) as a host
 shell around the tensor pipeline.
 
-A session loop pumps an IQ source into the zero-span step functions on
+A session loop pumps an IQ source into the mode's step functions on
 ``Session.device`` and hands numpy views to an optional renderer callback.
 Cooperative stop mirrors the reference's ``cmd.stop`` flag checked at loop
 tops (kspecanal.py:465); SIGINT wiring lives in cli.py.  Modes and options
@@ -22,6 +22,8 @@ from kspecanal_tpu.io.replay import load_sig_lvls, save_sig_lvls
 from kspecanal_tpu.io.sources import IQSource, split_u8_planes
 from kspecanal_tpu.utils.logging import log_info, log_iter, log_warn
 from kspecanal_tpu.utils.profiling import StageTimer
+from kspecanal_tpu_torch.io.prefetch import SweepPrefetcher
+from kspecanal_tpu_torch.models import scan as scan_mod
 from kspecanal_tpu_torch.models import zerospan as zs
 from kspecanal_tpu_torch.ops.peaks import find_peaks
 
@@ -31,9 +33,8 @@ TODO_DEVICE_SOURCES = "1 (device sources)"
 TODO_SAVE_PLAY = "2 (zeroSpanSave / zeroSpanPlay)"
 TODO_STATE = "3 (io/state checkpoints)"
 TODO_PROFILE = "4 (torch.profiler trace)"
-TODO_SCAN = "5 (scan path)"
-TODO_MULTI_GPU = "9 (multi-GPU)"
-TODO_GUI = "10 (matplotlib renderer)"
+TODO_MULTI_GPU = "7 (multi-GPU)"
+TODO_GUI = "8 (matplotlib renderer)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -48,7 +49,8 @@ class Session:
 
     def __init__(self, cfg: SpecConfig, source: Optional[IQSource] = None,
                  renderer: Optional[Callable] = None, *, device,
-                 catch_up: int = 0):
+                 catch_up: int = 0, sweep_prefetch: bool = False,
+                 render_every: str = "sweep"):
         self.cfg = cfg
         self.source = source
         self.renderer = renderer
@@ -56,6 +58,13 @@ class Session:
         # Batched catch-up: blocks per step in run_zero_span (tpuCatchUp K);
         # host staging is bounded per path by _catchup_block_cap.
         self.catch_up = max(0, min(int(catch_up), 65536))
+        # Scan mode: acquire sweep k+1 on a worker thread while sweep k
+        # computes (io/prefetch.SweepPrefetcher).
+        self.sweep_prefetch = bool(sweep_prefetch)
+        # Scan render cadence: "sweep" (one view per completed sweep) or
+        # "band" (the reference's redraw after every band,
+        # kspecanal.py:670-688).
+        self.render_every = render_every
         self.stop = False            # cmd.stop analog (kspecanal.py:970)
         self.adj: Optional[np.ndarray] = None   # Fft.Adj baseline
         self.final_avg: Optional[np.ndarray] = None
@@ -86,16 +95,19 @@ class Session:
                           self.cfg.end_freq, self.final_avg)
             log_info(f"_save_siglvls: success... {self.cfg.save_sig_lvls}")
 
-    def _emit(self, view: Optional[zs.ZeroSpanView], iteration: int):
-        """Hand the renderer a view of host numpy arrays, with the peaks of
-        the curve drawn last (cur, else avg, min, max; kspecanal.py:485-504)
-        printed as the reference prints them (:250,:260)."""
+    def _emit(self, view, iteration: int, with_peaks: bool = True):
+        """Hand the renderer a view of host numpy arrays (a ``ZeroSpanView``
+        or ``ScanView``), with the peaks of the curve drawn last (cur, else
+        avg, min, max; kspecanal.py:485-504) printed as the reference
+        prints them (:250,:260).  The per-band scan redraw passes
+        ``with_peaks=False``: the reference marks peaks once a sweep
+        (:694-695)."""
         if self.renderer is None:
             return
         cfg = self.cfg
-        view = zs.ZeroSpanView(*(v.cpu().numpy() for v in view))
+        view = type(view)(*(v.cpu().numpy() for v in view))
         peaks = []
-        if cfg.b_plt_levels:
+        if with_peaks and cfg.b_plt_levels:
             lvls = None
             for key, arr in (("b_data_max", view.max_lvls),
                              ("b_data_min", view.min_lvls),
@@ -251,6 +263,221 @@ def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
 
 
 # ---------------------------------------------------------------------------
+# Scan (kspecanal.py:568-732)
+# ---------------------------------------------------------------------------
+
+# Sweeps per step in scan catch-up (see _run_scan_catchup).
+_SCAN_BATCH_CAP = 128
+
+
+def _acquire_sweep_walk(source: IQSource, cfg: SpecConfig,
+                        plan: scan_mod.ScanPlan, read_band, dummy_band):
+    """The per-band retune/read walk (sentinel semantics,
+    kspecanal.py:630-639): retune each band, read with ``read_band`` on
+    success or substitute ``dummy_band()`` on a failed retune.  Returns
+    ``(per-band payloads, oks (B,), exhausted)``."""
+    out, oks = [], []
+    for b in plan.bands:
+        ok = source.retune(b.center_freq, cfg.sampling_rate, cfg.gain)
+        if ok:
+            payload = read_band()
+        else:
+            log_warn(f"_scanRange: Dummy data for "
+                     f"{b.center_freq - cfg.sampling_rate/2} to "
+                     f"{b.center_freq + cfg.sampling_rate/2}")
+            payload = dummy_band()
+        out.append(payload)
+        oks.append(ok)
+    return out, np.asarray(oks), bool(getattr(source, "exhausted", False))
+
+
+def acquire_sweep(source: IQSource, cfg: SpecConfig,
+                  plan: scan_mod.ScanPlan):
+    """One sweep's IQ on the host: ``(re (B, full) f32, im, oks (B,),
+    exhausted)`` as numpy, so a read-ahead thread can produce it."""
+    pairs, oks, exhausted = _acquire_sweep_walk(
+        source, cfg, plan,
+        read_band=lambda: source.read(cfg.full_size),
+        dummy_band=lambda: (np.zeros(cfg.full_size, np.float32),
+                            np.zeros(cfg.full_size, np.float32)))
+    return (np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]),
+            oks, exhausted)
+
+
+def acquire_sweep_raw(source: IQSource, cfg: SpecConfig,
+                      plan: scan_mod.ScanPlan):
+    """The u8 variant of :func:`acquire_sweep` for sources with
+    ``read_raw``: undecoded u8 planes ``(re (B, full) u8, im, oks,
+    exhausted)``, split on the host; the kernels decode in their loads.  A
+    failed retune fills 127 bytes (decodes to zero; the sentinel keys off
+    ``oks``, kspecanal.py:637-639)."""
+    raws, oks, exhausted = _acquire_sweep_walk(
+        source, cfg, plan,
+        read_band=lambda: source.read_raw(cfg.full_size),
+        dummy_band=lambda: np.full(2 * cfg.full_size, 127, np.uint8))
+    re, im = split_u8_planes(np.stack(raws))
+    return re, im, oks, exhausted
+
+
+def _sweep_acquirer(source: IQSource):
+    """``acquire_sweep_raw`` for sources with ``read_raw``, else
+    ``acquire_sweep``."""
+    if getattr(source, "read_raw", None) is not None:
+        return acquire_sweep_raw
+    return acquire_sweep
+
+
+_plan_cache: dict = {}
+
+
+def make_plan_cached(cfg: SpecConfig) -> scan_mod.ScanPlan:
+    plan = _plan_cache.get(cfg)
+    if plan is None:
+        plan = _plan_cache[cfg] = scan_mod.make_scan_plan(cfg)
+    return plan
+
+
+def run_scan(sess: Session, max_sweeps: Optional[int] = None
+             ) -> scan_mod.ScanState:
+    """The scan loop: one sweep per step at the reference's cadence (per
+    band with ``render_every == "band"``), or ``catch_up`` sweeps per step.
+    Sources with ``read_raw`` ship u8 planes; ``sweep_prefetch`` reads
+    whole sweeps ahead on a worker thread."""
+    cfg = sess.cfg
+    if sess.source is None:
+        raise ValueError("scan needs an IQ source")
+    plan = make_plan_cached(cfg)
+    state = scan_mod.init_state(cfg, plan, sess.device)
+    adj = (None if sess.adj is None
+           else torch.as_tensor(sess.adj).to(sess.device))
+    n = cfg.prg_loop_cnt if max_sweeps is None else max_sweeps
+    band_cadence = sess.render_every == "band" and sess.renderer is not None
+    if sess.catch_up > 1:
+        if not band_cadence:
+            return _run_scan_catchup(sess, state, adj, plan, n)
+        log_warn("tpuRenderEvery band: ignoring tpuCatchUp "
+                 f"{sess.catch_up} (per-band redraw needs the serial "
+                 "sweep loop)")
+    acquire = _sweep_acquirer(sess.source)
+    pf = None
+    if sess.sweep_prefetch:
+        pf = SweepPrefetcher(sess.source, cfg, plan, acquire, limit=n)
+    try:
+        return _run_scan_loop(sess, state, adj, plan, n,
+                              pf.get if pf is not None
+                              else lambda: acquire(sess.source, cfg, plan))
+    finally:
+        if pf is not None:
+            pf.close()
+
+
+def _run_scan_loop(sess: Session, state: scan_mod.ScanState, adj,
+                   plan: scan_mod.ScanPlan, n: int,
+                   next_sweep: Callable) -> scan_mod.ScanState:
+    cfg = sess.cfg
+    samples = plan.num_bands * cfg.full_size
+    prev = time.time()
+    for i in range(n):
+        if sess.stop:
+            break
+        cur = time.time()
+        sess.iter_times.append(cur - prev)
+        log_iter(f"scanRange:{i}:{cur - prev}")  # kspecanal.py:723
+        prev = cur
+        with sess.timer.stage("acquire", samples):
+            sweep = next_sweep()
+            re, im = _to_device(sess, sweep[0], sweep[1])
+            oks = torch.from_numpy(sweep[2]).to(sess.device)
+        if sweep[-1]:
+            log_warn("scanRange: source exhausted; stopping after this sweep")
+            sess.stop = True
+        if sess.render_every == "band" and sess.renderer is not None:
+            # The reference's cadence: redraw the curves after every band
+            # (kspecanal.py:670-688).  The band curscans still run as one
+            # batched call; only the stitch steps band by band.
+            with sess.timer.stage("dsp", samples):
+                spectra = scan_mod.band_spectra(re, im, oks, cfg)
+            curves = (state.fft_cur, state.fft_max, state.fft_min,
+                      state.fft_avg)
+            first_sweep = state.sweep == 0
+            for b, pr in zip(plan.bands, spectra):
+                with sess.timer.stage("dsp"):
+                    curves = scan_mod.band_stitch(curves, pr, b, cfg,
+                                                  first_sweep)
+                    view = scan_mod.curves_view(curves, state.heatmap, adj,
+                                                cfg, plan)
+                with sess.timer.stage("render"):
+                    sess._emit(view, i, with_peaks=False)
+            state = scan_mod.finish_sweep(state, curves, cfg, adj)
+        else:
+            with sess.timer.stage("dsp", samples):
+                state = scan_mod.sweep_step(state, re, im, oks, cfg, plan,
+                                            adj)
+        if sess.renderer is not None:
+            with sess.timer.stage("render"):
+                sess._emit(scan_mod.scan_view(state, cfg, plan, adj), i)
+    sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    return state
+
+
+def _run_scan_catchup(sess: Session, state: scan_mod.ScanState, adj,
+                      plan: scan_mod.ScanPlan, n: int) -> scan_mod.ScanState:
+    """S sweeps per step (``tpuCatchUp S``, at most ``_SCAN_BATCH_CAP``:
+    one sweep stages B bands, and S <= 128 keeps the gathered stitch),
+    rendering once per batch; the math equals the serial sweep fold.  With
+    ``sweep_prefetch`` the sweeps of batch k+1 are acquired on the
+    read-ahead thread while batch k computes."""
+    cfg = sess.cfg
+    if sess.catch_up > _SCAN_BATCH_CAP:
+        log_warn(f"scan mode batches at most {_SCAN_BATCH_CAP} sweeps per "
+                 f"step (tpuCatchUp {sess.catch_up} requested)")
+    acquire = _sweep_acquirer(sess.source)
+    pf = None
+    if sess.sweep_prefetch:
+        pf = SweepPrefetcher(sess.source, cfg, plan, acquire,
+                             depth=max(2, sess.catch_up), limit=n)
+    done = 0
+    prev = time.time()
+    try:
+        while done < n and not sess.stop:
+            s = min(sess.catch_up, _SCAN_BATCH_CAP, n - done)
+            samples = s * plan.num_bands * cfg.full_size
+            cur = time.time()
+            sess.iter_times.append(cur - prev)
+            log_iter(f"scanRange:{done}:{cur - prev}")
+            prev = cur
+            with sess.timer.stage("acquire", samples):
+                if pf is not None:
+                    sweeps = [pf.get() for _ in range(s)]
+                else:
+                    sweeps = [acquire(sess.source, cfg, plan)
+                              for _ in range(s)]
+                re, im = _to_device(sess, np.stack([x[0] for x in sweeps]),
+                                    np.stack([x[1] for x in sweeps]))
+                oks = torch.from_numpy(
+                    np.stack([x[2] for x in sweeps])).to(sess.device)
+            if any(x[-1] for x in sweeps):
+                log_warn("scanRange: source exhausted; stopping after "
+                         "this batch")
+                sess.stop = True
+            with sess.timer.stage("dsp", samples):
+                state = scan_mod.sweep_steps(state, re, im, oks, cfg, plan,
+                                             adj)
+            done += s
+            if sess.renderer is not None:
+                with sess.timer.stage("render"):
+                    sess._emit(scan_mod.scan_view(state, cfg, plan, adj),
+                               done - 1)
+    finally:
+        if pf is not None:
+            pf.close()
+    # Reading the final state back waits for every queued step.
+    with sess.timer.stage("drain"):
+        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    return state
+
+
+# ---------------------------------------------------------------------------
 # Dispatch (do_run, kspecanal.py:1126-1136)
 # ---------------------------------------------------------------------------
 
@@ -258,5 +485,6 @@ def do_run(sess: Session, max_iters: Optional[int] = None):
     mode = sess.cfg.prg_mode
     if mode == MODE_ZEROSPAN:
         return run_zero_span(sess, max_iters)
-    raise not_ported(f"prgMode {mode}",
-                     TODO_SCAN if mode == MODE_SCAN else TODO_SAVE_PLAY)
+    if mode == MODE_SCAN:
+        return run_scan(sess, max_iters)
+    raise not_ported(f"prgMode {mode}", TODO_SAVE_PLAY)

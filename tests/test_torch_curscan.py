@@ -81,7 +81,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     wide = torch.zeros((2, 2 * cfg.full_size))
     with pytest.raises(ValueError):
         cuda_curscan.curscan_fused_sublane(wide[:, ::2], wide[:, ::2], cfg)
-    big = zs_cfg(16384)
+    big = zs_cfg(2 * cuda_curscan.MAX_FFT_SIZE)
     z = torch.zeros((1, big.full_size))
     with pytest.raises(ValueError):
         cuda_curscan.curscan_fused_sublane(z, z, big)

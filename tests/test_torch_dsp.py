@@ -149,3 +149,20 @@ def test_skip_edge_bins(rng, k):
     _close(tdsp.skip_edge_bins(t, k), jdsp.skip_edge_bins(j, k), exact=True)
     _close(tdsp.skip_edge_bins(t[0], k), jdsp.skip_edge_bins(j[0], k),
            exact=True)
+
+
+@pytest.mark.parametrize("mode", ["RAW", "AVG", "MAX", "MIN"])
+def test_cumulate_range(rng, mode):
+    """A slice of ``new`` cumulated into a slice of ``cur``; the rest of
+    ``cur`` is kept and the input is not changed.  (a+b)/2 rounds once in
+    both libraries, so every mode is exact."""
+    cur = rng.standard_normal(300).astype(np.float32)
+    new = rng.standard_normal(128).astype(np.float32)
+    jc, tc = _pair(cur)
+    jn, tn = _pair(new)
+    want = jdsp.cumulate_range(mode, jc, 100, 164, jn, 32, 96)
+    _close(tdsp.cumulate_range(mode, tc, 100, 164, tn, 32, 96), want,
+           exact=True)
+    np.testing.assert_array_equal(tc.numpy(), cur)
+    with pytest.raises(ValueError):
+        tdsp.cumulate_range("SUM", tc, 0, 4, tn, 0, 4)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version on
-the same inputs (bounds in ``torch_parity.assert_spectra_close``; u8 input
+"""The port's CUDA kernels on the card, against their plain PyTorch versions
+on the same inputs (bounds in ``torch_parity.assert_spectra_close``; u8 input
 bit-identical to decoded float32).  Every test needs a CUDA card and skips
 without one.  The file imports no JAX, so on the machine with the card it
 runs without the JAX package's test configuration:
@@ -9,8 +9,8 @@ runs without the JAX package's test configuration:
 import pytest
 import torch
 
-from kspecanal_tpu.config import WINDOW_HANNING, WINDOW_KAISER
-from kspecanal_tpu_torch.ops import cuda_curscan
+from kspecanal_tpu.config import WINDOW_HANNING, WINDOW_KAISER, WINDOW_ONES
+from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed
 from kspecanal_tpu_torch.ops import spectrum as tspec
 from kspecanal_tpu_torch.parallel import stream as tstream
 from torch_parity import (MODES, assert_db_close, assert_spectra_close,
@@ -22,7 +22,8 @@ pytestmark = pytest.mark.gpu
 @pytest.mark.parametrize("fft,nono,window", [
     (2048, 0.5, WINDOW_KAISER), (2048, 0.1, WINDOW_KAISER),
     (256, 0.5, WINDOW_HANNING), (384, 0.5, WINDOW_HANNING),
-    (8192, 0.5, WINDOW_KAISER)])
+    (8192, 0.5, WINDOW_KAISER), (16384, 0.1, WINDOW_ONES),
+    (16384, 0.5, WINDOW_KAISER), (5120, 0.5, WINDOW_KAISER)])
 @pytest.mark.parametrize("mode", MODES)
 def test_kernel_matches_plain(cuda, fft, nono, window, mode):
     cfg = zs_cfg(fft, nono, mode, window=window, x_res=min(fft, 512))
@@ -54,15 +55,57 @@ def test_wrapper_refuses_non_contiguous_on_card(cuda):
 
 
 def test_auto_dispatch_on_card(cuda):
-    """Supported configs launch the kernel; fft 16384 takes the torch.fft
-    chain (beyond the kernel's shared memory), visibly without a launch."""
-    for fft, launched in ((2048, 1), (16384, 0)):
-        cfg = zs_cfg(fft)
+    """fft 2048 and fmScan's 16384 launch the sublane kernel, quickFullScan's
+    64 the packed kernel; fft 1000 takes the torch.fft chain, visibly
+    without a launch."""
+    for fft, nono, window, sub, packed in (
+            (2048, 0.5, WINDOW_KAISER, 1, 0), (16384, 0.1, WINDOW_ONES, 1, 0),
+            (64, 0.1, WINDOW_ONES, 0, 1), (1000, 0.5, WINDOW_HANNING, 0, 0)):
+        cfg = zs_cfg(fft, nono, window=window, x_res=min(fft, 500))
         re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 2, 10))
-        before = cuda_curscan.launches
+        before = (cuda_curscan.launches, cuda_packed.launches)
         out = tspec.curscan_auto_batched(re, im, cfg)
         assert out.shape == (2, fft) and out.device.type == "cuda"
-        assert cuda_curscan.launches == before + launched
+        assert (cuda_curscan.launches - before[0],
+                cuda_packed.launches - before[1]) == (sub, packed)
+
+
+@pytest.mark.parametrize("fft,nono,window", [
+    (64, 0.1, WINDOW_ONES), (64, 0.5, WINDOW_KAISER),
+    (128, 0.5, WINDOW_KAISER), (32, 0.25, WINDOW_KAISER)])
+@pytest.mark.parametrize("mode", MODES)
+def test_packed_kernel_matches_plain(cuda, fft, nono, window, mode):
+    """fft 64 at 90% overlap with ones is quickFullScan's geometry; 1226
+    blocks are one quickFullScan sweep."""
+    cfg = zs_cfg(fft, nono, mode, window=window, x_res=fft)
+    re, im = (torch.from_numpy(decoded(p)).to(cuda)
+              for p in raw_planes(cfg, 1226, seed=12))
+    before = cuda_packed.launches
+    got = cuda_packed.curscan_fused_packed(re, im, cfg)
+    want = cuda_packed.curscan_fused_packed_plain(re, im, cfg)
+    torch.cuda.synchronize()
+    assert cuda_packed.launches == before + 1
+    assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("fft,nono", [(64, 0.1), (128, 0.5)])
+def test_packed_kernel_u8_bit_identical(cuda, fft, nono):
+    cfg = zs_cfg(fft, nono, x_res=fft)
+    re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 37, 13))
+    got = cuda_packed.curscan_fused_packed(re, im, cfg)
+    want = cuda_packed.curscan_fused_packed(tspec.decode_u8(re),
+                                            tspec.decode_u8(im), cfg)
+    assert torch.equal(got, want)
+
+
+def test_direct_dft_matches_chain_on_card(cuda):
+    """fft 200 (no kernel takes it) runs the direct DFT matmul on the card."""
+    cfg = zs_cfg(200, 0.5, window=WINDOW_HANNING, x_res=200)
+    re, im = (torch.from_numpy(decoded(p)).to(cuda)
+              for p in raw_planes(cfg, 8, 14))
+    got = tspec.curscan_auto_batched(re, im, cfg)
+    assert_spectra_close(got.cpu().numpy(),
+                         tspec.curscan_batched(re, im, cfg).cpu().numpy())
 
 
 def test_waterfall_stream_u8_on_card(cuda):

@@ -1,4 +1,4 @@
-"""The port's slice as a whole: ``session.run_zero_span`` and
+"""The port's zero-span slice as a whole: ``session.run_zero_span`` and
 ``cli.main`` against the JAX session on the same seeded sources (fft 2048,
 kaiser, 50% overlap), the u8 file-source route, peak placement, the
 refusal of what is not ported, and that the port never loads JAX.
@@ -120,11 +120,11 @@ def test_cli_requires_cuda_unless_cpu_is_asked_for(monkeypatch):
     (["tpuSource", "devicenoise"], "item 1"),
     (["tpuStateFile", "st.npz"], "item 3"),
     (["tpuProfile", "trace"], "item 4"),
-    (["tpuMeshTime", "2"], "item 9"),
-    (["tpuRenderer", "png:frames"], "item 10"),
+    (["tpuMeshTime", "2"], "item 7"),
+    (["tpuRenderer", "png:frames"], "item 8"),
     (["zeroSpanSave"], "item 2"),
     (["zeroSpanPlay"], "item 2"),
-    (["fmScan"], "item 5"),
+    (["fmScan", "tpuStateFile", "st.npz"], "item 3"),
 ])
 def test_unported_modes_and_options_name_their_roadmap_item(args, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item} "):

@@ -93,13 +93,13 @@ def assert_spectra_close(got, want):
     np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-6 * peak)
 
 
-def assert_db_close(got, want, span_db=100.0, tol_db=1e-3):
+def assert_db_close(got, want, span_db=100.0, tol_db=1e-3, peak=None):
     """dB curves: within ``tol_db`` wherever the reference is within
-    ``span_db`` of its peak (bins at the float32 noise floor differ in
-    rounding only)."""
+    ``span_db`` of its peak, or of ``peak`` where given (bins at the float32
+    noise floor differ in rounding only)."""
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape
-    mask = want >= np.max(want) - span_db
+    mask = want >= (np.max(want) if peak is None else peak) - span_db
     assert mask.any()
     np.testing.assert_allclose(got[mask], want[mask], rtol=0, atol=tol_db)
 
