@@ -1,8 +1,9 @@
 """Smoke test of the PyTorch/CUDA port (``kspecanal_tpu_torch``) on one
 NVIDIA card: builds the CUDA kernels from ``kspecanal_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, drives the
-zero-span waterfall path and the scan path through their entry points and
-checks the results.
+zero-span waterfall path, the scan path and the performance-forensics path
+(device sources, ``tpuProfile``, the stage ablation K4) through their entry
+points and checks the results.
 
     python3 chip_smoke.py
 
@@ -30,14 +31,38 @@ Phases (any failure raises; the exit code is then non-zero):
      u8 capture file, fmScan at the lane kernel's cell, quickFullScan serial
      and catch-up with sweep read-ahead; each must launch its kernel and put
      the strongest peaks of its final average on integer MHz;
-  8. kernel and plain times (CUDA events, median of 10).
+  8. kernel and plain times (CUDA events, median of 10);
+  9. the on-device sources: devicesynth planes against the same start times
+     synthesised on the CPU, its tone purity (>= 120 dB, peaks on 91/92/93
+     MHz), devicenoise's u8 planes (mean 127.5 +- 0.5);
+ 10. K4, the forensic instantiation of the sublane kernel: each of its six
+     stages against its plain version at fft 2048 kaiser 50% AVG (T=256) and
+     at fft 16384 (float64 and float32 sums), the 'full' stage bitwise equal
+     to the production kernel after the layout map;
+ 11. the ablate variants of the kernel-ablation script against their plain
+     versions (f32, and u8 bit-identical to decoded f32), and the forensic
+     instantiation with no ablate bit bitwise equal to production in all
+     four cumulate modes;
+ 12. the forensics path's sessions through ``cli.main`` at fft 2048 kaiser
+     50%: devicesynth and devicenoise with ``tpuCatchUp 1024`` (8 batches),
+     then again with ``tpuProfile``, and the host synth with ``tpuProfile``:
+     each launches the kernel (u8 planes for devicenoise), writes a trace
+     and logs the card's busy share; devicesynth puts its peaks on 91/92/93
+     MHz;
+ 13. the forensics scripts on the card: the stage table of
+     ``scripts.roofline_r2`` (fft 2048 T=4096; fft 16384 T=288 with float64
+     and float32 sums), the marginal table of ``scripts.kernel_ablate`` (u8
+     and f32, T=4096/8192) and ``scripts.session_ablate`` at k=4096 (cut
+     from 16384 to save time), with the launches of the forensic kernel
+     counted over them.
 The line before the last lists each kernel with its launches on its path,
 its error and times; the last line is the device record.
 """
 import json
+import logging
 import os
 import pickle
-import statistics
+import re
 import subprocess
 import sys
 import tempfile
@@ -61,13 +86,6 @@ BOUND = ("bound: |err| <= 5e-5*|plain| + 1e-6*peak per bin, and max-rel "
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"FAILED: {msg}")
-
-
-def gpu_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def cfg_of(fft=2048, nono=0.5, mode="AVG", window="WIN.KAISER"):
@@ -442,26 +460,11 @@ def phase_scan_sessions(cc, cp, cli, tmp):
     return launches
 
 
-def time_ms(fn, warm=3, reps=10):
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def phase_timing(cc, cp, gen, gpu):
     """Kernel vs plain times (ms): the zero-span config at T=4096, fmScan's
     at T=288 (16 sweeps), the lane kernel's cell at T=288 and quickFullScan's
     at T=1226*16 (16 sweeps)."""
+    from kspecanal_tpu_torch.utils.profiling import cuda_ms
     sublane = (cc.curscan_fused_sublane, cc.curscan_fused_sublane_plain)
     packed = (cp.curscan_fused_packed, cp.curscan_fused_packed_plain)
     cases = [("zero-span fft 2048 kaiser 50%", cfg_of(), 4096, sublane,
@@ -478,8 +481,8 @@ def phase_timing(cc, cp, gen, gpu):
     for name, cfg, t, (kernel, plain), dtypes in cases:
         for u8 in dtypes:
             re, im = noise(cfg, t, u8, gen)
-            ks = time_ms(lambda: kernel(re, im, cfg))
-            ps = time_ms(lambda: plain(re, im, cfg))
+            ks = cuda_ms(lambda: kernel(re, im, cfg))
+            ps = cuda_ms(lambda: plain(re, im, cfg))
             gs = t * cfg.full_size / 1e9
             kind = "u8" if u8 else "f32"
             print(f"  {name}, T={t}, {kind}: kernel {ks:.3f} ms = "
@@ -488,6 +491,205 @@ def phase_timing(cc, cp, gen, gpu):
             out[name, kind] = (ks, ps)
             del re, im
     return out
+
+
+def phase_device_sources(gen):
+    """devicesynth on the card against the CPU from the same start times,
+    its tone purity and peaks, and devicenoise's planes."""
+    from kspecanal_tpu_torch.io import sources as ts
+    print("== device sources")
+    tones = (1e6, 0.0, -1e6)
+    t0 = torch.randint(0, 1 << 32, (64,), generator=gen, device="cuda",
+                       dtype=torch.int64)
+    card = ts.synth_batch(t0, tones, 2.4e6, 0.5, 16384, "cuda")
+    cpu = ts.synth_batch(t0.cpu(), tones, 2.4e6, 0.5, 16384, "cpu")
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(card, cpu))
+    bound = 1e-6 * 10 ** 0.05 * len(tones)
+    print(f"  synth_batch card vs CPU, 64 x 16384: max abs {err:.3e} "
+          f"(bound {bound:.3e}) {'PASS' if err <= bound else 'FAIL'}")
+    check(err <= bound, "devicesynth card vs CPU")
+    n = 16384
+    re_, im_ = ts.DeviceSynthIQSource(seed=3, device="cuda").read(n)
+    x = re_.astype(np.float64) + 1j * im_.astype(np.float64)
+    spec_ = np.abs(np.fft.fftshift(np.fft.fft(x * np.hanning(n))))
+    freqs = np.fft.fftshift(np.fft.fftfreq(n, 1 / 2.4e6)) + 92e6
+    ratio = 20 * np.log10(spec_.max() / np.median(spec_))
+    top3 = sorted(round(f / 1e6, 3) for f in freqs[np.argsort(spec_)[-3:]])
+    ok = ratio >= 120.0 and top3 == [91.0, 92.0, 93.0]
+    print(f"  devicesynth tone purity {ratio:.1f} dB, peaks {top3} MHz "
+          f"{'PASS' if ok else 'FAIL'}")
+    check(ok, "devicesynth purity >= 120 dB and peaks on 91/92/93 MHz")
+    planes = ts.DeviceNoiseIQSource(seed=1).read_device_batch(1024, n)
+    mean = planes[0].float().mean().item()
+    ok = planes[0].dtype == torch.uint8 and abs(mean - 127.5) <= 0.5
+    print(f"  devicenoise {planes[0].dtype} planes, mean {mean:.4f} "
+          f"{'PASS' if ok else 'FAIL'}")
+    check(ok, "devicenoise u8 planes of mean 127.5 +- 0.5")
+
+
+def phase_k4(cc, gen):
+    """K4's stages against their plain versions; returns the worst max abs
+    error over the six stages at fft 2048."""
+    print(f"== K4 (forensic stage ablation) vs plain ({BOUND})")
+    worst = 0.0
+    for fft, t, f32_sums in ((2048, 256, False), (16384, 32, False),
+                             (16384, 32, True)):
+        cfg = cfg_of(fft)
+        re_, im_ = noise(cfg, t, False, gen)
+        prod = cc.curscan_fused_sublane(re_, im_, cfg)
+        for stage in cc.STAGES:
+            got = cc.curscan_stage_ablate(re_, im_, cfg, stage,
+                                          f32_sums=f32_sums)
+            want = cc.curscan_stage_plain(re_, im_, cfg, stage)
+            torch.cuda.synchronize()
+            check(got.shape == (t, fft // 128, 128)
+                  and bool(got.isfinite().all()), "K4 output shape/finite")
+            mx, mrel, _, ok = spectra_error(got, want)
+            ok = ok and mrel < 1e-5
+            print(f"  fft {fft} T={t} {'f32' if f32_sums else 'auto'} sums "
+                  f"{stage:5s}: max_abs {mx:.3e} max_rel {mrel:.3e} "
+                  f"{'PASS' if ok else 'FAIL'}")
+            check(ok, f"K4 {stage} at fft {fft} vs plain")
+            if fft == 2048:
+                worst = max(worst, mx)
+            if stage == "full" and not f32_sums:
+                same = torch.equal(cc.stage_layout_to_spectrum(got), prod)
+                print(f"  fft {fft} 'full' vs production K1 after the layout "
+                      f"map: {'bitwise equal' if same else 'DIFFER'}")
+                check(same, "K4 full bitwise equal to production")
+    return worst
+
+
+def phase_ablate(cc, gen):
+    """K1's ablate variants against their plain versions."""
+    from kspecanal_tpu_torch.ops.spectrum import decode_u8
+    from kspecanal_tpu_torch.scripts.kernel_ablate import VARIANTS
+    print(f"== K1 ablate variants vs plain ({BOUND})")
+    cfg = cfg_of()
+    re_, im_ = noise(cfg, 256, True, gen)
+    for name, keys in VARIANTS:
+        got = cc.curscan_fused_sublane(re_, im_, cfg, ablate=keys)
+        want = cc.curscan_ablate_plain(re_, im_, cfg, keys)
+        dec = cc.curscan_fused_sublane(decode_u8(re_), decode_u8(im_), cfg,
+                                       ablate=keys)
+        torch.cuda.synchronize()
+        mx, mrel, _, ok = spectra_error(got, want)
+        ok = ok and mrel < 1e-5
+        same = torch.equal(got, dec)
+        print(f"  {name:34s} max_abs {mx:.3e} max_rel {mrel:.3e} u8 vs f32 "
+              f"{'bit-identical' if same else 'DIFFER'} "
+              f"{'PASS' if ok and same else 'FAIL'}")
+        check(ok and same, f"ablate {name} vs plain")
+    for mode in ("AVG", "MAX", "MIN", "RAW"):
+        cfg = cfg_of(2048, 0.5, mode)
+        re_, im_ = noise(cfg, 256, False, gen)
+        same = torch.equal(cc.curscan_fused_sublane(re_, im_, cfg,
+                                                    ablate=("concat",)),
+                           cc.curscan_fused_sublane(re_, im_, cfg))
+        print(f"  forensic, no ablate bit, {mode}: "
+              f"{'bitwise equal' if same else 'DIFFER'} to production")
+        check(same, f"forensic instantiation == production ({mode})")
+
+
+class LogLines(logging.Handler):
+    """Collects the package's log messages."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def phase_device_sessions(cc, cli, tmp):
+    """The forensics path's sessions through the entry point.  Returns the
+    K1 launches."""
+    log = LogLines()
+    logging.getLogger("kspecanal_tpu").addHandler(log)
+    cfg = cfg_of()
+    runs = [("devicesynth", "1024", 8192), ("devicenoise", "1024", 8192),
+            ("synth", "128", 512)]
+    print("== forensics sessions through kspecanal_tpu_torch.cli.main")
+    seen = []
+    orig = cc.curscan_fused_sublane
+
+    def spy(re_, im_, cfg_, **kw):
+        seen.append(re_.dtype)
+        return orig(re_, im_, cfg_, **kw)
+
+    launches = 0
+    with mock.patch.object(cc, "curscan_fused_sublane", spy):
+        for src, k, iters in runs:
+            for profiled in ((False, True) if src != "synth" else (True,)):
+                prof = os.path.join(tmp, f"prof_{src}")
+                lvls = os.path.join(tmp, f"dev_lvls_{src}.bin")
+                args = (MAIN_ARGS + ["tpuSource", src, "tpuCatchUp", k,
+                                     "prgLoopCnt", str(iters), "tpuHeadless",
+                                     "true", "saveSigLvls", lvls]
+                        + (["tpuProfile", prof] if profiled else []))
+                seen.clear()
+                before, n_log = cc.launches, len(log.lines)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = cli.main(args)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                check(rc == 0, f"{src} session rc")
+                n = cc.launches - before
+                launches += n
+                dtypes = sorted({str(d) for d in seen})
+                want_dtype = ("torch.uint8" if src == "devicenoise"
+                              else "torch.float32")
+                busy = [m for m in log.lines[n_log:]
+                        if re.search(r"device busy [0-9.]+% of", m)]
+                line = (f"  {src} tpuCatchUp {k}, {iters} blocks"
+                        f"{' + tpuProfile' if profiled else ''}: {dt:.3f} s, "
+                        f"{iters * cfg.full_size / dt / 1e6:.2f} Msamp/s end "
+                        f"to end, K1 launches {n} on {dtypes}")
+                if profiled:
+                    files = os.listdir(prof) if os.path.isdir(prof) else []
+                    line += f", trace files {len(files)}, {busy}"
+                    check(len(files) == 1, f"{src} wrote one trace")
+                    check(len(busy) == 1, f"{src} logged its busy share")
+                if src == "devicesynth":
+                    peaks = avg_peaks(cfg, load_avg(lvls))
+                    cell = cfg.sampling_rate / cfg.x_res
+                    on = len(peaks) == 3 and all(
+                        abs(p - w) <= cell for p, w in zip(peaks, PEAKS_HZ))
+                    line += (f", peaks {[round(p / 1e6, 4) for p in peaks]} "
+                             f"MHz {'PASS' if on else 'FAIL'}")
+                    check(on, "devicesynth peaks on 91/92/93 MHz")
+                print(line)
+                check(n > 0 and dtypes == [want_dtype],
+                      f"{src} session launched K1 on {want_dtype} planes")
+    logging.getLogger("kspecanal_tpu").removeHandler(log)
+    return launches
+
+
+def phase_forensics(cc):
+    """The forensics scripts on the card.  Returns the forensic kernel's
+    launches over them, and K4 'full' and its plain version's ms at fft
+    2048 T=4096."""
+    from kspecanal_tpu_torch.scripts import kernel_ablate, roofline_r2, \
+        session_ablate
+    from kspecanal_tpu_torch.utils.profiling import cuda_ms
+    print("== forensics scripts")
+    cc.forensic_launches = 0
+    rows = roofline_r2.main(["4096"])
+    roofline_r2.main(["--fft", "16384", "288"])
+    roofline_r2.main(["--fft", "16384", "--f32-sums", "288"])
+    kernel_ablate.main(["2048", "u8"])
+    kernel_ablate.main(["2048", "f32"])
+    launches = cc.forensic_launches
+    session_ablate.main(["4096"])
+    cfg = roofline_r2.stage_cfg(2048)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    re_, im_ = noise(cfg, 4096, False, gen)
+    plain = cuda_ms(lambda: cc.curscan_stage_plain(re_, im_, cfg, "full"))
+    print(f"  K4 'full' plain version, T=4096: {plain:.3f} ms (kernel "
+          f"{rows[4096]['full']:.3f} ms)")
+    return launches, rows[4096]["full"], plain
 
 
 def phase_done(name, t0):
@@ -510,7 +712,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gpu = gpu_line()
+    from kspecanal_tpu_torch.utils.profiling import card_line
+    gpu = card_line()
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout
     print(f"== environment: python {sys.version.split()[0]}, torch "
@@ -542,7 +745,19 @@ def main():
         scan_launches = phase_scan_sessions(cc, cp, cli, tmp)
         t0 = phase_done("scan sessions", t0)
     times = phase_timing(cc, cp, gen, gpu)
-    phase_done("timing", t0)
+    t0 = phase_done("timing", t0)
+    phase_device_sources(gen)
+    t0 = phase_done("device sources", t0)
+    k4_err = phase_k4(cc, gen)
+    t0 = phase_done("K4 vs plain", t0)
+    phase_ablate(cc, gen)
+    t0 = phase_done("ablate variants vs plain", t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += phase_device_sessions(cc, cli, tmp)
+    t0 = phase_done("forensics sessions", t0)
+    k4_launches, k4_ms, k4_plain_ms = phase_forensics(cc)
+    check(k4_launches > 0, "the forensics scripts launched K4")
+    phase_done("forensics scripts", t0)
     sublane = {"name": "curscan_sublane", "route": "cuda",
                "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu"}
     zs_t = times["zero-span fft 2048 kaiser 50%", "f32"]
@@ -568,7 +783,16 @@ def main():
          "replaces": "kspecanal_tpu/ops/pallas_curscan.py:872",
          "config": "quickFullScan fft 64 ones 90%, T=1226*16",
          "launches": scan_launches["qfs"], "max_abs_err": scan_errs["packed"],
-         "ms": qfs_t[0], "plain_ms": qfs_t[1]}]}))
+         "ms": qfs_t[0], "plain_ms": qfs_t[1]},
+        {"name": "curscan_sublane_forensic", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu",
+         "replaces": "scripts/roofline_r2.py:43",
+         "config": "K4 stage ablation, fft 2048 kaiser 50% AVG f32: error "
+                   "the worst of six stages at T=256, times the 'full' "
+                   "stage at T=4096; launches over the roofline and "
+                   "kernel-ablation scripts",
+         "launches": k4_launches, "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,18 +20,31 @@ from kspecanal_tpu.cli import RunOptions, make_source, parse_args, print_info
 from kspecanal_tpu.config import MODE_SCAN
 from kspecanal_tpu.utils.logging import log_info, set_iter_logging
 from kspecanal_tpu_torch import session as sess_mod
+from kspecanal_tpu_torch.io import sources
+from kspecanal_tpu_torch.utils.profiling import trace
+
+
+def make_device_source(cfg, run: RunOptions, device):
+    """The port's on-device source for ``tpuSource devicesynth`` (tone
+    simulator) or ``devicenoise`` (u8 noise for soaking the session
+    machinery), on ``device``; None for every other source, which
+    ``kspecanal_tpu.cli.make_source`` builds."""
+    if run.source == "devicesynth":
+        return sources.DeviceSynthIQSource(center_freq=cfg.center_freq,
+                                           sample_rate=cfg.sampling_rate,
+                                           gain=0.5, device=device)
+    if run.source == "devicenoise":
+        return sources.DeviceNoiseIQSource(center_freq=cfg.center_freq,
+                                           sample_rate=cfg.sampling_rate,
+                                           gain=0.5, device=device)
+    return None
 
 
 def _check_ported(run: RunOptions) -> None:
     """Refuse run options whose machinery is not ported yet, before any
-    source is built (a device source would build JAX arrays)."""
-    if run.source in ("devicesynth", "devicenoise"):
-        raise sess_mod.not_ported(f"tpuSource {run.source}",
-                                  sess_mod.TODO_DEVICE_SOURCES)
+    source is built."""
     if run.state_file:
         raise sess_mod.not_ported("tpuStateFile", sess_mod.TODO_STATE)
-    if run.profile_dir:
-        raise sess_mod.not_ported("tpuProfile", sess_mod.TODO_PROFILE)
     if run.mesh_time > 1 or run.mesh_band > 1:
         raise sess_mod.not_ported("tpuMeshTime / tpuMeshBand",
                                   sess_mod.TODO_MULTI_GPU)
@@ -53,7 +66,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     _check_ported(run)
     set_iter_logging(run.log_iter)
     print_info(cfg)
-    source = make_source(cfg, run)
+    source = make_device_source(cfg, run, device)
+    if source is None:
+        source = make_source(cfg, run)
     if run.decimate > 1:
         from kspecanal_tpu.io.sources import DecimatingSource
         source = DecimatingSource(source, run.decimate)
@@ -66,6 +81,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             # Every per-band retune would flush a block read-ahead; scan
             # mode reads whole sweeps ahead instead (SweepPrefetcher).
             sweep_prefetch = True
+        elif hasattr(source, "read_device_batch"):
+            # A device source makes its planes on the card: a host
+            # read-ahead wrapper would only hide that path.
+            log_info("tpuPrefetch: ignored for on-device sources")
         else:
             from kspecanal_tpu.io.prefetch import PrefetchingSource
             source = PrefetchingSource(source, block_size=cfg.full_size)
@@ -90,7 +109,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     signal.signal(signal.SIGINT, _sigint)
     rc = 0
     try:
-        sess_mod.do_run(sess)
+        with trace(run.profile_dir or None):
+            sess_mod.do_run(sess)
     except FileNotFoundError as e:
         log_info(f"ERROR: {e}")
         rc = 1

@@ -104,6 +104,10 @@ def load() -> ctypes.CDLL:
         ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, ptr]
     lib.kspec_curscan_sublane.restype = i32
+    lib.kspec_curscan_sublane_forensic.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.kspec_curscan_sublane_forensic.restype = i32
     lib.kspec_curscan_packed.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.kspec_curscan_packed.restype = i32

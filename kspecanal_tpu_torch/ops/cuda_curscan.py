@@ -16,6 +16,16 @@ For a CUDA tensor :func:`curscan_fused_sublane` launches the kernel or
 raises; for a CPU tensor it runs :func:`curscan_fused_sublane_plain`, the
 ``torch.fft`` chain, and never builds anything.  ``launches`` counts kernel
 launches.
+
+Performance forensics (profiling only; no session calls them): the same
+source compiled with ``FORENSIC = true`` cuts the kernel's math.
+``curscan_fused_sublane(..., ablate=keys)`` removes stages as the JAX
+kernel's ``ablate`` keys do (``scripts/kernel_ablate.py``), and
+:func:`curscan_stage_ablate` stops after one stage of ``STAGES``, the port of
+``scripts/roofline_r2.py``'s ``_kernel_ablate`` (K4).  Their plain versions
+(:func:`curscan_ablate_plain`, :func:`curscan_stage_plain`) are the same
+two-stage DFT in PyTorch.  ``forensic_launches`` counts the forensic
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -39,7 +49,18 @@ _N2 = 128
 MAX_FFT_SIZE = 16384
 _FOLD = {CUMU_AVG: 0, CUMU_RAW: 0, CUMU_MAX: 1, CUMU_MIN: 2}
 
+# The forensic kernel's cut-off stages (its STOP_* values, in order) and
+# ablate keys (its AB_* bits).  'concat' restacks no blocks in the JAX
+# kernel; the Hopper kernel never restacks, so it is the base kernel.
+STAGES = ("read", "frame", "s1", "s1tw", "s2", "full")
+ABLATE_KEYS = {"win": 1, "stage1": 2, "twiddle": 4, "stage2": 8, "sqrt": 16,
+               "cumulate": 32, "concat": 0}
+# Keys that pick the 3M or 4M complex form of the JAX kernel's HIGH/DEFAULT
+# classes, which the port does not have yet.
+_PRECISION_KEYS = ("force3m", "no3m")
+
 launches = 0
+forensic_launches = 0
 
 
 def supports_fused_sublane(cfg: SpecConfig) -> bool:
@@ -99,13 +120,69 @@ def check_planes(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig):
         raise ValueError("planes must be contiguous")
 
 
+def ablate_mask(ablate) -> int:
+    """The forensic kernel's AB_* mask of ``ablate`` keys; raises on an
+    unknown key and on the 3M/4M keys, which need precision classes the
+    port does not have."""
+    if isinstance(ablate, str):
+        raise TypeError(f"ablate takes a sequence of keys, not the string "
+                        f"{ablate!r}")
+    mask = 0
+    for key in ablate:
+        if key in _PRECISION_KEYS:
+            raise NotImplementedError(
+                f"ablate key {key!r} picks the 3M or 4M complex form of the "
+                f"HIGH/DEFAULT precision classes, which kspecanal_tpu_torch "
+                f"does not have yet: ROADMAP.md section 3 (d)")
+        if key not in ABLATE_KEYS:
+            raise ValueError(f"unknown ablate key {key!r}; known: "
+                             f"{sorted(ABLATE_KEYS) + list(_PRECISION_KEYS)}")
+        mask |= ABLATE_KEYS[key]
+    return mask
+
+
+def _launch(lib_fn, iq_re, iq_im, cfg, n_out, *extra) -> torch.Tensor:
+    """Launch one instantiation of the kernel on the planes' device and
+    current stream; raise on a launch error."""
+    dev = iq_re.device
+    out = torch.empty((iq_re.shape[0], n_out), dtype=torch.float32,
+                      device=dev)
+    if iq_re.shape[0] == 0:
+        return out
+    n = cfg.fft_size
+    starts, weights, window, roots = _tables(
+        n, cfg.window, cfg.window_starts, cfg.cur_scan_cumu_mode, dev)
+    with torch.cuda.device(dev):
+        err = lib_fn(
+            iq_re.data_ptr(), iq_im.data_ptr(),
+            int(iq_re.dtype == torch.uint8), out.data_ptr(),
+            starts.data_ptr(), weights.data_ptr(), window.data_ptr(),
+            roots.data_ptr(), iq_re.shape[0], cfg.full_size, n,
+            len(cfg.window_starts), _FOLD[cfg.cur_scan_cumu_mode], *extra,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{lib_fn.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+def _cuda_lib(dev: torch.device):
+    if dev.type != "cuda":
+        raise ValueError(f"no curscan kernel for device {dev}")
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load()
+
+
 def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
-                          cfg: SpecConfig) -> torch.Tensor:
+                          cfg: SpecConfig, *, ablate=()) -> torch.Tensor:
     """``(T, full_size)`` float32 or raw-u8 planes -> ``(T, fft_size)``
     fftshifted linear spectra.  CUDA tensors launch the kernel on the
     current stream without synchronising; CPU tensors run the plain
-    version."""
-    global launches
+    version.  ``ablate`` (forensics only) names stages to remove
+    (``ABLATE_KEYS``): the spectra are then wrong by construction, and the
+    forensic kernel runs (plain version :func:`curscan_ablate_plain`)."""
+    global launches, forensic_launches
+    mask = ablate_mask(ablate)
     if not supports_fused_sublane(cfg):
         raise ValueError(f"config not supported by the sublane curscan "
                          f"kernel (fft_size {cfg.fft_size}, full_size "
@@ -113,27 +190,142 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
     check_planes(iq_re, iq_im, cfg)
     dev = iq_re.device
     if dev.type == "cpu":
+        if ablate:
+            return curscan_ablate_plain(iq_re, iq_im, cfg, ablate)
         return curscan_fused_sublane_plain(iq_re, iq_im, cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"no curscan kernel for device {dev}")
-    from kspecanal_tpu_torch.ops import _build
-    lib = _build.load()
-    t, n = iq_re.shape[0], cfg.fft_size
-    out = torch.empty((t, n), dtype=torch.float32, device=dev)
-    if t == 0:
+    lib = _cuda_lib(dev)
+    if ablate:
+        out = _launch(lib.kspec_curscan_sublane_forensic, iq_re, iq_im, cfg,
+                      cfg.fft_size, STAGES.index("full"), mask, 0, 0)
+        forensic_launches += 1
         return out
-    starts, weights, window, roots = _tables(
-        n, cfg.window, cfg.window_starts, cfg.cur_scan_cumu_mode, dev)
-    with torch.cuda.device(dev):
-        err = lib.kspec_curscan_sublane(
-            iq_re.data_ptr(), iq_im.data_ptr(),
-            int(iq_re.dtype == torch.uint8), out.data_ptr(),
-            starts.data_ptr(), weights.data_ptr(), window.data_ptr(),
-            roots.data_ptr(), t, cfg.full_size, n, len(cfg.window_starts),
-            _FOLD[cfg.cur_scan_cumu_mode],
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"curscan_sublane kernel launch failed: CUDA "
-                           f"error {err}")
+    out = _launch(lib.kspec_curscan_sublane, iq_re, iq_im, cfg, cfg.fft_size)
     launches += 1
     return out
+
+
+def check_stage_config(iq_re: torch.Tensor, cfg: SpecConfig, stage: str):
+    """Raise unless K4 takes the case: a known stage, a config the sublane
+    kernel supports, float32 planes, 128-aligned window starts, AVG weights
+    and ``full_size`` a multiple of ``fft_size`` (the JAX script frames by
+    ``s // 128`` and reads whole n1-row slabs)."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r}; stages: {STAGES}")
+    if not supports_fused_sublane(cfg):
+        raise ValueError(f"config not supported by the sublane curscan "
+                         f"kernel (fft_size {cfg.fft_size})")
+    if iq_re.dtype != torch.float32:
+        raise TypeError(f"the stage ablation takes float32 planes, got "
+                        f"{iq_re.dtype}")
+    if any(s % _N2 for s in cfg.window_starts):
+        raise ValueError("the stage ablation takes 128-aligned window starts "
+                         "only (50% overlap at fft >= 256)")
+    if cfg.cur_scan_cumu_mode != CUMU_AVG:
+        raise ValueError(f"the stage ablation folds with the AVG weights; "
+                         f"got {cfg.cur_scan_cumu_mode}")
+    if cfg.full_size % cfg.fft_size:
+        raise ValueError(f"full_size {cfg.full_size} is not a whole number "
+                         f"of fft_size {cfg.fft_size} slabs")
+
+
+def curscan_stage_ablate(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                         cfg: SpecConfig, stage: str, *,
+                         f32_sums: bool = False) -> torch.Tensor:
+    """K4: the sublane kernel cut off after ``stage`` (``STAGES``), each
+    block reduced to ``(fft_size/128, 128)``: ``(T, full_size)`` float32 ->
+    ``(T, n1, 128)`` in the JAX script's layout (row k1, or m1 for
+    'frame'; column m2 or k2; unshifted).  'full' equals the production
+    kernel under ``out[b, (k1 + n1*k2 + N/2) % N] = K4[b, k1, k2]``.
+    ``f32_sums`` sums in float32 above fft 8192 too, to price the float64
+    sums.  CPU tensors run :func:`curscan_stage_plain`."""
+    global forensic_launches
+    check_stage_config(iq_re, cfg, stage)
+    check_planes(iq_re, iq_im, cfg)
+    n1 = cfg.fft_size // _N2
+    if iq_re.device.type == "cpu":
+        return curscan_stage_plain(iq_re, iq_im, cfg, stage)
+    lib = _cuda_lib(iq_re.device)
+    out = _launch(lib.kspec_curscan_sublane_forensic, iq_re, iq_im, cfg,
+                  cfg.fft_size, STAGES.index(stage), 0, 1, int(f32_sums))
+    forensic_launches += 1
+    return out.view(-1, n1, _N2)
+
+
+def _two_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                     cfg: SpecConfig, stop: str,
+                     ablate: frozenset) -> torch.Tensor:
+    """The kernel's math in PyTorch, in float32 on the planes' device: frame
+    and window ``a[m1, m2]``, stage 1 (einsum over m1), twiddle, stage 2
+    (einsum over m2), cut off at ``stop`` and with the ``ablate`` stages
+    passed through, as the forensic kernel does.  Returns ``(T, n1, 128)``:
+    below 'full' the AVG-weighted window sum of ``x.re + x.im``; at 'full'
+    the cumulate mode's fold of the magnitudes."""
+    n = cfg.fft_size
+    n1 = n // _N2
+    re, im = spectrum.decode_u8(iq_re), spectrum.decode_u8(iq_im)
+    t = re.shape[0]
+    if stop == "read":
+        slabs_re = re.reshape(t, -1, n1, _N2)
+        slabs_im = im.reshape(t, -1, n1, _N2)
+        acc = torch.zeros((t, n1, _N2), dtype=torch.float32, device=re.device)
+        for j in range(slabs_re.shape[1]):
+            acc = acc + slabs_re[:, j] + slabs_im[:, j]
+        return acc
+    _, weights, window, roots = _tables(n, cfg.window, cfg.window_starts,
+                                        cfg.cur_scan_cumu_mode, re.device)
+    root = torch.complex(roots[:, 0], roots[:, 1])
+    k1 = torch.arange(n1, device=re.device)
+    c128 = torch.arange(_N2, device=re.device)
+    f1 = root[(torch.outer(k1, k1) % n1) * _N2]          # (k1, m1)
+    tw = root[torch.outer(k1, c128) % n]                  # (k1, m2)
+    f2 = root[(torch.outer(c128, c128) % _N2) * n1]      # (k2, m2)
+    fr = spectrum.frame_signal(re, cfg.window_starts, n)
+    fi = spectrum.frame_signal(im, cfg.window_starts, n)
+    if "win" not in ablate:
+        fr, fi = fr * window, fi * window
+    x = torch.complex(fr, fi).reshape(t, -1, n1, _N2)    # (t, w, m1, m2)
+    if stop != "frame":
+        if "stage1" not in ablate:
+            x = torch.einsum("km,twmc->twkc", f1, x)
+        if stop != "s1" and "twiddle" not in ablate:
+            x = x * tw
+        if stop not in ("s1", "s1tw") and "stage2" not in ablate:
+            x = torch.einsum("twkc,jc->twkj", x, f2)
+    if stop != "full":
+        return torch.einsum("w,twkc->tkc", weights, x.real + x.imag)
+    mag = x.real * x.real + x.imag * x.imag
+    if "sqrt" not in ablate:
+        mag = torch.sqrt(mag)
+    if "cumulate" in ablate:
+        return mag.sum(dim=1)
+    mag = weights[None, :, None, None] * mag
+    mode = cfg.cur_scan_cumu_mode
+    if mode == CUMU_MAX:
+        return mag.amax(dim=1)
+    if mode == CUMU_MIN:
+        return mag.amin(dim=1)
+    return mag.sum(dim=1)
+
+
+def stage_layout_to_spectrum(acc: torch.Tensor) -> torch.Tensor:
+    """``(T, n1, 128)`` -> the production ``(T, N)`` layout:
+    ``out[(k1 + n1*k2 + N/2) % N] = acc[k1, k2]``."""
+    t, n1, n2 = acc.shape
+    return torch.fft.fftshift(acc.transpose(1, 2).reshape(t, n1 * n2),
+                              dim=-1)
+
+
+def curscan_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                        cfg: SpecConfig, stage: str) -> torch.Tensor:
+    """The plain PyTorch version of :func:`curscan_stage_ablate`."""
+    check_stage_config(iq_re, cfg, stage)
+    return _two_stage_plain(iq_re, iq_im, cfg, stage, frozenset())
+
+
+def curscan_ablate_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                         cfg: SpecConfig, ablate) -> torch.Tensor:
+    """The plain PyTorch version of ``curscan_fused_sublane(...,
+    ablate=ablate)``: ``(T, fft_size)`` in the production layout."""
+    ablate_mask(ablate)
+    return stage_layout_to_spectrum(
+        _two_stage_plain(iq_re, iq_im, cfg, "full", frozenset(ablate)))

@@ -1,0 +1,98 @@
+"""Stage breakdown of the sublane curscan kernel (K1) on the card — the port
+of ``scripts/roofline_r2.py``.  It runs the kernel's forensic instantiation
+(K4, ``cuda_curscan.curscan_stage_ablate``) cut off after each stage on the
+same planes:
+
+    read   read every sample once, sum the n1-row slabs (memory streaming)
+    frame  + framing at each window start and the window multiply
+    s1     + stage 1, the length-n1 DFT down each column
+    s1tw   + the twiddle multiply
+    s2     + stage 2, the length-128 DFT along each row
+    full   + |.| and the weighted fold == the production kernel
+
+and prints per stage the time (CUDA events, median of 10), the delta from
+the previous stage and Gsamp/s, then the production kernel on the same
+planes and, for scale, one float32 ``torch.matmul`` at stage 2's shape
+``(T*W*n1, 128) @ (128, 128)`` with TF32 off.  The default cell is the main
+path's: fft 2048, kaiser, 50% overlap, AVG, float32 planes.
+
+    python -m kspecanal_tpu_torch.scripts.roofline_r2 [--fft N] [--f32-sums] [T ...]
+
+``--f32-sums`` sums in float32 above fft 8192 too (production sums in
+float64 there), to price the float64 sums.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Dict, List, Optional
+
+import torch
+
+from kspecanal_tpu.config import CUMU_AVG, WINDOW_KAISER, SpecConfig
+from kspecanal_tpu_torch.ops import cuda_curscan as cc
+from kspecanal_tpu_torch.utils.profiling import card_line, cuda_ms, \
+    require_cuda
+
+
+def stage_cfg(fft: int) -> SpecConfig:
+    return SpecConfig(prg_mode="ZEROSPAN", fft_size=fft, sampling_rate=2.4e6,
+                      window=WINDOW_KAISER, cur_scan_non_overlap=0.5,
+                      cur_scan_cumu_mode=CUMU_AVG,
+                      x_res=min(512, fft)).finalize()
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
+    """Print the stage table for each T; returns ``{T: {stage: ms, 'prod':
+    ms, 'matmul': ms}}``."""
+    p = argparse.ArgumentParser(prog="roofline_r2", description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--fft", type=int, default=2048)
+    p.add_argument("--f32-sums", action="store_true")
+    p.add_argument("t", type=int, nargs="*", default=[4096])
+    args = p.parse_args(argv)
+    require_cuda("roofline_r2")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = stage_cfg(args.fft)
+    n1 = cfg.fft_size // 128
+    sums = ("float64" if n1 > 64 and not args.f32_sums else "float32")
+    print(f"device: {card_line()}; fft {cfg.fft_size} kaiser 50% AVG, "
+          f"W={cfg.num_windows}, full={cfg.full_size}; precision float32 "
+          f"(the port's only class; the JAX script ran DEFAULT), {sums} "
+          f"stage sums", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results: Dict[int, Dict[str, float]] = {}
+    for t in args.t:
+        row: Dict[str, float] = {}
+        samples = t * cfg.full_size
+        rows = t * cfg.num_windows * n1
+        a = torch.randn((rows, 128), generator=gen, device="cuda")
+        b = torch.randn((128, 128), generator=gen, device="cuda")
+        row["matmul"] = cuda_ms(lambda: torch.matmul(a, b))
+        print(f"T={t} torch.matmul stage-2 shape ({rows}, 128) @ (128, 128) "
+              f"fp32: {row['matmul']:9.3f} ms "
+              f"{2 * rows * 128 * 128 / row['matmul'] / 1e9:6.2f} TFLOP/s",
+              flush=True)
+        del a, b
+        re = torch.randn((t, cfg.full_size), generator=gen, device="cuda")
+        im = torch.randn((t, cfg.full_size), generator=gen, device="cuda")
+        prev = None
+        for stage in cc.STAGES:
+            ms = cuda_ms(lambda s=stage: cc.curscan_stage_ablate(
+                re, im, cfg, s, f32_sums=args.f32_sums))
+            row[stage] = ms
+            delta = "" if prev is None else f"delta {ms - prev:+9.3f} ms"
+            print(f"T={t} {stage:5s} {ms:9.3f} ms {samples / ms / 1e6:7.3f} "
+                  f"Gsamp/s  {delta}", flush=True)
+            prev = ms
+        row["prod"] = cuda_ms(lambda: cc.curscan_fused_sublane(re, im, cfg))
+        print(f"T={t} prod  {row['prod']:9.3f} ms "
+              f"{samples / row['prod'] / 1e6:7.3f} Gsamp/s (production K1)",
+              flush=True)
+        results[t] = row
+        del re, im
+    return results
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -29,10 +29,8 @@ from kspecanal_tpu_torch.ops.peaks import find_peaks
 
 # Entries of the "Still to port" queue in ROADMAP.md named by the errors
 # of what is not ported yet.
-TODO_DEVICE_SOURCES = "1 (device sources)"
 TODO_SAVE_PLAY = "2 (zeroSpanSave / zeroSpanPlay)"
 TODO_STATE = "3 (io/state checkpoints)"
-TODO_PROFILE = "4 (torch.profiler trace)"
 TODO_MULTI_GPU = "7 (multi-GPU)"
 TODO_GUI = "8 (matplotlib renderer)"
 
@@ -184,29 +182,72 @@ def run_zero_span(sess: Session, max_iters: Optional[int] = None
 
 
 # Host staging bound for ONE copy of one catch-up batch (bytes of IQ
-# payload): raw u8 ships 2 B/sample, float32 planes 8 B/sample.
+# payload): raw u8 ships 2 B/sample, float32 planes 8 B/sample.  An
+# on-device source stages nothing on the host and is bounded by the
+# nominal catch_up cap alone.
 _CATCHUP_STAGING_BYTES = 1 << 29
 
 
 def _catchup_block_cap(sess: Session, cfg: SpecConfig) -> int:
+    if getattr(sess.source, "read_device_batch", None) is not None:
+        return sess.catch_up
     bps = 2 if getattr(sess.source, "read_raw", None) is not None else 8
     return max(1, min(sess.catch_up,
                       _CATCHUP_STAGING_BYTES // (bps * cfg.full_size)))
 
 
+def _upload(sess: Session, copy_stream, re: np.ndarray, im: np.ndarray):
+    """Host planes to ``sess.device`` from the acquisition thread.  On a
+    CUDA device the planes are staged in pinned memory and copied with
+    ``non_blocking=True`` on ``copy_stream``, so the copy overlaps the
+    compute of the previous batch; the thread waits for its own copy
+    before the pinned buffers are released.  The consumer must call
+    :func:`_adopt` before it uses the tensors."""
+    if copy_stream is None:
+        return _to_device(sess, re, im)
+    pinned = [torch.from_numpy(a).pin_memory() for a in (re, im)]
+    with torch.cuda.stream(copy_stream):
+        out = tuple(p.to(sess.device, non_blocking=True) for p in pinned)
+        done = torch.cuda.Event()
+        done.record(copy_stream)
+    done.synchronize()
+    return out
+
+
+def _adopt(planes, copy_stream):
+    """Mark tensors made on ``copy_stream`` as used by the current stream,
+    so the allocator does not hand their memory back to the copy stream
+    while this stream's kernels still read them."""
+    if copy_stream is not None:
+        for p in planes:
+            p.record_stream(torch.cuda.current_stream(p.device))
+    return planes
+
+
 def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
                            n: int) -> zs.ZeroSpanState:
     """K blocks per step (``tpuCatchUp K``), emitting the last view of each
-    batch; curve and ring math is exactly the serial fold.  Acquisition is
-    double-buffered: batch k+1 is read, split and copied to the device on a
-    worker thread while batch k computes."""
+    batch; curve and ring math is exactly the serial fold.
+
+    An on-device source (``read_device_batch``) makes each batch on the
+    device, in the order of the compute: no worker thread.  Devicenoise's
+    u8 planes reach the curscan kernel undecoded.  Host sources are
+    double-buffered: batch k+1 is read, split and copied to the device
+    (pinned, asynchronous, :func:`_upload`) on a worker thread while batch
+    k computes."""
     from concurrent.futures import ThreadPoolExecutor
 
     cfg = sess.cfg
+    dev_batch = getattr(sess.source, "read_device_batch", None)
     raw_read = getattr(sess.source, "read_raw", None)
     want_view = sess.renderer is not None
+    copy_stream = (torch.cuda.Stream(sess.device)
+                   if sess.device.type == "cuda" and dev_batch is None
+                   else None)
 
     def acquire(k):
+        if dev_batch is not None:
+            return dev_batch(k, cfg.full_size)
         if raw_read is not None:
             with sess.timer.stage("acquire.read", k * cfg.full_size):
                 raw = np.stack([raw_read(cfg.full_size) for _ in range(k)])
@@ -218,9 +259,10 @@ def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
                 re = np.stack([b[0] for b in blocks])
                 im = np.stack([b[1] for b in blocks])
         with sess.timer.stage("acquire.xfer", k * cfg.full_size):
-            return _to_device(sess, re, im)
+            return _upload(sess, copy_stream, re, im)
 
-    ex = ThreadPoolExecutor(1, thread_name_prefix="catchup-acquire")
+    ex = (None if dev_batch is not None
+          else ThreadPoolExecutor(1, thread_name_prefix="catchup-acquire"))
     cap = _catchup_block_cap(sess, cfg)
     done = 0
     pending = None       # (future, k) staged ahead by the worker
@@ -238,11 +280,12 @@ def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
                     pending = None
                 else:
                     payload = acquire(k)
+                payload = _adopt(payload, copy_stream)
             if getattr(sess.source, "exhausted", False):
                 log_warn("zeroSpan: source exhausted; stopping")
                 sess.stop = True
             nxt = min(cap, n - done - k)
-            if nxt > 0 and not sess.stop:
+            if ex is not None and nxt > 0 and not sess.stop:
                 pending = (ex.submit(acquire, nxt), nxt)
             with sess.timer.stage("dsp", k * cfg.full_size):
                 state, view = zs.zero_span_steps(state, payload[0],
@@ -254,7 +297,8 @@ def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
     finally:
         if pending is not None:
             pending[0].cancel()
-        ex.shutdown(wait=True)
+        if ex is not None:
+            ex.shutdown(wait=True)
     # Reading the final state back waits for every queued step: its own
     # stage, so the tail shows in the accounting.
     with sess.timer.stage("drain"):

@@ -1,0 +1,181 @@
+"""Parity of the sublane kernel's forensic instantiation with the JAX package:
+K4, the stage ablation of ``scripts/roofline_r2.py`` (``_kernel_ablate``),
+and the ``ablate`` keys of ``pallas_curscan.curscan_fused_sublane``.
+
+On the CPU the port's wrappers run their plain versions (the two-stage DFT
+in PyTorch); the JAX side runs its Pallas kernels in interpret mode at
+HIGHEST.  The roofline script is loaded from its path, and its module
+global ``pl`` is swapped for one whose ``pallas_call`` interprets; the
+script itself is unchanged.  Bounds: ``torch_parity.assert_spectra_close``.
+The card's tests are in test_torch_gpu.py."""
+import functools
+import importlib.util
+import os
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from kspecanal_tpu.ops import pallas_curscan as jpk
+from kspecanal_tpu_torch.ops import _build, cuda_curscan as cc
+from kspecanal_tpu_torch.scripts import kernel_ablate, roofline_r2, \
+    session_ablate
+from torch_parity import assert_spectra_close, decoded, raw_planes, zs_cfg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ABLATE_KEYS = ("win", "stage1", "twiddle", "stage2", "sqrt", "cumulate",
+               "concat")
+
+
+@functools.lru_cache(maxsize=None)
+def roofline_module():
+    spec = importlib.util.spec_from_file_location(
+        "roofline_r2_jax", os.path.join(REPO, "scripts", "roofline_r2.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def roofline(monkeypatch):
+    """The JAX script with interpreting Pallas calls."""
+    mod = roofline_module()
+    monkeypatch.setattr(mod, "pl", types.SimpleNamespace(
+        BlockSpec=pl.BlockSpec,
+        pallas_call=functools.partial(pl.pallas_call, interpret=True)))
+    return mod
+
+
+def planes(cfg, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((2, cfg.full_size)).astype(np.float32)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("stage", cc.STAGES)
+@pytest.mark.parametrize("fft", [512, 2048])
+def test_stage_matches_jax_roofline_kernel(roofline, fft, stage):
+    cfg = zs_cfg(fft, tpu_precision="HIGHEST")
+    re, im = planes(cfg, fft + cc.STAGES.index(stage))
+    want = np.asarray(roofline.build(cfg, 1, stage)(jnp.asarray(re),
+                                                    jnp.asarray(im)))
+    got = cc.curscan_stage_ablate(torch.from_numpy(re), torch.from_numpy(im),
+                                  cfg, stage)
+    assert got.shape == (2, fft // 128, 128) and got.dtype == torch.float32
+    assert_spectra_close(got.numpy(), want)
+
+
+def test_full_stage_is_the_kernel_under_the_layout_map():
+    cfg = zs_cfg(2048)
+    re, im = (torch.from_numpy(p) for p in planes(cfg, 3))
+    full = cc.curscan_stage_ablate(re, im, cfg, "full")
+    spec = cc.stage_layout_to_spectrum(full)
+    np.testing.assert_array_equal(
+        spec.numpy(), cc.curscan_ablate_plain(re, im, cfg, ()).numpy())
+    assert_spectra_close(spec.numpy(),
+                         cc.curscan_fused_sublane_plain(re, im, cfg).numpy())
+    # out[b, (k1 + n1*k2 + N/2) % N] = K4[b, k1, k2]
+    n1, n = 16, 2048
+    assert spec[1, (3 + n1 * 5 + n // 2) % n] == full[1, 3, 5]
+
+
+@pytest.mark.parametrize("key", ABLATE_KEYS)
+@pytest.mark.parametrize("fft", [512, 2048])
+def test_ablate_key_matches_jax_kernel(fft, key):
+    cfg = zs_cfg(fft, tpu_precision="HIGHEST")
+    re, im = planes(cfg, 40 + ABLATE_KEYS.index(key))
+    want = np.asarray(jpk.curscan_fused_sublane(
+        jnp.asarray(re), jnp.asarray(im), cfg, ablate=(key,)))
+    got = cc.curscan_fused_sublane(torch.from_numpy(re), torch.from_numpy(im),
+                                   cfg, ablate=(key,))
+    assert_spectra_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mode", ["MAX", "MIN", "RAW"])
+def test_ablate_keys_under_other_folds_match_jax(mode):
+    """sqrt keeps the mode's fold; cumulate sums whatever the mode."""
+    cfg = zs_cfg(512, mode=mode, tpu_precision="HIGHEST")
+    re, im = planes(cfg, 60)
+    for keys in (("sqrt",), ("cumulate",), ("win", "stage1", "twiddle")):
+        want = np.asarray(jpk.curscan_fused_sublane(
+            jnp.asarray(re), jnp.asarray(im), cfg, ablate=keys))
+        got = cc.curscan_fused_sublane(torch.from_numpy(re),
+                                       torch.from_numpy(im), cfg, ablate=keys)
+        assert_spectra_close(got.numpy(), want)
+
+
+def test_kernel_ablate_variants_match_jax_on_u8():
+    """The ten variants of the ablation script on raw u8 planes, which the
+    plain version decodes as the kernel does."""
+    cfg = zs_cfg(512, tpu_precision="HIGHEST")
+    re, im = raw_planes(cfg, 2, seed=61)
+    for _, keys in kernel_ablate.VARIANTS:
+        want = np.asarray(jpk.curscan_fused_sublane(
+            jnp.asarray(decoded(re)), jnp.asarray(decoded(im)), cfg,
+            ablate=keys))
+        got = cc.curscan_fused_sublane(torch.from_numpy(re),
+                                       torch.from_numpy(im), cfg, ablate=keys)
+        assert_spectra_close(got.numpy(), want)
+
+
+def test_unknown_and_precision_keys_raise():
+    cfg = zs_cfg(512)
+    z = torch.zeros((1, cfg.full_size))
+    with pytest.raises(ValueError, match="unknown ablate key"):
+        cc.curscan_fused_sublane(z, z, cfg, ablate=("stage3",))
+    for key in ("force3m", "no3m"):
+        with pytest.raises(NotImplementedError, match=r"section 3 \(d\)"):
+            cc.curscan_fused_sublane(z, z, cfg, ablate=(key,))
+    with pytest.raises(TypeError):
+        cc.curscan_fused_sublane(z, z, cfg, ablate="win")
+    assert cc.ablate_mask(()) == cc.ablate_mask(("concat",)) == 0
+    assert cc.ablate_mask(("win", "cumulate")) == 1 | 32
+
+
+def test_stage_ablation_refuses_what_k4_does_not_take():
+    cfg = zs_cfg(2048)
+    f32 = torch.zeros((1, cfg.full_size))
+    u8 = f32.to(torch.uint8)
+    with pytest.raises(ValueError, match="unknown stage"):
+        cc.curscan_stage_ablate(f32, f32, cfg, "s3")
+    with pytest.raises(TypeError):
+        cc.curscan_stage_ablate(u8, u8, cfg, "full")
+    with pytest.raises(ValueError, match="128-aligned"):
+        cc.curscan_stage_ablate(f32, f32, zs_cfg(2048, 0.1), "frame")
+    with pytest.raises(ValueError, match="AVG"):
+        cc.curscan_stage_ablate(f32, f32, zs_cfg(2048, mode="MAX"), "s1")
+
+
+def test_forensic_cpu_path_never_builds(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU path must not build CUDA kernels")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    cfg = zs_cfg(512)
+    re, im = (torch.from_numpy(p) for p in planes(cfg, 5))
+    before = (cc.launches, cc.forensic_launches)
+    cc.curscan_stage_ablate(re, im, cfg, "s2")
+    cc.curscan_fused_sublane(re, im, cfg, ablate=("sqrt",))
+    assert (cc.launches, cc.forensic_launches) == before
+
+
+def test_read_stage_sums_every_sample_once():
+    cfg = zs_cfg(512)
+    re = torch.ones((1, cfg.full_size))
+    im = 2 * torch.ones((1, cfg.full_size))
+    got = cc.curscan_stage_ablate(re, im, cfg, "read")
+    slabs = cfg.full_size // cfg.fft_size
+    np.testing.assert_array_equal(got.numpy(), np.full((1, 4, 128),
+                                                       3.0 * slabs))
+
+
+@pytest.mark.parametrize("script,argv", [
+    (roofline_r2, []), (kernel_ablate, []), (session_ablate, ["2"])])
+def test_forensics_scripts_need_the_card(monkeypatch, script, argv):
+    """A measurement never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        script.main(argv)

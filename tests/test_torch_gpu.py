@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from kspecanal_tpu.config import WINDOW_HANNING, WINDOW_KAISER, WINDOW_ONES
+from kspecanal_tpu_torch.io import sources as tsrc
 from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed
 from kspecanal_tpu_torch.ops import spectrum as tspec
 from kspecanal_tpu_torch.parallel import stream as tstream
+from kspecanal_tpu_torch.scripts import kernel_ablate
 from torch_parity import (MODES, assert_db_close, assert_spectra_close,
                           cuda, decoded, raw_planes, zs_cfg)  # noqa: F401
 
@@ -118,3 +120,72 @@ def test_waterfall_stream_u8_on_card(cuda):
     for k in ("rows", "fft_max", "fft_min", "fft_avg", "fft_cur"):
         assert_db_close(getattr(got, k).cpu().numpy(),
                         getattr(want, k).numpy())
+
+
+STAGE_CASES = [(2048, False), (16384, False), (16384, True)]
+
+
+@pytest.mark.parametrize("fft,f32_sums", STAGE_CASES,
+                         ids=["2048", "16384", "16384-f32sums"])
+@pytest.mark.parametrize("stage", cuda_curscan.STAGES)
+def test_stage_ablate_matches_plain(cuda, stage, fft, f32_sums):
+    """K4: each cut-off of the forensic kernel against its plain version."""
+    cfg = zs_cfg(fft, x_res=512)
+    re, im = (torch.from_numpy(decoded(p)).to(cuda)
+              for p in raw_planes(cfg, 8, seed=15))
+    before = cuda_curscan.forensic_launches
+    got = cuda_curscan.curscan_stage_ablate(re, im, cfg, stage,
+                                            f32_sums=f32_sums)
+    want = cuda_curscan.curscan_stage_plain(re, im, cfg, stage)
+    torch.cuda.synchronize()
+    assert cuda_curscan.forensic_launches == before + 1
+    assert got.shape == (8, fft // 128, 128)
+    assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("fft", [2048, 16384])
+def test_full_stage_and_concat_equal_the_kernel_bitwise(cuda, fft):
+    """With no ablate bit the forensic kernel runs the production kernel's
+    operations: its 'full' stage under the layout map, and 'concat', equal
+    the production output bit for bit."""
+    cfg = zs_cfg(fft, x_res=512)
+    re, im = (torch.from_numpy(decoded(p)).to(cuda)
+              for p in raw_planes(cfg, 8, seed=16))
+    prod = cuda_curscan.curscan_fused_sublane(re, im, cfg)
+    full = cuda_curscan.curscan_stage_ablate(re, im, cfg, "full")
+    assert torch.equal(cuda_curscan.stage_layout_to_spectrum(full), prod)
+    assert torch.equal(cuda_curscan.curscan_fused_sublane(
+        re, im, cfg, ablate=("concat",)), prod)
+
+
+@pytest.mark.parametrize("name,keys", kernel_ablate.VARIANTS,
+                         ids=[v[0] for v in kernel_ablate.VARIANTS])
+@pytest.mark.parametrize("mode", ["AVG", "MIN"])
+def test_ablate_variant_matches_plain(cuda, name, keys, mode):
+    cfg = zs_cfg(2048, mode=mode)
+    re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 8, 17))
+    got = cuda_curscan.curscan_fused_sublane(re, im, cfg, ablate=keys)
+    want = cuda_curscan.curscan_ablate_plain(re, im, cfg, keys)
+    torch.cuda.synchronize()
+    assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+    dec = cuda_curscan.curscan_fused_sublane(
+        tspec.decode_u8(re), tspec.decode_u8(im), cfg, ablate=keys)
+    assert torch.equal(got, dec)
+
+
+def test_device_sources_on_card(cuda):
+    """devicesynth on the card equals the same start times synthesised on
+    the CPU within 1e-6 x gain_mult x tones; devicenoise gives u8 planes of
+    mean 127.5."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    t0 = torch.randint(0, 1 << 32, (16,), generator=gen, device=cuda,
+                       dtype=torch.int64)
+    tones = (1e6, 0.0, -1e6)
+    got = tsrc.synth_batch(t0, tones, 2.4e6, 0.5, 16384, cuda)
+    want = tsrc.synth_batch(t0.cpu(), tones, 2.4e6, 0.5, 16384, "cpu")
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert (g.cpu() - w).abs().max().item() <= 1e-6 * 10 ** 0.05 * 3
+    re, im = tsrc.DeviceNoiseIQSource(seed=1).read_device_batch(256, 16384)
+    assert re.dtype == torch.uint8 and re.device.type == "cuda"
+    assert abs(re.float().mean().item() - 127.5) < 0.5

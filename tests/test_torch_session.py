@@ -1,7 +1,8 @@
 """The port's zero-span slice as a whole: ``session.run_zero_span`` and
 ``cli.main`` against the JAX session on the same seeded sources (fft 2048,
 kaiser, 50% overlap), the u8 file-source route, peak placement, the
-refusal of what is not ported, and that the port never loads JAX.
+device sources and ``tpuProfile``, the refusal of what is not ported,
+and that the port never loads JAX.
 Tolerances as in ``torch_parity``."""
 import os
 import subprocess
@@ -109,6 +110,58 @@ def test_cli_term_renderer_and_baseline(tmp_path, capsys):
     assert "plotHighs:Marked:" in out and "iter 1" in out
 
 
+@pytest.mark.parametrize("extra", [[], ["tpuCatchUp", "4"]],
+                         ids=["serial", "catchup4"])
+def test_cli_devicesynth_peaks_on_integer_mhz(tmp_path, extra):
+    """``tpuSource devicesynth``: the serial loop reads it through
+    ``read()``, catch-up through device batches; the final average's three
+    strongest peaks sit on 91/92/93 MHz."""
+    lvls = str(tmp_path / "lvls.bin")
+    rc = tcli.main(ZS_ARGS + ["tpuSource", "devicesynth", "tpuHeadless",
+                              "true", "prgLoopCnt", "4", "saveSigLvls", lvls]
+                   + extra, device="cpu")
+    assert rc == 0
+    _, _, avg = load_sig_lvls(lvls)
+    cell = CFG.sampling_rate / CFG.x_res
+    peaks = sorted(p.freq for p in avg_peaks(CFG, avg))
+    np.testing.assert_allclose(peaks, [91e6, 92e6, 93e6], atol=cell)
+
+
+def test_cli_devicenoise_catchup_ships_u8_planes(monkeypatch, caplog):
+    """``tpuSource devicenoise tpuCatchUp 4``: the kernel's wrapper gets the
+    u8 planes undecoded, in batches of 4; ``tpuPrefetch`` is ignored for an
+    on-device source."""
+    from kspecanal_tpu_torch.ops import cuda_curscan
+    seen = []
+    orig = cuda_curscan.curscan_fused_sublane
+
+    def spy(re, im, cfg, **kw):
+        seen.append((re.dtype, re.shape[0]))
+        return orig(re, im, cfg, **kw)
+
+    monkeypatch.setattr(cuda_curscan, "curscan_fused_sublane", spy)
+    caplog.set_level("INFO", logger="kspecanal_tpu")
+    assert tcli.main(ZS_ARGS + ["tpuSource", "devicenoise", "tpuCatchUp",
+                                "4", "prgLoopCnt", "8", "tpuPrefetch", "true",
+                                "tpuHeadless", "true"], device="cpu") == 0
+    assert seen == [(torch.uint8, 4), (torch.uint8, 4)]
+    assert "tpuPrefetch: ignored for on-device sources" in caplog.text
+
+
+def test_cli_tpu_profile_traces_the_session(tmp_path, caplog):
+    """``tpuProfile <dir>`` runs the session inside the port's trace: a
+    Chrome trace lands in the directory and the log carries the card's
+    busy share, absent on the CPU."""
+    caplog.set_level("INFO", logger="kspecanal_tpu")
+    out = tmp_path / "prof"
+    assert tcli.main(ZS_ARGS + ["tpuSource", "devicenoise", "tpuCatchUp",
+                                "2", "prgLoopCnt", "4", "tpuProfile",
+                                str(out), "tpuHeadless", "true"],
+                     device="cpu") == 0
+    assert [f for f in os.listdir(out) if f.endswith(".json")]
+    assert "profile: device busy share absent" in caplog.text
+
+
 def test_cli_requires_cuda_unless_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -116,10 +169,7 @@ def test_cli_requires_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["tpuSource", "devicesynth"], "item 1"),
-    (["tpuSource", "devicenoise"], "item 1"),
     (["tpuStateFile", "st.npz"], "item 3"),
-    (["tpuProfile", "trace"], "item 4"),
     (["tpuMeshTime", "2"], "item 7"),
     (["tpuRenderer", "png:frames"], "item 8"),
     (["zeroSpanSave"], "item 2"),
@@ -133,19 +183,27 @@ def test_unported_modes_and_options_name_their_roadmap_item(args, item):
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port and running one CPU step through
-    the entry point leaves JAX unloaded."""
+    """Importing every module of the port and running one CPU step and one
+    devicesynth catch-up step through the entry point leaves JAX
+    unloaded."""
     code = (
         "import sys\n"
         "import kspecanal_tpu_torch.cli as cli\n"
         "import kspecanal_tpu_torch.ops.cuda_curscan, "
         "kspecanal_tpu_torch.ops._build, kspecanal_tpu_torch.models.convert, "
-        "kspecanal_tpu_torch.parallel.stream, kspecanal_tpu_torch.render_term\n"
+        "kspecanal_tpu_torch.parallel.stream, kspecanal_tpu_torch.render_term, "
+        "kspecanal_tpu_torch.io.sources, kspecanal_tpu_torch.utils.profiling, "
+        "kspecanal_tpu_torch.scripts.roofline_r2, "
+        "kspecanal_tpu_torch.scripts.kernel_ablate, "
+        "kspecanal_tpu_torch.scripts.session_ablate\n"
+        "assert cli.main(%r, device='cpu') == 0\n"
         "assert cli.main(%r, device='cpu') == 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if m.startswith('jax'))\n"
-        "print('nojax ok')\n" % (ZS_ARGS + ["prgLoopCnt", "1",
-                                            "tpuHeadless", "true"]))
+        "print('nojax ok')\n" % (
+            ZS_ARGS + ["prgLoopCnt", "1", "tpuHeadless", "true"],
+            ZS_ARGS + ["tpuSource", "devicesynth", "tpuCatchUp", "2",
+                       "prgLoopCnt", "2", "tpuHeadless", "true"]))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
