@@ -11,44 +11,51 @@ Phases (any failure raises; the exit code is then non-zero):
   1. environment: torch, CUDA, nvcc, the card and its power limit;
   2. build of the kernels (one nvcc per source, in parallel), with ptxas'
      register/shared-memory report;
-  3. the sublane kernel against its plain version (``torch.fft``) at the
-     zero-span path's config (fft 2048, kaiser, 50% overlap, 2.4 Msps) in
-     all four cumulate modes, u8 input bit-identical to decoded float32, the
-     error of both against a complex128 reference, and fft 2048 at 90%
-     overlap, fft 256 hanning and the largest fft the kernel takes;
+  3. K1 against its plain version (``torch.fft``) run in float64 on the
+     same planes: the FFT kernel at the zero-span path's config (fft 2048,
+     kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
+     90% overlap, fft 256 hanning, fft 16384, and the cluster sizes fft
+     32768, 65536 and 131072 at 50% and 90% overlap (AVG and MIN); the
+     float32 plain chain's own error against the same float64 reference;
+     the direct kernel at fft 384 and 1280 (counted in ``direct_launches``);
+     u8 input bit-identical to decoded float32 at fft 2048 and 65536, 50%
+     and 90%;
   4. the scan kernels against their plain versions: the packed kernel at
      quickFullScan's geometry (fft 64, ones, 90%) in all four modes, fft 128
      at 50% and fft 32 at 25%, one sweep and 16 sweeps of blocks, u8
-     bit-identical; the sublane kernel at fmScan's geometry (fft 16384,
+     bit-identical; K1 (float64 plain) at fmScan's geometry (fft 16384,
      ones, 90%) and at the lane kernel's cell (fft 16384, kaiser, 50%);
   5. ``parallel.stream`` over 16384 blocks (268 M samples, ~112 s of
      2.4 Msps IQ made on the card) in chunks of 1024, against the plain
      path on the same data;
   6. the zero-span path: ``kspecanal_tpu_torch.cli.main`` serial, catch-up
-     and on a u8 capture file; every run must launch the kernel and put the
-     synth peaks of its final average on 91/92/93 MHz;
+     and on a u8 capture file at fft 2048, serial at fft 65536 (a cluster
+     of four blocks) and at fft 1280 (the direct kernel); every run must
+     launch its kernel and put the synth peaks of its final average on
+     91/92/93 MHz;
   7. the scan path through ``cli.main``: fmScan serial, catch-up and from a
      u8 capture file, fmScan at the lane kernel's cell, quickFullScan serial
      and catch-up with sweep read-ahead; each must launch its kernel and put
      the strongest peaks of its final average on integer MHz;
-  8. kernel and plain times (CUDA events, median of 10);
+  8. times (CUDA events, median of 10) of K1's FFT kernel, the direct
+     kernel (K1 before its redesign) and the plain chain at each cell, with
+     the FFT kernel's rate in plane bytes read once against 3.35 TB/s;
   9. the on-device sources: devicesynth planes against the same start times
      synthesised on the CPU, its tone purity (>= 120 dB, peaks on 91/92/93
      MHz), devicenoise's u8 planes (mean 127.5 +- 0.5);
- 10. K4, the forensic instantiation of the sublane kernel: each of its six
+ 10. K4, the forensic instantiation of the direct kernel: each of its six
      stages against its plain version at fft 2048 kaiser 50% AVG (T=256) and
      at fft 16384 (float64 and float32 sums), the 'full' stage bitwise equal
-     to the production kernel after the layout map;
+     to the direct kernel's production instantiation after the layout map;
  11. the ablate variants of the kernel-ablation script against their plain
      versions (f32, and u8 bit-identical to decoded f32), and the forensic
-     instantiation with no ablate bit bitwise equal to production in all
-     four cumulate modes;
+     instantiation with no ablate bit bitwise equal to the direct kernel in
+     all four cumulate modes;
  12. the forensics path's sessions through ``cli.main`` at fft 2048 kaiser
      50%: devicesynth and devicenoise with ``tpuCatchUp 1024`` (8 batches),
      then again with ``tpuProfile``, and the host synth with ``tpuProfile``:
-     each launches the kernel (u8 planes for devicenoise), writes a trace
-     and logs the card's busy share; devicesynth puts its peaks on 91/92/93
-     MHz;
+     each launches K1 (u8 planes for devicenoise), writes a trace and logs
+     the card's busy share; devicesynth puts its peaks on 91/92/93 MHz;
  13. the forensics scripts on the card: the stage table of
      ``scripts.roofline_r2`` (fft 2048 T=4096; fft 16384 T=288 with float64
      and float32 sums), the marginal table of ``scripts.kernel_ablate`` (u8
@@ -73,14 +80,20 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-MAIN_ARGS = ["zeroSpan", "centerFreq", "92e6", "fftSize", "2048", "window",
-             "kaiser", "curScanNonOverlap", "0.5", "tpuLogIter", "false"]
+ZS_ARGS = ["zeroSpan", "centerFreq", "92e6", "window", "kaiser",
+           "curScanNonOverlap", "0.5", "tpuLogIter", "false"]
+MAIN_ARGS = ZS_ARGS + ["fftSize", "2048"]
 PEAKS_HZ = (91e6, 92e6, 93e6)
 FM_ARGS = ["fmScan", "tpuLogIter", "false"]
 QFS_ARGS = ["quickFullScan", "tpuLogIter", "false"]
 LANE_CELL_ARGS = FM_ARGS + ["window", "kaiser", "curScanNonOverlap", "0.5"]
 BOUND = ("bound: |err| <= 5e-5*|plain| + 1e-6*peak per bin, and max-rel "
          "< 1e-5")
+# The float32 torch.fft chain misses that bound against float64 on MIN folds
+# at 90% overlap (up to 1.5 times it at fft 32768), so K1 is held to its
+# plain version run in float64 on the same planes.
+BOUND64 = BOUND + "; plain run in float64 on the same planes"
+MODES = ("AVG", "MAX", "MIN", "RAW")
 
 
 def check(cond, msg):
@@ -117,48 +130,76 @@ def spectra_error(got, want):
             (err / ref.clamp_min(1e-30)).max().item(), ok)
 
 
+def bound_share(got, want):
+    """The largest per-bin error as a share of the bound (<= 1 passes)."""
+    err = (got.double() - want.double()).abs()
+    ref = want.double().abs()
+    return (err / (5e-5 * ref + 1e-6 * ref.max())).max().item()
+
+
+def plain64(cc, re, im, cfg):
+    """K1's plain version in float64 on the same (float) planes."""
+    return cc.curscan_fused_sublane_plain(re.double(), im.double(), cfg)
+
+
+def counts(cc):
+    return cc.launches, cc.direct_launches
+
+
 def phase_kernels(cc, spec, gen):
-    """Kernel vs plain on the card.  Returns the main config's AVG max abs
-    error."""
-    print(f"== sublane kernel vs plain ({BOUND})")
-    main_err = None
-    cases = [(cfg_of(2048, 0.5, m), 256) for m in ("AVG", "MAX", "MIN", "RAW")]
+    """K1 vs its plain version in float64 on the card.  Returns the max abs
+    errors of the FFT kernel at the main config (AVG) and at fft 65536
+    (AVG, 50%), and of the direct kernel at fft 1280."""
+    print(f"== K1 vs plain ({BOUND64})")
+    errs = {}
+    cases = [(cfg_of(2048, 0.5, m), 256) for m in MODES]
     cases += [(cfg_of(2048, 0.1, m), 64) for m in ("AVG", "MIN")]
     cases += [(cfg_of(256, 0.5, "AVG", "WIN.HANNING"), 256),
-              (cfg_of(cc.MAX_FFT_SIZE, 0.5, "AVG"), 64),
-              (cfg_of(cc.MAX_FFT_SIZE, 0.5, "MAX"), 64)]
+              (cfg_of(16384, 0.5, "AVG"), 64),
+              (cfg_of(16384, 0.5, "MAX"), 64)]
+    cases += [(cfg_of(n, nono, m), 4) for n in (32768, 65536, 131072)
+              for nono in (0.5, 0.1) for m in ("AVG", "MIN")]
+    cases += [(cfg_of(n, 0.5, m, "WIN.HANNING"), 256) for n in (384, 1280)
+              for m in ("AVG", "MIN")]
     for cfg, t in cases:
+        route = cc.kernel_route(cfg)
         re, im = noise(cfg, t, False, gen)
+        before = counts(cc)
         got = cc.curscan_fused_sublane(re, im, cfg)
-        want = cc.curscan_fused_sublane_plain(re, im, cfg)
+        after = counts(cc)
+        want = plain64(cc, re, im, cfg)
+        f32 = cc.curscan_fused_sublane_plain(re, im, cfg)
         torch.cuda.synchronize()
         check(got.shape == (t, cfg.fft_size) and bool(got.isfinite().all()),
-              "kernel output shape/finite")
+              "K1 output shape/finite")
+        launched = (after[0] - before[0], after[1] - before[1])
+        check(launched == ((1, 0) if route == "fft" else (0, 1)),
+              f"fft {cfg.fft_size} launched the {route} kernel once")
         mx, mrel, bin_rel, ok = spectra_error(got, want)
-        print(f"fft {cfg.fft_size} ovl {1 - cfg.cur_scan_non_overlap:.1f} "
-              f"{cfg.window} {cfg.cur_scan_cumu_mode} W={cfg.num_windows} "
-              f"T={t}: max_abs {mx:.3e} max_rel {mrel:.3e} worst_bin_rel "
-              f"{bin_rel:.3e} {'PASS' if ok and mrel < 1e-5 else 'FAIL'}")
-        check(ok and mrel < 1e-5, f"kernel vs plain at {cfg.fft_size}/"
+        print(f"{route} kernel: fft {cfg.fft_size} ovl "
+              f"{1 - cfg.cur_scan_non_overlap:.1f} {cfg.window} "
+              f"{cfg.cur_scan_cumu_mode} W={cfg.num_windows} T={t}: max_abs "
+              f"{mx:.3e} max_rel {mrel:.3e} worst_bin_rel {bin_rel:.3e}, "
+              f"{bound_share(got, want):.3f} of the bound (float32 plain "
+              f"{bound_share(f32, want):.3f}) "
+              f"{'PASS' if ok and mrel < 1e-5 else 'FAIL'}")
+        check(ok and mrel < 1e-5, f"K1 vs plain at {cfg.fft_size}/"
               f"{cfg.cur_scan_non_overlap}/{cfg.cur_scan_cumu_mode}")
-        if cfg.fft_size == 2048 and cfg.cur_scan_non_overlap == 0.5:
-            if cfg.cur_scan_cumu_mode == "AVG":
-                main_err = mx
-                ref = spec.curscan_batched(re.double(), im.double(), cfg)
-                for name, out in (("kernel", got), ("plain", want)):
-                    print(f"  {name} vs complex128 torch.fft reference: "
-                          f"max_rel {spectra_error(out, ref)[1]:.3e}")
-    for nono in (0.5, 0.1):
-        cfg = cfg_of(2048, nono)
-        re, im = noise(cfg, 256, True, gen)
+        if cfg.cur_scan_non_overlap == 0.5 and cfg.cur_scan_cumu_mode == "AVG":
+            errs.setdefault(cfg.fft_size, mx)
+        del re, im, got, want, f32
+    for fft, nono, t in ((2048, 0.5, 256), (2048, 0.1, 256), (65536, 0.5, 4),
+                         (65536, 0.1, 4)):
+        cfg = cfg_of(fft, nono)
+        re, im = noise(cfg, t, True, gen)
         got = cc.curscan_fused_sublane(re, im, cfg)
         dec = cc.curscan_fused_sublane(spec.decode_u8(re), spec.decode_u8(im),
                                        cfg)
         same = torch.equal(got, dec)
-        print(f"u8 planes vs decoded f32 through the kernel, ovl "
+        print(f"u8 planes vs decoded f32 through the FFT kernel, fft {fft} ovl "
               f"{1 - nono:.1f}: {'bit-identical' if same else 'DIFFER'}")
         check(same, "u8 kernel input bit-identical to decoded f32")
-    return main_err
+    return errs
 
 
 def compare(kernel, plain, cfg, t, gen, what):
@@ -181,15 +222,16 @@ def compare(kernel, plain, cfg, t, gen, what):
 
 
 def phase_scan_kernels(cc, cp, spec, gen):
-    """The scan path's kernels vs plain.  Returns the max abs errors of the
-    packed kernel at quickFullScan (AVG, 16 sweeps), the sublane kernel at
+    """The scan path's kernels vs plain (K1's in float64).  Returns the max
+    abs errors of the packed kernel at quickFullScan (AVG, 16 sweeps), K1 at
     fmScan (AVG, T=288) and at the lane kernel's cell."""
     qfs = cfg_of(64, 0.1, "AVG", "WIN.ONES")
     print(f"== scan kernels vs plain ({BOUND}); quickFullScan geometry: "
           f"{qfs.num_windows} windows over {qfs.full_size} samples, "
           f"{len({s % 64 for s in qfs.window_starts})} start residues")
     packed = (cp.curscan_fused_packed, cp.curscan_fused_packed_plain)
-    sublane = (cc.curscan_fused_sublane, cc.curscan_fused_sublane_plain)
+    sublane = (cc.curscan_fused_sublane,
+               lambda re_, im_, cfg: plain64(cc, re_, im_, cfg))
     errs = {}
     for t in (1226, 1226 * 16):     # one and 16 quickFullScan sweeps
         for mode in ("AVG", "MAX", "MIN", "RAW"):
@@ -212,11 +254,11 @@ def phase_scan_kernels(cc, cp, spec, gen):
     for t in (18, 288):                # one and 16 fmScan sweeps
         for mode in ("AVG", "MAX", "MIN"):
             mx = compare(*sublane, cfg_of(16384, 0.1, mode, "WIN.ONES"), t,
-                         gen, "sublane")
+                         gen, "K1")
             if mode == "AVG" and t == 288:
                 errs["fm"] = mx
     errs["lane_cell"] = compare(*sublane, cfg_of(16384, 0.5, "AVG"), 64, gen,
-                                "sublane at the lane kernel's cell")
+                                "K1 at the lane kernel's cell")
     return errs
 
 
@@ -319,45 +361,60 @@ def load_avg(path):
 
 
 def phase_sessions(cc, cli, tmp):
-    """The main path through the entry point.  Returns kernel launches."""
+    """The zero-span path through the entry point.  Returns the launches of
+    the FFT kernel at fft 2048 and at fft 65536, and of the direct kernel
+    at fft 1280."""
+    from kspecanal_tpu.cli import parse_args
     cfg = cfg_of()
     cap = os.path.join(tmp, "capture.iq")
     write_capture(cap, cfg, 64 * cfg.full_size, seed=7)
-    runs = [("serial", ["tpuSource", "synth", "prgLoopCnt", "8"], 8),
-            ("catch-up", ["tpuSource", "synth", "prgLoopCnt", "512",
-                          "tpuCatchUp", "128"], 512),
-            ("u8 file", ["tpuSource", f"file:{cap}", "prgLoopCnt", "64",
-                         "tpuCatchUp", "16"], 64)]
-    print("== sessions through kspecanal_tpu_torch.cli.main")
-    cc.launches = 0
-    for name, args, iters in runs:
-        lvls = os.path.join(tmp, f"lvls_{len(args)}.bin")
-        before = cc.launches
+    runs = [("serial", "2048", ["tpuSource", "synth", "prgLoopCnt", "8"], 8),
+            ("catch-up", "2048", ["tpuSource", "synth", "prgLoopCnt", "512",
+                                  "tpuCatchUp", "128"], 512),
+            ("u8 file", "2048", ["tpuSource", f"file:{cap}", "prgLoopCnt",
+                                 "64", "tpuCatchUp", "16"], 64),
+            ("serial, a cluster of 4 blocks", "65536",
+             ["tpuSource", "synth", "prgLoopCnt", "4"], 4),
+            ("serial, the direct kernel", "1280",
+             ["tpuSource", "synth", "prgLoopCnt", "8"], 8)]
+    print("== zero-span sessions through kspecanal_tpu_torch.cli.main")
+    cc.launches = cc.direct_launches = 0
+    launches = {}
+    for name, fft, args, iters in runs:
+        args = ZS_ARGS + ["fftSize", fft] + args
+        run_cfg = parse_args(args)[0]
+        lvls = os.path.join(tmp, f"lvls_{len(launches)}.bin")
+        before = counts(cc)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rc = cli.main(MAIN_ARGS + args + ["tpuHeadless", "true",
-                                          "saveSigLvls", lvls])
+        rc = cli.main(args + ["tpuHeadless", "true", "saveSigLvls", lvls])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        check(rc == 0, f"{name} session rc")
+        check(rc == 0, f"fft {fft} {name} session rc")
         avg = load_avg(lvls)
         # -inf is a legitimate LogNoGain of an exactly-zero bin (the
         # noiseless synth has some); NaN and +inf are not.
-        check(avg.shape == (2048,) and not np.isnan(avg).any()
-              and not np.isposinf(avg).any(), f"{name} final average")
-        peaks = avg_peaks(cfg, avg)
-        cell = cfg.sampling_rate / cfg.x_res
+        check(avg.shape == (run_cfg.fft_size,) and not np.isnan(avg).any()
+              and not np.isposinf(avg).any(), f"fft {fft} {name} average")
+        peaks = avg_peaks(run_cfg, avg)
+        cell = run_cfg.sampling_rate / run_cfg.x_res
         on = len(peaks) == 3 and all(abs(p - w) <= cell
                                      for p, w in zip(peaks, PEAKS_HZ))
-        print(f"  {name}: {iters} iterations in {dt:.3f} s "
-              f"({iters * cfg.full_size / dt / 1e6:.2f} Msamp/s end to end, "
-              f"host source included), kernel launches "
-              f"{cc.launches - before}, peaks "
+        fft_n, direct_n = (a - b for a, b in zip(counts(cc), before))
+        print(f"  fft {fft} {name}: {iters} iterations in {dt:.3f} s "
+              f"({iters * run_cfg.full_size / dt / 1e6:.2f} Msamp/s end to "
+              f"end, host source included), launches FFT kernel {fft_n} "
+              f"direct kernel {direct_n}, peaks "
               f"{[round(p / 1e6, 4) for p in peaks]} MHz "
               f"{'PASS' if on else 'FAIL'}")
-        check(cc.launches > before, f"{name} session launched the kernel")
-        check(on, f"{name} peaks on 91/92/93 MHz")
-    return cc.launches
+        route = cc.kernel_route(run_cfg)
+        mine, other = ((fft_n, direct_n) if route == "fft"
+                       else (direct_n, fft_n))
+        check(mine > 0 and other == 0,
+              f"fft {fft} {name} session launched the {route} kernel (only)")
+        check(on, f"fft {fft} {name} peaks on 91/92/93 MHz")
+        launches[fft] = launches.get(fft, 0) + fft_n + direct_n
+    return launches
 
 
 def write_scan_capture(path, cfg, plan, sweeps, seed):
@@ -401,8 +458,8 @@ def scan_peaks(cfg, plan, avg):
 
 def phase_scan_sessions(cc, cp, cli, tmp):
     """The scan path through the entry point.  Returns the launches of each
-    kernel entry: fmScan's sublane runs, quickFullScan's packed runs and the
-    lane kernel's cell."""
+    kernel entry: fmScan's K1 (FFT kernel) runs, quickFullScan's packed runs
+    and the lane kernel's cell."""
     from kspecanal_tpu.cli import parse_args
     from kspecanal_tpu_torch.session import make_plan_cached
     fm_cfg = parse_args(FM_ARGS)[0]
@@ -430,7 +487,7 @@ def phase_scan_sessions(cc, cp, cli, tmp):
         plan = make_plan_cached(cfg)
         lvls = os.path.join(tmp, f"scan_lvls_{i}.bin")
         sweeps = cfg.prg_loop_cnt
-        cc.launches = cp.launches = 0
+        cc.launches = cc.direct_launches = cp.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(args + ["tpuHeadless", "true", "saveSigLvls", lvls])
@@ -438,6 +495,7 @@ def phase_scan_sessions(cc, cp, cli, tmp):
         dt = time.perf_counter() - t0
         sub, packed = cc.launches, cp.launches
         check(rc == 0, f"{name} session rc")
+        check(cc.direct_launches == 0, f"{name} ran no direct kernel")
         avg = load_avg(lvls)
         check(avg.shape == (plan.total_entries,) and np.isfinite(avg).all(),
               f"{name} final average")
@@ -449,7 +507,7 @@ def phase_scan_sessions(cc, cp, cli, tmp):
               f"{cfg.full_size} (fft {cfg.fft_size}) in {dt:.3f} s: "
               f"{sweeps / dt:.3f} sweeps/s, {samples / dt / 1e6:.2f} "
               f"Msamp/s end to end (host source included); launches "
-              f"sublane {sub} packed {packed}; peaks "
+              f"K1 {sub} packed {packed}; peaks "
               f"{[round(p / 1e6, 4) for p in peaks]} MHz (cell "
               f"{cell / 1e3:.1f} kHz) {'PASS' if on else 'FAIL'}")
         want_sub, want_packed = (0, 1) if kind == "qfs" else (1, 0)
@@ -461,34 +519,49 @@ def phase_scan_sessions(cc, cp, cli, tmp):
 
 
 def phase_timing(cc, cp, gen, gpu):
-    """Kernel vs plain times (ms): the zero-span config at T=4096, fmScan's
-    at T=288 (16 sweeps), the lane kernel's cell at T=288 and quickFullScan's
-    at T=1226*16 (16 sweeps)."""
+    """Kernel vs plain times (ms), each case in one row: K1's FFT kernel,
+    the direct kernel (K1 before its redesign) and the plain chain at the
+    zero-span config (T=4096), fmScan's (T=288, 16 sweeps), the lane
+    kernel's cell (T=288) and fft 65536 (T=64, no direct kernel); the direct
+    kernel at fft 1280 (T=4096); the packed kernel at quickFullScan's
+    (T=1226*16, 16 sweeps).  Returns ``{(case, dtype): (kernel, direct,
+    plain)}`` ms, direct None where no direct kernel runs."""
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
-    sublane = (cc.curscan_fused_sublane, cc.curscan_fused_sublane_plain)
-    packed = (cp.curscan_fused_packed, cp.curscan_fused_packed_plain)
-    cases = [("zero-span fft 2048 kaiser 50%", cfg_of(), 4096, sublane,
+    k1 = (cc.curscan_fused_sublane, cc.curscan_sublane_direct,
+          cc.curscan_fused_sublane_plain)
+    cases = [("zero-span fft 2048 kaiser 50%", cfg_of(), 4096, k1,
               (False, True)),
              ("fmScan fft 16384 ones 90%",
-              cfg_of(16384, 0.1, "AVG", "WIN.ONES"), 288, sublane, (False,)),
+              cfg_of(16384, 0.1, "AVG", "WIN.ONES"), 288, k1, (False,)),
              ("lane kernel's cell fft 16384 kaiser 50%",
-              cfg_of(16384, 0.5, "AVG"), 288, sublane, (False,)),
+              cfg_of(16384, 0.5, "AVG"), 288, k1, (False,)),
+             ("zero-span fft 65536 kaiser 50%", cfg_of(65536), 64,
+              (k1[0], None, k1[2]), (False,)),
+             ("zero-span fft 1280 kaiser 50% (direct kernel)", cfg_of(1280),
+              4096, (cc.curscan_sublane_direct, None, k1[2]), (False,)),
              ("quickFullScan fft 64 ones 90%",
-              cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226 * 16, packed,
+              cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226 * 16,
+              (cp.curscan_fused_packed, None, cp.curscan_fused_packed_plain),
               (False, True))]
     out = {}
-    print("== timing (CUDA events, 3 warm-ups, median of 10)")
-    for name, cfg, t, (kernel, plain), dtypes in cases:
+    print(f"== timing (CUDA events, 3 warm-ups, median of 10) [{gpu}]")
+    for name, cfg, t, (kernel, direct, plain), dtypes in cases:
         for u8 in dtypes:
             re, im = noise(cfg, t, u8, gen)
             ks = cuda_ms(lambda: kernel(re, im, cfg))
+            ds = None if direct is None else cuda_ms(
+                lambda: direct(re, im, cfg))
             ps = cuda_ms(lambda: plain(re, im, cfg))
             gs = t * cfg.full_size / 1e9
+            gb = 2 * re.element_size() * gs
             kind = "u8" if u8 else "f32"
-            print(f"  {name}, T={t}, {kind}: kernel {ks:.3f} ms = "
-                  f"{gs / ks * 1e3:.2f} Gsamp/s, plain {ps:.3f} ms = "
-                  f"{gs / ps * 1e3:.2f} Gsamp/s [{gpu}]")
-            out[name, kind] = (ks, ps)
+            line = (f"  {name}, T={t}, {kind}: kernel {ks:.3f} ms = "
+                    f"{gs / ks * 1e3:.2f} Gsamp/s = {gb / ks * 1e3:.1f} GB/s "
+                    f"of planes read once ({gb / ks / 3.35:.3f} of 3.35 TB/s)")
+            if ds is not None:
+                line += f", direct {ds:.3f} ms"
+            print(f"{line}, plain {ps:.3f} ms = {gs / ps * 1e3:.2f} Gsamp/s")
+            out[name, kind] = (ks, ds, ps)
             del re, im
     return out
 
@@ -536,7 +609,7 @@ def phase_k4(cc, gen):
                              (16384, 32, True)):
         cfg = cfg_of(fft)
         re_, im_ = noise(cfg, t, False, gen)
-        prod = cc.curscan_fused_sublane(re_, im_, cfg)
+        prod = cc.curscan_sublane_direct(re_, im_, cfg)
         for stage in cc.STAGES:
             got = cc.curscan_stage_ablate(re_, im_, cfg, stage,
                                           f32_sums=f32_sums)
@@ -554,17 +627,17 @@ def phase_k4(cc, gen):
                 worst = max(worst, mx)
             if stage == "full" and not f32_sums:
                 same = torch.equal(cc.stage_layout_to_spectrum(got), prod)
-                print(f"  fft {fft} 'full' vs production K1 after the layout "
-                      f"map: {'bitwise equal' if same else 'DIFFER'}")
-                check(same, "K4 full bitwise equal to production")
+                print(f"  fft {fft} 'full' vs the direct kernel after the "
+                      f"layout map: {'bitwise equal' if same else 'DIFFER'}")
+                check(same, "K4 full bitwise equal to the direct kernel")
     return worst
 
 
 def phase_ablate(cc, gen):
-    """K1's ablate variants against their plain versions."""
+    """The direct kernel's ablate variants against their plain versions."""
     from kspecanal_tpu_torch.ops.spectrum import decode_u8
     from kspecanal_tpu_torch.scripts.kernel_ablate import VARIANTS
-    print(f"== K1 ablate variants vs plain ({BOUND})")
+    print(f"== direct kernel's ablate variants vs plain ({BOUND})")
     cfg = cfg_of()
     re_, im_ = noise(cfg, 256, True, gen)
     for name, keys in VARIANTS:
@@ -585,10 +658,10 @@ def phase_ablate(cc, gen):
         re_, im_ = noise(cfg, 256, False, gen)
         same = torch.equal(cc.curscan_fused_sublane(re_, im_, cfg,
                                                     ablate=("concat",)),
-                           cc.curscan_fused_sublane(re_, im_, cfg))
+                           cc.curscan_sublane_direct(re_, im_, cfg))
         print(f"  forensic, no ablate bit, {mode}: "
-              f"{'bitwise equal' if same else 'DIFFER'} to production")
-        check(same, f"forensic instantiation == production ({mode})")
+              f"{'bitwise equal' if same else 'DIFFER'} to the direct kernel")
+        check(same, f"forensic instantiation == direct kernel ({mode})")
 
 
 class LogLines(logging.Handler):
@@ -659,8 +732,9 @@ def phase_device_sessions(cc, cli, tmp):
                         abs(p - w) <= cell for p, w in zip(peaks, PEAKS_HZ))
                     line += (f", peaks {[round(p / 1e6, 4) for p in peaks]} "
                              f"MHz {'PASS' if on else 'FAIL'}")
-                    check(on, "devicesynth peaks on 91/92/93 MHz")
                 print(line)
+                if src == "devicesynth":
+                    check(on, "devicesynth peaks on 91/92/93 MHz")
                 check(n > 0 and dtypes == [want_dtype],
                       f"{src} session launched K1 on {want_dtype} planes")
     logging.getLogger("kspecanal_tpu").removeHandler(log)
@@ -733,8 +807,8 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(20260817)
     t0 = time.perf_counter()
-    main_err = phase_kernels(cc, spec, gen)
-    t0 = phase_done("sublane kernel vs plain", t0)
+    k1_errs = phase_kernels(cc, spec, gen)
+    t0 = phase_done("K1 vs plain", t0)
     scan_errs = phase_scan_kernels(cc, cp, spec, gen)
     t0 = phase_done("scan kernels vs plain", t0)
     phase_stream(cc, st, gen)
@@ -753,37 +827,51 @@ def main():
     phase_ablate(cc, gen)
     t0 = phase_done("ablate variants vs plain", t0)
     with tempfile.TemporaryDirectory() as tmp:
-        launches += phase_device_sessions(cc, cli, tmp)
+        launches["2048"] += phase_device_sessions(cc, cli, tmp)
     t0 = phase_done("forensics sessions", t0)
     k4_launches, k4_ms, k4_plain_ms = phase_forensics(cc)
     check(k4_launches > 0, "the forensics scripts launched K4")
     phase_done("forensics scripts", t0)
-    sublane = {"name": "curscan_sublane", "route": "cuda",
-               "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu"}
-    zs_t = times["zero-span fft 2048 kaiser 50%", "f32"]
-    fm_t = times["fmScan fft 16384 ones 90%", "f32"]
-    lane_t = times["lane kernel's cell fft 16384 kaiser 50%", "f32"]
-    qfs_t = times["quickFullScan fft 64 ones 90%", "f32"]
+    fft_kernel = {"name": "curscan_fft", "route": "cuda",
+                  "source": "kspecanal_tpu_torch/csrc/curscan_fft.cu"}
+    sublane_423 = "kspecanal_tpu/ops/pallas_curscan.py:423"
+
+    def timed(case, kind="f32"):
+        ks, ds, ps = times[case, kind]
+        return {"ms": ks, "plain_ms": ps,
+                **({} if ds is None else {"direct_ms": ds})}
+
     print(json.dumps({"kernels": [
-        {**sublane, "replaces": "kspecanal_tpu/ops/pallas_curscan.py:423",
+        {**fft_kernel, "replaces": sublane_423,
          "config": "zero-span fft 2048 kaiser 50%, T=4096",
-         "launches": launches, "max_abs_err": main_err,
-         "ms": zs_t[0], "plain_ms": zs_t[1]},
-        {**sublane, "replaces": "kspecanal_tpu/ops/pallas_curscan.py:423",
+         "launches": launches["2048"], "max_abs_err": k1_errs[2048],
+         **timed("zero-span fft 2048 kaiser 50%")},
+        {**fft_kernel, "replaces": sublane_423,
+         "config": "zero-span fft 65536 kaiser 50% (a cluster of 4), T=64",
+         "launches": launches["65536"], "max_abs_err": k1_errs[65536],
+         **timed("zero-span fft 65536 kaiser 50%")},
+        {**fft_kernel, "replaces": sublane_423,
          "config": "fmScan fft 16384 ones 90%, T=288",
          "launches": scan_launches["fm"], "max_abs_err": scan_errs["fm"],
-         "ms": fm_t[0], "plain_ms": fm_t[1]},
-        {**sublane, "replaces": "kspecanal_tpu/ops/pallas_curscan.py:116",
+         **timed("fmScan fft 16384 ones 90%")},
+        {**fft_kernel, "replaces": "kspecanal_tpu/ops/pallas_curscan.py:116",
          "config": "lane kernel's cell: fft 16384 kaiser 50% f32, T=288",
          "launches": scan_launches["lane_cell"],
          "max_abs_err": scan_errs["lane_cell"],
-         "ms": lane_t[0], "plain_ms": lane_t[1]},
+         **timed("lane kernel's cell fft 16384 kaiser 50%")},
+        {"name": "curscan_sublane", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu",
+         "replaces": sublane_423,
+         "config": "direct DFT, non-power-of-two fft: zero-span fft 1280 "
+                   "kaiser 50%, T=4096",
+         "launches": launches["1280"], "max_abs_err": k1_errs[1280],
+         **timed("zero-span fft 1280 kaiser 50% (direct kernel)")},
         {"name": "curscan_packed", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_packed.cu",
          "replaces": "kspecanal_tpu/ops/pallas_curscan.py:872",
          "config": "quickFullScan fft 64 ones 90%, T=1226*16",
          "launches": scan_launches["qfs"], "max_abs_err": scan_errs["packed"],
-         "ms": qfs_t[0], "plain_ms": qfs_t[1]},
+         **timed("quickFullScan fft 64 ones 90%")},
         {"name": "curscan_sublane_forensic", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu",
          "replaces": "scripts/roofline_r2.py:43",

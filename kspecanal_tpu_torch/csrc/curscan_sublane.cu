@@ -1,12 +1,12 @@
-// Fused curscan kernel for NVIDIA Hopper (sm_90a).
+// Fused curscan kernel, direct two-stage DFT form, for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces: kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane (the Pallas
 // sublane-layout curscan kernel of the JAX package, entry
-// curscan_fused_sublane), and ::_kernel (the lane layout, entry
-// curscan_fused) in the one cell where the JAX dispatcher picks it: float32
-// planes, fft >= 16384, 128-aligned starts.  The two Pallas kernels differ
-// only in how they lay the DFT out on the TPU's vector registers; on Hopper
-// one kernel computes both.
+// curscan_fused_sublane) at the ffts that are multiples of 128 but not
+// powers of two, up to 16384; the powers of two run the FFT kernel
+// curscan_fft.cu.  It computes the TPU kernels' own two-stage DFT, which is
+// why K4 (the forensic instantiation below) is built on it.
 //
 // What it computes, per IQ block b:
 //   for every window start s = starts[w] (any static offset, aligned or not):
@@ -60,7 +60,8 @@
 // Shared memory: N * 8 bytes of frame plus (32 * 128 + n1 + 128) * sizeof(A2)
 // of stage-1 rows and roots.  N = 8192 (float32 sums) needs 99,840 bytes,
 // N = 16384 (float64 sums) 200,704 of the 232,448 a block may use; 16384 is
-// the largest fft_size this kernel takes (ops/cuda_curscan.MAX_FFT_SIZE).
+// the largest fft_size this kernel takes
+// (ops/cuda_curscan.DIRECT_MAX_FFT_SIZE).
 //
 // Forensic instantiation (FORENSIC = true; profiling only, never on a
 // session's path).  Replaces scripts/roofline_r2.py::_kernel_ablate (the

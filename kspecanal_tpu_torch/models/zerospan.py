@@ -192,10 +192,10 @@ def display_updates(state: ZeroSpanState, spec_lin: torch.Tensor,
         # AVG: seeded: prev*2^-K + sum w_i x_i with w_i = 2^-(K-i);
         # first copy: the closed-form cumu_weights.
         i = np.arange(k)
-        seeded_avg = cur * weights(np.float64(2.0) ** -k) + torch.einsum(
-            "t,tf->f", weights(2.0 ** -(k - i.astype(np.float64))), dbs)
-        fresh_avg = torch.einsum("t,tf->f",
-                                 weights(cumu_weights(CUMU_AVG, k)), dbs)
+        seeded_avg = dsp.decay_avg(
+            weights(2.0 ** -(k - i.astype(np.float64))), dbs, cur,
+            weights(np.float64(2.0) ** -k))
+        fresh_avg = dsp.decay_avg(weights(cumu_weights(CUMU_AVG, k)), dbs)
         return torch.where(first, fresh_avg, seeded_avg)
 
     fft_max = fold(state.fft_max, "MAX", cfg.b_data_max, 1)

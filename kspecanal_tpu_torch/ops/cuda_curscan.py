@@ -1,35 +1,48 @@
-"""Fused curscan on the card: the wrapper of the hand-written CUDA kernel
-``csrc/curscan_sublane.cu``, the port of
-``kspecanal_tpu.ops.pallas_curscan.curscan_fused_sublane`` (the sublane
-Pallas kernel, ``_kernel_sublane``).  It also serves the one cell of the lane
-kernel ``_kernel`` (``curscan_fused``: float32, fft >= 16384, 128-aligned
-starts), whose function it computes in another layout.
+"""Fused curscan on the card: the wrappers of the hand-written CUDA kernels
+that port ``kspecanal_tpu.ops.pallas_curscan.curscan_fused_sublane`` (the
+sublane Pallas kernel, ``_kernel_sublane``).  They also serve the one cell
+of the lane kernel ``_kernel`` (``curscan_fused``: float32, fft >= 16384,
+128-aligned starts), whose function they compute in another layout.
 
-Per IQ block ``(full_size,)`` the kernel frames at every window start,
-decodes u8 planes in its loads, windows, runs the two-stage DFT
-(``n1 x 128``), takes ``|.|``, folds the windows (AVG/RAW weighted sum,
-MAX/MIN extrema, ``winAdj*2/N`` folded in) and writes the natural-order,
-fftshifted ``(fft_size,)`` spectrum.  It computes in float32 at every
-``tpuPrecision``, with float64 DFT sums above fft 8192.
+Per IQ block ``(full_size,)`` a kernel frames at every window start,
+decodes u8 planes in its loads, windows, takes the N-point DFT, takes
+``|.|``, folds the windows (AVG/RAW weighted sum, MAX/MIN extrema,
+``winAdj*2/N`` folded in) and writes the natural-order, fftshifted
+``(fft_size,)`` spectrum, in float32 at every ``tpuPrecision``.
 
-For a CUDA tensor :func:`curscan_fused_sublane` launches the kernel or
-raises; for a CPU tensor it runs :func:`curscan_fused_sublane_plain`, the
-``torch.fft`` chain, and never builds anything.  ``launches`` counts kernel
-launches.
+:func:`curscan_fused_sublane`, the port of the JAX entry of that name,
+dispatches a CUDA tensor by fft size:
 
-Performance forensics (profiling only; no session calls them): the same
-source compiled with ``FORENSIC = true`` cuts the kernel's math.
+  * a power of two from 256 to ``MAX_FFT_SIZE`` (131072): the FFT kernel
+    ``csrc/curscan_fft.cu`` (Stockham radix-16 in registers and shared
+    memory; above fft 16384 a thread-block cluster), counted in
+    ``launches``;
+  * another multiple of 128 up to ``DIRECT_MAX_FFT_SIZE`` (16384): the
+    direct two-stage DFT kernel ``csrc/curscan_sublane.cu`` through
+    :func:`curscan_sublane_direct`, counted in ``direct_launches``;
+  * anything else the JAX predicate takes (a multiple of 128 above 16384
+    that is not a power of two, or above 131072): no kernel; the wrapper
+    raises and ``spectrum.curscan_auto_batched`` never sends it here.
+
+A CUDA tensor launches a kernel or raises; a CPU tensor runs
+:func:`curscan_fused_sublane_plain`, the ``torch.fft`` chain, and never
+builds anything.
+
+Performance forensics (profiling only; no session calls them): the direct
+kernel's source compiled with ``FORENSIC = true`` cuts its math.
 ``curscan_fused_sublane(..., ablate=keys)`` removes stages as the JAX
 kernel's ``ablate`` keys do (``scripts/kernel_ablate.py``), and
 :func:`curscan_stage_ablate` stops after one stage of ``STAGES``, the port of
-``scripts/roofline_r2.py``'s ``_kernel_ablate`` (K4).  Their plain versions
-(:func:`curscan_ablate_plain`, :func:`curscan_stage_plain`) are the same
-two-stage DFT in PyTorch.  ``forensic_launches`` counts the forensic
-kernel's launches.
+``scripts/roofline_r2.py``'s ``_kernel_ablate`` (K4).  Both follow the
+direct two-stage DFT, which is what the JAX scripts take apart.  Their
+plain versions (:func:`curscan_ablate_plain`, :func:`curscan_stage_plain`)
+are the same two-stage DFT in PyTorch.  ``forensic_launches`` counts the
+forensic kernel's launches.
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,13 +53,19 @@ from kspecanal_tpu.config import (CUMU_AVG, CUMU_MAX, CUMU_MIN, CUMU_RAW,
 from kspecanal_tpu_torch.ops import spectrum
 
 _N2 = 128
-# Shared memory of one thread block: the windowed frame (N float2) plus up
-# to 32 stage-1 rows and the two root tables, (32 * 128 + N/128 + 128)
-# complex values of 8 bytes (float32 sums, fft <= 8192) or 16 bytes (float64
-# sums above).  fft 16384 needs 200,704 of the 232,448 bytes a Hopper block
-# may use; 32768 would need 333,824, so 16384 is the largest power of two the
-# kernel takes.
-MAX_FFT_SIZE = 16384
+# The direct kernel's shared memory per thread block: the windowed frame (N
+# float2) plus up to 32 stage-1 rows and the two root tables, (32 * 128 +
+# N/128 + 128) complex values of 8 bytes (float32 sums, fft <= 8192) or 16
+# bytes (float64 sums above).  fft 16384 needs 200,704 of the 232,448 bytes
+# a Hopper block may use; 32768 would need 333,824.
+DIRECT_MAX_FFT_SIZE = 16384
+# The FFT kernel: one thread block holds up to 16384 points (204,800 bytes
+# of shared memory: the padded buffer and the fold); above, c = fft/16384
+# blocks of a cluster, at most 8 (the portable cluster size).
+FFT_BLOCK_SIZE = 16384
+MAX_FFT_SIZE = 8 * FFT_BLOCK_SIZE
+# Window groups: enough thread blocks for 8 per SM (see window_groups).
+_BLOCKS_PER_SM = 8
 _FOLD = {CUMU_AVG: 0, CUMU_RAW: 0, CUMU_MAX: 1, CUMU_MIN: 2}
 
 # The forensic kernel's cut-off stages (its STOP_* values, in order) and
@@ -59,19 +78,59 @@ ABLATE_KEYS = {"win": 1, "stage1": 2, "twiddle": 4, "stage2": 8, "sqrt": 16,
 # classes, which the port does not have yet.
 _PRECISION_KEYS = ("force3m", "no3m")
 
-launches = 0
-forensic_launches = 0
+launches = 0            # the FFT kernel (csrc/curscan_fft.cu)
+direct_launches = 0     # the direct-DFT kernel's production instantiation
+forensic_launches = 0   # its forensic instantiation
+
+
+def _jax_predicate(cfg: SpecConfig) -> bool:
+    """``pallas_curscan.supports_fused_sublane``: fft_size a multiple of 128
+    with n1 >= 2 and full_size a multiple of 128 (window starts may be any
+    static offsets)."""
+    n = cfg.fft_size
+    return n % _N2 == 0 and n // _N2 >= 2 and cfg.full_size % _N2 == 0
+
+
+def kernel_route(cfg: SpecConfig) -> Optional[str]:
+    """Which kernel serves ``cfg`` on the card: ``"fft"`` (a power of two up
+    to ``MAX_FFT_SIZE``), ``"direct"`` (another multiple of 128 up to
+    ``DIRECT_MAX_FFT_SIZE``) or None (outside the JAX predicate, or the
+    gap: above 16384 and not a power of two, or above 131072)."""
+    if not _jax_predicate(cfg):
+        return None
+    n = cfg.fft_size
+    if n & (n - 1) == 0 and n <= MAX_FFT_SIZE:
+        return "fft"
+    if n <= DIRECT_MAX_FFT_SIZE:
+        return "direct"
+    return None
 
 
 def supports_fused_sublane(cfg: SpecConfig) -> bool:
-    """The JAX predicate (fft_size a multiple of 128 with n1 >= 2,
-    full_size a multiple of 128; window starts may be any static offsets)
-    plus this kernel's shared-memory limit, ``fft_size <= MAX_FFT_SIZE``.
-    Larger ffts take the ``torch.fft`` chain."""
-    n = cfg.fft_size
-    if n % _N2 or n // _N2 < 2 or n > MAX_FFT_SIZE:
-        return False
-    return cfg.full_size % _N2 == 0
+    """The JAX predicate within the kernels' limits (:func:`kernel_route`).
+    Configs outside take the ``torch.fft`` chain."""
+    return kernel_route(cfg) is not None
+
+
+def supports_direct(cfg: SpecConfig) -> bool:
+    """What the direct two-stage DFT kernel takes: the JAX predicate up to
+    ``DIRECT_MAX_FFT_SIZE``."""
+    return _jax_predicate(cfg) and cfg.fft_size <= DIRECT_MAX_FFT_SIZE
+
+
+def cluster_size(n: int) -> int:
+    """Thread blocks of the FFT kernel's cluster for an n-point FFT."""
+    return max(1, n // FFT_BLOCK_SIZE)
+
+
+def window_groups(t: int, n: int, n_windows: int, sms: int) -> int:
+    """The FFT kernel's window groups G per IQ block: the fewest that give
+    ``8 * sms`` thread blocks (``t * G * cluster_size(n)``), at most one per
+    window, at least 1, so ``G = min(W, ceil(8 * sms / (t * c)))``.  Group
+    g folds the windows ``[g*W//G, (g+1)*W//G)`` in order; the groups'
+    partial folds are combined in the order g = 0..G-1."""
+    want = -(-_BLOCKS_PER_SM * sms // (t * cluster_size(n)))
+    return max(1, min(n_windows, want))
 
 
 def curscan_fused_sublane_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
@@ -142,8 +201,8 @@ def ablate_mask(ablate) -> int:
 
 
 def _launch(lib_fn, iq_re, iq_im, cfg, n_out, *extra) -> torch.Tensor:
-    """Launch one instantiation of the kernel on the planes' device and
-    current stream; raise on a launch error."""
+    """Launch one instantiation of the direct kernel on the planes' device
+    and current stream; raise on a launch error."""
     dev = iq_re.device
     out = torch.empty((iq_re.shape[0], n_out), dtype=torch.float32,
                       device=dev)
@@ -160,9 +219,40 @@ def _launch(lib_fn, iq_re, iq_im, cfg, n_out, *extra) -> torch.Tensor:
             roots.data_ptr(), iq_re.shape[0], cfg.full_size, n,
             len(cfg.window_starts), _FOLD[cfg.cur_scan_cumu_mode], *extra,
             torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib_fn)
+    return out
+
+
+def _raise_on(err: int, lib_fn) -> None:
     if err:
         raise RuntimeError(f"{lib_fn.__name__} kernel launch failed: CUDA "
                            f"error {err}")
+
+
+def _launch_fft(lib, iq_re, iq_im, cfg) -> torch.Tensor:
+    """Launch the FFT kernel (and, with more than one window group, its
+    combine pass) on the planes' device and current stream."""
+    dev = iq_re.device
+    t, n = iq_re.shape[0], cfg.fft_size
+    out = torch.empty((t, n), dtype=torch.float32, device=dev)
+    if t == 0:
+        return out
+    w = len(cfg.window_starts)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = window_groups(t, n, w, sms)
+    part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
+            if groups > 1 else None)
+    starts, weights, window, roots = _tables(
+        n, cfg.window, cfg.window_starts, cfg.cur_scan_cumu_mode, dev)
+    with torch.cuda.device(dev):
+        err = lib.kspec_curscan_fft(
+            iq_re.data_ptr(), iq_im.data_ptr(),
+            int(iq_re.dtype == torch.uint8), out.data_ptr(),
+            0 if part is None else part.data_ptr(), starts.data_ptr(),
+            weights.data_ptr(), window.data_ptr(), roots.data_ptr(), t,
+            cfg.full_size, n, w, groups, _FOLD[cfg.cur_scan_cumu_mode],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib.kspec_curscan_fft)
     return out
 
 
@@ -176,43 +266,71 @@ def _cuda_lib(dev: torch.device):
 def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
                           cfg: SpecConfig, *, ablate=()) -> torch.Tensor:
     """``(T, full_size)`` float32 or raw-u8 planes -> ``(T, fft_size)``
-    fftshifted linear spectra.  CUDA tensors launch the kernel on the
-    current stream without synchronising; CPU tensors run the plain
-    version.  ``ablate`` (forensics only) names stages to remove
-    (``ABLATE_KEYS``): the spectra are then wrong by construction, and the
-    forensic kernel runs (plain version :func:`curscan_ablate_plain`)."""
+    fftshifted linear spectra.  CUDA tensors launch a kernel on the current
+    stream without synchronising (by :func:`kernel_route`: the FFT kernel,
+    or the direct kernel through :func:`curscan_sublane_direct`); CPU
+    tensors run the plain version.  ``ablate`` (forensics only, fft <=
+    16384) names stages to remove (``ABLATE_KEYS``) from the direct kernel:
+    the spectra are then wrong by construction, and its forensic
+    instantiation runs (plain version :func:`curscan_ablate_plain`)."""
     global launches, forensic_launches
     mask = ablate_mask(ablate)
-    if not supports_fused_sublane(cfg):
-        raise ValueError(f"config not supported by the sublane curscan "
-                         f"kernel (fft_size {cfg.fft_size}, full_size "
+    route = kernel_route(cfg)
+    if route is None:
+        raise ValueError(f"config not supported by the curscan kernels "
+                         f"(fft_size {cfg.fft_size}, full_size "
                          f"{cfg.full_size})")
+    if ablate and not supports_direct(cfg):
+        raise ValueError(f"ablate cuts the direct-DFT kernel, which takes "
+                         f"fft <= {DIRECT_MAX_FFT_SIZE}, not {cfg.fft_size}")
     check_planes(iq_re, iq_im, cfg)
     dev = iq_re.device
     if dev.type == "cpu":
         if ablate:
             return curscan_ablate_plain(iq_re, iq_im, cfg, ablate)
         return curscan_fused_sublane_plain(iq_re, iq_im, cfg)
+    if route == "direct" and not ablate:
+        return curscan_sublane_direct(iq_re, iq_im, cfg)
     lib = _cuda_lib(dev)
     if ablate:
         out = _launch(lib.kspec_curscan_sublane_forensic, iq_re, iq_im, cfg,
                       cfg.fft_size, STAGES.index("full"), mask, 0, 0)
         forensic_launches += 1
         return out
-    out = _launch(lib.kspec_curscan_sublane, iq_re, iq_im, cfg, cfg.fft_size)
+    out = _launch_fft(lib, iq_re, iq_im, cfg)
     launches += 1
     return out
 
 
+def curscan_sublane_direct(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                           cfg: SpecConfig) -> torch.Tensor:
+    """The direct two-stage DFT kernel (``csrc/curscan_sublane.cu``,
+    production instantiation) on ``(T, full_size)`` planes: the kernel of
+    the non-power-of-two ffts up to 16384, and the reference of the forensic
+    kernel's bitwise checks.  CPU tensors run the plain version."""
+    global direct_launches
+    if not supports_direct(cfg):
+        raise ValueError(f"config not supported by the direct curscan kernel "
+                         f"(fft_size {cfg.fft_size}, full_size "
+                         f"{cfg.full_size})")
+    check_planes(iq_re, iq_im, cfg)
+    if iq_re.device.type == "cpu":
+        return curscan_fused_sublane_plain(iq_re, iq_im, cfg)
+    lib = _cuda_lib(iq_re.device)
+    out = _launch(lib.kspec_curscan_sublane, iq_re, iq_im, cfg, cfg.fft_size)
+    direct_launches += 1
+    return out
+
+
 def check_stage_config(iq_re: torch.Tensor, cfg: SpecConfig, stage: str):
-    """Raise unless K4 takes the case: a known stage, a config the sublane
+    """Raise unless K4 takes the case: a known stage, a config the direct
     kernel supports, float32 planes, 128-aligned window starts, AVG weights
     and ``full_size`` a multiple of ``fft_size`` (the JAX script frames by
     ``s // 128`` and reads whole n1-row slabs)."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; stages: {STAGES}")
-    if not supports_fused_sublane(cfg):
-        raise ValueError(f"config not supported by the sublane curscan "
+    if not supports_direct(cfg):
+        raise ValueError(f"config not supported by the direct curscan "
                          f"kernel (fft_size {cfg.fft_size})")
     if iq_re.dtype != torch.float32:
         raise TypeError(f"the stage ablation takes float32 planes, got "
@@ -231,11 +349,12 @@ def check_stage_config(iq_re: torch.Tensor, cfg: SpecConfig, stage: str):
 def curscan_stage_ablate(iq_re: torch.Tensor, iq_im: torch.Tensor,
                          cfg: SpecConfig, stage: str, *,
                          f32_sums: bool = False) -> torch.Tensor:
-    """K4: the sublane kernel cut off after ``stage`` (``STAGES``), each
+    """K4: the direct kernel cut off after ``stage`` (``STAGES``), each
     block reduced to ``(fft_size/128, 128)``: ``(T, full_size)`` float32 ->
     ``(T, n1, 128)`` in the JAX script's layout (row k1, or m1 for
-    'frame'; column m2 or k2; unshifted).  'full' equals the production
-    kernel under ``out[b, (k1 + n1*k2 + N/2) % N] = K4[b, k1, k2]``.
+    'frame'; column m2 or k2; unshifted).  'full' equals
+    :func:`curscan_sublane_direct` under ``out[b, (k1 + n1*k2 + N/2) % N] =
+    K4[b, k1, k2]``.
     ``f32_sums`` sums in float32 above fft 8192 too, to price the float64
     sums.  CPU tensors run :func:`curscan_stage_plain`."""
     global forensic_launches

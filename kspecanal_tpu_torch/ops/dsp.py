@@ -159,6 +159,23 @@ def cumulate_range(mode: str, cur: torch.Tensor, c_start: int, c_end: int,
     return out
 
 
+def decay_avg(w: torch.Tensor, dbs: torch.Tensor,
+              prev: Optional[torch.Tensor] = None,
+              prev_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The decaying average of K dB rows ``dbs (K, F)`` as one weighted sum,
+    ``prev*prev_w + sum_t w[t]*dbs[t]`` (``prev`` None: the first copy).  A
+    -inf bin (the dB of an exactly-zero spectrum bin), in ``prev`` or in any
+    row, keeps the average at -inf as the serial fold ``(old + new)/2``
+    does, also where its float32 weight has underflowed to 0 and the product
+    alone would give NaN."""
+    out = torch.einsum("t,tf->f", w, dbs)
+    neg = torch.isneginf(dbs).any(dim=0)
+    if prev is not None:
+        out = prev * prev_w + out
+        neg = neg | torch.isneginf(prev)
+    return out.masked_fill(neg, float("-inf"))
+
+
 def reduce_windows(mode: str, mags: torch.Tensor,
                    weights: Optional[np.ndarray]) -> torch.Tensor:
     """Collapse the window axis (``-2``) of ``(..., W, fft_size)`` per-window

@@ -58,8 +58,7 @@ def waterfall_stream(iq_re: torch.Tensor, iq_im: torch.Tensor,
     w = _weights(cumu_weights(CUMU_AVG, iq_re.shape[0]), dbs)
     return StreamResult(rows=rows, fft_max=dbs.amax(dim=0),
                         fft_min=dbs.amin(dim=0),
-                        fft_avg=torch.einsum("t,tf->f", w, dbs),
-                        fft_cur=dbs[-1])
+                        fft_avg=dsp.decay_avg(w, dbs), fft_cur=dbs[-1])
 
 
 def waterfall_stream_u8(raw: torch.Tensor, cfg: SpecConfig) -> StreamResult:
@@ -88,12 +87,11 @@ def waterfall_stream_step(carry, iq_re: torch.Tensor, iq_im: torch.Tensor,
     dbs, rows = _batch_products(iq_re, iq_im, cfg)
     t = iq_re.shape[0]
     if first:
-        favg2 = torch.einsum("t,tf->f",
-                             _weights(cumu_weights(CUMU_AVG, t), dbs), dbs)
+        favg2 = dsp.decay_avg(_weights(cumu_weights(CUMU_AVG, t), dbs), dbs)
         fmax2, fmin2 = dbs.amax(dim=0), dbs.amin(dim=0)
     else:
-        favg2 = favg * _weights(np.float64(2.0) ** -t, dbs) + \
-            torch.einsum("t,tf->f", _weights(_cont_weights(t), dbs), dbs)
+        favg2 = dsp.decay_avg(_weights(_cont_weights(t), dbs), dbs, favg,
+                              _weights(np.float64(2.0) ** -t, dbs))
         fmax2 = torch.maximum(fmax, dbs.amax(dim=0))
         fmin2 = torch.minimum(fmin, dbs.amin(dim=0))
     return (fmax2, fmin2, favg2), (rows, dbs[-1])

@@ -1,8 +1,9 @@
 """Stage ablation of the sublane curscan kernel (K1) on the card — the port
 of ``scripts/kernel_ablate.py``.  It times the kernel at fft 2048 (or the
 fft given), kaiser, 50% overlap, with stages removed through
-``cuda_curscan.curscan_fused_sublane(..., ablate=keys)`` (the forensic
-instantiation; 'base' is the production kernel), and prints marginal rates
+``cuda_curscan.curscan_fused_sublane(..., ablate=keys)`` (the direct-DFT
+kernel's forensic instantiation; 'base' is its production instantiation,
+``cuda_curscan.curscan_sublane_direct``), and prints marginal rates
 between T_lo and T_hi blocks (default 4096 and 8192), which cancel the fixed
 cost of a launch.  (time(base) - time(variant)) at fixed work is the cost of
 the removed stages.
@@ -74,12 +75,12 @@ def main(argv: Optional[List[str]] = None
     w_lo, w_hi = t_lo * cfg.full_size, t_hi * cfg.full_size
     rows: Dict[str, Tuple[float, float, float]] = {}
     for name, ab in VARIANTS:
-        lo = cuda_ms(lambda: cc.curscan_fused_sublane(*lo_planes, cfg,
-                                                      ablate=ab),
-                     warm=2, reps=5)
-        hi = cuda_ms(lambda: cc.curscan_fused_sublane(*hi_planes, cfg,
-                                                      ablate=ab),
-                     warm=2, reps=5)
+        def run(p, ab=ab):
+            if not ab:
+                return cc.curscan_sublane_direct(*p, cfg)
+            return cc.curscan_fused_sublane(*p, cfg, ablate=ab)
+        lo = cuda_ms(lambda: run(lo_planes), warm=2, reps=5)
+        hi = cuda_ms(lambda: run(hi_planes), warm=2, reps=5)
         marg = (w_hi - w_lo) / ((hi - lo) * 1e-3) if hi > lo \
             else float("inf")
         rows[name] = (lo, hi, marg)

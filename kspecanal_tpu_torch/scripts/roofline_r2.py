@@ -1,5 +1,6 @@
-"""Stage breakdown of the sublane curscan kernel (K1) on the card — the port
-of ``scripts/roofline_r2.py``.  It runs the kernel's forensic instantiation
+"""Stage breakdown of the direct-DFT curscan kernel (K1 before its FFT
+redesign) on the card — the port of ``scripts/roofline_r2.py``, whose
+two-stage DFT it takes apart.  It runs the kernel's forensic instantiation
 (K4, ``cuda_curscan.curscan_stage_ablate``) cut off after each stage on the
 same planes:
 
@@ -8,11 +9,13 @@ same planes:
     s1     + stage 1, the length-n1 DFT down each column
     s1tw   + the twiddle multiply
     s2     + stage 2, the length-128 DFT along each row
-    full   + |.| and the weighted fold == the production kernel
+    full   + |.| and the weighted fold == the direct kernel's production
+           instantiation (``cuda_curscan.curscan_sublane_direct``)
 
 and prints per stage the time (CUDA events, median of 10), the delta from
-the previous stage and Gsamp/s, then the production kernel on the same
-planes and, for scale, one float32 ``torch.matmul`` at stage 2's shape
+the previous stage and Gsamp/s, then on the same planes the direct kernel
+and the FFT kernel (``csrc/curscan_fft.cu``, what K1 runs for a power of
+two) and, for scale, one float32 ``torch.matmul`` at stage 2's shape
 ``(T*W*n1, 128) @ (128, 128)`` with TF32 off.  The default cell is the main
 path's: fft 2048, kaiser, 50% overlap, AVG, float32 planes.
 
@@ -43,8 +46,8 @@ def stage_cfg(fft: int) -> SpecConfig:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
-    """Print the stage table for each T; returns ``{T: {stage: ms, 'prod':
-    ms, 'matmul': ms}}``."""
+    """Print the stage table for each T; returns ``{T: {stage: ms,
+    'direct': ms, 'fft': ms, 'matmul': ms}}``."""
     p = argparse.ArgumentParser(prog="roofline_r2", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--fft", type=int, default=2048)
@@ -85,10 +88,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
             print(f"T={t} {stage:5s} {ms:9.3f} ms {samples / ms / 1e6:7.3f} "
                   f"Gsamp/s  {delta}", flush=True)
             prev = ms
-        row["prod"] = cuda_ms(lambda: cc.curscan_fused_sublane(re, im, cfg))
-        print(f"T={t} prod  {row['prod']:9.3f} ms "
-              f"{samples / row['prod'] / 1e6:7.3f} Gsamp/s (production K1)",
-              flush=True)
+        for key, fn, what in (
+                ("direct", cc.curscan_sublane_direct, "the direct kernel"),
+                ("fft", cc.curscan_fused_sublane, "K1, the FFT kernel")):
+            row[key] = cuda_ms(lambda: fn(re, im, cfg))
+            print(f"T={t} {key:6s} {row[key]:9.3f} ms "
+                  f"{samples / row[key] / 1e6:7.3f} Gsamp/s ({what})",
+                  flush=True)
         results[t] = row
         del re, im
     return results

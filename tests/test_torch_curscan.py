@@ -1,4 +1,4 @@
-"""Port parity of the curscan chain and the sublane kernel's wrapper.
+"""Port parity of the curscan chain and K1's wrapper.
 
 On the CPU the wrapper ``curscan_fused_sublane`` runs its plain version (the
 ``torch.fft`` chain); it is held against the JAX package's Pallas kernel
@@ -6,7 +6,13 @@ On the CPU the wrapper ``curscan_fused_sublane`` runs its plain version (the
 ``curscan_batched`` (bounds in ``torch_parity.assert_spectra_close``).  u8
 planes must equal decoded f32 exactly.  The grid at fft 2048 (the main
 path's size) is here; fft 256 and 512 have files of their own, and the
-card's tests are in test_torch_gpu.py."""
+card's tests are in test_torch_gpu.py.  The dispatch on the card (which
+kernel a card tensor reaches) is checked here with 'meta' tensors and a
+stand-in library; the FFT kernel's index math is modelled in
+test_torch_fft_kernel.py."""
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,12 +65,109 @@ def test_auto_dispatch_on_cpu_never_builds(monkeypatch):
 
 
 def test_supports_matches_jax_predicate_up_to_smem_limit():
-    for fft in (128, 256, 384, 512, 1000, 2048, 4096, 8192, 16384):
+    for fft in (128, 256, 384, 512, 1000, 2048, 4096, 8192, 16384, 20480,
+                32768, 65536, 131072, 262144):
         for nono in (0.5, 0.1, 0.25):
             cfg = zs_cfg(fft, nono, x_res=min(fft, 512))
             want = (jpk.supports_fused_sublane(cfg)
-                    and fft <= cuda_curscan.MAX_FFT_SIZE)
+                    and (fft <= cuda_curscan.DIRECT_MAX_FFT_SIZE
+                         or (fft & (fft - 1) == 0
+                             and fft <= cuda_curscan.MAX_FFT_SIZE)))
             assert cuda_curscan.supports_fused_sublane(cfg) == want
+
+
+class _FakeLib:
+    """A stand-in for the kernels' library: records which entry point each
+    launch called and reports success."""
+
+    def __init__(self):
+        self.calls = []
+        for name in ("kspec_curscan_fft", "kspec_curscan_sublane",
+                     "kspec_curscan_packed"):
+            setattr(self, name, self._entry(name))
+
+    def _entry(self, name):
+        def fn(*args):
+            self.calls.append(name)
+            return 0
+        fn.__name__ = name
+        return fn
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Routes 'meta' tensors as the card's: the library is a
+    :class:`_FakeLib`, and the stream, device and SM count are stand-ins, so
+    the dispatch runs on the CPU up to the launch without building."""
+    lib = _FakeLib()
+    monkeypatch.setattr(cuda_curscan, "_cuda_lib", lambda dev: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda dev=None: types.SimpleNamespace(multi_processor_count=132))
+    return lib
+
+
+def _jax_kernel_configs():
+    """Every config, over the powers of two from 256 to 131072 and overlaps
+    0.5, 0.1 and 0.25, that the JAX dispatcher sends to a Pallas kernel
+    (sublane or lane)."""
+    for e in range(8, 18):
+        for nono in (0.5, 0.1, 0.25):
+            cfg = zs_cfg(1 << e, nono, x_res=512)
+            if (jpk.supports_fused_sublane(cfg)
+                    and jspec._fused_choice(cfg) is not None):
+                yield cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+def test_jax_kernel_configs_launch_a_kernel_on_the_card(fake_card, dtype):
+    """Wherever the JAX dispatcher picks a Pallas kernel, the port's
+    dispatcher sends a card tensor to a hand-written kernel, never to the
+    ``torch.fft`` chain: at these powers of two, one launch of the FFT
+    kernel, counted in ``launches`` and not in ``direct_launches``."""
+    for cfg in _jax_kernel_configs():
+        planes = torch.empty((2, cfg.full_size), device="meta", dtype=dtype)
+        fake_card.calls.clear()
+        before = (cuda_curscan.launches, cuda_curscan.direct_launches)
+        out = tspec.curscan_auto_batched(planes, planes, cfg)
+        assert out.shape == (2, cfg.fft_size)
+        assert fake_card.calls == ["kspec_curscan_fft"], (
+            cfg.fft_size, cfg.cur_scan_non_overlap, fake_card.calls)
+        assert (cuda_curscan.launches, cuda_curscan.direct_launches) == (
+            before[0] + 1, before[1])
+
+
+def test_non_power_of_two_takes_the_direct_kernel(fake_card):
+    for fft in (384, 1280, 5120, 16256):
+        cfg = zs_cfg(fft, 0.5, window=WINDOW_HANNING, x_res=fft // 4)
+        planes = torch.empty((2, cfg.full_size), device="meta")
+        fake_card.calls.clear()
+        before = (cuda_curscan.launches, cuda_curscan.direct_launches)
+        out = tspec.curscan_auto_batched(planes, planes, cfg)
+        assert out.shape == (2, fft)
+        assert fake_card.calls == ["kspec_curscan_sublane"]
+        assert (cuda_curscan.launches, cuda_curscan.direct_launches) == (
+            before[0], before[1] + 1)
+
+
+def test_the_remaining_gap_is_non_powers_of_two_above_16384():
+    """Pins the configs the JAX dispatcher sends to a Pallas kernel and the
+    port runs on the torch.fft chain: up to fft 131072, exactly the
+    multiples of 128 above 16384 that are not powers of two (ROADMAP.md
+    section 4), and every fft above 131072."""
+    gap = []
+    for fft in range(128, 131072 + 1, 128):
+        cfg = zs_cfg(fft, 0.5, x_res=128)
+        if (jspec._fused_choice(cfg) is not None
+                and not cuda_curscan.supports_fused_sublane(cfg)):
+            gap.append(fft)
+    assert gap == [n for n in range(16384 + 128, 131072, 128)
+                   if n & (n - 1)]
+    assert not cuda_curscan.supports_fused_sublane(zs_cfg(262144))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -85,6 +188,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     z = torch.zeros((1, big.full_size))
     with pytest.raises(ValueError):
         cuda_curscan.curscan_fused_sublane(z, z, big)
+    gap = zs_cfg(20480)
+    z = torch.zeros((1, gap.full_size))
+    with pytest.raises(ValueError):
+        cuda_curscan.curscan_fused_sublane(z, z, gap)
+    big = zs_cfg(2 * cuda_curscan.DIRECT_MAX_FFT_SIZE)
+    z = torch.zeros((1, big.full_size))
+    with pytest.raises(ValueError):
+        cuda_curscan.curscan_sublane_direct(z, z, big)
+    with pytest.raises(ValueError):
+        cuda_curscan.curscan_fused_sublane(z, z, big, ablate=("win",))
 
 
 def test_kernel_tables_match_jax_kernel_constants():

@@ -347,8 +347,10 @@ def test_cli_scan_prefetch_and_term_renderer(tmp_path, capsys):
 
 def test_sublane_predicate_equals_jax_up_to_fft_16384():
     """fmScan runs fft 16384 at 90% overlap: the JAX sublane kernel takes
-    it, and so must the port's (and so every power of two from 256)."""
-    for fft in (256, 512, 1024, 2048, 4096, 8192, 16384):
+    it, and so must the port's (and so every power of two from 256, up to
+    131072 through the FFT kernel's clusters)."""
+    for fft in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536,
+                131072):
         for nono in (0.5, 0.1):
             cfg = zs_cfg(fft, nono, x_res=512)
             assert cuda_curscan.supports_fused_sublane(cfg) \

@@ -13,6 +13,7 @@ import torch
 
 from kspecanal_tpu.models import zerospan as jzs
 from kspecanal_tpu_torch.models import zerospan as tzs
+from kspecanal_tpu_torch.ops import dsp as tdsp
 from kspecanal_tpu_torch.models.convert import state_from_numpy, \
     state_to_numpy
 from torch_parity import assert_db_close, blocks, zs_cfg
@@ -135,6 +136,34 @@ def test_batched_equals_serial():
         assert_db_close(got[k], want[k])
     np.testing.assert_array_equal(bview.spectrum.numpy(),
                                   sview.spectrum.numpy())
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["first", "seeded"])
+def test_batched_average_keeps_minus_inf(seeded):
+    """An exactly-zero spectrum bin (-inf dB) in an early block of a 1024-
+    block batch, whose float32 decay weight underflows to 0: the average
+    stays -inf there, as the serial fold (old + new)/2 keeps it, not NaN;
+    every other bin keeps the plain weighted sum.  The decay of a -inf
+    running average (the stream's chunk continuation) stays -inf too."""
+    k = 1024
+    rng = np.random.default_rng(6)
+    spec = torch.from_numpy(rng.uniform(1e-3, 1.0, (k, CFG.fft_size))
+                            .astype(np.float32))
+    spec[3, 100] = 0.0
+    st = tzs.init_state(CFG, "cpu")
+    if seeded:
+        st, _ = tzs.display_updates(st, spec[:2], CFG, with_view=False)
+    got, _ = tzs.display_updates(st, spec, CFG, with_view=False)
+    avg = got.fft_avg.numpy()
+    assert avg[100] == -np.inf and np.isfinite(np.delete(avg, 100)).all()
+    prev = torch.zeros(CFG.fft_size)
+    prev[7] = -np.inf
+    dbs = torch.log10(spec[4:6])
+    w = torch.tensor([0.25, 0.5])
+    out = tdsp.decay_avg(w, dbs, prev, torch.tensor(0.0))
+    assert out[7] == -np.inf
+    np.testing.assert_array_equal(np.delete(out.numpy(), 7), np.delete(
+        torch.einsum("t,tf->f", w, dbs).numpy(), 7))
 
 
 def test_display_branches_match_jax():
