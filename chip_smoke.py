@@ -15,11 +15,13 @@ Phases (any failure raises; the exit code is then non-zero):
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
      90% overlap, fft 256 hanning, fft 16384, and the cluster sizes fft
-     32768, 65536 and 131072 at 50% and 90% overlap (AVG and MIN); the
-     float32 plain chain's own error against the same float64 reference;
-     the direct kernel at fft 384 and 1280 (counted in ``direct_launches``);
-     u8 input bit-identical to decoded float32 at fft 2048 and 65536, 50%
-     and 90%;
+     32768, 65536 and 131072 at 50% and 90% overlap (AVG and MIN); its
+     mixed-radix form at fft 384, 1280, 3072, 16256 (one block), 20480,
+     98304, 130944 (clusters of 2, 8 and 8) and 262144 (the scratch route),
+     all four modes at 50% and 90%; the float32 plain chain's own error
+     against the same float64 reference; the direct kernel at fft 1280
+     (counted in ``direct_launches``); u8 input bit-identical to decoded
+     float32 at fft 2048, 65536, 1280, 20480 and 262144, 50% and 90%;
   4. the scan kernels against their plain versions: the packed kernel at
      quickFullScan's geometry (fft 64, ones, 90%) in all four modes, fft 128
      at 50% and fft 32 at 25%, one sweep and 16 sweeps of blocks, u8
@@ -30,16 +32,21 @@ Phases (any failure raises; the exit code is then non-zero):
      path on the same data;
   6. the zero-span path: ``kspecanal_tpu_torch.cli.main`` serial, catch-up
      and on a u8 capture file at fft 2048, serial at fft 65536 (a cluster
-     of four blocks) and at fft 1280 (the direct kernel); every run must
-     launch its kernel and put the synth peaks of its final average on
-     91/92/93 MHz;
+     of four blocks), at fft 1280 and at fft 20480 (the mixed-radix form, in
+     one block and in a cluster of two); every run must launch the FFT
+     kernel and never the direct kernel, and put the synth peaks of its
+     final average on 91/92/93 MHz;
   7. the scan path through ``cli.main``: fmScan serial, catch-up and from a
      u8 capture file, fmScan at the lane kernel's cell, quickFullScan serial
      and catch-up with sweep read-ahead; each must launch its kernel and put
      the strongest peaks of its final average on integer MHz;
   8. times (CUDA events, median of 10) of K1's FFT kernel, the direct
-     kernel (K1 before its redesign) and the plain chain at each cell, with
-     the FFT kernel's rate in plane bytes read once against 3.35 TB/s;
+     kernel (K1 before its redesign) and the plain chain at each cell and at
+     fft 1280, 3072 (T=4096) and 16256 (T=1024), and of the FFT kernel and
+     the plain chain at fft 20480 and 98304 (T=64, 50%
+     and 90%), 130944 and 262144 (T=8), each beside its bound: the larger
+     of 5 N log2 N + 4 N flops a window at 67 TFLOP/s and the planes read
+     once plus the output written once at 3.35 TB/s;
   9. the on-device sources: devicesynth planes against the same start times
      synthesised on the CPU, its tone purity (>= 120 dB, peaks on 91/92/93
      MHz), devicenoise's u8 planes (mean 127.5 +- 0.5);
@@ -60,13 +67,17 @@ Phases (any failure raises; the exit code is then non-zero):
      ``scripts.roofline_r2`` (fft 2048 T=4096; fft 16384 T=288 with float64
      and float32 sums), the marginal table of ``scripts.kernel_ablate`` (u8
      and f32, T=4096/8192) and ``scripts.session_ablate`` at k=4096 (cut
-     from 16384 to save time), with the launches of the forensic kernel
-     counted over them.
+     from 16384 to save time), with the launches of the forensic kernel and
+     of the direct kernel (their base) counted over them.
 The line before the last lists each kernel with its launches on its path,
-its error and times; the last line is the device record.
+its error, its times and its bound; ``library_ms`` is null throughout: no
+single PyTorch call computes a curscan (the plain version, cuFFT plus
+elementwise calls, is timed as ``plain_ms``).  The last line is the device
+record.
 """
 import json
 import logging
+import math
 import os
 import pickle
 import re
@@ -94,6 +105,24 @@ BOUND = ("bound: |err| <= 5e-5*|plain| + 1e-6*peak per bin, and max-rel "
 # plain version run in float64 on the same planes.
 BOUND64 = BOUND + "; plain run in float64 on the same planes"
 MODES = ("AVG", "MAX", "MIN", "RAW")
+# K1's mixed-radix form: one block (384, 1280, 3072, 16256), clusters of 2,
+# 8 and 8 (20480, 98304, 130944), the scratch route (262144).
+MIXED = (384, 1280, 3072, 16256, 20480, 98304, 130944, 262144)
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA's data sheet
+FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+
+
+def bound(cfg, t, u8):
+    """The least time (ms) the card could take for one curscan call, and
+    what bounds it: the larger of the FFT's flops (5 N log2 N + 4 N a
+    window) at 67 TFLOP/s and the planes read once plus the output written
+    once at 3.35 TB/s."""
+    n = cfg.fft_size
+    flops = t * cfg.num_windows * (5 * n * math.log2(n) + 4 * n)
+    nbytes = 2 * t * cfg.full_size * (1 if u8 else 4) + 4 * t * n
+    ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms
+                                   else "bytes")
 
 
 def check(cond, msg):
@@ -148,8 +177,8 @@ def counts(cc):
 
 def phase_kernels(cc, spec, gen):
     """K1 vs its plain version in float64 on the card.  Returns the max abs
-    errors of the FFT kernel at the main config (AVG) and at fft 65536
-    (AVG, 50%), and of the direct kernel at fft 1280."""
+    errors of the FFT kernel (AVG, 50%) by fft, and of the direct kernel at
+    fft 1280 under the key 'direct'."""
     print(f"== K1 vs plain ({BOUND64})")
     errs = {}
     cases = [(cfg_of(2048, 0.5, m), 256) for m in MODES]
@@ -159,8 +188,8 @@ def phase_kernels(cc, spec, gen):
               (cfg_of(16384, 0.5, "MAX"), 64)]
     cases += [(cfg_of(n, nono, m), 4) for n in (32768, 65536, 131072)
               for nono in (0.5, 0.1) for m in ("AVG", "MIN")]
-    cases += [(cfg_of(n, 0.5, m, "WIN.HANNING"), 256) for n in (384, 1280)
-              for m in ("AVG", "MIN")]
+    cases += [(cfg_of(n, nono, m), 4 if n <= 16384 else 2) for n in MIXED
+              for nono in (0.5, 0.1) for m in MODES]
     for cfg, t in cases:
         route = cc.kernel_route(cfg)
         re, im = noise(cfg, t, False, gen)
@@ -173,8 +202,8 @@ def phase_kernels(cc, spec, gen):
         check(got.shape == (t, cfg.fft_size) and bool(got.isfinite().all()),
               "K1 output shape/finite")
         launched = (after[0] - before[0], after[1] - before[1])
-        check(launched == ((1, 0) if route == "fft" else (0, 1)),
-              f"fft {cfg.fft_size} launched the {route} kernel once")
+        check(route == "fft" and launched == (1, 0),
+              f"fft {cfg.fft_size} launched the FFT kernel once")
         mx, mrel, bin_rel, ok = spectra_error(got, want)
         print(f"{route} kernel: fft {cfg.fft_size} ovl "
               f"{1 - cfg.cur_scan_non_overlap:.1f} {cfg.window} "
@@ -188,8 +217,19 @@ def phase_kernels(cc, spec, gen):
         if cfg.cur_scan_non_overlap == 0.5 and cfg.cur_scan_cumu_mode == "AVG":
             errs.setdefault(cfg.fft_size, mx)
         del re, im, got, want, f32
+    for mode in ("AVG", "MIN"):
+        cfg = cfg_of(1280, 0.5, mode, "WIN.HANNING")
+        before = counts(cc)
+        mx = compare(cc.curscan_sublane_direct,
+                     lambda re_, im_, c: plain64(cc, re_, im_, c), cfg, 256,
+                     gen, "direct kernel")
+        check(counts(cc) == (before[0], before[1] + 1),
+              "the direct kernel's entry launched it once")
+        errs.setdefault("direct", mx)
     for fft, nono, t in ((2048, 0.5, 256), (2048, 0.1, 256), (65536, 0.5, 4),
-                         (65536, 0.1, 4)):
+                         (65536, 0.1, 4), (1280, 0.5, 64), (1280, 0.1, 64),
+                         (20480, 0.5, 4), (20480, 0.1, 4), (262144, 0.5, 2),
+                         (262144, 0.1, 2)):
         cfg = cfg_of(fft, nono)
         re, im = noise(cfg, t, True, gen)
         got = cc.curscan_fused_sublane(re, im, cfg)
@@ -361,10 +401,9 @@ def load_avg(path):
 
 
 def phase_sessions(cc, cli, tmp):
-    """The zero-span path through the entry point.  Returns the launches of
-    the FFT kernel at fft 2048 and at fft 65536, and of the direct kernel
-    at fft 1280."""
-    from kspecanal_tpu.cli import parse_args
+    """The zero-span path through the entry point.  Returns the FFT
+    kernel's launches by fft (2048, 65536, 1280, 20480)."""
+    from kspecanal_tpu_torch.cli import parse_args
     cfg = cfg_of()
     cap = os.path.join(tmp, "capture.iq")
     write_capture(cap, cfg, 64 * cfg.full_size, seed=7)
@@ -375,8 +414,10 @@ def phase_sessions(cc, cli, tmp):
                                  "64", "tpuCatchUp", "16"], 64),
             ("serial, a cluster of 4 blocks", "65536",
              ["tpuSource", "synth", "prgLoopCnt", "4"], 4),
-            ("serial, the direct kernel", "1280",
-             ["tpuSource", "synth", "prgLoopCnt", "8"], 8)]
+            ("serial, the mixed-radix kernel in one block", "1280",
+             ["tpuSource", "synth", "prgLoopCnt", "8"], 8),
+            ("serial, the mixed-radix kernel in a cluster of 2", "20480",
+             ["tpuSource", "synth", "prgLoopCnt", "4"], 4)]
     print("== zero-span sessions through kspecanal_tpu_torch.cli.main")
     cc.launches = cc.direct_launches = 0
     launches = {}
@@ -407,13 +448,11 @@ def phase_sessions(cc, cli, tmp):
               f"direct kernel {direct_n}, peaks "
               f"{[round(p / 1e6, 4) for p in peaks]} MHz "
               f"{'PASS' if on else 'FAIL'}")
-        route = cc.kernel_route(run_cfg)
-        mine, other = ((fft_n, direct_n) if route == "fft"
-                       else (direct_n, fft_n))
-        check(mine > 0 and other == 0,
-              f"fft {fft} {name} session launched the {route} kernel (only)")
+        check(cc.kernel_route(run_cfg) == "fft" and fft_n > 0
+              and direct_n == 0,
+              f"fft {fft} {name} session launched the FFT kernel (only)")
         check(on, f"fft {fft} {name} peaks on 91/92/93 MHz")
-        launches[fft] = launches.get(fft, 0) + fft_n + direct_n
+        launches[fft] = launches.get(fft, 0) + fft_n
     return launches
 
 
@@ -460,7 +499,7 @@ def phase_scan_sessions(cc, cp, cli, tmp):
     """The scan path through the entry point.  Returns the launches of each
     kernel entry: fmScan's K1 (FFT kernel) runs, quickFullScan's packed runs
     and the lane kernel's cell."""
-    from kspecanal_tpu.cli import parse_args
+    from kspecanal_tpu_torch.cli import parse_args
     from kspecanal_tpu_torch.session import make_plan_cached
     fm_cfg = parse_args(FM_ARGS)[0]
     cap = os.path.join(tmp, "fm_capture.iq")
@@ -521,28 +560,39 @@ def phase_scan_sessions(cc, cp, cli, tmp):
 def phase_timing(cc, cp, gen, gpu):
     """Kernel vs plain times (ms), each case in one row: K1's FFT kernel,
     the direct kernel (K1 before its redesign) and the plain chain at the
-    zero-span config (T=4096), fmScan's (T=288, 16 sweeps), the lane
-    kernel's cell (T=288) and fft 65536 (T=64, no direct kernel); the direct
-    kernel at fft 1280 (T=4096); the packed kernel at quickFullScan's
-    (T=1226*16, 16 sweeps).  Returns ``{(case, dtype): (kernel, direct,
-    plain)}`` ms, direct None where no direct kernel runs."""
+    zero-span config (T=4096), fft 1280 and 3072 (T=4096), fft 16256 = 127
+    * 128 (T=1024; its largest prime factor makes it the mixed kernel's
+    dearest size per point), fmScan's (T=288, 16 sweeps) and the lane
+    kernel's cell (T=288); the FFT kernel and the plain
+    chain at fft 65536, 20480 and 98304 (T=64) and at 130944 and 262144
+    (T=8); the packed kernel at quickFullScan's (T=1226*16, 16 sweeps).
+    Returns ``{(case, dtype): (kernel, direct, plain, bound, bound_by)}``,
+    direct None where no direct kernel runs."""
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
     k1 = (cc.curscan_fused_sublane, cc.curscan_sublane_direct,
           cc.curscan_fused_sublane_plain)
+    k1_only = (k1[0], None, k1[2])
     cases = [("zero-span fft 2048 kaiser 50%", cfg_of(), 4096, k1,
               (False, True)),
+             ("zero-span fft 1280 kaiser 50%", cfg_of(1280), 4096, k1,
+              (False,)),
+             ("fft 3072 kaiser 50%", cfg_of(3072), 4096, k1, (False,)),
+             ("fft 16256 kaiser 50%", cfg_of(16256), 1024, k1, (False,)),
              ("fmScan fft 16384 ones 90%",
               cfg_of(16384, 0.1, "AVG", "WIN.ONES"), 288, k1, (False,)),
              ("lane kernel's cell fft 16384 kaiser 50%",
               cfg_of(16384, 0.5, "AVG"), 288, k1, (False,)),
-             ("zero-span fft 65536 kaiser 50%", cfg_of(65536), 64,
-              (k1[0], None, k1[2]), (False,)),
-             ("zero-span fft 1280 kaiser 50% (direct kernel)", cfg_of(1280),
-              4096, (cc.curscan_sublane_direct, None, k1[2]), (False,)),
-             ("quickFullScan fft 64 ones 90%",
-              cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226 * 16,
-              (cp.curscan_fused_packed, None, cp.curscan_fused_packed_plain),
-              (False, True))]
+             ("zero-span fft 65536 kaiser 50%", cfg_of(65536), 64, k1_only,
+              (False,))]
+    cases += [(f"fft {n} kaiser {'50' if nono == 0.5 else '90'}%",
+               cfg_of(n, nono), t, k1_only, (False,))
+              for n, nono, t in ((20480, 0.5, 64), (20480, 0.1, 64),
+                                 (98304, 0.5, 64), (98304, 0.1, 64),
+                                 (130944, 0.5, 8), (262144, 0.5, 8))]
+    cases += [("quickFullScan fft 64 ones 90%",
+               cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226 * 16,
+               (cp.curscan_fused_packed, None, cp.curscan_fused_packed_plain),
+               (False, True))]
     out = {}
     print(f"== timing (CUDA events, 3 warm-ups, median of 10) [{gpu}]")
     for name, cfg, t, (kernel, direct, plain), dtypes in cases:
@@ -552,16 +602,18 @@ def phase_timing(cc, cp, gen, gpu):
             ds = None if direct is None else cuda_ms(
                 lambda: direct(re, im, cfg))
             ps = cuda_ms(lambda: plain(re, im, cfg))
+            bms, by = bound(cfg, t, u8)
             gs = t * cfg.full_size / 1e9
             gb = 2 * re.element_size() * gs
             kind = "u8" if u8 else "f32"
             line = (f"  {name}, T={t}, {kind}: kernel {ks:.3f} ms = "
                     f"{gs / ks * 1e3:.2f} Gsamp/s = {gb / ks * 1e3:.1f} GB/s "
-                    f"of planes read once ({gb / ks / 3.35:.3f} of 3.35 TB/s)")
+                    f"of planes read once; bound {bms:.4f} ms ({by}), "
+                    f"{bms / ks:.3f} of it")
             if ds is not None:
                 line += f", direct {ds:.3f} ms"
             print(f"{line}, plain {ps:.3f} ms = {gs / ps * 1e3:.2f} Gsamp/s")
-            out[name, kind] = (ks, ds, ps)
+            out[name, kind] = (ks, ds, ps, bms, by)
             del re, im
     return out
 
@@ -679,7 +731,7 @@ def phase_device_sessions(cc, cli, tmp):
     """The forensics path's sessions through the entry point.  Returns the
     K1 launches."""
     log = LogLines()
-    logging.getLogger("kspecanal_tpu").addHandler(log)
+    logging.getLogger("kspecanal_tpu_torch").addHandler(log)
     cfg = cfg_of()
     runs = [("devicesynth", "1024", 8192), ("devicenoise", "1024", 8192),
             ("synth", "128", 512)]
@@ -737,33 +789,36 @@ def phase_device_sessions(cc, cli, tmp):
                     check(on, "devicesynth peaks on 91/92/93 MHz")
                 check(n > 0 and dtypes == [want_dtype],
                       f"{src} session launched K1 on {want_dtype} planes")
-    logging.getLogger("kspecanal_tpu").removeHandler(log)
+    logging.getLogger("kspecanal_tpu_torch").removeHandler(log)
     return launches
 
 
 def phase_forensics(cc):
-    """The forensics scripts on the card.  Returns the forensic kernel's
-    launches over them, and K4 'full' and its plain version's ms at fft
-    2048 T=4096."""
+    """The forensics scripts on the card.  Returns the launches of the
+    forensic kernel and of the direct kernel (the scripts' base) over them,
+    K4 'full' and its plain version's ms at fft 2048 T=4096, and the
+    bound there."""
     from kspecanal_tpu_torch.scripts import kernel_ablate, roofline_r2, \
         session_ablate
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
     print("== forensics scripts")
-    cc.forensic_launches = 0
+    cc.forensic_launches = cc.direct_launches = 0
     rows = roofline_r2.main(["4096"])
     roofline_r2.main(["--fft", "16384", "288"])
     roofline_r2.main(["--fft", "16384", "--f32-sums", "288"])
     kernel_ablate.main(["2048", "u8"])
     kernel_ablate.main(["2048", "f32"])
-    launches = cc.forensic_launches
+    launches, direct = cc.forensic_launches, cc.direct_launches
     session_ablate.main(["4096"])
     cfg = roofline_r2.stage_cfg(2048)
     gen = torch.Generator(device="cuda").manual_seed(4)
     re_, im_ = noise(cfg, 4096, False, gen)
     plain = cuda_ms(lambda: cc.curscan_stage_plain(re_, im_, cfg, "full"))
+    bms, by = bound(cfg, 4096, False)
     print(f"  K4 'full' plain version, T=4096: {plain:.3f} ms (kernel "
-          f"{rows[4096]['full']:.3f} ms)")
-    return launches, rows[4096]["full"], plain
+          f"{rows[4096]['full']:.3f} ms, bound {bms:.4f} ms, {by}); launches "
+          f"over the scripts: forensic {launches}, direct {direct}")
+    return launches, direct, rows[4096]["full"], plain, bms, by
 
 
 def phase_done(name, t0):
@@ -829,31 +884,38 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches["2048"] += phase_device_sessions(cc, cli, tmp)
     t0 = phase_done("forensics sessions", t0)
-    k4_launches, k4_ms, k4_plain_ms = phase_forensics(cc)
-    check(k4_launches > 0, "the forensics scripts launched K4")
+    k4_launches, direct_launches, k4_ms, k4_plain_ms, k4_bound, k4_by = \
+        phase_forensics(cc)
+    check(k4_launches > 0 and direct_launches > 0,
+          "the forensics scripts launched K4 and the direct kernel")
     phase_done("forensics scripts", t0)
     fft_kernel = {"name": "curscan_fft", "route": "cuda",
                   "source": "kspecanal_tpu_torch/csrc/curscan_fft.cu"}
     sublane_423 = "kspecanal_tpu/ops/pallas_curscan.py:423"
 
-    def timed(case, kind="f32"):
-        ks, ds, ps = times[case, kind]
-        return {"ms": ks, "plain_ms": ps,
-                **({} if ds is None else {"direct_ms": ds})}
+    def timed(case, kind="f32", direct=False):
+        ks, ds, ps, bms, by = times[case, kind]
+        return {"ms": ds if direct else ks, "plain_ms": ps, "bound_ms": bms,
+                "bound_by": by, "library_ms": None,
+                **({} if ds is None or direct else {"direct_ms": ds})}
+
+    def k1(config, case, launched, err):
+        return {**fft_kernel, "replaces": sublane_423, "config": config,
+                "launches": launched, "max_abs_err": err, **timed(case)}
 
     print(json.dumps({"kernels": [
-        {**fft_kernel, "replaces": sublane_423,
-         "config": "zero-span fft 2048 kaiser 50%, T=4096",
-         "launches": launches["2048"], "max_abs_err": k1_errs[2048],
-         **timed("zero-span fft 2048 kaiser 50%")},
-        {**fft_kernel, "replaces": sublane_423,
-         "config": "zero-span fft 65536 kaiser 50% (a cluster of 4), T=64",
-         "launches": launches["65536"], "max_abs_err": k1_errs[65536],
-         **timed("zero-span fft 65536 kaiser 50%")},
-        {**fft_kernel, "replaces": sublane_423,
-         "config": "fmScan fft 16384 ones 90%, T=288",
-         "launches": scan_launches["fm"], "max_abs_err": scan_errs["fm"],
-         **timed("fmScan fft 16384 ones 90%")},
+        k1("zero-span fft 2048 kaiser 50%, T=4096", "zero-span fft 2048 "
+           "kaiser 50%", launches["2048"], k1_errs[2048]),
+        k1("zero-span fft 65536 kaiser 50% (a cluster of 4), T=64",
+           "zero-span fft 65536 kaiser 50%", launches["65536"],
+           k1_errs[65536]),
+        k1("zero-span fft 1280 kaiser 50% (mixed radix, one block), T=4096",
+           "zero-span fft 1280 kaiser 50%", launches["1280"], k1_errs[1280]),
+        k1("zero-span fft 20480 kaiser 50% (mixed radix, a cluster of 2), "
+           "T=64", "fft 20480 kaiser 50%", launches["20480"],
+           k1_errs[20480]),
+        k1("fmScan fft 16384 ones 90%, T=288", "fmScan fft 16384 ones 90%",
+           scan_launches["fm"], scan_errs["fm"]),
         {**fft_kernel, "replaces": "kspecanal_tpu/ops/pallas_curscan.py:116",
          "config": "lane kernel's cell: fft 16384 kaiser 50% f32, T=288",
          "launches": scan_launches["lane_cell"],
@@ -862,10 +924,11 @@ def main():
         {"name": "curscan_sublane", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu",
          "replaces": sublane_423,
-         "config": "direct DFT, non-power-of-two fft: zero-span fft 1280 "
-                   "kaiser 50%, T=4096",
-         "launches": launches["1280"], "max_abs_err": k1_errs[1280],
-         **timed("zero-span fft 1280 kaiser 50% (direct kernel)")},
+         "config": "the direct DFT, no session's kernel: the forensics "
+                   "scripts' base (launches over them) and K1's yardstick, "
+                   "timed at zero-span fft 1280 kaiser 50%, T=4096",
+         "launches": direct_launches, "max_abs_err": k1_errs["direct"],
+         **timed("zero-span fft 1280 kaiser 50%", direct=True)},
         {"name": "curscan_packed", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_packed.cu",
          "replaces": "kspecanal_tpu/ops/pallas_curscan.py:872",
@@ -880,7 +943,8 @@ def main():
                    "stage at T=4096; launches over the roofline and "
                    "kernel-ablation scripts",
          "launches": k4_launches, "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms}]}))
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,6 @@ PyTorch versions for tensors on the CPU.
 
 import torch  # noqa: F401
 
-from kspecanal_tpu.config import SpecConfig  # noqa: F401
+from kspecanal_tpu_torch.config import SpecConfig  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,6 +1,10 @@
 """Command-line entry point of the port: the reference's spelling of
-``KEY value`` token pairs, parsed by ``kspecanal_tpu.cli.parse_args`` (no new
-token), run on a CUDA device through ``kspecanal_tpu_torch.session``.
+``KEY value`` token pairs, run on a CUDA device through
+``kspecanal_tpu_torch.session``.  The parser (:func:`parse_args`,
+:class:`RunOptions`, :class:`CliError`), :func:`print_info` and the host
+sources' :func:`make_source` are copies of ``kspecanal_tpu.cli``'s: the same
+tokens, defaults, validation and messages (tests/test_torch_standalone.py
+holds them equal).
 
     python -m kspecanal_tpu_torch zeroSpan centerFreq 92e6 fftSize 2048 \
         window kaiser curScanNonOverlap 0.5 tpuSource synth tpuHeadless true
@@ -10,25 +14,225 @@ token), run on a CUDA device through ``kspecanal_tpu_torch.session``.
 """
 from __future__ import annotations
 
+import dataclasses
 import signal
 import sys
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
-from kspecanal_tpu.cli import RunOptions, make_source, parse_args, print_info
-from kspecanal_tpu.config import MODE_SCAN
-from kspecanal_tpu.utils.logging import log_info, set_iter_logging
 from kspecanal_tpu_torch import session as sess_mod
+from kspecanal_tpu_torch.config import (MODE_ALIAS_FMSCAN,
+                                        MODE_ALIAS_QUICKFULLSCAN, MODE_SCAN,
+                                        MODE_ZEROSPAN, MODE_ZEROSPANPLAY,
+                                        MODE_ZEROSPANSAVE, SpecConfig)
 from kspecanal_tpu_torch.io import sources
+from kspecanal_tpu_torch.utils.logging import log_info, set_iter_logging
 from kspecanal_tpu_torch.utils.profiling import trace
+
+_MODES = (MODE_ZEROSPAN, MODE_ZEROSPANSAVE, MODE_ZEROSPANPLAY, MODE_SCAN,
+          MODE_ALIAS_FMSCAN, MODE_ALIAS_QUICKFULLSCAN)
+
+
+def _boolean(v: str) -> bool:
+    """kspecanal.py:771-775: only 'TRUE' (case-insensitive) is true."""
+    return v.upper() == "TRUE"
+
+
+@dataclasses.dataclass
+class RunOptions:
+    """Host-side options that are not part of the DSP config."""
+    source: str = "synth"
+    headless: bool = False
+    mesh_time: int = 1
+    mesh_band: int = 1
+    prefetch: bool = False   # background read-ahead pipeline (io/prefetch)
+    profile_dir: str = ""    # jax.profiler trace output directory
+    renderer: str = "gui"    # gui | term | none
+    state_file: str = ""     # checkpoint/resume .npz (io/state)
+    catch_up: int = 0        # zero-span blocks per dispatch (0/1 = serial)
+    render_every: str = "sweep"  # scan render cadence: sweep | band
+    decimate: int = 1        # time-domain decimation preprocessor factor
+    log_iter: bool = True    # per-iteration timing prints (tpuLogIter)
+
+
+class CliError(ValueError):
+    pass
+
+
+# (upper-cased CLI key) -> (config field, converter)
+_KEYMAP = {
+    "CENTERFREQ": ("center_freq", float),
+    "STARTFREQ": ("start_freq", float),
+    "ENDFREQ": ("end_freq", float),
+    "SAMPLINGRATE": ("sampling_rate", float),
+    "GAIN": ("gain", float),
+    "MINAMP4CLIP": ("min_amp4clip", float),
+    "CURSCANNONOVERLAP": ("cur_scan_non_overlap", float),
+    "CURSCANCUMUMODE": ("cur_scan_cumu_mode", lambda v: v.upper()),
+    "SCANRANGENONOVERLAP": ("scan_range_non_overlap", float),
+    "FFTSIZE": ("fft_size", int),
+    "XRES": ("x_res", int),
+    "BDATAMIN": ("b_data_min", _boolean),
+    "BDATAMAX": ("b_data_max", _boolean),
+    "BDATAAVG": ("b_data_avg", _boolean),
+    "BDATACUR": ("b_data_cur", _boolean),
+    "PLTCOMPRESS": ("plt_compress", lambda v: v.upper()),
+    "WINDOW": ("window", lambda v: "WIN.{}".format(v.upper())),
+    "BPLTHEATMAP": ("b_plt_heatmap", _boolean),
+    "BPLTLEVELS": ("b_plt_levels", _boolean),
+    "PRGLOOPCNT": ("prg_loop_cnt", int),
+    "PLTHIGHSNUMMARKERS": ("plt_highs_num_markers", int),
+    "PLTHIGHSDELTA4MARKING": ("plt_highs_delta4marking", float),
+    "PLTHIGHSPAUSE": ("plt_highs_pause", _boolean),
+    "SAVESIGLVLS": ("save_sig_lvls", str),
+    "ADJSIGLVLS": ("adj_sig_lvls", str),
+    "BGRID": ("b_grid", _boolean),
+    "BUSEPSD": ("b_use_psd", _boolean),
+    "BSCANRANGEBASEDATAISRAW": ("b_scan_range_base_data_is_raw", _boolean),
+    "ZEROSPANSAVEFILE": ("zero_span_save_file", str),
+    "ZEROSPANPLAYFILE": ("zero_span_play_file", str),
+    # New (no reference analog): MXU matmul precision for the DFT paths.
+    "TPUPRECISION": ("tpu_precision", lambda v: _precision_name(v)),
+    # The reference's own TODO (README.rst:608-611): bypass the outer K
+    # bins of each displayed curscan (Nyquist-edge leakage).
+    "TPUEDGESKIPBINS": ("tpu_edge_skip_bins", int),
+}
+
+
+def _precision_name(v: str) -> str:
+    """Validate at parse time — a bad value would otherwise only surface
+    at first kernel build on the TPU."""
+    up = v.upper()
+    if up not in ("DEFAULT", "HIGH", "HIGHEST"):
+        raise CliError(f"tpuPrecision [{v}] not one of default|high|highest")
+    return up
+
+_RUNOPT_KEYMAP = {
+    "TPUSOURCE": ("source", str),
+    "TPUHEADLESS": ("headless", _boolean),
+    "TPUMESHTIME": ("mesh_time", int),
+    "TPUMESHBAND": ("mesh_band", int),
+    "TPUPREFETCH": ("prefetch", _boolean),
+    "TPUPROFILE": ("profile_dir", str),
+    # Lowercase only the scheme: the png:<dir> form embeds a case-sensitive
+    # directory path that must pass through untouched.
+    "TPURENDERER": ("renderer", lambda v: (
+        v[:4].lower() + v[4:] if v[:4].lower() == "png:" else v.lower())),
+    # Checkpoint/resume: snapshot curves + waterfall on exit, resume on
+    # start when the file matches the config (io/state.py).
+    "TPUSTATEFILE": ("state_file", str),
+    # Batched catch-up: K zero-span blocks per device dispatch (file/synth
+    # sources; 0/1 keeps the serial one-block cadence).
+    "TPUCATCHUP": ("catch_up", int),
+    # Scan-mode render cadence: "sweep" (default, batched) or "band"
+    # (reference behavior, kspecanal.py:670-688: redraw per retune band).
+    "TPURENDEREVERY": ("render_every", lambda v: _render_every(v)),
+    # Time-domain decimation preprocessor (the reference's TODO,
+    # README.rst:612-622): capture at N*samplingRate, merge N adjacent
+    # samples into one (+1 amplitude bit, effective band = samplingRate).
+    "TPUDECIMATE": ("decimate", int),
+    # Per-iteration wall-time prints (ZeroSpan:{i}:{dt} etc.).  Default
+    # true matches the reference's unconditional prints
+    # (kspecanal.py:462,519-522,722-724).
+    "TPULOGITER": ("log_iter", _boolean),
+}
+
+
+def _render_every(v: str) -> str:
+    lo = v.lower()
+    if lo not in ("sweep", "band"):
+        raise CliError(f"tpuRenderEvery [{v}] not one of sweep|band")
+    return lo
+
+
+def parse_args(argv: List[str]) -> Tuple[SpecConfig, RunOptions]:
+    """Token-pair scan (kspecanal.py:813-911) -> finalized SpecConfig."""
+    overrides = {}
+    run = RunOptions()
+    i = 0
+    while i < len(argv):
+        cur = argv[i].upper()
+        if cur in _MODES:
+            overrides["prg_mode"] = cur
+        elif cur in _KEYMAP:
+            i += 1
+            if i >= len(argv):
+                raise CliError(f"missing value for [{argv[i-1]}]")
+            field, conv = _KEYMAP[cur]
+            overrides[field] = conv(argv[i])
+        elif cur in _RUNOPT_KEYMAP:
+            i += 1
+            if i >= len(argv):
+                raise CliError(f"missing value for [{argv[i-1]}]")
+            field, conv = _RUNOPT_KEYMAP[cur]
+            setattr(run, field, conv(argv[i]))
+        else:
+            raise CliError(f"handle_args: Unknown argument [{cur}]")
+        i += 1
+    cfg = SpecConfig(**overrides).finalize()
+    return cfg, run
+
+
+def print_info(cfg: SpecConfig) -> None:
+    """Effective-config echo (kspecanal.py:953-963)."""
+    log_info(f" startFreq[{cfg.start_freq}] centerFreq[{cfg.center_freq}] "
+             f"endFreq[{cfg.end_freq}]")
+    log_info(f" samplingRate[{cfg.sampling_rate}], gain[{cfg.gain}], "
+             f"bUsePSD[{cfg.b_use_psd}]")
+    log_info(f" fullSize[{cfg.full_size}], fftSize[{cfg.fft_size}], "
+             f"curScanCumuMode[{cfg.cur_scan_cumu_mode}], "
+             f"window[{cfg.window}]")
+    log_info(f" minAmp4Clip[{cfg.min_amp4clip}], "
+             f"curScanNonOverlap[{cfg.cur_scan_non_overlap}], "
+             f"scanRangeNonOverlap[{cfg.scan_range_non_overlap}], "
+             f"bScanRangeBaseDataIsRaw[{cfg.b_scan_range_base_data_is_raw}]")
+    log_info(f" prgMode [{cfg.prg_mode}], prgLoopCnt[{cfg.prg_loop_cnt}], "
+             f"bPltLevels[{cfg.b_plt_levels}], "
+             f"bPltHeatMap[{cfg.b_plt_heatmap}]")
+    log_info(f" pltHighsNumMarkers[{cfg.plt_highs_num_markers}], "
+             f"pltHighsDelta4Marking[{cfg.plt_highs_delta4marking}], "
+             f"pltHighsPause[{cfg.plt_highs_pause}]")
+    log_info(f" xRes [{cfg.x_res}], bGrid [{cfg.b_grid}], "
+             f"pltCompress [{cfg.plt_compress}], "
+             f"pltCompressHM [{cfg.plt_compress_hm}]")
+    log_info(f" SaveSigLvls [{cfg.save_sig_lvls}], "
+             f"AdjSigLvls [{cfg.adj_sig_lvls}]; "
+             f"zeroSpanSaveFile[{cfg.zero_span_save_file}], "
+             f"zeroSpanPlayFile[{cfg.zero_span_play_file}]")
+    log_info(f" bDataMax [{cfg.b_data_max}], bDataMin [{cfg.b_data_min}], "
+             f"bDataAvg[{cfg.b_data_avg}], bDataCur [{cfg.b_data_cur}]")
+
+
+def make_source(cfg: SpecConfig, run: RunOptions):
+    """The host source of ``run.source``; the on-device sources are
+    :func:`make_device_source`'s."""
+    from kspecanal_tpu_torch.io import sources
+    if run.source == "synth":
+        return sources.SynthIQSource(center_freq=cfg.center_freq,
+                                     sample_rate=cfg.sampling_rate,
+                                     gain=0.5, seed=None)
+    if run.source.startswith("file:"):
+        src, fallback = sources.make_file_source(
+            run.source[5:], center_freq=cfg.center_freq,
+            sample_rate=cfg.sampling_rate, gain=cfg.gain)
+        if fallback is not None:
+            log_info(f"native IQ stream unavailable ({fallback}); "
+                     "buffered reader")
+        return src
+    if run.source == "rtlsdr":
+        return sources.RtlSdrSource(center_freq=cfg.center_freq,
+                                    sample_rate=cfg.sampling_rate,
+                                    gain=cfg.gain)
+    raise CliError(f"unknown tpuSource [{run.source}]")
+
 
 
 def make_device_source(cfg, run: RunOptions, device):
     """The port's on-device source for ``tpuSource devicesynth`` (tone
     simulator) or ``devicenoise`` (u8 noise for soaking the session
     machinery), on ``device``; None for every other source, which
-    ``kspecanal_tpu.cli.make_source`` builds."""
+    :func:`make_source` builds."""
     if run.source == "devicesynth":
         return sources.DeviceSynthIQSource(center_freq=cfg.center_freq,
                                            sample_rate=cfg.sampling_rate,
@@ -70,8 +274,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     if source is None:
         source = make_source(cfg, run)
     if run.decimate > 1:
-        from kspecanal_tpu.io.sources import DecimatingSource
-        source = DecimatingSource(source, run.decimate)
+        source = sources.DecimatingSource(source, run.decimate)
         log_info(f"tpuDecimate: capturing at "
                  f"{cfg.sampling_rate * run.decimate:g} sps, merging "
                  f"{run.decimate} adjacent samples per output sample")
@@ -86,7 +289,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             # read-ahead wrapper would only hide that path.
             log_info("tpuPrefetch: ignored for on-device sources")
         else:
-            from kspecanal_tpu.io.prefetch import PrefetchingSource
+            from kspecanal_tpu_torch.io.prefetch import PrefetchingSource
             source = PrefetchingSource(source, block_size=cfg.full_size)
 
     renderer = None

@@ -25,8 +25,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from kspecanal_tpu.config import (CUMU_AVG, CUMU_MAX, CUMU_MIN, CUMU_RAW,
-                                  HEATMAP_ROWS, SpecConfig)
+from kspecanal_tpu_torch.config import (CUMU_AVG, CUMU_MAX, CUMU_MIN,
+                                        CUMU_RAW, HEATMAP_ROWS, SpecConfig)
 from kspecanal_tpu_torch.ops import dsp
 from kspecanal_tpu_torch.ops.spectrum import (curscan_auto_batched,
                                               decode_u8, psd_welch)

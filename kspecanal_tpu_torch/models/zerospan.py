@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from kspecanal_tpu.config import CUMU_AVG, HEATMAP_ROWS, SpecConfig, \
+from kspecanal_tpu_torch.config import CUMU_AVG, HEATMAP_ROWS, SpecConfig, \
     cumu_weights
 from kspecanal_tpu_torch.ops import dsp
 from kspecanal_tpu_torch.ops.spectrum import (curscan_auto_batched,

@@ -10,19 +10,19 @@ decodes u8 planes in its loads, windows, takes the N-point DFT, takes
 ``winAdj*2/N`` folded in) and writes the natural-order, fftshifted
 ``(fft_size,)`` spectrum, in float32 at every ``tpuPrecision``.
 
-:func:`curscan_fused_sublane`, the port of the JAX entry of that name,
-dispatches a CUDA tensor by fft size:
+The FFT kernel ``csrc/curscan_fft.cu`` serves a CUDA tensor at every fft
+the JAX predicate takes (every multiple of 128 from 256 up), counted in
+``launches``: the powers of two up to 131072 run its radix-16 Stockham
+kernel (above fft 16384 a thread-block cluster), every other size its
+mixed-radix kernel (odd prime passes first; a cluster above fft 16384;
+above 131072 a radix-c step through a scratch buffer in device memory).
+:func:`cluster_size` gives the thread blocks a window takes.
 
-  * a power of two from 256 to ``MAX_FFT_SIZE`` (131072): the FFT kernel
-    ``csrc/curscan_fft.cu`` (Stockham radix-16 in registers and shared
-    memory; above fft 16384 a thread-block cluster), counted in
-    ``launches``;
-  * another multiple of 128 up to ``DIRECT_MAX_FFT_SIZE`` (16384): the
-    direct two-stage DFT kernel ``csrc/curscan_sublane.cu`` through
-    :func:`curscan_sublane_direct`, counted in ``direct_launches``;
-  * anything else the JAX predicate takes (a multiple of 128 above 16384
-    that is not a power of two, or above 131072): no kernel; the wrapper
-    raises and ``spectrum.curscan_auto_batched`` never sends it here.
+The direct two-stage DFT kernel ``csrc/curscan_sublane.cu`` serves no
+session: :func:`curscan_sublane_direct` (counted in ``direct_launches``,
+fft <= ``DIRECT_MAX_FFT_SIZE``) is the base and the bitwise reference of
+the forensic kernel below, and the yardstick the FFT kernel is timed
+against.
 
 A CUDA tensor launches a kernel or raises; a CPU tensor runs
 :func:`curscan_fused_sublane_plain`, the ``torch.fft`` chain, and never
@@ -47,9 +47,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kspecanal_tpu.config import (CUMU_AVG, CUMU_MAX, CUMU_MIN, CUMU_RAW,
-                                  SpecConfig, cumu_weights, win_adj,
-                                  window_lut)
+from kspecanal_tpu_torch.config import (CUMU_AVG, CUMU_MAX, CUMU_MIN,
+                                        CUMU_RAW, SpecConfig, cumu_weights,
+                                        win_adj, window_lut)
 from kspecanal_tpu_torch.ops import spectrum
 
 _N2 = 128
@@ -60,10 +60,15 @@ _N2 = 128
 # a Hopper block may use; 32768 would need 333,824.
 DIRECT_MAX_FFT_SIZE = 16384
 # The FFT kernel: one thread block holds up to 16384 points (204,800 bytes
-# of shared memory: the padded buffer and the fold); above, c = fft/16384
-# blocks of a cluster, at most 8 (the portable cluster size).
+# of shared memory: the padded buffer and the fold), a multiple of 16 (16
+# points a thread); up to CLUSTER_MAX_FFT_SIZE the blocks of a window form
+# a cluster of at most 8 (the portable cluster size), above it they read a
+# scratch buffer of at most SCRATCH_BYTES (one IQ block's at least).
 FFT_BLOCK_SIZE = 16384
-MAX_FFT_SIZE = 8 * FFT_BLOCK_SIZE
+_RADIX = 16
+_MAX_CLUSTER = 8
+CLUSTER_MAX_FFT_SIZE = _MAX_CLUSTER * FFT_BLOCK_SIZE
+SCRATCH_BYTES = 1 << 30
 # Window groups: enough thread blocks for 8 per SM (see window_groups).
 _BLOCKS_PER_SM = 8
 _FOLD = {CUMU_AVG: 0, CUMU_RAW: 0, CUMU_MAX: 1, CUMU_MIN: 2}
@@ -92,22 +97,13 @@ def _jax_predicate(cfg: SpecConfig) -> bool:
 
 
 def kernel_route(cfg: SpecConfig) -> Optional[str]:
-    """Which kernel serves ``cfg`` on the card: ``"fft"`` (a power of two up
-    to ``MAX_FFT_SIZE``), ``"direct"`` (another multiple of 128 up to
-    ``DIRECT_MAX_FFT_SIZE``) or None (outside the JAX predicate, or the
-    gap: above 16384 and not a power of two, or above 131072)."""
-    if not _jax_predicate(cfg):
-        return None
-    n = cfg.fft_size
-    if n & (n - 1) == 0 and n <= MAX_FFT_SIZE:
-        return "fft"
-    if n <= DIRECT_MAX_FFT_SIZE:
-        return "direct"
-    return None
+    """Which kernel serves ``cfg`` on the card: ``"fft"`` for every config
+    the JAX predicate takes, else None."""
+    return "fft" if _jax_predicate(cfg) else None
 
 
 def supports_fused_sublane(cfg: SpecConfig) -> bool:
-    """The JAX predicate within the kernels' limits (:func:`kernel_route`).
+    """The JAX predicate: the FFT kernel takes every config it takes.
     Configs outside take the ``torch.fft`` chain."""
     return kernel_route(cfg) is not None
 
@@ -119,8 +115,29 @@ def supports_direct(cfg: SpecConfig) -> bool:
 
 
 def cluster_size(n: int) -> int:
-    """Thread blocks of the FFT kernel's cluster for an n-point FFT."""
-    return max(1, n // FFT_BLOCK_SIZE)
+    """Thread blocks c of the FFT kernel for one n-point window (n a
+    multiple of 128), each an (n/c)-point FFT, n/c <= 16384 and a multiple
+    of 16: 1 up to fft 16384; the smallest power of two up to
+    ``CLUSTER_MAX_FFT_SIZE`` (a cluster, c <= 8); above, the smallest
+    divisor of n (the radix-c step through device memory)."""
+    if n <= FFT_BLOCK_SIZE:
+        return 1
+    if n <= CLUSTER_MAX_FFT_SIZE:
+        c = 2
+        while n // c > FFT_BLOCK_SIZE:
+            c *= 2
+        return c
+    c = -(-n // FFT_BLOCK_SIZE)
+    while n % c or (n // c) % _RADIX:
+        c += 1
+    return c
+
+
+def scratch_chunk(t: int, n: int, n_windows: int) -> int:
+    """IQ blocks a launch of the FFT kernel's scratch route takes (fft >
+    ``CLUSTER_MAX_FFT_SIZE``): as many as fit ``SCRATCH_BYTES`` of
+    ``(n_windows, n)`` complex float32 sub-sequences each, at least 1."""
+    return max(1, min(t, SCRATCH_BYTES // (n_windows * n * 8)))
 
 
 def window_groups(t: int, n: int, n_windows: int, sms: int) -> int:
@@ -231,26 +248,33 @@ def _raise_on(err: int, lib_fn) -> None:
 
 def _launch_fft(lib, iq_re, iq_im, cfg) -> torch.Tensor:
     """Launch the FFT kernel (and, with more than one window group, its
-    combine pass) on the planes' device and current stream."""
+    combine pass; above ``CLUSTER_MAX_FFT_SIZE`` its radix-c step, chunk by
+    chunk) on the planes' device and current stream."""
     dev = iq_re.device
     t, n = iq_re.shape[0], cfg.fft_size
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
     if t == 0:
         return out
     w = len(cfg.window_starts)
+    c = cluster_size(n)
+    chunk = scratch_chunk(t, n, w) if n > CLUSTER_MAX_FFT_SIZE else t
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = window_groups(t, n, w, sms)
+    groups = window_groups(chunk, n, w, sms)
     part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
             if groups > 1 else None)
+    scratch = (torch.empty((chunk, w, n, 2), dtype=torch.float32, device=dev)
+               if n > CLUSTER_MAX_FFT_SIZE else None)
     starts, weights, window, roots = _tables(
         n, cfg.window, cfg.window_starts, cfg.cur_scan_cumu_mode, dev)
     with torch.cuda.device(dev):
         err = lib.kspec_curscan_fft(
             iq_re.data_ptr(), iq_im.data_ptr(),
             int(iq_re.dtype == torch.uint8), out.data_ptr(),
-            0 if part is None else part.data_ptr(), starts.data_ptr(),
+            0 if part is None else part.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), starts.data_ptr(),
             weights.data_ptr(), window.data_ptr(), roots.data_ptr(), t,
-            cfg.full_size, n, w, groups, _FOLD[cfg.cur_scan_cumu_mode],
+            cfg.full_size, n, c, chunk, w, groups,
+            _FOLD[cfg.cur_scan_cumu_mode],
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib.kspec_curscan_fft)
     return out
@@ -266,17 +290,15 @@ def _cuda_lib(dev: torch.device):
 def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
                           cfg: SpecConfig, *, ablate=()) -> torch.Tensor:
     """``(T, full_size)`` float32 or raw-u8 planes -> ``(T, fft_size)``
-    fftshifted linear spectra.  CUDA tensors launch a kernel on the current
-    stream without synchronising (by :func:`kernel_route`: the FFT kernel,
-    or the direct kernel through :func:`curscan_sublane_direct`); CPU
-    tensors run the plain version.  ``ablate`` (forensics only, fft <=
+    fftshifted linear spectra.  CUDA tensors launch the FFT kernel on the
+    current stream without synchronising; CPU tensors run the plain
+    version.  ``ablate`` (forensics only, fft <=
     16384) names stages to remove (``ABLATE_KEYS``) from the direct kernel:
     the spectra are then wrong by construction, and its forensic
     instantiation runs (plain version :func:`curscan_ablate_plain`)."""
     global launches, forensic_launches
     mask = ablate_mask(ablate)
-    route = kernel_route(cfg)
-    if route is None:
+    if kernel_route(cfg) is None:
         raise ValueError(f"config not supported by the curscan kernels "
                          f"(fft_size {cfg.fft_size}, full_size "
                          f"{cfg.full_size})")
@@ -289,8 +311,6 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
         if ablate:
             return curscan_ablate_plain(iq_re, iq_im, cfg, ablate)
         return curscan_fused_sublane_plain(iq_re, iq_im, cfg)
-    if route == "direct" and not ablate:
-        return curscan_sublane_direct(iq_re, iq_im, cfg)
     lib = _cuda_lib(dev)
     if ablate:
         out = _launch(lib.kspec_curscan_sublane_forensic, iq_re, iq_im, cfg,
@@ -305,9 +325,9 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
 def curscan_sublane_direct(iq_re: torch.Tensor, iq_im: torch.Tensor,
                            cfg: SpecConfig) -> torch.Tensor:
     """The direct two-stage DFT kernel (``csrc/curscan_sublane.cu``,
-    production instantiation) on ``(T, full_size)`` planes: the kernel of
-    the non-power-of-two ffts up to 16384, and the reference of the forensic
-    kernel's bitwise checks.  CPU tensors run the plain version."""
+    production instantiation) on ``(T, full_size)`` planes: no session runs
+    it; it is the reference of the forensic kernel's bitwise checks and the
+    FFT kernel's yardstick.  CPU tensors run the plain version."""
     global direct_launches
     if not supports_direct(cfg):
         raise ValueError(f"config not supported by the direct curscan kernel "

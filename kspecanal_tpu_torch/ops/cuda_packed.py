@@ -20,7 +20,8 @@ import functools
 import numpy as np
 import torch
 
-from kspecanal_tpu.config import SpecConfig, cumu_weights, win_adj, window_lut
+from kspecanal_tpu_torch.config import (SpecConfig, cumu_weights, win_adj,
+                                        window_lut)
 from kspecanal_tpu_torch.ops import spectrum
 from kspecanal_tpu_torch.ops.cuda_curscan import _FOLD, check_planes
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kspecanal_tpu.config import (
+from kspecanal_tpu_torch.config import (
     COMPRESS_AVG,
     COMPRESS_CONV,
     COMPRESS_MAX,

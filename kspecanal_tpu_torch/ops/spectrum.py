@@ -20,7 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from kspecanal_tpu.config import SpecConfig, cumu_weights, win_adj, window_lut
+from kspecanal_tpu_torch.config import (SpecConfig, cumu_weights, win_adj,
+                                        window_lut)
 from kspecanal_tpu_torch.ops.dsp import reduce_windows
 
 
@@ -134,17 +135,14 @@ def curscan_auto_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
     counterpart of the JAX dispatcher's TPU ladder:
 
       * configs K1's wrapper ``cuda_curscan.curscan_fused_sublane`` takes
-        (``supports_fused_sublane``: every power of two from 256 to 131072,
-        which runs the FFT kernel, and every other multiple of 128 from 384
-        to 16384, which runs the direct-DFT kernel; this covers the lane
+        (``supports_fused_sublane``, the JAX predicate: every multiple of
+        128 from 256 up, each run by the FFT kernel; this covers the lane
         kernel's cell too) go to it;
       * else configs the packed kernel K2 supports (fft <= 128, the
         quickFullScan regime) go to its wrapper;
       * else, on the card, fft <= 256 decodes and takes the direct DFT
-        matmul, and everything else the ``torch.fft`` chain.  Of what the
-        JAX dispatcher sends to a Pallas kernel, only the multiples of 128
-        above 16384 that are not powers of two, and every fft above 131072,
-        land there (ROADMAP.md section 4).
+        matmul, and everything else the ``torch.fft`` chain.  Nothing the
+        JAX dispatcher sends to a Pallas kernel lands there.
 
     Planes reach a kernel's wrapper as given (u8 decodes in the kernel's
     loads): for CUDA tensors the wrapper launches its kernel, for CPU

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from kspecanal_tpu.config import CUMU_AVG, SpecConfig, cumu_weights
+from kspecanal_tpu_torch.config import CUMU_AVG, SpecConfig, cumu_weights
 from kspecanal_tpu_torch.ops import dsp
 from kspecanal_tpu_torch.ops.spectrum import curscan_auto_batched
 

@@ -17,7 +17,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from kspecanal_tpu.config import SpecConfig
+from kspecanal_tpu_torch.config import SpecConfig
 from kspecanal_tpu_torch.ops.peaks import Peak
 
 _BLOCKS = " ▁▂▃▄▅▆▇█"

@@ -32,7 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from kspecanal_tpu.config import CUMU_AVG, WINDOW_KAISER, SpecConfig
+from kspecanal_tpu_torch.config import CUMU_AVG, WINDOW_KAISER, SpecConfig
 from kspecanal_tpu_torch.ops import cuda_curscan as cc
 from kspecanal_tpu_torch.utils.profiling import card_line, cuda_ms, \
     require_cuda

@@ -25,7 +25,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from kspecanal_tpu.config import WINDOW_KAISER, SpecConfig
+from kspecanal_tpu_torch.config import WINDOW_KAISER, SpecConfig
 from kspecanal_tpu_torch import session as sess_mod
 from kspecanal_tpu_torch.io.sources import (DeviceNoiseIQSource,
                                             DeviceSynthIQSource)

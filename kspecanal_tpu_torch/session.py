@@ -17,11 +17,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from kspecanal_tpu.config import MODE_SCAN, MODE_ZEROSPAN, SpecConfig
-from kspecanal_tpu.io.replay import load_sig_lvls, save_sig_lvls
-from kspecanal_tpu.io.sources import IQSource, split_u8_planes
-from kspecanal_tpu.utils.logging import log_info, log_iter, log_warn
-from kspecanal_tpu.utils.profiling import StageTimer
+from kspecanal_tpu_torch.config import MODE_SCAN, MODE_ZEROSPAN, SpecConfig
+from kspecanal_tpu_torch.io.replay import load_sig_lvls, save_sig_lvls
+from kspecanal_tpu_torch.io.sources import IQSource, split_u8_planes
+from kspecanal_tpu_torch.utils.logging import log_info, log_iter, log_warn
+from kspecanal_tpu_torch.utils.profiling import StageTimer
 from kspecanal_tpu_torch.io.prefetch import SweepPrefetcher
 from kspecanal_tpu_torch.models import scan as scan_mod
 from kspecanal_tpu_torch.models import zerospan as zs

@@ -1,7 +1,8 @@
 """Tracing of the port's sessions — the counterpart of
 ``kspecanal_tpu.utils.profiling``.
 
-  * :class:`StageTimer` is the JAX package's own (it imports no JAX);
+  * :class:`StageTimer` is a copy of the JAX package's (per-stage wall
+    times and samples/s rates);
   * :func:`trace` wraps a block in ``torch.profiler`` (CPU and CUDA
     activities), writes a Chrome trace into the directory given (``tpuProfile
     <dir>`` on the CLI, or ``KSPEC_TRACE_DIR``) and logs the card's busy
@@ -16,12 +17,50 @@ import os
 import statistics
 import subprocess
 import time
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+from collections import defaultdict
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple)
 
 import torch
 
-from kspecanal_tpu.utils.logging import log_info
-from kspecanal_tpu.utils.profiling import StageTimer  # noqa: F401
+from kspecanal_tpu_torch.utils.logging import log_info
+
+
+class StageTimer:
+    """Per-stage wall-clock + throughput accounting."""
+
+    def __init__(self):
+        self.times: Dict[str, List[float]] = defaultdict(list)
+        self.samples: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, samples: int = 0) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.times[name].append(time.perf_counter() - t0)
+            self.samples[name] += samples
+
+    def rate(self, name: str) -> float:
+        """Samples/s over everything recorded for a stage."""
+        total = sum(self.times[name])
+        return self.samples[name] / total if total else 0.0
+
+    def report(self) -> str:
+        lines = []
+        for name, ts in self.times.items():
+            total = sum(ts)
+            line = (f"{name}: n={len(ts)} total={total:.3f}s "
+                    f"mean={total / len(ts) * 1e3:.2f}ms")
+            if self.samples[name]:
+                line += f" rate={self.rate(name) / 1e6:.2f} Msamp/s"
+            lines.append(line)
+        return "\n".join(lines)
+
+    def log_report(self):
+        for line in self.report().splitlines():
+            log_info(f"profile: {line}")
 
 
 def cuda_ms(fn: Callable[[], object], warm: int = 3, reps: int = 10) -> float:

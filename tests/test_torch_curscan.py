@@ -65,15 +65,14 @@ def test_auto_dispatch_on_cpu_never_builds(monkeypatch):
 
 
 def test_supports_matches_jax_predicate_up_to_smem_limit():
+    """The FFT kernel takes exactly what the JAX predicate takes, with no
+    upper limit on fft (one block's shared memory bounds only n/c)."""
     for fft in (128, 256, 384, 512, 1000, 2048, 4096, 8192, 16384, 20480,
-                32768, 65536, 131072, 262144):
+                32768, 65536, 131072, 196608, 262144, 1 << 20):
         for nono in (0.5, 0.1, 0.25):
             cfg = zs_cfg(fft, nono, x_res=min(fft, 512))
-            want = (jpk.supports_fused_sublane(cfg)
-                    and (fft <= cuda_curscan.DIRECT_MAX_FFT_SIZE
-                         or (fft & (fft - 1) == 0
-                             and fft <= cuda_curscan.MAX_FFT_SIZE)))
-            assert cuda_curscan.supports_fused_sublane(cfg) == want
+            assert cuda_curscan.supports_fused_sublane(cfg) \
+                == jpk.supports_fused_sublane(cfg)
 
 
 class _FakeLib:
@@ -111,13 +110,16 @@ def fake_card(monkeypatch):
     return lib
 
 
+NEW_SIZES = (384, 1280, 3072, 16256, 20480, 98304, 130944, 196608, 262144)
+
+
 def _jax_kernel_configs():
-    """Every config, over the powers of two from 256 to 131072 and overlaps
-    0.5, 0.1 and 0.25, that the JAX dispatcher sends to a Pallas kernel
-    (sublane or lane)."""
-    for e in range(8, 18):
+    """Every config, over the powers of two from 256 to 131072, the mixed
+    kernel's sizes ``NEW_SIZES`` and overlaps 0.5, 0.1 and 0.25, that the
+    JAX dispatcher sends to a Pallas kernel (sublane or lane)."""
+    for fft in [1 << e for e in range(8, 18)] + list(NEW_SIZES):
         for nono in (0.5, 0.1, 0.25):
-            cfg = zs_cfg(1 << e, nono, x_res=512)
+            cfg = zs_cfg(fft, nono, x_res=512)
             if (jpk.supports_fused_sublane(cfg)
                     and jspec._fused_choice(cfg) is not None):
                 yield cfg
@@ -127,8 +129,9 @@ def _jax_kernel_configs():
 def test_jax_kernel_configs_launch_a_kernel_on_the_card(fake_card, dtype):
     """Wherever the JAX dispatcher picks a Pallas kernel, the port's
     dispatcher sends a card tensor to a hand-written kernel, never to the
-    ``torch.fft`` chain: at these powers of two, one launch of the FFT
-    kernel, counted in ``launches`` and not in ``direct_launches``."""
+    ``torch.fft`` chain: at these powers of two and mixed sizes, one launch
+    of the FFT kernel, counted in ``launches`` and not in
+    ``direct_launches``."""
     for cfg in _jax_kernel_configs():
         planes = torch.empty((2, cfg.full_size), device="meta", dtype=dtype)
         fake_card.calls.clear()
@@ -142,6 +145,10 @@ def test_jax_kernel_configs_launch_a_kernel_on_the_card(fake_card, dtype):
 
 
 def test_non_power_of_two_takes_the_direct_kernel(fake_card):
+    """The multiples of 128 that are not powers of two, which the direct
+    kernel served up to fft 16384, now take the FFT kernel (its mixed-radix
+    form) like every other size: no session launches the direct kernel,
+    which only :func:`curscan_sublane_direct` still calls."""
     for fft in (384, 1280, 5120, 16256):
         cfg = zs_cfg(fft, 0.5, window=WINDOW_HANNING, x_res=fft // 4)
         planes = torch.empty((2, cfg.full_size), device="meta")
@@ -149,25 +156,28 @@ def test_non_power_of_two_takes_the_direct_kernel(fake_card):
         before = (cuda_curscan.launches, cuda_curscan.direct_launches)
         out = tspec.curscan_auto_batched(planes, planes, cfg)
         assert out.shape == (2, fft)
-        assert fake_card.calls == ["kspec_curscan_sublane"]
+        assert fake_card.calls == ["kspec_curscan_fft"]
         assert (cuda_curscan.launches, cuda_curscan.direct_launches) == (
-            before[0], before[1] + 1)
+            before[0] + 1, before[1])
+        fake_card.calls.clear()
+        cuda_curscan.curscan_sublane_direct(planes, planes, cfg)
+        assert fake_card.calls == ["kspec_curscan_sublane"]
+        assert cuda_curscan.direct_launches == before[1] + 1
 
 
 def test_the_remaining_gap_is_non_powers_of_two_above_16384():
-    """Pins the configs the JAX dispatcher sends to a Pallas kernel and the
-    port runs on the torch.fft chain: up to fft 131072, exactly the
-    multiples of 128 above 16384 that are not powers of two (ROADMAP.md
-    section 4), and every fft above 131072."""
+    """The gap is closed: of the configs the JAX dispatcher sends to a
+    Pallas kernel, none takes the torch.fft chain on the card, over every
+    multiple of 128 up to 262144 and at 2^20 (the non-powers of two above
+    16384 and every fft above 131072 used to)."""
     gap = []
-    for fft in range(128, 131072 + 1, 128):
+    for fft in list(range(128, 262144 + 1, 128)) + [1 << 20]:
         cfg = zs_cfg(fft, 0.5, x_res=128)
-        if (jspec._fused_choice(cfg) is not None
-                and not cuda_curscan.supports_fused_sublane(cfg)):
+        if jspec._fused_choice(cfg) is None:
+            continue
+        if cuda_curscan.kernel_route(cfg) != "fft":
             gap.append(fft)
-    assert gap == [n for n in range(16384 + 128, 131072, 128)
-                   if n & (n - 1)]
-    assert not cuda_curscan.supports_fused_sublane(zs_cfg(262144))
+    assert gap == []
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -184,20 +194,36 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     wide = torch.zeros((2, 2 * cfg.full_size))
     with pytest.raises(ValueError):
         cuda_curscan.curscan_fused_sublane(wide[:, ::2], wide[:, ::2], cfg)
-    big = zs_cfg(2 * cuda_curscan.MAX_FFT_SIZE)
-    z = torch.zeros((1, big.full_size))
+    odd = zs_cfg(1000, x_res=500)
+    z = torch.zeros((1, odd.full_size))
     with pytest.raises(ValueError):
-        cuda_curscan.curscan_fused_sublane(z, z, big)
-    gap = zs_cfg(20480)
-    z = torch.zeros((1, gap.full_size))
-    with pytest.raises(ValueError):
-        cuda_curscan.curscan_fused_sublane(z, z, gap)
+        cuda_curscan.curscan_fused_sublane(z, z, odd)
     big = zs_cfg(2 * cuda_curscan.DIRECT_MAX_FFT_SIZE)
     z = torch.zeros((1, big.full_size))
     with pytest.raises(ValueError):
         cuda_curscan.curscan_sublane_direct(z, z, big)
     with pytest.raises(ValueError):
         cuda_curscan.curscan_fused_sublane(z, z, big, ablate=("win",))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("fft", [1280, 20480])
+def test_mixed_sizes_plain_matches_jax_chain(fft, mode):
+    """fft 1280 and 20480, which the JAX package sends to its sublane
+    kernel and the port's mixed-radix kernel serves on the card: the
+    wrapper on CPU tensors (its plain version) against the JAX chain, u8
+    and decoded float32 equal."""
+    cfg = zs_cfg(fft, 0.1, mode, x_res=512)
+    re, im = raw_planes(cfg, 2, seed=fft + 11)
+    want = np.asarray(jspec.curscan_batched(jnp.asarray(decoded(re)),
+                                            jnp.asarray(decoded(im)), cfg))
+    got = cuda_curscan.curscan_fused_sublane(torch.from_numpy(decoded(re)),
+                                             torch.from_numpy(decoded(im)),
+                                             cfg)
+    assert_spectra_close(got.numpy(), want)
+    u8 = cuda_curscan.curscan_fused_sublane(torch.from_numpy(re),
+                                            torch.from_numpy(im), cfg)
+    np.testing.assert_array_equal(u8.numpy(), got.numpy())
 
 
 def test_kernel_tables_match_jax_kernel_constants():

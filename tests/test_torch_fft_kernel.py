@@ -2,21 +2,29 @@
 (``kspecanal_tpu_torch/csrc/curscan_fft.cu``), step by step, held against
 ``np.fft`` and against the JAX package on the CPU.
 
-The model follows the kernel's decomposition: the pass order and radices
-(a first pass of radix ``m / 16**q`` in {2, 4, 8, 16}, then radix-16 passes),
-the 16 registers of each of the ``m/16`` threads, the radix-4/radix-2
-split of the radix-16 and radix-8 butterflies, the twiddle-table indices into
-the one N-point roots table, the padded shared-memory index function and
-its banks, the Stockham output order (thread t ends with bins
-``t + k*m/16``), the fftshift write, the window-group split with its fixed
-combine order, and the c-block cluster split above fft 16384.  It rounds
-where the kernel rounds: values are float32 in registers and shared memory,
-each butterfly (with its pass twiddle from the float32 table) runs in
-float64 and rounds to float32 after its inner DFT-4 stage and at its end.
+The model follows the kernel's decomposition.  Powers of two up to 131072
+(``curscan_fft_kernel``): the pass order and radices (a first pass of radix
+``m / 16**q`` in {2, 4, 8, 16}, then radix-16 passes), the 16 registers of
+each of the ``m/16`` threads, the radix-4/radix-2 split of the radix-16 and
+radix-8 butterflies, the twiddle-table indices into the one N-point roots
+table, the padded shared-memory index function and its banks, the Stockham
+output order (thread t ends with bins ``t + k*m/16``), the fftshift write,
+the window-group split with its fixed combine order, and the c-block
+cluster split above fft 16384.  Every other multiple of 128
+(``curscan_mixed_kernel``): the block split (c blocks of M = N/c points, a
+cluster up to 131072, a radix-c step through a scratch buffer above), the
+odd prime passes first (the first from device memory into registers where
+its prime is at most 7, else the staged buffer and the p-term sums of
+``odd_pass`` with outputs grouped by k), their ragged thread loops and
+carry-advanced indices, the power-of-two passes after them, and the
+fftshift modulo.  It rounds where the kernel rounds: values are float32 in
+registers and shared memory, each butterfly (with its pass twiddle from the
+float32 table) runs in float64 and rounds to float32 after its inner DFT-4
+stage and at its end; an odd pass rounds once per output.
 
 Tolerances: the model is held to ``np.fft`` in float64 at 1e-6 of the peak
 (a float32 radix FFT rounds like ``eps * log2 N``; the model's float64
-butterflies stay near 1e-7 of the peak at N = 131072); its folds and the
+butterflies stay near 1e-7 of the peak at N = 262144); its folds and the
 port's plain path are held to the JAX chain with the HIGHEST-class bounds of
 ``torch_parity.assert_spectra_close`` that the kernel meets on the card."""
 import jax.numpy as jnp
@@ -32,7 +40,11 @@ from torch_parity import MODES, assert_spectra_close, decoded, raw_planes, \
 
 RADIX = 16
 BLOCK_N = 16384
+CLUSTER_MAX_N = 8 * BLOCK_N
 POW2 = [1 << e for e in range(8, 18)]          # 256 .. 131072
+# Multiples of 128 that are not powers of two below 131072 (one block, then
+# clusters of 2 and 8) and sizes above it (the scratch route: c = 12, 16).
+MIXED = [384, 1280, 16256, 20480, 98304, 130944, 196608, 262144]
 W16 = np.exp(-2j * np.pi * np.arange(16) / 16)      # float64 constants
 
 
@@ -100,8 +112,10 @@ class Banks:
         self.worst = 0
 
     def access(self, addr):
-        for half in np.asarray(addr).reshape(-1, 16):
-            _, counts = np.unique(np.unique(half) % 16, return_counts=True)
+        addr = np.asarray(addr).ravel()
+        for i in range(0, len(addr), 16):        # the last may be partial
+            _, counts = np.unique(np.unique(addr[i:i + 16]) % 16,
+                                  return_counts=True)
             self.worst = max(self.worst, int(counts.max()))
 
 
@@ -145,18 +159,228 @@ def block_fft(v, m, n, roots, banks=None):
 
 
 def cluster_size(n):
-    return max(1, n // BLOCK_N)
+    """Thread blocks c of one n-point window: 1 up to 16384; the smallest
+    power of two up to 131072 (a cluster); above, the smallest divisor with
+    n/c <= 16384 and a multiple of 16."""
+    if n <= BLOCK_N:
+        return 1
+    if n <= CLUSTER_MAX_N:
+        return 1 << (-(-n // BLOCK_N) - 1).bit_length()
+    c = -(-n // BLOCK_N)
+    while n % c or (n // c) % RADIX:
+        c += 1
+    return c
+
+
+def odd_part(m):
+    while m % 2 == 0:
+        m //= 2
+    return m
+
+
+def odd_primes(m):
+    """The odd passes' radices: the prime factors of the odd part m,
+    ascending, found as the kernel finds them (trial division, the rest
+    prime once ``p * p`` exceeds it)."""
+    out, p = [], 3
+    while m > 1:
+        if p * p > m:
+            p = m
+        while m % p == 0:
+            out.append(p)
+            m //= p
+        p += 2
+    return out
+
+
+def mixed_plan(m):
+    """Pass radices of the mixed kernel's m-point block: the odd primes,
+    then the power-of-two passes of ``radices``."""
+    pow2 = m // odd_part(m)
+    return odd_primes(odd_part(m)) + radices(pow2)
+
+
+def odd_first_pass(x, p, m, n, roots, buf, banks):
+    """``odd_first_pass``: butterfly j = t + i*nt (ragged: while j < m/p)
+    reads elements j + r*m/p of the block input ``x`` (device memory) into
+    registers, takes the float64 DFT-p in the symmetric form with the
+    float32 roots ``W_p^j`` and stores output k at j*p + k."""
+    nt = m // RADIX
+    length, stride, h = m // p, n // p, (p - 1) // 2
+    w = roots[(np.arange(p) % p) * stride].astype(np.complex128)
+    for i in range(-(-length // nt)):
+        j = np.arange(nt) + i * nt
+        j = j[j < length]
+        xs = [x[..., j + r * length].astype(np.complex128) for r in range(p)]
+        sm = [xs[r] + xs[p - r] for r in range(1, h + 1)]
+        df = [xs[r] - xs[p - r] for r in range(1, h + 1)]
+        y0 = xs[0]
+        for v in sm:
+            y0 = y0 + v
+        outs = {0: y0}
+        for k in range(1, h + 1):
+            a = xs[0].copy()
+            b = np.zeros_like(a)
+            for r in range(1, h + 1):
+                wr = w[(r * k) % p]
+                a = a + sm[r - 1] * wr.real
+                b = b - df[r - 1] * wr.imag
+            outs[k] = (a.real + b.imag) + 1j * (a.imag - b.real)
+            outs[p - k] = (a.real - b.imag) + 1j * (a.imag + b.real)
+        for k in range(p):
+            banks.access(pad(j * p + k))
+            buf[..., pad(j * p + k)] = f32(outs[k])
+
+
+def odd_pass(buf, p, ns, m, n, roots, banks):
+    """``odd_pass``: thread t computes output k = t mod p of the
+    butterflies j = t div p + e*len/16 (e < 16), each the p-term float64 sum
+    of elements j + r*len times ``roots[r * n/(ns p) * ((j mod ns) + k ns)
+    mod n]``; after every thread has read, output k of butterfly j goes to
+    (j div ns)*p*ns + (j mod ns) + k*ns."""
+    nt = m // RADIX
+    length = m // p
+    l16 = length // RADIX
+    assert length % RADIX == 0 and nt == p * l16
+    unit = n // (ns * p)
+    t = np.arange(nt)
+    k, jg = t % p, t // p
+    ys, dst = [], []
+    for e in range(RADIX):
+        j = jg + e * l16
+        a = j % ns
+        step = unit * (a + k * ns)
+        assert step.max() < n
+        banks.access(pad(j))
+        acc = buf[..., pad(j)].copy()
+        idx = np.zeros_like(step)
+        for r in range(1, p):
+            idx = idx + step
+            idx = np.where(idx >= n, idx - n, idx)
+            banks.access(pad(j + r * length))
+            acc = acc + buf[..., pad(j + r * length)] * \
+                roots[idx].astype(np.complex128)
+        ys.append(f32(acc))
+        dst.append(pad((j // ns * p + k) * ns + a))
+    for y, addr in zip(ys, dst):
+        banks.access(addr)
+        buf[..., addr] = y
+
+
+def mixed_block_fft(x, m, n, roots, banks=None, in_regs=True):
+    """One thread block of the mixed kernel: the m-point FFT of the block
+    input ``x[..., m]`` (complex64; element i).  ``in_regs``: the input lies
+    in device memory (planes or scratch), so a first prime <= 7 runs
+    ``odd_first_pass``; else (the cluster's z) the input is staged in the
+    buffer at pad(t + e*m/16).  Returns ``[..., t, k]`` = bin t + k*m/16;
+    twiddles index the n-point table."""
+    banks = banks or Banks()
+    nt = m // RADIX
+    t = np.arange(nt)
+    primes = odd_primes(odd_part(m))
+    buf = np.zeros(x.shape[:-1] + (pad(m - 1) + 1,), np.complex128)
+    ns = 1
+    if in_regs and primes and primes[0] <= 7:
+        odd_first_pass(x, primes[0], m, n, roots, buf, banks)
+        ns = primes.pop(0)
+    else:
+        for e in range(RADIX):
+            banks.access(pad(t + e * nt))
+            buf[..., pad(t + e * nt)] = x[..., t + e * nt]
+    for p in primes:
+        odd_pass(buf, p, ns, m, n, roots, banks)
+        ns *= p
+    rad = radices(m // odd_part(m))
+    r0, q = rad[0], len(rad) - 1
+    nb = RADIX // r0
+    outs = []
+    for i in range(nb):
+        j = t + i * nt
+        xs = []
+        for r in range(r0):
+            banks.access(pad(j + r * (m // r0)))
+            xs.append(buf[..., pad(j + r * (m // r0))])
+        tws = (j % ns) * (n // (ns * r0))
+        outs.append(dft(xs, [roots[r * tws] for r in range(r0)]))
+    if q == 0:
+        return np.stack(outs[0], axis=-1)
+    for i in range(nb):
+        j = t + i * nt
+        jm = j % ns
+        for k in range(r0):
+            addr = pad((j - jm) * r0 + jm + k * ns)
+            banks.access(addr)
+            buf[..., addr] = outs[i][k]
+    ns *= r0
+    for p in range(q):
+        xs = []
+        for r in range(RADIX):
+            banks.access(pad(t + r * nt))
+            xs.append(buf[..., pad(t + r * nt)])
+        tw = t % ns
+        y = dft(xs, [roots[r * tw * (n // (ns * RADIX))]
+                     for r in range(RADIX)])
+        if p == q - 1:
+            return np.stack(y, axis=-1)
+        for k in range(RADIX):
+            addr = pad((t - tw) * RADIX + tw + k * ns)
+            banks.access(addr)
+            buf[..., addr] = y[k]
+        ns *= RADIX
+    raise AssertionError("unreachable: the last pass returns")
+
+
+def radix_c_step(a, roots, c):
+    """The radix-c step shared by the cluster and ``dif_split``: ``z[...,
+    q, i] = W_N^(i q) * sum_j a[i + M j] W_c^(j q)`` (float64, rounded
+    once) for every q < c, M = n/c."""
+    n = a.shape[-1]
+    m = n // c
+    pos = np.arange(m)
+    z = np.empty(a.shape[:-1] + (c, m), np.complex128)
+    for q in range(c):
+        acc = a[..., pos].astype(np.complex128)
+        for j in range(1, c):
+            acc = acc + a[..., j * m + pos] * np.complex128(
+                roots[((j * q) % c) * m])
+        if q:
+            acc = acc * roots[pos * q].astype(np.complex128)
+        z[..., q, :] = f32(acc)
+    return z
+
+
+def mixed_fft(a, roots, banks=None, scratch=None):
+    """The mixed kernel's n-point FFT of frames ``a[..., n]`` (complex64),
+    natural order: blocks q < c each take z_q (the radix-c step; with
+    ``scratch`` given, read from that (..., c, M) buffer as the scratch
+    route's block kernel does) and write bins c*k + q."""
+    n = a.shape[-1]
+    c = cluster_size(n)
+    m = n // c
+    nt = m // RADIX
+    z = (a[..., None, :].astype(np.complex128) if c == 1
+         else radix_c_step(a, roots, c) if scratch is None else scratch)
+    y = mixed_block_fft(z, m, n, roots, banks,
+                        in_regs=c == 1 or n > CLUSTER_MAX_N)   # [..., q, t, k]
+    bins = np.arange(nt)[:, None] + np.arange(RADIX)[None, :] * nt
+    out = np.empty(a.shape, np.complex64)
+    for q in range(c):
+        out[..., c * bins + q] = y[..., q, :, :]
+    return out
 
 
 def kernel_fft(a, roots, banks=None):
     """The kernel's n-point FFT of frames ``a[..., n]`` (complex64), natural
-    order.  n <= 16384: one block.  Above, a cluster of c = n/16384 blocks:
-    block j' holds the chunk ``a[j'*M : (j'+1)*M]`` (M = n/c) in its shared
-    memory; block q reads every chunk at its own positions (distributed
-    shared memory) and forms ``z_q[m] = W_N^(m q) * sum_j' a[m + M j']
-    W_c^(j' q)`` in its registers, then its M-point FFT gives the bins
-    ``c*k + q``."""
+    order; sizes other than the powers of two up to 131072 take
+    :func:`mixed_fft`.  n <= 16384: one block.  Above, a cluster of c =
+    n/16384 blocks: block j' holds the chunk ``a[j'*M : (j'+1)*M]`` (M =
+    n/c) in its shared memory; block q reads every chunk at its own
+    positions (distributed shared memory) and forms ``z_q[m] = W_N^(m q) *
+    sum_j' a[m + M j'] W_c^(j' q)`` in its registers, then its M-point FFT
+    gives the bins ``c*k + q``."""
     n = a.shape[-1]
+    if n & (n - 1) or n > CLUSTER_MAX_N:
+        return mixed_fft(a, roots, banks)
     c = cluster_size(n)
     m = n // c
     nt = m // RADIX
@@ -181,15 +405,28 @@ def tables(cfg):
             (roots[:, 0] + 1j * roots[:, 1]).numpy().astype(np.complex64))
 
 
-def curscan_model(re, im, cfg, groups):
+def curscan_model(re, im, cfg, groups, chunk=None):
     """The kernel on float32 planes ``(T, full_size)``: frame and window,
     FFT, ``weights[w] * |X|``, fold each group's windows in order, combine
-    the groups' partials in the order g = 0..G-1, fftshift write."""
+    the groups' partials in the order g = 0..G-1, fftshift write (bin + N/2)
+    mod N.  Above fft 131072 the radix-c step fills a ``(chunk, W, c, M)``
+    scratch ``chunk`` IQ blocks at a time (``cuda_curscan.scratch_chunk``
+    by default) and the block kernel reads it."""
     n = cfg.fft_size
     starts, weights, window, roots = tables(cfg)
     idx = starts[:, None] + np.arange(n)[None, :]
     a = (re[:, idx] * window + 1j * (im[:, idx] * window)).astype(np.complex64)
-    x = kernel_fft(a, roots)
+    if n > CLUSTER_MAX_N:
+        c = cluster_size(n)
+        chunk = chunk or cuda_curscan.scratch_chunk(len(re), n, len(starts))
+        x = np.empty(a.shape, np.complex64)
+        for b0 in range(0, len(re), chunk):
+            scratch = radix_c_step(a[b0:b0 + chunk], roots, c)
+            assert scratch.shape[1:] == (len(starts), c, n // c)
+            x[b0:b0 + chunk] = mixed_fft(a[b0:b0 + chunk], roots,
+                                         scratch=scratch)
+    else:
+        x = kernel_fft(a, roots)
     mag = weights[None, :, None] * np.sqrt(x.real * x.real + x.imag * x.imag)
     mode = cfg.cur_scan_cumu_mode
     op = (np.maximum if mode == CUMU_MAX else np.minimum if mode == CUMU_MIN
@@ -206,16 +443,33 @@ def curscan_model(re, im, cfg, groups):
     for p in parts[1:]:
         acc = op(acc, p)
     out = np.empty_like(acc)
-    out[:, (np.arange(n) + n // 2) & (n - 1)] = acc
+    out[:, (np.arange(n) + n // 2) % n] = acc
     return out
 
 
-@pytest.mark.parametrize("n", POW2)
+@pytest.mark.parametrize("n", POW2 + MIXED)
 def test_model_fft_matches_numpy(n):
     rng = np.random.default_rng(n)
-    a = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n)))
+    a = (rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n)))
     roots = np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64)
     got = kernel_fft(a.astype(np.complex64), roots)
+    want = np.fft.fft(a.astype(np.complex64).astype(np.complex128))
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 1e-6
+
+
+@pytest.mark.parametrize("m", [3, 5, 7, 9, 15, 17, 127, 1023])
+def test_mixed_model_matches_numpy_for_each_odd_part(m):
+    """fft 128*m, one window: the odd passes (3, 5, 7 in registers; 9 = 3*3
+    and 15 = 3*5 a register pass then a staged one; 17 and 127 staged; 1023
+    = 3*11*31 in a cluster of 8, all staged), then the power-of-two
+    passes."""
+    n = 128 * m
+    assert odd_primes(m) == {3: [3], 5: [5], 7: [7], 9: [3, 3], 15: [3, 5],
+                             17: [17], 127: [127], 1023: [3, 11, 31]}[m]
+    rng = np.random.default_rng(m)
+    a = (rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n)))
+    roots = np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64)
+    got = mixed_fft(a.astype(np.complex64), roots)
     want = np.fft.fft(a.astype(np.complex64).astype(np.complex128))
     assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 1e-6
 
@@ -224,11 +478,12 @@ def test_model_fft_matches_numpy(n):
 def test_float64_butterflies_beat_a_float32_fft(fft):
     """Why the butterflies run in float64: a MIN fold at 90% overlap keeps
     bins near 1% of its peak, where two float32 FFTs differ by up to ~2e-6
-    of the peak against the 1e-6 the bound allows.  Against float64 the
-    model's fold errs (rms over bins) at most 0.7 times as much as the
-    float32 ``torch.fft`` chain (the plain version) on the same planes; the
-    ratio is 0.57-0.62 over seeds, and part of what remains is the float32
-    windowed frame, which both share."""
+    of the peak against the 1e-6 the bound allows.  Held to the plain
+    version run in float64 on the same planes, the model's fold stays within
+    half of the per-bin bound of ``torch_parity.assert_spectra_close`` (5e-5
+    of the bin plus 1e-6 of the peak) at every bin; the kernel measured at
+    most 0.40 of it on the card.  The bound is fixed: it does not depend on
+    the machine's float32 FFT library."""
     cfg = zs_cfg(fft, 0.1, "MIN")
     rng = np.random.default_rng(fft)
     re, im = (rng.standard_normal((2, cfg.full_size)).astype(np.float32)
@@ -236,11 +491,9 @@ def test_float64_butterflies_beat_a_float32_fft(fft):
     exact = cuda_curscan.curscan_fused_sublane_plain(
         torch.from_numpy(re).double(), torch.from_numpy(im).double(),
         cfg).numpy()
-    plain = cuda_curscan.curscan_fused_sublane_plain(
-        torch.from_numpy(re), torch.from_numpy(im), cfg).numpy()
     model = curscan_model(re, im, cfg, 1)
-    rms = [np.sqrt(np.mean((x - exact) ** 2)) for x in (model, plain)]
-    assert rms[0] <= 0.7 * rms[1]
+    bound = 5e-5 * np.abs(exact) + 1e-6 * np.max(np.abs(exact))
+    assert np.max(np.abs(model - exact) / bound) <= 0.5
 
 
 @pytest.mark.parametrize("m", POW2[:7])
@@ -258,18 +511,73 @@ def test_plan_and_shared_memory_banks(m):
     assert banks.worst == 1
 
 
+@pytest.mark.parametrize("m,in_regs,worst", [
+    (384, True, 4), (1280, True, 5), (1408, True, 2), (2176, True, 2),
+    (10240, False, 2), (12288, False, 2), (16256, True, 2),
+    (16368, False, 3), (16384, True, 1)])
+def test_mixed_plan_and_shared_memory_banks(m, in_regs, worst):
+    """The mixed kernel's block of m points (a multiple of 16): the odd
+    primes, then a power-of-two pass of radix 2..16, then radix-16 passes,
+    the last one radix 16; m/16 threads (not always whole warps).  Bank
+    conflicts, which cost time and not correctness: ``odd_first_pass``
+    stores at stride p (up to p-way at p = 5), ``odd_pass`` up to 3-way,
+    the power-of-two passes after an odd part 2-way; none without one."""
+    plan = mixed_plan(m)
+    assert int(np.prod(plan)) == m and plan[-1] == RADIX
+    assert all(p % 2 for p in plan[:len(odd_primes(odd_part(m)))])
+    banks = Banks()
+    mixed_block_fft(np.zeros((1, m), np.complex64), m, m,
+                    np.ones(m, np.complex64), banks, in_regs=in_regs)
+    assert banks.worst == worst
+
+
 def test_cluster_split_covers_every_bin_once():
-    """Above fft 16384 the c = n/16384 blocks (c <= 8, the portable cluster
-    size) write the bins c*k + q, k < 16384: every bin once; the kernel's
-    output index is the fftshift (bin + n/2) mod n."""
-    for n in POW2:
+    """The c thread blocks of a window write the bins c*k + q, k < n/c:
+    every bin once, with n/c <= 16384 and a multiple of 16; up to 131072 c
+    is a power of two <= 8 (a cluster: c <= 8, the portable cluster size),
+    above it any divisor (the scratch route).  The kernel's output index is
+    the fftshift (bin + n/2) mod n, which is ``& (n - 1)`` only for powers
+    of two."""
+    for n in POW2 + MIXED + [128 * 2039, 1 << 20]:
         c = cluster_size(n)
         m = n // c
-        assert c <= 8 and m <= BLOCK_N and c * m == n
+        assert c * m == n and m <= BLOCK_N and m % RADIX == 0
+        if n <= CLUSTER_MAX_N:
+            assert c <= 8 and c & (c - 1) == 0
         bins = np.concatenate([c * np.arange(m) + q for q in range(c)])
         assert np.array_equal(np.sort(bins), np.arange(n))
-        shifted = (bins + n // 2) & (n - 1)
-        assert np.array_equal(shifted, (bins + n // 2) % n)
+        shifted = (bins + n // 2) % n
+        assert np.array_equal(np.sort(shifted), np.arange(n))
+        if n & (n - 1) == 0:
+            assert np.array_equal(shifted, (bins + n // 2) & (n - 1))
+
+
+def test_block_split_rule_matches_the_wrapper():
+    """``cuda_curscan.cluster_size`` is the model's rule at every multiple
+    of 128 up to 262144 and at 2^20; the c of the scratch route is the
+    smallest that works (fft 196608: 12, 262144: 16, 2^20: 64, 128*2039:
+    2039)."""
+    for n in list(range(128, 262144 + 1, 128)) + [1 << 20]:
+        assert cuda_curscan.cluster_size(n) == cluster_size(n), n
+    assert [cluster_size(n) for n in (196608, 262144, 1 << 20, 128 * 2039)] \
+        == [12, 16, 64, 2039]
+
+
+def test_scratch_chunks_cover_every_iq_block_once():
+    """The scratch route fills ``scratch_chunk`` IQ blocks a launch, at
+    least one, at most what ``SCRATCH_BYTES`` holds."""
+    sc = cuda_curscan.scratch_chunk
+    assert sc(64, 262144, 15) == 34
+    assert sc(8, 262144, 15) == 8
+    assert sc(4, 1 << 20, 11) == 4
+    assert sc(100, 1 << 22, 400) == 1
+    for t, n, w in ((64, 262144, 15), (7, 196608, 71), (100, 1 << 22, 400)):
+        ch = sc(t, n, w)
+        assert 1 <= ch <= t
+        assert ch == 1 or ch * w * n * 8 <= cuda_curscan.SCRATCH_BYTES
+        rows = [r for b0 in range(0, t, ch) for r in range(b0,
+                                                           min(t, b0 + ch))]
+        assert rows == list(range(t))
 
 
 def test_window_groups_rule_and_split():
@@ -323,11 +631,13 @@ def test_model_folds_match_jax_chain(fft, mode, nono):
 
 @pytest.mark.parametrize("nono", [0.5, 0.1])
 @pytest.mark.parametrize("mode", ["AVG", "MIN"])
-@pytest.mark.parametrize("fft", [32768, 65536])
+@pytest.mark.parametrize("fft", [1280, 20480, 32768, 65536])
 def test_large_fft_plain_and_model_match_jax_chain(fft, mode, nono):
-    """fft 32768 and 65536, which the JAX package sends to its sublane
-    kernel: the port's plain path (the wrapper on CPU tensors) and the
-    cluster model against the JAX chain."""
+    """fft 1280 (the mixed kernel in one block), 20480 (the mixed kernel in
+    a cluster of 2), 32768 and 65536 (the power-of-two kernel's clusters),
+    all of which the JAX package sends to its sublane kernel: the port's
+    plain path (the wrapper on CPU tensors) and the model against the JAX
+    chain."""
     cfg = zs_cfg(fft, nono, mode, x_res=512)
     re, im = (decoded(p) for p in raw_planes(cfg, 1, seed=fft + 3))
     want = jax_chain(re, im, cfg)

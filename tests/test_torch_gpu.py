@@ -13,7 +13,8 @@ with the card it runs without the JAX package's test configuration:
 import pytest
 import torch
 
-from kspecanal_tpu.config import WINDOW_HANNING, WINDOW_KAISER, WINDOW_ONES
+from kspecanal_tpu_torch.config import (WINDOW_HANNING, WINDOW_KAISER,
+                                        WINDOW_ONES)
 from kspecanal_tpu_torch.io import sources as tsrc
 from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed
 from kspecanal_tpu_torch.ops import spectrum as tspec
@@ -25,6 +26,8 @@ from torch_parity import (MODES, assert_db_close, assert_spectra_close,
 pytestmark = pytest.mark.gpu
 
 POW2 = [1 << e for e in range(8, 18)]          # 256 .. 131072
+# The mixed-radix kernel: one block, clusters of 2 and 8, the scratch route.
+MIXED = [384, 1280, 3072, 16256, 20480, 98304, 130944, 262144]
 
 
 def planes_on(cuda, cfg, t, seed):
@@ -52,8 +55,8 @@ KERNEL_CASES = [
 @pytest.mark.parametrize("mode", MODES)
 def test_kernel_matches_plain(cuda, fft, nono, window, mode):
     """K1's wrapper: every power of two it takes (a cluster above 16384) at
-    50% and 90% overlap launches the FFT kernel, 384 and 5120 the direct
-    kernel; all four cumulate modes."""
+    50% and 90% overlap, and 384 and 5120, launch the FFT kernel; all four
+    cumulate modes."""
     cfg = zs_cfg(fft, nono, mode, window=window, x_res=min(fft, 512))
     re, im = planes_on(cuda, cfg, 16 if fft <= 16384 else 3, seed=fft + 1)
     before = counts()
@@ -77,19 +80,33 @@ def test_kernel_u8_bit_identical(cuda, fft, nono):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("fft", [384, 1280, 16256])
-@pytest.mark.parametrize("mode", ["AVG", "MIN"])
-def test_non_power_of_two_counts_direct_launches(cuda, fft, mode):
-    """Multiples of 128 that are not powers of two run the direct kernel,
-    counted in ``direct_launches`` and not in ``launches``."""
-    cfg = zs_cfg(fft, 0.5, mode, window=WINDOW_HANNING, x_res=min(fft, 512))
-    re, im = planes_on(cuda, cfg, 8, seed=fft)
+@pytest.mark.parametrize("nono", [0.5, 0.1])
+@pytest.mark.parametrize("mode", ["AVG", "MAX", "MIN"])
+@pytest.mark.parametrize("fft", MIXED)
+def test_mixed_kernel_matches_plain64(cuda, fft, mode, nono):
+    """Multiples of 128 that are not powers of two, and fft 262144, run the
+    FFT kernel's mixed-radix form through the dispatcher, counted in
+    ``launches`` and not in ``direct_launches``, against the plain version
+    in float64."""
+    cfg = zs_cfg(fft, nono, mode, window=WINDOW_HANNING, x_res=min(fft, 512))
+    re, im = planes_on(cuda, cfg, 4 if fft <= 16384 else 2, seed=fft)
     before = counts()
     got = tspec.curscan_auto_batched(re, im, cfg)
     want = plain64(re, im, cfg)
     torch.cuda.synchronize()
-    assert counts() == (before[0], before[1] + 1)
+    assert counts() == (before[0] + 1, before[1])
+    assert bool(got.isfinite().all())
     assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("fft", [1280, 20480, 262144])
+def test_mixed_kernel_u8_bit_identical(cuda, fft):
+    cfg = zs_cfg(fft, 0.1, x_res=512)
+    re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 2, 19))
+    got = cuda_curscan.curscan_fused_sublane(re, im, cfg)
+    want = cuda_curscan.curscan_fused_sublane(tspec.decode_u8(re),
+                                              tspec.decode_u8(im), cfg)
+    assert torch.equal(got, want)
 
 
 def test_wrapper_refuses_non_contiguous_on_card(cuda):
@@ -100,14 +117,15 @@ def test_wrapper_refuses_non_contiguous_on_card(cuda):
 
 
 def test_auto_dispatch_on_card(cuda):
-    """fft 2048, fmScan's 16384 and 65536 launch K1's FFT kernel, fft 1280
-    its direct kernel, quickFullScan's 64 the packed kernel; fft 1000 takes
-    the torch.fft chain, visibly without a launch."""
+    """fft 2048, fmScan's 16384, 65536 and 1280 launch K1's FFT kernel
+    (no session launches the direct kernel), quickFullScan's 64 the packed
+    kernel; fft 1000 takes the torch.fft chain, visibly without a
+    launch."""
     for fft, nono, window, sub, direct, packed in (
             (2048, 0.5, WINDOW_KAISER, 1, 0, 0),
             (16384, 0.1, WINDOW_ONES, 1, 0, 0),
             (65536, 0.1, WINDOW_KAISER, 1, 0, 0),
-            (1280, 0.5, WINDOW_HANNING, 0, 1, 0),
+            (1280, 0.5, WINDOW_HANNING, 1, 0, 0),
             (64, 0.1, WINDOW_ONES, 0, 0, 1),
             (1000, 0.5, WINDOW_HANNING, 0, 0, 0)):
         cfg = zs_cfg(fft, nono, window=window, x_res=min(fft, 500))

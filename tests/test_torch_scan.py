@@ -363,12 +363,12 @@ def test_sublane_predicate_equals_jax_up_to_fft_16384():
 
 
 def test_port_never_imports_jax_with_jax_blocked():
-    """With JAX made unimportable, the port's package, its scan model,
-    session and CLI import, and a scan runs through the entry point
-    (catch-up with sweep read-ahead)."""
+    """With JAX and the JAX package made unimportable, the port's package,
+    its scan model, session and CLI import, and a scan runs through the
+    entry point (catch-up with sweep read-ahead)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib'):\n"
+        "for m in ('jax', 'jaxlib', 'kspecanal_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import kspecanal_tpu_torch\n"
         "import kspecanal_tpu_torch.models.scan, kspecanal_tpu_torch.session\n"

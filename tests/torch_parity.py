@@ -1,16 +1,19 @@
 """Shared helpers of the port's parity tests (``test_torch_*.py``): configs,
 seeded numpy inputs, cached JAX references and the tolerance checks.
 
-JAX is imported only inside :func:`jax_refs`, so the card's tests
-(test_torch_gpu.py) run where JAX is not installed."""
+The configs and the synth source are the port's (``kspecanal_tpu_torch``'s
+copies, held to the JAX package's by test_torch_standalone.py), and JAX is
+imported only inside :func:`jax_refs`, so the card's tests
+(test_torch_gpu.py) run where neither JAX nor the JAX package is
+installed."""
 import functools
 
 import numpy as np
 import pytest
 import torch
 
-from kspecanal_tpu.config import SpecConfig, WINDOW_KAISER
-from kspecanal_tpu.io.sources import SynthIQSource
+from kspecanal_tpu_torch.config import SpecConfig, WINDOW_KAISER
+from kspecanal_tpu_torch.io.sources import SynthIQSource
 from kspecanal_tpu_torch.ops import cuda_curscan
 
 MODES = ("AVG", "MAX", "MIN", "RAW")
