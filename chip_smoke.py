@@ -22,6 +22,13 @@ Phases (any failure raises; the exit code is then non-zero):
      against the same float64 reference; the direct kernel at fft 1280
      (counted in ``direct_launches``); u8 input bit-identical to decoded
      float32 at fft 2048, 65536, 1280, 20480 and 262144, 50% and 90%;
+ 3b. K3's cells off the 128 grid (the lane kernel's sizes, run by the
+     mixed-radix form) against the plain version in float64: fft 2500,
+     3000, 10000 (one block), 39800 (a cluster of 4), 33250 (2 * odd, the
+     scratch route) and 131100 (above 131072), all four modes at 50% and
+     90% (where the JAX dispatcher sends them to its lane kernel), with the
+     share of the per-bin bound each reached; u8 bit-identical to decoded
+     float32 at fft 3000 and 131100;
   4. the scan kernels against their plain versions: the packed kernel at
      quickFullScan's geometry (fft 64, ones, 90%) in all four modes, fft 128
      at 50% and fft 32 at 25%, one sweep and 16 sweeps of blocks, u8
@@ -36,6 +43,12 @@ Phases (any failure raises; the exit code is then non-zero):
      one block and in a cluster of two); every run must launch the FFT
      kernel and never the direct kernel, and put the synth peaks of its
      final average on 91/92/93 MHz;
+ 6b. K3's sizes through ``cli.main``: zeroSpan at fft 3000 serial and at
+     fft 10000 with ``tpuCatchUp 16``, ``zeroSpanSave`` at fft 3000 from a
+     u8 capture file and ``zeroSpanPlay`` of that recording, and a
+     ``tpuStateFile`` pair whose second session resumes the first; each
+     that computes spectra launches the FFT kernel (the count over them is
+     K3's launches), and each final average has its peaks on 91/92/93 MHz;
   7. the scan path through ``cli.main``: fmScan serial, catch-up and from a
      u8 capture file, fmScan at the lane kernel's cell, quickFullScan serial
      and catch-up with sweep read-ahead; each must launch its kernel and put
@@ -44,7 +57,8 @@ Phases (any failure raises; the exit code is then non-zero):
      kernel (K1 before its redesign) and the plain chain at each cell and at
      fft 1280, 3072 (T=4096) and 16256 (T=1024), and of the FFT kernel and
      the plain chain at fft 20480 and 98304 (T=64, 50%
-     and 90%), 130944 and 262144 (T=8), each beside its bound: the larger
+     and 90%), 130944 and 262144 (T=8), K3's fft 3000 and 10000 (T=4096,
+     50% and 90%) and 39800 (T=64), each beside its bound: the larger
      of 5 N log2 N + 4 N flops a window at 67 TFLOP/s and the planes read
      once plus the output written once at 3.35 TB/s;
   9. the on-device sources: devicesynth planes against the same start times
@@ -108,6 +122,15 @@ MODES = ("AVG", "MAX", "MIN", "RAW")
 # K1's mixed-radix form: one block (384, 1280, 3072, 16256), clusters of 2,
 # 8 and 8 (20480, 98304, 130944), the scratch route (262144).
 MIXED = (384, 1280, 3072, 16256, 20480, 98304, 130944, 262144)
+# K3's cells off the 128 grid, with the overlaps at which the JAX dispatcher
+# sends them to its lane kernel: one block (2500, 3000; 10000 with 16 points
+# a thread), a cluster of 4 (39800 = 200 * 199), the scratch route (33250 =
+# 2 * odd, c = 5; 131100, c = 10).
+LANE = ((2500, (0.5, 0.1)), (3000, (0.5, 0.1)), (10000, (0.5, 0.1)),
+        (39800, (0.5, 0.1)), (33250, (0.5,)), (131100, (0.5, 0.1)))
+# The plain chain holds several (T, W, N) complex64 tensors at once: it is
+# timed in chunks of IQ blocks whose frames stay within this many bytes.
+PLAIN_FRAME_BYTES = 8 << 30
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA's data sheet
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 
@@ -175,6 +198,52 @@ def counts(cc):
     return cc.launches, cc.direct_launches
 
 
+def fft_kernel_case(cc, cfg, t, gen):
+    """One FFT-kernel case on noise planes: one launch through the wrapper,
+    held to the plain version in float64 (the float32 plain chain's share
+    of the bound beside it).  Returns the max abs error."""
+    route = cc.kernel_route(cfg)
+    re, im = noise(cfg, t, False, gen)
+    before = counts(cc)
+    got = cc.curscan_fused_sublane(re, im, cfg)
+    after = counts(cc)
+    want = plain64(cc, re, im, cfg)
+    f32 = cc.curscan_fused_sublane_plain(re, im, cfg)
+    torch.cuda.synchronize()
+    check(got.shape == (t, cfg.fft_size) and bool(got.isfinite().all()),
+          "FFT kernel output shape/finite")
+    launched = (after[0] - before[0], after[1] - before[1])
+    check(route == "fft" and launched == (1, 0),
+          f"fft {cfg.fft_size} launched the FFT kernel once")
+    mx, mrel, bin_rel, ok = spectra_error(got, want)
+    c, via_scratch = cc.fft_plan(cfg.fft_size)
+    print(f"{route} kernel: fft {cfg.fft_size} (c={c}"
+          f"{', scratch' if via_scratch else ''}) ovl "
+          f"{1 - cfg.cur_scan_non_overlap:.1f} {cfg.window} "
+          f"{cfg.cur_scan_cumu_mode} W={cfg.num_windows} T={t}: max_abs "
+          f"{mx:.3e} max_rel {mrel:.3e} worst_bin_rel {bin_rel:.3e}, "
+          f"{bound_share(got, want):.3f} of the bound (float32 plain "
+          f"{bound_share(f32, want):.3f}) "
+          f"{'PASS' if ok and mrel < 1e-5 else 'FAIL'}")
+    check(ok and mrel < 1e-5, f"FFT kernel vs plain at {cfg.fft_size}/"
+          f"{cfg.cur_scan_non_overlap}/{cfg.cur_scan_cumu_mode}")
+    return mx
+
+
+def u8_case(cc, spec, cfg, t, gen):
+    """u8 planes through the FFT kernel bit-identical to the decoded
+    float32 planes."""
+    re, im = noise(cfg, t, True, gen)
+    got = cc.curscan_fused_sublane(re, im, cfg)
+    dec = cc.curscan_fused_sublane(spec.decode_u8(re), spec.decode_u8(im),
+                                   cfg)
+    same = torch.equal(got, dec)
+    print(f"u8 planes vs decoded f32 through the FFT kernel, fft "
+          f"{cfg.fft_size} ovl {1 - cfg.cur_scan_non_overlap:.1f}: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    check(same, "u8 kernel input bit-identical to decoded f32")
+
+
 def phase_kernels(cc, spec, gen):
     """K1 vs its plain version in float64 on the card.  Returns the max abs
     errors of the FFT kernel (AVG, 50%) by fft, and of the direct kernel at
@@ -191,32 +260,9 @@ def phase_kernels(cc, spec, gen):
     cases += [(cfg_of(n, nono, m), 4 if n <= 16384 else 2) for n in MIXED
               for nono in (0.5, 0.1) for m in MODES]
     for cfg, t in cases:
-        route = cc.kernel_route(cfg)
-        re, im = noise(cfg, t, False, gen)
-        before = counts(cc)
-        got = cc.curscan_fused_sublane(re, im, cfg)
-        after = counts(cc)
-        want = plain64(cc, re, im, cfg)
-        f32 = cc.curscan_fused_sublane_plain(re, im, cfg)
-        torch.cuda.synchronize()
-        check(got.shape == (t, cfg.fft_size) and bool(got.isfinite().all()),
-              "K1 output shape/finite")
-        launched = (after[0] - before[0], after[1] - before[1])
-        check(route == "fft" and launched == (1, 0),
-              f"fft {cfg.fft_size} launched the FFT kernel once")
-        mx, mrel, bin_rel, ok = spectra_error(got, want)
-        print(f"{route} kernel: fft {cfg.fft_size} ovl "
-              f"{1 - cfg.cur_scan_non_overlap:.1f} {cfg.window} "
-              f"{cfg.cur_scan_cumu_mode} W={cfg.num_windows} T={t}: max_abs "
-              f"{mx:.3e} max_rel {mrel:.3e} worst_bin_rel {bin_rel:.3e}, "
-              f"{bound_share(got, want):.3f} of the bound (float32 plain "
-              f"{bound_share(f32, want):.3f}) "
-              f"{'PASS' if ok and mrel < 1e-5 else 'FAIL'}")
-        check(ok and mrel < 1e-5, f"K1 vs plain at {cfg.fft_size}/"
-              f"{cfg.cur_scan_non_overlap}/{cfg.cur_scan_cumu_mode}")
+        mx = fft_kernel_case(cc, cfg, t, gen)
         if cfg.cur_scan_non_overlap == 0.5 and cfg.cur_scan_cumu_mode == "AVG":
             errs.setdefault(cfg.fft_size, mx)
-        del re, im, got, want, f32
     for mode in ("AVG", "MIN"):
         cfg = cfg_of(1280, 0.5, mode, "WIN.HANNING")
         before = counts(cc)
@@ -230,16 +276,31 @@ def phase_kernels(cc, spec, gen):
                          (65536, 0.1, 4), (1280, 0.5, 64), (1280, 0.1, 64),
                          (20480, 0.5, 4), (20480, 0.1, 4), (262144, 0.5, 2),
                          (262144, 0.1, 2)):
-        cfg = cfg_of(fft, nono)
-        re, im = noise(cfg, t, True, gen)
-        got = cc.curscan_fused_sublane(re, im, cfg)
-        dec = cc.curscan_fused_sublane(spec.decode_u8(re), spec.decode_u8(im),
-                                       cfg)
-        same = torch.equal(got, dec)
-        print(f"u8 planes vs decoded f32 through the FFT kernel, fft {fft} ovl "
-              f"{1 - nono:.1f}: {'bit-identical' if same else 'DIFFER'}")
-        check(same, "u8 kernel input bit-identical to decoded f32")
+        u8_case(cc, spec, cfg_of(fft, nono), t, gen)
     return errs
+
+
+def phase_lane_kernels(cc, spec, gen):
+    """K3's cells off the 128 grid (the lane kernel's sizes, served by the
+    FFT kernel's mixed-radix form) vs the plain version in float64, every
+    cumulate mode at each overlap the JAX dispatcher sends to K3; u8
+    bit-identical at fft 3000 and 131100.  Returns the max abs error at
+    fft 3000 AVG 50%."""
+    print(f"== K3's cells off the 128 grid vs plain ({BOUND64})")
+    err = None
+    for fft, overlaps in LANE:
+        for nono in overlaps:
+            for mode in MODES:
+                cfg = cfg_of(fft, nono, mode)
+                check(fft % 128 and cc.kernel_route(cfg) == "fft",
+                      f"fft {fft} ovl {1 - nono:.1f} is a K3 cell")
+                mx = fft_kernel_case(cc, cfg, 4 if fft <= 16384 else 2, gen)
+                if (fft, nono, mode) == (3000, 0.5, "AVG"):
+                    err = mx
+    for fft, t in ((3000, 64), (131100, 2)):
+        for nono in (0.5, 0.1):
+            u8_case(cc, spec, cfg_of(fft, nono), t, gen)
+    return err
 
 
 def compare(kernel, plain, cfg, t, gen, what):
@@ -456,6 +517,89 @@ def phase_sessions(cc, cli, tmp):
     return launches
 
 
+def phase_lane_sessions(cc, cli, tmp):
+    """The zero-span path at K3's sizes through the entry point: zeroSpan
+    at fft 3000 serial and fft 10000 with ``tpuCatchUp``; ``zeroSpanSave``
+    at fft 3000 from a u8 capture file, then ``zeroSpanPlay`` of the
+    recording; a ``tpuStateFile`` pair at fft 3000 whose second session
+    resumes the first one's state.  Every session that computes spectra
+    launches the FFT kernel (never the direct kernel), and every final
+    average puts its peaks on 91/92/93 MHz.  Returns the FFT kernel's
+    launches over these sessions, counted from 0."""
+    from kspecanal_tpu_torch.cli import parse_args
+    log = LogLines()
+    logging.getLogger("kspecanal_tpu_torch").addHandler(log)
+    cap = os.path.join(tmp, "lane_capture.iq")
+    rec = os.path.join(tmp, "lane.save")
+    state = os.path.join(tmp, "lane_state")
+    write_capture(cap, cfg_of(3000), 32 * cfg_of(3000).full_size, seed=9)
+    zs3000 = ZS_ARGS + ["fftSize", "3000"]
+    state_args = zs3000 + ["tpuSource", "synth", "tpuStateFile", state]
+    runs = [  # (name, args, blocks, launches the kernel, peaks to check)
+        ("zeroSpan fft 3000 serial", zs3000 + ["tpuSource", "synth",
+                                               "prgLoopCnt", "8"], 8, True,
+         True),
+        ("zeroSpan fft 10000 tpuCatchUp 16", ZS_ARGS + [
+            "fftSize", "10000", "tpuSource", "synth", "prgLoopCnt", "64",
+            "tpuCatchUp", "16"], 64, True, True),
+        ("zeroSpanSave fft 3000 from a u8 capture, tpuCatchUp 8",
+         ["zeroSpanSave"] + zs3000[1:] + [
+             "tpuSource", f"file:{cap}", "zeroSpanSaveFile", rec,
+             "prgLoopCnt", "32", "tpuCatchUp", "8"], 32, True, False),
+        ("zeroSpanPlay of that recording", ["zeroSpanPlay"] + zs3000[1:] + [
+            "zeroSpanPlayFile", rec, "tpuCatchUp", "8"], 32, False, True),
+        ("tpuStateFile, first session", state_args + ["prgLoopCnt", "4"], 4,
+         True, True),
+        ("tpuStateFile, second session (resumes)", state_args + [
+            "prgLoopCnt", "4", "tpuCatchUp", "4"], 4, True, True)]
+    print("== K3's sizes through kspecanal_tpu_torch.cli.main (zero-span, "
+          "save, play, tpuStateFile)")
+    cc.launches = cc.direct_launches = 0
+    for i, (name, args, blocks, launches_kernel, want_peaks) in \
+            enumerate(runs):
+        run_cfg = parse_args(args)[0]
+        lvls = os.path.join(tmp, f"lane_lvls_{i}.bin")
+        before, n_log = counts(cc), len(log.lines)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["tpuHeadless", "true", "saveSigLvls", lvls])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(rc == 0, f"{name} rc")
+        fft_n, direct_n = (a - b for a, b in zip(counts(cc), before))
+        line = (f"  {name}: {blocks} blocks in {dt:.3f} s, launches FFT "
+                f"kernel {fft_n} direct kernel {direct_n}")
+        if want_peaks:
+            avg = load_avg(lvls)
+            check(avg.shape == (run_cfg.fft_size,)
+                  and not np.isnan(avg).any(), f"{name} average")
+            peaks = avg_peaks(run_cfg, avg)
+            cell = run_cfg.sampling_rate / run_cfg.x_res
+            on = len(peaks) == 3 and all(abs(p - w) <= cell
+                                         for p, w in zip(peaks, PEAKS_HZ))
+            line += (f", peaks {[round(p / 1e6, 4) for p in peaks]} MHz "
+                     f"{'PASS' if on else 'FAIL'}")
+        resumed = any("resume: restored state" in m
+                      for m in log.lines[n_log:])
+        if "tpuStateFile" in name:
+            line += f", resumed: {resumed}"
+        print(line)
+        check(direct_n == 0 and (fft_n > 0) == launches_kernel,
+              f"{name} launched the FFT kernel (only)"
+              if launches_kernel else f"{name} launched no kernel")
+        if want_peaks:
+            check(on, f"{name} peaks on 91/92/93 MHz")
+        if "tpuStateFile" in name:
+            check(resumed == name.endswith("(resumes)"),
+                  f"{name}: resumed only in the second session")
+    with np.load(state + ".npz") as z:
+        it = int(z["iteration"])
+    print(f"  checkpoint after both sessions: {it} iterations")
+    check(it == 8, "the second session continued the first one's state")
+    logging.getLogger("kspecanal_tpu_torch").removeHandler(log)
+    return cc.launches
+
+
 def write_scan_capture(path, cfg, plan, sweeps, seed):
     """An rtl_sdr capture (u8, value-127 offset, I then Q) of ``sweeps``
     whole sweeps as a stepping receiver records them: band after band,
@@ -565,7 +709,10 @@ def phase_timing(cc, cp, gen, gpu):
     dearest size per point), fmScan's (T=288, 16 sweeps) and the lane
     kernel's cell (T=288); the FFT kernel and the plain
     chain at fft 65536, 20480 and 98304 (T=64) and at 130944 and 262144
-    (T=8); the packed kernel at quickFullScan's (T=1226*16, 16 sweeps).
+    (T=8); K3's cells fft 3000 and 10000 (T=4096, 50% and 90%) and 39800
+    (T=64); the packed kernel at quickFullScan's (T=1226*16, 16 sweeps).
+    The plain chain runs in chunks of IQ blocks where its frames would
+    pass ``PLAIN_FRAME_BYTES`` (fft 10000 at 90%).
     Returns ``{(case, dtype): (kernel, direct, plain, bound, bound_by)}``,
     direct None where no direct kernel runs."""
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
@@ -588,7 +735,10 @@ def phase_timing(cc, cp, gen, gpu):
                cfg_of(n, nono), t, k1_only, (False,))
               for n, nono, t in ((20480, 0.5, 64), (20480, 0.1, 64),
                                  (98304, 0.5, 64), (98304, 0.1, 64),
-                                 (130944, 0.5, 8), (262144, 0.5, 8))]
+                                 (130944, 0.5, 8), (262144, 0.5, 8),
+                                 (3000, 0.5, 4096), (3000, 0.1, 4096),
+                                 (10000, 0.5, 4096), (10000, 0.1, 4096),
+                                 (39800, 0.5, 64))]
     cases += [("quickFullScan fft 64 ones 90%",
                cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226 * 16,
                (cp.curscan_fused_packed, None, cp.curscan_fused_packed_plain),
@@ -601,7 +751,10 @@ def phase_timing(cc, cp, gen, gpu):
             ks = cuda_ms(lambda: kernel(re, im, cfg))
             ds = None if direct is None else cuda_ms(
                 lambda: direct(re, im, cfg))
-            ps = cuda_ms(lambda: plain(re, im, cfg))
+            rows = max(1, min(t, PLAIN_FRAME_BYTES
+                              // (cfg.num_windows * cfg.fft_size * 8)))
+            ps = cuda_ms(lambda: [plain(re[i:i + rows], im[i:i + rows], cfg)
+                                  for i in range(0, t, rows)])
             bms, by = bound(cfg, t, u8)
             gs = t * cfg.full_size / 1e9
             gb = 2 * re.element_size() * gs
@@ -612,7 +765,10 @@ def phase_timing(cc, cp, gen, gpu):
                     f"{bms / ks:.3f} of it")
             if ds is not None:
                 line += f", direct {ds:.3f} ms"
-            print(f"{line}, plain {ps:.3f} ms = {gs / ps * 1e3:.2f} Gsamp/s")
+            chunks = (f" in {-(-t // rows)} calls of {rows} blocks"
+                      if rows < t else "")
+            print(f"{line}, plain {ps:.3f} ms{chunks} = "
+                  f"{gs / ps * 1e3:.2f} Gsamp/s")
             out[name, kind] = (ks, ds, ps, bms, by)
             del re, im
     return out
@@ -864,6 +1020,8 @@ def main():
     t0 = time.perf_counter()
     k1_errs = phase_kernels(cc, spec, gen)
     t0 = phase_done("K1 vs plain", t0)
+    lane_err = phase_lane_kernels(cc, spec, gen)
+    t0 = phase_done("K3's cells vs plain", t0)
     scan_errs = phase_scan_kernels(cc, cp, spec, gen)
     t0 = phase_done("scan kernels vs plain", t0)
     phase_stream(cc, st, gen)
@@ -871,6 +1029,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_sessions(cc, cli, tmp)
         t0 = phase_done("zero-span sessions", t0)
+        lane_launches = phase_lane_sessions(cc, cli, tmp)
+        t0 = phase_done("K3's sessions", t0)
         scan_launches = phase_scan_sessions(cc, cp, cli, tmp)
         t0 = phase_done("scan sessions", t0)
     times = phase_timing(cc, cp, gen, gpu)
@@ -921,6 +1081,14 @@ def main():
          "launches": scan_launches["lane_cell"],
          "max_abs_err": scan_errs["lane_cell"],
          **timed("lane kernel's cell fft 16384 kaiser 50%")},
+        {"name": "curscan_mixed", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_mixed.cuh",
+         "replaces": "kspecanal_tpu/ops/pallas_curscan.py:116",
+         "config": "K3's cells off the 128 grid: fft 3000 kaiser 50% f32, "
+                   "T=4096; launches over the fft 3000/10000 zero-span, "
+                   "zeroSpanSave and tpuStateFile sessions",
+         "launches": lane_launches, "max_abs_err": lane_err,
+         **timed("fft 3000 kaiser 50%")},
         {"name": "curscan_sublane", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu",
          "replaces": sublane_423,

@@ -11,10 +11,17 @@ holds them equal).
     python -m kspecanal_tpu_torch fmScan tpuSource synth tpuHeadless true
     python -m kspecanal_tpu_torch quickFullScan tpuSource synth \
         tpuCatchUp 16 tpuPrefetch true tpuHeadless true
+    python -m kspecanal_tpu_torch zeroSpanSave zeroSpanSaveFile rec.save \
+        fftSize 3000 prgLoopCnt 64 tpuSource synth
+    python -m kspecanal_tpu_torch zeroSpanPlay zeroSpanPlayFile rec.save \
+        tpuHeadless true
+    python -m kspecanal_tpu_torch zeroSpan tpuSource synth prgLoopCnt 8 \
+        tpuStateFile state.npz tpuHeadless true      # resumes on a rerun
 """
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import signal
 import sys
 from typing import List, Optional, Tuple
@@ -247,8 +254,6 @@ def make_device_source(cfg, run: RunOptions, device):
 def _check_ported(run: RunOptions) -> None:
     """Refuse run options whose machinery is not ported yet, before any
     source is built."""
-    if run.state_file:
-        raise sess_mod.not_ported("tpuStateFile", sess_mod.TODO_STATE)
     if run.mesh_time > 1 or run.mesh_band > 1:
         raise sess_mod.not_ported("tpuMeshTime / tpuMeshBand",
                                   sess_mod.TODO_MULTI_GPU)
@@ -270,27 +275,29 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     _check_ported(run)
     set_iter_logging(run.log_iter)
     print_info(cfg)
-    source = make_device_source(cfg, run, device)
-    if source is None:
-        source = make_source(cfg, run)
-    if run.decimate > 1:
-        source = sources.DecimatingSource(source, run.decimate)
-        log_info(f"tpuDecimate: capturing at "
-                 f"{cfg.sampling_rate * run.decimate:g} sps, merging "
-                 f"{run.decimate} adjacent samples per output sample")
+    source = None
     sweep_prefetch = False
-    if run.prefetch:
-        if cfg.prg_mode == MODE_SCAN:
-            # Every per-band retune would flush a block read-ahead; scan
-            # mode reads whole sweeps ahead instead (SweepPrefetcher).
-            sweep_prefetch = True
-        elif hasattr(source, "read_device_batch"):
-            # A device source makes its planes on the card: a host
-            # read-ahead wrapper would only hide that path.
-            log_info("tpuPrefetch: ignored for on-device sources")
-        else:
-            from kspecanal_tpu_torch.io.prefetch import PrefetchingSource
-            source = PrefetchingSource(source, block_size=cfg.full_size)
+    if cfg.prg_mode != MODE_ZEROSPANPLAY:     # replay reads no IQ
+        source = make_device_source(cfg, run, device)
+        if source is None:
+            source = make_source(cfg, run)
+        if run.decimate > 1:
+            source = sources.DecimatingSource(source, run.decimate)
+            log_info(f"tpuDecimate: capturing at "
+                     f"{cfg.sampling_rate * run.decimate:g} sps, merging "
+                     f"{run.decimate} adjacent samples per output sample")
+        if run.prefetch:
+            if cfg.prg_mode == MODE_SCAN:
+                # Every per-band retune would flush a block read-ahead; scan
+                # mode reads whole sweeps ahead instead (SweepPrefetcher).
+                sweep_prefetch = True
+            elif hasattr(source, "read_device_batch"):
+                # A device source makes its planes on the card: a host
+                # read-ahead wrapper would only hide that path.
+                log_info("tpuPrefetch: ignored for on-device sources")
+            else:
+                from kspecanal_tpu_torch.io.prefetch import PrefetchingSource
+                source = PrefetchingSource(source, block_size=cfg.full_size)
 
     renderer = None
     if run.renderer == "term":
@@ -301,6 +308,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                  f"{sess_mod.TODO_GUI}); running headless")
 
     sess = sess_mod.Session(cfg, source, renderer, device=device,
+                            state_file=run.state_file,
                             catch_up=run.catch_up,
                             sweep_prefetch=sweep_prefetch,
                             render_every=run.render_every)
@@ -317,8 +325,13 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     except FileNotFoundError as e:
         log_info(f"ERROR: {e}")
         rc = 1
+    except pickle.UnpicklingError as e:
+        log_info(f"ERROR: {cfg.zero_span_play_file} is not a kspecanal "
+                 f"save stream ({e})")
+        rc = 1
     finally:
-        source.close()
+        if source is not None:
+            source.close()
         sess.save_baseline()
         sess.timer.log_report()
     return rc

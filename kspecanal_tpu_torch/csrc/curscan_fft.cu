@@ -4,11 +4,13 @@
 // Pallas sublane-layout curscan kernel of the JAX package, entry
 // curscan_fused_sublane) at every fft its predicate takes (every multiple of
 // 128 from 256 up), and ::_kernel (:116, the lane layout, entry
-// curscan_fused) in the one cell where the JAX dispatcher picks it (float32
-// planes, fft >= 16384, aligned starts).  The Pallas kernels compute the DFT
-// as two matrix products for the TPU's matrix unit; on Hopper the same
-// function is a radix FFT: curscan_fft_kernel below for the powers of two up
-// to 131072, curscan_mixed_kernel (curscan_mixed.cu) for every other size.
+// curscan_fused) at every config the JAX dispatcher sends it (fft >= 2048,
+// not prime, window starts multiples of n2 = _factorize(fft)[1]: fft 3000,
+// 10000, 39800, ... off the 128 grid, and fft >= 16384 on it).  The Pallas
+// kernels compute the DFT as two matrix products for the TPU's matrix unit;
+// on Hopper the same function is a radix FFT: curscan_fft_kernel below for
+// the powers of two up to 131072, curscan_mixed_kernel (curscan_mixed.cuh)
+// for every other size.
 //
 // What it computes, per IQ block b (the contract of curscan_sublane.cu):
 //   for every window start s = starts[w] (any static offset, aligned or not):
@@ -321,14 +323,20 @@ int launch_by_size(const void* re, const void* im, float* dst,
 
 // Plain C entry point (bound with ctypes).  Planes are (t, full_size)
 // row-major, float32 or uint8 (is_u8); out is (t, n) float32; n any multiple
-// of 16 * c, and c thread blocks a window (the wrapper's cluster_size):
-//  * n a power of two up to 131072: curscan_fft_kernel, c = max(1,
-//    n/16384);
-//  * another n up to 131072: curscan_mixed_kernel (curscan_mixed.cu), c a
-//    power of two <= MAX_CLUSTER with n/c <= 16384 (a cluster when c > 1);
-//  * n above 131072: its dif_split and curscan_mixed_kernel, n/c <= 16384,
+// of c, and c thread blocks a window of n/c <= 16384 points each (the
+// wrapper's fft_plan):
+//  * n a power of two up to 131072, scratch null: curscan_fft_kernel, c =
+//    max(1, n/16384);
+//  * another n, scratch null: curscan_mixed_kernel (curscan_mixed.cuh), c a
+//    power of two <= MAX_CLUSTER (a cluster when c > 1);
+//  * scratch not null (every n above 131072, and the n up to 131072 that
+//    no such power of two splits): its dif_split and curscan_mixed_kernel,
 //    `chunk` IQ blocks at a time through `scratch`, a (chunk, n_windows, n)
-//    float2 buffer (unused otherwise).
+//    float2 buffer.
+// pass_roots: the mixed kernel's float64 tables, one for each odd pass of
+// an (n/c)-point block in order (odd primes ascending, Ns = 1 first), pass
+// (Ns, p) holding W_{Ns p}^u for u < Ns p (cuda_curscan._pass_roots);
+// unused by the powers of two up to 131072.
 // With groups > 1, part is a (t, groups, n) float32 buffer for the groups'
 // partial folds, combined into out by a second kernel; with groups == 1
 // part is unused.  Returns the CUDA error code of the launches (0 on
@@ -336,17 +344,18 @@ int launch_by_size(const void* re, const void* im, float* dst,
 extern "C" int kspec_curscan_fft(const void* re, const void* im, int is_u8,
                                  void* out, void* part, void* scratch,
                                  const void* starts, const void* weights,
-                                 const void* window, const void* roots, int t,
+                                 const void* window, const void* roots,
+                                 const void* pass_roots, int t,
                                  int full_size, int n, int c, int chunk,
                                  int n_windows, int groups, int fold,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m_pts = c >= 1 && n % c == 0 ? n / c : 0;
   const bool pow2 = n > 0 && (n & (n - 1)) == 0;
-  const bool hbm = n > (MAX_CLUSTER << LOG2_BLOCK_N);
+  const bool hbm = scratch != nullptr;
   if (groups < 1 || groups > n_windows || (groups > 1 && part == nullptr) ||
-      m_pts < RADIX || m_pts % RADIX || m_pts > (1 << LOG2_BLOCK_N) ||
-      (hbm ? scratch == nullptr || chunk < 1
+      m_pts < 1 || m_pts > (1 << LOG2_BLOCK_N) ||
+      (hbm ? chunk < 1
            : (c & (c - 1)) || c > MAX_CLUSTER ||
              (pow2 && m_pts != (n < (1 << LOG2_BLOCK_N)
                                     ? n : (1 << LOG2_BLOCK_N)))))
@@ -362,9 +371,9 @@ extern "C" int kspec_curscan_fft(const void* re, const void* im, int is_u8,
                                         groups, fold, s);
   } else {
     err = kspec_fft::launch_mixed_route(re, im, is_u8, scratch, dst, starts,
-                                        weights, window, roots, t, full_size,
-                                        n, c, chunk, n_windows, groups, fold,
-                                        s);
+                                        weights, window, roots, pass_roots, t,
+                                        full_size, n, c, chunk, n_windows,
+                                        groups, fold, s);
   }
   if (err || groups == 1) return err;
   const size_t total = static_cast<size_t>(t) * n;

@@ -1,5 +1,5 @@
 // Shared device code of the FFT curscan kernels (curscan_fft.cu: the
-// powers of two up to 131072; curscan_mixed.cu: every other size), and the
+// powers of two up to 131072; curscan_mixed.cuh: every other size), and the
 // mixed-radix route's entry.  See curscan_fft.cu for the contract and the
 // precision design.
 #pragma once
@@ -170,16 +170,17 @@ __device__ __forceinline__ float fold_in(float acc, float mag, int fold) {
 
 namespace kspec_fft {
 
-// The mixed-radix kernel (curscan_mixed.cu) on (t, full_size) planes: n not a
-// power of two up to 131072 (c = 1, or a cluster of c <= 8 blocks), or any n
-// above 131072 (c blocks through `scratch`, `chunk` IQ blocks at a time).
-// dst is out (groups == 1) or the (t, groups, n) partials.  Returns the CUDA
-// error code of the launches.
+// The mixed-radix kernel (curscan_mixed.cuh) on (t, full_size) planes: with
+// `scratch` null, n not a power of two up to 131072 (c = 1, or a cluster of
+// a power of two c <= 8 blocks); else any n, c blocks through `scratch`,
+// `chunk` IQ blocks at a time.  pass_roots holds the odd passes' float64
+// tables.  dst is out (groups == 1) or the (t, groups, n) partials.
+// Returns the CUDA error code of the launches.
 int launch_mixed_route(const void* re, const void* im, int is_u8,
                        void* scratch, float* dst, const void* starts,
                        const void* weights, const void* window,
-                       const void* roots, int t, int full_size, int n, int c,
-                       int chunk, int n_windows, int groups, int fold,
-                       cudaStream_t stream);
+                       const void* roots, const void* pass_roots, int t,
+                       int full_size, int n, int c, int chunk, int n_windows,
+                       int groups, int fold, cudaStream_t stream);
 
 }  // namespace kspec_fft

@@ -112,7 +112,7 @@ def load() -> ctypes.CDLL:
         ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.kspec_curscan_packed.restype = i32
     lib.kspec_curscan_fft.argtypes = [
-        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.kspec_curscan_fft.restype = i32
     _lib = lib

@@ -1,8 +1,8 @@
 """Fused curscan on the card: the wrappers of the hand-written CUDA kernels
 that port ``kspecanal_tpu.ops.pallas_curscan.curscan_fused_sublane`` (the
-sublane Pallas kernel, ``_kernel_sublane``).  They also serve the one cell
-of the lane kernel ``_kernel`` (``curscan_fused``: float32, fft >= 16384,
-128-aligned starts), whose function they compute in another layout.
+sublane Pallas kernel, ``_kernel_sublane``) and
+``pallas_curscan.curscan_fused`` (the lane kernel, ``_kernel``): both
+compute the same function, in other layouts.
 
 Per IQ block ``(full_size,)`` a kernel frames at every window start,
 decodes u8 planes in its loads, windows, takes the N-point DFT, takes
@@ -10,13 +10,16 @@ decodes u8 planes in its loads, windows, takes the N-point DFT, takes
 ``winAdj*2/N`` folded in) and writes the natural-order, fftshifted
 ``(fft_size,)`` spectrum, in float32 at every ``tpuPrecision``.
 
-The FFT kernel ``csrc/curscan_fft.cu`` serves a CUDA tensor at every fft
-the JAX predicate takes (every multiple of 128 from 256 up), counted in
-``launches``: the powers of two up to 131072 run its radix-16 Stockham
-kernel (above fft 16384 a thread-block cluster), every other size its
-mixed-radix kernel (odd prime passes first; a cluster above fft 16384;
-above 131072 a radix-c step through a scratch buffer in device memory).
-:func:`cluster_size` gives the thread blocks a window takes.
+The FFT kernel ``csrc/curscan_fft.cu`` serves a CUDA tensor at every config
+the JAX dispatcher sends to a Pallas curscan kernel (:func:`kernel_route`):
+the sublane predicate (every multiple of 128 from 256 up) and the lane
+predicate (fft >= 2048, not prime, window starts multiples of
+``_factorize(fft)[1]``), counted in ``launches``.  The powers of two up to
+131072 run its radix-16 Stockham kernel (above fft 16384 a thread-block
+cluster), every other size its mixed-radix kernel (odd prime passes first;
+a cluster above fft 16384 where a power of two <= 8 splits the window,
+else a radix-c step through a scratch buffer in device memory).
+:func:`fft_plan` gives the thread blocks a window takes and the route.
 
 The direct two-stage DFT kernel ``csrc/curscan_sublane.cu`` serves no
 session: :func:`curscan_sublane_direct` (counted in ``direct_launches``,
@@ -42,7 +45,7 @@ forensic kernel's launches.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,15 +63,21 @@ _N2 = 128
 # a Hopper block may use; 32768 would need 333,824.
 DIRECT_MAX_FFT_SIZE = 16384
 # The FFT kernel: one thread block holds up to 16384 points (204,800 bytes
-# of shared memory: the padded buffer and the fold), a multiple of 16 (16
-# points a thread); up to CLUSTER_MAX_FFT_SIZE the blocks of a window form
-# a cluster of at most 8 (the portable cluster size), above it they read a
-# scratch buffer of at most SCRATCH_BYTES (one IQ block's at least).
+# of shared memory: the padded buffer and the fold), 16 points a thread
+# (the last thread ragged where 16 does not divide them); up to
+# CLUSTER_MAX_FFT_SIZE the blocks of a window form a cluster of at most 8
+# (the portable cluster size) where such a power of two divides it, else
+# they read a scratch buffer of at most SCRATCH_BYTES (one IQ block's at
+# least).
 FFT_BLOCK_SIZE = 16384
 _RADIX = 16
 _MAX_CLUSTER = 8
 CLUSTER_MAX_FFT_SIZE = _MAX_CLUSTER * FFT_BLOCK_SIZE
 SCRATCH_BYTES = 1 << 30
+# The lane kernel's smallest fft in the JAX dispatcher (_fused_choice).
+LANE_MIN_FFT_SIZE = 2048
+# The JAX package's per-size factor overrides (mxu_fft.FACTOR_OVERRIDES).
+FACTOR_OVERRIDES: dict = {2048: (128, 16)}
 # Window groups: enough thread blocks for 8 per SM (see window_groups).
 _BLOCKS_PER_SM = 8
 _FOLD = {CUMU_AVG: 0, CUMU_RAW: 0, CUMU_MAX: 1, CUMU_MIN: 2}
@@ -96,15 +105,37 @@ def _jax_predicate(cfg: SpecConfig) -> bool:
     return n % _N2 == 0 and n // _N2 >= 2 and cfg.full_size % _N2 == 0
 
 
+@functools.lru_cache(maxsize=64)
+def _factorize(n: int) -> Tuple[int, int]:
+    """``mxu_fft._factorize``: n = n1*n2 with n1 >= n2, n2 the largest
+    divisor <= sqrt(n) (unless overridden in ``FACTOR_OVERRIDES``); a prime
+    gives (n, 1)."""
+    if n in FACTOR_OVERRIDES:
+        return FACTOR_OVERRIDES[n]
+    for n2 in range(int(np.sqrt(n)), 0, -1):
+        if n % n2 == 0:
+            return (n // n2, n2)
+    return (n, 1)
+
+
+def supports_fused(cfg: SpecConfig) -> bool:
+    """``pallas_curscan.supports_fused``, the lane kernel's predicate: n2 >
+    1 (fft not prime) and every window start a multiple of n2."""
+    n2 = _factorize(cfg.fft_size)[1]
+    return n2 > 1 and all(s % n2 == 0 for s in cfg.window_starts)
+
+
 def kernel_route(cfg: SpecConfig) -> Optional[str]:
-    """Which kernel serves ``cfg`` on the card: ``"fft"`` for every config
-    the JAX predicate takes, else None."""
-    return "fft" if _jax_predicate(cfg) else None
+    """Which kernel serves ``cfg`` on the card: ``"fft"`` wherever the JAX
+    dispatcher's ``_fused_choice`` picks a Pallas curscan kernel (the
+    sublane predicate, or the lane predicate at fft >= 2048), else None."""
+    lane = cfg.fft_size >= LANE_MIN_FFT_SIZE and supports_fused(cfg)
+    return "fft" if lane or _jax_predicate(cfg) else None
 
 
 def supports_fused_sublane(cfg: SpecConfig) -> bool:
-    """The JAX predicate: the FFT kernel takes every config it takes.
-    Configs outside take the ``torch.fft`` chain."""
+    """The FFT kernel takes every config of the JAX sublane and lane
+    predicates.  Configs outside take the ``torch.fft`` chain."""
     return kernel_route(cfg) is not None
 
 
@@ -114,28 +145,37 @@ def supports_direct(cfg: SpecConfig) -> bool:
     return _jax_predicate(cfg) and cfg.fft_size <= DIRECT_MAX_FFT_SIZE
 
 
-def cluster_size(n: int) -> int:
-    """Thread blocks c of the FFT kernel for one n-point window (n a
-    multiple of 128), each an (n/c)-point FFT, n/c <= 16384 and a multiple
-    of 16: 1 up to fft 16384; the smallest power of two up to
-    ``CLUSTER_MAX_FFT_SIZE`` (a cluster, c <= 8); above, the smallest
-    divisor of n (the radix-c step through device memory)."""
+@functools.lru_cache(maxsize=64)
+def fft_plan(n: int) -> Tuple[int, bool]:
+    """``(c, through_scratch)``: the thread blocks c of the FFT kernel for
+    one n-point window, each an (n/c)-point FFT, n/c <= 16384, and whether
+    they read a scratch buffer.  1 up to fft 16384; up to
+    ``CLUSTER_MAX_FFT_SIZE`` the smallest power of two with n/c <= 16384
+    (a cluster, c <= 8) where it divides n; else the smallest divisor of n
+    with n/c <= 16384 (a multiple of 16 where 16 divides n), through the
+    scratch (a radix-c step in device memory)."""
     if n <= FFT_BLOCK_SIZE:
-        return 1
+        return 1, False
     if n <= CLUSTER_MAX_FFT_SIZE:
         c = 2
-        while n // c > FFT_BLOCK_SIZE:
+        while c * FFT_BLOCK_SIZE < n:
             c *= 2
-        return c
+        if n % c == 0:
+            return c, False
     c = -(-n // FFT_BLOCK_SIZE)
-    while n % c or (n // c) % _RADIX:
+    while n % c or (n % _RADIX == 0 and (n // c) % _RADIX):
         c += 1
-    return c
+    return c, True
+
+
+def cluster_size(n: int) -> int:
+    """The thread blocks c of the FFT kernel for one n-point window
+    (:func:`fft_plan`)."""
+    return fft_plan(n)[0]
 
 
 def scratch_chunk(t: int, n: int, n_windows: int) -> int:
-    """IQ blocks a launch of the FFT kernel's scratch route takes (fft >
-    ``CLUSTER_MAX_FFT_SIZE``): as many as fit ``SCRATCH_BYTES`` of
+    """IQ blocks a launch of the FFT kernel's scratch route takes: as many as fit ``SCRATCH_BYTES`` of
     ``(n_windows, n)`` complex float32 sub-sequences each, at least 1."""
     return max(1, min(t, SCRATCH_BYTES // (n_windows * n * 8)))
 
@@ -176,6 +216,37 @@ def _tables(n: int, window: str, starts: tuple, mode: str,
     return (dev(starts, np.int32), dev(weights, np.float32),
             dev(window_lut(window, n), np.float32),
             dev(np.stack([roots.real, roots.imag], axis=-1), np.float32))
+
+
+def odd_primes(m: int) -> list:
+    """The prime factors of m's odd part, ascending, with multiplicity: the
+    radices of the mixed kernel's odd passes for an m-point block."""
+    while m and m % 2 == 0:
+        m //= 2
+    out, p = [], 3
+    while m > 1:
+        if p * p > m:
+            p = m
+        while m % p == 0:
+            out.append(p)
+            m //= p
+        p += 2
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _pass_roots(m_pts: int, device: torch.device) -> torch.Tensor:
+    """The mixed kernel's float64 tables for an m_pts-point block, one after
+    the other: for each odd pass (Ns, p) in order (``odd_primes``, Ns the
+    product of the primes before), W_{Ns p}^u for u < Ns p, as ``(K, 2)``
+    float64 (re, im), built in float64 (one entry if there is no odd
+    pass)."""
+    parts, ns = [np.ones(1)], 1
+    for p in odd_primes(m_pts):
+        parts.append(np.exp(-2j * np.pi * np.arange(ns * p) / (ns * p)))
+        ns *= p
+    w = np.concatenate(parts[1:] or parts)
+    return torch.as_tensor(np.stack([w.real, w.imag], axis=-1)).to(device)
 
 
 def check_planes(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig):
@@ -248,31 +319,33 @@ def _raise_on(err: int, lib_fn) -> None:
 
 def _launch_fft(lib, iq_re, iq_im, cfg) -> torch.Tensor:
     """Launch the FFT kernel (and, with more than one window group, its
-    combine pass; above ``CLUSTER_MAX_FFT_SIZE`` its radix-c step, chunk by
-    chunk) on the planes' device and current stream."""
+    combine pass; on the scratch route of :func:`fft_plan` its radix-c
+    step, chunk by chunk) on the planes' device and current stream."""
     dev = iq_re.device
     t, n = iq_re.shape[0], cfg.fft_size
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
     if t == 0:
         return out
     w = len(cfg.window_starts)
-    c = cluster_size(n)
-    chunk = scratch_chunk(t, n, w) if n > CLUSTER_MAX_FFT_SIZE else t
+    c, via_scratch = fft_plan(n)
+    chunk = scratch_chunk(t, n, w) if via_scratch else t
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     groups = window_groups(chunk, n, w, sms)
     part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
             if groups > 1 else None)
     scratch = (torch.empty((chunk, w, n, 2), dtype=torch.float32, device=dev)
-               if n > CLUSTER_MAX_FFT_SIZE else None)
+               if via_scratch else None)
     starts, weights, window, roots = _tables(
         n, cfg.window, cfg.window_starts, cfg.cur_scan_cumu_mode, dev)
+    pass_roots = _pass_roots(n // c, dev)
     with torch.cuda.device(dev):
         err = lib.kspec_curscan_fft(
             iq_re.data_ptr(), iq_im.data_ptr(),
             int(iq_re.dtype == torch.uint8), out.data_ptr(),
             0 if part is None else part.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), starts.data_ptr(),
-            weights.data_ptr(), window.data_ptr(), roots.data_ptr(), t,
+            weights.data_ptr(), window.data_ptr(), roots.data_ptr(),
+            pass_roots.data_ptr(), t,
             cfg.full_size, n, c, chunk, w, groups,
             _FOLD[cfg.cur_scan_cumu_mode],
             torch.cuda.current_stream(dev).cuda_stream)

@@ -134,15 +134,20 @@ def curscan_auto_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
     """Batched curscan ``(T, full_size)`` -> ``(T, fft_size)``, the
     counterpart of the JAX dispatcher's TPU ladder:
 
-      * configs K1's wrapper ``cuda_curscan.curscan_fused_sublane`` takes
-        (``supports_fused_sublane``, the JAX predicate: every multiple of
-        128 from 256 up, each run by the FFT kernel; this covers the lane
-        kernel's cell too) go to it;
+      * configs the FFT kernel's wrapper
+        ``cuda_curscan.curscan_fused_sublane`` takes
+        (``cuda_curscan.kernel_route``: every config for which the JAX
+        ``_fused_choice`` picks the sublane kernel K1 or the lane kernel
+        K3, i.e. every multiple of 128 from 256 up, and every fft >= 2048
+        that is not prime and whose window starts are multiples of n2 =
+        ``_factorize(fft)[1]``, such as fft 3000, 10000 or 39800) go to it;
       * else configs the packed kernel K2 supports (fft <= 128, the
         quickFullScan regime) go to its wrapper;
       * else, on the card, fft <= 256 decodes and takes the direct DFT
-        matmul, and everything else the ``torch.fft`` chain.  Nothing the
-        JAX dispatcher sends to a Pallas kernel lands there.
+        matmul (among them K2's cells that the packed kernel's shared
+        memory cannot hold, ROADMAP C2), and everything else the
+        ``torch.fft`` chain, where the JAX dispatcher runs XLA's chain too
+        (fft 1000, primes, starts off n2).
 
     Planes reach a kernel's wrapper as given (u8 decodes in the kernel's
     loads): for CUDA tensors the wrapper launches its kernel, for CPU

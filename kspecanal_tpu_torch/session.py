@@ -5,8 +5,11 @@ shell around the tensor pipeline.
 A session loop pumps an IQ source into the mode's step functions on
 ``Session.device`` and hands numpy views to an optional renderer callback.
 Cooperative stop mirrors the reference's ``cmd.stop`` flag checked at loop
-tops (kspecanal.py:465); SIGINT wiring lives in cli.py.  Modes and options
-not ported yet raise an error that names their ROADMAP.md item.
+tops (kspecanal.py:465); SIGINT wiring lives in cli.py.  ``zeroSpanSave``
+records the spectra, ``zeroSpanPlay`` replays a recording through the
+display fold, and ``tpuStateFile`` checkpoints the state a zero-span or
+scan session leaves behind (``io/state.py``).  Options not ported yet raise
+an error that names their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -17,8 +20,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from kspecanal_tpu_torch.config import MODE_SCAN, MODE_ZEROSPAN, SpecConfig
-from kspecanal_tpu_torch.io.replay import load_sig_lvls, save_sig_lvls
+from kspecanal_tpu_torch.config import (MODE_SCAN, MODE_ZEROSPAN,
+                                        MODE_ZEROSPANPLAY, MODE_ZEROSPANSAVE,
+                                        SpecConfig)
+from kspecanal_tpu_torch.io.replay import (ZeroSpanPlayer, ZeroSpanRecorder,
+                                           load_sig_lvls, save_sig_lvls)
 from kspecanal_tpu_torch.io.sources import IQSource, split_u8_planes
 from kspecanal_tpu_torch.utils.logging import log_info, log_iter, log_warn
 from kspecanal_tpu_torch.utils.profiling import StageTimer
@@ -29,8 +35,6 @@ from kspecanal_tpu_torch.ops.peaks import find_peaks
 
 # Entries of the "Still to port" queue in ROADMAP.md named by the errors
 # of what is not ported yet.
-TODO_SAVE_PLAY = "2 (zeroSpanSave / zeroSpanPlay)"
-TODO_STATE = "3 (io/state checkpoints)"
 TODO_MULTI_GPU = "7 (multi-GPU)"
 TODO_GUI = "8 (matplotlib renderer)"
 
@@ -47,8 +51,8 @@ class Session:
 
     def __init__(self, cfg: SpecConfig, source: Optional[IQSource] = None,
                  renderer: Optional[Callable] = None, *, device,
-                 catch_up: int = 0, sweep_prefetch: bool = False,
-                 render_every: str = "sweep"):
+                 state_file: str = "", catch_up: int = 0,
+                 sweep_prefetch: bool = False, render_every: str = "sweep"):
         self.cfg = cfg
         self.source = source
         self.renderer = renderer
@@ -68,8 +72,39 @@ class Session:
         self.final_avg: Optional[np.ndarray] = None
         self.iter_times: list = []
         self.timer = StageTimer()    # per-stage wall/throughput accounting
+        self.state_file = state_file  # checkpoint/resume (io/state)
         if cfg.adj_sig_lvls:
             self._load_baseline()
+
+    # -- checkpoint / resume (io/state.py) --------------------------------
+    def _resume_state(self, cfg: SpecConfig, kind: str):
+        """The mode state restored from the checkpoint file onto
+        ``self.device``, or None.  ``kind`` ('zerospan' | 'scan') keeps a
+        session from resuming the other mode's state where the frequency
+        fingerprints coincide (zero-span 92e6/2.4e6 == scan 90.8-93.2e6)."""
+        import os
+        from kspecanal_tpu_torch.io.state import load_state, state_path
+        if not self.state_file or not os.path.exists(
+                state_path(self.state_file)):
+            return None
+        try:
+            st = load_state(self.state_file, cfg, kind=kind,
+                            device=self.device)
+        except Exception as e:  # corrupt/foreign file: start fresh
+            log_warn(f"resume: unreadable checkpoint {self.state_file} "
+                     f"({e}); starting fresh")
+            return None
+        if st is not None:
+            log_info(f"resume: restored state from "
+                     f"{state_path(self.state_file)}")
+        return st
+
+    def _checkpoint_state(self, state, cfg: SpecConfig):
+        if self.state_file and state is not None:
+            from kspecanal_tpu_torch.io.state import save_state, state_path
+            save_state(self.state_file, state, cfg)
+            log_info(f"checkpoint: saved state to "
+                     f"{state_path(self.state_file)}")
 
     # -- baseline handling (kspecanal.py:736-768, :400-411) --------------
     def _load_baseline(self):
@@ -93,7 +128,8 @@ class Session:
                           self.cfg.end_freq, self.final_avg)
             log_info(f"_save_siglvls: success... {self.cfg.save_sig_lvls}")
 
-    def _emit(self, view, iteration: int, with_peaks: bool = True):
+    def _emit(self, view, iteration: int, timestamp_str: Optional[str] = None,
+              with_peaks: bool = True):
         """Hand the renderer a view of host numpy arrays (a ``ZeroSpanView``
         or ``ScanView``), with the peaks of the curve drawn last (cur, else
         avg, min, max; kspecanal.py:485-504) printed as the reference
@@ -123,7 +159,7 @@ class Session:
                                              np.min(lvls), np.max(lvls)))
                 for p in peaks:
                     print("plotHighs:Marked: {}, {}".format(p.freq, p.level))
-        self.renderer(self, view, peaks, iteration, None)
+        self.renderer(self, view, peaks, iteration, timestamp_str)
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +180,8 @@ def run_zero_span(sess: Session, max_iters: Optional[int] = None
     if sess.source is None:
         raise ValueError("zero-span needs an IQ source")
     sess.source.retune(cfg.center_freq, cfg.sampling_rate, cfg.gain)
-    state = zs.init_state(cfg, sess.device)
+    state = (sess._resume_state(cfg, "zerospan")
+             or zs.init_state(cfg, sess.device))
     adj = (None if sess.adj is None
            else torch.as_tensor(sess.adj).to(sess.device))
     n = cfg.prg_loop_cnt if max_iters is None else max_iters
@@ -178,6 +215,7 @@ def run_zero_span(sess: Session, max_iters: Optional[int] = None
         with sess.timer.stage("render"):
             sess._emit(view, i)
     sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    sess._checkpoint_state(state, cfg)
     return state
 
 
@@ -303,6 +341,137 @@ def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
     # stage, so the tail shows in the accounting.
     with sess.timer.stage("drain"):
         sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    sess._checkpoint_state(state, cfg)
+    return state
+
+
+def run_zero_span_save(sess: Session, max_iters: Optional[int] = None) -> int:
+    """Record mode (kspecanal.py:509-526): no display work; the spectra of
+    ``tpuCatchUp`` blocks (8 without it, staging-bounded like the catch-up
+    loop) go through one ``curscan_auto_batched`` call a chunk, and each
+    frame is written with its own capture time.  Sources with ``read_raw``
+    ship u8 planes, which the curscan kernel decodes.  Returns the frames
+    written."""
+    from kspecanal_tpu_torch.ops.spectrum import curscan_auto_batched
+
+    cfg = sess.cfg
+    if sess.source is None:
+        raise ValueError("zeroSpanSave needs an IQ source")
+    sess.source.retune(cfg.center_freq, cfg.sampling_rate, cfg.gain)
+    n = cfg.prg_loop_cnt if max_iters is None else max_iters
+    chunk = _catchup_block_cap(sess, cfg) if sess.catch_up > 1 else 8
+    raw_read = getattr(sess.source, "read_raw", None)
+    copy_stream = (torch.cuda.Stream(sess.device)
+                   if sess.device.type == "cuda" else None)
+    written = 0
+    prev = time.time()
+    with ZeroSpanRecorder(cfg.zero_span_save_file, cfg.center_freq,
+                          cfg.sampling_rate, cfg.gain) as rec:
+        while written < n and not sess.stop:
+            k = min(chunk, n - written)
+            cur = time.time()
+            sess.iter_times.append(cur - prev)
+            # One line a chunk, the counterpart of the reference's line a
+            # frame (kspecanal.py:519-522).
+            log_iter(f"ZeroSpanSave:{written}:{cur - prev}")
+            prev = cur
+            with sess.timer.stage("acquire", k * cfg.full_size):
+                # Each frame keeps its own capture time (kspecanal.py:516-
+                # 525), so a replay's time axis does not step by chunks.
+                blocks, stamps = [], []
+                for _ in range(k):
+                    blocks.append(raw_read(cfg.full_size)
+                                  if raw_read is not None
+                                  else sess.source.read(cfg.full_size))
+                    stamps.append(time.time())
+                    if getattr(sess.source, "exhausted", False):
+                        log_warn("zeroSpanSave: source exhausted; stopping")
+                        sess.stop = True
+                        k = len(blocks)
+                        break
+                if raw_read is not None:
+                    re, im = split_u8_planes(np.stack(blocks))
+                else:
+                    re = np.stack([b[0] for b in blocks])
+                    im = np.stack([b[1] for b in blocks])
+                planes = _adopt(_upload(sess, copy_stream, re, im),
+                                copy_stream)
+            with sess.timer.stage("dsp", k * cfg.full_size):
+                spectra = curscan_auto_batched(planes[0], planes[1], cfg)
+            with sess.timer.stage("persist"):
+                for ts, spec in zip(stamps, spectra.cpu().numpy().astype(
+                        np.float64)):
+                    rec.append(spec, timestamp=ts)
+            written += k
+    return written
+
+
+def run_zero_span_play(sess: Session, max_iters: Optional[int] = None
+                       ) -> Optional[zs.ZeroSpanState]:
+    """Replay mode (kspecanal.py:530-564): the frames are recorded linear
+    spectra, so only the display half of the step runs
+    (``zs.display_updates``), ``tpuCatchUp`` frames a batch (1 without
+    it), rendered at each batch's last frame with its timestamp.  The file
+    header overrides fC/fS/gain with a warning (kspecanal.py:536-542), and
+    the recorded frame length overrides ``fftSize`` before the staging cap
+    is derived."""
+    cfg = sess.cfg
+    player = ZeroSpanPlayer(cfg.zero_span_play_file)
+    h = player.header
+    if (h.center_freq != cfg.center_freq
+            or h.sampling_rate != cfg.sampling_rate or h.gain != cfg.gain):
+        log_warn(f"zeroSpanPlay:updating: fC[{h.center_freq}] "
+                 f"fS[{h.sampling_rate}] gain[{h.gain}]")
+    cfg = sess.cfg = dataclasses.replace(
+        cfg, prg_mode=MODE_ZEROSPAN, center_freq=h.center_freq,
+        sampling_rate=h.sampling_rate, gain=h.gain,
+        start_freq=None, end_freq=None).finalize()
+    state = None
+    adj = (None if sess.adj is None
+           else torch.as_tensor(sess.adj).to(sess.device))
+    n = cfg.prg_loop_cnt if max_iters is None else max_iters
+    chunk = max(1, sess.catch_up)
+    want_view = sess.renderer is not None
+    i = 0
+    with player:
+        frames = player.frames()
+        while i < n and not sess.stop:
+            batch = []
+            if state is None:
+                # The header carries fC/fS/gain but not fftSize
+                # (kspecanal.py:512-514): the first frame's length sets it.
+                first = next(frames, None)
+                if first is None:
+                    break
+                f0 = np.asarray(first[1], np.float32)
+                if len(f0) != cfg.fft_size:
+                    log_warn(f"zeroSpanPlay: fftSize[{cfg.fft_size}] -> "
+                             f"recorded frame length [{len(f0)}]")
+                    cfg = sess.cfg = dataclasses.replace(
+                        cfg, fft_size=len(f0),
+                        x_res=min(cfg.x_res, len(f0))).finalize()
+                state = zs.init_state(cfg, sess.device)
+                batch.append((first[0], f0))
+            cap = max(1, min(chunk,
+                             _CATCHUP_STAGING_BYTES // (4 * cfg.fft_size)))
+            while len(batch) < min(cap, n - i):
+                nxt = next(frames, None)
+                if nxt is None:
+                    break
+                batch.append((nxt[0], np.asarray(nxt[1], np.float32)))
+            if not batch:
+                break
+            k = len(batch)
+            with sess.timer.stage("dsp", k * cfg.fft_size):
+                spec = torch.from_numpy(np.stack([f for _, f in batch]))
+                state, view = zs.display_updates(
+                    state, spec.to(sess.device), cfg, adj, want_view)
+            i += k
+            with sess.timer.stage("render"):
+                sess._emit(view, i - 1,
+                           ZeroSpanPlayer.format_timestamp(batch[-1][0]))
+    if state is not None:
+        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
     return state
 
 
@@ -391,7 +560,8 @@ def run_scan(sess: Session, max_sweeps: Optional[int] = None
     if sess.source is None:
         raise ValueError("scan needs an IQ source")
     plan = make_plan_cached(cfg)
-    state = scan_mod.init_state(cfg, plan, sess.device)
+    state = (sess._resume_state(cfg, "scan")
+             or scan_mod.init_state(cfg, plan, sess.device))
     adj = (None if sess.adj is None
            else torch.as_tensor(sess.adj).to(sess.device))
     n = cfg.prg_loop_cnt if max_sweeps is None else max_sweeps
@@ -461,6 +631,7 @@ def _run_scan_loop(sess: Session, state: scan_mod.ScanState, adj,
             with sess.timer.stage("render"):
                 sess._emit(scan_mod.scan_view(state, cfg, plan, adj), i)
     sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    sess._checkpoint_state(state, cfg)
     return state
 
 
@@ -518,6 +689,7 @@ def _run_scan_catchup(sess: Session, state: scan_mod.ScanState, adj,
     # Reading the final state back waits for every queued step.
     with sess.timer.stage("drain"):
         sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    sess._checkpoint_state(state, cfg)
     return state
 
 
@@ -527,8 +699,10 @@ def _run_scan_catchup(sess: Session, state: scan_mod.ScanState, adj,
 
 def do_run(sess: Session, max_iters: Optional[int] = None):
     mode = sess.cfg.prg_mode
-    if mode == MODE_ZEROSPAN:
-        return run_zero_span(sess, max_iters)
     if mode == MODE_SCAN:
         return run_scan(sess, max_iters)
-    raise not_ported(f"prgMode {mode}", TODO_SAVE_PLAY)
+    if mode == MODE_ZEROSPANSAVE:
+        return run_zero_span_save(sess, max_iters)
+    if mode == MODE_ZEROSPANPLAY:
+        return run_zero_span_play(sess, max_iters)
+    return run_zero_span(sess, max_iters)

@@ -77,10 +77,11 @@ def test_supports_matches_jax_predicate_up_to_smem_limit():
 
 class _FakeLib:
     """A stand-in for the kernels' library: records which entry point each
-    launch called and reports success."""
+    launch called, with its arguments, and reports success."""
 
     def __init__(self):
         self.calls = []
+        self.args = []
         for name in ("kspec_curscan_fft", "kspec_curscan_sublane",
                      "kspec_curscan_packed"):
             setattr(self, name, self._entry(name))
@@ -88,6 +89,7 @@ class _FakeLib:
     def _entry(self, name):
         def fn(*args):
             self.calls.append(name)
+            self.args.append(args)
             return 0
         fn.__name__ = name
         return fn
@@ -142,6 +144,40 @@ def test_jax_kernel_configs_launch_a_kernel_on_the_card(fake_card, dtype):
             cfg.fft_size, cfg.cur_scan_non_overlap, fake_card.calls)
         assert (cuda_curscan.launches, cuda_curscan.direct_launches) == (
             before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+def test_lane_sizes_launch_the_fft_kernel_with_a_valid_plan(fake_card,
+                                                             dtype):
+    """The lane kernel's sizes off the 128 grid launch the FFT kernel once,
+    with the block split of ``fft_plan`` (one block; a cluster of a power
+    of two <= 8; the scratch route, chunked) and a window-group plan the
+    kernel's entry accepts: n/c <= 16384 points a block, 1 <= G <= W."""
+    for fft, nono, t in ((2500, 0.5, 3), (3000, 0.1, 3), (10000, 0.25, 3),
+                         (24000, 0.5, 2), (39800, 0.1, 2), (33250, 0.5, 2),
+                         (131100, 0.5, 2)):
+        cfg = zs_cfg(fft, nono, x_res=500)
+        assert cuda_curscan.kernel_route(cfg) == "fft"
+        planes = torch.empty((t, cfg.full_size), device="meta", dtype=dtype)
+        fake_card.calls.clear()
+        fake_card.args.clear()
+        before = cuda_curscan.launches
+        out = tspec.curscan_auto_batched(planes, planes, cfg)
+        assert out.shape == (t, fft) and cuda_curscan.launches == before + 1
+        assert fake_card.calls == ["kspec_curscan_fft"]
+        (is_u8, t_, full, n, c, chunk, w, groups,
+         fold) = (fake_card.args[0][i] for i in (2, 11, 12, 13, 14, 15, 16,
+                                                 17, 18))
+        assert (is_u8, t_, full, n) == (int(dtype == torch.uint8), t,
+                                        cfg.full_size, fft)
+        c_plan, via_scratch = cuda_curscan.fft_plan(fft)
+        assert c == c_plan and n % c == 0 and n // c <= 16384
+        if via_scratch:
+            assert 1 <= chunk <= t and fft > 16384
+        else:
+            assert chunk == t and c <= 8 and c & (c - 1) == 0
+        assert w == cfg.num_windows and 1 <= groups <= w and fold == 0
+        assert groups == cuda_curscan.window_groups(chunk, fft, w, 132)
 
 
 def test_non_power_of_two_takes_the_direct_kernel(fake_card):

@@ -10,14 +10,19 @@ radix-8 butterflies, the twiddle-table indices into the one N-point roots
 table, the padded shared-memory index function and its banks, the Stockham
 output order (thread t ends with bins ``t + k*m/16``), the fftshift write,
 the window-group split with its fixed combine order, and the c-block
-cluster split above fft 16384.  Every other multiple of 128
-(``curscan_mixed_kernel``): the block split (c blocks of M = N/c points, a
-cluster up to 131072, a radix-c step through a scratch buffer above), the
-odd prime passes first (the first from device memory into registers where
-its prime is at most 7, else the staged buffer and the p-term sums of
-``odd_pass`` with outputs grouped by k), their ragged thread loops and
-carry-advanced indices, the power-of-two passes after them, and the
-fftshift modulo.  It rounds where the kernel rounds: values are float32 in
+cluster split above fft 16384.  Every other size the JAX dispatcher sends
+to a Pallas kernel (``curscan_mixed_kernel``: the other multiples of 128,
+and the lane kernel's sizes off the 128 grid such as 2500, 3000, 10000 and
+39800): the block split (c blocks of M = N/c points, a cluster up to 131072
+where a power of two splits N, a radix-c step through a scratch buffer
+elsewhere), the odd prime passes first (the first from device memory into
+registers where its prime is at most 7, else the staged buffer and the
+p-term sums of ``odd_first_pass_staged`` with outputs grouped by k; the
+others the p-term sums of ``odd_pass``, outputs t + e*nt of each thread,
+coefficients from the pass's float64 table or float64 powers of one of its
+entries), their ragged thread loops, the power-of-two passes after them, the ragged plan where 16
+does not divide M (ceil(M/16) threads, outputs t + e*nt < M, one last
+power-of-two pass of radix 2, 4 or 8), and the fftshift modulo.  It rounds where the kernel rounds: values are float32 in
 registers and shared memory, each butterfly (with its pass twiddle from the
 float32 table) runs in float64 and rounds to float32 after its inner DFT-4
 stage and at its end; an odd pass rounds once per output.
@@ -45,6 +50,13 @@ POW2 = [1 << e for e in range(8, 18)]          # 256 .. 131072
 # Multiples of 128 that are not powers of two below 131072 (one block, then
 # clusters of 2 and 8) and sizes above it (the scratch route: c = 12, 16).
 MIXED = [384, 1280, 16256, 20480, 98304, 130944, 196608, 262144]
+# The lane kernel's sizes off the 128 grid (the ragged plan): 2500 = 2^2 *
+# 5^4, 3000 = 2^3 * 3 * 5^3, 10000 = 2^4 * 5^4 (16 divides it: the plan of
+# 16 points a thread), 39800 = 2^3 * 5^2 * 199 (a cluster of 4 blocks of
+# 9950 = 2 * 5^2 * 199), 33250 = 2 * 5^3 * 7 * 19 (2 * odd above 32768, no
+# power of two splits it: the scratch route, c = 5) and 131100 = 2^2 * 3 *
+# 5^2 * 19 * 23 (above 131072: the scratch route, c = 10).
+LANE = [2500, 3000, 10000, 39800, 33250, 131100]
 W16 = np.exp(-2j * np.pi * np.arange(16) / 16)      # float64 constants
 
 
@@ -158,18 +170,25 @@ def block_fft(v, m, n, roots, banks=None):
     raise AssertionError("unreachable: every block FFT has >= 2 passes")
 
 
-def cluster_size(n):
-    """Thread blocks c of one n-point window: 1 up to 16384; the smallest
-    power of two up to 131072 (a cluster); above, the smallest divisor with
-    n/c <= 16384 and a multiple of 16."""
+def block_split(n):
+    """(c, through scratch) of one n-point window: one block up to 16384;
+    up to 131072 the smallest power of two with n/c <= 16384 (a cluster),
+    where it divides n; else the smallest divisor with n/c <= 16384 (and a
+    multiple of 16 where 16 divides n), through the scratch."""
     if n <= BLOCK_N:
-        return 1
+        return 1, False
     if n <= CLUSTER_MAX_N:
-        return 1 << (-(-n // BLOCK_N) - 1).bit_length()
+        c = 1 << (-(-n // BLOCK_N) - 1).bit_length()
+        if n % c == 0:
+            return c, False
     c = -(-n // BLOCK_N)
-    while n % c or (n // c) % RADIX:
+    while n % c or (n % RADIX == 0 and (n // c) % RADIX):
         c += 1
-    return c
+    return c, True
+
+
+def cluster_size(n):
+    return block_split(n)[0]
 
 
 def odd_part(m):
@@ -205,7 +224,7 @@ def odd_first_pass(x, p, m, n, roots, buf, banks):
     reads elements j + r*m/p of the block input ``x`` (device memory) into
     registers, takes the float64 DFT-p in the symmetric form with the
     float32 roots ``W_p^j`` and stores output k at j*p + k."""
-    nt = m // RADIX
+    nt = -(-m // RADIX)
     length, stride, h = m // p, n // p, (p - 1) // 2
     w = roots[(np.arange(p) % p) * stride].astype(np.complex128)
     for i in range(-(-length // nt)):
@@ -232,39 +251,88 @@ def odd_first_pass(x, p, m, n, roots, buf, banks):
             buf[..., pad(j * p + k)] = f32(outs[k])
 
 
-def odd_pass(buf, p, ns, m, n, roots, banks):
-    """``odd_pass``: thread t computes output k = t mod p of the
-    butterflies j = t div p + e*len/16 (e < 16), each the p-term float64 sum
-    of elements j + r*len times ``roots[r * n/(ns p) * ((j mod ns) + k ns)
-    mod n]``; after every thread has read, output k of butterfly j goes to
-    (j div ns)*p*ns + (j mod ns) + k*ns."""
+def odd_first_pass_staged(buf, p, m, n, roots, banks):
+    """``odd_first_pass_staged`` (16 divides m, the block input staged, Ns
+    = 1): thread t computes output k = t mod p of the butterflies j = t div
+    p + e*len/16 (e < 16), each the p-term float64 sum of elements j + r*len
+    times the float32 root ``W_p^(rk)``; after every thread has read, output
+    k of butterfly j goes to j*p + k."""
     nt = m // RADIX
     length = m // p
     l16 = length // RADIX
     assert length % RADIX == 0 and nt == p * l16
-    unit = n // (ns * p)
     t = np.arange(nt)
     k, jg = t % p, t // p
+    w = roots[(np.arange(p) * (n // p))].astype(np.complex128)
     ys, dst = [], []
     for e in range(RADIX):
         j = jg + e * l16
-        a = j % ns
-        step = unit * (a + k * ns)
-        assert step.max() < n
         banks.access(pad(j))
         acc = buf[..., pad(j)].copy()
-        idx = np.zeros_like(step)
         for r in range(1, p):
-            idx = idx + step
-            idx = np.where(idx >= n, idx - n, idx)
             banks.access(pad(j + r * length))
-            acc = acc + buf[..., pad(j + r * length)] * \
-                roots[idx].astype(np.complex128)
+            acc = acc + buf[..., pad(j + r * length)] * w[(r * k) % p]
         ys.append(f32(acc))
-        dst.append(pad((j // ns * p + k) * ns + a))
+        dst.append(pad(j * p + k))
     for y, addr in zip(ys, dst):
         banks.access(addr)
         buf[..., addr] = y
+
+
+def odd_pass(buf, p, ns, m, banks):
+    """``odd_pass``: thread t of ceil(m/16) computes the outputs o = t +
+    e*nt < m (e < 16), output k = o div len of butterfly j = o mod len, the
+    p-term float64 sum of elements j + r*len times w^r, w = W_{ns p}^u, u =
+    (j mod ns) + k ns: with ns = 1 the table's entry r*u mod p, else its
+    powers by repeated float64 products; after every thread has read,
+    output k of butterfly j goes to (j div ns)*p*ns + (j mod ns) + k*ns."""
+    nt = -(-m // RADIX)
+    length = m // p
+    table = np.exp(-2j * np.pi * np.arange(ns * p) / (ns * p))
+    ys, dst = [], []
+    for e in range(RADIX):
+        o = np.arange(nt) + e * nt
+        o = o[o < m]
+        if not len(o):
+            continue
+        k, j = o // length, o % length
+        a = j % ns
+        w = table[a + k * ns]
+        banks.access(pad(j))
+        acc = buf[..., pad(j)].copy()
+        c = w.copy()
+        for r in range(1, p):
+            banks.access(pad(j + r * length))
+            if ns == 1:
+                c = table[(r * k) % p]
+            acc = acc + buf[..., pad(j + r * length)] * c
+            c = c * w
+        ys.append(f32(acc))
+        dst.append(pad((j - a) * p + a + k * ns))
+    for y, addr in zip(ys, dst):
+        banks.access(addr)
+        buf[..., addr] = y
+
+
+def pow2_pass_ragged(buf, r0, ns, m, n, roots, banks):
+    """``pow2_pass_ragged<R0>`` (ns = m/r0, the odd part): butterfly j = t +
+    i*nt (i < 16/r0, j < ns) reads and writes elements j + r*ns, twiddled
+    by ``roots[r * j * n/m]``."""
+    nt = -(-m // RADIX)
+    for i in range(RADIX // r0):
+        j = np.arange(nt) + i * nt
+        j = j[j < ns]
+        if not len(j):
+            continue
+        xs = []
+        for r in range(r0):
+            banks.access(pad(j + r * ns))
+            xs.append(buf[..., pad(j + r * ns)])
+        tws = j * (n // (ns * r0))
+        y = dft(xs, [roots[r * tws] for r in range(r0)])
+        for k in range(r0):
+            banks.access(pad(j + k * ns))
+            buf[..., pad(j + k * ns)] = y[k]
 
 
 def mixed_block_fft(x, m, n, roots, banks=None, in_regs=True):
@@ -273,9 +341,11 @@ def mixed_block_fft(x, m, n, roots, banks=None, in_regs=True):
     in device memory (planes or scratch), so a first prime <= 7 runs
     ``odd_first_pass``; else (the cluster's z) the input is staged in the
     buffer at pad(t + e*m/16).  Returns ``[..., t, k]`` = bin t + k*m/16;
-    twiddles index the n-point table."""
+    twiddles index the n-point table.  Where 16 does not divide m (the
+    ragged plan) the entries of bins t + k*nt >= m are zero."""
     banks = banks or Banks()
-    nt = m // RADIX
+    nt = -(-m // RADIX)
+    ragged = m % RADIX != 0
     t = np.arange(nt)
     primes = odd_primes(odd_part(m))
     buf = np.zeros(x.shape[:-1] + (pad(m - 1) + 1,), np.complex128)
@@ -285,11 +355,25 @@ def mixed_block_fft(x, m, n, roots, banks=None, in_regs=True):
         ns = primes.pop(0)
     else:
         for e in range(RADIX):
-            banks.access(pad(t + e * nt))
-            buf[..., pad(t + e * nt)] = x[..., t + e * nt]
+            i = (t + e * nt)[t + e * nt < m]
+            banks.access(pad(i))
+            buf[..., pad(i)] = x[..., i]
     for p in primes:
-        odd_pass(buf, p, ns, m, n, roots, banks)
+        if ns == 1 and not ragged:
+            odd_first_pass_staged(buf, p, m, n, roots, banks)
+        else:
+            odd_pass(buf, p, ns, m, banks)
         ns *= p
+    if ragged:
+        if m // ns > 1:
+            pow2_pass_ragged(buf, m // ns, ns, m, n, roots, banks)
+        y = np.zeros(x.shape[:-1] + (nt, RADIX), np.complex128)
+        for e in range(RADIX):
+            i = t + e * nt
+            ok = i < m
+            banks.access(pad(i[ok]))
+            y[..., ok, e] = buf[..., pad(i[ok])]
+        return y
     rad = radices(m // odd_part(m))
     r0, q = rad[0], len(rad) - 1
     nb = RADIX // r0
@@ -355,17 +439,18 @@ def mixed_fft(a, roots, banks=None, scratch=None):
     ``scratch`` given, read from that (..., c, M) buffer as the scratch
     route's block kernel does) and write bins c*k + q."""
     n = a.shape[-1]
-    c = cluster_size(n)
+    c, via_scratch = block_split(n)
     m = n // c
-    nt = m // RADIX
+    nt = -(-m // RADIX)
     z = (a[..., None, :].astype(np.complex128) if c == 1
          else radix_c_step(a, roots, c) if scratch is None else scratch)
     y = mixed_block_fft(z, m, n, roots, banks,
-                        in_regs=c == 1 or n > CLUSTER_MAX_N)   # [..., q, t, k]
+                        in_regs=c == 1 or via_scratch)   # [..., q, t, k]
     bins = np.arange(nt)[:, None] + np.arange(RADIX)[None, :] * nt
+    ok = bins < m
     out = np.empty(a.shape, np.complex64)
     for q in range(c):
-        out[..., c * bins + q] = y[..., q, :, :]
+        out[..., c * bins[ok] + q] = y[..., q, :, :][..., ok]
     return out
 
 
@@ -416,8 +501,8 @@ def curscan_model(re, im, cfg, groups, chunk=None):
     starts, weights, window, roots = tables(cfg)
     idx = starts[:, None] + np.arange(n)[None, :]
     a = (re[:, idx] * window + 1j * (im[:, idx] * window)).astype(np.complex64)
-    if n > CLUSTER_MAX_N:
-        c = cluster_size(n)
+    c, via_scratch = block_split(n)
+    if via_scratch:
         chunk = chunk or cuda_curscan.scratch_chunk(len(re), n, len(starts))
         x = np.empty(a.shape, np.complex64)
         for b0 in range(0, len(re), chunk):
@@ -447,7 +532,7 @@ def curscan_model(re, im, cfg, groups, chunk=None):
     return out
 
 
-@pytest.mark.parametrize("n", POW2 + MIXED)
+@pytest.mark.parametrize("n", POW2 + MIXED + LANE)
 def test_model_fft_matches_numpy(n):
     rng = np.random.default_rng(n)
     a = (rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n)))
@@ -520,7 +605,7 @@ def test_mixed_plan_and_shared_memory_banks(m, in_regs, worst):
     primes, then a power-of-two pass of radix 2..16, then radix-16 passes,
     the last one radix 16; m/16 threads (not always whole warps).  Bank
     conflicts, which cost time and not correctness: ``odd_first_pass``
-    stores at stride p (up to p-way at p = 5), ``odd_pass`` up to 3-way,
+    stores at stride p (up to p-way at p = 5), the staged passes up to 3-way,
     the power-of-two passes after an odd part 2-way; none without one."""
     plan = mixed_plan(m)
     assert int(np.prod(plan)) == m and plan[-1] == RADIX
@@ -533,17 +618,18 @@ def test_mixed_plan_and_shared_memory_banks(m, in_regs, worst):
 
 def test_cluster_split_covers_every_bin_once():
     """The c thread blocks of a window write the bins c*k + q, k < n/c:
-    every bin once, with n/c <= 16384 and a multiple of 16; up to 131072 c
-    is a power of two <= 8 (a cluster: c <= 8, the portable cluster size),
-    above it any divisor (the scratch route).  The kernel's output index is
-    the fftshift (bin + n/2) mod n, which is ``& (n - 1)`` only for powers
-    of two."""
-    for n in POW2 + MIXED + [128 * 2039, 1 << 20]:
-        c = cluster_size(n)
+    every bin once, with n/c <= 16384, a multiple of 16 where n is a
+    multiple of 128; up to 131072 c is a power of two <= 8 (a cluster: c <=
+    8, the portable cluster size) where one divides n, else any divisor
+    (the scratch route).  The kernel's output index is the fftshift (bin +
+    n/2) mod n, which is ``& (n - 1)`` only for powers of two."""
+    for n in POW2 + MIXED + LANE + [128 * 2039, 1 << 20]:
+        c, via_scratch = block_split(n)
         m = n // c
-        assert c * m == n and m <= BLOCK_N and m % RADIX == 0
-        if n <= CLUSTER_MAX_N:
-            assert c <= 8 and c & (c - 1) == 0
+        assert c * m == n and m <= BLOCK_N
+        assert m % RADIX == 0 or n % 128
+        if not via_scratch:
+            assert n <= CLUSTER_MAX_N and c <= 8 and c & (c - 1) == 0
         bins = np.concatenate([c * np.arange(m) + q for q in range(c)])
         assert np.array_equal(np.sort(bins), np.arange(n))
         shifted = (bins + n // 2) % n
@@ -553,14 +639,70 @@ def test_cluster_split_covers_every_bin_once():
 
 
 def test_block_split_rule_matches_the_wrapper():
-    """``cuda_curscan.cluster_size`` is the model's rule at every multiple
-    of 128 up to 262144 and at 2^20; the c of the scratch route is the
-    smallest that works (fft 196608: 12, 262144: 16, 2^20: 64, 128*2039:
-    2039)."""
-    for n in list(range(128, 262144 + 1, 128)) + [1 << 20]:
-        assert cuda_curscan.cluster_size(n) == cluster_size(n), n
+    """``cuda_curscan.fft_plan`` is the model's rule at every multiple of
+    128 up to 262144, at every third fft from 2048 to 40000 and at 2^20;
+    the c of the scratch route is the smallest that works (fft 196608: 12, 262144: 16,
+    2^20: 64, 128*2039: 2039, 33250 = 2 * odd: 5, 131100: 10), and 39800
+    is a cluster of 4."""
+    for n in (list(range(128, 262144 + 1, 128))
+              + list(range(2048, 40001, 3)) + LANE + [1 << 20]):
+        assert cuda_curscan.fft_plan(n) == block_split(n), n
     assert [cluster_size(n) for n in (196608, 262144, 1 << 20, 128 * 2039)] \
         == [12, 16, 64, 2039]
+    assert [block_split(n) for n in (33250, 131100, 39800)] == [
+        (5, True), (10, True), (4, False)]
+
+
+@pytest.mark.parametrize("m,in_regs,worst", [
+    (2500, True, 6), (3000, True, 6), (9950, False, 6), (6650, True, 5),
+    (13110, True, 6), (2 * 509, False, 2), (2 * 3 * 509, True, 4),
+    (8 * 3 * 127, True, 4)])
+def test_ragged_plan_and_shared_memory_banks(m, in_regs, worst):
+    """The ragged plan (16 does not divide m): ceil(m/16) threads, the
+    power-of-two part below 16 in one last pass, any odd prime up to 509
+    (the largest below fft 262144 the lane predicate takes).  The model's
+    block FFT equals ``np.fft`` (the odd primes, then the power-of-two
+    pass); bank conflicts cost time and not correctness: up to 6-way."""
+    rng = np.random.default_rng(m)
+    a = (rng.standard_normal((1, m)) + 1j * rng.standard_normal((1, m)))
+    roots = np.exp(-2j * np.pi * np.arange(m) / m).astype(np.complex64)
+    banks = Banks()
+    y = mixed_block_fft(a.astype(np.complex64), m, m, roots, banks,
+                        in_regs=in_regs)
+    nt = -(-m // RADIX)
+    bins = np.arange(nt)[:, None] + np.arange(RADIX)[None, :] * nt
+    got = np.zeros(m, np.complex128)
+    got[bins[bins < m]] = y[0][bins < m]
+    want = np.fft.fft(a[0].astype(np.complex64).astype(np.complex128))
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 1e-6
+    assert m % RADIX and banks.worst == worst
+
+
+def test_pass_tables_of_the_wrapper():
+    """``cuda_curscan._pass_roots``: for each odd pass (Ns, p) of the block,
+    in the kernel's order, W_{Ns p}^u (u < Ns p) in float64, one after the
+    other; the float64 powers of an entry stay within 1e-13 of the exact
+    roots up to p = 1013 (the largest prime below 2^20 the lane predicate
+    sends), where the float32 table is 6e-8 off."""
+    for m in (3000, 9950, 16256, 16384, 3 * 5 * 1013):
+        tab = cuda_curscan._pass_roots(m, torch.device("cpu")).numpy()
+        w = tab[:, 0] + 1j * tab[:, 1]
+        assert tab.dtype == np.float64
+        primes = odd_primes(odd_part(m))
+        assert cuda_curscan.odd_primes(m) == primes
+        want, ns = [], 1
+        for p in primes:
+            want.append(np.exp(-2j * np.pi * np.arange(ns * p) / (ns * p)))
+            ns *= p
+        want = np.concatenate(want) if want else np.ones(1)
+        np.testing.assert_array_equal(w, want)
+    p = 1013
+    w = np.exp(-2j * np.pi / p)
+    c, worst = w, 0.0
+    for r in range(1, p):
+        worst = max(worst, abs(c - np.exp(-2j * np.pi * r / p)))
+        c = c * w
+    assert worst < 1e-13
 
 
 def test_scratch_chunks_cover_every_iq_block_once():
@@ -627,6 +769,24 @@ def test_model_folds_match_jax_chain(fft, mode, nono):
     groups = cuda_curscan.window_groups(2, fft, cfg.num_windows, 132)
     assert_spectra_close(curscan_model(re, im, cfg, groups),
                          jax_chain(re, im, cfg))
+
+
+@pytest.mark.parametrize("fft,nono", [(3000, 0.1), (2500, 0.5),
+                                      (39800, 0.5), (33250, 0.5)])
+def test_lane_sizes_plain_and_model_match_jax_chain(fft, nono):
+    """Sizes the JAX package sends to its lane kernel off the 128 grid (one
+    block, a cluster of 4, the scratch route at 2 * odd), MIN folds: the
+    port's plain path and the model of the ragged plan against the JAX
+    chain."""
+    cfg = zs_cfg(fft, nono, "MIN", x_res=500)
+    assert cuda_curscan.kernel_route(cfg) == "fft"
+    re, im = (decoded(p) for p in raw_planes(cfg, 1, seed=fft + 5))
+    want = jax_chain(re, im, cfg)
+    got = cuda_curscan.curscan_fused_sublane(torch.from_numpy(re),
+                                             torch.from_numpy(im), cfg)
+    assert_spectra_close(got.numpy(), want)
+    groups = cuda_curscan.window_groups(1, fft, cfg.num_windows, 132)
+    assert_spectra_close(curscan_model(re, im, cfg, groups), want)
 
 
 @pytest.mark.parametrize("nono", [0.5, 0.1])

@@ -28,6 +28,13 @@ pytestmark = pytest.mark.gpu
 POW2 = [1 << e for e in range(8, 18)]          # 256 .. 131072
 # The mixed-radix kernel: one block, clusters of 2 and 8, the scratch route.
 MIXED = [384, 1280, 3072, 16256, 20480, 98304, 130944, 262144]
+# The lane kernel's (K3's) sizes off the 128 grid, with the overlaps at
+# which the JAX dispatcher sends them to it: one block (2500, 3000; 10000
+# with 16 points a thread), a cluster of 4 (39800 = 200 * 199), the
+# scratch route (33250 = 2 * odd, c = 5; 131100, c = 10).
+LANE = [(2500, 0.5), (2500, 0.1), (3000, 0.5), (3000, 0.1), (10000, 0.5),
+        (10000, 0.1), (39800, 0.5), (39800, 0.1), (33250, 0.5),
+        (131100, 0.5), (131100, 0.1)]
 
 
 def planes_on(cuda, cfg, t, seed):
@@ -103,6 +110,35 @@ def test_mixed_kernel_matches_plain64(cuda, fft, mode, nono):
 def test_mixed_kernel_u8_bit_identical(cuda, fft):
     cfg = zs_cfg(fft, 0.1, x_res=512)
     re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 2, 19))
+    got = cuda_curscan.curscan_fused_sublane(re, im, cfg)
+    want = cuda_curscan.curscan_fused_sublane(tspec.decode_u8(re),
+                                              tspec.decode_u8(im), cfg)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fft,nono", LANE)
+@pytest.mark.parametrize("mode", MODES)
+def test_lane_sizes_match_plain64(cuda, fft, nono, mode):
+    """K3's cells off the 128 grid run the FFT kernel's mixed-radix form
+    through the dispatcher (the ragged plan where 16 does not divide a
+    block's points), counted in ``launches``, against the plain version in
+    float64."""
+    cfg = zs_cfg(fft, nono, mode, x_res=500)
+    assert cuda_curscan.kernel_route(cfg) == "fft"
+    re, im = planes_on(cuda, cfg, 4 if fft <= 16384 else 2, seed=fft + 2)
+    before = counts()
+    got = tspec.curscan_auto_batched(re, im, cfg)
+    want = plain64(re, im, cfg)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1])
+    assert bool(got.isfinite().all())
+    assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("fft", [3000, 33250, 131100])
+def test_lane_sizes_u8_bit_identical(cuda, fft):
+    cfg = zs_cfg(fft, 0.5, x_res=500)
+    re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 2, 20))
     got = cuda_curscan.curscan_fused_sublane(re, im, cfg)
     want = cuda_curscan.curscan_fused_sublane(tspec.decode_u8(re),
                                               tspec.decode_u8(im), cfg)

@@ -1,8 +1,9 @@
 """The port's zero-span slice as a whole: ``session.run_zero_span`` and
 ``cli.main`` against the JAX session on the same seeded sources (fft 2048,
 kaiser, 50% overlap), the u8 file-source route, peak placement, the
-device sources and ``tpuProfile``, the refusal of what is not ported,
-and that the port never loads JAX.
+device sources and ``tpuProfile``, the refusal of what is not ported
+(multi-GPU, the matplotlib renderer), and that the port never loads JAX.
+Save, replay and checkpoints: test_torch_replay.py.
 Tolerances as in ``torch_parity``."""
 import os
 import subprocess
@@ -169,12 +170,8 @@ def test_cli_requires_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["tpuStateFile", "st.npz"], "item 3"),
     (["tpuMeshTime", "2"], "item 7"),
     (["tpuRenderer", "png:frames"], "item 8"),
-    (["zeroSpanSave"], "item 2"),
-    (["zeroSpanPlay"], "item 2"),
-    (["fmScan", "tpuStateFile", "st.npz"], "item 3"),
 ])
 def test_unported_modes_and_options_name_their_roadmap_item(args, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item} "):

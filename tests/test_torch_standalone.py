@@ -3,15 +3,18 @@ package, and its copies of the JAX package's host modules (config, CLI
 parser, host sources, replay, logging) stay equal to their originals.
 
   * a subprocess with ``jax``, ``jaxlib`` and ``kspecanal_tpu`` made
-    unimportable imports every module of the port and runs five sessions
-    through the port's ``cli.main`` on the CPU;
+    unimportable imports every module of the port and runs sessions through
+    the port's ``cli.main`` on the CPU (zero-span serial, catch-up and from
+    a u8 file, fmScan, quickFullScan, zeroSpanSave then zeroSpanPlay at
+    fftSize 3000, and ``tpuStateFile`` resumes);
   * an AST walk finds no import of ``kspecanal_tpu`` (module level or inside
     a function) in the package, ``chip_smoke.py`` or
     ``tests/test_torch_gpu.py``;
   * drift tests hold each copy to its original: parsed configs and run
     options over a table of argument lists, the window tables, weights,
-    window starts and scan plan over a grid, and the host sources' samples
-    from one seed."""
+    window starts and scan plan over a grid, the host sources' samples
+    from one seed, the checkpoint fingerprint of ``io/state`` and the
+    route's factor rule (``_factorize``, ``supports_fused``)."""
 import ast
 import dataclasses
 import os
@@ -38,17 +41,34 @@ ZS = ["zeroSpan", "centerFreq", "92e6", "fftSize", "2048", "window",
       "kaiser", "curScanNonOverlap", "0.5", "tpuLogIter", "false",
       "tpuHeadless", "true"]
 
+FM = ["fmScan", "tpuSource", "synth", "tpuHeadless", "true", "tpuLogIter",
+      "false"]
+ZS3000 = [a if a != "2048" else "3000" for a in ZS]
+# Each session: the argument lists of the cli.main calls it makes in turn.
 SESSIONS = {
-    "zerospan-serial": ZS + ["prgLoopCnt", "3", "tpuSource", "synth"],
-    "zerospan-catchup": ZS + ["prgLoopCnt", "8", "tpuCatchUp", "4",
-                              "tpuSource", "synth"],
-    "zerospan-u8-file": ZS + ["prgLoopCnt", "3", "tpuSource", "file:{cap}"],
-    "fmscan-catchup": ["fmScan", "prgLoopCnt", "2", "tpuCatchUp", "2",
-                       "tpuSource", "synth", "tpuHeadless", "true",
-                       "tpuLogIter", "false"],
-    "quickfullscan-prefetch": ["quickFullScan", "prgLoopCnt", "2",
-                               "tpuPrefetch", "true", "tpuSource", "synth",
-                               "tpuHeadless", "true", "tpuLogIter", "false"],
+    "zerospan-serial": [ZS + ["prgLoopCnt", "3", "tpuSource", "synth"]],
+    "zerospan-catchup": [ZS + ["prgLoopCnt", "8", "tpuCatchUp", "4",
+                               "tpuSource", "synth"]],
+    "zerospan-u8-file": [ZS + ["prgLoopCnt", "3", "tpuSource",
+                               "file:{cap}"]],
+    "fmscan-catchup": [FM + ["prgLoopCnt", "2", "tpuCatchUp", "2"]],
+    "quickfullscan-prefetch": [["quickFullScan", "prgLoopCnt", "2",
+                                "tpuPrefetch", "true", "tpuSource", "synth",
+                                "tpuHeadless", "true", "tpuLogIter",
+                                "false"]],
+    "zerospan-save-play-3000": [
+        ["zeroSpanSave"] + ZS3000[1:] + [
+            "zeroSpanSaveFile", "rec.save", "prgLoopCnt", "4", "tpuSource",
+            "file:{cap}", "tpuCatchUp", "2"],
+        ["zeroSpanPlay", "zeroSpanPlayFile", "rec.save", "tpuHeadless",
+         "true", "tpuLogIter", "false"]],
+    "zerospan-state-resume": [
+        ZS + ["prgLoopCnt", "2", "tpuSource", "synth", "tpuStateFile", "ck"],
+        ZS + ["prgLoopCnt", "2", "tpuSource", "synth", "tpuStateFile", "ck",
+              "tpuCatchUp", "2"]],
+    "fmscan-state-resume": [
+        FM + ["prgLoopCnt", "1", "tpuStateFile", "ck"],
+        FM + ["prgLoopCnt", "1", "tpuStateFile", "ck"]],
 }
 
 
@@ -58,9 +78,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path, name):
     ``cli.main`` on the CPU, with ``jax``, ``jaxlib`` and ``kspecanal_tpu``
     unimportable."""
     cap = str(tmp_path / "cap.iq")
-    cfg, _ = tcli.parse_args(ZS)
+    cfg, _ = tcli.parse_args(ZS3000)
     write_capture(cap, cfg, 4 * cfg.full_size, seed=47)
-    args = [a.format(cap=cap) for a in SESSIONS[name]]
+    runs = [[a.format(cap=cap) for a in argv] for argv in SESSIONS[name]]
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'kspecanal_tpu'):\n"
@@ -71,17 +91,20 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path, name):
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import kspecanal_tpu_torch.cli as cli\n"
-        "assert cli.main(%r, device='cpu') == 0\n"
+        "for argv in %r:\n"
+        "    assert cli.main(argv, device='cpu') == 0\n"
         "assert not any(k == 'jax'\n"
         "               or k.startswith(('jax.', 'kspecanal_tpu.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
-        "print('standalone ok')\n" % args)
+        "print('standalone ok')\n" % runs)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "standalone ok" in proc.stdout
+    if name.endswith("state-resume"):
+        assert proc.stderr.count("resume: restored state from ck.npz") == 1
 
 
 def _imports_of_the_jax_package(path):
@@ -246,6 +269,38 @@ def test_host_sources_equal_the_original(tmp_path):
     for a, b in zip(tsrc.load_rtlsdr_capture(cap, 1000, 7),
                     jsrc.load_rtlsdr_capture(cap, 1000, 7)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("argv", ARGV_TABLE[:-3] + [
+    ["scan", "startFreq", "90.8e6", "endFreq", "93.2e6", "fftSize", "512"]],
+    ids=[" ".join(a[:2]) or "defaults" for a in ARGV_TABLE[:-3]] + ["scan"])
+def test_state_fingerprint_copy_equals_the_original(argv):
+    """The port's ``io/state`` names a checkpoint file and fingerprints a
+    config as the JAX package's does, so each loads the other's files."""
+    from kspecanal_tpu.io import state as jstate
+    from kspecanal_tpu_torch.io import state as tstate
+    jc, tc = jcli.parse_args(argv)[0], tcli.parse_args(argv)[0]
+    np.testing.assert_array_equal(tstate._fingerprint(tc),
+                                  jstate._fingerprint(jc))
+    for path in ("ck", "ck.npz", "dir/ck.state"):
+        assert tstate.state_path(path) == jstate.state_path(path)
+
+
+def test_factor_rule_copy_equals_the_original():
+    """``cuda_curscan._factorize`` and ``FACTOR_OVERRIDES`` (the route's
+    copy of ``mxu_fft``'s factor rule) at every n below 4096 and at a
+    stride up to 2^20, and ``supports_fused`` on configs from the table."""
+    from kspecanal_tpu.ops import mxu_fft
+    from kspecanal_tpu.ops import pallas_curscan as jpk
+    from kspecanal_tpu_torch.ops import cuda_curscan
+    for n in list(range(1, 4096)) + list(range(4096, (1 << 20) + 1, 997)):
+        assert cuda_curscan._factorize(n) == mxu_fft._factorize(n), n
+    assert cuda_curscan.FACTOR_OVERRIDES == mxu_fft.FACTOR_OVERRIDES
+    for argv in ARGV_TABLE:
+        for fft in ("2048", "2500", "3000", "39800"):
+            jc, tc = (m.parse_args(argv + ["fftSize", fft])[0]
+                      for m in (jcli, tcli))
+            assert cuda_curscan.supports_fused(tc) == jpk.supports_fused(jc)
 
 
 def test_replay_copy_reads_what_the_original_writes(tmp_path):
