@@ -29,11 +29,18 @@ Phases (any failure raises; the exit code is then non-zero):
      90% (where the JAX dispatcher sends them to its lane kernel), with the
      share of the per-bin bound each reached; u8 bit-identical to decoded
      float32 at fft 3000 and 131100;
-  4. the scan kernels against their plain versions: the packed kernel at
-     quickFullScan's geometry (fft 64, ones, 90%) in all four modes, fft 128
-     at 50% and fft 32 at 25%, one sweep and 16 sweeps of blocks, u8
-     bit-identical; K1 (float64 plain) at fmScan's geometry (fft 16384,
-     ones, 90%) and at the lane kernel's cell (fft 16384, kaiser, 50%);
+  4. the scan kernels against their plain versions run in float64: K2 (the
+     packed FFT kernel) through the dispatcher, each case one launch and no
+     call of the direct-DFT matmul, at quickFullScan's geometry (fft 64,
+     ones, 90%)
+     in all four modes at one sweep and 16 sweeps of blocks (T = 1226 and
+     19616), every fft 2-128 in all four modes at curScanNonOverlap 0.5,
+     0.75, 0.25 and 0.1, the two cells of fault C2 (fft 128 at 50% with
+     fft2FullMult 81, fft 64 at 90% with 96) and fft 128 x 399 (the chunked
+     walk); u8 bit-identical to decoded float32 at quickFullScan and at the
+     C2 cells; two runs at quickFullScan bit-identical; K1 (float64 plain)
+     at fmScan's geometry (fft 16384, ones, 90%) and at the lane kernel's
+     cell (fft 16384, kaiser, 50%);
   5. ``parallel.stream`` over 16384 blocks (268 M samples, ~112 s of
      2.4 Msps IQ made on the card) in chunks of 1024, against the plain
      path on the same data;
@@ -58,9 +65,13 @@ Phases (any failure raises; the exit code is then non-zero):
      fft 1280, 3072 (T=4096) and 16256 (T=1024), and of the FFT kernel and
      the plain chain at fft 20480 and 98304 (T=64, 50%
      and 90%), 130944 and 262144 (T=8), K3's fft 3000 and 10000 (T=4096,
-     50% and 90%) and 39800 (T=64), each beside its bound: the larger
-     of 5 N log2 N + 4 N flops a window at 67 TFLOP/s and the planes read
-     once plus the output written once at 3.35 TB/s;
+     50% and 90%) and 39800 (T=64); K2 and the plain chain at quickFullScan
+     (T=19616 and 1226, f32 and u8), fft 128 kaiser 50% and fft 32 RAW at
+     curScanNonOverlap 0.25 (T=4096), and at the C2 cell fft 128 mult 81
+     (T=1024) with the direct-DFT matmul it took before beside them; each
+     beside its bound: the larger of 5 N log2 N + 4 N flops a window at 67
+     TFLOP/s and the planes read once plus the output written once at 3.35
+     TB/s;
   9. the on-device sources: devicesynth planes against the same start times
      synthesised on the CPU, its tone purity (>= 120 dB, peaks on 91/92/93
      MHz), devicenoise's u8 planes (mean 127.5 +- 0.5);
@@ -82,7 +93,10 @@ Phases (any failure raises; the exit code is then non-zero):
      and float32 sums), the marginal table of ``scripts.kernel_ablate`` (u8
      and f32, T=4096/8192) and ``scripts.session_ablate`` at k=4096 (cut
      from 16384 to save time), with the launches of the forensic kernel and
-     of the direct kernel (their base) counted over them.
+     of the direct kernel (their base) counted over them;
+ 14. ``scripts.qfs_ablate``: one quickFullScan sweep (1226 bands x 512)
+     split into band curscans (K2), display chain, stitch and epilogue on
+     the card, beside the serial session's whole sweep.
 The line before the last lists each kernel with its launches on its path,
 its error, its times and its bound; ``library_ms`` is null throughout: no
 single PyTorch call computes a curscan (the plain version, cuFFT plus
@@ -128,6 +142,12 @@ MIXED = (384, 1280, 3072, 16256, 20480, 98304, 130944, 262144)
 # 2 * odd, c = 5; 131100, c = 10).
 LANE = ((2500, (0.5, 0.1)), (3000, (0.5, 0.1)), (10000, (0.5, 0.1)),
         (39800, (0.5, 0.1)), (33250, (0.5,)), (131100, (0.5, 0.1)))
+# K2: every fft it takes, and (fft, curScanNonOverlap, fft2FullMult) of the
+# two cells of fault C2 (JAX's kernel and the port's matmul before; the
+# port's kernel and JAX's matmul) and of the chunked walk.
+PACKED_FFTS = (2, 4, 8, 16, 32, 64, 128)
+PACKED_C2 = ((128, 0.5, 81), (64, 0.1, 96))
+PACKED_WALK = (128, 0.5, 399)
 # The plain chain holds several (T, W, N) complex64 tensors at once: it is
 # timed in chunks of IQ blocks whose frames stay within this many bytes.
 PLAIN_FRAME_BYTES = 8 << 30
@@ -153,12 +173,12 @@ def check(cond, msg):
         raise RuntimeError(f"FAILED: {msg}")
 
 
-def cfg_of(fft=2048, nono=0.5, mode="AVG", window="WIN.KAISER"):
+def cfg_of(fft=2048, nono=0.5, mode="AVG", window="WIN.KAISER", mult=8):
     from kspecanal_tpu_torch import SpecConfig
     return SpecConfig(prg_mode="ZEROSPAN", fft_size=fft, sampling_rate=2.4e6,
                       window=window, cur_scan_non_overlap=nono,
-                      cur_scan_cumu_mode=mode,
-                      x_res=min(512, fft)).finalize()
+                      cur_scan_cumu_mode=mode, x_res=min(512, fft),
+                      fft2full_mult4less=mult).finalize()
 
 
 def noise(cfg, t, u8, gen):
@@ -322,36 +342,76 @@ def compare(kernel, plain, cfg, t, gen, what):
     return mx
 
 
+def via_dispatcher(cp, spec):
+    """K2 as the scan path reaches it, ``curscan_auto_batched``, with the
+    direct-DFT matmul made to fail: the call must launch K2 once."""
+    def run(re_, im_, cfg):
+        before = cp.launches
+        with mock.patch.object(spec, "curscan_direct_batched",
+                               side_effect=RuntimeError("FAILED: the "
+                                                        "matmul ran")):
+            out = spec.curscan_auto_batched(re_, im_, cfg)
+        check(cp.launches == before + 1,
+              f"fft {cfg.fft_size} full {cfg.full_size} launched K2 once")
+        return out
+    return run
+
+
+def packed_u8_case(cp, spec, cfg, t, gen):
+    """u8 planes through K2 bit-identical to the decoded float32 planes."""
+    re_, im_ = noise(cfg, t, True, gen)
+    same = torch.equal(
+        cp.curscan_fused_packed(re_, im_, cfg),
+        cp.curscan_fused_packed(spec.decode_u8(re_), spec.decode_u8(im_),
+                                cfg))
+    print(f"K2 u8 planes vs decoded f32, fft {cfg.fft_size} full "
+          f"{cfg.full_size} nono {cfg.cur_scan_non_overlap} T={t}: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    check(same, "K2 u8 input bit-identical to decoded f32")
+
+
 def phase_scan_kernels(cc, cp, spec, gen):
     """The scan path's kernels vs plain (K1's in float64).  Returns the max
-    abs errors of the packed kernel at quickFullScan (AVG, 16 sweeps), K1 at
-    fmScan (AVG, T=288) and at the lane kernel's cell."""
+    abs errors of K2 at quickFullScan (AVG, 16 sweeps), K1 at fmScan (AVG,
+    T=288) and at the lane kernel's cell."""
     qfs = cfg_of(64, 0.1, "AVG", "WIN.ONES")
-    print(f"== scan kernels vs plain ({BOUND}); quickFullScan geometry: "
+    print(f"== scan kernels vs plain ({BOUND64}); quickFullScan geometry: "
           f"{qfs.num_windows} windows over {qfs.full_size} samples, "
           f"{len({s % 64 for s in qfs.window_starts})} start residues")
-    packed = (cp.curscan_fused_packed, cp.curscan_fused_packed_plain)
+    packed = (via_dispatcher(cp, spec),
+              lambda re_, im_, cfg: cp.curscan_fused_packed_plain(
+                  re_.double(), im_.double(), cfg))
     sublane = (cc.curscan_fused_sublane,
                lambda re_, im_, cfg: plain64(cc, re_, im_, cfg))
     errs = {}
     for t in (1226, 1226 * 16):     # one and 16 quickFullScan sweeps
-        for mode in ("AVG", "MAX", "MIN", "RAW"):
-            cfg = cfg_of(64, 0.1, mode, "WIN.ONES")
-            mx = compare(*packed, cfg, t, gen, "packed")
+        plan = cp.launch_plan(64, qfs.window_starts, t, False)
+        for mode in MODES:
+            mx = compare(*packed, cfg_of(64, 0.1, mode, "WIN.ONES"), t, gen,
+                         f"K2 ({plan})")
             if mode == "AVG":
                 errs["packed"] = mx
-        compare(*packed, cfg_of(128, 0.5, "AVG"), t, gen, "packed")
-        compare(*packed, cfg_of(32, 0.25, "RAW"), t, gen, "packed")
-        for nono in (0.1, 0.5):
-            cfg = cfg_of(64 if nono == 0.1 else 128, nono, "AVG", "WIN.ONES")
-            re, im = noise(cfg, t, True, gen)
-            same = torch.equal(
-                cp.curscan_fused_packed(re, im, cfg),
-                cp.curscan_fused_packed(spec.decode_u8(re),
-                                        spec.decode_u8(im), cfg))
-            print(f"packed u8 planes vs decoded f32, fft {cfg.fft_size} T={t}:"
-                  f" {'bit-identical' if same else 'DIFFER'}")
-            check(same, "packed u8 input bit-identical to decoded f32")
+        packed_u8_case(cp, spec, qfs, t, gen)
+    re_, im_ = noise(qfs, 1226 * 16, False, gen)
+    same = torch.equal(cp.curscan_fused_packed(re_, im_, qfs),
+                       cp.curscan_fused_packed(re_, im_, qfs))
+    print(f"K2 twice at quickFullScan, T=19616: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    check(same, "two K2 runs give identical bits")
+    del re_, im_
+    for fft in PACKED_FFTS:
+        for nono in (0.5, 0.75, 0.25, 0.1):
+            for mode in MODES:
+                compare(*packed, cfg_of(fft, nono, mode,
+                                        mult=max(8, 256 // fft)), 256, gen,
+                        "K2")
+    for fft, nono, mult in PACKED_C2 + (PACKED_WALK,):
+        for mode in MODES:
+            cfg = cfg_of(fft, nono, mode, mult=mult)
+            compare(*packed, cfg, 64, gen, f"K2 mult {mult} (plan "
+                    f"{cp.launch_plan(fft, cfg.window_starts, 64, False)})")
+    for fft, nono, mult in PACKED_C2:
+        packed_u8_case(cp, spec, cfg_of(fft, nono, mult=mult), 64, gen)
     for t in (18, 288):                # one and 16 fmScan sweeps
         for mode in ("AVG", "MAX", "MIN"):
             mx = compare(*sublane, cfg_of(16384, 0.1, mode, "WIN.ONES"), t,
@@ -701,7 +761,7 @@ def phase_scan_sessions(cc, cp, cli, tmp):
     return launches
 
 
-def phase_timing(cc, cp, gen, gpu):
+def phase_timing(cc, cp, spec, gen, gpu):
     """Kernel vs plain times (ms), each case in one row: K1's FFT kernel,
     the direct kernel (K1 before its redesign) and the plain chain at the
     zero-span config (T=4096), fft 1280 and 3072 (T=4096), fft 16256 = 127
@@ -710,7 +770,10 @@ def phase_timing(cc, cp, gen, gpu):
     kernel's cell (T=288); the FFT kernel and the plain
     chain at fft 65536, 20480 and 98304 (T=64) and at 130944 and 262144
     (T=8); K3's cells fft 3000 and 10000 (T=4096, 50% and 90%) and 39800
-    (T=64); the packed kernel at quickFullScan's (T=1226*16, 16 sweeps).
+    (T=64); K2 at quickFullScan's (T=1226*16, 16 sweeps, and T=1226, the
+    serial session's one sweep), fft 128 kaiser 50% and fft 32 RAW at
+    curScanNonOverlap 0.25 (T=4096), and the C2 cell fft 128 mult 81
+    (T=1024) with the direct-DFT matmul in the direct column.
     The plain chain runs in chunks of IQ blocks where its frames would
     pass ``PLAIN_FRAME_BYTES`` (fft 10000 at 90%).
     Returns ``{(case, dtype): (kernel, direct, plain, bound, bound_by)}``,
@@ -739,10 +802,18 @@ def phase_timing(cc, cp, gen, gpu):
                                  (3000, 0.5, 4096), (3000, 0.1, 4096),
                                  (10000, 0.5, 4096), (10000, 0.1, 4096),
                                  (39800, 0.5, 64))]
-    cases += [("quickFullScan fft 64 ones 90%",
-               cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226 * 16,
-               (cp.curscan_fused_packed, None, cp.curscan_fused_packed_plain),
-               (False, True))]
+    k2 = (cp.curscan_fused_packed, None, cp.curscan_fused_packed_plain)
+    qfs = cfg_of(64, 0.1, "AVG", "WIN.ONES")
+    cases += [("quickFullScan fft 64 ones 90%", qfs, 1226 * 16, k2,
+               (False, True)),
+              ("quickFullScan serial sweep fft 64 ones 90%", qfs, 1226, k2,
+               (False, True)),
+              ("fft 128 kaiser 50%", cfg_of(128, 0.5), 4096, k2, (False,)),
+              ("fft 32 RAW nono 0.25", cfg_of(32, 0.25, "RAW"), 4096, k2,
+               (False,)),
+              ("C2 cell fft 128 kaiser 50% mult 81",
+               cfg_of(128, 0.5, mult=81), 1024,
+               (k2[0], spec.curscan_direct_batched, k2[2]), (False,))]
     out = {}
     print(f"== timing (CUDA events, 3 warm-ups, median of 10) [{gpu}]")
     for name, cfg, t, (kernel, direct, plain), dtypes in cases:
@@ -764,7 +835,9 @@ def phase_timing(cc, cp, gen, gpu):
                     f"of planes read once; bound {bms:.4f} ms ({by}), "
                     f"{bms / ks:.3f} of it")
             if ds is not None:
-                line += f", direct {ds:.3f} ms"
+                what = ("matmul" if direct is spec.curscan_direct_batched
+                        else "direct")
+                line += f", {what} {ds:.3f} ms"
             chunks = (f" in {-(-t // rows)} calls of {rows} blocks"
                       if rows < t else "")
             print(f"{line}, plain {ps:.3f} ms{chunks} = "
@@ -1033,7 +1106,7 @@ def main():
         t0 = phase_done("K3's sessions", t0)
         scan_launches = phase_scan_sessions(cc, cp, cli, tmp)
         t0 = phase_done("scan sessions", t0)
-    times = phase_timing(cc, cp, gen, gpu)
+    times = phase_timing(cc, cp, spec, gen, gpu)
     t0 = phase_done("timing", t0)
     phase_device_sources(gen)
     t0 = phase_done("device sources", t0)
@@ -1048,7 +1121,11 @@ def main():
         phase_forensics(cc)
     check(k4_launches > 0 and direct_launches > 0,
           "the forensics scripts launched K4 and the direct kernel")
-    phase_done("forensics scripts", t0)
+    t0 = phase_done("forensics scripts", t0)
+    from kspecanal_tpu_torch.scripts import qfs_ablate
+    print("== qfs_ablate: one quickFullScan sweep split on the card")
+    qfs_ablate.main([])
+    phase_done("qfs_ablate", t0)
     fft_kernel = {"name": "curscan_fft", "route": "cuda",
                   "source": "kspecanal_tpu_torch/csrc/curscan_fft.cu"}
     sublane_423 = "kspecanal_tpu/ops/pallas_curscan.py:423"

@@ -160,6 +160,13 @@ def band_spectra(iq_re: torch.Tensor, iq_im: torch.Tensor,
         lin = psd_welch(decode_u8(iq_re), decode_u8(iq_im), cfg)
     else:
         lin = curscan_auto_batched(iq_re, iq_im, cfg)
+    return band_display(lin, retune_ok, cfg)
+
+
+def band_display(lin: torch.Tensor, retune_ok: torch.Tensor,
+                 cfg: SpecConfig) -> torch.Tensor:
+    """The scan display chain of :func:`band_spectra` on linear band
+    spectra ``(num_bands, fft_size)``."""
     # Failed retune -> all-ones band (~ -gain dB marker), :637-639
     lin = torch.where(retune_ok[:, None], lin, torch.ones_like(lin))
     if cfg.scan_clip_proc == "Clip2MinAmp":
@@ -397,6 +404,14 @@ def _stitch_sweeps_gathered(state: ScanState, spectra: torch.Tensor,
     Keeps the first-sweep RAW Avg seed (kspecanal.py:615-618).  At S=1
     every term is a product by 1, 0 or 0.5, so it equals the sequential
     fold bit for bit."""
+    return _sweeps_epilogue(state, _gathered_curves(state, spectra, cfg, tbl),
+                            cfg, adj)
+
+
+def _gathered_curves(state: ScanState, spectra: torch.Tensor,
+                     cfg: SpecConfig, tbl):
+    """The stitch of :func:`_stitch_sweeps_gathered` without its epilogue:
+    ``(cur_all, fmax, fmin, favg_all)``, Cur and Avg after every sweep."""
     g1, w1, g2, w2, written, upd = tbl
     s = spectra.shape[0]
     dev = spectra.device
@@ -429,7 +444,15 @@ def _stitch_sweeps_gathered(state: ScanState, spectra: torch.Tensor,
     decay = torch.where(first, f32(np.zeros(s)), f32(2.0 ** -(k + 1.0)))
     favg_all = wm @ cur_all + decay[:, None] * state.fft_avg[None, :]
     favg_all = torch.where(upd[None, :], favg_all, state.fft_avg[None, :])
+    return cur_all, fmax, fmin, favg_all
 
+
+def _sweeps_epilogue(state: ScanState, curves, cfg: SpecConfig,
+                     adj: Optional[torch.Tensor]) -> ScanState:
+    """The heatmap rows of S sweeps from their Avg curves, written to the
+    ring in one indexed write, and the new state (the assembly)."""
+    cur_all, fmax, fmin, favg_all = curves
+    s, dev = favg_all.shape[0], favg_all.device
     a_avg = favg_all if adj is None else favg_all - adj[None, :]
     rows = dsp.compress_1d(a_avg, cfg.plt_compress_hm, cfg.x_res)
     ring_idx = (state.hm_index.long() + torch.arange(s, device=dev)) \

@@ -109,7 +109,8 @@ def load() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.kspec_curscan_sublane_forensic.restype = i32
     lib.kspec_curscan_packed.argtypes = [
-        ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.kspec_curscan_packed.restype = i32
     lib.kspec_curscan_fft.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,

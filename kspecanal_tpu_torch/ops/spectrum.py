@@ -141,13 +141,14 @@ def curscan_auto_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
         K3, i.e. every multiple of 128 from 256 up, and every fft >= 2048
         that is not prime and whose window starts are multiples of n2 =
         ``_factorize(fft)[1]``, such as fft 3000, 10000 or 39800) go to it;
-      * else configs the packed kernel K2 supports (fft <= 128, the
-        quickFullScan regime) go to its wrapper;
+      * else configs the packed kernel K2 supports (fft <= 128 dividing
+        128 with blocks of a multiple of 128 samples, at least 256: every
+        config JAX's packed kernel takes, the quickFullScan regime among
+        them) go to its wrapper;
       * else, on the card, fft <= 256 decodes and takes the direct DFT
-        matmul (among them K2's cells that the packed kernel's shared
-        memory cannot hold, ROADMAP C2), and everything else the
-        ``torch.fft`` chain, where the JAX dispatcher runs XLA's chain too
-        (fft 1000, primes, starts off n2).
+        matmul (fft 48, 96, 200, ..., and blocks K2 does not take), and
+        everything else the ``torch.fft`` chain, where the JAX dispatcher
+        runs XLA's chain too (fft 1000, primes, starts off n2).
 
     Planes reach a kernel's wrapper as given (u8 decodes in the kernel's
     loads): for CUDA tensors the wrapper launches its kernel, for CPU

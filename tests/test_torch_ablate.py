@@ -21,8 +21,8 @@ from jax.experimental import pallas as pl
 
 from kspecanal_tpu.ops import pallas_curscan as jpk
 from kspecanal_tpu_torch.ops import _build, cuda_curscan as cc
-from kspecanal_tpu_torch.scripts import kernel_ablate, roofline_r2, \
-    session_ablate
+from kspecanal_tpu_torch.scripts import kernel_ablate, qfs_ablate, \
+    roofline_r2, session_ablate
 from torch_parity import assert_spectra_close, decoded, raw_planes, zs_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -173,9 +173,51 @@ def test_read_stage_sums_every_sample_once():
 
 
 @pytest.mark.parametrize("script,argv", [
-    (roofline_r2, []), (kernel_ablate, []), (session_ablate, ["2"])])
+    (roofline_r2, []), (kernel_ablate, []), (session_ablate, ["2"]),
+    (qfs_ablate, ["--bands", "2"])])
 def test_forensics_scripts_need_the_card(monkeypatch, script, argv):
     """A measurement never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         script.main(argv)
+
+
+def test_qfs_ablate_splits_a_sweep_on_the_cpu(capsys):
+    """The port of scripts/qfs_ablate.py at 2 bands on the CPU (the host
+    clock): every row of the split, and the session's sweep beside it."""
+    rows = qfs_ablate.main(["--bands", "2", "--sweeps", "2", "--device",
+                            "cpu"])
+    assert list(rows) == ["acquire (host synth)", "upload", "curscans (K2)",
+                          "display chain", "stitch", "epilogue",
+                          "sweep_step", "run_scan sweep"]
+    assert all(np.isfinite(v) and v > 0 for v in rows.values())
+    out = capsys.readouterr().out
+    assert "2 bands x 512 samples, fft 64, 71 windows a band" in out
+    assert "no device time" in out and "final average finite: True" in out
+
+
+def test_qfs_ablate_parts_are_the_sweep_step():
+    """The split's parts, composed, are the session's sweep step: the band
+    display after the curscans is band_spectra, the epilogue after the
+    gathered curves the gathered stitch."""
+    from kspecanal_tpu_torch import session as sess_mod
+    from kspecanal_tpu_torch.models import scan as scan_mod
+    from kspecanal_tpu_torch.ops.spectrum import curscan_auto_batched
+    cfg = qfs_ablate.qfs_config(4)
+    plan = sess_mod.make_plan_cached(cfg)
+    assert plan.num_bands == 4
+    rng = np.random.default_rng(5)
+    re, im = (torch.from_numpy(rng.standard_normal(
+        (4, cfg.full_size)).astype(np.float32)) for _ in range(2))
+    oks = torch.tensor([True, False, True, True])
+    state = scan_mod.init_state(cfg, plan, "cpu")
+    spectra = scan_mod.band_display(curscan_auto_batched(re, im, cfg), oks,
+                                    cfg)
+    assert torch.equal(spectra, scan_mod.band_spectra(re, im, oks, cfg))
+    tbl = scan_mod._gather_tables(cfg, plan, torch.device("cpu"))
+    got = scan_mod._sweeps_epilogue(
+        state, scan_mod._gathered_curves(state, spectra[None], cfg, tbl),
+        cfg, None)
+    want = scan_mod.sweep_step(state, re, im, oks, cfg, plan)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

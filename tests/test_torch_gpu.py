@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
 on the same inputs (bounds in ``torch_parity.assert_spectra_close``; u8 input
-bit-identical to decoded float32).  K1's FFT kernel is held to its plain
-version run in float64 on the same planes: the float32 ``torch.fft`` chain
-itself misses the per-bin bound against float64 on MIN folds at 90% overlap
-above fft 16384 (up to 1.5 times the bound), while the kernel, whose
-butterflies run in float64, stays near a third of it.  Every test needs a
+bit-identical to decoded float32).  K1's FFT kernel and K2 are held to
+their plain versions run in float64 on the same planes: the float32
+``torch.fft`` chain itself misses the per-bin bound against float64 on MIN
+folds at 90% overlap above fft 16384 (up to 1.5 times the bound) and over
+the 951 windows of fft 64 with fft2FullMult 96 (1.19 times), while the
+kernels, whose butterflies run in float64, stay well inside it.  Every test needs a
 CUDA card and skips without one.  The file imports no JAX, so on the machine
 with the card it runs without the JAX package's test configuration:
 
@@ -174,32 +175,83 @@ def test_auto_dispatch_on_card(cuda):
             sub, direct, packed)
 
 
+PACKED_FFTS = [2, 4, 8, 16, 32, 64, 128]
+# Fault C2, both directions: fft 128 mult 81 at 50% (JAX's kernel, the
+# port's matmul before) and fft 64 mult 96 at 90% (the port's kernel, JAX's
+# matmul); fft 128 x 399 walks its block in chunks.
+PACKED_BIG = [(128, 0.5, 81), (64, 0.1, 96), (16, 0.1, 152),
+              (128, 0.5, 399)]
+
+
+def packed_case(cuda, cfg, t, seed):
+    """K2 through the dispatcher against its plain version run in float64:
+    one launch, no direct-DFT matmul."""
+    re, im = (torch.from_numpy(decoded(p)).to(cuda)
+              for p in raw_planes(cfg, t, seed))
+    before = cuda_packed.launches
+    real = tspec.curscan_direct_batched
+    tspec.curscan_direct_batched = None       # any call would fail
+    try:
+        got = tspec.curscan_auto_batched(re, im, cfg)
+    finally:
+        tspec.curscan_direct_batched = real
+    want = cuda_packed.curscan_fused_packed_plain(re.double(), im.double(),
+                                                  cfg)
+    torch.cuda.synchronize()
+    assert cuda_packed.launches == before + 1
+    assert bool(got.isfinite().all())
+    assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+
+
 @pytest.mark.parametrize("fft,nono,window", [
     (64, 0.1, WINDOW_ONES), (64, 0.5, WINDOW_KAISER),
     (128, 0.5, WINDOW_KAISER), (32, 0.25, WINDOW_KAISER)])
 @pytest.mark.parametrize("mode", MODES)
 def test_packed_kernel_matches_plain(cuda, fft, nono, window, mode):
     """fft 64 at 90% overlap with ones is quickFullScan's geometry; 1226
-    blocks are one quickFullScan sweep."""
+    blocks are one quickFullScan sweep, 19616 sixteen (catch-up: several
+    IQ blocks a thread block)."""
     cfg = zs_cfg(fft, nono, mode, window=window, x_res=fft)
-    re, im = (torch.from_numpy(decoded(p)).to(cuda)
-              for p in raw_planes(cfg, 1226, seed=12))
-    before = cuda_packed.launches
-    got = cuda_packed.curscan_fused_packed(re, im, cfg)
-    want = cuda_packed.curscan_fused_packed_plain(re, im, cfg)
-    torch.cuda.synchronize()
-    assert cuda_packed.launches == before + 1
-    assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+    for t in (1226, 19616 if (fft, nono) == (64, 0.1) else 37):
+        packed_case(cuda, cfg, t, seed=12)
 
 
-@pytest.mark.parametrize("fft,nono", [(64, 0.1), (128, 0.5)])
-def test_packed_kernel_u8_bit_identical(cuda, fft, nono):
-    cfg = zs_cfg(fft, nono, x_res=fft)
+@pytest.mark.parametrize("nono", [0.5, 0.25, 0.1])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("fft", PACKED_FFTS)
+def test_packed_kernel_every_fft_matches_plain(cuda, fft, mode, nono):
+    """Every fft K2 takes, 2-128 (blocks of at least 256 samples): P = N
+    points a lane up to 16, then 8 x 4, 8 x 8 and 16 x 8 lanes."""
+    cfg = zs_cfg(fft, nono, mode, x_res=fft,
+                 fft2full_mult4less=max(8, 256 // fft))
+    packed_case(cuda, cfg, 300, seed=fft)
+
+
+@pytest.mark.parametrize("mode", ["AVG", "MIN"])
+@pytest.mark.parametrize("fft,nono,mult", PACKED_BIG)
+def test_packed_kernel_takes_the_c2_cells(cuda, fft, nono, mult, mode):
+    cfg = zs_cfg(fft, nono, mode, x_res=fft, fft2full_mult4less=mult)
+    packed_case(cuda, cfg, 64, seed=mult)
+
+
+@pytest.mark.parametrize("fft,nono,mult", [(64, 0.1, 8), (128, 0.5, 81),
+                                           (64, 0.1, 96)])
+def test_packed_kernel_u8_bit_identical(cuda, fft, nono, mult):
+    cfg = zs_cfg(fft, nono, x_res=fft, fft2full_mult4less=mult)
     re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 37, 13))
     got = cuda_packed.curscan_fused_packed(re, im, cfg)
     want = cuda_packed.curscan_fused_packed(tspec.decode_u8(re),
                                             tspec.decode_u8(im), cfg)
     assert torch.equal(got, want)
+
+
+def test_packed_kernel_gives_identical_bits_twice(cuda):
+    """The partial folds combine in group order, without atomics."""
+    cfg = zs_cfg(64, 0.1, window=WINDOW_ONES, x_res=64)
+    re, im = (torch.from_numpy(decoded(p)).to(cuda)
+              for p in raw_planes(cfg, 19616, 21))
+    assert torch.equal(cuda_packed.curscan_fused_packed(re, im, cfg),
+                       cuda_packed.curscan_fused_packed(re, im, cfg))
 
 
 def test_direct_dft_matches_chain_on_card(cuda):

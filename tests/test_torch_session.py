@@ -192,7 +192,8 @@ def test_port_never_imports_jax():
         "kspecanal_tpu_torch.io.sources, kspecanal_tpu_torch.utils.profiling, "
         "kspecanal_tpu_torch.scripts.roofline_r2, "
         "kspecanal_tpu_torch.scripts.kernel_ablate, "
-        "kspecanal_tpu_torch.scripts.session_ablate\n"
+        "kspecanal_tpu_torch.scripts.session_ablate, "
+        "kspecanal_tpu_torch.scripts.qfs_ablate\n"
         "assert cli.main(%r, device='cpu') == 0\n"
         "assert cli.main(%r, device='cpu') == 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
