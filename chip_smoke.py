@@ -24,11 +24,13 @@ Phases (any failure raises; the exit code is then non-zero):
      float32 at fft 2048, 65536, 1280, 20480 and 262144, 50% and 90%;
  3b. K3's cells off the 128 grid (the lane kernel's sizes, run by the
      mixed-radix form) against the plain version in float64: fft 2500,
-     3000, 10000 (one block), 39800 (a cluster of 4), 33250 (2 * odd, the
-     scratch route) and 131100 (above 131072), all four modes at 50% and
-     90% (where the JAX dispatcher sends them to its lane kernel), with the
-     share of the per-bin bound each reached; u8 bit-identical to decoded
-     float32 at fft 3000 and 131100;
+     3000, 10000, 2050 and 11110 (one block; 41 and 101 run the large-prime
+     pass), 39800 (a cluster of 4), 33250 (2 * odd, the scratch route) and
+     131100 (above 131072), all four modes at 50% and 90% (where the JAX
+     dispatcher sends them to its lane kernel), with the share of the
+     per-bin bound each reached (phase 3 holds fft 16256, the radix-127
+     pass, at 90% MIN); u8 bit-identical to decoded float32 at fft 3000,
+     11110 and 131100; fft 3000 and 16256 (MIN, 90%) twice, bit-identical;
   4. the scan kernels against their plain versions run in float64: K2 (the
      packed FFT kernel) through the dispatcher, each case one launch and no
      call of the direct-DFT matmul, at quickFullScan's geometry (fft 64,
@@ -65,8 +67,10 @@ Phases (any failure raises; the exit code is then non-zero):
      fft 1280, 3072 (T=4096) and 16256 (T=1024), and of the FFT kernel and
      the plain chain at fft 20480 and 98304 (T=64, 50%
      and 90%), 130944 and 262144 (T=8), K3's fft 3000 and 10000 (T=4096,
-     50% and 90%) and 39800 (T=64); K2 and the plain chain at quickFullScan
-     (T=19616 and 1226, f32 and u8), fft 128 kaiser 50% and fft 32 RAW at
+     50% and 90%) and 39800 (T=64), with the mixed kernel's stage table
+     (``scripts.mixed_stages``: cut off after its input, odd passes and
+     power-of-two passes) at fft 3000, 10000, 16256 and 39800; K2 and the
+     plain chain at quickFullScan (T=19616 and 1226, f32 and u8), fft 128 kaiser 50% and fft 32 RAW at
      curScanNonOverlap 0.25 (T=4096), and at the C2 cell fft 128 mult 81
      (T=1024) with the direct-DFT matmul it took before beside them; each
      beside its bound: the larger of 5 N log2 N + 4 N flops a window at 67
@@ -138,10 +142,12 @@ MODES = ("AVG", "MAX", "MIN", "RAW")
 MIXED = (384, 1280, 3072, 16256, 20480, 98304, 130944, 262144)
 # K3's cells off the 128 grid, with the overlaps at which the JAX dispatcher
 # sends them to its lane kernel: one block (2500, 3000; 10000 with 16 points
-# a thread), a cluster of 4 (39800 = 200 * 199), the scratch route (33250 =
-# 2 * odd, c = 5; 131100, c = 10).
+# a thread; 2050 = 2 * 5^2 * 41 and 11110 = 2 * 5 * 11 * 101, a prime >= 17
+# in the ragged plan), a cluster of 4 (39800 = 200 * 199), the scratch route
+# (33250 = 2 * odd, c = 5; 131100, c = 10).
 LANE = ((2500, (0.5, 0.1)), (3000, (0.5, 0.1)), (10000, (0.5, 0.1)),
-        (39800, (0.5, 0.1)), (33250, (0.5,)), (131100, (0.5, 0.1)))
+        (39800, (0.5, 0.1)), (33250, (0.5,)), (131100, (0.5, 0.1)),
+        (2050, (0.5, 0.1)), (11110, (0.5, 0.1)))
 # K2: every fft it takes, and (fft, curScanNonOverlap, fft2FullMult) of the
 # two cells of fault C2 (JAX's kernel and the port's matmul before; the
 # port's kernel and JAX's matmul) and of the chunked walk.
@@ -317,9 +323,17 @@ def phase_lane_kernels(cc, spec, gen):
                 mx = fft_kernel_case(cc, cfg, 4 if fft <= 16384 else 2, gen)
                 if (fft, nono, mode) == (3000, 0.5, "AVG"):
                     err = mx
-    for fft, t in ((3000, 64), (131100, 2)):
+    for fft, t in ((3000, 64), (11110, 4), (131100, 2)):
         for nono in (0.5, 0.1):
             u8_case(cc, spec, cfg_of(fft, nono), t, gen)
+    for fft, t in ((3000, 64), (16256, 16)):
+        cfg = cfg_of(fft, 0.1, "MIN")
+        re, im = noise(cfg, t, False, gen)
+        same = torch.equal(cc.curscan_fused_sublane(re, im, cfg),
+                           cc.curscan_fused_sublane(re, im, cfg))
+        print(f"FFT kernel twice, fft {fft} ovl 0.9 MIN T={t}: "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        check(same, f"two runs at fft {fft} give identical bits")
     return err
 
 
@@ -844,6 +858,9 @@ def phase_timing(cc, cp, spec, gen, gpu):
                   f"{gs / ps * 1e3:.2f} Gsamp/s")
             out[name, kind] = (ks, ds, ps, bms, by)
             del re, im
+    from kspecanal_tpu_torch.scripts import mixed_stages
+    print("== the mixed kernel's stage table (scripts.mixed_stages)")
+    mixed_stages.main([])
     return out
 
 

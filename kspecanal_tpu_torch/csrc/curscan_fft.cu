@@ -337,6 +337,9 @@ int launch_by_size(const void* re, const void* im, float* dst,
 // an (n/c)-point block in order (odd primes ascending, Ns = 1 first), pass
 // (Ns, p) holding W_{Ns p}^u for u < Ns p (cuda_curscan._pass_roots);
 // unused by the powers of two up to 131072.
+// stop: 0 in production; 1-3 cut the mixed kernel off after a stage for its
+// stage table (cuda_curscan.curscan_mixed_stage); the powers of two up to
+// 131072 take 0 only.
 // With groups > 1, part is a (t, groups, n) float32 buffer for the groups'
 // partial folds, combined into out by a second kernel; with groups == 1
 // part is unused.  Returns the CUDA error code of the launches (0 on
@@ -348,12 +351,13 @@ extern "C" int kspec_curscan_fft(const void* re, const void* im, int is_u8,
                                  const void* pass_roots, int t,
                                  int full_size, int n, int c, int chunk,
                                  int n_windows, int groups, int fold,
-                                 void* stream) {
+                                 int stop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m_pts = c >= 1 && n % c == 0 ? n / c : 0;
   const bool pow2 = n > 0 && (n & (n - 1)) == 0;
   const bool hbm = scratch != nullptr;
   if (groups < 1 || groups > n_windows || (groups > 1 && part == nullptr) ||
+      stop < 0 || stop > 3 || (stop && pow2 && !hbm) ||
       m_pts < 1 || m_pts > (1 << LOG2_BLOCK_N) ||
       (hbm ? chunk < 1
            : (c & (c - 1)) || c > MAX_CLUSTER ||
@@ -373,7 +377,7 @@ extern "C" int kspec_curscan_fft(const void* re, const void* im, int is_u8,
     err = kspec_fft::launch_mixed_route(re, im, is_u8, scratch, dst, starts,
                                         weights, window, roots, pass_roots, t,
                                         full_size, n, c, chunk, n_windows,
-                                        groups, fold, s);
+                                        groups, fold, stop, s);
   }
   if (err || groups == 1) return err;
   const size_t total = static_cast<size_t>(t) * n;

@@ -174,13 +174,14 @@ namespace kspec_fft {
 // `scratch` null, n not a power of two up to 131072 (c = 1, or a cluster of
 // a power of two c <= 8 blocks); else any n, c blocks through `scratch`,
 // `chunk` IQ blocks at a time.  pass_roots holds the odd passes' float64
-// tables.  dst is out (groups == 1) or the (t, groups, n) partials.
+// tables.  dst is out (groups == 1) or the (t, groups, n) partials.  stop
+// cuts the kernel off for its stage table (0: in full; see Stop).
 // Returns the CUDA error code of the launches.
 int launch_mixed_route(const void* re, const void* im, int is_u8,
                        void* scratch, float* dst, const void* starts,
                        const void* weights, const void* window,
                        const void* roots, const void* pass_roots, int t,
                        int full_size, int n, int c, int chunk, int n_windows,
-                       int groups, int fold, cudaStream_t stream);
+                       int groups, int fold, int stop, cudaStream_t stream);
 
 }  // namespace kspec_fft

@@ -1,74 +1,95 @@
-// Fused curscan kernel, mixed-radix FFT form, for NVIDIA Hopper (sm_90a):
-// the fft sizes of the JAX package's sublane kernel
-// (kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane, :423) that are
-// not powers of two up to 131072, every size above 131072, and every size
-// of its lane kernel (::_kernel, :116: fft >= 2048, not prime, window
-// starts multiples of n2 = _factorize(fft)[1]; fft 3000, 10000, 39800 =
-// 200 * 199, ...).  Same contract, precision and fold as curscan_fft.cu,
-// whose entry point kspec_curscan_fft calls kspec_fft::launch_mixed_route
-// for these sizes.  The device code and launch templates are here; two
-// translation units instantiate them, so that nvcc builds them in parallel:
-// curscan_mixed.cu (the route, the clusters and the scratch route) and
-// curscan_mixed_planes.cu (one block per window, FROM_PLANES).
+// Fused curscan kernel, mixed-radix FFT form, for NVIDIA Hopper (sm_90a).
 //
-// N = c * M, M = m * 2^K (m odd) points a thread block, M <= 16384,
-// ceil(M/16) threads of 16 points (thread t the points t + e*nt < M; not
-// always a multiple of 32 threads: the last warp may be partial).
+// Replaces: kspecanal_tpu/ops/pallas_curscan.py::_kernel (:116, the lane
+// kernel: fft >= 2048, not prime, window starts multiples of n2 =
+// _factorize(fft)[1]; fft 3000, 10000, 39800 = 200 * 199, ...) at every
+// size, and ::_kernel_sublane (:423) at its sizes that are not powers of two
+// up to 131072 and at every size above 131072.  Same contract, precision
+// and fold as curscan_fft.cu, whose entry point kspec_curscan_fft calls
+// kspec_fft::launch_mixed_route for these sizes.  The device code and launch
+// templates are here; two translation units instantiate them, so that nvcc
+// builds them in parallel: curscan_mixed.cu (the route, the clusters and the
+// scratch route) and curscan_mixed_planes.cu (one block per window).
+//
+// Blocks.  N = c * M, M = m * 2^K (m odd) points a thread block, M <= 16384,
+// ceil(M/16) threads of 16 points (thread t the points t + e*nt < M; the
+// last warp may be partial).
 //  * fft <= 16384: c = 1, the block frames the planes (FROM_PLANES).
 //  * 16384 < fft <= 131072 where a power of two c <= 8 divides N with
 //    N/c <= 16384 (the smallest such): a cluster, the radix-c step through
 //    distributed shared memory as in curscan_fft_kernel (FROM_CLUSTER).
-//  * every other fft above 16384 (above 131072, or N = 2 * odd above
-//    32768): c = the smallest divisor of N with N/c <= 16384 (a multiple
-//    of 16 where 16 divides N).  dif_split writes each window's c twiddled
-//    sub-sequences z_q (the cluster's sums, in the same order) to a scratch
-//    buffer in device memory; the block kernel reads them and writes bins
-//    c*k + q (FROM_SCRATCH).  The wrapper bounds the scratch by splitting
-//    the IQ blocks into chunks.
-// The Stockham passes run in this order, each with curscan_fft.cu's formula
+//  * every other fft above 16384: c = the smallest divisor of N with N/c <=
+//    16384 (a multiple of 16 where 16 divides N).  dif_split writes each
+//    window's c twiddled sub-sequences z_q (the cluster's sums, in the same
+//    order) to a scratch buffer in device memory; the block kernel reads
+//    them and writes bins c*k + q (FROM_SCRATCH).  The wrapper bounds the
+//    scratch by splitting the IQ blocks into chunks.
+//
+// Passes.  Stockham, in this order, each with curscan_fft.cu's formula
 // (butterfly j of radix R reads elements j + r*M/R, twiddles element r by
 // W_{Ns R}^(r (j mod Ns)), writes output k to (j div Ns)*R*Ns + (j mod Ns) +
 // k*Ns):
-//  1. One pass for each odd prime factor p of m, ascending.
-//     - The first, where p <= 7 and the block input lies in device memory
-//       (planes or scratch), is odd_first_pass: 16/p butterflies a thread
-//       (ragged), each loading its p elements straight into registers, a
-//       float64 DFT-p with the table's W_p^j, p stores to the padded shared
-//       buffer.
-//     - Otherwise the block input is staged in the buffer first (the
-//       cluster's z_q, or a larger first prime).  In the plan of 16 points
-//       a thread that first pass is odd_first_pass_staged: thread t
-//       computes output k = t mod p of 16 butterflies, each a p-term
-//       float64 sum of the inputs times W_p^(rk), the p roots copied to
-//       shared memory once.
-//     - Every other odd pass is odd_pass: thread t computes outputs t +
-//       e*nt (every thread holds 16, whatever p is), output k of butterfly
-//       j the p-term float64 sum of its inputs times the powers of w =
-//       W_{Ns p}^((j mod Ns) + k Ns), the pass twiddle and W_p^(rk) in one
-//       power, from the pass's float64 table (pass_roots, built by the
-//       wrapper): with Ns = 1 each power is a table entry a warp reads at
-//       once, else w is read once an output and its powers are float64
-//       products (per point p shared-memory loads and 2p complex float64
-//       multiplies, and no gather from the N-point table).
-//     All round to float32 once per output.
+//  1. One butterfly pass for each odd prime factor p of m, ascending (the
+//     plan of cuda_curscan.odd_primes).  The first reads the block input
+//     straight from device memory where it lies there (planes or scratch);
+//     the cluster's z_q is staged in shared memory first.  A butterfly's
+//     twiddles are single lookups in the pass's float64 table (pass_roots,
+//     W_{Ns p}^u for u < Ns p, built by the wrapper), and W_p^k is its entry
+//     Ns*k; j mod Ns is the one modulo of a butterfly, and no power is
+//     formed.  Each DFT-p runs in float64 in the symmetric form: s_r = x_r +
+//     x_{p-r}, d_r = x_r - x_{p-r}, X_0 = x_0 + sum s_r, X_k, X_{p-k} = A -/+
+//     iB with A = x_0 + sum s_r cos(2 pi rk/p), B = sum d_r sin(2 pi rk/p):
+//     (p-1)/2 complex multiply-adds an output in place of p.
+//     - p in {3, 5, 7, 11, 13} (small_pass, p at compile time): a thread
+//       owns whole butterflies j = t + i*nt, loads the p inputs once into
+//       registers and writes the p outputs.
+//     - p >= 17 (any prime: 127 at fft 16256, 199 at 39800, up to 1013 below
+//       2^20 under the lane predicate, M itself where M is prime): the
+//       symmetric DFT-p of all the pass's butterflies as float64 tensor-core
+//       products (large_pass_mma, mma.sync m8n8k4: 8 x 8 tiles of outputs k
+//       by butterflies j a warp, four r a step, coefficients W_p^(rk) from a
+//       p-entry float64 table in shared memory).  Where the pass must write
+//       the buffer it reads (no second buffer, below) it holds its outputs
+//       in registers instead (large_pass_hold: a thread a group of 4 pairs
+//       (k, p-k) of one butterfly, each input read once per group).
+//     Each output rounds to float32 once.
 //  2. Where 16 divides M (K >= 4): the first power-of-two pass, radix R0 =
 //     2^K / 16^Q in {2, 4, 8, 16} (Q = (K-1)/4), Ns = m: 16/R0 butterflies
 //     a thread, dft<R0>; then Q radix-16 passes, as in curscan_fft_kernel.
-//     The last pass leaves bins t + k*M/16 in thread t's registers (with Q
-//     = 0, pass 2 is the last: R0 = 16, Ns = M/16), so the fold is
-//     curscan_fft_kernel's.
+//     The last pass leaves bins t + k*M/16 in thread t's registers, so the
+//     fold is curscan_fft_kernel's.
 //  3. Where it does not (K < 4; fft 3000 = 2^3 * 375, 2500 = 2^2 * 625, the
 //     lane kernel's sizes off the 128 grid), the RAGGED plan: the last
 //     thread's points stop at M, one power-of-two pass of radix 2^K in {2,
 //     4, 8} (none for an odd M) writes back to the buffer, and the fold
 //     reads bins t + e*nt < M from there.
-// Any odd prime works; a radix-p pass costs p complex multiply-adds a
-// point, 2p with the powers (fft 39800 = 200 * 199: 398).  Indices divide
-// by the runtime Ns and p (no power-of-two masks), and the fftshift is (bin
-// + N/2) mod N.  Not every access is free of bank conflicts
-// (tests/test_torch_fft_kernel.py counts them): odd_first_pass stores at
-// stride p (5-way at p = 5), the odd and power-of-two passes after an odd
-// part up to 6-way.
+//
+// Exchanges.  Each odd pass goes through shared memory.  Where two padded
+// buffers fit (PING: every block of up to 512 threads, and blocks of 1024
+// threads up to about 11000 points, e.g. fft 10000 and 39800's 9950), the
+// odd passes ping-pong between them: a pass stores each output as soon as
+// it is computed, and one barrier ends it.  Otherwise (the 11110-, 12288-,
+// 13110- and 16368-point blocks of fft 11110, 98304, 131100 and 130944) a
+// pass holds its outputs in registers until every thread has read its
+// inputs, then stores them in place.  The fftshift is (bin + N/2) mod N.
+// Not every access is free of bank conflicts (tests/test_torch_fft_kernel.py
+// counts them).
+//
+// What bounds it on the H100.  chip_smoke.py's bound counts the planes read
+// once and 5 N log2 N + 4 N flops a window at the float32 rate: at fft
+// 10000, T=4096, 50% it is the bytes, 0.831 ms.  The kernel's time is set by
+// float64 issue (64 FMAs a clock an SM, half the float32 rate) and by the
+// float <-> double conversions of each pass (16 a clock an SM), not by the
+// bytes.  The symmetric butterflies halve a radix-p pass's float64
+// multiply-adds; a small p's inputs are read and widened once per butterfly,
+// not once per output, with the coefficients in registers.  A large p's
+// p^2/2 multiply-adds a butterfly go to the float64 tensor cores (67 TFLOP/s
+// against 34 for the float64 units, chip_smoke.py's stage table showed the
+// large-prime pass at over 85% of fft 16256's and 39800's time as a vector
+// pass), and each input is widened once per 8 outputs.  In blocks of 1024
+// threads (64 registers) the passes still spill; ptxas reports it.
+// Precision as before: a value rounds to float32 once a pass (twice in the
+// radix-8 and radix-16 passes).
 
 #pragma once
 
@@ -77,140 +98,376 @@
 namespace {
 
 enum Input { FROM_PLANES = 0, FROM_CLUSTER = 1, FROM_SCRATCH = 2 };
+// Profiling cut-offs (cuda_curscan.MIXED_STAGES): 0 runs in full; else the
+// kernel stops after the block input, the odd passes or the power-of-two
+// passes and folds weights[w] * (re + im) of each point in place of |X|.
+enum Stop { STOP_NONE = 0, STOP_INPUT = 1, STOP_ODD = 2, STOP_POW2 = 3 };
 
-// acc + a*b in four fused multiply-adds.
-__device__ __forceinline__ double2 cfma(double2 a, double2 b, double2 acc) {
-  acc.x = fma(a.x, b.x, acc.x);
-  acc.x = fma(-a.y, b.y, acc.x);
-  acc.y = fma(a.x, b.y, acc.y);
-  acc.y = fma(a.y, b.x, acc.y);
-  return acc;
+constexpr int MAX_ODD_PASSES = 9;     // 3^9 > 16384
+constexpr int SMALL_PRIME_MAX = 13;   // larger primes run large_pass
+constexpr int HOLD_PAIRS = 4;         // large_pass_hold: pairs an item
+constexpr int HOLD_ITEMS = 3;         // and items a thread
+constexpr size_t SMEM_LIMIT = 232448; // a Hopper block's shared memory
+
+// Element i of a window's block input: the windowed frame sample s + i
+// (FROM_PLANES), or the scratch row's z_q[i] (FROM_SCRATCH).
+template <typename T, int INPUT>
+__device__ __forceinline__ float2 block_input(const T* xr, const T* xi,
+                                              const float* window,
+                                              const float2* src, int s,
+                                              int i) {
+  if constexpr (INPUT == FROM_SCRATCH) {
+    return __ldg(src + i);
+  } else {
+    const float gw = __ldg(window + i);
+    return make_float2(sample(xr, s + i) * gw, sample(xi, s + i) * gw);
+  }
 }
 
-// The first odd pass (Ns = 1) of the plan of 16 points a thread where the
-// block input is staged (the cluster's z_q, or a first prime above 7):
-// thread t computes output k = t mod p of the 16 butterflies j = t div p +
-// e*len/16 (len = M/p, a multiple of 16, so the M/16 threads cover every
-// output once), each a p-term float64 sum of elements j + r*len times
-// W_p^(rk) = tw_s[r k mod p], the roots table's entries copied to shared
-// memory once; the sums of G = 4 outputs share each root.  Once every
-// thread has read, output k of butterfly j goes to j*p + k; ends behind a
-// barrier.
-__device__ __forceinline__ void odd_first_pass_staged(float2* buf,
-                                                      const float2* tw_s,
-                                                      int t, int m_pts,
-                                                      int p) {
-  constexpr int G = 4;
-  const int len = m_pts / p;
-  const int l16 = len / RADIX;
-  const int k = t % p, jg = t / p;
-  float2 y[RADIX];
+// Where an odd pass reads element i: the block input in device memory (the
+// first pass), or the padded shared buffer; widened to float64.
+template <typename T, int INPUT>
+struct DeviceInput {
+  const T* xr;
+  const T* xi;
+  const float* window;
+  const float2* src;
+  int s;
+  __device__ __forceinline__ double2 operator()(int i) const {
+    return widen(block_input<T, INPUT>(xr, xi, window, src, s, i));
+  }
+};
+
+struct SharedInput {
+  const float2* buf;
+  __device__ __forceinline__ double2 operator()(int i) const {
+    return widen(buf[pad(i)]);
+  }
+};
+
+// One radix-P pass (P in 3..13, Ns = ns) over the M points: thread t of nt
+// owns the butterflies j = t + i*nt < M/P (at most ceil(16/P)).
+// Butterfly j loads its P inputs, twiddles input r by tab[r * (j mod Ns)]
+// (tab: the pass's table, W_{Ns P}^u), runs the symmetric DFT-P with W_P^k
+// = tab[Ns k] and stores output k to dst[(j - j mod Ns)*P + j mod Ns +
+// k*Ns].  HOLD (dst is the buffer it reads): the outputs wait in registers
+// for a barrier after every thread has read.  Ends behind a barrier.
+template <int P, bool HOLD, class Src>
+__device__ __forceinline__ void small_pass_body(
+    float2* dst, const Src& x, const double2* __restrict__ tab, int t,
+    int nt, int m_pts, int ns) {
+  constexpr int H = (P - 1) / 2;
+  constexpr int NB = (RADIX + P - 1) / P;
+  const int len = m_pts / P;
+  double2 w[H];        // W_P^k = (cos, -sin)(2 pi k/P), k = 1..H
 #pragma unroll
-  for (int e0 = 0; e0 < RADIX; e0 += G) {
-    double2 acc[G];
+  for (int k = 1; k <= H; ++k) w[k - 1] = __ldg(tab + ns * k);
+  float2 y[HOLD ? NB * P : 1];
+  int base[HOLD ? NB : 1];
 #pragma unroll
-    for (int i = 0; i < G; ++i) acc[i] = widen(buf[pad(jg + (e0 + i) * l16)]);
-    int idx = 0;
-    for (int r = 1; r < p; ++r) {
-      idx += k;                                // r*k mod p
-      if (idx >= p) idx -= p;
-      const double2 w = widen(tw_s[idx]);
+  for (int i = 0; i < NB; ++i) {
+    const int j = t + i * nt;
+    if (j >= len) continue;
+    const int a = j % ns;
+    const int o = (j - a) * P + a;
+    double2 xv[P];
 #pragma unroll
-      for (int i = 0; i < G; ++i)
-        acc[i] = cfma(widen(buf[pad(jg + (e0 + i) * l16 + r * len)]), w,
-                      acc[i]);
+    for (int r = 0; r < P; ++r) xv[r] = x(j + r * len);
+    if (ns > 1) {
+#pragma unroll
+      for (int r = 1; r < P; ++r) xv[r] = cmul(xv[r], __ldg(tab + r * a));
     }
+    double2 sm[H], df[H];
+    double2 x0 = xv[0];
 #pragma unroll
-    for (int i = 0; i < G; ++i) y[e0 + i] = narrow(acc[i]);
+    for (int r = 1; r <= H; ++r) {
+      sm[r - 1] = cadd(xv[r], xv[P - r]);
+      df[r - 1] = csub(xv[r], xv[P - r]);
+      x0 = cadd(x0, sm[r - 1]);
+    }
+    float2 out[P];
+    out[0] = narrow(x0);
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      double2 A = xv[0];
+      double2 B = make_double2(0.0, 0.0);   // sum d_r * (-sin)
+#pragma unroll
+      for (int r = 1; r <= H; ++r) {
+        const int e = (r * k) % P;
+        const double cs = e <= H ? w[e - 1].x : w[P - e - 1].x;
+        const double sn = e <= H ? w[e - 1].y : -w[P - e - 1].y;
+        A.x = fma(sm[r - 1].x, cs, A.x);
+        A.y = fma(sm[r - 1].y, cs, A.y);
+        B.x = fma(df[r - 1].x, sn, B.x);
+        B.y = fma(df[r - 1].y, sn, B.y);
+      }
+      out[k] = narrow(make_double2(A.x - B.y, A.y + B.x));
+      out[P - k] = narrow(make_double2(A.x + B.y, A.y - B.x));
+    }
+    if constexpr (HOLD) {
+      base[i] = o;
+#pragma unroll
+      for (int k = 0; k < P; ++k) y[i * P + k] = out[k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < P; ++k) dst[pad(o + k * ns)] = out[k];
+    }
+  }
+  if constexpr (HOLD) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      if (t + i * nt >= len) continue;
+#pragma unroll
+      for (int k = 0; k < P; ++k) dst[pad(base[i] + k * ns)] = y[i * P + k];
+    }
   }
   __syncthreads();
+}
+
+// The in-place form, not inlined: its held outputs add no registers, and no
+// spills, to the rest of the kernel.
+template <int P, class Src>
+__device__ __noinline__ void small_pass_hold(float2* buf, Src x,
+                                            const double2* __restrict__ tab,
+                                            int t, int nt, int m_pts,
+                                            int ns) {
+  small_pass_body<P, true>(buf, x, tab, t, nt, m_pts, ns);
+}
+
+template <int P, bool HOLD, class Src>
+__device__ __forceinline__ void small_pass(float2* dst, const Src& x,
+                                           const double2* __restrict__ tab,
+                                           int t, int nt, int m_pts,
+                                           int ns) {
+  if constexpr (HOLD)
+    small_pass_hold<P>(dst, x, tab, t, nt, m_pts, ns);
+  else
+    small_pass_body<P, false>(dst, x, tab, t, nt, m_pts, ns);
+}
+
+// D += A * B for one m8n8k4 float64 tile held by a whole warp (mma.sync:
+// A row lane/4, column lane%4; B row lane%4, column lane/4; C and D row
+// lane/4, columns 2*(lane%4) and 2*(lane%4) + 1).
+__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a,
+                                        double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
+// One radix-p pass, p >= 17 (runtime), Ns = ns, as float64 tensor-core
+// products, where dst is not the buffer it reads.  The symmetric DFT-p of
+// the len = M/p butterflies is four real products of (H+1) x H coefficient
+// matrices, cos and -sin of 2 pi kr/p (k = 0..H, r = 1..H), with H x len
+// matrices, re and im of s_r = x_r + x_{p-r} and of d_r = x_r - x_{p-r}: A_k
+// = x_0 + sum s_r cos, B_k = sum d_r (-sin), X_k = A_k - i B_k... as in
+// small_pass; row k = 0 gives X_0.  A whole warp (mma.sync needs all 32
+// lanes; a partial last warp idles) takes an 8 x 8 tile of (k, butterfly)
+// at a time, k the fast index so that the warps of one butterfly tile run
+// together, and steps over r four at a time: each lane forms s_r, d_r of
+// one (r, j) (two loads, its twiddles, four widenings: once per 8 outputs
+// k) and its coefficient W_p^(kr) from the p-entry table, then four
+// mma.sync m8n8k4 f64.  Outputs go to dst as in small_pass, rounded once.
+// Ends behind a barrier.
+template <class Src>
+__device__ __noinline__ void large_pass_mma(float2* dst, Src x,
+                                           const double2* __restrict__ tab,
+                                           const double2* coef, int cstride,
+                                           int t, int nt, int m_pts, int p,
+                                           int ns) {
+  const int h = (p - 1) / 2;
+  const int len = m_pts / p;
+  const int kt_n = h / 8 + 1;              // rows k = 0..h
+  const int tiles = kt_n * ((len + 7) / 8);
+  const int steps = (h + 3) / 4;           // r = 1..h, four a step
+  const int gid = (t & 31) >> 2, tig = t & 3;
+  const int warps = nt >> 5;
+  for (int u = t >> 5; (t >> 5) < warps && u < tiles; u += warps) {
+    const int kt = u % kt_n, jt = u / kt_n;
+    const int jb = jt * 8 + gid;           // this lane's column of B
+    const bool jok = jb < len;
+    const int ab = jok ? jb % ns : 0;
+    const int k = kt * 8 + gid;            // this lane's row of A, C, D
+    double are[2], aim[2], bre[2] = {0.0, 0.0}, bim[2] = {0.0, 0.0};
 #pragma unroll
-  for (int e = 0; e < RADIX; ++e) buf[pad((jg + e * l16) * p + k)] = y[e];
+    for (int i = 0; i < 2; ++i) {
+      const int j = jt * 8 + 2 * tig + i;
+      const double2 x0 = j < len ? x(j) : make_double2(0.0, 0.0);
+      are[i] = x0.x;
+      aim[i] = x0.y;
+    }
+    int idx = (k * (tig + 1)) % p;         // k r mod p
+    const int step = (4 * k) % p;
+    for (int rs = 0; rs < steps; ++rs) {
+      const int r = rs * 4 + tig + 1;
+      double2 s = make_double2(0.0, 0.0), d = s;
+      if (jok && r <= h) {
+        double2 u0 = x(jb + r * len), u1 = x(jb + (p - r) * len);
+        if (ns > 1) {
+          u0 = cmul(u0, __ldg(tab + r * ab));
+          u1 = cmul(u1, __ldg(tab + (p - r) * ab));
+        }
+        s = cadd(u0, u1);
+        d = csub(u0, u1);
+      }
+      const double2 w = coef[idx * cstride];
+      idx += step;
+      if (idx >= p) idx -= p;
+      mma_f64(are[0], are[1], w.x, s.x);
+      mma_f64(aim[0], aim[1], w.x, s.y);
+      mma_f64(bre[0], bre[1], w.y, d.x);
+      mma_f64(bim[0], bim[1], w.y, d.y);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = jt * 8 + 2 * tig + i;
+      if (k > h || j >= len) continue;
+      const int a = j % ns;
+      const int o = (j - a) * p + a;
+      if (k == 0) {
+        dst[pad(o)] = narrow(make_double2(are[i], aim[i]));
+      } else {
+        dst[pad(o + k * ns)] =
+            narrow(make_double2(are[i] - bim[i], aim[i] + bre[i]));
+        dst[pad(o + (p - k) * ns)] =
+            narrow(make_double2(are[i] + bim[i], aim[i] - bre[i]));
+      }
+    }
+  }
   __syncthreads();
 }
 
-// One odd pass of radix p over the M staged points, Ns = ns points combined
-// before it, in either plan (but for the pass above): thread t computes the
-// outputs o = t + e*nt < M (e < 16), output k = o div len of butterfly j =
-// o mod len (len = M/p), so a warp reads consecutive j and, but where o
-// crosses a multiple of len, one k.  Output k of butterfly j is the p-term
-// float64 sum of elements j + r*len times w^r, w = W_{Ns p}^u, u = (j mod
-// Ns) + k Ns (the pass twiddle W_{Ns p}^(r (j mod Ns)) and W_p^(rk) in one
-// power), from the pass's float64 table tw (Ns p entries).  With Ns = 1 a
-// warp's outputs share u = k, so w^r = tw[r k mod p] is one broadcast
-// load; with Ns > 1 they spread over the table (at r*u), so w = tw[u] is
-// read once an output (consecutive u at consecutive addresses) and its
-// powers follow by multiplication in float64.  The sum rounds to float32
-// once.  G outputs run side by side (independent chains; 2 where 1024
-// threads leave 64 registers each).  Not inlined: its registers are its
-// own, so it adds no spills to the rest of the kernel (the power-of-two
-// passes of a cluster's 1024 threads).  A group of G outputs past M is
-// skipped, a partial one recomputes output M-1 in its tail and stores
-// nothing there.  Once every thread has read, output k of butterfly j goes
-// to (j div Ns)*p*Ns + (j mod Ns) + k*Ns; ends behind a barrier.
-template <int G>
-__device__ __noinline__ void odd_pass(float2* buf,
-                                         const double2* __restrict__ tw,
-                                         int t, int nt, int m_pts, int p,
-                                         int ns) {
-  const int len = m_pts / p;
-  float2 y[RADIX];
+// One (group, butterfly) item of a radix-p pass, p >= 17, for large_pass:
+// butterfly j (a = j mod Ns), the G pairs k = k0 + i, p - k, and X_0.
+// coef[e * cstride] = W_p^e.  out[2i] = X_k, out[2i+1] = X_{p-k}, out[2G] =
+// X_0, each rounded once (pairs past H = (p-1)/2 are computed and not
+// stored).
+template <int G, class Src>
+__device__ __forceinline__ void large_item(float2 (&out)[2 * G + 1],
+                                           const Src& x,
+                                           const double2* __restrict__ tab,
+                                           const double2* coef, int cstride,
+                                           int j, int a, int k0, int len,
+                                           int p, int ns) {
+  const int h = (p - 1) / 2;
+  const double2 xj = x(j);
+  double2 A[G], B[G];
+  int idx[G];
 #pragma unroll
-  for (int e0 = 0; e0 < RADIX; e0 += G) {
-    if (t + e0 * nt >= m_pts) continue;
-    int j[G], u[G];
-    double2 acc[G];
+  for (int i = 0; i < G; ++i) {
+    A[i] = xj;
+    B[i] = make_double2(0.0, 0.0);
+    idx[i] = 0;
+  }
+  double2 x0 = xj;
+  int ra = 0;
+  const int pa = p * a;
+  for (int r = 1; r <= h; ++r) {
+    double2 u = x(j + r * len), v = x(j + (p - r) * len);
+    if (ns > 1) {
+      ra += a;
+      u = cmul(u, __ldg(tab + ra));
+      v = cmul(v, __ldg(tab + pa - ra));
+    }
+    const double2 s = cadd(u, v), d = csub(u, v);
+    x0 = cadd(x0, s);
 #pragma unroll
     for (int i = 0; i < G; ++i) {
-      int o = t + (e0 + i) * nt;
-      if (o >= m_pts) o = m_pts - 1;
-      const int k = o / len;
-      j[i] = o - k * len;
-      u[i] = j[i] % ns + k * ns;
-      acc[i] = widen(buf[pad(j[i])]);
+      idx[i] += k0 + i;                   // r * k mod p
+      if (idx[i] >= p) idx[i] -= p;
+      const double2 w = coef[idx[i] * cstride];
+      A[i].x = fma(s.x, w.x, A[i].x);
+      A[i].y = fma(s.y, w.x, A[i].y);
+      B[i].x = fma(d.x, w.y, B[i].x);
+      B[i].y = fma(d.y, w.y, B[i].y);
     }
-    if (ns == 1) {
-      // The first pass: w^r = tw[r*k mod p], one entry a warp reads at
-      // once (its outputs share k but where o crosses a multiple of len).
-      int idx[G];
+  }
 #pragma unroll
-      for (int i = 0; i < G; ++i) idx[i] = 0;
-      for (int r = 1; r < p; ++r) {
+  for (int i = 0; i < G; ++i) {
+    out[2 * i] = narrow(make_double2(A[i].x - B[i].y, A[i].y + B[i].x));
+    out[2 * i + 1] = narrow(make_double2(A[i].x + B[i].y, A[i].y - B[i].x));
+  }
+  out[2 * G] = narrow(x0);
+}
+
+// One radix-p pass, p >= 17, that may write the buffer it reads (the
+// exchange without a second buffer): len = M/p butterflies of ceil(H/G)
+// groups of G = HOLD_PAIRS pairs, item it = g*len + j, thread t of nt the
+// items t + e*nt (at most HOLD_ITEMS = 3 at any p >= 17 and M).  The outputs
+// wait in registers until every thread has read, then go to buf as in
+// small_pass.  Not inlined.  Ends behind a barrier.
+template <class Src>
+__device__ __noinline__ void large_pass_hold(float2* buf, Src x,
+                                            const double2* __restrict__ tab,
+                                            const double2* coef, int cstride,
+                                            int t, int nt, int m_pts, int p,
+                                            int ns) {
+  constexpr int G = HOLD_PAIRS;
+  constexpr int E = HOLD_ITEMS;
+  const int h = (p - 1) / 2;
+  const int len = m_pts / p;
+  const int items = len * ((h + G - 1) / G);
+  float2 y[E][2 * G + 1];
 #pragma unroll
-        for (int i = 0; i < G; ++i) {
-          idx[i] += u[i];
-          if (idx[i] >= p) idx[i] -= p;
-          acc[i] = cfma(widen(buf[pad(j[i] + r * len)]), __ldg(tw + idx[i]),
-                        acc[i]);
-        }
-      }
-    } else {
-      double2 w[G], c[G];
-#pragma unroll
-      for (int i = 0; i < G; ++i) c[i] = w[i] = __ldg(tw + u[i]);
-      for (int r = 1; r < p; ++r) {
-#pragma unroll
-        for (int i = 0; i < G; ++i) {
-          acc[i] = cfma(widen(buf[pad(j[i] + r * len)]), c[i], acc[i]);
-          c[i] = cmul(c[i], w[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < G; ++i) y[e0 + i] = narrow(acc[i]);
+  for (int e = 0; e < E; ++e) {
+    const int it = t + e * nt;
+    if (it >= items) continue;
+    const int g = it / len;
+    const int j = it - g * len;
+    large_item<G>(y[e], x, tab, coef, cstride, j, j % ns, 1 + g * G, len, p,
+                  ns);
   }
   __syncthreads();
 #pragma unroll
-  for (int e = 0; e < RADIX; ++e) {
-    const int o = t + e * nt;
-    if (o < m_pts) {
-      const int k = o / len;
-      const int j = o - k * len;
-      const int a = j % ns;
-      buf[pad((j - a) * p + a + k * ns)] = y[e];
+  for (int e = 0; e < E; ++e) {
+    const int it = t + e * nt;
+    if (it >= items) continue;
+    const int g = it / len;
+    const int j = it - g * len;
+    const int a = j % ns;
+    const int o = (j - a) * p + a;
+    const int k0 = 1 + g * G;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int k = k0 + i;
+      if (k <= h) {
+        buf[pad(o + k * ns)] = y[e][2 * i];
+        buf[pad(o + (p - k) * ns)] = y[e][2 * i + 1];
+      }
     }
+    if (k0 == 1) buf[pad(o)] = y[e][2 * G];
   }
   __syncthreads();
+}
+
+// One odd pass of radix p from x into dst (small_pass; large_pass_mma, or
+// large_pass_hold where dst is the buffer it reads or the block has no
+// whole warp).  LARGE: the plan has a prime above 13; without one the
+// kernel holds no call of the large passes (whose calls cost the rest of
+// the kernel registers and stack).
+template <bool HOLD, bool LARGE, class Src>
+__device__ __forceinline__ void odd_pass(float2* dst, const Src& x,
+                                         const double2* __restrict__ tab,
+                                         const double2* coef, int cstride,
+                                         int t, int nt, int m_pts, int p,
+                                         int ns) {
+  switch (p) {
+    case 3: small_pass<3, HOLD>(dst, x, tab, t, nt, m_pts, ns); break;
+    case 5: small_pass<5, HOLD>(dst, x, tab, t, nt, m_pts, ns); break;
+    case 7: small_pass<7, HOLD>(dst, x, tab, t, nt, m_pts, ns); break;
+    case 11: small_pass<11, HOLD>(dst, x, tab, t, nt, m_pts, ns); break;
+    case 13: small_pass<13, HOLD>(dst, x, tab, t, nt, m_pts, ns); break;
+    default:   // a block of fewer than 32 threads has no whole warp
+      if constexpr (LARGE) {
+        if (HOLD || nt < 32)
+          large_pass_hold(dst, x, tab, coef, cstride, t, nt, m_pts, p, ns);
+        else
+          large_pass_mma(dst, x, tab, coef, cstride, t, nt, m_pts, p, ns);
+      }
+  }
 }
 
 // The RAGGED plan's power-of-two pass, radix R0 = M/ns (ns = m, the odd
@@ -231,70 +488,6 @@ __device__ __forceinline__ void pow2_pass_ragged(
       dft<R0>(x, roots, j * (n / (ns * R0)));
 #pragma unroll
       for (int k = 0; k < R0; ++k) buf[pad(j + k * ns)] = x[k];
-    }
-  }
-}
-
-// Element i of a window's block input: the windowed frame sample s + i
-// (FROM_PLANES), or the scratch row's z_q[i] (FROM_SCRATCH).
-template <typename T, int INPUT>
-__device__ __forceinline__ float2 block_input(const T* xr, const T* xi,
-                                              const float* window,
-                                              const float2* src, int s,
-                                              int i) {
-  if constexpr (INPUT == FROM_SCRATCH) {
-    return __ldg(src + i);
-  } else {
-    const float gw = __ldg(window + i);
-    return make_float2(sample(xr, s + i) * gw, sample(xi, s + i) * gw);
-  }
-}
-
-// The first odd pass (Ns = 1) when its prime P is at most 7 and the block
-// input lies in device memory: butterfly j = t + i*nt (while j < M/P) reads
-// its elements j + r*M/P from there into registers, and writes output k to
-// buf[j*P + k]; nothing it reads is in buf, so it needs no staging and no
-// barrier between its loads and its stores.  The DFT in float64, rounded
-// once, in the symmetric form: with s_r = x_r + x_{P-r}, d_r = x_r -
-// x_{P-r} and roots[j N/P] = (C_j, -S_j), X_0 = x_0 + sum s_r and X_k,
-// X_{P-k} = A -/+ iB, A = x_0 + sum s_r C_{rk}, B = sum d_r S_{rk}.
-template <int P, typename T, int INPUT>
-__device__ __forceinline__ void odd_first_pass(
-    float2* buf, const T* xr, const T* xi, const float* window,
-    const float2* src, int s, const float2* __restrict__ roots, int t,
-    int nt, int m_pts, int n) {
-  constexpr int H = (P - 1) / 2;
-  const int len = m_pts / P;
-  const int stride = n / P;
-  for (int j = t; j < len; j += nt) {
-    double2 x[P];
-#pragma unroll
-    for (int r = 0; r < P; ++r)
-      x[r] = widen(block_input<T, INPUT>(xr, xi, window, src, s,
-                                         j + r * len));
-    double2 sm[H], df[H];
-    double2 y0 = x[0];
-#pragma unroll
-    for (int r = 1; r <= H; ++r) {
-      sm[r - 1] = cadd(x[r], x[P - r]);
-      df[r - 1] = csub(x[r], x[P - r]);
-      y0 = cadd(y0, sm[r - 1]);
-    }
-    buf[pad(j * P)] = narrow(y0);
-#pragma unroll
-    for (int k = 1; k <= H; ++k) {
-      double2 a = x[0];
-      double2 b = make_double2(0.0, 0.0);
-#pragma unroll
-      for (int r = 1; r <= H; ++r) {
-        const float2 w = __ldg(roots + ((r * k) % P) * stride);
-        a.x += sm[r - 1].x * w.x;
-        a.y += sm[r - 1].y * w.x;
-        b.x -= df[r - 1].x * w.y;
-        b.y -= df[r - 1].y * w.y;
-      }
-      buf[pad(j * P + k)] = narrow(make_double2(a.x + b.y, a.y - b.x));
-      buf[pad(j * P + P - k)] = narrow(make_double2(a.x - b.y, a.y + b.x));
     }
   }
 }
@@ -335,7 +528,66 @@ __device__ __forceinline__ void pow2_first_pass(
   }
 }
 
-template <typename T, int NTMAX, int INPUT, bool RAGGED>
+// The odd prime factors of m, ascending with multiplicity (the plan of
+// cuda_curscan.odd_primes), into primes; returns their count.  On the host,
+// large_coef_entries sums the large ones.
+__host__ __device__ inline int odd_plan(int m, int* primes) {
+  int np = 0;
+  for (int p = 3; m > 1; p += 2) {
+    if (p * p > m) p = m;
+    while (m % p == 0) {
+      primes[np++] = p;
+      m /= p;
+    }
+  }
+  return np;
+}
+
+inline int large_coef_entries(int m_pts) {
+  while (!(m_pts & 1)) m_pts >>= 1;
+  int primes[MAX_ODD_PASSES];
+  const int np = odd_plan(m_pts, primes);
+  int entries = 0;
+  for (int i = 0; i < np; ++i)
+    if (primes[i] > SMALL_PRIME_MAX) entries += primes[i];
+  return entries;
+}
+
+// Shared memory of a block of M points: the large passes' coefficient
+// tables (coef_n double2, first for alignment), the padded buffer (twice
+// with PING), and the fold of 1024 threads.
+inline size_t mixed_smem(int m_pts, int coef_n, bool ping,
+                         bool fold_in_smem) {
+  return static_cast<size_t>(coef_n) * sizeof(double2) +
+         static_cast<size_t>(ping ? 2 : 1) * (m_pts + m_pts / 16) *
+             sizeof(float2) +
+         (fold_in_smem ? static_cast<size_t>(m_pts) * sizeof(float) : 0);
+}
+
+// The large passes' coefficient table of the pass at hand: its p entries in
+// shared memory where the kernel staged them (coef_n > 0), else its own
+// table in device memory at stride Ns.
+struct CoefTables {
+  const double2* smem;
+  int staged;    // coef_n
+  int off;       // entries of the large passes before this one
+  __device__ __forceinline__ const double2* take(const double2* tab, int p,
+                                                 int ns, int& cstride) {
+    const double2* cp = tab;
+    cstride = ns;
+    if (p > SMALL_PRIME_MAX) {
+      if (staged) {
+        cp = smem + off;
+        cstride = 1;
+      }
+      off += p;
+    }
+    return cp;
+  }
+};
+
+template <typename T, int NTMAX, int INPUT, bool RAGGED, bool PING,
+          bool LARGE>
 __global__ void __launch_bounds__(NTMAX)
 curscan_mixed_kernel(const T* __restrict__ re, const T* __restrict__ im,
                      const float2* __restrict__ scratch,
@@ -344,7 +596,8 @@ curscan_mixed_kernel(const T* __restrict__ re, const T* __restrict__ im,
                      const float* __restrict__ window,
                      const float2* __restrict__ roots,
                      const double2* __restrict__ pass_roots, int full_size,
-                     int n_windows, int groups, int fold, int n, int c) {
+                     int n_windows, int groups, int fold, int n, int c,
+                     int coef_n, int stop) {
   const int M = n / c;                     // points of this block's FFT
   const int nt = (M + RADIX - 1) / RADIX;  // threads
   int m = M;                               // its odd part
@@ -352,29 +605,30 @@ curscan_mixed_kernel(const T* __restrict__ re, const T* __restrict__ im,
   const int log2p = __ffs(M / m) - 1;      // K: >= 4 unless RAGGED
   const int Q = RAGGED ? 0 : (log2p - 1) / 4;   // radix-16 passes
   const int R0 = (M / m) >> (4 * Q);       // radix of the first pow2 pass
-  int p1 = m;                              // the smallest prime factor of m
-  for (int p = 3; p * p <= m; p += 2)
-    if (m % p == 0) {
-      p1 = p;
-      break;
-    }
-  // The first odd pass reads device memory straight into registers where
-  // it can (odd_first_pass); else the block input is staged in buf first,
-  // and the first pass of the plan of 16 points a thread reads W_p1^j from
-  // tw_s.
-  const bool first_in_regs = INPUT != FROM_CLUSTER && m > 1 && p1 <= 7;
+  int primes[MAX_ODD_PASSES];
+  const int np = odd_plan(m, primes);
   // At more than 512 threads (64 registers each) the fold lives in shared
-  // memory, after the exchange buffer: fold[k * nt + t].
+  // memory, after the exchange buffers: fold[k * nt + t].
   constexpr bool FOLD_IN_SMEM = NTMAX == 1024;
-  // pad(M) float2, [M float: the fold,] [p1 float2: W_p1^j, not RAGGED]
-  extern __shared__ float2 buf[];
-  float* fold_s = reinterpret_cast<float*>(buf + M + M / 16);
-  float2* tw_s = reinterpret_cast<float2*>(fold_s + (FOLD_IN_SMEM ? M : 0));
-  if (!RAGGED && !first_in_regs)
-    for (int j = threadIdx.x; j < (m > 1 ? p1 : 0); j += nt)
-      tw_s[j] = __ldg(roots + j * (n / p1));  // read after the loop's barrier
-
+  // [coef_n double2] pad(M) float2 [pad(M) float2: PING] [M float: fold]
+  extern __shared__ double2 smem[];
+  float2* buf = reinterpret_cast<float2*>(smem + coef_n);
+  float2* buf2 = PING ? buf + M + M / 16 : buf;
+  float* fold_s = reinterpret_cast<float*>(buf2 + M + M / 16);
   const int t = threadIdx.x;
+  if (coef_n) {   // W_p^e = entry Ns*e of each large pass's table
+    const double2* tab = pass_roots;
+    for (int i = 0, off = 0, ns = 1; i < np; ++i) {
+      const int p = primes[i];
+      if (p > SMALL_PRIME_MAX) {
+        for (int e = t; e < p; e += nt) smem[off + e] = __ldg(tab + ns * e);
+        off += p;
+      }
+      tab += ns * p;
+      ns *= p;
+    }             // read after the window loop's first barrier
+  }
+
   int q = 0;                               // this block's sub-sequence
   if constexpr (INPUT == FROM_CLUSTER)
     q = static_cast<int>(cg::this_cluster().block_rank());
@@ -407,30 +661,17 @@ curscan_mixed_kernel(const T* __restrict__ re, const T* __restrict__ im,
     const int s = starts[w];
     const float wt = weights[w];
     __syncthreads();     // the previous window's last pass has read buf
+    const float2* src = nullptr;
+    if constexpr (INPUT == FROM_SCRATCH)
+      src = scratch + (static_cast<size_t>(b) * n_windows + w) * n +
+            static_cast<size_t>(q) * M;
+    const DeviceInput<T, INPUT> dev{xr, xi, window, src, s};
+    CoefTables coef{smem, coef_n, 0};
+    const double2* tab = pass_roots;   // the odd passes' tables, in order
+    float2* cur = buf;   // the buffer that holds the last pass's outputs
     int ns = 1;          // points combined before the next pass
-    int rem = m;         // odd factors still to pass
-    // The odd passes' tables, one after the other (pass_roots).
-    const double2* tab = pass_roots;
-    if (first_in_regs) {
-      const float2* src = nullptr;
-      if constexpr (INPUT == FROM_SCRATCH)
-        src = scratch + (static_cast<size_t>(b) * n_windows + w) * n +
-              static_cast<size_t>(q) * M;
-      if constexpr (INPUT != FROM_CLUSTER) {
-        if (p1 == 3)
-          odd_first_pass<3, T, INPUT>(buf, xr, xi, window, src, s, roots, t,
-                                      nt, M, n);
-        else if (p1 == 5)
-          odd_first_pass<5, T, INPUT>(buf, xr, xi, window, src, s, roots, t,
-                                      nt, M, n);
-        else
-          odd_first_pass<7, T, INPUT>(buf, xr, xi, window, src, s, roots, t,
-                                      nt, M, n);
-      }
-      ns = p1;
-      rem = m / p1;
-      tab += p1;
-    } else if constexpr (INPUT == FROM_CLUSTER) {
+    int i0 = 0;          // odd passes done
+    if constexpr (INPUT == FROM_CLUSTER) {
       cg::cluster_group cluster = cg::this_cluster();
 #pragma unroll
       for (int e = 0; e < RADIX; ++e) {
@@ -448,92 +689,100 @@ curscan_mixed_kernel(const T* __restrict__ re, const T* __restrict__ im,
         const int mm = t + e * nt;
         if (RAGGED && mm >= M) continue;
         double2 d = widen(cluster.map_shared_rank(buf, 0)[pad(mm)]);
-        for (int j = 1; j < c; ++j)
+        for (int j = 1; j < c; ++j)   // W_c^(jq); c is a power of two
           d = cadd(d, cmul(widen(cluster.map_shared_rank(buf, j)[pad(mm)]),
-                           widen(__ldg(roots + ((j * q) % c) * M))));
+                           widen(__ldg(roots + ((j * q) & (c - 1)) * M))));
         z[e] = narrow(q ? cmul(d, widen(__ldg(roots + mm * q))) : d);
       }
       cluster.sync();    // no block reads a chunk any more
 #pragma unroll
       for (int e = 0; e < RADIX; ++e)
         if (!RAGGED || t + e * nt < M) buf[pad(t + e * nt)] = z[e];
+      __syncthreads();
+    } else if (np > 0 && stop != STOP_INPUT) {
+      // The first odd pass reads the block input in device memory.
+      int cs;
+      const double2* cp = coef.take(tab, primes[0], 1, cs);
+      odd_pass<false, LARGE>(buf, dev, tab, cp, cs, t, nt, M, primes[0], 1);
+      tab += primes[0];
+      ns = primes[0];
+      i0 = 1;
     } else {
-      const float2* src = nullptr;
-      if constexpr (INPUT == FROM_SCRATCH)
-        src = scratch + (static_cast<size_t>(b) * n_windows + w) * n +
-              static_cast<size_t>(q) * M;
 #pragma unroll
-      for (int e = 0; e < RADIX; ++e) {
-        const int i = t + e * nt;
-        if (!RAGGED || i < M)
-          buf[pad(i)] = block_input<T, INPUT>(xr, xi, window, src, s, i);
-      }
-    }
-    __syncthreads();
-
-    for (int p = 3; rem > 1; p += 2) {
-      if (p * p > rem) p = rem;              // what remains is prime
-      while (rem % p == 0) {
-        if (!RAGGED && ns == 1)
-          odd_first_pass_staged(buf, tw_s, t, M, p);
-        else
-          odd_pass<NTMAX == 1024 ? 2 : 4>(buf, tab, t, nt, M, p, ns);
-        tab += ns * p;
-        ns *= p;
-        rem /= p;
-      }
+      for (int e = 0; e < RADIX; ++e)
+        if (!RAGGED || t + e * nt < M)
+          buf[pad(t + e * nt)] = narrow(dev(t + e * nt));
+      __syncthreads();
     }
 
+    for (int i = i0; stop != STOP_INPUT && i < np; ++i) {
+      const int p = primes[i];
+      int cs;
+      const double2* cp = coef.take(tab, p, ns, cs);
+      float2* nxt = PING ? (cur == buf ? buf2 : buf) : cur;
+      odd_pass<!PING, LARGE>(nxt, SharedInput{cur}, tab, cp, cs, t, nt, M, p,
+                             ns);
+      cur = nxt;
+      tab += ns * p;
+      ns *= p;
+    }
+
+    // v[k] = bin t + k*nt of this block's M-point FFT (cut off: the value
+    // at that position after the stage).
     float2 v[RADIX];
-    if constexpr (RAGGED) {
+    if (stop == STOP_INPUT || stop == STOP_ODD) {
+#pragma unroll
+      for (int e = 0; e < RADIX; ++e)
+        if (!RAGGED || t + e * nt < M) v[e] = cur[pad(t + e * nt)];
+    } else if constexpr (RAGGED) {
       switch (R0) {
-        case 2: pow2_pass_ragged<2>(buf, roots, t, nt, n, ns); break;
-        case 4: pow2_pass_ragged<4>(buf, roots, t, nt, n, ns); break;
-        case 8: pow2_pass_ragged<8>(buf, roots, t, nt, n, ns); break;
+        case 2: pow2_pass_ragged<2>(cur, roots, t, nt, n, ns); break;
+        case 4: pow2_pass_ragged<4>(cur, roots, t, nt, n, ns); break;
+        case 8: pow2_pass_ragged<8>(cur, roots, t, nt, n, ns); break;
         default: break;                        // odd M: no pow2 pass
       }
       __syncthreads();
 #pragma unroll
       for (int e = 0; e < RADIX; ++e)
-        if (t + e * nt < M) v[e] = buf[pad(t + e * nt)];
+        if (t + e * nt < M) v[e] = cur[pad(t + e * nt)];
     } else {
       const bool last = Q == 0;
       switch (R0) {
         case 2:
-          pow2_first_pass<2>(v, buf, roots, t, nt, M, n, ns, last);
+          pow2_first_pass<2>(v, cur, roots, t, nt, M, n, ns, last);
           break;
         case 4:
-          pow2_first_pass<4>(v, buf, roots, t, nt, M, n, ns, last);
+          pow2_first_pass<4>(v, cur, roots, t, nt, M, n, ns, last);
           break;
         case 8:
-          pow2_first_pass<8>(v, buf, roots, t, nt, M, n, ns, last);
+          pow2_first_pass<8>(v, cur, roots, t, nt, M, n, ns, last);
           break;
         default:
-          pow2_first_pass<16>(v, buf, roots, t, nt, M, n, ns, last);
+          pow2_first_pass<16>(v, cur, roots, t, nt, M, n, ns, last);
       }
       ns *= R0;
 #pragma unroll 1
       for (int p = 0; p < Q; ++p) {
         __syncthreads();
 #pragma unroll
-        for (int r = 0; r < RADIX; ++r) v[r] = buf[pad(t + r * nt)];
+        for (int r = 0; r < RADIX; ++r) v[r] = cur[pad(t + r * nt)];
         const int tw = t % ns;                 // j mod Ns
         dft<RADIX>(v, roots, tw * (n / (ns * RADIX)));
         if (p < Q - 1) {
           __syncthreads();
 #pragma unroll
           for (int k = 0; k < RADIX; ++k)
-            buf[pad((t - tw) * RADIX + tw + k * ns)] = v[k];
+            cur[pad((t - tw) * RADIX + tw + k * ns)] = v[k];
         }
         ns *= RADIX;
       }
     }
 
-    // v[k] = bin t + k*nt of this block's M-point FFT.
 #pragma unroll
     for (int k = 0; k < RADIX; ++k) {
       if (RAGGED && t + k * nt >= M) continue;
-      const float mag = wt * sqrtf(v[k].x * v[k].x + v[k].y * v[k].y);
+      const float mag = stop ? wt * (v[k].x + v[k].y)
+                             : wt * sqrtf(v[k].x * v[k].x + v[k].y * v[k].y);
       if constexpr (FOLD_IN_SMEM)
         fold_s[k * nt + t] = fold_in(fold_s[k * nt + t], mag, fold);
       else
@@ -594,28 +843,22 @@ dif_split(const T* __restrict__ re, const T* __restrict__ im,
   }
 }
 
-template <typename T, int NTMAX, int INPUT, bool RAGGED>
+template <typename T, int NTMAX, int INPUT, bool RAGGED, bool PING>
 int launch_mixed_nt(const void* re, const void* im, const void* scratch,
                     float* dst, const void* starts, const void* weights,
                     const void* window, const void* roots,
                     const void* pass_roots, int rows, int full_size, int n,
-                    int c, int n_windows, int groups, int fold,
+                    int c, int n_windows, int groups, int fold, int stop,
                     cudaStream_t stream) {
   const int m_pts = n / c;
-  int m = m_pts;                      // the kernel's tw_s: p1 roots where
-  while (!(m & 1)) m >>= 1;           // the first odd pass is staged
-  int p1 = m;
-  for (int p = 3; p * p <= m; p += 2)
-    if (m % p == 0) {
-      p1 = p;
-      break;
-    }
-  const bool staged = m > 1 && (INPUT == FROM_CLUSTER || p1 > 7);
-  const size_t smem = static_cast<size_t>(m_pts + m_pts / 16) *
-                          sizeof(float2) +
-                      (NTMAX == 1024 ? m_pts * sizeof(float) : 0) +
-                      (staged && !RAGGED ? p1 * sizeof(float2) : 0);
-  auto kernel = curscan_mixed_kernel<T, NTMAX, INPUT, RAGGED>;
+  int coef_n = large_coef_entries(m_pts);
+  if (mixed_smem(m_pts, coef_n, PING, NTMAX == 1024) > SMEM_LIMIT)
+    coef_n = 0;                        // the tables stay in device memory
+  const size_t smem = mixed_smem(m_pts, coef_n, PING, NTMAX == 1024);
+  auto kernel = large_coef_entries(m_pts)
+                    ? curscan_mixed_kernel<T, NTMAX, INPUT, RAGGED, PING, true>
+                    : curscan_mixed_kernel<T, NTMAX, INPUT, RAGGED, PING,
+                                           false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -640,41 +883,49 @@ int launch_mixed_nt(const void* re, const void* im, const void* scratch,
       static_cast<const int*>(starts), static_cast<const float*>(weights),
       static_cast<const float*>(window), static_cast<const float2*>(roots),
       static_cast<const double2*>(pass_roots), full_size, n_windows, groups,
-      fold, n, c);
+      fold, n, c, coef_n, stop);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One instantiation per thread-count class and plan: up to 512 threads
 // (held to 128 registers, so at least 512 threads of a small block size
-// share an SM), up to 1024 (64, fold in shared memory); RAGGED where 16
-// does not divide the block's M points.  A cluster's blocks always hold
-// more than 8192 points (c is the smallest power of two with N/c <=
-// 16384), so FROM_CLUSTER needs only the second class.
+// share an SM; two exchange buffers always fit), up to 1024 (64, fold in
+// shared memory; PING where two buffers fit beside it, else the odd passes
+// hold their outputs); RAGGED where 16 does not divide the block's M
+// points.  A cluster's blocks always hold more than 8192 points (c is the
+// smallest power of two with N/c <= 16384), so FROM_CLUSTER needs only the
+// second class.
 template <typename T, int INPUT>
 int launch_mixed(const void* re, const void* im, const void* scratch,
                  float* dst, const void* starts, const void* weights,
                  const void* window, const void* roots,
                  const void* pass_roots, int rows, int full_size, int n,
-                 int c, int n_windows, int groups, int fold,
+                 int c, int n_windows, int groups, int fold, int stop,
                  cudaStream_t stream) {
-#define KSPEC_MIXED_CASE(NTMAX, RAGGED)                                     \
-  return launch_mixed_nt<T, NTMAX, INPUT, RAGGED>(                          \
+#define KSPEC_MIXED_CASE(NTMAX, RAGGED, PING)                               \
+  return launch_mixed_nt<T, NTMAX, INPUT, RAGGED, PING>(                    \
       re, im, scratch, dst, starts, weights, window, roots, pass_roots,     \
-      rows, full_size, n, c, n_windows, groups, fold, stream)
+      rows, full_size, n, c, n_windows, groups, fold, stop, stream)
   const int m_pts = n / c;
   const int nt = (m_pts + RADIX - 1) / RADIX;
   const bool ragged = m_pts % RADIX != 0;
   if constexpr (INPUT != FROM_CLUSTER) {
     if (nt <= 512) {
-      if (ragged) KSPEC_MIXED_CASE(512, true);
-      KSPEC_MIXED_CASE(512, false);
+      if (ragged) KSPEC_MIXED_CASE(512, true, true);
+      KSPEC_MIXED_CASE(512, false, true);
     }
   } else {
     if (nt <= 512) return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (ragged) KSPEC_MIXED_CASE(1024, true);
-  KSPEC_MIXED_CASE(1024, false);
+  const bool ping =
+      mixed_smem(m_pts, large_coef_entries(m_pts), true, true) <= SMEM_LIMIT;
+  if (ragged) {
+    if (ping) KSPEC_MIXED_CASE(1024, true, true);
+    KSPEC_MIXED_CASE(1024, true, false);
+  }
+  if (ping) KSPEC_MIXED_CASE(1024, false, true);
+  KSPEC_MIXED_CASE(1024, false, false);
 #undef KSPEC_MIXED_CASE
 }
 
@@ -685,7 +936,7 @@ int launch_hbm(const void* re, const void* im, void* scratch, float* dst,
                const void* starts, const void* weights, const void* window,
                const void* roots, const void* pass_roots, int t,
                int full_size, int n, int c, int chunk, int n_windows,
-               int groups, int fold, cudaStream_t stream) {
+               int groups, int fold, int stop, cudaStream_t stream) {
   for (int b0 = 0; b0 < t; b0 += chunk) {
     const int rows = t - b0 < chunk ? t - b0 : chunk;
     const size_t off = static_cast<size_t>(b0) * full_size;
@@ -703,7 +954,7 @@ int launch_hbm(const void* re, const void* im, void* scratch, float* dst,
           nullptr, nullptr, scratch,
           dst + static_cast<size_t>(b0) * groups * n, starts, weights, window,
           roots, pass_roots, rows, full_size, n, c, n_windows, groups, fold,
-          stream);
+          stop, stream);
     if (err) return err;
   }
   return 0;
@@ -719,7 +970,7 @@ int launch_mixed_planes(const void* re, const void* im, int is_u8, float* dst,
                         const void* starts, const void* weights,
                         const void* window, const void* roots,
                         const void* pass_roots, int t, int full_size, int n,
-                        int n_windows, int groups, int fold,
+                        int n_windows, int groups, int fold, int stop,
                         cudaStream_t stream);
 
 }  // namespace kspec_fft

@@ -10,13 +10,13 @@ int kspec_fft::launch_mixed_planes(const void* re, const void* im, int is_u8,
                                    const void* roots, const void* pass_roots,
                                    int t, int full_size, int n,
                                    int n_windows, int groups, int fold,
-                                   cudaStream_t stream) {
+                                   int stop, cudaStream_t stream) {
   return is_u8 ? launch_mixed<uint8_t, FROM_PLANES>(
                      re, im, nullptr, dst, starts, weights, window, roots,
                      pass_roots, t, full_size, n, 1, n_windows, groups, fold,
-                     stream)
+                     stop, stream)
                : launch_mixed<float, FROM_PLANES>(
                      re, im, nullptr, dst, starts, weights, window, roots,
                      pass_roots, t, full_size, n, 1, n_windows, groups, fold,
-                     stream);
+                     stop, stream);
 }

@@ -114,7 +114,7 @@ def load() -> ctypes.CDLL:
     lib.kspec_curscan_packed.restype = i32
     lib.kspec_curscan_fft.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.kspec_curscan_fft.restype = i32
     _lib = lib
     return lib

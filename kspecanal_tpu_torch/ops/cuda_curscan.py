@@ -16,9 +16,10 @@ the sublane predicate (every multiple of 128 from 256 up) and the lane
 predicate (fft >= 2048, not prime, window starts multiples of
 ``_factorize(fft)[1]``), counted in ``launches``.  The powers of two up to
 131072 run its radix-16 Stockham kernel (above fft 16384 a thread-block
-cluster), every other size its mixed-radix kernel (odd prime passes first;
-a cluster above fft 16384 where a power of two <= 8 splits the window,
-else a radix-c step through a scratch buffer in device memory).
+cluster), every other size its mixed-radix kernel (odd prime passes first,
+as symmetric float64 butterflies, large primes as float64 tensor-core
+products; a cluster above fft 16384 where a power of two <= 8 splits the
+window, else a radix-c step through a scratch buffer in device memory).
 :func:`fft_plan` gives the thread blocks a window takes and the route.
 
 The direct two-stage DFT kernel ``csrc/curscan_sublane.cu`` serves no
@@ -39,8 +40,11 @@ kernel's ``ablate`` keys do (``scripts/kernel_ablate.py``), and
 ``scripts/roofline_r2.py``'s ``_kernel_ablate`` (K4).  Both follow the
 direct two-stage DFT, which is what the JAX scripts take apart.  Their
 plain versions (:func:`curscan_ablate_plain`, :func:`curscan_stage_plain`)
-are the same two-stage DFT in PyTorch.  ``forensic_launches`` counts the
-forensic kernel's launches.
+are the same two-stage DFT in PyTorch.  :func:`curscan_mixed_stage` cuts
+the FFT kernel's mixed-radix form off after one stage of ``MIXED_STAGES``
+(its stage table, ``scripts/mixed_stages.py``; plain version
+:func:`curscan_mixed_stage_plain`).  ``forensic_launches`` counts the
+launches of both.
 """
 from __future__ import annotations
 
@@ -91,10 +95,15 @@ ABLATE_KEYS = {"win": 1, "stage1": 2, "twiddle": 4, "stage2": 8, "sqrt": 16,
 # Keys that pick the 3M or 4M complex form of the JAX kernel's HIGH/DEFAULT
 # classes, which the port does not have yet.
 _PRECISION_KEYS = ("force3m", "no3m")
+# The mixed kernel's cut-off stages (profiling only): after the block input
+# (loads, window, the cluster's or scratch's radix-c step), after the odd
+# passes, after the power-of-two passes, or in full.  The kernel's `stop`
+# argument: 0 runs in full, i + 1 stops after MIXED_STAGES[i].
+MIXED_STAGES = ("input", "odd", "pow2", "full")
 
 launches = 0            # the FFT kernel (csrc/curscan_fft.cu)
 direct_launches = 0     # the direct-DFT kernel's production instantiation
-forensic_launches = 0   # its forensic instantiation
+forensic_launches = 0   # its forensic instantiation, the mixed cut-offs
 
 
 def _jax_predicate(cfg: SpecConfig) -> bool:
@@ -280,7 +289,7 @@ def ablate_mask(ablate) -> int:
             raise NotImplementedError(
                 f"ablate key {key!r} picks the 3M or 4M complex form of the "
                 f"HIGH/DEFAULT precision classes, which kspecanal_tpu_torch "
-                f"does not have yet: ROADMAP.md section 3 (d)")
+                f"does not have yet: ROADMAP.md B5")
         if key not in ABLATE_KEYS:
             raise ValueError(f"unknown ablate key {key!r}; known: "
                              f"{sorted(ABLATE_KEYS) + list(_PRECISION_KEYS)}")
@@ -317,10 +326,12 @@ def _raise_on(err: int, lib_fn) -> None:
                            f"error {err}")
 
 
-def _launch_fft(lib, iq_re, iq_im, cfg) -> torch.Tensor:
+def _launch_fft(lib, iq_re, iq_im, cfg, stop: int = 0) -> torch.Tensor:
     """Launch the FFT kernel (and, with more than one window group, its
     combine pass; on the scratch route of :func:`fft_plan` its radix-c
-    step, chunk by chunk) on the planes' device and current stream."""
+    step, chunk by chunk) on the planes' device and current stream.
+    ``stop`` > 0 cuts the mixed kernel off after ``MIXED_STAGES[stop - 1]``
+    (profiling only)."""
     dev = iq_re.device
     t, n = iq_re.shape[0], cfg.fft_size
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
@@ -347,7 +358,7 @@ def _launch_fft(lib, iq_re, iq_im, cfg) -> torch.Tensor:
             weights.data_ptr(), window.data_ptr(), roots.data_ptr(),
             pass_roots.data_ptr(), t,
             cfg.full_size, n, c, chunk, w, groups,
-            _FOLD[cfg.cur_scan_cumu_mode],
+            _FOLD[cfg.cur_scan_cumu_mode], stop,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib.kspec_curscan_fft)
     return out
@@ -461,6 +472,83 @@ def curscan_stage_ablate(iq_re: torch.Tensor, iq_im: torch.Tensor,
                   cfg.fft_size, STAGES.index(stage), 0, 1, int(f32_sums))
     forensic_launches += 1
     return out.view(-1, n1, _N2)
+
+
+def runs_mixed_kernel(n: int) -> bool:
+    """Whether the FFT kernel serves fft ``n`` with its mixed-radix form:
+    every size but the powers of two up to ``CLUSTER_MAX_FFT_SIZE``."""
+    return n & (n - 1) != 0 or n > CLUSTER_MAX_FFT_SIZE
+
+
+def curscan_mixed_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                        cfg: SpecConfig, stage: str) -> torch.Tensor:
+    """The mixed kernel cut off after ``stage`` (``MIXED_STAGES``), for its
+    stage table (profiling only; no session calls it): ``(T, full_size)``
+    -> ``(T, fft_size)``.  Below 'full' each point's re + im is folded in
+    place of its magnitude, at the output index of the point's position
+    (:func:`curscan_mixed_stage_plain` defines the values); 'full' is the
+    production kernel.  Counted in ``forensic_launches``; CPU tensors run
+    the plain version."""
+    global forensic_launches
+    if stage not in MIXED_STAGES:
+        raise ValueError(f"unknown stage {stage!r}; stages: {MIXED_STAGES}")
+    if kernel_route(cfg) is None or not runs_mixed_kernel(cfg.fft_size):
+        raise ValueError(f"fft {cfg.fft_size} does not run the mixed kernel")
+    check_planes(iq_re, iq_im, cfg)
+    if iq_re.device.type == "cpu":
+        return curscan_mixed_stage_plain(iq_re, iq_im, cfg, stage)
+    out = _launch_fft(_cuda_lib(iq_re.device), iq_re, iq_im, cfg,
+                      (MIXED_STAGES.index(stage) + 1) % len(MIXED_STAGES))
+    forensic_launches += 1
+    return out
+
+
+def curscan_mixed_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                              cfg: SpecConfig, stage: str) -> torch.Tensor:
+    """The plain version of :func:`curscan_mixed_stage`, in float64 on the
+    planes' device.  Block q < c of a window takes the M = N/c points z_q
+    (the windowed frame a for c = 1, else z_q[i] = W_N^(iq) sum_j a[i + jM]
+    W_c^(jq)); position i of the block after each stage holds: 'input'
+    z_q[i]; 'odd' the Stockham order after the odd passes (m the odd part
+    of M, L = M/m: position b*m + k holds sum_l z_q[b + l*L] W_m^(lk)); 'pow2'
+    bin i of the M-point DFT.  The window's weight times re + im of position
+    i is folded over the windows (the cumulate mode's fold) into output
+    index (c*i + q + N/2) mod N.  'full' is
+    :func:`curscan_fused_sublane_plain`."""
+    if stage == "full":
+        return curscan_fused_sublane_plain(iq_re.double(), iq_im.double(),
+                                           cfg)
+    n = cfg.fft_size
+    c = fft_plan(n)[0]
+    m_pts = n // c
+    dev = iq_re.device
+    re, im = (spectrum.decode_u8(p).double() for p in (iq_re, iq_im))
+    _, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
+                                    cfg.cur_scan_cumu_mode, dev)
+    a = torch.complex(spectrum.frame_signal(re, cfg.window_starts, n),
+                      spectrum.frame_signal(im, cfg.window_starts, n))
+    a = a * window.double()                               # (T, W, N)
+    z = torch.fft.fft(a.reshape(a.shape[:2] + (c, m_pts)), dim=2)
+    q = torch.arange(c, device=dev, dtype=torch.float64)
+    i = torch.arange(m_pts, device=dev, dtype=torch.float64)
+    z = z * torch.exp(-2j * np.pi * torch.outer(q, i) / n)   # (T, W, c, M)
+    if stage == "odd":
+        m = m_pts
+        while m % 2 == 0:
+            m //= 2
+        y = torch.fft.fft(z.reshape(z.shape[:3] + (m, m_pts // m)), dim=3)
+        z = y.transpose(3, 4).reshape(z.shape)
+    elif stage == "pow2":
+        z = torch.fft.fft(z, dim=3)
+    val = weights.double()[None, :, None, None] * (z.real + z.imag)
+    mode = cfg.cur_scan_cumu_mode
+    acc = (val.amax(dim=1) if mode == CUMU_MAX else
+           val.amin(dim=1) if mode == CUMU_MIN else val.sum(dim=1))
+    out = torch.empty((acc.shape[0], n), dtype=torch.float64, device=dev)
+    bins = c * torch.arange(m_pts, device=dev)[None, :] + torch.arange(
+        c, device=dev)[:, None]                           # (c, M)
+    out[:, (bins.reshape(-1) + n // 2) % n] = acc.reshape(acc.shape[0], -1)
+    return out
 
 
 def _two_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,

@@ -201,6 +201,48 @@ def test_non_power_of_two_takes_the_direct_kernel(fake_card):
         assert cuda_curscan.direct_launches == before[1] + 1
 
 
+@pytest.mark.parametrize("fft", [3000, 16256, 39800, 262144])
+def test_mixed_stage_launches_the_fft_kernel_with_its_cutoff(fake_card, fft):
+    """The mixed kernel's stage table (profiling only): each stage is one
+    launch of the FFT kernel's entry with its cut-off (0 = 'full', i + 1
+    after ``MIXED_STAGES[i]``), counted in ``forensic_launches`` and not in
+    ``launches``; production launches pass 0."""
+    cfg = zs_cfg(fft, 0.5, x_res=500)
+    planes = torch.empty((2, cfg.full_size), device="meta")
+    for i, stage in enumerate(cuda_curscan.MIXED_STAGES):
+        fake_card.calls.clear()
+        fake_card.args.clear()
+        before = (cuda_curscan.launches, cuda_curscan.forensic_launches)
+        out = cuda_curscan.curscan_mixed_stage(planes, planes, cfg, stage)
+        assert out.shape == (2, fft)
+        assert fake_card.calls == ["kspec_curscan_fft"]
+        assert fake_card.args[0][19] == (i + 1) % 4
+        assert (cuda_curscan.launches, cuda_curscan.forensic_launches) == (
+            before[0], before[1] + 1)
+    fake_card.args.clear()
+    cuda_curscan.curscan_fused_sublane(planes, planes, cfg)
+    assert fake_card.args[0][19] == 0
+
+
+def test_mixed_stage_refuses_what_the_mixed_kernel_does_not_run():
+    """Powers of two up to 131072 run ``curscan_fft_kernel``, which has no
+    cut-offs; sizes no kernel takes and unknown stages raise.  On CPU
+    tensors 'full' is the plain version in float64."""
+    for fft in (2048, 131072, 1000):
+        cfg = zs_cfg(fft, 0.5, x_res=500)
+        z = torch.zeros((1, cfg.full_size))
+        with pytest.raises(ValueError):
+            cuda_curscan.curscan_mixed_stage(z, z, cfg, "odd")
+    cfg = zs_cfg(3000, 0.5, x_res=500)
+    re, im = (torch.from_numpy(decoded(p)) for p in raw_planes(cfg, 1, 3))
+    with pytest.raises(ValueError, match="unknown stage"):
+        cuda_curscan.curscan_mixed_stage(re, im, cfg, "s2")
+    np.testing.assert_array_equal(
+        cuda_curscan.curscan_mixed_stage(re, im, cfg, "full").numpy(),
+        cuda_curscan.curscan_fused_sublane_plain(re.double(), im.double(),
+                                                 cfg).numpy())
+
+
 def test_the_remaining_gap_is_non_powers_of_two_above_16384():
     """The gap is closed: of the configs the JAX dispatcher sends to a
     Pallas kernel, none takes the torch.fft chain on the card, over every

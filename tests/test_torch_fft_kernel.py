@@ -15,17 +15,20 @@ to a Pallas kernel (``curscan_mixed_kernel``: the other multiples of 128,
 and the lane kernel's sizes off the 128 grid such as 2500, 3000, 10000 and
 39800): the block split (c blocks of M = N/c points, a cluster up to 131072
 where a power of two splits N, a radix-c step through a scratch buffer
-elsewhere), the odd prime passes first (the first from device memory into
-registers where its prime is at most 7, else the staged buffer and the
-p-term sums of ``odd_first_pass_staged`` with outputs grouped by k; the
-others the p-term sums of ``odd_pass``, outputs t + e*nt of each thread,
-coefficients from the pass's float64 table or float64 powers of one of its
-entries), their ragged thread loops, the power-of-two passes after them, the ragged plan where 16
-does not divide M (ceil(M/16) threads, outputs t + e*nt < M, one last
-power-of-two pass of radix 2, 4 or 8), and the fftshift modulo.  It rounds where the kernel rounds: values are float32 in
-registers and shared memory, each butterfly (with its pass twiddle from the
-float32 table) runs in float64 and rounds to float32 after its inner DFT-4
-stage and at its end; an odd pass rounds once per output.
+elsewhere), the odd prime passes first as butterfly passes in the symmetric
+DFT-p form (the first from device memory where the block input lies there;
+primes up to 13 a whole butterfly a thread, ``small_pass``; larger primes as
+8 x 8 float64 tile products of a warp, ``large_pass_mma``, or in groups of
+output pairs held in registers where the pass writes the buffer it reads,
+``large_pass_hold``; twiddles one lookup in the pass's float64 table, the
+exchange between two buffers where they fit), their ragged thread loops,
+the power-of-two passes after them, the ragged plan where 16 does not
+divide M (ceil(M/16) threads, outputs t + e*nt < M, one last power-of-two
+pass of radix 2, 4 or 8), and the fftshift modulo.  It rounds where the
+kernel rounds: values are float32 in registers and shared memory, each
+power-of-two butterfly (with its pass twiddle from the float32 table) runs
+in float64 and rounds to float32 after its inner DFT-4 stage and at its
+end; an odd pass rounds once per output.
 
 Tolerances: the model is held to ``np.fft`` in float64 at 1e-6 of the peak
 (a float32 radix FFT rounds like ``eps * log2 N``; the model's float64
@@ -219,99 +222,211 @@ def mixed_plan(m):
     return odd_primes(odd_part(m)) + radices(pow2)
 
 
-def odd_first_pass(x, p, m, n, roots, buf, banks):
-    """``odd_first_pass``: butterfly j = t + i*nt (ragged: while j < m/p)
-    reads elements j + r*m/p of the block input ``x`` (device memory) into
-    registers, takes the float64 DFT-p in the symmetric form with the
-    float32 roots ``W_p^j`` and stores output k at j*p + k."""
+SMALL_PRIME_MAX = 13     # larger primes run large_pass
+SMEM_LIMIT = 232448      # a Hopper block's shared memory
+
+
+def pass_table(ns, p):
+    """The pass's float64 table (``cuda_curscan._pass_roots``):
+    W_{ns p}^u for u < ns p."""
+    return np.exp(-2j * np.pi * np.arange(ns * p) / (ns * p))
+
+
+def twiddled(x, j, a, r, length, table, ns):
+    """Input r of butterflies j (a = j mod ns): element j + r*len, widened,
+    times the pass twiddle ``table[r * a]`` (none in the first pass)."""
+    v = x(j + r * length)
+    return v * table[r * a] if ns > 1 else v
+
+
+def sym_pair(x0, sm, df, coef, k, p):
+    """Outputs k and p - k of the symmetric DFT-p (k an int or an array):
+    A = x_0 + sum s_r Re W_p^(rk), B = sum d_r Im W_p^(rk) (``coef[e]`` =
+    W_p^e), X_k = A + iB, X_{p-k} = A - iB, as the kernel writes them."""
+    a, b = x0.copy(), np.zeros_like(x0)
+    for r in range(1, len(sm) + 1):
+        w = coef[(r * k) % p]
+        a = a + sm[r - 1] * w.real
+        b = b + df[r - 1] * w.imag
+    return ((a.real - b.imag) + 1j * (a.imag + b.real),
+            (a.real + b.imag) + 1j * (a.imag - b.real))
+
+
+def small_pass(x, p, ns, m, banks):
+    """``small_pass<P>`` (p <= 13): thread t of ceil(m/16) owns the
+    butterflies j = t + i*nt < m/p (i < ceil(16/p)); butterfly j loads its
+    p inputs once (``x``: the block input in device memory, or the padded
+    buffer), twiddles input r by the pass table's entry r * (j mod ns),
+    runs the symmetric DFT-p with W_p^k = table[ns k] in float64 and stores
+    output k, rounded once, at (j - a)*p + a + k*ns.  Returns the
+    destination buffer."""
     nt = -(-m // RADIX)
-    length, stride, h = m // p, n // p, (p - 1) // 2
-    w = roots[(np.arange(p) % p) * stride].astype(np.complex128)
-    for i in range(-(-length // nt)):
+    length, h = m // p, (p - 1) // 2
+    table = pass_table(ns, p)
+    coef = table[ns * np.arange(p)]
+    dst = x.dst(m)
+    for i in range(-(-RADIX // p)):
         j = np.arange(nt) + i * nt
         j = j[j < length]
-        xs = [x[..., j + r * length].astype(np.complex128) for r in range(p)]
+        if not len(j):
+            continue
+        a = j % ns
+        xs = [twiddled(x, j, a, r, length, table, ns) for r in range(p)]
         sm = [xs[r] + xs[p - r] for r in range(1, h + 1)]
         df = [xs[r] - xs[p - r] for r in range(1, h + 1)]
-        y0 = xs[0]
-        for v in sm:
-            y0 = y0 + v
-        outs = {0: y0}
+        outs = {0: xs[0] + sum(sm)}
         for k in range(1, h + 1):
-            a = xs[0].copy()
-            b = np.zeros_like(a)
-            for r in range(1, h + 1):
-                wr = w[(r * k) % p]
-                a = a + sm[r - 1] * wr.real
-                b = b - df[r - 1] * wr.imag
-            outs[k] = (a.real + b.imag) + 1j * (a.imag - b.real)
-            outs[p - k] = (a.real - b.imag) + 1j * (a.imag + b.real)
+            outs[k], outs[p - k] = sym_pair(xs[0], sm, df, coef, k, p)
+        o = (j - a) * p + a
         for k in range(p):
-            banks.access(pad(j * p + k))
-            buf[..., pad(j * p + k)] = f32(outs[k])
+            banks.access(pad(o + k * ns))
+            dst[..., pad(o + k * ns)] = f32(outs[k])
+    return dst
 
 
-def odd_first_pass_staged(buf, p, m, n, roots, banks):
-    """``odd_first_pass_staged`` (16 divides m, the block input staged, Ns
-    = 1): thread t computes output k = t mod p of the butterflies j = t div
-    p + e*len/16 (e < 16), each the p-term float64 sum of elements j + r*len
-    times the float32 root ``W_p^(rk)``; after every thread has read, output
-    k of butterfly j goes to j*p + k."""
-    nt = m // RADIX
-    length = m // p
-    l16 = length // RADIX
-    assert length % RADIX == 0 and nt == p * l16
-    t = np.arange(nt)
-    k, jg = t % p, t // p
-    w = roots[(np.arange(p) * (n // p))].astype(np.complex128)
-    ys, dst = [], []
-    for e in range(RADIX):
-        j = jg + e * l16
-        banks.access(pad(j))
-        acc = buf[..., pad(j)].copy()
-        for r in range(1, p):
-            banks.access(pad(j + r * length))
-            acc = acc + buf[..., pad(j + r * length)] * w[(r * k) % p]
-        ys.append(f32(acc))
-        dst.append(pad(j * p + k))
-    for y, addr in zip(ys, dst):
-        banks.access(addr)
-        buf[..., addr] = y
-
-
-def odd_pass(buf, p, ns, m, banks):
-    """``odd_pass``: thread t of ceil(m/16) computes the outputs o = t +
-    e*nt < m (e < 16), output k = o div len of butterfly j = o mod len, the
-    p-term float64 sum of elements j + r*len times w^r, w = W_{ns p}^u, u =
-    (j mod ns) + k ns: with ns = 1 the table's entry r*u mod p, else its
-    powers by repeated float64 products; after every thread has read,
-    output k of butterfly j goes to (j div ns)*p*ns + (j mod ns) + k*ns."""
+def large_pass(x, p, ns, m, banks, g_pairs=4):
+    """``large_pass_hold`` (p >= 17, in place): butterfly j's outputs in
+    groups of G pairs (k, p - k), item it = g*len + j; thread t takes the
+    items t + e*nt.  An item reads each of its butterfly's inputs once
+    (twiddled as in :func:`small_pass`), sums s_r and d_r times the group's
+    coefficients W_p^(rk) from the p-entry table, and stores X_k, X_{p-k}
+    (and X_0 from the first group) rounded once, after every thread has
+    read."""
     nt = -(-m // RADIX)
-    length = m // p
-    table = np.exp(-2j * np.pi * np.arange(ns * p) / (ns * p))
-    ys, dst = [], []
-    for e in range(RADIX):
-        o = np.arange(nt) + e * nt
-        o = o[o < m]
-        if not len(o):
-            continue
-        k, j = o // length, o % length
+    length, h = m // p, (p - 1) // 2
+    items = length * -(-h // g_pairs)
+    assert -(-items // nt) <= 3                       # HOLD_ITEMS
+    table = pass_table(ns, p)
+    coef = table[ns * np.arange(p)]
+    dst = x.dst(m)
+    for e in range(-(-items // nt)):
+        it = np.arange(nt) + e * nt
+        it = it[it < items]
+        g, j = it // length, it % length
         a = j % ns
-        w = table[a + k * ns]
-        banks.access(pad(j))
-        acc = buf[..., pad(j)].copy()
-        c = w.copy()
-        for r in range(1, p):
-            banks.access(pad(j + r * length))
-            if ns == 1:
-                c = table[(r * k) % p]
-            acc = acc + buf[..., pad(j + r * length)] * c
-            c = c * w
-        ys.append(f32(acc))
-        dst.append(pad((j - a) * p + a + k * ns))
-    for y, addr in zip(ys, dst):
+        k0 = 1 + g * g_pairs
+        x0 = x(j)
+        xs = {r: twiddled(x, j, a, r, length, table, ns)
+              for r in range(1, p)}
+        sm = [xs[r] + xs[p - r] for r in range(1, h + 1)]
+        df = [xs[r] - xs[p - r] for r in range(1, h + 1)]
+        o = (j - a) * p + a
+        for i in range(g_pairs):
+            k = k0 + i
+            ok = k <= h
+            for kk, v in zip((k, p - k), sym_pair(x0, sm, df, coef, k, p)):
+                addr = pad(o + kk * ns)[ok]
+                banks.access(addr)
+                dst[..., addr] = f32(v[..., ok])
+        first = g == 0
+        addr = pad(o)[first]
         banks.access(addr)
-        buf[..., addr] = y
+        dst[..., addr] = f32((x0 + sum(sm))[..., first])
+    return dst
+
+
+def large_pass_mma(x, p, ns, m, banks):
+    """``large_pass_mma`` (p >= 17, out of place): the symmetric DFT-p as
+    float64 tile products, rows k = 0..H (k = 0 gives X_0) by butterflies j
+    in 8 x 8 tiles, one whole warp a tile (k fast), r four a step.  Lane
+    (gid, tig) = (lane >> 2, lane & 3) loads s_r, d_r of r = 4*step + tig +
+    1 and column j = 8*jt + gid (inputs j + r*len and j + (p-r)*len) and
+    stores the outputs of row k = 8*kt + gid, columns 8*jt + 2*tig + i,
+    rounded once.  The sums are the float64 ones of :func:`sym_pair`."""
+    length, h = m // p, (p - 1) // 2
+    table = pass_table(ns, p)
+    coef = table[ns * np.arange(p)]
+    jall = np.arange(length)
+    aall = jall % ns
+    xs = {r: twiddled(x.raw, jall, aall, r, length, table, ns)
+          for r in range(p)}
+    sm = [xs[r] + xs[p - r] for r in range(1, h + 1)]
+    df = [xs[r] - xs[p - r] for r in range(1, h + 1)]
+    out = {0: xs[0] + sum(sm)}
+    for k in range(1, h + 1):
+        out[k], out[p - k] = sym_pair(xs[0], sm, df, coef, k, p)
+    dst = x.dst(m)
+    lane = np.arange(32)
+    gid, tig = lane >> 2, lane & 3
+    kt_n = h // 8 + 1
+    for u in range(kt_n * -(-length // 8)):
+        kt, jt = u % kt_n, u // kt_n
+        jb = jt * 8 + gid
+        for rs in range(-(-h // 4)):
+            r = rs * 4 + tig + 1
+            ok = (jb < length) & (r <= h)
+            banks.access(x.addr(jb[ok] + r[ok] * length))
+            banks.access(x.addr(jb[ok] + (p - r[ok]) * length))
+        k = kt * 8 + gid
+        for i in range(2):
+            j = jt * 8 + 2 * tig + i
+            ok = (k <= h) & (j < length)
+            kk, jj = k[ok], j[ok]
+            o = (jj - jj % ns) * p + jj % ns
+            for sign in (1, -1):
+                kout = np.where(sign > 0, kk, (p - kk) % p)
+                sel = (sign > 0) | (kk > 0)
+                addr = pad(o + kout * ns)[sel]
+                banks.access(addr)
+                vals = np.stack([out[int(a)][..., int(b)] for a, b in
+                                 zip(kout[sel], jj[sel])], axis=-1) \
+                    if sel.any() else None
+                if vals is not None:
+                    dst[..., addr] = f32(vals)
+    return dst
+
+
+class Source:
+    """Where an odd pass reads element i: ``buf`` (the padded shared
+    buffer, accesses recorded in ``banks``) or, with ``buf`` None, the block
+    input ``x[..., i]`` in device memory.  ``raw`` reads without recording,
+    ``addr`` gives the shared address of element i (None in device memory:
+    no bank to count); ``dst(m)`` makes the buffer the pass writes."""
+
+    def __init__(self, x, buf, banks):
+        self.x, self.buf, self.banks = x, buf, banks
+
+    def raw(self, i):
+        if self.buf is None:
+            return self.x[..., i].astype(np.complex128)
+        return self.buf[..., pad(i)]
+
+    def addr(self, i):
+        return pad(i) if self.buf is not None else np.zeros(0, np.int64)
+
+    def __call__(self, i):
+        if self.buf is not None:
+            self.banks.access(pad(i))
+        return self.raw(i)
+
+    def dst(self, m):
+        lead = (self.x if self.buf is None else self.buf).shape[:-1]
+        return np.zeros(lead + (pad(m - 1) + 1,), np.complex128)
+
+
+def coef_entries(m):
+    return sum(p for p in odd_primes(odd_part(m)) if p > SMALL_PRIME_MAX)
+
+
+def ping(m, cluster):
+    """Whether the odd passes ping-pong between two buffers: always up to
+    512 threads (never a cluster), else where the tables, two padded
+    buffers and the fold fit a block's shared memory."""
+    nt = -(-m // RADIX)
+    if nt <= 512 and not cluster:
+        return True
+    return coef_entries(m) * 16 + 2 * (m + m // 16) * 8 + m * 4 <= SMEM_LIMIT
+
+
+def odd_pass(src, p, ns, m, banks, hold):
+    """``odd_pass``: ``small_pass`` for p <= 13, else ``large_pass_hold``
+    where the pass writes the buffer it reads or the block has no whole
+    warp, ``large_pass_mma`` where not."""
+    if p <= SMALL_PRIME_MAX:
+        return small_pass(src, p, ns, m, banks)
+    if hold or -(-m // RADIX) < 32:
+        return large_pass(src, p, ns, m, banks)
+    return large_pass_mma(src, p, ns, m, banks)
 
 
 def pow2_pass_ragged(buf, r0, ns, m, n, roots, banks):
@@ -335,35 +450,39 @@ def pow2_pass_ragged(buf, r0, ns, m, n, roots, banks):
             buf[..., pad(j + k * ns)] = y[k]
 
 
-def mixed_block_fft(x, m, n, roots, banks=None, in_regs=True):
+def mixed_block_fft(x, m, n, roots, banks=None, in_regs=True, stop=None):
     """One thread block of the mixed kernel: the m-point FFT of the block
     input ``x[..., m]`` (complex64; element i).  ``in_regs``: the input lies
-    in device memory (planes or scratch), so a first prime <= 7 runs
-    ``odd_first_pass``; else (the cluster's z) the input is staged in the
-    buffer at pad(t + e*m/16).  Returns ``[..., t, k]`` = bin t + k*m/16;
-    twiddles index the n-point table.  Where 16 does not divide m (the
-    ragged plan) the entries of bins t + k*nt >= m are zero."""
+    in device memory (planes or scratch), so the first odd pass reads it
+    there; else (the cluster's z) it is staged in the buffer at pad(t +
+    e*m/16) first.  The odd passes follow the kernel's exchange (``ping``:
+    two buffers, else in place; the same addresses either way).  Returns
+    ``[..., t, k]`` = bin t + k*m/16; twiddles index the n-point table.
+    Where 16 does not divide m (the ragged plan) the entries of bins t +
+    k*nt >= m are zero.  ``stop='odd'`` returns the ``[..., m]`` positions
+    after the odd passes instead."""
     banks = banks or Banks()
     nt = -(-m // RADIX)
     ragged = m % RADIX != 0
     t = np.arange(nt)
     primes = odd_primes(odd_part(m))
-    buf = np.zeros(x.shape[:-1] + (pad(m - 1) + 1,), np.complex128)
     ns = 1
-    if in_regs and primes and primes[0] <= 7:
-        odd_first_pass(x, primes[0], m, n, roots, buf, banks)
+    if in_regs and primes:
+        buf = odd_pass(Source(x, None, banks), primes[0], 1, m, banks,
+                       hold=False)
         ns = primes.pop(0)
     else:
+        buf = np.zeros(x.shape[:-1] + (pad(m - 1) + 1,), np.complex128)
         for e in range(RADIX):
             i = (t + e * nt)[t + e * nt < m]
             banks.access(pad(i))
             buf[..., pad(i)] = x[..., i]
     for p in primes:
-        if ns == 1 and not ragged:
-            odd_first_pass_staged(buf, p, m, n, roots, banks)
-        else:
-            odd_pass(buf, p, ns, m, banks)
+        buf = odd_pass(Source(x, buf, banks), p, ns, m, banks,
+                       hold=not ping(m, not in_regs))
         ns *= p
+    if stop == "odd":
+        return buf[..., pad(np.arange(m))]
     if ragged:
         if m // ns > 1:
             pow2_pass_ragged(buf, m // ns, ns, m, n, roots, banks)
@@ -559,6 +678,89 @@ def test_mixed_model_matches_numpy_for_each_odd_part(m):
     assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 1e-6
 
 
+@pytest.mark.parametrize("m,in_regs,p", [
+    (1408, True, 11), (3 * 11 * 16, True, 11), (1664, True, 13),
+    (5 * 13 * 16, False, 13), (2050, True, 41), (11110, True, 101),
+    (13110, False, 23), (16 * 509, False, 509), (2 * 509, True, 509),
+    (2 * 1013, False, 1013), (16 * 1013, True, 1013)])
+def test_butterfly_passes_match_numpy_for_each_prime(m, in_regs, p):
+    """Blocks whose plan has the prime p: 11 and 13 in registers
+    (``small_pass``, first from device memory or after a 3 or 5 pass); 41,
+    101, 23, 509 and 1013 as float64 tile products (``large_pass_mma``:
+    first from device memory, from the staged buffer, or after other odd
+    passes with their twiddles) or, where a pass writes the buffer it reads
+    because two buffers do not fit (13110 = 2*3*5*19*23 in a cluster, 11110's
+    11 and 101), in groups of pairs held in registers (``large_pass_hold``).
+    The model's block FFT equals ``np.fft`` at 1e-6 of the peak."""
+    assert p in odd_primes(odd_part(m))
+    assert ping(m, not in_regs) == (m not in (11110, 13110, 16208))
+    rng = np.random.default_rng(m + p)
+    a = (rng.standard_normal((1, m)) + 1j * rng.standard_normal((1, m)))
+    roots = np.exp(-2j * np.pi * np.arange(m) / m).astype(np.complex64)
+    y = mixed_block_fft(a.astype(np.complex64), m, m, roots,
+                        in_regs=in_regs)
+    nt = -(-m // RADIX)
+    bins = np.arange(nt)[:, None] + np.arange(RADIX)[None, :] * nt
+    got = np.zeros(m, np.complex128)
+    got[bins[bins < m]] = y[0][bins < m]
+    want = np.fft.fft(a[0].astype(np.complex64).astype(np.complex128))
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 1e-6
+
+
+@pytest.mark.parametrize("fft", [3000, 16256])
+def test_mixed_min_fold_at_90_percent_within_half_the_bound(fft):
+    """The mixed kernel's MIN fold at 90% overlap (71 windows), where bins
+    sit near 1% of the peak: the model, held to the plain version run in
+    float64 on the same planes, stays within half of the per-bin bound
+    (5e-5 of the bin plus 1e-6 of the peak) at every bin, as the
+    power-of-two kernel's does: each butterfly output rounds to float32
+    once, the radix-127 pass of fft 16256 included."""
+    cfg = zs_cfg(fft, 0.1, "MIN")
+    rng = np.random.default_rng(fft)
+    re, im = (rng.standard_normal((2, cfg.full_size)).astype(np.float32)
+              for _ in range(2))
+    exact = cuda_curscan.curscan_fused_sublane_plain(
+        torch.from_numpy(re).double(), torch.from_numpy(im).double(),
+        cfg).numpy()
+    model = curscan_model(re, im, cfg, 1)
+    bound = 5e-5 * np.abs(exact) + 1e-6 * np.max(np.abs(exact))
+    assert np.max(np.abs(model - exact) / bound) <= 0.5
+
+
+@pytest.mark.parametrize("fft", [3000, 10000, 39800, 33250])
+def test_mixed_stage_plain_follows_the_model(fft):
+    """``cuda_curscan.curscan_mixed_stage_plain`` defines what the kernel
+    cut off after each stage folds: its 'odd' positions are the model's
+    buffer after the odd passes (one block, a cluster of 4, the scratch
+    route), its 'input' the block input and its 'pow2' the block's DFT, at
+    1e-6 of the peak."""
+    cfg = zs_cfg(fft, 0.5, "AVG", x_res=500)
+    re, im = (decoded(p) for p in raw_planes(cfg, 1, seed=fft + 9))
+    n = fft
+    c, via_scratch = block_split(n)
+    m = n // c
+    starts, weights, window, roots = tables(cfg)
+    idx = starts[:, None] + np.arange(n)[None, :]
+    a = (re[:, idx] * window + 1j * (im[:, idx] * window)).astype(
+        np.complex64)
+    z = (a[..., None, :].astype(np.complex128) if c == 1
+         else radix_c_step(a, roots, c))                  # (1, W, c, m)
+    stages = {
+        "input": z,
+        "odd": mixed_block_fft(z, m, n, roots, in_regs=c == 1 or via_scratch,
+                               stop="odd"),
+        "pow2": np.fft.fft(z, axis=-1)}
+    bins = (c * np.arange(m)[None, :] + np.arange(c)[:, None]).ravel()
+    for stage, val in stages.items():
+        acc = np.einsum("w,twqi->tqi", weights, val.real + val.imag)
+        want = np.empty((1, n))
+        want[:, (bins + n // 2) % n] = acc.reshape(1, -1)
+        got = cuda_curscan.curscan_mixed_stage(
+            torch.from_numpy(re), torch.from_numpy(im), cfg, stage).numpy()
+        assert np.max(np.abs(got - want)) <= 1e-6 * np.max(np.abs(want)), \
+            stage
+
+
 @pytest.mark.parametrize("fft", [2048, 16384, 32768])
 def test_float64_butterflies_beat_a_float32_fft(fft):
     """Why the butterflies run in float64: a MIN fold at 90% overlap keeps
@@ -598,15 +800,16 @@ def test_plan_and_shared_memory_banks(m):
 
 @pytest.mark.parametrize("m,in_regs,worst", [
     (384, True, 4), (1280, True, 5), (1408, True, 2), (2176, True, 2),
-    (10240, False, 2), (12288, False, 2), (16256, True, 2),
-    (16368, False, 3), (16384, True, 1)])
+    (10240, False, 5), (12288, False, 3), (16256, True, 2),
+    (16368, False, 4), (16384, True, 1)])
 def test_mixed_plan_and_shared_memory_banks(m, in_regs, worst):
     """The mixed kernel's block of m points (a multiple of 16): the odd
     primes, then a power-of-two pass of radix 2..16, then radix-16 passes,
     the last one radix 16; m/16 threads (not always whole warps).  Bank
-    conflicts, which cost time and not correctness: ``odd_first_pass``
-    stores at stride p (up to p-way at p = 5), the staged passes up to 3-way,
-    the power-of-two passes after an odd part 2-way; none without one."""
+    conflicts, which cost time and not correctness: a butterfly pass stores
+    its outputs at stride p (up to p-way at p = 5, staged or not), a large
+    prime's tiles up to 4-way (16368's radix-31 pass, in place), the
+    power-of-two passes after an odd part 2-way; none without one."""
     plan = mixed_plan(m)
     assert int(np.prod(plan)) == m and plan[-1] == RADIX
     assert all(p % 2 for p in plan[:len(odd_primes(odd_part(m)))])
@@ -681,9 +884,7 @@ def test_ragged_plan_and_shared_memory_banks(m, in_regs, worst):
 def test_pass_tables_of_the_wrapper():
     """``cuda_curscan._pass_roots``: for each odd pass (Ns, p) of the block,
     in the kernel's order, W_{Ns p}^u (u < Ns p) in float64, one after the
-    other; the float64 powers of an entry stay within 1e-13 of the exact
-    roots up to p = 1013 (the largest prime below 2^20 the lane predicate
-    sends), where the float32 table is 6e-8 off."""
+    other."""
     for m in (3000, 9950, 16256, 16384, 3 * 5 * 1013):
         tab = cuda_curscan._pass_roots(m, torch.device("cpu")).numpy()
         w = tab[:, 0] + 1j * tab[:, 1]
@@ -696,13 +897,13 @@ def test_pass_tables_of_the_wrapper():
             ns *= p
         want = np.concatenate(want) if want else np.ones(1)
         np.testing.assert_array_equal(w, want)
-    p = 1013
-    w = np.exp(-2j * np.pi / p)
-    c, worst = w, 0.0
-    for r in range(1, p):
-        worst = max(worst, abs(c - np.exp(-2j * np.pi * r / p)))
-        c = c * w
-    assert worst < 1e-13
+    # A pass reads W_p^k as its table's entry Ns*k: within 4e-15 of the
+    # exact roots up to p = 1013 (the largest prime below 2^20 the lane
+    # predicate sends), where the float32 table is 6e-8 off.
+    tab = cuda_curscan._pass_roots(3 * 5 * 1013, torch.device("cpu")).numpy()
+    w = (tab[:, 0] + 1j * tab[:, 1])[3 + 15:]      # (Ns, p) = (15, 1013)
+    k = np.arange(1013)
+    assert np.max(np.abs(w[15 * k] - np.exp(-2j * np.pi * k / 1013))) < 4e-15
 
 
 def test_scratch_chunks_cover_every_iq_block_once():

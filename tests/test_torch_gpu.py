@@ -31,11 +31,13 @@ POW2 = [1 << e for e in range(8, 18)]          # 256 .. 131072
 MIXED = [384, 1280, 3072, 16256, 20480, 98304, 130944, 262144]
 # The lane kernel's (K3's) sizes off the 128 grid, with the overlaps at
 # which the JAX dispatcher sends them to it: one block (2500, 3000; 10000
-# with 16 points a thread), a cluster of 4 (39800 = 200 * 199), the
-# scratch route (33250 = 2 * odd, c = 5; 131100, c = 10).
+# with 16 points a thread; 2050 = 2 * 5^2 * 41 and 11110 = 2 * 5 * 11 * 101
+# with a prime >= 17), a cluster of 4 (39800 = 200 * 199), the scratch
+# route (33250 = 2 * odd, c = 5; 131100, c = 10).
 LANE = [(2500, 0.5), (2500, 0.1), (3000, 0.5), (3000, 0.1), (10000, 0.5),
         (10000, 0.1), (39800, 0.5), (39800, 0.1), (33250, 0.5),
-        (131100, 0.5), (131100, 0.1)]
+        (131100, 0.5), (131100, 0.1), (2050, 0.5), (2050, 0.1),
+        (11110, 0.5), (11110, 0.1)]
 
 
 def planes_on(cuda, cfg, t, seed):
@@ -144,6 +146,35 @@ def test_lane_sizes_u8_bit_identical(cuda, fft):
     want = cuda_curscan.curscan_fused_sublane(tspec.decode_u8(re),
                                               tspec.decode_u8(im), cfg)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fft,nono", [(3000, 0.1), (16256, 0.1)])
+def test_mixed_kernel_gives_identical_bits_twice(cuda, fft, nono):
+    """No atomics: the window groups combine in group order."""
+    cfg = zs_cfg(fft, nono, "MIN", x_res=500)
+    re, im = planes_on(cuda, cfg, 4, seed=fft + 3)
+    assert torch.equal(cuda_curscan.curscan_fused_sublane(re, im, cfg),
+                       cuda_curscan.curscan_fused_sublane(re, im, cfg))
+
+
+@pytest.mark.parametrize("stage", cuda_curscan.MIXED_STAGES)
+@pytest.mark.parametrize("fft", [3000, 16256, 39800, 33250])
+def test_mixed_stage_matches_plain(cuda, fft, stage):
+    """The mixed kernel cut off after each stage (one block, a cluster of
+    4, the scratch route) against its plain version in float64, counted in
+    ``forensic_launches``; 'full' is the production kernel, bit for bit."""
+    cfg = zs_cfg(fft, 0.5, x_res=500)
+    re, im = planes_on(cuda, cfg, 2, seed=fft + 4)
+    before = cuda_curscan.forensic_launches
+    got = cuda_curscan.curscan_mixed_stage(re, im, cfg, stage)
+    want = cuda_curscan.curscan_mixed_stage_plain(re, im, cfg, stage)
+    torch.cuda.synchronize()
+    assert cuda_curscan.forensic_launches == before + 1
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-6 * want.abs().max().item()
+    if stage == "full":
+        assert torch.equal(got,
+                           cuda_curscan.curscan_fused_sublane(re, im, cfg))
 
 
 def test_wrapper_refuses_non_contiguous_on_card(cuda):
