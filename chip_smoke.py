@@ -100,7 +100,21 @@ Phases (any failure raises; the exit code is then non-zero):
      of the direct kernel (their base) counted over them;
  14. ``scripts.qfs_ablate``: one quickFullScan sweep (1226 bands x 512)
      split into band curscans (K2), display chain, stitch and epilogue on
-     the card, beside the serial session's whole sweep.
+     the card, beside the serial session's whole sweep;
+ 15. mesh: the sharded paths (``parallel/``) in worlds of ranks started by
+     ``parallel/spawn.run_world`` after the build (the ranks only load the
+     library): one rank on NCCL, 2 and 4 ranks sharing the card over gloo
+     (every collective copied through the host), and NCCL worlds of 2 and
+     4 where there are as many cards.  Each world runs BASELINE config 5
+     (fft 16384, kaiser, 90%, full_size 131072) time-sharded in all four
+     modes and fft-sharded (AVG, MAX), the zero-span main cell's stream
+     sharded at T=4096, the fmScan and quickFullScan presets band-sharded
+     (18 and 1226 bands, padded to a multiple of the ranks), each against
+     the unsharded port on the card within the per-bin bound, each rank
+     launching K1 and K2; at two ranks ``cli.main`` runs zeroSpan fft 16384
+     90% with ``tpuMeshTime 2`` (peaks on 91/92/93 MHz) and fmScan with
+     ``tpuMeshBand 2`` (peaks on integer MHz); the stream's rates at each
+     world size (not scaling figures where ranks share a card).
 The line before the last lists each kernel with its launches on its path,
 its error, its times and its bound; ``library_ms`` is null throughout: no
 single PyTorch call computes a curscan (the plain version, cuFFT plus
@@ -1067,6 +1081,95 @@ def phase_forensics(cc):
     return launches, direct, rows[4096]["full"], plain, bms, by
 
 
+# The mesh phase's full-width cases (scripts/dryrun_multichip.rank_main):
+# BASELINE config 5 (fft 16384, kaiser, 90%: full_size 131072, 71 windows,
+# halo 16384) time- and fft-sharded, the zero-span main cell's stream at
+# T=4096, and the fmScan and quickFullScan presets band-sharded.
+CONFIG5 = {"fft": 16384, "nono": 0.1, "window": "WIN.KAISER"}
+MESH_CASES = {
+    "stream": [{"fft": 2048, "nono": 0.5, "window": "WIN.KAISER",
+                "mode": "AVG", "blocks": 4096, "u8": False}],
+    "time": [dict(CONFIG5, mode=m) for m in MODES],
+    "fft": [dict(CONFIG5, mode=m) for m in ("AVG", "MAX")],
+    "band": ["FMSCAN", "QUICKFULLSCAN"],
+}
+
+
+def mesh_world(s, backend, share, gpu, tmp):
+    """One world of the mesh phase: every full-width case, and at two
+    ranks the two CLI sessions; prints its lines and checks its results.
+    Returns rank 0's result."""
+    from kspecanal_tpu_torch.cli import parse_args
+    from kspecanal_tpu_torch.parallel.spawn import run_world
+    from kspecanal_tpu_torch.scripts import dryrun_multichip
+    from kspecanal_tpu_torch.session import make_plan_cached
+    zs = ["zeroSpan", "centerFreq", "92e6", "window", "kaiser",
+          "curScanNonOverlap", "0.1", "fftSize", "16384", "tpuLogIter",
+          "false", "tpuMeshTime", "2", "tpuSource", "synth", "prgLoopCnt",
+          "4", "tpuHeadless", "true", "saveSigLvls",
+          os.path.join(tmp, f"mesh_zs_{backend}.bin")]
+    fm = FM_ARGS + ["tpuMeshBand", "2", "tpuSource", "synth", "prgLoopCnt",
+                    "2", "tpuHeadless", "true", "saveSigLvls",
+                    os.path.join(tmp, f"mesh_fm_{backend}.bin")]
+    args = dict(MESH_CASES, band_mesh=[1, s],
+                rates={"fft": 2048, "blocks": [1024 * s, 4096]},
+                cli=[[zs, 2, 1], [fm, 1, 2]] if s == 2 else [])
+    how = ("ranks sharing cuda:0 over gloo, every collective copied "
+           "through the host" if share else "one rank a card")
+    t0 = time.perf_counter()
+    res = run_world(dryrun_multichip.TARGET, s, args, backend=backend,
+                    device_type="cuda", share_card=share, timeout_s=400)
+    wall = time.perf_counter() - t0
+    print(f"  world of {s} on {backend} ({how}): {wall:.1f} s wall")
+    for r in res:
+        k1 = sum(v[0] for v in r["launches"].values())
+        k2 = sum(v[1] for v in r["launches"].values())
+        print(f"    rank {r['rank']} on {r['device']} ({r['backend']}): "
+              f"{r['seconds']:.1f} s, launches K1 {k1} K2 {k2}")
+        check(k1 > 0 and k2 > 0, f"world {s} {backend} rank {r['rank']} "
+              f"launched K1 and K2")
+    root = res[0]
+    for name, share_ in root["shares"].items():
+        print(f"    {name}: {share_:.3f} of the bound, max abs err "
+              f"{root['max_abs_err'][name]:.3e}")
+    weak, strong = root["rates"]
+    print(f"    stream fft 2048 rates ({gpu}): weak "
+          f"T={1024 * s} {weak / 1e6:.1f} Msamp/s, strong T=4096 "
+          f"{strong / 1e6:.1f} Msamp/s" + ("; ranks share one card: not "
+                                            "scaling figures" if share
+                                            else ""))
+    for argv, _, _ in args["cli"]:
+        cfg = parse_args(argv[:-2])[0]
+        avg = load_avg(argv[-1])
+        if cfg.prg_mode == "SCAN":
+            plan = make_plan_cached(cfg)
+            peaks, cell = scan_peaks(cfg, plan, avg)
+            on = len(peaks) == 3 and all(
+                abs(p - round(p / 1e6) * 1e6) <= cell for p in peaks)
+        else:
+            peaks, cell = avg_peaks(cfg, avg), cfg.sampling_rate / cfg.x_res
+            on = len(peaks) == 3 and all(abs(p - w) <= cell
+                                         for p, w in zip(peaks, PEAKS_HZ))
+        print(f"    cli.main {' '.join(argv[:-2])}: peaks "
+              f"{[round(p / 1e6, 4) for p in peaks]} MHz "
+              f"{'PASS' if on else 'FAIL'}")
+        check(on, f"mesh session {argv[0]} peaks")
+    return root
+
+
+def phase_mesh(gpu, tmp):
+    """The sharded paths on torch.distributed: a world of one rank on NCCL,
+    worlds of 2 and 4 ranks sharing the card over gloo, and NCCL worlds of
+    2 and 4 where there are as many cards."""
+    print(f"== mesh: the sharded paths over torch.distributed ({gpu}; "
+          f"{torch.cuda.device_count()} card(s))")
+    worlds = [(1, "nccl", False), (2, "gloo", True), (4, "gloo", True)]
+    worlds += [(s, "nccl", False) for s in (2, 4)
+               if torch.cuda.device_count() >= s]
+    return {(s, b): mesh_world(s, b, share, gpu, tmp)
+            for s, b, share in worlds}
+
+
 def phase_done(name, t0):
     now = time.perf_counter()
     print(f"-- {name}: {now - t0:.1f} s")
@@ -1142,7 +1245,10 @@ def main():
     from kspecanal_tpu_torch.scripts import qfs_ablate
     print("== qfs_ablate: one quickFullScan sweep split on the card")
     qfs_ablate.main([])
-    phase_done("qfs_ablate", t0)
+    t0 = phase_done("qfs_ablate", t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_mesh(gpu, tmp)
+    phase_done("mesh", t0)
     fft_kernel = {"name": "curscan_fft", "route": "cuda",
                   "source": "kspecanal_tpu_torch/csrc/curscan_fft.cu"}
     sublane_423 = "kspecanal_tpu/ops/pallas_curscan.py:423"

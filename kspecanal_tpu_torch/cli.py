@@ -17,10 +17,19 @@ holds them equal).
         tpuHeadless true
     python -m kspecanal_tpu_torch zeroSpan tpuSource synth prgLoopCnt 8 \
         tpuStateFile state.npz tpuHeadless true      # resumes on a rerun
+    torchrun --nproc-per-node 2 -m kspecanal_tpu_torch zeroSpan \
+        fftSize 16384 curScanNonOverlap 0.1 tpuMeshTime 2 tpuHeadless true
+    torchrun --nproc-per-node 2 -m kspecanal_tpu_torch fmScan \
+        tpuMeshBand 2 tpuHeadless true
+
+``tpuMeshTime N`` / ``tpuMeshBand N`` run one process a rank, launched by
+torchrun (``parallel/mesh.py``); rank 0 reads the source, prints and
+renders.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import pickle
 import signal
 import sys
@@ -34,6 +43,7 @@ from kspecanal_tpu_torch.config import (MODE_ALIAS_FMSCAN,
                                         MODE_ZEROSPAN, MODE_ZEROSPANPLAY,
                                         MODE_ZEROSPANSAVE, SpecConfig)
 from kspecanal_tpu_torch.io import sources
+from kspecanal_tpu_torch.parallel import mesh as mesh_mod
 from kspecanal_tpu_torch.utils.logging import log_info, set_iter_logging
 from kspecanal_tpu_torch.utils.profiling import trace
 
@@ -254,30 +264,63 @@ def make_device_source(cfg, run: RunOptions, device):
 def _check_ported(run: RunOptions) -> None:
     """Refuse run options whose machinery is not ported yet, before any
     source is built."""
-    if run.mesh_time > 1 or run.mesh_band > 1:
-        raise sess_mod.not_ported("tpuMeshTime / tpuMeshBand",
-                                  sess_mod.TODO_MULTI_GPU)
     if run.renderer.startswith("png:"):
         raise sess_mod.not_ported("tpuRenderer png:", sess_mod.TODO_GUI)
 
 
-def main(argv: Optional[List[str]] = None, device=None) -> int:
+def _mesh_of(run: RunOptions, device, mesh):
+    """The session's mesh: ``mesh`` as given (its shape must be the run's
+    ``tpuMeshTime`` x ``tpuMeshBand``), else one over the launched world
+    where either is above 1, else None.  Returns ``(mesh, whether this
+    call joined the world)``."""
+    if mesh is not None:
+        shape = tuple(mesh_mod.axis_size(mesh, a) for a in mesh_mod.AXES)
+        if shape != (run.mesh_time, run.mesh_band):
+            raise CliError(f"mesh {shape} is not tpuMeshTime x tpuMeshBand "
+                           f"({run.mesh_time}, {run.mesh_band})")
+        return mesh, False
+    if run.mesh_time == 1 and run.mesh_band == 1:
+        return None, False
+    mesh_mod.init_distributed()
+    return mesh_mod.make_mesh(run.mesh_time, run.mesh_band,
+                              device_type=torch.device(device).type), True
+
+
+def main(argv: Optional[List[str]] = None, device=None, mesh=None) -> int:
     """Run the CLI on ``device`` (default ``"cuda"``, which must exist;
     the CPU runs the kernels' plain versions only when asked for by
-    ``device="cpu"``)."""
+    ``device="cpu"``).  ``tpuMeshTime``/``tpuMeshBand`` above 1 join the
+    world that torchrun launched, or run on ``mesh`` where the caller
+    built one (a ``parallel.mesh.make_mesh`` DeviceMesh); each rank then
+    runs on its mesh device, and only rank 0 prints, renders and writes."""
     cfg, run = parse_args(sys.argv[1:] if argv is None else argv)
-    if device is None:
+    if device is None and mesh is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: kspecanal_tpu_torch runs on "
                                "the card (pass device='cpu' to run its "
                                "plain PyTorch path)")
         device = "cuda"
     _check_ported(run)
+    try:
+        mesh, joined = _mesh_of(run, device or "cuda", mesh)
+    except mesh_mod.NoWorldError as e:
+        log_info(f"ERROR: {e}")
+        return 2
+    done = None
+    if mesh is not None:
+        device = mesh_mod.rank_device(mesh)
+        # the end-of-session barrier's own gloo group, with no practical
+        # time limit: ranks a mode leaves idle (a mesh axis it does not
+        # split) wait there as long as rank 0's session runs
+        done = torch.distributed.new_group(
+            backend="gloo", timeout=datetime.timedelta(days=365))
+    root = mesh_mod.is_root(mesh)
     set_iter_logging(run.log_iter)
-    print_info(cfg)
+    if root:
+        print_info(cfg)
     source = None
     sweep_prefetch = False
-    if cfg.prg_mode != MODE_ZEROSPANPLAY:     # replay reads no IQ
+    if root and cfg.prg_mode != MODE_ZEROSPANPLAY:     # replay reads no IQ
         source = make_device_source(cfg, run, device)
         if source is None:
             source = make_source(cfg, run)
@@ -300,14 +343,14 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                 source = PrefetchingSource(source, block_size=cfg.full_size)
 
     renderer = None
-    if run.renderer == "term":
+    if root and run.renderer == "term":
         from kspecanal_tpu_torch.render_term import TerminalRenderer
         renderer = TerminalRenderer(cfg)
-    elif not run.headless and run.renderer == "gui":
+    elif root and not run.headless and run.renderer == "gui":
         log_info("GUI renderer not ported (ROADMAP.md 'Still to port' item "
                  f"{sess_mod.TODO_GUI}); running headless")
 
-    sess = sess_mod.Session(cfg, source, renderer, device=device,
+    sess = sess_mod.Session(cfg, source, renderer, device=device, mesh=mesh,
                             state_file=run.state_file,
                             catch_up=run.catch_up,
                             sweep_prefetch=sweep_prefetch,
@@ -332,8 +375,14 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     finally:
         if source is not None:
             source.close()
-        sess.save_baseline()
-        sess.timer.log_report()
+        if root:
+            sess.save_baseline()
+            sess.timer.log_report()
+    if mesh is not None:
+        # rank 0's files are written before any rank leaves the world
+        torch.distributed.barrier(group=done)
+        if joined:
+            torch.distributed.destroy_process_group()
     return rc
 
 

@@ -273,11 +273,20 @@ def sweep_step(state: ScanState, iq_re: torch.Tensor, iq_im: torch.Tensor,
     the plan admits it (at one sweep it equals the sequential fold bit for
     bit, in a few launches instead of some seven per band) and the
     sequential :func:`stitch_sweep` otherwise."""
-    spectra = band_spectra(iq_re, iq_im, retune_ok, cfg)
-    tbl = _gather_tables(cfg, plan, spectra.device)
+    return stitch(state, band_spectra(iq_re, iq_im, retune_ok, cfg), cfg,
+                  plan, adj)
+
+
+def stitch(state: ScanState, spectra_db: torch.Tensor, cfg: SpecConfig,
+           plan: ScanPlan, adj: Optional[torch.Tensor] = None) -> ScanState:
+    """One sweep's ``(num_bands, fft_size)`` band spectra folded into the
+    state: the gathered stitch where the plan admits it, else the
+    sequential :func:`stitch_sweep` (equal bit for bit)."""
+    tbl = _gather_tables(cfg, plan, spectra_db.device)
     if tbl is not None:
-        return _stitch_sweeps_gathered(state, spectra[None], cfg, tbl, adj)
-    return stitch_sweep(state, spectra, cfg, plan, adj)
+        return _stitch_sweeps_gathered(state, spectra_db[None], cfg, tbl,
+                                       adj)
+    return stitch_sweep(state, spectra_db, cfg, plan, adj)
 
 
 @functools.lru_cache(maxsize=32)

@@ -1,5 +1,4 @@
-"""Streaming waterfall on one device — the port of the single-device half
-of ``kspecanal_tpu.parallel.stream``.
+"""Streaming waterfall — the port of ``kspecanal_tpu.parallel.stream``.
 
 A long IQ stream becomes many zero-span iterations processed together:
 every heatmap row depends only on its own block, Max/Min curves are
@@ -7,6 +6,11 @@ reductions over rows, and the Avg curve's sequential ``(a+b)/2`` decay has
 closed-form per-iteration weights (``config.cumu_weights``), so the batched
 result equals the serial one.  Curves cumulate in dB (post LogNoGain,
 kspecanal.py:469-476); the per-curscan window cumulation is linear.
+
+:func:`waterfall_stream_sharded` splits the blocks over the mesh's
+``time`` ranks (``parallel/mesh.py``): every rank runs the same batched
+chain on its blocks (the curscan kernel on each card), the curves meet in
+one ``all_reduce`` each and the rows stay on their rank.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 from kspecanal_tpu_torch.config import CUMU_AVG, SpecConfig, cumu_weights
 from kspecanal_tpu_torch.ops import dsp
 from kspecanal_tpu_torch.ops.spectrum import curscan_auto_batched
+from kspecanal_tpu_torch.parallel import mesh as mesh_mod
 
 
 class StreamResult(NamedTuple):
@@ -68,6 +73,31 @@ def waterfall_stream_u8(raw: torch.Tensor, cfg: SpecConfig) -> StreamResult:
     first."""
     return waterfall_stream(raw[..., 0::2].contiguous(),
                             raw[..., 1::2].contiguous(), cfg)
+
+
+def waterfall_stream_sharded(iq_re: Optional[torch.Tensor],
+                             iq_im: Optional[torch.Tensor], cfg: SpecConfig,
+                             mesh) -> StreamResult:
+    """``(T, full_size)`` float32 or u8 planes of rank 0 (None on the
+    other ranks) split over the mesh's ``time`` ranks (``T % S == 0``).
+    Every rank returns its own ``T/S`` rows (``mesh.gather_rows`` brings
+    them to rank 0) and the whole stream's exact curves: AVG as a partial
+    of the global decay weights and ``all_reduce(SUM)``, MAX/MIN by
+    ``all_reduce(MAX/MIN)``, Cur the last rank's last row."""
+    s = mesh_mod.axis_size(mesh, "time")
+    planes = None if iq_re is None else (iq_re, iq_im)
+    re, im = mesh_mod.scatter_rows(planes, mesh, "time")
+    k = mesh_mod.axis_index(mesh, "time")
+    dbs, rows = _batch_products(re, im, cfg)
+    t_local = re.shape[0]
+    w = cumu_weights(CUMU_AVG, t_local * s).reshape(s, t_local)[k]
+    return StreamResult(
+        rows=rows,
+        fft_max=mesh_mod.all_reduce_mode(dbs.amax(dim=0), "MAX", mesh),
+        fft_min=mesh_mod.all_reduce_mode(dbs.amin(dim=0), "MIN", mesh),
+        fft_avg=mesh_mod.all_reduce_mode(dsp.decay_avg(_weights(w, dbs),
+                                                       dbs), "AVG", mesh),
+        fft_cur=mesh_mod.broadcast_from_last(dbs[-1], mesh))
 
 
 def _cont_weights(t: int) -> np.ndarray:

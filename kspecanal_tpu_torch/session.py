@@ -10,6 +10,13 @@ records the spectra, ``zeroSpanPlay`` replays a recording through the
 display fold, and ``tpuStateFile`` checkpoints the state a zero-span or
 scan session leaves behind (``io/state.py``).  Options not ported yet raise
 an error that names their ROADMAP.md item.
+
+With a mesh (``parallel/mesh.py``, one process a rank) the zero-span loop
+splits each capture over the ``time`` ranks and the scan loop splits each
+sweep's bands over the ``band`` ranks; rank 0 alone reads the source,
+keeps the state, renders and writes the files, and the other ranks lend
+their devices to the sharded curscans.  A mode whose axis is not split
+runs on rank 0 alone.
 """
 from __future__ import annotations
 
@@ -32,10 +39,10 @@ from kspecanal_tpu_torch.io.prefetch import SweepPrefetcher
 from kspecanal_tpu_torch.models import scan as scan_mod
 from kspecanal_tpu_torch.models import zerospan as zs
 from kspecanal_tpu_torch.ops.peaks import find_peaks
+from kspecanal_tpu_torch.parallel import mesh as mesh_mod
 
 # Entries of the "Still to port" queue in ROADMAP.md named by the errors
 # of what is not ported yet.
-TODO_MULTI_GPU = "7 (multi-GPU)"
 TODO_GUI = "8 (matplotlib renderer)"
 
 
@@ -50,13 +57,16 @@ class Session:
     timing."""
 
     def __init__(self, cfg: SpecConfig, source: Optional[IQSource] = None,
-                 renderer: Optional[Callable] = None, *, device,
+                 renderer: Optional[Callable] = None, *, device, mesh=None,
                  state_file: str = "", catch_up: int = 0,
                  sweep_prefetch: bool = False, render_every: str = "sweep"):
         self.cfg = cfg
         self.source = source
         self.renderer = renderer
         self.device = torch.device(device)
+        # optional (time, band) DeviceMesh; rank 0 owns source and state
+        self.mesh = mesh
+        self.is_root = mesh_mod.is_root(mesh)
         # Batched catch-up: blocks per step in run_zero_span (tpuCatchUp K);
         # host staging is bounded per path by _catchup_block_cap.
         self.catch_up = max(0, min(int(catch_up), 65536))
@@ -122,6 +132,10 @@ class Session:
             log_warn(f"_load_siglvls: savedRange[{start}-{end}] != "
                      f"curFreqRange[{cfg.start_freq}-{cfg.end_freq}]; disabled")
 
+    def axis(self, name: str) -> int:
+        """The mesh's size on axis ``name`` (1 without a mesh)."""
+        return 1 if self.mesh is None else mesh_mod.axis_size(self.mesh, name)
+
     def save_baseline(self):
         if self.cfg.save_sig_lvls and self.final_avg is not None:
             save_sig_lvls(self.cfg.save_sig_lvls, self.cfg.start_freq,
@@ -175,8 +189,14 @@ def run_zero_span(sess: Session, max_iters: Optional[int] = None
                   ) -> zs.ZeroSpanState:
     """The zero-span loop: one block per step at the reference's cadence,
     or ``catch_up`` blocks per step.  Sources with ``read_raw`` ship
-    undecoded u8 planes (2 B/sample), which the curscan kernel decodes."""
+    undecoded u8 planes (2 B/sample), which the curscan kernel decodes.
+    A mesh with ``time > 1`` splits each block over the ``time`` ranks
+    (:func:`_run_zero_span_sharded`); the other ranks return None."""
     cfg = sess.cfg
+    sharded = sess.axis("time") > 1
+    n = cfg.prg_loop_cnt if max_iters is None else max_iters
+    if not sess.is_root:
+        return _run_zero_span_sharded(sess, None, None, n) if sharded else None
     if sess.source is None:
         raise ValueError("zero-span needs an IQ source")
     sess.source.retune(cfg.center_freq, cfg.sampling_rate, cfg.gain)
@@ -184,8 +204,9 @@ def run_zero_span(sess: Session, max_iters: Optional[int] = None
              or zs.init_state(cfg, sess.device))
     adj = (None if sess.adj is None
            else torch.as_tensor(sess.adj).to(sess.device))
-    n = cfg.prg_loop_cnt if max_iters is None else max_iters
-    if sess.catch_up > 1:
+    if sharded:
+        return _run_zero_span_sharded(sess, state, adj, n)
+    if sess.catch_up > 1 and sess.mesh is None:
         return _run_zero_span_catchup(sess, state, adj, n)
     raw_read = getattr(sess.source, "read_raw", None)
     prev = time.time()
@@ -216,6 +237,42 @@ def run_zero_span(sess: Session, max_iters: Optional[int] = None
             sess._emit(view, i)
     sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
     sess._checkpoint_state(state, cfg)
+    return state
+
+
+def _run_zero_span_sharded(sess: Session, state, adj, n: int):
+    """The serial loop with each block's sample axis split over the mesh's
+    ``time`` ranks (``parallel/timeshard``, halo exchange inside); rank 0
+    runs the display half on the replicated spectrum.  The block ships as
+    float32 planes (the sharded body takes no u8), and rank 0's stop flag
+    reaches every rank at the top of each iteration."""
+    from kspecanal_tpu_torch.parallel.timeshard import curscan_time_sharded
+    cfg, root = sess.cfg, sess.is_root
+    prev = time.time()
+    for i in range(n):
+        if not mesh_mod.agree(not sess.stop, sess.mesh):
+            break
+        re = im = None
+        if root:
+            cur = time.time()
+            sess.iter_times.append(cur - prev)
+            log_iter(f"ZeroSpan:{i}:{cur - prev}")
+            prev = cur
+            with sess.timer.stage("acquire", cfg.full_size):
+                re, im = _to_device(sess, *sess.source.read(cfg.full_size))
+            if getattr(sess.source, "exhausted", False):
+                log_warn("zeroSpan: source exhausted; stopping")
+                sess.stop = True
+        with sess.timer.stage("dsp", cfg.full_size):
+            spec = curscan_time_sharded(re, im, cfg, sess.mesh)
+            if root:
+                state, view = zs.display_update(state, spec, cfg, adj)
+        if root:
+            with sess.timer.stage("render"):
+                sess._emit(view, i)
+    if root:
+        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+        sess._checkpoint_state(state, cfg)
     return state
 
 
@@ -555,17 +612,29 @@ def run_scan(sess: Session, max_sweeps: Optional[int] = None
     """The scan loop: one sweep per step at the reference's cadence (per
     band with ``render_every == "band"``), or ``catch_up`` sweeps per step.
     Sources with ``read_raw`` ship u8 planes; ``sweep_prefetch`` reads
-    whole sweeps ahead on a worker thread."""
+    whole sweeps ahead on a worker thread.  A mesh with ``band > 1``
+    splits each sweep's bands over the ``band`` ranks
+    (:func:`_run_scan_sharded`); the other ranks return None."""
     cfg = sess.cfg
+    sharded = sess.axis("band") > 1
+    plan = make_plan_cached(cfg)
+    n = cfg.prg_loop_cnt if max_sweeps is None else max_sweeps
+    if not sess.is_root:
+        return (_run_scan_sharded(sess, None, None, plan, n) if sharded
+                else None)
     if sess.source is None:
         raise ValueError("scan needs an IQ source")
-    plan = make_plan_cached(cfg)
     state = (sess._resume_state(cfg, "scan")
              or scan_mod.init_state(cfg, plan, sess.device))
     adj = (None if sess.adj is None
            else torch.as_tensor(sess.adj).to(sess.device))
-    n = cfg.prg_loop_cnt if max_sweeps is None else max_sweeps
     band_cadence = sess.render_every == "band" and sess.renderer is not None
+    if sharded:
+        if band_cadence:
+            log_warn("tpuRenderEvery band is not available with a "
+                     "band-sharded mesh (the sweep is one collective step); "
+                     "rendering per sweep")
+        return _run_scan_sharded(sess, state, adj, plan, n)
     if sess.catch_up > 1:
         if not band_cadence:
             return _run_scan_catchup(sess, state, adj, plan, n)
@@ -635,6 +704,55 @@ def _run_scan_loop(sess: Session, state: scan_mod.ScanState, adj,
     return state
 
 
+def _run_scan_sharded(sess: Session, state, adj, plan: scan_mod.ScanPlan,
+                      n: int):
+    """The serial sweep loop with the bands split over the mesh's ``band``
+    ranks (``parallel/bandshard``); rank 0 acquires (float32 planes: the
+    sharded body takes no u8; with ``sweep_prefetch`` on its read-ahead
+    thread), stitches and renders, and its stop flag reaches every rank at
+    the top of each sweep."""
+    from kspecanal_tpu_torch.parallel.bandshard import band_spectra_sharded
+    cfg, root = sess.cfg, sess.is_root
+    samples = plan.num_bands * cfg.full_size
+    pf = (SweepPrefetcher(sess.source, cfg, plan, acquire_sweep, limit=n)
+          if root and sess.sweep_prefetch else None)
+    prev = time.time()
+    try:
+        for i in range(n):
+            if not mesh_mod.agree(not sess.stop, sess.mesh):
+                break
+            re = im = oks = None
+            if root:
+                cur = time.time()
+                sess.iter_times.append(cur - prev)
+                log_iter(f"scanRange:{i}:{cur - prev}")
+                prev = cur
+                with sess.timer.stage("acquire", samples):
+                    sweep = (pf.get() if pf is not None
+                             else acquire_sweep(sess.source, cfg, plan))
+                    re, im = _to_device(sess, sweep[0], sweep[1])
+                    oks = torch.from_numpy(sweep[2]).to(sess.device)
+                if sweep[-1]:
+                    log_warn("scanRange: source exhausted; stopping after "
+                             "this sweep")
+                    sess.stop = True
+            with sess.timer.stage("dsp", samples):
+                spectra = band_spectra_sharded(re, im, oks, cfg, plan,
+                                               sess.mesh)
+                if root:
+                    state = scan_mod.stitch(state, spectra, cfg, plan, adj)
+            if root and sess.renderer is not None:
+                with sess.timer.stage("render"):
+                    sess._emit(scan_mod.scan_view(state, cfg, plan, adj), i)
+    finally:
+        if pf is not None:
+            pf.close()
+    if root:
+        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+        sess._checkpoint_state(state, cfg)
+    return state
+
+
 def _run_scan_catchup(sess: Session, state: scan_mod.ScanState, adj,
                       plan: scan_mod.ScanPlan, n: int) -> scan_mod.ScanState:
     """S sweeps per step (``tpuCatchUp S``, at most ``_SCAN_BATCH_CAP``:
@@ -698,7 +816,11 @@ def _run_scan_catchup(sess: Session, state: scan_mod.ScanState, adj,
 # ---------------------------------------------------------------------------
 
 def do_run(sess: Session, max_iters: Optional[int] = None):
+    """Run the session's mode.  Record and replay split nothing: with a
+    mesh they run on rank 0 alone."""
     mode = sess.cfg.prg_mode
+    if mode in (MODE_ZEROSPANSAVE, MODE_ZEROSPANPLAY) and not sess.is_root:
+        return None
     if mode == MODE_SCAN:
         return run_scan(sess, max_iters)
     if mode == MODE_ZEROSPANSAVE:

@@ -374,3 +374,47 @@ def test_device_sources_on_card(cuda):
     re, im = tsrc.DeviceNoiseIQSource(seed=1).read_device_batch(256, 16384)
     assert re.dtype == torch.uint8 and re.device.type == "cuda"
     assert abs(re.float().mean().item() - 127.5) < 0.5
+
+
+# Worlds of two ranks sharing the card over gloo (parallel/mesh.py; the
+# collectives cross the host): the sharded paths at the main path's sizes
+# against the unsharded port on the card, each rank launching the route's
+# kernel (scripts/dryrun_multichip.rank_main checks both on its ranks).
+MESH_CASES = {
+    "stream fft 2048": {"stream": [{
+        "fft": 2048, "nono": 0.5, "window": WINDOW_KAISER, "mode": "AVG",
+        "blocks": 4096, "u8": False}]},
+    "stream fft 3000": {"stream": [{
+        "fft": 3000, "nono": 0.5, "window": WINDOW_KAISER, "mode": "AVG",
+        "blocks": 1024, "u8": False}]},
+    "band-sharded sweep FMSCAN": {"band": ["FMSCAN"]},
+    "band-sharded sweep QUICKFULLSCAN": {"band": ["QUICKFULLSCAN"]},
+}
+
+
+@pytest.fixture(scope="module")
+def shared_card_world():
+    """Rank results of one 2-rank world over every case of MESH_CASES."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from kspecanal_tpu_torch.ops import _build
+    from kspecanal_tpu_torch.parallel.spawn import run_world
+    from kspecanal_tpu_torch.scripts import dryrun_multichip
+    _build.load()      # one build, before the ranks load it
+    args = {"band_mesh": [1, 2]}
+    for case in MESH_CASES.values():
+        for k, v in case.items():
+            args[k] = args.get(k, []) + v
+    return run_world(dryrun_multichip.TARGET, 2, args, backend="gloo",
+                     device_type="cuda", share_card=True)
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+def test_shared_card_world_matches_unsharded_port(shared_card_world, case):
+    root = shared_card_world[0]
+    shares = {k: v for k, v in root["shares"].items() if k.startswith(case)}
+    assert shares and max(shares.values()) <= 1.0, shares
+    for rank in shared_card_world:
+        launched = [sum(v) for k, v in rank["launches"].items()
+                    if k.startswith(case)]
+        assert launched and min(launched) > 0, rank["launches"]

@@ -2,7 +2,7 @@
 ``cli.main`` against the JAX session on the same seeded sources (fft 2048,
 kaiser, 50% overlap), the u8 file-source route, peak placement, the
 device sources and ``tpuProfile``, the refusal of what is not ported
-(multi-GPU, the matplotlib renderer), and that the port never loads JAX.
+(the matplotlib renderer), and that the port never loads JAX.
 Save, replay and checkpoints: test_torch_replay.py.
 Tolerances as in ``torch_parity``."""
 import os
@@ -170,7 +170,6 @@ def test_cli_requires_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["tpuMeshTime", "2"], "item 7"),
     (["tpuRenderer", "png:frames"], "item 8"),
 ])
 def test_unported_modes_and_options_name_their_roadmap_item(args, item):

@@ -6,20 +6,26 @@ parser, host sources, replay, logging) stay equal to their originals.
     unimportable imports every module of the port and runs sessions through
     the port's ``cli.main`` on the CPU (zero-span serial, catch-up and from
     a u8 file, fmScan, quickFullScan, zeroSpanSave then zeroSpanPlay at
-    fftSize 3000, and ``tpuStateFile`` resumes);
+    fftSize 3000, and ``tpuStateFile`` resumes), and a 2-rank gloo world
+    runs a ``tpuMeshTime 2`` session the same way;
   * an AST walk finds no import of ``kspecanal_tpu`` (module level or inside
-    a function) in the package, ``chip_smoke.py`` or
-    ``tests/test_torch_gpu.py``;
+    a function) in the package (``parallel/`` and ``scripts/`` among it),
+    ``chip_smoke.py``, ``tests/test_torch_gpu.py`` or the gloo worker
+    ``tests/torch_mp_worker.py``;
   * drift tests hold each copy to its original: parsed configs and run
     options over a table of argument lists, the window tables, weights,
     window starts and scan plan over a grid, the host sources' samples
     from one seed, the checkpoint fingerprint of ``io/state`` and the
-    route's factor rule (``_factorize``, ``supports_fused``)."""
+    route's factor rule (``_factorize``, ``supports_fused``), and the
+    sharded paths' copies (``make_time_shard_plan``, ``_dft_tables_for``,
+    ``supports_fft_sharding``)."""
 import ast
 import dataclasses
 import os
 import subprocess
 import sys
+
+import json
 
 import numpy as np
 import pytest
@@ -35,6 +41,8 @@ from kspecanal_tpu_torch.io import replay as treplay
 from kspecanal_tpu_torch.io import sources as tsrc
 from kspecanal_tpu_torch.models import scan as tscan
 from torch_parity import write_capture
+
+import torch_mp_worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ZS = ["zeroSpan", "centerFreq", "92e6", "fftSize", "2048", "window",
@@ -107,6 +115,21 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path, name):
         assert proc.stderr.count("resume: restored state from ck.npz") == 1
 
 
+def test_mesh_session_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    """A ``tpuMeshTime 2`` zero-span session through ``cli.main`` on each
+    rank of a 2-rank gloo world, every rank with ``jax``, ``jaxlib`` and
+    ``kspecanal_tpu`` unimportable (the worker checks that none loaded)."""
+    argv = ZS + ["prgLoopCnt", "2", "tpuSource", "synth", "tpuMeshTime",
+                 "2", "tpuStateFile", str(tmp_path / "ck")]
+    (tmp_path / "cli.json").write_text(
+        json.dumps([{"argv": argv, "time": 2, "band": 1}]))
+    ranks = torch_mp_worker.spawn_world("cli", 2, str(tmp_path))
+    for rc, out in ranks:
+        assert rc == 0, out[-3000:]
+        assert "cli ok" in out
+    assert (tmp_path / "ck.npz").exists()
+
+
 def _imports_of_the_jax_package(path):
     """(line, module) of every import of ``kspecanal_tpu`` in the file,
     anywhere in its syntax tree."""
@@ -126,7 +149,8 @@ def _imports_of_the_jax_package(path):
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tests", "test_torch_gpu.py")]
+             os.path.join(REPO, "tests", "test_torch_gpu.py"),
+             os.path.join(REPO, "tests", "torch_mp_worker.py")]
     for root, _, names in os.walk(os.path.join(REPO, "kspecanal_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -135,6 +159,14 @@ def _port_files():
 def test_no_file_of_the_port_imports_the_jax_package():
     files = _port_files()
     assert len(files) > 25
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"kspecanal_tpu_torch/parallel/mesh.py",
+            "kspecanal_tpu_torch/parallel/timeshard.py",
+            "kspecanal_tpu_torch/parallel/fftshard.py",
+            "kspecanal_tpu_torch/parallel/bandshard.py",
+            "kspecanal_tpu_torch/scripts/scaling_bench.py",
+            "kspecanal_tpu_torch/scripts/collective_bytes.py",
+            "kspecanal_tpu_torch/scripts/dryrun_multichip.py"} <= rel
     found = {os.path.relpath(f, REPO): _imports_of_the_jax_package(f)
              for f in files}
     assert {f: v for f, v in found.items() if v} == {}
@@ -311,3 +343,52 @@ def test_replay_copy_reads_what_the_original_writes(tmp_path):
     want = jreplay.load_sig_lvls(path)
     assert got[:2] == want[:2]
     np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_time_shard_plan_copy_equals_the_original(shards):
+    """``parallel/timeshard.make_time_shard_plan`` against the JAX
+    package's over ffts, overlaps and cumulate modes (and the same
+    refusals)."""
+    from kspecanal_tpu.parallel import timeshard as jtime
+    from kspecanal_tpu_torch.parallel import timeshard as ttime
+    for fft in (128, 256, 2048, 3000, 16384):
+        for nono in (0.1, 0.5, 0.75):
+            for mode in ("AVG", "MAX", "RAW"):
+                kw = dict(prg_mode="ZEROSPAN", fft_size=fft,
+                          x_res=min(fft, 512), cur_scan_non_overlap=nono,
+                          cur_scan_cumu_mode=mode)
+                tc = tcfg.SpecConfig(**kw).finalize()
+                jc = jcfg.SpecConfig(**kw).finalize()
+                try:
+                    want = dataclasses.asdict(
+                        jtime.make_time_shard_plan(jc, shards))
+                except ValueError as e:
+                    with pytest.raises(ValueError, match=str(e)):
+                        ttime.make_time_shard_plan(tc, shards)
+                    continue
+                assert dataclasses.asdict(
+                    ttime.make_time_shard_plan(tc, shards)) == want
+
+
+def test_dft_tables_and_fft_sharding_copies_equal_the_original():
+    """``ops/mxu_fft._dft_tables_for`` / ``_dft_tables`` and
+    ``parallel/fftshard.supports_fft_sharding`` against the JAX
+    package's."""
+    from kspecanal_tpu.ops import mxu_fft as jmxu
+    from kspecanal_tpu.parallel import fftshard as jfft
+    from kspecanal_tpu_torch.ops import mxu_fft as tmxu
+    from kspecanal_tpu_torch.parallel import fftshard as tfft
+    for n in (64, 256, 1280, 2048, 3000, 16384):
+        for a, b in zip(tmxu._dft_tables(n), jmxu._dft_tables(n)):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(tmxu._dft_tables_for(96, 12, 8),
+                    jmxu._dft_tables_for(96, 12, 8)):
+        np.testing.assert_array_equal(a, b)
+    for fft in (127, 128, 256, 1280, 2048, 3000, 16384, 65536):
+        for shards in (1, 2, 3, 4, 8, 16):
+            kw = dict(prg_mode="ZEROSPAN", fft_size=fft, x_res=min(fft, 512))
+            assert tfft.supports_fft_sharding(
+                tcfg.SpecConfig(**kw).finalize(), shards) == \
+                jfft.supports_fft_sharding(
+                    jcfg.SpecConfig(**kw).finalize(), shards)
