@@ -101,7 +101,27 @@ Phases (any failure raises; the exit code is then non-zero):
  14. ``scripts.qfs_ablate``: one quickFullScan sweep (1226 bands x 512)
      split into band curscans (K2), display chain, stitch and epilogue on
      the card, beside the serial session's whole sweep;
- 15. mesh: the sharded paths (``parallel/``) in worlds of ranks started by
+ 15. the precision classes HIGH and DEFAULT (``ops/cuda_tc.py``): Kernel A
+     (``csrc/curscan_tc.cu``, the tensor-core two-stage DFT) against its
+     plain version at every instantiation (class x 3M/4M x f32/u8, all four
+     modes) at the zero-span main shape (fft 2048, 50%), fmScan's (fft
+     16384, ones, 90%) and fft 1280 at 75% (n1 = 10, misaligned), Kernel B
+     (``csrc/curscan_packed_tc.cu``) at quickFullScan's (fft 64, ones, 90%)
+     and fft 128 kaiser 50%, u8 bit-identical to decoded float32 in each
+     form; each class against the float64 oracle at full size
+     (``scripts.threemult_smoke``'s eight jobs, 64 blocks, with their
+     marginal rates; fmScan and quickFullScan f32 and u8), within HIGH
+     5e-5 and DEFAULT 3.9e-2; the kernels' times beside the FFT kernels at
+     HIGHEST and the plain versions (each output held to the plain
+     version's: the main path's shapes, one window group a block), with
+     their bound
+     (the tensor-core flops at 989 TFLOP/s or the bytes at 3.35 TB/s) and
+     the FFT-flops bound; sessions through ``cli.main`` at tpuPrecision
+     DEFAULT (zero-span devicesynth catch-up, also at HIGH, devicenoise u8,
+     a u8 capture file, fmScan catch-up and from a u8 file, the lane
+     kernel's cell, quickFullScan), each launching its tensor-core kernel
+     and no FFT kernel, peaks on the synth tones;
+ 16. mesh: the sharded paths (``parallel/``) in worlds of ranks started by
      ``parallel/spawn.run_world`` after the build (the ranks only load the
      library): one rank on NCCL, 2 and 4 ranks sharing the card over gloo
      (every collective copied through the host), and NCCL worlds of 2 and
@@ -173,6 +193,17 @@ PACKED_WALK = (128, 0.5, 399)
 PLAIN_FRAME_BYTES = 8 << 30
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA's data sheet
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM bf16 tensor cores, dense
+# The tensor-core kernels against their plain versions, per bin (rtol, atol
+# of the peak) by class (tests/torch_parity.TC_TOL): only the order of the
+# float32 sums inside each product differs, which at DEFAULT can move a
+# stage-1 value across a bf16 rounding boundary.
+TC_TOL = {"DEFAULT": (1e-2, 1e-2), "HIGH": (5e-5, 5e-5)}
+# The classes' worst-bin bounds against the float64 oracle (ROADMAP.md C).
+ORACLE_BOUND = {"HIGH": 5e-5, "DEFAULT": 3.9e-2}
+# The tensor-core plain versions hold some twenty (T, W, N) float32
+# intermediates: they are timed in chunks of this many frame bytes.
+TC_PLAIN_FRAME_BYTES = 1 << 30
 
 
 def bound(cfg, t, u8):
@@ -186,6 +217,31 @@ def bound(cfg, t, u8):
     ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms
                                    else "bytes")
+
+
+def tc_bound(cfg, t, u8):
+    """The least time (ms) the card could take for one tensor-core kernel
+    call, what bounds it, and the FFT-flops bound of :func:`bound` beside
+    it.  Operations: the kernel's own tensor-core flops at 989 TFLOP/s bf16,
+    times 3 at HIGH (the bf16x3 split): Kernel A (fft n = 128 n1) 4 real
+    products (the production 4M form) a stage a window, each 2 n1 n1 128
+    flops in stage 1 and 2 n1 128 128 in stage 2; Kernel B (fft <= 128) 4
+    products of 2 n n.  Bytes: the planes read once plus the output
+    written once at 3.35 TB/s."""
+    from kspecanal_tpu_torch.ops import cuda_tc
+    n = cfg.fft_size
+    if n <= 128:
+        per_window = 4 * 2 * n * n
+    else:
+        n1 = n // 128
+        per_window = 4 * 2 * n1 * 128 * (n1 + 128)
+    if cuda_tc.precision_class(cfg) == "HIGH":
+        per_window *= 3
+    ops_ms = t * cfg.num_windows * per_window / BF16_FLOPS * 1e3
+    nbytes = 2 * t * cfg.full_size * (1 if u8 else 4) + 4 * t * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms > bytes_ms else "bytes", bound(cfg, t, u8))
 
 
 def check(cond, msg):
@@ -1170,6 +1226,266 @@ def phase_mesh(gpu, tmp):
             for s, b, share in worlds}
 
 
+def class_cfg(cfg, prec):
+    import dataclasses
+    return dataclasses.replace(cfg, tpu_precision=prec)
+
+
+def tc_share(got, want, cfg):
+    """(max abs error, share of TC_TOL) of a tensor-core kernel's output
+    against its plain version's."""
+    from kspecanal_tpu_torch.ops import cuda_tc
+    rtol, atol = TC_TOL[cuda_tc.precision_class(cfg)]
+    err = (got - want).abs()
+    share = (err / (rtol * want.abs() + atol * want.abs().max())).max()
+    return err.max().item(), share.item()
+
+
+def tc_compare(kernel, plain, cfg, re, im, counter):
+    """One tensor-core kernel call against its plain version on the same
+    planes: one launch, finite, within TC_TOL.  Returns (max abs error,
+    share of the tolerance)."""
+    from kspecanal_tpu_torch.ops import cuda_tc
+    before = getattr(cuda_tc, counter)
+    got = kernel(re, im, cfg)
+    launched = getattr(cuda_tc, counter) - before
+    want = plain(re, im, cfg)
+    torch.cuda.synchronize()
+    check(launched == 1 and bool(got.isfinite().all()),
+          f"{counter}: one launch, finite output")
+    return tc_share(got, want, cfg)
+
+
+def phase_precision(cc, cp, spec, cli, gen, gpu, tmp):
+    """The HIGH and DEFAULT classes: the tensor-core kernels against their
+    plain versions at every instantiation, the classes against the float64
+    oracle at full size (``scripts.threemult_smoke`` and the scan presets),
+    their times beside the FFT kernels at HIGHEST and the plain versions
+    (each timed output held to the plain version's too: the main path's
+    shapes, where Kernel A runs one window group a block), and sessions
+    through ``cli.main``.  Returns the kernels' errors at the main cells'
+    shapes, times and launches on the sessions."""
+    from kspecanal_tpu_torch.cli import parse_args
+    from kspecanal_tpu_torch.ops import cuda_tc as tc
+    from kspecanal_tpu_torch.scripts import threemult_smoke
+    from kspecanal_tpu_torch.session import make_plan_cached
+    from kspecanal_tpu_torch.utils.profiling import cuda_ms
+    print(f"== precision classes: the tensor-core kernels vs plain "
+          f"(per bin rtol, atol of the peak: {TC_TOL})")
+    # T=32 runs Kernel A's window groups and their combine, T=1024 (the
+    # sessions' catch-up) one group a block, written straight to the output.
+    for base, t in ((cfg_of(2048, 0.5), 32), (cfg_of(2048, 0.5), 1024),
+                    (cfg_of(16384, 0.1, "AVG", "WIN.ONES"), 2),
+                    (cfg_of(1280, 0.25), 8)):
+        for prec in ("DEFAULT", "HIGH"):
+            for form in ("force3m", "no3m"):
+                for u8 in (False, True):
+                    worst = mx = 0.0
+                    for mode in MODES:
+                        cfg = class_cfg(cfg_of(base.fft_size,
+                                               base.cur_scan_non_overlap,
+                                               mode, base.window), prec)
+                        re, im = noise(cfg, t, u8, gen)
+                        e, sh = tc_compare(
+                            lambda a, b, c: tc.curscan_tc(a, b, c, form),
+                            lambda a, b, c: tc.curscan_tc_plain(a, b, c,
+                                                                form),
+                            cfg, re, im, "tc_launches")
+                        mx, worst = max(mx, e), max(worst, sh)
+                        if u8:
+                            check(torch.equal(
+                                tc.curscan_tc(re, im, cfg, form),
+                                tc.curscan_tc(spec.decode_u8(re),
+                                              spec.decode_u8(im), cfg,
+                                              form)),
+                                "Kernel A u8 bit-identical to decoded f32")
+                    print(f"  Kernel A fft {base.fft_size} ovl "
+                          f"{1 - base.cur_scan_non_overlap:.1f} {prec} "
+                          f"{'3M' if form == 'force3m' else '4M'} "
+                          f"{'u8' if u8 else 'f32'}, T={t}, 4 modes: max abs "
+                          f"{mx:.3e}, {worst:.3f} of the tolerance"
+                          f"{', u8 bit-identical' if u8 else ''} "
+                          f"{'PASS' if worst <= 1 else 'FAIL'}")
+                    check(worst <= 1, "Kernel A vs plain")
+    for fft, nono, window, t in ((64, 0.1, "WIN.ONES", 256),
+                                 (128, 0.5, "WIN.KAISER", 64)):
+        for prec in ("DEFAULT", "HIGH"):
+            for u8 in (False, True):
+                worst = mx = 0.0
+                for mode in MODES:
+                    cfg = class_cfg(cfg_of(fft, nono, mode, window), prec)
+                    re, im = noise(cfg, t, u8, gen)
+                    e, sh = tc_compare(tc.curscan_packed_tc,
+                                       tc.curscan_packed_tc_plain, cfg, re,
+                                       im, "packed_tc_launches")
+                    mx, worst = max(mx, e), max(worst, sh)
+                    if u8:
+                        check(torch.equal(
+                            tc.curscan_packed_tc(re, im, cfg),
+                            tc.curscan_packed_tc(spec.decode_u8(re),
+                                                 spec.decode_u8(im), cfg)),
+                            "Kernel B u8 bit-identical to decoded f32")
+                print(f"  Kernel B fft {fft} ovl {1 - nono:.1f} {prec} 4M "
+                      f"{'u8' if u8 else 'f32'}, T={t}, 4 modes: max abs "
+                      f"{mx:.3e}, {worst:.3f} of the tolerance "
+                      f"{'PASS' if worst <= 1 else 'FAIL'}")
+                check(worst <= 1, "Kernel B vs plain")
+
+    print(f"== precision classes against the float64 oracle (worst bin of "
+          f"|got - oracle| / (|oracle| + 1e-6); bounds {ORACLE_BOUND})")
+    rows = threemult_smoke.main(["--blocks", "64"])
+    dev = torch.device("cuda")
+    for name, fft, nono, window, u8, prec, blocks in (
+            ("fmScan f32", 16384, 0.1, "WIN.ONES", False, "DEFAULT", 16),
+            ("fmScan u8", 16384, 0.1, "WIN.ONES", True, "DEFAULT", 16),
+            ("quickFullScan f32", 64, 0.1, "WIN.ONES", False, "DEFAULT", 256),
+            ("quickFullScan u8", 64, 0.1, "WIN.ONES", True, "DEFAULT", 256)):
+        cfg = threemult_smoke.job_cfg(fft, nono, prec, window)
+        rows[name] = {"max_rel_err": threemult_smoke.oracle_error(
+            cfg, u8, blocks, dev), "precision": prec}
+        print(f"  {name} {prec}, {blocks} blocks: max_rel_err "
+              f"{rows[name]['max_rel_err']:.3e}")
+    for job in threemult_smoke.JOBS:
+        rows[job.name]["precision"] = job.precision
+    for name, row in rows.items():
+        lim = ORACLE_BOUND.get(row["precision"], 5e-5)
+        check(row["max_rel_err"] <= lim,
+              f"{name}: {row['max_rel_err']:.3e} within {lim:g}")
+
+    print(f"== precision classes: times (CUDA events, 3 warm-ups, median of "
+          f"10) [{gpu}], each output against the plain version's")
+    times = {}
+    errs = {"tc": 0.0, "packed_tc": 0.0}
+    for name, base, t, dtypes, precs in (
+            ("zero-span fft 2048 kaiser 50%", cfg_of(), 4096, (False, True),
+             ("DEFAULT", "HIGH")),
+            ("fmScan fft 16384 ones 90%", cfg_of(16384, 0.1, "AVG",
+                                                  "WIN.ONES"), 288,
+             (False, True), ("DEFAULT",)),
+            ("lane kernel's cell fft 16384 kaiser 50%", cfg_of(16384), 288,
+             (False,), ("DEFAULT", "HIGH")),
+            ("quickFullScan fft 64 ones 90%", cfg_of(64, 0.1, "AVG",
+                                                      "WIN.ONES"), 19616,
+             (False, True), ("DEFAULT", "HIGH")),
+            ("quickFullScan serial sweep fft 64 ones 90%",
+             cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226, (False,),
+             ("DEFAULT",))):
+        for prec in precs:
+            cfg = class_cfg(base, prec)
+            kernel, plain = ((tc.curscan_packed_tc, tc.curscan_packed_tc_plain)
+                             if cfg.fft_size <= 128 else
+                             (tc.curscan_tc, tc.curscan_tc_plain))
+            highest = cp.curscan_fused_packed if cfg.fft_size <= 128 \
+                else cc.curscan_fused_sublane
+            for u8 in dtypes:
+                re, im = noise(cfg, t, u8, gen)
+                rows_ = max(1, min(t, TC_PLAIN_FRAME_BYTES
+                                   // (cfg.num_windows * cfg.fft_size * 8)))
+
+                def chunks():
+                    return [plain(re[i:i + rows_], im[i:i + rows_], cfg)
+                            for i in range(0, t, rows_)]
+                got = kernel(re, im, cfg)
+                e, sh = tc_share(got, torch.cat(chunks()), cfg)
+                check(bool(got.isfinite().all()) and sh <= 1,
+                      f"{name} {prec}: kernel within TC_TOL of plain")
+                key = "tc" if cfg.fft_size > 128 else "packed_tc"
+                if t in (4096, 19616):      # the rows of the kernels line
+                    errs[key] = max(errs[key], e)
+                del got
+                ks = cuda_ms(lambda: kernel(re, im, cfg))
+                fs = cuda_ms(lambda: highest(re, im, base))
+                ps = cuda_ms(chunks, warm=1, reps=3)
+                bms, by, (fft_ms, fft_by) = tc_bound(cfg, t, u8)
+                kind = "u8" if u8 else "f32"
+                gs = t * cfg.full_size / 1e9
+                print(f"  {name} {prec} {kind}, T={t}: vs plain max abs "
+                      f"{e:.3e}, {sh:.3f} of the tolerance; kernel "
+                      f"{ks:.3f} ms = "
+                      f"{gs / ks * 1e3:.2f} Gsamp/s; bound {bms:.4f} ms "
+                      f"({by}), {bms / ks:.3f} of it (FFT-flops bound "
+                      f"{fft_ms:.4f} ms, {fft_by}); FFT kernel at HIGHEST "
+                      f"{fs:.3f} ms; plain version {ps:.3f} ms"
+                      + (f" in {-(-t // rows_)} calls of {rows_} blocks"
+                         if rows_ < t else ""))
+                times[name, prec, kind] = (ks, ps, bms, by, fs)
+                del re, im
+
+    print("== precision classes: sessions through kspecanal_tpu_torch.cli."
+          "main at tpuPrecision DEFAULT (and HIGH)")
+    zs_cfg0 = cfg_of()
+    cap = os.path.join(tmp, "class_capture.iq")
+    write_capture(cap, zs_cfg0, 64 * zs_cfg0.full_size, seed=17)
+    fm_cfg = parse_args(FM_ARGS)[0]
+    fm_cap = os.path.join(tmp, "class_fm_capture.iq")
+    write_scan_capture(fm_cap, fm_cfg, make_plan_cached(fm_cfg), 2, seed=18)
+    dflt = ["tpuPrecision", "DEFAULT"]
+    runs = [
+        ("zero-span devicesynth catch-up", "zs", MAIN_ARGS + dflt + [
+            "tpuSource", "devicesynth", "tpuCatchUp", "1024", "prgLoopCnt",
+            "4096"]),
+        ("zero-span devicesynth catch-up, HIGH", "zs", MAIN_ARGS + [
+            "tpuPrecision", "HIGH", "tpuSource", "devicesynth", "tpuCatchUp",
+            "1024", "prgLoopCnt", "4096"]),
+        ("zero-span devicenoise (u8) catch-up", "noise", MAIN_ARGS + dflt + [
+            "tpuSource", "devicenoise", "tpuCatchUp", "1024", "prgLoopCnt",
+            "4096"]),
+        ("zero-span u8 capture file", "zs", MAIN_ARGS + dflt + [
+            "tpuSource", f"file:{cap}", "tpuCatchUp", "16", "prgLoopCnt",
+            "64"]),
+        ("fmScan catch-up", "scan", FM_ARGS + dflt + [
+            "tpuSource", "synth", "prgLoopCnt", "8", "tpuCatchUp", "8"]),
+        ("fmScan u8 file (4M)", "scan", FM_ARGS + dflt + [
+            "tpuSource", f"file:{fm_cap}", "prgLoopCnt", "2"]),
+        ("fmScan kaiser 50% (the lane kernel's cell)", "scan",
+         LANE_CELL_ARGS + dflt + ["tpuSource", "synth", "prgLoopCnt", "2"]),
+        ("quickFullScan serial", "scan", QFS_ARGS + dflt + [
+            "tpuSource", "synth", "prgLoopCnt", "2"]),
+    ]
+    launches = {"tc": 0, "packed_tc": 0}
+    for i, (name, kind, args) in enumerate(runs):
+        cfg = parse_args(args)[0]
+        lvls = os.path.join(tmp, f"class_lvls_{i}.bin")
+        tc.tc_launches = tc.packed_tc_launches = 0
+        cc.launches = cp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["tpuHeadless", "true", "saveSigLvls", lvls])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        a, b = tc.tc_launches, tc.packed_tc_launches
+        check(rc == 0, f"{name} session rc")
+        check(cc.launches == 0 and cp.launches == 0,
+              f"{name} launched no FFT kernel")
+        avg = load_avg(lvls)
+        if kind == "scan":
+            plan = make_plan_cached(cfg)
+            peaks, cell = scan_peaks(cfg, plan, avg)
+            on = len(peaks) == 3 and all(
+                abs(p - round(p / 1e6) * 1e6) <= cell for p in peaks)
+            ok_shape = avg.shape == (plan.total_entries,)
+        else:
+            peaks, cell = avg_peaks(cfg, avg), cfg.sampling_rate / cfg.x_res
+            on = len(peaks) == 3 and all(abs(p - w) <= cell
+                                         for p, w in zip(peaks, PEAKS_HZ))
+            ok_shape = avg.shape == (cfg.fft_size,)
+        print(f"  {name}: {cfg.prg_loop_cnt} iterations in {dt:.3f} s, "
+              f"launches Kernel A {a} Kernel B {b}"
+              + ("" if kind == "noise" else
+                 f", peaks {[round(p / 1e6, 4) for p in peaks]} MHz "
+                 f"{'PASS' if on else 'FAIL'}"))
+        check(ok_shape and not np.isnan(avg).any(), f"{name} average")
+        check((b if cfg.fft_size <= 128 else a) > 0,
+              f"{name} launched its tensor-core kernel")
+        if kind != "noise":
+            check(on, f"{name} peaks on the synth tones")
+        launches["tc"] += a
+        launches["packed_tc"] += b
+    # Release the plain versions' gigabytes before the mesh phase's ranks.
+    torch.cuda.empty_cache()
+    return errs, times, launches
+
+
 def phase_done(name, t0):
     now = time.perf_counter()
     print(f"-- {name}: {now - t0:.1f} s")
@@ -1247,6 +1563,10 @@ def main():
     qfs_ablate.main([])
     t0 = phase_done("qfs_ablate", t0)
     with tempfile.TemporaryDirectory() as tmp:
+        tc_errs, tc_times, tc_launches = phase_precision(cc, cp, spec, cli,
+                                                         gen, gpu, tmp)
+    t0 = phase_done("precision classes", t0)
+    with tempfile.TemporaryDirectory() as tmp:
         phase_mesh(gpu, tmp)
     phase_done("mesh", t0)
     fft_kernel = {"name": "curscan_fft", "route": "cuda",
@@ -1262,6 +1582,13 @@ def main():
     def k1(config, case, launched, err):
         return {**fft_kernel, "replaces": sublane_423, "config": config,
                 "launches": launched, "max_abs_err": err, **timed(case)}
+
+    def tc_row(name, source, replaces, config, launched, err, row):
+        ks, ps, bms, by, _ = row
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "config": config, "launches": launched,
+                "max_abs_err": err, "ms": ks, "plain_ms": ps,
+                "bound_ms": bms, "bound_by": by, "library_ms": None}
 
     print(json.dumps({"kernels": [
         k1("zero-span fft 2048 kaiser 50%, T=4096", "zero-span fft 2048 "
@@ -1312,7 +1639,25 @@ def main():
                    "kernel-ablation scripts",
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-         "bound_by": k4_by, "library_ms": None}]}))
+         "bound_by": k4_by, "library_ms": None},
+        tc_row("curscan_tc", "kspecanal_tpu_torch/csrc/curscan_tc.cu",
+               sublane_423, "HIGH/DEFAULT classes (4M) of K1 and K3's cell on "
+               "the 128 grid: times at zero-span fft 2048 kaiser 50% DEFAULT "
+               "f32, T=4096; error against the plain version the worst over "
+               "the classes and inputs at that shape (one window group a "
+               "block); launches over the precision sessions",
+               tc_launches["tc"], tc_errs["tc"],
+               tc_times["zero-span fft 2048 kaiser 50%", "DEFAULT", "f32"]),
+        tc_row("curscan_packed_tc",
+               "kspecanal_tpu_torch/csrc/curscan_packed_tc.cu",
+               "kspecanal_tpu/ops/pallas_curscan.py:872",
+               "HIGH/DEFAULT classes of K2: times at quickFullScan fft 64 "
+               "ones 90% DEFAULT f32, T=1226*16; error against the plain "
+               "version the worst over the classes and inputs at that shape; "
+               "launches over the precision sessions",
+               tc_launches["packed_tc"],
+               tc_errs["packed_tc"],
+               tc_times["quickFullScan fft 64 ones 90%", "DEFAULT", "f32"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

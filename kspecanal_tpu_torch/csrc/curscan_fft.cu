@@ -44,7 +44,8 @@
 // its pass 1; a second cluster.sync() frees the chunks, and block q's
 // M-point FFT gives the bins X[c*k + q].
 //
-// Precision: one kernel for every tpuPrecision, with float32 planes, table,
+// Precision: HIGHEST, and HIGH/DEFAULT where the tensor-core kernel
+// (curscan_tc.cu) does not serve, with float32 planes, table,
 // registers between butterflies and shared memory.  Each butterfly (its
 // pass twiddles included) runs in float64 and rounds to float32 twice: after
 // its inner DFT-4 stage and at its end.  Why: the bound is per bin, 5e-5 of

@@ -1,0 +1,71 @@
+// Tensor-core two-stage DFT curscan (Kernel A), DEFAULT instantiations and
+// the C entry point; the kernel is in curscan_tc.cuh, the HIGH
+// instantiations in curscan_tc_high.cu.
+//
+// Replaces: kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane (:423) and
+// ::_kernel (:116) at tpuPrecision HIGH and DEFAULT (see curscan_tc.cuh).
+
+#include "curscan_tc.cuh"
+
+namespace kspec_tc {
+
+int launch_default(int is_u8, int three_mult, const void* re, const void* im,
+                   void* out, void* part, const void* starts,
+                   const void* weights, const void* window, const void* f1,
+                   const void* f2, const void* tw, int t, int full, int n,
+                   int n1, int n_windows, int groups, int fold, int wb,
+                   cudaStream_t stream) {
+  return launch_class<false>(is_u8, three_mult, re, im, out, part, starts,
+                             weights, window, f1, f2, tw, t, full, n, n1,
+                             n_windows, groups, fold, wb, stream);
+}
+
+// out[b][o] = the fold of part[b][0..G-1][o], in group order.
+__global__ void combine_groups(const float* __restrict__ part,
+                               float* __restrict__ out, int t, int n,
+                               int groups, int fold) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (i >= static_cast<long long>(t) * n) return;
+  const long long b = i / n, o = i % n;
+  const float* p = part + b * groups * n + o;
+  float acc = p[0];
+  for (int g = 1; g < groups; ++g) acc = fold_op(fold, acc, p[g * n]);
+  out[i] = acc;
+}
+
+}  // namespace kspec_tc
+
+// Plain C entry point (bound with ctypes).  Planes are (t, full) row-major,
+// float32 or uint8 (is_u8); out is (t, n) float32, part (t, groups, n)
+// float32 scratch when groups > 1; starts (n_windows,) int32, weights
+// (n_windows,) float32 (the decay weights times winAdj*2/n; the scale alone
+// for MAX/MIN), window (n,) float32; f1, f2, tw the fragment-ordered tables
+// of ops/cuda_tc.tc_tables; wb the windows a pass (wb * n1 rounded up to
+// 16 at most 128); precision 0 DEFAULT, 1 HIGH; three_mult picks the 3M
+// complex form.  Returns the CUDA error code of the launches (0 on
+// success); the kernels run asynchronously on `stream`.
+extern "C" int kspec_curscan_tc(const void* re, const void* im, int is_u8,
+                                void* out, void* part, const void* starts,
+                                const void* weights, const void* window,
+                                const void* f1, const void* f2,
+                                const void* tw, int t, int full, int n,
+                                int n1, int n_windows, int groups, int fold,
+                                int wb, int precision, int three_mult,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (groups < 1 || (groups > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch =
+      precision ? kspec_tc::launch_high : kspec_tc::launch_default;
+  const int err = launch(is_u8, three_mult, re, im, out, part, starts,
+                         weights, window, f1, f2, tw, t, full, n, n1,
+                         n_windows, groups, fold, wb, s);
+  if (err || groups == 1) return err;
+  const long long total = static_cast<long long>(t) * n;
+  kspec_tc::combine_groups<<<static_cast<unsigned>((total + 255) / 256), 256,
+                             0, s>>>(static_cast<const float*>(part),
+                                     static_cast<float*>(out), t, n, groups,
+                                     fold);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -7,6 +7,8 @@ loads it with ``ctypes``.  The library's name carries a hash of the sources
 and flags, so an edit rebuilds; the output goes to
 ``kspecanal_tpu_torch/build/``.  Only the installed CUDA toolkit is used.
 Nothing here runs at import time, and a CPU-only run never calls it.
+:func:`load_variant` builds a forensic library of some sources with extra
+``-D`` flags beside it (``scripts/tc_stages.py``).
 """
 from __future__ import annotations
 
@@ -70,17 +72,18 @@ def _run_all(cmds):
     return "".join(outs)
 
 
-def _compile(so: Path) -> None:
+def _compile(so: Path, sources=None, flags=()) -> None:
     global build_log, build_seconds
+    sources = _sources() if sources is None else sources
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     tag = f"{so.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        build_log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                              for src, o in zip(_sources(), objs)])
+        build_log = _run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
+                               str(src)] for src, o in zip(sources, objs)])
         build_log += _run_all([[nvcc, "-shared", "-o", str(tmp),
                                 *(str(o) for o in objs)]])
         os.replace(tmp, so)
@@ -98,23 +101,53 @@ def load() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         _compile(so)
-    lib = ctypes.CDLL(str(so))
+    _lib = _declare(ctypes.CDLL(str(so)))
+    return _lib
+
+
+def load_variant(names, defines) -> ctypes.CDLL:
+    """A forensic library of the ``csrc`` sources ``names`` compiled with
+    ``-D`` each of ``defines`` (e.g. ``("KSPEC_TC_STOP=1",)``), built on
+    first use under a name hashed from their text and the flags."""
+    flags = tuple(f"-D{d}" for d in defines)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
+    for p in sorted(CSRC_DIR.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    so = BUILD_DIR / f"libkspec_variant_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        _compile(so, [CSRC_DIR / n for n in names], flags)
+    return _declare(ctypes.CDLL(str(so)), missing_ok=True)
+
+
+def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
+    """Set the C entry points' argument and result types (those ``lib``
+    has, where ``missing_ok``)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.kspec_curscan_sublane.argtypes = [
-        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, ptr]
-    lib.kspec_curscan_sublane.restype = i32
-    lib.kspec_curscan_sublane_forensic.argtypes = [
-        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
-    lib.kspec_curscan_sublane_forensic.restype = i32
-    lib.kspec_curscan_packed.argtypes = [
-        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
-    lib.kspec_curscan_packed.restype = i32
-    lib.kspec_curscan_fft.argtypes = [
-        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
-    lib.kspec_curscan_fft.restype = i32
-    _lib = lib
+    types = {
+        "kspec_curscan_sublane": [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+                                  i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_sublane_forensic": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_packed": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_fft": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_tc": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_packed_tc": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, ptr],
+    }
+    for name, args in types.items():
+        if missing_ok and not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i32
     return lib
+

@@ -8,7 +8,10 @@ Per IQ block ``(full_size,)`` a kernel frames at every window start,
 decodes u8 planes in its loads, windows, takes the N-point DFT, takes
 ``|.|``, folds the windows (AVG/RAW weighted sum, MAX/MIN extrema,
 ``winAdj*2/N`` folded in) and writes the natural-order, fftshifted
-``(fft_size,)`` spectrum, in float32 at every ``tpuPrecision``.
+``(fft_size,)`` spectrum, in float32.  The dispatcher
+(``spectrum.curscan_auto_batched``) sends them HIGHEST, and HIGH/DEFAULT
+where the tensor-core kernel of ``ops/cuda_tc.py`` does not take the config
+(:func:`kernel_route`).
 
 The FFT kernel ``csrc/curscan_fft.cu`` serves a CUDA tensor at every config
 the JAX dispatcher sends to a Pallas curscan kernel (:func:`kernel_route`):
@@ -92,14 +95,19 @@ _FOLD = {CUMU_AVG: 0, CUMU_RAW: 0, CUMU_MAX: 1, CUMU_MIN: 2}
 STAGES = ("read", "frame", "s1", "s1tw", "s2", "full")
 ABLATE_KEYS = {"win": 1, "stage1": 2, "twiddle": 4, "stage2": 8, "sqrt": 16,
                "cumulate": 32, "concat": 0}
-# Keys that pick the 3M or 4M complex form of the JAX kernel's HIGH/DEFAULT
-# classes, which the port does not have yet.
+# Keys that pick the 3M or 4M complex form of the HIGH/DEFAULT classes
+# (ops/cuda_tc.py); they cut nothing.
 _PRECISION_KEYS = ("force3m", "no3m")
 # The mixed kernel's cut-off stages (profiling only): after the block input
 # (loads, window, the cluster's or scratch's radix-c step), after the odd
 # passes, after the power-of-two passes, or in full.  The kernel's `stop`
 # argument: 0 runs in full, i + 1 stops after MIXED_STAGES[i].
 MIXED_STAGES = ("input", "odd", "pow2", "full")
+
+# The HIGH and DEFAULT classes' tensor-core kernel (ops/cuda_tc.py, Kernel
+# A) takes the sublane predicate up to n1 = fft/128 = 128.
+TC_CLASSES = ("HIGH", "DEFAULT")
+TC_MAX_FFT_SIZE = 128 * _N2
 
 launches = 0            # the FFT kernel (csrc/curscan_fft.cu)
 direct_launches = 0     # the direct-DFT kernel's production instantiation
@@ -135,9 +143,17 @@ def supports_fused(cfg: SpecConfig) -> bool:
 
 
 def kernel_route(cfg: SpecConfig) -> Optional[str]:
-    """Which kernel serves ``cfg`` on the card: ``"fft"`` wherever the JAX
+    """Which kernel serves ``cfg`` on the card, wherever the JAX
     dispatcher's ``_fused_choice`` picks a Pallas curscan kernel (the
-    sublane predicate, or the lane predicate at fft >= 2048), else None."""
+    sublane predicate, or the lane predicate at fft >= 2048): ``"tc"``, the
+    tensor-core kernel of ``ops/cuda_tc.py``, at tpuPrecision HIGH and
+    DEFAULT for the sublane predicate up to fft ``TC_MAX_FFT_SIZE``;
+    ``"fft"``, the float64 FFT kernel, at HIGHEST and at every other such
+    config (K3's cells off the 128 grid, the grid above fft 16384); else
+    None."""
+    if (cfg.tpu_precision.upper() in TC_CLASSES and _jax_predicate(cfg)
+            and cfg.fft_size <= TC_MAX_FFT_SIZE):
+        return "tc"
     lane = cfg.fft_size >= LANE_MIN_FFT_SIZE and supports_fused(cfg)
     return "fft" if lane or _jax_predicate(cfg) else None
 
@@ -277,19 +293,15 @@ def check_planes(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig):
 
 
 def ablate_mask(ablate) -> int:
-    """The forensic kernel's AB_* mask of ``ablate`` keys; raises on an
-    unknown key and on the 3M/4M keys, which need precision classes the
-    port does not have."""
+    """The forensic kernel's AB_* mask of ``ablate`` keys (the 3M/4M keys
+    ``force3m``/``no3m`` add no bit); raises on an unknown key."""
     if isinstance(ablate, str):
         raise TypeError(f"ablate takes a sequence of keys, not the string "
                         f"{ablate!r}")
     mask = 0
     for key in ablate:
         if key in _PRECISION_KEYS:
-            raise NotImplementedError(
-                f"ablate key {key!r} picks the 3M or 4M complex form of the "
-                f"HIGH/DEFAULT precision classes, which kspecanal_tpu_torch "
-                f"does not have yet: ROADMAP.md B5")
+            continue
         if key not in ABLATE_KEYS:
             raise ValueError(f"unknown ablate key {key!r}; known: "
                              f"{sorted(ABLATE_KEYS) + list(_PRECISION_KEYS)}")
@@ -374,18 +386,32 @@ def _cuda_lib(dev: torch.device):
 def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
                           cfg: SpecConfig, *, ablate=()) -> torch.Tensor:
     """``(T, full_size)`` float32 or raw-u8 planes -> ``(T, fft_size)``
-    fftshifted linear spectra.  CUDA tensors launch the FFT kernel on the
-    current stream without synchronising; CPU tensors run the plain
-    version.  ``ablate`` (forensics only, fft <=
-    16384) names stages to remove (``ABLATE_KEYS``) from the direct kernel:
-    the spectra are then wrong by construction, and its forensic
-    instantiation runs (plain version :func:`curscan_ablate_plain`)."""
+    fftshifted linear spectra from the FFT kernel, which computes every
+    class in float64 (the dispatcher sends HIGH and DEFAULT configs of the
+    tensor-core kernel to ``cuda_tc.curscan_tc``, :func:`kernel_route`).
+    CUDA tensors launch the kernel on the current stream without
+    synchronising; CPU tensors run its plain version.
+
+    ``ablate``: the FFT kernel and the forensic kernel have no
+    complex-matmul form, so ``no3m`` is their own form and changes nothing,
+    and ``force3m`` raises ValueError (the tensor-core kernel takes its
+    form as ``cuda_tc.curscan_tc(..., form)``).  The other keys (forensics
+    only, fft <= 16384) name stages to remove (``ABLATE_KEYS``) from the
+    direct kernel: the spectra are then wrong by construction, and its
+    forensic instantiation runs (plain version
+    :func:`curscan_ablate_plain`)."""
     global launches, forensic_launches
     mask = ablate_mask(ablate)
     if kernel_route(cfg) is None:
         raise ValueError(f"config not supported by the curscan kernels "
                          f"(fft_size {cfg.fft_size}, full_size "
                          f"{cfg.full_size})")
+    if "force3m" in ablate:
+        raise ValueError(
+            "ablate key 'force3m' picks the 3M form of the tensor-core "
+            "kernel (cuda_tc.curscan_tc): the float64 FFT kernel and the "
+            "forensic kernel have no complex-matmul form")
+    ablate = tuple(k for k in ablate if k not in _PRECISION_KEYS)
     if ablate and not supports_direct(cfg):
         raise ValueError(f"ablate cuts the direct-DFT kernel, which takes "
                          f"fft <= {DIRECT_MAX_FFT_SIZE}, not {cfg.fft_size}")

@@ -7,9 +7,10 @@ Per IQ block ``(full_size,)`` the kernel runs every window's FFT in the
 registers of a group of lanes (the window and ``winAdj*2/N`` applied at the
 load), takes ``|.|``, folds the windows (AVG/RAW weighted sum, MAX/MIN
 extrema) and writes the fftshifted ``(fft_size,)`` spectrum; u8 planes decode
-in its loads.  Its FFT runs in float64 and its folds in float32, at every
-``tpuPrecision``: float32 butterflies miss the per-bin bound on MIN folds
-over hundreds of windows (see the source note).
+in its loads.  The dispatcher sends it tpuPrecision HIGHEST (HIGH and
+DEFAULT run the tensor-core packed kernel of ``ops/cuda_tc.py``).  Its FFT
+runs in float64 and its folds in float32: float32 butterflies miss the
+per-bin bound on MIN folds over hundreds of windows (see the source note).
 :func:`launch_plan` splits the work: lane groups per IQ block, IQ blocks per
 thread block, windows per staged chunk.
 
@@ -172,9 +173,9 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 def curscan_fused_packed(iq_re: torch.Tensor, iq_im: torch.Tensor,
                          cfg: SpecConfig) -> torch.Tensor:
     """``(T, full_size)`` float32 or raw-u8 planes -> ``(T, fft_size)``
-    fftshifted linear spectra.  CUDA tensors launch the kernel on the
-    current stream without synchronising; CPU tensors run the plain
-    version."""
+    fftshifted linear spectra, in float64 at every class.  CUDA tensors
+    launch the kernel on the current stream without synchronising; CPU
+    tensors run the plain version."""
     global launches
     if not supports_fused_packed(cfg):
         raise ValueError(f"config not supported by the packed curscan "

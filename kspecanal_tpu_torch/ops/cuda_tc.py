@@ -1,0 +1,466 @@
+"""The HIGH and DEFAULT precision classes on the card: the wrappers of the
+two hand-written tensor-core curscan kernels and their plain versions.
+
+``tpuPrecision`` sets what the JAX package's Pallas kernels compute
+(``kspecanal_tpu.ops.pallas_curscan._make_dot``): DEFAULT is one bf16 pass
+of every real matrix product, HIGH the bf16x3 split ``a_hi b_hi + (a_hi
+b_lo + a_lo b_hi)``, HIGHEST exact float32.  HIGHEST runs the port's
+float64 FFT kernels (``cuda_curscan``, ``cuda_packed``).  HIGH and DEFAULT
+run these:
+
+* **Kernel A**, ``csrc/curscan_tc.cu`` (:func:`curscan_tc`, counted in
+  ``tc_launches``): the two-stage DFT of K1 (``_kernel_sublane``) and of
+  K3's cell on the 128 grid (``_kernel``), n = n1 * 128 with n1 <= 128,
+  i.e. fft 256-16384 on the 128 grid, any window starts.  Per window
+  ``A[m1, m2] = win * x[s + 128 m1 + m2]`` (float32), stage 1 ``B = F1 A``,
+  the twiddle ``C = B * T`` in float32, stage 2 ``D = C F2^T``, ``|D|``,
+  and the fold of ``_cumulate_frames`` in float32 in window order
+  (``winAdj*2/N`` and the decay weights in the per-window weight).
+* **Kernel B**, ``csrc/curscan_packed_tc.cu`` (:func:`curscan_packed_tc`,
+  counted in ``packed_tc_launches``): K2 (``_kernel_packed``), fft 2-128:
+  per window one ``(1 x n) (n x n)`` complex DFT product of the raw frame
+  with the table ``dft[j, k] * win[j] * winAdj*2/N`` (folded in float64,
+  rounded to float32), in the 4M form at every class as in JAX, then
+  ``|.|`` and the float32 fold in window order.
+
+Each real product rounds its float32 operands to bf16 (to nearest, ties to
+even) right before it and sums in float32 (``mma.sync`` bf16 -> f32), once
+at DEFAULT and as the bf16x3 split at HIGH.  A complex product is 4M (four
+real products) or 3M: ``T1 = Fr Xr``, ``T2 = Fi Xi``, ``T3 = (Fr + Fi)(Xr +
+Xi)``, ``Re = T1 - T2``, ``Im = T3 - T1 - T2``, the sum table precomputed
+and ``Xr + Xi`` formed in float32 before its rounding.  Both classes run 4M
+(:func:`three_mult`).  The JAX gate (``pallas_curscan.py:456-472``) takes
+3M at HIGH everywhere and at DEFAULT but for misaligned window starts on u8
+planes.  That 3M misses its class's bound (the worst bin against the
+float64 oracle: HIGH 5e-5, DEFAULT 3.9e-2, both measured at fft 2048 and
+50% overlap) at cells the JAX package did not measure: HIGH at fft 8192 and
+50%, DEFAULT at fft 16384 and 50% on float32 planes, both at 90% overlap.
+4M meets them there, but for HIGH at 90% overlap from fft 8192
+(``scripts/threemult_smoke.py --forms``; ROADMAP.md C, faults C3 and C4).
+``form="force3m"`` / ``"no3m"`` pick the form, as the JAX kernel's ablate
+keys do.  The JAX kernel's bf16 staging of deep-overlap DEFAULT frames is a
+TPU data-movement device, not part of the contract: here the frames stay
+float32 until each product rounds them.  u8 planes decode exactly (x - 127
+is exact in bf16), so u8 is bit-identical to decoded float32 in the same
+form.
+
+Where neither kernel takes a config (K3's cells off the 128 grid, and the
+grid above fft 16384), HIGH and DEFAULT keep the float64 FFT kernel, which
+meets every class's bound (ROADMAP.md B5).
+
+A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+version (:func:`curscan_tc_plain`, :func:`curscan_packed_tc_plain`), which
+rounds at the same points, in the same form and folds in the same order;
+only the order of the sums inside each product differs from the kernels'.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from kspecanal_tpu_torch.config import (CUMU_AVG, CUMU_MAX, CUMU_RAW,
+                                        SpecConfig, cumu_weights, win_adj,
+                                        window_lut)
+from kspecanal_tpu_torch.ops import cuda_packed, spectrum
+from kspecanal_tpu_torch.ops.cuda_packed import _aligned
+from kspecanal_tpu_torch.ops.cuda_curscan import (_FOLD, TC_CLASSES,
+                                                  _raise_on, _tables,
+                                                  check_planes,
+                                                  kernel_route,
+                                                  stage_layout_to_spectrum)
+from kspecanal_tpu_torch.ops.mxu_fft import (_dft_tables_for, class_matmul,
+                                             split_bf16)
+
+FORMS = ("force3m", "no3m")
+_N2 = 128
+_MMA = 16                       # mma.sync m16n8k16: M and K tiles
+# Kernel A's shared memory: the frame (then C) planes of a pass's windows
+# and the fold, rows of 136 floats (128 + 8: conflict-free float2 fragment
+# loads).  A pass stacks at most TC_PASS_ROWS rows (n1 rounded up to 16 a
+# window).
+_ROW = 136
+_SMEM_LIMIT = 232448
+TC_PASS_ROWS = 64
+# Kernel B: windows a staged chunk (a multiple of 16, the M tile).
+PACKED_CHUNK = 64
+
+tc_launches = 0             # Kernel A (csrc/curscan_tc.cu)
+packed_tc_launches = 0      # Kernel B (csrc/curscan_packed_tc.cu)
+
+
+def precision_class(cfg: SpecConfig) -> str:
+    return cfg.tpu_precision.upper()
+
+
+def supports_tc(cfg: SpecConfig) -> bool:
+    """Kernel A takes ``cfg`` (``cuda_curscan.kernel_route`` is "tc"):
+    class HIGH or DEFAULT, the JAX sublane predicate (fft a multiple of 128
+    from 256, full_size a multiple of 128) and fft <=
+    ``cuda_curscan.TC_MAX_FFT_SIZE``;
+    that set holds K3's cell on the grid (fft 16384)."""
+    return kernel_route(cfg) == "tc"
+
+
+def supports_packed_tc(cfg: SpecConfig) -> bool:
+    """Kernel B takes ``cfg``: class HIGH or DEFAULT and K2's predicate."""
+    return (precision_class(cfg) in TC_CLASSES
+            and cuda_packed.supports_fused_packed(cfg))
+
+
+def three_mult(form: Optional[str] = None) -> bool:
+    """Kernel A takes the 3M form: only for ``form`` "force3m"; 4M, which
+    meets the class bounds where 3M misses them (fault C3), is the
+    production form at both classes and ``form`` "no3m"."""
+    if form is not None and form not in FORMS:
+        raise ValueError(f"unknown complex form {form!r}; forms: {FORMS}")
+    return form == "force3m"
+
+
+def _check_class(cfg: SpecConfig) -> str:
+    prec = precision_class(cfg)
+    if prec not in TC_CLASSES:
+        raise ValueError(f"the tensor-core kernels serve tpuPrecision HIGH "
+                         f"and DEFAULT, not {cfg.tpu_precision}")
+    return prec
+
+
+def _complex_dot(dot, fr, fi, fs, xr, xi, left: bool, tm: bool):
+    """(Re, Im) of the complex product ``F X`` (``left``) or ``X F`` (not
+    ``left``) in the 3M or 4M form; ``fs`` = Fr + Fi."""
+    def d(f, x):
+        return dot(f, x) if left else dot(x, f)
+    if tm:
+        t1, t2, t3 = d(fr, xr), d(fi, xi), d(fs, xr + xi)
+        return t1 - t2, t3 - t1 - t2
+    return d(fr, xr) - d(fi, xi), d(fr, xi) + d(fi, xr)
+
+
+def _fold(mode: str, acc, v):
+    if acc is None:
+        return v
+    if mode in (CUMU_AVG, CUMU_RAW):
+        return acc + v
+    if mode == CUMU_MAX:
+        return torch.maximum(acc, v)
+    return torch.minimum(acc, v)
+
+
+@functools.lru_cache(maxsize=32)
+def _plain_tables(n: int, window: str, device: torch.device):
+    """Kernel A's float32 tables on ``device``: F1 (re, im, re + im), F2^T
+    (re, im, re + im), the twiddle (re, im) and the window, ``(n1, 128)``."""
+    n1 = n // _N2
+    f1r, f1i, f2r, f2i, twr, twi = _dft_tables_for(n, n1, _N2)
+    win = np.asarray(window_lut(window, n).reshape(n1, _N2), np.float32)
+    tabs = (f1r, f1i, f1r + f1i, f2r.T, f2i.T, (f2r + f2i).T, twr, twi, win)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device)
+                 for a in tabs)
+
+
+def curscan_tc_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                     cfg: SpecConfig, form: Optional[str] = None
+                     ) -> torch.Tensor:
+    """The plain PyTorch version of Kernel A: ``(T, full_size)`` float32 or
+    raw-u8 planes -> ``(T, fft_size)`` fftshifted spectra, at the config's
+    class, in the 4M form or ``form``'s, on the planes' device."""
+    prec = _check_class(cfg)
+    tm = three_mult(form)
+    n = cfg.fft_size
+    n1 = n // _N2
+    dev = iq_re.device
+    f1r, f1i, f1s, f2r, f2i, f2s, twr, twi, win = _plain_tables(
+        n, cfg.window, dev)
+    weights = _tables(n, cfg.window, cfg.window_starts,
+                      cfg.cur_scan_cumu_mode, dev)[1]
+    re, im = spectrum.decode_u8(iq_re), spectrum.decode_u8(iq_im)
+    t = re.shape[0]
+    fr = spectrum.frame_signal(re, cfg.window_starts, n).reshape(
+        t, -1, n1, _N2) * win
+    fi = spectrum.frame_signal(im, cfg.window_starts, n).reshape(
+        t, -1, n1, _N2) * win
+
+    def dot(a, b):
+        return class_matmul(a, b, prec)
+
+    br, bi = _complex_dot(dot, f1r, f1i, f1s, fr, fi, True, tm)
+    cr = br * twr - bi * twi
+    ci = br * twi + bi * twr
+    dr, di = _complex_dot(dot, f2r, f2i, f2s, cr, ci, False, tm)
+    mag = torch.sqrt(dr * dr + di * di)                 # (T, W, n1, 128)
+    acc = None
+    for j in range(mag.shape[1]):
+        acc = _fold(cfg.cur_scan_cumu_mode, acc, weights[j] * mag[:, j])
+    return stage_layout_to_spectrum(acc)
+
+
+@functools.lru_cache(maxsize=32)
+def _packed_plain_tables(n: int, window: str, mode: str, w_cnt: int,
+                         device: torch.device):
+    """Kernel B's float32 tables: the DFT table with the window and
+    ``winAdj*2/N`` folded on its input index (re, im; ``(n, n)``, as
+    ``_build_packed`` folds them) and the per-window fold weights (the decay
+    weights for AVG/RAW, ones for MAX/MIN)."""
+    k = np.arange(n)
+    dft = np.exp(-2j * np.pi * np.outer(k, k) / n)
+    scale = window_lut(window, n)[:, None] * (win_adj(window, n) * 2.0 / n)
+    w = cumu_weights(mode, w_cnt)
+    tabs = ((dft.real * scale).astype(np.float32),
+            (dft.imag * scale).astype(np.float32),
+            (np.ones(w_cnt) if w is None else w).astype(np.float32))
+    return tuple(torch.as_tensor(a).to(device) for a in tabs)
+
+
+def curscan_packed_tc_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                            cfg: SpecConfig) -> torch.Tensor:
+    """The plain PyTorch version of Kernel B: ``(T, full_size)`` float32 or
+    raw-u8 planes -> ``(T, fft_size)`` fftshifted spectra, 4M at the
+    config's class, on the planes' device."""
+    prec = _check_class(cfg)
+    n = cfg.fft_size
+    dtr, dti, weights = _packed_plain_tables(
+        n, cfg.window, cfg.cur_scan_cumu_mode, cfg.num_windows, iq_re.device)
+    fr = spectrum.frame_signal(spectrum.decode_u8(iq_re), cfg.window_starts,
+                               n)
+    fi = spectrum.frame_signal(spectrum.decode_u8(iq_im), cfg.window_starts,
+                               n)
+
+    def dot(a, b):
+        return class_matmul(a, b, prec)
+
+    dr, di = _complex_dot(dot, dtr, dti, None, fr, fi, False, False)
+    mag = torch.sqrt(dr * dr + di * di)                 # (T, W, n)
+    acc = None
+    for j in range(mag.shape[1]):
+        acc = _fold(cfg.cur_scan_cumu_mode, acc, weights[j] * mag[:, j])
+    return torch.fft.fftshift(acc, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' tables and launches.
+# ---------------------------------------------------------------------------
+
+def _frag_a_index():
+    """(row, col) of the 8 bf16 values lane l holds in an m16n8k16 A
+    fragment (16 x 16, row-major), in register order: a0 (g, 2t..2t+1), a1
+    (g+8, ..), a2 (g, 2t+8..), a3 (g+8, 2t+8..); g = l // 4, t = l % 4."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    rows = np.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], axis=1)
+    cols = np.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1,
+                     2 * t + 8, 2 * t + 9, 2 * t + 8, 2 * t + 9], axis=1)
+    return rows, cols
+
+
+def _frag_b_index():
+    """(row k, col n) of the 4 bf16 values lane l holds in an m16n8k16 B
+    fragment (16 x 8): b0 (2t..2t+1, g), b1 (2t+8..2t+9, g)."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    rows = np.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], axis=1)
+    return rows, np.repeat(g[:, None], 4, axis=1)
+
+
+def bf16_halves(x: np.ndarray):
+    """The bf16 bits (uint16) of the hi and lo halves of float32 ``x``."""
+    hi, lo = split_bf16(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
+
+    def bits(v):
+        return v.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    return bits(hi), bits(lo)
+
+
+def frag_a(mats, m_tiles: int, k_tiles: int) -> np.ndarray:
+    """A fragments of matrices padded to (16 m_tiles, 16 k_tiles):
+    ``[slot][mt][kc][lane][8]`` uint16, slot = 2 * matrix + (0 hi, 1 lo)."""
+    rows, cols = _frag_a_index()
+    mt = np.arange(m_tiles)[:, None, None, None] * 16
+    kc = np.arange(k_tiles)[None, :, None, None] * 16
+    out = []
+    for m in mats:
+        pad = np.zeros((16 * m_tiles, 16 * k_tiles), np.float32)
+        pad[:m.shape[0], :m.shape[1]] = m
+        for half in bf16_halves(pad):
+            out.append(half[mt + rows, kc + cols])
+    return np.stack(out)
+
+
+def frag_b(mats, k_tiles: int, n_tiles: int) -> np.ndarray:
+    """B fragments of matrices padded to (16 k_tiles, 8 n_tiles):
+    ``[slot][kc][nt][lane][4]`` uint16, slot = 2 * matrix + (0 hi, 1 lo)."""
+    rows, cols = _frag_b_index()
+    kc = np.arange(k_tiles)[:, None, None, None] * 16
+    nt = np.arange(n_tiles)[None, :, None, None] * 8
+    out = []
+    for m in mats:
+        pad = np.zeros((16 * k_tiles, 8 * n_tiles), np.float32)
+        pad[:m.shape[0], :m.shape[1]] = m
+        for half in bf16_halves(pad):
+            out.append(half[kc + rows, nt + cols])
+    return np.stack(out)
+
+
+def _padded16(n1: int) -> int:
+    return -(-n1 // _MMA) * _MMA
+
+
+@functools.lru_cache(maxsize=32)
+def tc_tables(n: int, device: torch.device):
+    """Kernel A's tables for fft ``n`` on ``device``: F1's A fragments
+    (F1r, F1i, F1r + F1i; 6 slots, ``(n1p/16)^2`` tiles), F2^T's B
+    fragments (F2r^T, F2i^T, (F2r + F2i)^T; 6 slots, 8 x 16 tiles), both
+    bf16 bits as int16, and the twiddles ``(n1p, 128, 2)`` float32 with zero
+    rows from n1."""
+    n1 = n // _N2
+    n1p = _padded16(n1)
+    f1r, f1i, f2r, f2i, twr, twi = _dft_tables_for(n, n1, _N2)
+    f1 = frag_a((f1r, f1i, f1r + f1i), n1p // _MMA, n1p // _MMA)
+    f2 = frag_b((f2r.T, f2i.T, (f2r + f2i).T), _N2 // _MMA, _N2 // 8)
+    tw = np.zeros((n1p, _N2, 2), np.float32)
+    tw[:n1, :, 0], tw[:n1, :, 1] = twr, twi
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+    return dev(f1.view(np.int16)), dev(f2.view(np.int16)), dev(tw)
+
+
+def packed_k_tiles(n: int) -> int:
+    """Kernel B's k-chunks of 16 for fft ``n`` (n padded to 16 on K)."""
+    return max(1, n // _MMA)
+
+
+@functools.lru_cache(maxsize=32)
+def packed_tc_tables(n: int, window: str, mode: str, w_cnt: int,
+                     device: torch.device):
+    """Kernel B's tables on ``device``: the DFT table's B fragments (Dr hi,
+    Dr lo, Di hi, Di lo; ``packed_k_tiles(n)`` x ceil(n/8) tiles, bf16 bits
+    as int16) and the float32 fold weights."""
+    dtr, dti, weights = _packed_plain_tables(n, window, mode, w_cnt,
+                                             torch.device("cpu"))
+    dt = frag_b((dtr.numpy(), dti.numpy()), packed_k_tiles(n), -(-n // 8))
+    return (torch.as_tensor(np.ascontiguousarray(dt.view(np.int16))).to(
+        device), weights.to(device))
+
+
+def tc_windows_per_pass(n1: int, n_windows: int) -> int:
+    """Kernel A's windows a pass: as many as stack into ``TC_PASS_ROWS``
+    rows of n1 rounded up to 16, at least 1, at most the windows."""
+    return max(1, min(n_windows, TC_PASS_ROWS // _padded16(n1)))
+
+
+def tc_groups(t: int, n1: int, n_windows: int, sms: int) -> int:
+    """Kernel A's window groups per IQ block: enough thread blocks for two
+    waves of the blocks one SM holds by shared memory (at most 8), at most
+    one a window: ``G = min(W, ceil(2 * sms * per_sm / t))``."""
+    wb = tc_windows_per_pass(n1, n_windows)
+    smem = (2 * wb + 1) * _padded16(n1) * _ROW * 4
+    per_sm = max(1, min(8, _SMEM_LIMIT // (smem + 1024)))
+    return max(1, min(n_windows, -(-2 * sms * per_sm // max(1, t))))
+
+
+def packed_chunk(n_windows: int) -> int:
+    """Kernel B's windows a staged chunk: the windows rounded up to 16, at
+    most ``PACKED_CHUNK``."""
+    return min(PACKED_CHUNK, -(-n_windows // _MMA) * _MMA)
+
+
+def _cuda_lib(dev: torch.device):
+    if dev.type != "cuda":
+        raise ValueError(f"no tensor-core curscan kernel for device {dev}")
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load()
+
+
+def curscan_tc(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig,
+               form: Optional[str] = None) -> torch.Tensor:
+    """Kernel A: ``(T, full_size)`` float32 or raw-u8 planes ->
+    ``(T, fft_size)`` fftshifted linear spectra at the config's class, in
+    the 4M complex form or ``form``'s ("force3m" 3M, "no3m" 4M).  CUDA
+    tensors launch the kernel on the current stream without synchronising;
+    CPU tensors run :func:`curscan_tc_plain`."""
+    global tc_launches
+    if not supports_tc(cfg):
+        raise ValueError(f"config not supported by the tensor-core curscan "
+                         f"kernel (tpuPrecision {cfg.tpu_precision}, fft_size "
+                         f"{cfg.fft_size}, full_size {cfg.full_size})")
+    check_planes(iq_re, iq_im, cfg)
+    tm = three_mult(form)
+    if iq_re.device.type == "cpu":
+        return curscan_tc_plain(iq_re, iq_im, cfg, form)
+    out = launch_tc(_cuda_lib(iq_re.device), iq_re, iq_im, cfg, tm)
+    tc_launches += 1
+    return out
+
+
+def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
+              cfg: SpecConfig, tm: bool) -> torch.Tensor:
+    """Launch ``lib``'s Kernel A (the port's library, or a forensic build of
+    the same sources, ``scripts/tc_stages.py``) on CUDA planes checked by
+    :func:`curscan_tc`; counts nothing."""
+    dev = iq_re.device
+    u8 = iq_re.dtype == torch.uint8
+    t, n = iq_re.shape[0], cfg.fft_size
+    out = torch.empty((t, n), dtype=torch.float32, device=dev)
+    if t == 0:
+        return out
+    iq_re, iq_im = _aligned(iq_re), _aligned(iq_im)
+    n1, w = n // _N2, cfg.num_windows
+    groups = tc_groups(t, n1, w, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
+            if groups > 1 else None)
+    starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
+                                         cfg.cur_scan_cumu_mode, dev)
+    f1, f2, tw = tc_tables(n, dev)
+    with torch.cuda.device(dev):
+        err = lib.kspec_curscan_tc(
+            iq_re.data_ptr(), iq_im.data_ptr(), int(u8), out.data_ptr(),
+            0 if part is None else part.data_ptr(), starts.data_ptr(),
+            weights.data_ptr(), window.data_ptr(), f1.data_ptr(),
+            f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n, n1, w, groups,
+            _FOLD[cfg.cur_scan_cumu_mode], tc_windows_per_pass(n1, w),
+            int(precision_class(cfg) == "HIGH"), int(tm),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib.kspec_curscan_tc)
+    return out
+
+
+def curscan_packed_tc(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                      cfg: SpecConfig) -> torch.Tensor:
+    """Kernel B: ``(T, full_size)`` float32 or raw-u8 planes ->
+    ``(T, fft_size)`` fftshifted linear spectra at the config's class (4M).
+    CUDA tensors launch the kernel on the current stream without
+    synchronising; CPU tensors run :func:`curscan_packed_tc_plain`."""
+    global packed_tc_launches
+    if not supports_packed_tc(cfg):
+        raise ValueError(f"config not supported by the tensor-core packed "
+                         f"kernel (tpuPrecision {cfg.tpu_precision}, "
+                         f"fft_size {cfg.fft_size}, full_size "
+                         f"{cfg.full_size})")
+    check_planes(iq_re, iq_im, cfg)
+    dev = iq_re.device
+    if dev.type == "cpu":
+        return curscan_packed_tc_plain(iq_re, iq_im, cfg)
+    lib = _cuda_lib(dev)
+    t, n = iq_re.shape[0], cfg.fft_size
+    out = torch.empty((t, n), dtype=torch.float32, device=dev)
+    if t == 0:
+        return out
+    w = cfg.num_windows
+    starts = _tables(n, cfg.window, cfg.window_starts,
+                     cfg.cur_scan_cumu_mode, dev)[0]
+    dt, weights = packed_tc_tables(n, cfg.window, cfg.cur_scan_cumu_mode, w,
+                                   dev)
+    with torch.cuda.device(dev):
+        err = lib.kspec_curscan_packed_tc(
+            iq_re.data_ptr(), iq_im.data_ptr(),
+            int(iq_re.dtype == torch.uint8), out.data_ptr(),
+            starts.data_ptr(), weights.data_ptr(), dt.data_ptr(), t,
+            cfg.full_size, n, w, _FOLD[cfg.cur_scan_cumu_mode],
+            int(precision_class(cfg) == "HIGH"), packed_chunk(w),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib.kspec_curscan_packed_tc)
+    packed_tc_launches += 1
+    return out

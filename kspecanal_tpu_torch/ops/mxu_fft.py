@@ -10,16 +10,53 @@ holds it equal to the original):
 
 The split is ``ops/cuda_curscan._factorize``'s (the route's copy of the
 factor rule).  The products are plain matrix products, which the port
-leaves to ``torch.matmul`` in float32 as the JAX package leaves them to
-XLA.
+leaves to ``torch.matmul`` as the JAX package leaves them to XLA, at the
+config's ``tpuPrecision`` (:func:`class_matmul`).
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 
-from kspecanal_tpu_torch.ops.cuda_curscan import _factorize
+PRECISIONS = ("DEFAULT", "HIGH", "HIGHEST")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest, ties to even) and widened back
+    to float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_bf16(x: torch.Tensor):
+    """The bf16x3 split of float32 ``x``: ``(hi, lo)`` with ``hi`` = x
+    rounded to bf16 and ``lo`` = (x - hi) rounded to bf16, both as float32."""
+    hi = round_bf16(x)
+    return hi, round_bf16(x - hi)
+
+
+def class_matmul(a: torch.Tensor, b: torch.Tensor,
+                 precision: str) -> torch.Tensor:
+    """``a @ b`` of float32 operands at a ``tpuPrecision`` class, summed in
+    float32: HIGHEST is the float32 product (PyTorch's default leaves TF32
+    off, and the port never turns it on); DEFAULT rounds both
+    operands to bf16 first (one bf16 pass, float32 sums); HIGH is the
+    bf16x3 split of ``pallas_curscan._make_dot.dot3``,
+    ``a_hi b_hi + (a_hi b_lo + a_lo b_hi)``.  Products of bf16 values are
+    exact in float32, so each class differs from the tensor cores' only in
+    the order of its float32 sums."""
+    prec = precision.upper()
+    if prec == "DEFAULT":
+        a, b = round_bf16(a), round_bf16(b)
+    elif prec == "HIGH":
+        a_hi, a_lo = split_bf16(a)
+        b_hi, b_lo = split_bf16(b)
+        return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+    elif prec != "HIGHEST":
+        raise ValueError(f"unknown tpuPrecision {precision!r} (one of "
+                         f"{PRECISIONS})")
+    return a @ b
 
 
 @functools.lru_cache(maxsize=64)
@@ -38,5 +75,6 @@ def _dft_tables_for(n: int, n1: int, n2: int):
 
 def _dft_tables(n: int):
     """Tables for the default `_factorize` split of n."""
+    from kspecanal_tpu_torch.ops.cuda_curscan import _factorize
     n1, n2 = _factorize(n)
     return _dft_tables_for(n, n1, n2)

@@ -23,6 +23,7 @@ import torch
 from kspecanal_tpu_torch.config import (SpecConfig, cumu_weights, win_adj,
                                         window_lut)
 from kspecanal_tpu_torch.ops.dsp import reduce_windows
+from kspecanal_tpu_torch.ops.mxu_fft import class_matmul
 
 
 def decode_u8(x: torch.Tensor) -> torch.Tensor:
@@ -107,8 +108,9 @@ def psd_welch(iq_re: torch.Tensor, iq_im: torch.Tensor,
 def curscan_direct_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
                            cfg: SpecConfig) -> torch.Tensor:
     """Small-FFT curscan as a direct DFT matmul: frames ``(B, W, n)`` times
-    the ``(n, n)`` DFT matrix (float32, as JAX's HIGHEST-precision dot), then
-    the same normalize/cumulate/fftshift as :func:`curscan`.  Float planes
+    the ``(n, n)`` DFT matrix at the config's ``tpuPrecision``
+    (``mxu_fft.class_matmul``, as JAX's dot takes its precision), then the
+    same normalize/cumulate/fftshift as :func:`curscan`.  Float planes
     only."""
     n = cfg.fft_size
     k = np.arange(n)
@@ -121,8 +123,9 @@ def curscan_direct_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
     win = table(window_lut(cfg.window, n))
     ar = frame_signal(iq_re, cfg.window_starts, n) * win
     ai = frame_signal(iq_im, cfg.window_starts, n) * win
-    xr = ar @ fr.T - ai @ fi.T
-    xi = ai @ fr.T + ar @ fi.T
+    prec = cfg.tpu_precision
+    xr = class_matmul(ar, fr.T, prec) - class_matmul(ai, fi.T, prec)
+    xi = class_matmul(ai, fr.T, prec) + class_matmul(ar, fi.T, prec)
     mags = (win_adj(cfg.window, n) * 2.0 / n) * torch.sqrt(xr * xr + xi * xi)
     w = cumu_weights(cfg.cur_scan_cumu_mode, cfg.num_windows)
     return torch.fft.fftshift(
@@ -134,17 +137,20 @@ def curscan_auto_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
     """Batched curscan ``(T, full_size)`` -> ``(T, fft_size)``, the
     counterpart of the JAX dispatcher's TPU ladder:
 
-      * configs the FFT kernel's wrapper
-        ``cuda_curscan.curscan_fused_sublane`` takes
-        (``cuda_curscan.kernel_route``: every config for which the JAX
-        ``_fused_choice`` picks the sublane kernel K1 or the lane kernel
-        K3, i.e. every multiple of 128 from 256 up, and every fft >= 2048
-        that is not prime and whose window starts are multiples of n2 =
-        ``_factorize(fft)[1]``, such as fft 3000, 10000 or 39800) go to it;
+      * every config for which the JAX ``_fused_choice`` picks the sublane
+        kernel K1 or the lane kernel K3 (``cuda_curscan.kernel_route``:
+        every multiple of 128 from 256 up, and every fft >= 2048 that is
+        not prime and whose window starts are multiples of n2 =
+        ``_factorize(fft)[1]``, such as fft 3000, 10000 or 39800) goes, at
+        tpuPrecision HIGH and DEFAULT up to fft 16384 on the 128 grid, to
+        the tensor-core kernel ``cuda_tc.curscan_tc``, and otherwise to the
+        float64 FFT kernel ``cuda_curscan.curscan_fused_sublane``;
       * else configs the packed kernel K2 supports (fft <= 128 dividing
         128 with blocks of a multiple of 128 samples, at least 256: every
         config JAX's packed kernel takes, the quickFullScan regime among
-        them) go to its wrapper;
+        them) go, at HIGH and DEFAULT, to the tensor-core packed kernel
+        ``cuda_tc.curscan_packed_tc``, and at HIGHEST to the float64 one
+        ``cuda_packed.curscan_fused_packed``;
       * else, on the card, fft <= 256 decodes and takes the direct DFT
         matmul (fft 48, 96, 200, ..., and blocks K2 does not take), and
         everything else the ``torch.fft`` chain, where the JAX dispatcher
@@ -154,9 +160,14 @@ def curscan_auto_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
     loads): for CUDA tensors the wrapper launches its kernel, for CPU
     tensors it runs its plain version, the ``torch.fft`` chain.  CPU tensors
     outside both kernels take the chain too."""
-    from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed
-    if cuda_curscan.supports_fused_sublane(cfg):
+    from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed, cuda_tc
+    route = cuda_curscan.kernel_route(cfg)
+    if route == "tc":
+        return cuda_tc.curscan_tc(iq_re, iq_im, cfg)
+    if route == "fft":
         return cuda_curscan.curscan_fused_sublane(iq_re, iq_im, cfg)
+    if cuda_tc.supports_packed_tc(cfg):
+        return cuda_tc.curscan_packed_tc(iq_re, iq_im, cfg)
     if cuda_packed.supports_fused_packed(cfg):
         return cuda_packed.curscan_fused_packed(iq_re, iq_im, cfg)
     iq_re, iq_im = decode_u8(iq_re), decode_u8(iq_im)

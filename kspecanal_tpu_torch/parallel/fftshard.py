@@ -15,8 +15,10 @@ communication is one reduction over the output grid:
 Every window's partial D goes into one ``all_reduce(SUM)``; the magnitude,
 the window cumulate and the fftshift then run replicated.  The IQ planes
 are replicated (rank 0 broadcasts them); use ``timeshard.py`` where the
-sample axis should split.  The products are float32 ``torch.matmul`` (TF32
-off, PyTorch's default), as the JAX package leaves them to XLA.
+sample axis should split.  The products are ``torch.matmul`` at the
+config's ``tpuPrecision`` (``mxu_fft.class_matmul``: float32 with TF32 off
+at HIGHEST, bf16x3 at HIGH, bf16 operands at DEFAULT), as the JAX package
+leaves them to XLA at that precision.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from kspecanal_tpu_torch.config import (SpecConfig, cumu_weights, win_adj,
                                         window_lut)
 from kspecanal_tpu_torch.ops.cuda_curscan import _factorize
 from kspecanal_tpu_torch.ops.dsp import reduce_windows
-from kspecanal_tpu_torch.ops.mxu_fft import _dft_tables
+from kspecanal_tpu_torch.ops.mxu_fft import _dft_tables, class_matmul
 from kspecanal_tpu_torch.parallel import mesh as mesh_mod
 
 
@@ -77,15 +79,20 @@ def curscan_fft_sharded(iq_re: Optional[torch.Tensor],
     col_idx, f1r, f1i, f2r, f2i, twr, twi, win = _tables(
         cfg, s, mesh_mod.axis_index(mesh, "time"), re.device)
     ar, ai = re[col_idx] * win, im[col_idx] * win        # (W, n1, n2/S)
-    br = f1r @ ar - f1i @ ai                             # stage 1
-    bi = f1r @ ai + f1i @ ar
+
+    def dot(a, b):
+        return class_matmul(a, b, cfg.tpu_precision)
+
+    br = dot(f1r, ar) - dot(f1i, ai)                     # stage 1
+    bi = dot(f1r, ai) + dot(f1i, ar)
     cr = br * twr - bi * twi                             # twiddle
     ci = br * twi + bi * twr
     # stage 2 partial over this rank's columns: (n1, n2/S) @ (n2/S, n2);
     # the magnitude needs the whole complex value, so re/im are summed
     # across ranks first, every window in one collective
     d = mesh_mod.all_reduce_mode(
-        torch.stack([cr @ f2r - ci @ f2i, ci @ f2r + cr @ f2i]), "AVG", mesh)
+        torch.stack([dot(cr, f2r) - dot(ci, f2i),
+                     dot(ci, f2r) + dot(cr, f2i)]), "AVG", mesh)
     mag = (win_adj(cfg.window, n) * 2.0 / n) * torch.sqrt(d[0] * d[0]
                                                           + d[1] * d[1])
     # X[k1 + N1*k2] = mag[k1, k2]

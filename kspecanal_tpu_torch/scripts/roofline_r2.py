@@ -61,7 +61,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
     sums = ("float64" if n1 > 64 and not args.f32_sums else "float32")
     print(f"device: {card_line()}; fft {cfg.fft_size} kaiser 50% AVG, "
           f"W={cfg.num_windows}, full={cfg.full_size}; precision float32 "
-          f"(the port's only class; the JAX script ran DEFAULT), {sums} "
+          f"(the forensic kernel's one form at every class; the JAX script "
+          f"ran DEFAULT), {sums} "
           f"stage sums", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     results: Dict[int, Dict[str, float]] = {}

@@ -22,7 +22,7 @@ from jax.experimental import pallas as pl
 from kspecanal_tpu.ops import pallas_curscan as jpk
 from kspecanal_tpu_torch.ops import _build, cuda_curscan as cc
 from kspecanal_tpu_torch.scripts import kernel_ablate, qfs_ablate, \
-    roofline_r2, session_ablate
+    roofline_r2, session_ablate, tc_stages, threemult_smoke
 from torch_parity import assert_spectra_close, decoded, raw_planes, zs_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -122,13 +122,20 @@ def test_kernel_ablate_variants_match_jax_on_u8():
 
 
 def test_unknown_and_precision_keys_raise():
+    """An unknown key raises.  The 3M/4M keys are valid since the HIGH and
+    DEFAULT classes exist (tests/test_torch_precision.py): at HIGHEST the
+    float64 FFT kernel has no complex-matmul form, so ``no3m`` is its own
+    form and returns the HIGHEST result bit for bit, and ``force3m``
+    raises ValueError."""
     cfg = zs_cfg(512)
     z = torch.zeros((1, cfg.full_size))
     with pytest.raises(ValueError, match="unknown ablate key"):
         cc.curscan_fused_sublane(z, z, cfg, ablate=("stage3",))
-    for key in ("force3m", "no3m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md B5"):
-            cc.curscan_fused_sublane(z, z, cfg, ablate=(key,))
+    with pytest.raises(ValueError, match="force3m"):
+        cc.curscan_fused_sublane(z, z, cfg, ablate=("force3m",))
+    re, im = (torch.from_numpy(decoded(p)) for p in raw_planes(cfg, 2, 62))
+    assert torch.equal(cc.curscan_fused_sublane(re, im, cfg, ablate=("no3m",)),
+                       cc.curscan_fused_sublane(re, im, cfg))
     with pytest.raises(TypeError):
         cc.curscan_fused_sublane(z, z, cfg, ablate="win")
     assert cc.ablate_mask(()) == cc.ablate_mask(("concat",)) == 0
@@ -174,7 +181,8 @@ def test_read_stage_sums_every_sample_once():
 
 @pytest.mark.parametrize("script,argv", [
     (roofline_r2, []), (kernel_ablate, []), (session_ablate, ["2"]),
-    (qfs_ablate, ["--bands", "2"])])
+    (qfs_ablate, ["--bands", "2"]), (threemult_smoke, []),
+    (tc_stages, [])])
 def test_forensics_scripts_need_the_card(monkeypatch, script, argv):
     """A measurement never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -17,12 +17,13 @@ import torch
 from kspecanal_tpu_torch.config import (WINDOW_HANNING, WINDOW_KAISER,
                                         WINDOW_ONES)
 from kspecanal_tpu_torch.io import sources as tsrc
-from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed
+from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed, cuda_tc
 from kspecanal_tpu_torch.ops import spectrum as tspec
 from kspecanal_tpu_torch.parallel import stream as tstream
 from kspecanal_tpu_torch.scripts import kernel_ablate
 from torch_parity import (MODES, assert_db_close, assert_spectra_close,
-                          cuda, decoded, raw_planes, zs_cfg)  # noqa: F401
+                          assert_tc_close, cuda, decoded, raw_planes,
+                          zs_cfg)  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -283,6 +284,102 @@ def test_packed_kernel_gives_identical_bits_twice(cuda):
               for p in raw_planes(cfg, 19616, 21))
     assert torch.equal(cuda_packed.curscan_fused_packed(re, im, cfg),
                        cuda_packed.curscan_fused_packed(re, im, cfg))
+
+
+# The tensor-core kernels of the HIGH and DEFAULT classes (ops/cuda_tc.py)
+# against their plain versions on the card: every instantiation (class x
+# complex form x input), all four modes; Kernel A at odd and small n1 (fft
+# 1280: n1 = 10, padded to 16; fft 16256: n1 = 127), the main path's 2048
+# and the lane kernel's cell 16384, at aligned (50%) and misaligned (90%)
+# starts.  Tolerances: torch_parity.TC_TOL.
+TC_CASES = [(fft, nono) for fft in (256, 1280, 2048, 16256, 16384)
+            for nono in (0.5, 0.1)]
+
+
+def class_planes(cuda, cfg, t, u8, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if u8:
+        return tuple(torch.randint(0, 256, (t, cfg.full_size), generator=gen,
+                                   device=cuda, dtype=torch.uint8)
+                     for _ in range(2))
+    return tuple(torch.randn((t, cfg.full_size), generator=gen, device=cuda)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+@pytest.mark.parametrize("form", ["force3m", "no3m"])
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("fft,nono", TC_CASES)
+def test_tc_kernel_matches_plain(cuda, fft, nono, mode, prec, form, u8):
+    cfg = zs_cfg(fft, nono, mode, tpu_precision=prec, x_res=512)
+    re, im = class_planes(cuda, cfg, 48 if fft <= 2048 else 4, u8, fft)
+    before = (cuda_tc.tc_launches, cuda_curscan.launches)
+    got = cuda_tc.curscan_tc(re, im, cfg, form)
+    torch.cuda.synchronize()
+    assert (cuda_tc.tc_launches, cuda_curscan.launches) == (
+        before[0] + 1, before[1])
+    assert_tc_close(got.cpu().numpy(), cuda_tc.curscan_tc_plain(
+        re, im, cfg, form).cpu().numpy(), prec)
+    if u8:
+        assert torch.equal(got, cuda_tc.curscan_tc(
+            tspec.decode_u8(re), tspec.decode_u8(im), cfg, form))
+
+
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("fft,nono,t", [(2048, 0.5, 4096), (16384, 0.1, 16),
+                                        (2048, 0.1, 1)])
+def test_tc_kernel_window_groups(cuda, fft, nono, t, prec):
+    """Through the dispatcher: one window group a block at the main cell's
+    T=4096, several (and the combine pass) for short batches; the
+    production (4M) form; two runs bit-identical."""
+    cfg = zs_cfg(fft, nono, tpu_precision=prec, x_res=512)
+    re, im = class_planes(cuda, cfg, t, False, t)
+    got = tspec.curscan_auto_batched(re, im, cfg)
+    assert torch.equal(got, tspec.curscan_auto_batched(re, im, cfg))
+    rows = slice(0, 64)
+    assert_tc_close(got[rows].cpu().numpy(), cuda_tc.curscan_tc_plain(
+        re[rows], im[rows], cfg).cpu().numpy(), prec)
+
+
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("fft,nono", [(fft, nono) for fft in PACKED_FFTS
+                                      for nono in (0.5, 0.1)])
+def test_packed_tc_kernel_matches_plain(cuda, fft, nono, mode, prec, u8):
+    """Kernel B through the dispatcher at every fft it takes;
+    quickFullScan's geometry is fft 64 at 90%."""
+    cfg = zs_cfg(fft, nono, mode, tpu_precision=prec, x_res=fft,
+                 fft2full_mult4less=max(8, 256 // fft))
+    re, im = class_planes(cuda, cfg, 300, u8, fft)
+    before = (cuda_tc.packed_tc_launches, cuda_packed.launches)
+    got = tspec.curscan_auto_batched(re, im, cfg)
+    torch.cuda.synchronize()
+    assert (cuda_tc.packed_tc_launches, cuda_packed.launches) == (
+        before[0] + 1, before[1])
+    assert_tc_close(got.cpu().numpy(), cuda_tc.curscan_packed_tc_plain(
+        re, im, cfg).cpu().numpy(), prec)
+    if u8:
+        assert torch.equal(got, tspec.curscan_auto_batched(
+            tspec.decode_u8(re), tspec.decode_u8(im), cfg))
+
+
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("fft,nono,mult,t", [(64, 0.1, 8, 19616),
+                                             (128, 0.5, 81, 64),
+                                             (64, 0.1, 96, 16)])
+def test_packed_tc_kernel_chunks(cuda, fft, nono, mult, t, prec):
+    """quickFullScan's catch-up T, and blocks of many chunks (fft 128 x 81:
+    161 windows; fft 64 x 96 at 90%: 951); two runs bit-identical."""
+    cfg = zs_cfg(fft, nono, "MIN", tpu_precision=prec, x_res=fft,
+                 fft2full_mult4less=mult)
+    re, im = class_planes(cuda, cfg, t, False, mult)
+    got = cuda_tc.curscan_packed_tc(re, im, cfg)
+    assert torch.equal(got, cuda_tc.curscan_packed_tc(re, im, cfg))
+    rows = slice(0, 64)
+    assert_tc_close(got[rows].cpu().numpy(), cuda_tc.curscan_packed_tc_plain(
+        re[rows], im[rows], cfg).cpu().numpy(), prec)
 
 
 def test_direct_dft_matches_chain_on_card(cuda):

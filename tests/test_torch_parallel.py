@@ -43,7 +43,8 @@ from kspecanal_tpu_torch.models.convert import scan_state_to_numpy
 from kspecanal_tpu_torch.ops import spectrum as tspec
 from kspecanal_tpu_torch.parallel import fftshard as tfft
 from kspecanal_tpu_torch.parallel import timeshard as ttime
-from torch_parity import assert_spectra_close, write_capture
+from torch_parity import (assert_spectra_close,  # noqa: F401
+                          restore_jax_iter_logging, write_capture)
 
 import torch_mp_worker as W
 
@@ -106,6 +107,24 @@ def test_sharded_curscan_matches_jax(world, case, s):
         np.testing.assert_array_equal(got, plain)
     else:
         assert_spectra_close(got, plain)
+
+
+@pytest.mark.parametrize("s", WORLDS)
+@pytest.mark.parametrize("case", W.FFT_CLASS_CASES,
+                         ids=[c[0] for c in W.FFT_CLASS_CASES])
+def test_fft_sharded_classes_match_jax(world, case, s):
+    """The fft-sharded curscan's products at HIGH and DEFAULT
+    (``mxu_fft.class_matmul``) against JAX's at the same S, whose float32
+    dots ignore the class on the CPU: the class tolerances of
+    test_torch_precision.py."""
+    from test_torch_precision import assert_class_close, window_peak
+    name, *c = case
+    cfg = W.zs_cfg(*c)
+    re, im = W.iq(cfg, (CURSCAN_CASES + W.FFT_CLASS_CASES).index(case))
+    want = np.asarray(jfft.curscan_fft_sharded(
+        jnp.asarray(re), jnp.asarray(im), jcfg_of(cfg), jmesh(time=s)))
+    assert_class_close(world(s)[name], want, cfg.tpu_precision,
+                       window_peak(re[None], im[None], cfg))
 
 
 @pytest.mark.parametrize("s", WORLDS)

@@ -34,8 +34,8 @@ from kspecanal_tpu_torch import session as tsess
 from kspecanal_tpu_torch.io import state as tstate
 from kspecanal_tpu_torch.models.convert import (scan_state_to_numpy,
                                                 state_to_numpy)
-from torch_parity import (assert_db_close, assert_spectra_close,
-                          write_capture, zs_cfg)
+from torch_parity import (assert_db_close, assert_spectra_close,  # noqa: F401
+                          restore_jax_iter_logging, write_capture, zs_cfg)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures",

@@ -34,6 +34,10 @@ TIME_CASES = [(f"time-{m}", 256, 0.5, "WIN.HANNING", m)
     ("time-fractional-hop", 256, 0.1, "WIN.KAISER", "AVG")]
 FFT_CASES = [("fft-AVG", 2048, 0.5, "WIN.KAISER", "AVG"),
              ("fft-MAX", 2048, 0.5, "WIN.HANNING", "MAX")]
+# the fft-sharded products at the HIGH and DEFAULT classes (+ tpuPrecision)
+FFT_CLASS_CASES = [("fft-AVG-HIGH", 2048, 0.5, "WIN.KAISER", "AVG", "HIGH"),
+                   ("fft-MAX-DEFAULT", 2048, 0.5, "WIN.HANNING", "MAX",
+                    "DEFAULT")]
 # (name, endFreq, scanRangeNonOverlap, index of a failed retune or -1): 8
 # bands, and 7 (sentinel padding at 2 and 4 ranks) with a failed retune
 BAND_CASES = [("band-8", 96e6, 0.5, -1), ("band-7", 97e6, 0.75, 3)]
@@ -41,11 +45,12 @@ STREAM_CASES = ["stream-f32", "stream-u8"]
 STREAM_T = 8
 
 
-def zs_cfg(fft, nono, window, mode):
+def zs_cfg(fft, nono, window, mode, prec="HIGHEST"):
     from kspecanal_tpu_torch.config import SpecConfig
     return SpecConfig(prg_mode="ZEROSPAN", fft_size=fft, sampling_rate=2.4e6,
                       window=window, cur_scan_non_overlap=nono,
-                      cur_scan_cumu_mode=mode, x_res=min(fft, 256)).finalize()
+                      cur_scan_cumu_mode=mode, x_res=min(fft, 256),
+                      tpu_precision=prec).finalize()
 
 
 def scan_cfg(end_freq, scan_non_overlap):
@@ -125,7 +130,8 @@ def run_cases(mesh_mod):
         return [torch.from_numpy(a) for a in arrays] if root else None
 
     mesh_t = mesh_mod.make_mesh(time=world, device_type="cpu")
-    for seed, (name, *c) in enumerate(TIME_CASES + FFT_CASES):
+    for seed, (name, *c) in enumerate(TIME_CASES + FFT_CASES
+                                      + FFT_CLASS_CASES):
         cfg = zs_cfg(*c)
         fn = curscan_fft_sharded if name.startswith("fft") \
             else curscan_time_sharded

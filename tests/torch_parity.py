@@ -96,6 +96,24 @@ def assert_spectra_close(got, want):
     np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-6 * peak)
 
 
+# The tensor-core kernels against their plain versions (ops/cuda_tc.py),
+# per bin: (rtol, atol of the peak) by class.  Only the order of the
+# float32 sums inside each product differs, but at DEFAULT that can move a
+# stage-1 value across a bf16 rounding boundary, one bf16 step of an
+# operand: a quarter of the class bound (3.9e-2) of the bin, plus a floor
+# of the peak for the near-zero bins of MIN and RAW folds.  HIGH: the class
+# bound 5e-5 of the bin and of the peak.
+TC_TOL = {"DEFAULT": (1e-2, 1e-2), "HIGH": (5e-5, 5e-5)}
+
+
+def assert_tc_close(got, want, prec):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    rtol, atol = TC_TOL[prec]
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol * np.max(np.abs(want)))
+
+
 def assert_db_close(got, want, span_db=100.0, tol_db=1e-3, peak=None):
     """dB curves: within ``tol_db`` wherever the reference is within
     ``span_db`` of its peak, or of ``peak`` where given (bins at the float32
@@ -118,6 +136,18 @@ def check_grid_case(fft, nono, mode, u8):
     assert got.dtype == torch.float32
     assert_spectra_close(got.numpy(), kern)
     assert_spectra_close(got.numpy(), chain)
+
+
+@pytest.fixture(autouse=True)
+def restore_jax_iter_logging():
+    """A test module that imports this fixture runs the JAX CLI, whose
+    ``tpuLogIter`` sets a process-wide flag of the JAX package
+    (``utils.logging.set_iter_logging``); it is put back after each test,
+    so later test files on the same worker see the default."""
+    from kspecanal_tpu.utils import logging as jlog
+    before = jlog._iter_logging
+    yield
+    jlog.set_iter_logging(before)
 
 
 @pytest.fixture
