@@ -103,9 +103,11 @@ Phases (any failure raises; the exit code is then non-zero):
      the card, beside the serial session's whole sweep;
  15. the precision classes HIGH and DEFAULT (``ops/cuda_tc.py``): Kernel A
      (``csrc/curscan_tc.cu``, the tensor-core two-stage DFT) against its
-     plain version at every instantiation (class x 3M/4M x f32/u8, all four
-     modes) at the zero-span main shape (fft 2048, 50%), fmScan's (fft
-     16384, ones, 90%) and fft 1280 at 75% (n1 = 10, misaligned), Kernel B
+     plain version at every instantiation (class x 3M/4M x f32/u8 x 1, 2,
+     4 and 8 m-tiles a pass, all four modes) at the zero-span main shape
+     (fft 2048, 50%), fmScan's (fft 16384, ones, 90%), fft 10240 at 90%
+     (stage 1 by m-tiles, F1 in shared memory), fft 1280 at 75% (n1 = 10,
+     misaligned) and fft 2048 with one and two windows a block, Kernel B
      (``csrc/curscan_packed_tc.cu``) at quickFullScan's (fft 64, ones, 90%)
      and fft 128 kaiser 50%, u8 bit-identical to decoded float32 in each
      form; each class against the float64 oracle at full size
@@ -1273,10 +1275,16 @@ def phase_precision(cc, cp, spec, cli, gen, gpu, tmp):
     print(f"== precision classes: the tensor-core kernels vs plain "
           f"(per bin rtol, atol of the peak: {TC_TOL})")
     # T=32 runs Kernel A's window groups and their combine, T=1024 (the
-    # sessions' catch-up) one group a block, written straight to the output.
+    # sessions' catch-up) one group a block, written straight to the output;
+    # one and two windows a block the passes of 1 and 2 m-tiles; fft 10240
+    # and 16384 stage 1 by m-tiles (F1 in shared memory, in L2) and at 3M
+    # HIGH by strips, fft 16384 3M HIGH folding in device memory.
     for base, t in ((cfg_of(2048, 0.5), 32), (cfg_of(2048, 0.5), 1024),
                     (cfg_of(16384, 0.1, "AVG", "WIN.ONES"), 2),
-                    (cfg_of(1280, 0.25), 8)):
+                    (cfg_of(1280, 0.25), 8),
+                    (cfg_of(2048, 1.0, mult=1), 8),
+                    (cfg_of(2048, 1.0, mult=2), 8),
+                    (cfg_of(10240, 0.1), 2)):
         for prec in ("DEFAULT", "HIGH"):
             for form in ("force3m", "no3m"):
                 for u8 in (False, True):
@@ -1284,7 +1292,9 @@ def phase_precision(cc, cp, spec, cli, gen, gpu, tmp):
                     for mode in MODES:
                         cfg = class_cfg(cfg_of(base.fft_size,
                                                base.cur_scan_non_overlap,
-                                               mode, base.window), prec)
+                                               mode, base.window,
+                                               base.fft2full_mult4less),
+                                        prec)
                         re, im = noise(cfg, t, u8, gen)
                         e, sh = tc_compare(
                             lambda a, b, c: tc.curscan_tc(a, b, c, form),
@@ -1300,7 +1310,8 @@ def phase_precision(cc, cp, spec, cli, gen, gpu, tmp):
                                               form)),
                                 "Kernel A u8 bit-identical to decoded f32")
                     print(f"  Kernel A fft {base.fft_size} ovl "
-                          f"{1 - base.cur_scan_non_overlap:.1f} {prec} "
+                          f"{1 - base.cur_scan_non_overlap:.1f} "
+                          f"{base.num_windows} windows {prec} "
                           f"{'3M' if form == 'force3m' else '4M'} "
                           f"{'u8' if u8 else 'f32'}, T={t}, 4 modes: max abs "
                           f"{mx:.3e}, {worst:.3f} of the tolerance"

@@ -20,6 +20,10 @@ int launch_default(int is_u8, int three_mult, const void* re, const void* im,
                              n_windows, groups, fold, wb, stream);
 }
 
+int occupancy_default(int is_u8, int three_mult, int n1, int wb) {
+  return occupancy_class<false>(is_u8, three_mult, n1, wb);
+}
+
 // out[b][o] = the fold of part[b][0..G-1][o], in group order.
 __global__ void combine_groups(const float* __restrict__ part,
                                float* __restrict__ out, int t, int n,
@@ -68,4 +72,20 @@ extern "C" int kspec_curscan_tc(const void* re, const void* im, int is_u8,
                                      static_cast<float*>(out), t, n, groups,
                                      fold);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A's shared memory a block (bytes) for fft n1 * 128, wb windows a
+// pass, precision and form as kspec_curscan_tc takes them.
+extern "C" long long kspec_curscan_tc_smem(int n1, int wb, int precision,
+                                           int three_mult) {
+  return static_cast<long long>(
+      kspec_tc::layout(n1, wb, precision != 0, three_mult != 0).total());
+}
+
+// The blocks an SM holds of the instantiation kspec_curscan_tc launches for
+// these arguments (registers and shared memory), or -1.
+extern "C" int kspec_curscan_tc_occupancy(int is_u8, int n1, int wb,
+                                          int precision, int three_mult) {
+  return precision ? kspec_tc::occupancy_high(is_u8, three_mult, n1, wb)
+                   : kspec_tc::occupancy_default(is_u8, three_mult, n1, wb);
 }

@@ -29,35 +29,48 @@
 // layouts: here a start at any offset is an address.
 //
 // What bounds it on the H100: operations at HIGH and where the window count
-// is high (3 products of 2 * n1 * 128 * (n1 + 128) flops a window at 3M,
+// is high (4 products of 2 * n1 * 128 * (n1 + 128) flops a window at 4M,
 // times 3 at HIGH, at 989 TFLOP/s bf16), else the planes read once.
 //
-// What the design does about it (a right, simple first design):
+// What the design does about it:
 //   * A thread block takes one IQ block and a group of its windows, 256
 //     threads, and walks the windows in order, wb at a time (a pass; the
 //     wrapper picks wb so that a pass stacks at most 64 rows, 4 windows at
-//     fft 2048, one at fft >= 8192).  Per pass: the threads stage the
-//     windowed frames (float32, u8 decoded in the load; 4 samples a load
-//     where the start is a multiple of 4) in shared memory,
-//     window i in rows i*n1p..; stage 1 runs by column strips, warp j%8
-//     owning the 8 columns j*8.. of every row, so it reads only its own
-//     strip and writes C over it in place (held in registers until the
-//     strip is done); stage 2 runs by output column tiles over all the
-//     pass's rows, each warp holding its tile's F2^T fragments in registers
-//     (one load of the table a tile a pass), and folds each output element
-//     in the shared fold buffer that only its own lane touches, window by
-//     window in order.  Three barriers a pass.
-//   * Shared memory: the frame/C planes and the fold, (2 wb + 1) * n1p * 136
-//     floats (n1p = n1 rounded up to 16; 208,896 bytes at n1 = 128).  Rows
-//     of 136 floats make the float2 fragment loads of stage 2 conflict-free.
-//   * The DFT tables do not fit beside them at n1 = 128 (DEFAULT 3M needs
-//     Fr, Fi, Fr + Fi for both stages, 192 KB in bf16; HIGH twice that), so
-//     the warps load their mma fragments straight from global memory, where
-//     the wrapper stores them pre-rounded in fragment order (one 16-byte
-//     load a thread for F1's A fragments, 8 bytes for F2^T's B fragments);
-//     all tables together are under 0.5 MB and stay in L2.  That costs
-//     table traffic: stage 1 streams F1 once per column strip (16 times a
-//     pass), stage 2 F2^T once per column tile a pass.
+//     fft 2048, one at fft >= 8192).
+//   * Each operand is rounded once.  The staging step writes each windowed
+//     frame element (float32 x * win, u8 decoded in the load; 4 samples a
+//     load where the start is a multiple of 4) as bf16 operand planes:
+//     re and im (and at 3M re + im, added in float32), each hi and at HIGH
+//     also lo, window i in rows i*n1p.. of every plane.  Stage 1 reads its
+//     B fragments from them by ldmatrix.trans and writes C = B o T over the
+//     frame once, in the same planes and forms, each taken from C's
+//     float32 value.  Stage 2 reads its A fragments by ldmatrix: no float32
+//     loads of C, no conversions.
+//   * Stage 1 runs by column strips where F1's fragments sit in shared
+//     memory (warp j%8 owns the 8 columns j*8.. of every row, so it reads
+//     only its own strip and writes C over it).  Where they do not fit (4M
+//     HIGH and 3M DEFAULT at n1p >= 112, one window a pass) it runs by
+//     m-tiles: warp w holds m-tile w's F1 fragments in registers, loaded
+//     from L2 once a pass, the warps walk the 16 strips together and each
+//     writes its part of a strip after a barrier.  3M HIGH from n1p = 80
+//     (its F1 fragments would take 120-192 registers) streams F1 from L2
+//     once a strip.
+//   * Stage 2 runs by output column tiles over all the pass's rows, each
+//     warp holding its tile's F2^T fragments in registers (one load of the
+//     table from L2 a tile a pass): 128 KiB of C read a window at fft 2048
+//     4M DEFAULT, half of what float32 planes of C would take;
+//     at DEFAULT from n1p = 80 a warp takes its two tiles at once, so each
+//     A fragment serves both.  Each output element is folded by the one
+//     lane that owns it, window by window in order.  Three barriers a pass.
+//   * Shared memory, in this order (layout()): the planes (forms x halves
+//     planes of wb * n1p rows of 136 bf16: rows of 272 bytes make every
+//     ldmatrix phase and the C stores conflict-free); the fold (n1p rows of
+//     136 floats) where it fits beside them, else (3M HIGH from n1p = 112)
+//     each lane folds its elements in the output (or partial) row in device
+//     memory, already fftshifted; F1's A fragments (the slots in use,
+//     copied once a block) where they fit.  At n1 = 128 DEFAULT 4M: 69,632
+//     + 69,632 + 65,536 bytes; at fft 2048 DEFAULT 4M 44,544, two blocks an
+//     SM (launch bounds: at most 128 registers up to n1p = 64).
 //   * n1 and K are padded to 16 with zero rows and columns of F1 (exact);
 //     padded rows of C are zero and never stored to the output.
 //   * Window groups: where T alone does not fill the card, G thread blocks
@@ -69,6 +82,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 // Forensic cut-offs (profiling only: scripts/tc_stages.py compiles these
 // sources with -DKSPEC_TC_STOP=1 or 2 into a library of its own; the port's
@@ -84,9 +99,11 @@ namespace kspec_tc {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int N2 = 128;          // the sublane layout's fixed n2
-constexpr int ROW = N2 + 8;      // shared-memory row stride in floats
+constexpr int ROW = N2 + 8;      // the fold's row stride in floats
+constexpr int RS = N2 + 8;       // an operand plane's row stride in bf16
 constexpr int NT = N2 / 8;       // 16 column strips / output column tiles
 constexpr int KC2 = N2 / 16;     // stage 2's 8 k-chunks
+constexpr size_t SMEM_LIMIT = 232448;   // a block's shared memory (H100)
 
 enum Fold { FOLD_SUM = 0, FOLD_MAX = 1, FOLD_MIN = 2 };
 
@@ -97,6 +114,26 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  Plain: lane i gets row i/4, columns 2(i%4)..
+// of each; .trans: rows 2(i%4).., column i/4.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm2t(uint32_t& r0, uint32_t& r1,
+                                       uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r0), "=r"(r1) : "r"(addr));
 }
 
 // Two floats as a bf16 pair (x0 in the low half), each to nearest even.
@@ -116,6 +153,110 @@ __device__ __forceinline__ void operand(float x0, float x1, uint32_t& hi,
     const float h1 = __uint_as_float(hi & 0xffff0000u);
     lo = pack(__fsub_rn(x0, h0), __fsub_rn(x1, h1));
   }
+}
+
+// The operand planes of a class and form: forms re, im (and at 3M re + im)
+// times halves hi (and at HIGH lo); plane q = form * H + half.
+template <bool HIGH, bool TM>
+struct Planes {
+  static constexpr int H = HIGH ? 2 : 1;
+  static constexpr int S = TM ? 3 : 2;
+  static constexpr int FH = S * H;
+  // Writes the operands of the pairs (r0, r1) and (i0, i1), adjacent
+  // columns of one row, at word o (element 2 o) of every plane.
+  static __device__ __forceinline__ void put(uint32_t* pl, int ps, int o,
+                                             float r0, float r1, float i0,
+                                             float i1) {
+    uint32_t hi, lo;
+    operand<HIGH>(r0, r1, hi, lo);
+    pl[o] = hi;
+    if (HIGH) pl[ps + o] = lo;
+    operand<HIGH>(i0, i1, hi, lo);
+    pl[H * ps + o] = hi;
+    if (HIGH) pl[(H + 1) * ps + o] = lo;
+    if (TM) {
+      operand<HIGH>(__fadd_rn(r0, i0), __fadd_rn(r1, i1), hi, lo);
+      pl[2 * H * ps + o] = hi;
+      if (HIGH) pl[(2 * H + 1) * ps + o] = lo;
+    }
+  }
+  // C's pairs of m-tile mt (its rows mt*16..) in column strip j, as
+  // twiddle() leaves them, written to every plane (ps elements a plane).
+  static __device__ __forceinline__ void put_c(uint32_t* pw, int ps, int mt,
+                                               int j, const float (&c)[8]) {
+    const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      put(pw, ps / 2, ((mt * 16 + g8 + h * 8) * RS + j * 8 + 2 * t4) >> 1,
+          c[2 * h], c[2 * h + 1], c[4 + 2 * h], c[5 + 2 * h]);
+  }
+  // Stage 1's B fragments (16 rows x 8 columns) of every plane by
+  // ldmatrix.trans; lane l's `addr` is row l % 16 of plane l / 16.
+  static __device__ __forceinline__ void b_frags(uint32_t (&x)[3][2][2],
+                                                 uint32_t addr, int ps) {
+#pragma unroll
+    for (int q = 0; q < FH; q += 2) {
+      if (q + 1 < FH) {
+        uint32_t r[4];
+        ldsm4t(r, addr + 2u * q * ps);
+        x[q / H][q % H][0] = r[0]; x[q / H][q % H][1] = r[1];
+        x[(q + 1) / H][(q + 1) % H][0] = r[2];
+        x[(q + 1) / H][(q + 1) % H][1] = r[3];
+      } else {
+        ldsm2t(x[q / H][q % H][0], x[q / H][q % H][1], addr + 2u * q * ps);
+      }
+    }
+  }
+  // Stage 2's A fragments (16 x 16) of every plane by ldmatrix; lane l's
+  // `addr` is row l % 8 + 8 ((l / 8) % 2), column 8 (l / 16) of plane 0.
+  static __device__ __forceinline__ void a_frags(uint32_t (&c)[3][2][4],
+                                                 uint32_t addr, int ps) {
+#pragma unroll
+    for (int q = 0; q < FH; ++q) ldsm4(c[q / H][q % H], addr + 2u * q * ps);
+  }
+  // F1's A fragments, element i of each slot in use: from the wrapper's
+  // table (slot 2 f + h) or from its copy in shared memory (slot q).
+  static __device__ __forceinline__ void f1_frags(uint32_t (&f)[3][2][4],
+                                                  const uint4* f1, int f1n,
+                                                  int i) {
+#pragma unroll
+    for (int q = 0; q < FH; ++q)
+      set4(f[q / H][q % H], __ldg(f1 + (2 * (q / H) + q % H) * f1n + i));
+  }
+  static __device__ __forceinline__ void f1_frags_smem(
+      uint32_t (&f)[3][2][4], const uint4* f1s, int f1n, int i) {
+#pragma unroll
+    for (int q = 0; q < FH; ++q) set4(f[q / H][q % H], f1s[q * f1n + i]);
+  }
+  static __device__ __forceinline__ void set4(uint32_t (&r)[4], uint4 v) {
+    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+  }
+};
+
+// The blocks an SM is to hold of an instantiation with mt m-tiles a pass
+// (its launch bounds): two up to 4 (n1p <= 64; 128 registers a thread),
+// else one.
+constexpr int min_blocks(int mt) { return mt <= 4 ? 2 : 1; }
+
+// Bytes of each shared-memory region for (n1, wb, class, form), in this
+// order: the planes; the fold where it fits beside them (else it lives in
+// the output rows); F1's fragments where they fit (else read from L2).
+// F2^T's fragments are read from L2 (a copy here was no faster at fft
+// 2048).  kspec_curscan_tc_smem reports its total.
+struct Layout {
+  size_t planes, fold, f1;
+  size_t total() const { return planes + fold + f1; }
+};
+inline Layout layout(int n1, int wb, bool high, bool tm) {
+  const size_t n1p = (n1 + 15) & ~15, nmt = n1p / 16;
+  const size_t fh = (tm ? 3 : 2) * (high ? 2 : 1);
+  Layout l;
+  l.planes = fh * wb * n1p * RS * 2;
+  l.fold = n1p * ROW * sizeof(float);
+  l.f1 = fh * nmt * nmt * 32 * 16;
+  if (l.planes + l.fold > SMEM_LIMIT) l.fold = 0;
+  if (l.total() > SMEM_LIMIT) l.f1 = 0;
+  return l;
 }
 
 // Products kept per tile: 3M T1, T2, T3; 4M rr, ii, ri, ir.  Each is
@@ -143,6 +284,21 @@ struct Acc {
       mma(lh[p], alo, bhi[0], bhi[1]);
     }
   }
+  // The complex product's real products from operand forms a[f][half] and
+  // b[f][half] (f: re, im, re + im).  3M: T1 = re re, T2 = im im, T3 = sum
+  // sum; 4M: rr, ii, ri (A re, B im), ir (A im, B re).
+  template <bool HIGH>
+  __device__ __forceinline__ void products(const uint32_t (&a)[3][2][4],
+                                           const uint32_t (&b)[3][2][2]) {
+    product<HIGH>(0, a[0][0], a[0][1], b[0][0], b[0][1]);
+    product<HIGH>(1, a[1][0], a[1][1], b[1][0], b[1][1]);
+    if (TM) {
+      product<HIGH>(2, a[2][0], a[2][1], b[2][0], b[2][1]);
+    } else {
+      product<HIGH>(2, a[0][0], a[0][1], b[1][0], b[1][1]);
+      product<HIGH>(3, a[1][0], a[1][1], b[0][0], b[0][1]);
+    }
+  }
   template <bool HIGH>
   __device__ __forceinline__ float value(int p, int i) const {
     return HIGH ? __fadd_rn(hh[p][i], __fadd_rn(hl[p][i], lh[p][i]))
@@ -164,26 +320,29 @@ struct Acc {
   }
 };
 
-// Operand forms of one fragment register set: re, im and (3M) re + im, each
-// with hi and lo halves.
-template <int R>
-struct Forms {
-  uint32_t hi[3][R];
-  uint32_t lo[3][R];
-};
-
-template <bool HIGH, bool TM, int R>
-__device__ __forceinline__ void forms_of(const float (&xr)[2 * R],
-                                         const float (&xi)[2 * R],
-                                         Forms<R>& f) {
+// The twiddles of the 4 elements a lane holds of m-tile ml (its window's
+// rows ml*16..), column strip j.
+__device__ __forceinline__ void tw_load(float2 (&t)[4],
+                                        const float2* __restrict__ tw,
+                                        int ml, int j) {
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    operand<HIGH>(xr[2 * r], xr[2 * r + 1], f.hi[0][r], f.lo[0][r]);
-    operand<HIGH>(xi[2 * r], xi[2 * r + 1], f.hi[1][r], f.lo[1][r]);
-    if (TM)
-      operand<HIGH>(__fadd_rn(xr[2 * r], xi[2 * r]),
-                    __fadd_rn(xr[2 * r + 1], xi[2 * r + 1]), f.hi[2][r],
-                    f.lo[2][r]);
+  for (int i = 0; i < 4; ++i)
+    t[i] = __ldg(tw + (ml * 16 + g8 + (i >> 1) * 8) * N2 + j * 8 + 2 * t4
+                 + (i & 1));
+}
+
+// C = B o T of those 4 elements: c[i] = Re, c[4 + i] = Im, in float32.
+template <bool HIGH, bool TM>
+__device__ __forceinline__ void twiddle(const Acc<TM>& a,
+                                        const float2 (&t)[4],
+                                        float (&c)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float br, bi;
+    a.template complex<HIGH>(i, br, bi);
+    c[i] = __fsub_rn(__fmul_rn(br, t[i].x), __fmul_rn(bi, t[i].y));
+    c[4 + i] = __fadd_rn(__fmul_rn(br, t[i].y), __fmul_rn(bi, t[i].x));
   }
 }
 
@@ -222,14 +381,15 @@ __device__ __forceinline__ float fold_op(int fold, float acc, float v) {
 
 // Kernel A.  Grid: t * groups thread blocks; block (b, g) folds windows
 // [g*W/G, (g+1)*W/G) of IQ block b, wb windows a pass: their frames are
-// stacked in shared memory (window i of the pass in rows i*n1p..), so each
+// stacked in the planes (window i of the pass in rows i*n1p..), so each
 // stage is one product over wb * n1p rows.  MT >= wb * n1p / 16 (a power of
 // two, at most 8) sizes stage 1's register buffer.  f1 holds F1's A
-// fragments [slot][mt][kc][lane] (uint4), f2 F2^T's B fragments
-// [slot][kc][nt][lane] (uint2), tw the (n1p, 128) twiddles (zero rows from
-// n1).
+// fragments [slot][mt][kc][lane] (uint4, slot = 2 * form + half), f2 F2^T's
+// B fragments [slot][kc][nt][lane] (uint2), tw the (n1p, 128) twiddles
+// (zero rows from n1).  fold_smem and f1_smem say which regions layout()
+// kept in shared memory.
 template <typename T, bool HIGH, bool TM, int MT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, min_blocks(MT))
 curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
                   float* __restrict__ out, float* __restrict__ part,
                   const int* __restrict__ starts,
@@ -237,14 +397,26 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
                   const float* __restrict__ window,
                   const uint4* __restrict__ f1, const uint2* __restrict__ f2,
                   const float2* __restrict__ tw, int full, int n, int n1,
-                  int n_windows, int groups, int fold, int wb) {
-  extern __shared__ float smem[];
+                  int n_windows, int groups, int fold, int wb, int fold_smem,
+                  int f1_smem) {
+  using PL = Planes<HIGH, TM>;
+  constexpr int H = PL::H, FH = PL::FH;
+  // Output tiles a warp takes at once: two at DEFAULT from n1p = 80 (one
+  // block an SM), else one (the 128 registers of two blocks an SM).
+  constexpr int NTW = (HIGH || MT <= 4) ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int n1p = (n1 + 15) & ~15;
   const int nmt = n1p / 16;          // m-tiles of a window, stage 1's K
   const int rows = wb * n1p;         // stacked rows of a pass
-  float* xr = smem;                  // frames, then C (re)
-  float* xi = smem + rows * ROW;     // frames, then C (im)
-  float* acc = smem + 2 * rows * ROW;  // the fold, (n1p, ROW)
+  const int ps = rows * RS;          // a plane's elements
+  uint16_t* pl = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* pw = reinterpret_cast<uint32_t*>(smem);   // pl as words
+  const uint32_t pl_s = static_cast<uint32_t>(__cvta_generic_to_shared(pl));
+  float* acc = reinterpret_cast<float*>(smem + size_t(FH) * ps * 2);
+  const int f1n = nmt * nmt * 32;    // uint4s of one F1 slot
+  constexpr int F2N = KC2 * NT * 32;  // uint2s of one F2^T slot
+  const uint4* f1s = reinterpret_cast<const uint4*>(
+      smem + size_t(FH) * ps * 2 + (fold_smem ? n1p * ROW * 4 : 0));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.x / groups, g = blockIdx.x % groups;
@@ -254,13 +426,23 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
                                   groups);
   const T* pre = re + static_cast<size_t>(b) * full;
   const T* pim = im + static_cast<size_t>(b) * full;
-  constexpr int S = TM ? 3 : 2;      // operand forms in use
   const int frame = n1 * N2;
+  float* dst = groups > 1
+      ? part + (static_cast<size_t>(b) * groups + g) * n
+      : out + static_cast<size_t>(b) * n;
 
   // Padded rows (n1..n1p-1 of each window) stay zero; C's are zero there.
   // The planes' rows start on 16 bytes (the wrapper's check, full % 128
   // == 0), so a start that is a multiple of 4 reads 4 samples a load.
-  for (int i = tid; i < 2 * rows * ROW; i += THREADS) smem[i] = 0.f;
+  for (int i = tid; i < FH * ps / 2; i += THREADS) pw[i] = 0u;
+  // F1's slots in use: plane q's from the wrapper's slot 2 f + h.
+  if (f1_smem) {
+    uint4* d = const_cast<uint4*>(f1s);
+    for (int i = tid; i < FH * f1n; i += THREADS) {
+      const int q = i / f1n;
+      d[i] = __ldg(f1 + (2 * (q / H) + q % H) * f1n + i % f1n);
+    }
+  }
   __syncthreads();
 
   for (int w = w0; w < w1; w += wb) {
@@ -268,103 +450,101 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
     const int mts = nb * nmt;        // m-tiles in this pass
     for (int k = 0; k < nb; ++k) {
       const int s = starts[w + k];
-      float* fr = xr + k * n1p * ROW;
-      float* fi = xi + k * n1p * ROW;
+      uint32_t* fw = pw + k * n1p * RS / 2;
       if ((s & 3) == 0) {   // 4 samples a thread a load (planes aligned)
         for (int e = 4 * tid; e < frame; e += 4 * THREADS) {
-          const int o = (e >> 7) * ROW + (e & (N2 - 1));
+          const int o = ((e >> 7) * RS + (e & (N2 - 1))) >> 1;
           const float4 wv = __ldg(reinterpret_cast<const float4*>(window + e));
           const float4 a = sample4(pre + s + e), c = sample4(pim + s + e);
-          *reinterpret_cast<float4*>(fr + o) = make_float4(
-              __fmul_rn(a.x, wv.x), __fmul_rn(a.y, wv.y),
-              __fmul_rn(a.z, wv.z), __fmul_rn(a.w, wv.w));
-          *reinterpret_cast<float4*>(fi + o) = make_float4(
-              __fmul_rn(c.x, wv.x), __fmul_rn(c.y, wv.y),
-              __fmul_rn(c.z, wv.z), __fmul_rn(c.w, wv.w));
+          PL::put(fw, ps / 2, o, __fmul_rn(a.x, wv.x), __fmul_rn(a.y, wv.y),
+                  __fmul_rn(c.x, wv.x), __fmul_rn(c.y, wv.y));
+          PL::put(fw, ps / 2, o + 1, __fmul_rn(a.z, wv.z),
+                  __fmul_rn(a.w, wv.w), __fmul_rn(c.z, wv.z),
+                  __fmul_rn(c.w, wv.w));
         }
-      } else {
-        for (int e = tid; e < frame; e += THREADS) {
-          const int o = (e >> 7) * ROW + (e & (N2 - 1));
-          const float wv = __ldg(window + e);
-          fr[o] = __fmul_rn(sample(pre, s + e), wv);
-          fi[o] = __fmul_rn(sample(pim, s + e), wv);
+      } else {              // 2 samples a thread (a row holds 128)
+        for (int e = 2 * tid; e < frame; e += 2 * THREADS) {
+          const int o = ((e >> 7) * RS + (e & (N2 - 1))) >> 1;
+          const float2 wv = __ldg(reinterpret_cast<const float2*>(window + e));
+          PL::put(fw, ps / 2, o, __fmul_rn(sample(pre, s + e), wv.x),
+                  __fmul_rn(sample(pre, s + e + 1), wv.y),
+                  __fmul_rn(sample(pim, s + e), wv.x),
+                  __fmul_rn(sample(pim, s + e + 1), wv.y));
         }
       }
     }
     __syncthreads();
     if (KSPEC_TC_STOP == 1) continue;
 
-    // Stage 1: B = F1 A by column strips, C = B o T written over the strip.
-    for (int j = warp; j < NT; j += WARPS) {
-      const int col = j * 8 + g8;
-      float cbuf[MT][8];
+    // Stage 1: B = F1 A, C = B o T written over the frame.  One window a
+    // pass of 5-8 m-tiles (n1p >= 80; not 3M HIGH, whose F1 fragments
+    // would take up to 192 registers): by m-tiles, warp w keeping m-tile w's F1
+    // fragments in registers, loaded once a pass, the warps walking the
+    // strips together and writing each after a barrier.  Else by column
+    // strips: warp j % 8 owns strip j of every row, reads only it and
+    // writes C over it.
+    if (MT == 8 && FH <= 4 && wb == 1) {
+      uint32_t fa[MT][3][2][4];
+      if (warp < mts) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        if (mt < mts) {
-          const int ml = mt % nmt, base = (mt - ml) * 16;  // window's row 0
-          Acc<TM> a;
-          a.zero();
-          for (int kc = 0; kc < nmt; ++kc) {
-            const int r0 = base + kc * 16 + 2 * t4;
-            float vr[4], vi[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int row = r0 + (q & 1) + (q >> 1) * 8;
-              vr[q] = xr[row * ROW + col];
-              vi[q] = xi[row * ROW + col];
-            }
-            Forms<2> x;
-            forms_of<HIGH, TM, 2>(vr, vi, x);
-            uint32_t fh[3][4], fl[3][4];
-#pragma unroll
-            for (int f = 0; f < S; ++f) {
-              const uint4 h = __ldg(f1 + ((((2 * f) * nmt + ml) * nmt + kc)
-                                          * 32 + lane));
-              fh[f][0] = h.x; fh[f][1] = h.y; fh[f][2] = h.z; fh[f][3] = h.w;
-              if (HIGH) {
-                const uint4 l = __ldg(f1 + ((((2 * f + 1) * nmt + ml) * nmt
-                                              + kc) * 32 + lane));
-                fl[f][0] = l.x; fl[f][1] = l.y; fl[f][2] = l.z;
-                fl[f][3] = l.w;
-              }
-            }
-            if (TM) {
-              a.template product<HIGH>(0, fh[0], fl[0], x.hi[0], x.lo[0]);
-              a.template product<HIGH>(1, fh[1], fl[1], x.hi[1], x.lo[1]);
-              a.template product<HIGH>(2, fh[2], fl[2], x.hi[2], x.lo[2]);
-            } else {   // F1r Ar, F1i Ai, F1r Ai, F1i Ar
-              a.template product<HIGH>(0, fh[0], fl[0], x.hi[0], x.lo[0]);
-              a.template product<HIGH>(1, fh[1], fl[1], x.hi[1], x.lo[1]);
-              a.template product<HIGH>(2, fh[0], fl[0], x.hi[1], x.lo[1]);
-              a.template product<HIGH>(3, fh[1], fl[1], x.hi[0], x.lo[0]);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int k1 = ml * 16 + g8 + (i >> 1) * 8;
-            const int m2 = j * 8 + 2 * t4 + (i & 1);
-            float br, bi;
-            a.template complex<HIGH>(i, br, bi);
-            const float2 t = __ldg(tw + k1 * N2 + m2);
-            cbuf[mt][i] = __fsub_rn(__fmul_rn(br, t.x), __fmul_rn(bi, t.y));
-            cbuf[mt][4 + i] = __fadd_rn(__fmul_rn(br, t.y),
-                                        __fmul_rn(bi, t.x));
+        for (int kc = 0; kc < MT; ++kc) {
+          if (kc < nmt) {
+            const int i = (warp * nmt + kc) * 32 + lane;
+            if (f1_smem) PL::f1_frags_smem(fa[kc], f1s, f1n, i);
+            else PL::f1_frags(fa[kc], f1, f1n, i);
           }
         }
       }
-      __syncwarp();
+      float2 tn[4];            // the next strip's twiddles, loaded ahead
+      if (warp < mts) tw_load(tn, tw, warp, 0);
+      for (int j = 0; j < NT; ++j) {
+        float cv[8];
+        if (warp < mts) {
+          const float2 t[4] = {tn[0], tn[1], tn[2], tn[3]};
+          if (j + 1 < NT) tw_load(tn, tw, warp, j + 1);
+          Acc<TM> a;
+          a.zero();
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        if (mt < mts) {
+          for (int kc = 0; kc < MT; ++kc) {
+            if (kc < nmt) {
+              uint32_t x[3][2][2];
+              PL::b_frags(x, pl_s + 2u * ((lane >> 4) * ps +
+                          (kc * 16 + (lane & 15)) * RS + j * 8), ps);
+              a.template products<HIGH>(fa[kc], x);
+            }
+          }
+          twiddle<HIGH>(a, t, cv);
+        }
+        __syncthreads();
+        if (warp < mts) PL::put_c(pw, ps, warp, j, cv);
+      }
+    } else {
+      for (int j = warp; j < NT; j += WARPS) {
+        float cbuf[MT][8];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int o = (mt * 16 + g8 + h * 8) * ROW + j * 8 + 2 * t4;
-            *reinterpret_cast<float2*>(xr + o) =
-                make_float2(cbuf[mt][2 * h], cbuf[mt][2 * h + 1]);
-            *reinterpret_cast<float2*>(xi + o) =
-                make_float2(cbuf[mt][4 + 2 * h], cbuf[mt][5 + 2 * h]);
+        for (int mt = 0; mt < MT; ++mt) {
+          if (mt < mts) {
+            const int ml = mt % nmt, base = (mt - ml) * 16;  // window's row 0
+            Acc<TM> a;
+            a.zero();
+            for (int kc = 0; kc < nmt; ++kc) {
+              uint32_t x[3][2][2], f[3][2][4];
+              PL::b_frags(x, pl_s + 2u * ((lane >> 4) * ps +
+                          (base + kc * 16 + (lane & 15)) * RS + j * 8), ps);
+              const int i = (ml * nmt + kc) * 32 + lane;
+              if (f1_smem) PL::f1_frags_smem(f, f1s, f1n, i);
+              else PL::f1_frags(f, f1, f1n, i);
+              a.template products<HIGH>(f, x);
+            }
+            float2 t[4];
+            tw_load(t, tw, ml, j);
+            twiddle<HIGH>(a, t, cbuf[mt]);
           }
         }
+        __syncwarp();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          if (mt < mts) PL::put_c(pw, ps, mt, j, cbuf[mt]);
       }
     }
     __syncthreads();
@@ -373,81 +553,71 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
     // Stage 2: D = C F2^T by output column tiles over the stacked rows, each
     // tile's F2^T fragments held in registers; |D| folded in place, window
     // by window in order (a window's tiles come after the previous one's).
-    for (int nt = warp; nt < NT; nt += WARPS) {
-      uint32_t fh[KC2][3][2], fl[KC2][3][2];
+    for (int nt0 = warp; nt0 < NT; nt0 += NTW * WARPS) {
+      uint32_t fb[NTW][KC2][3][2][2];
 #pragma unroll
-      for (int kc = 0; kc < KC2; ++kc) {
+      for (int u = 0; u < NTW; ++u)
 #pragma unroll
-        for (int f = 0; f < S; ++f) {
-          const uint2 h = __ldg(f2 + (((2 * f) * KC2 + kc) * NT + nt) * 32
-                                + lane);
-          fh[kc][f][0] = h.x; fh[kc][f][1] = h.y;
-          if (HIGH) {
-            const uint2 l = __ldg(f2 + (((2 * f + 1) * KC2 + kc) * NT + nt)
-                                  * 32 + lane);
-            fl[kc][f][0] = l.x; fl[kc][f][1] = l.y;
+        for (int kc = 0; kc < KC2; ++kc)
+#pragma unroll
+          for (int q = 0; q < FH; ++q) {
+            const uint2 v = __ldg(f2 + (2 * (q / H) + q % H) * F2N +
+                                  (kc * NT + nt0 + u * WARPS) * 32 + lane);
+            fb[u][kc][q / H][q % H][0] = v.x;
+            fb[u][kc][q / H][q % H][1] = v.y;
           }
-        }
-      }
       for (int mt = 0; mt < mts; ++mt) {
         const int ml = mt % nmt, k = mt / nmt;   // tile of window w + k
-        Acc<TM> a;
-        a.zero();
+        Acc<TM> a[NTW];
+#pragma unroll
+        for (int u = 0; u < NTW; ++u) a[u].zero();
+        // A fragments of rows mt*16.., columns kc*16..: lane l addresses
+        // row l % 8 + 8 ((l / 8) % 2), column 8 (l / 16).
+        const uint32_t addr = pl_s + 2u * ((mt * 16 + (lane & 7) +
+            ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8);
 #pragma unroll
         for (int kc = 0; kc < KC2; ++kc) {
-          float vr[8], vi[8];
+          uint32_t c[3][2][4];
+          PL::a_frags(c, addr + 2u * kc * 16, ps);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {   // a0..a3: (g, 2t), (g+8, 2t),
-            const int row = mt * 16 + g8 + (q & 1) * 8;   // (g, 2t+8), ...
-            const int c = kc * 16 + 2 * t4 + (q >> 1) * 8;
-            const float2 pr = *reinterpret_cast<const float2*>(
-                xr + row * ROW + c);
-            const float2 pi = *reinterpret_cast<const float2*>(
-                xi + row * ROW + c);
-            vr[2 * q] = pr.x; vr[2 * q + 1] = pr.y;
-            vi[2 * q] = pi.x; vi[2 * q + 1] = pi.y;
-          }
-          Forms<4> c;
-          forms_of<HIGH, TM, 4>(vr, vi, c);
-          if (TM) {
-            a.template product<HIGH>(0, c.hi[0], c.lo[0],
-                                     fh[kc][0], fl[kc][0]);
-            a.template product<HIGH>(1, c.hi[1], c.lo[1],
-                                     fh[kc][1], fl[kc][1]);
-            a.template product<HIGH>(2, c.hi[2], c.lo[2],
-                                     fh[kc][2], fl[kc][2]);
-          } else {   // Cr F2r, Ci F2i, Ci F2r, Cr F2i
-            a.template product<HIGH>(0, c.hi[0], c.lo[0],
-                                     fh[kc][0], fl[kc][0]);
-            a.template product<HIGH>(1, c.hi[1], c.lo[1],
-                                     fh[kc][1], fl[kc][1]);
-            a.template product<HIGH>(2, c.hi[1], c.lo[1],
-                                     fh[kc][0], fl[kc][0]);
-            a.template product<HIGH>(3, c.hi[0], c.lo[0],
-                                     fh[kc][1], fl[kc][1]);
-          }
+          for (int u = 0; u < NTW; ++u)
+            a[u].template products<HIGH>(c, fb[u][kc]);
         }
         const float wgt = weights[w + k];
         const bool first = w + k == w0;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int o = (ml * 16 + g8 + h * 8) * ROW + nt * 8 + 2 * t4;
-          float v[2];
+        for (int u = 0; u < NTW; ++u) {
+          const int nt = nt0 + u * WARPS;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float dr, di;
-            a.template complex<HIGH>(2 * h + e, dr, di);
-            const float mag = __fsqrt_rn(
-                __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(di, di)));
-            v[e] = __fmul_rn(wgt, mag);
-          }
-          float2* p = reinterpret_cast<float2*>(acc + o);
-          if (first) {
-            *p = make_float2(v[0], v[1]);
-          } else {
-            const float2 q = *p;
-            *p = make_float2(fold_op(fold, q.x, v[0]), fold_op(fold, q.y,
-                                                               v[1]));
+          for (int h = 0; h < 2; ++h) {
+            const int k1 = ml * 16 + g8 + h * 8;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float dr, di;
+              a[u].template complex<HIGH>(2 * h + e, dr, di);
+              const float mag = __fsqrt_rn(
+                  __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(di, di)));
+              v[e] = __fmul_rn(wgt, mag);
+            }
+            if (fold_smem) {
+              float2* p = reinterpret_cast<float2*>(
+                  acc + k1 * ROW + nt * 8 + 2 * t4);
+              if (first) {
+                *p = make_float2(v[0], v[1]);
+              } else {
+                const float2 q = *p;
+                *p = make_float2(fold_op(fold, q.x, v[0]),
+                                 fold_op(fold, q.y, v[1]));
+              }
+            } else if (k1 < n1) {   // fold in dst, fftshifted
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int x = k1 + n1 * (nt * 8 + 2 * t4 + e);
+                float* p = dst + (x + n / 2) % n;
+                *p = first ? v[e] : fold_op(fold, *p, v[e]);
+              }
+            }
           }
         }
       }
@@ -455,20 +625,16 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
     __syncthreads();
   }
 
-  // X[k1 + n1 k2] = acc[k1][k2], stored fftshifted.
-  float* dst = groups > 1
-      ? part + (static_cast<size_t>(b) * groups + g) * n
-      : out + static_cast<size_t>(b) * n;
-  const float* src = KSPEC_TC_STOP ? xr : acc;
-  for (int o = tid; o < n; o += THREADS) {
-    const int x = (o + n / 2) % n;
-    dst[o] = src[(x % n1) * ROW + x / n1];
+  // X[k1 + n1 k2] = acc[k1][k2], stored fftshifted.  The cut-offs store
+  // the first rows of plane 0 (re, hi) in its place.
+  if (fold_smem || KSPEC_TC_STOP) {
+    for (int o = tid; o < n; o += THREADS) {
+      const int x = (o + n / 2) % n;
+      const int r = x % n1, c = x / n1;
+      dst[o] = KSPEC_TC_STOP ? __uint_as_float(uint32_t(pl[r * RS + c]) << 16)
+                             : acc[r * ROW + c];
+    }
   }
-}
-
-inline size_t smem_bytes(int n1, int wb) {
-  return static_cast<size_t>(2 * wb + 1) * ((n1 + 15) & ~15) * ROW *
-         sizeof(float);
 }
 
 template <typename T, bool HIGH, bool TM, int MT>
@@ -477,7 +643,9 @@ int launch_one(const void* re, const void* im, void* out, void* part,
                const void* f1, const void* f2, const void* tw, int t,
                int full, int n, int n1, int n_windows, int groups, int fold,
                int wb, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n1, wb);
+  const Layout l = layout(n1, wb, HIGH, TM);
+  const size_t smem = l.total();
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {        // above the default only on request
     const cudaError_t err = cudaFuncSetAttribute(
         curscan_tc_kernel<T, HIGH, TM, MT>,
@@ -490,9 +658,37 @@ int launch_one(const void* re, const void* im, void* out, void* part,
       static_cast<const int*>(starts), static_cast<const float*>(weights),
       static_cast<const float*>(window), static_cast<const uint4*>(f1),
       static_cast<const uint2*>(f2), static_cast<const float2*>(tw), full, n,
-      n1, n_windows, groups, fold, wb);
+      n1, n_windows, groups, fold, wb, l.fold > 0, l.f1 > 0);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Blocks an SM holds of the instantiation (registers and shared memory).
+template <typename T, bool HIGH, bool TM, int MT>
+int occupancy_one(int n1, int wb) {
+  int blocks = 0;
+  const size_t smem = layout(n1, wb, HIGH, TM).total();
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(curscan_tc_kernel<T, HIGH, TM, MT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, curscan_tc_kernel<T, HIGH, TM, MT>, THREADS, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// CALL(T, TM, MT) for the instantiation of (is_u8, three_mult) with nmt
+// m-tiles a pass.
+#define KSPEC_TC_MT(CALL, T, TM)                                            \
+  (nmt <= 1 ? CALL(T, TM, 1) : nmt <= 2 ? CALL(T, TM, 2)                   \
+   : nmt <= 4 ? CALL(T, TM, 4) : CALL(T, TM, 8))
+#define KSPEC_TC_DISPATCH(CALL)                                             \
+  (is_u8 ? (three_mult ? KSPEC_TC_MT(CALL, uint8_t, true)                  \
+                       : KSPEC_TC_MT(CALL, uint8_t, false))                \
+         : (three_mult ? KSPEC_TC_MT(CALL, float, true)                    \
+                       : KSPEC_TC_MT(CALL, float, false)))
 
 // The instantiation for (input, form, MT) at one class.
 template <bool HIGH>
@@ -503,24 +699,31 @@ int launch_class(int is_u8, int three_mult, const void* re, const void* im,
                  int n1, int n_windows, int groups, int fold, int wb,
                  cudaStream_t stream) {
   const int nmt = wb * ((n1 + 15) / 16);   // m-tiles of a pass
-#define KSPEC_TC(T, TM, MT)                                                 \
+  if (n1 < 2 || n1 > 128 || n != n1 * N2 || wb < 1 || nmt > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define KSPEC_TC_LAUNCH(T, TM, MT)                                          \
   launch_one<T, HIGH, TM, MT>(re, im, out, part, starts, weights, window,  \
                               f1, f2, tw, t, full, n, n1, n_windows,       \
                               groups, fold, wb, stream)
-#define KSPEC_TC_MT(T, TM)                                                  \
-  (nmt <= 1 ? KSPEC_TC(T, TM, 1) : nmt <= 2 ? KSPEC_TC(T, TM, 2)           \
-   : nmt <= 4 ? KSPEC_TC(T, TM, 4) : KSPEC_TC(T, TM, 8))
-  if (n1 < 2 || n1 > 128 || n != n1 * N2 || wb < 1 || nmt > 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (is_u8)
-    return three_mult ? KSPEC_TC_MT(uint8_t, true)
-                      : KSPEC_TC_MT(uint8_t, false);
-  return three_mult ? KSPEC_TC_MT(float, true) : KSPEC_TC_MT(float, false);
-#undef KSPEC_TC_MT
-#undef KSPEC_TC
+  return KSPEC_TC_DISPATCH(KSPEC_TC_LAUNCH);
+#undef KSPEC_TC_LAUNCH
 }
 
-// The launchers of the two classes, one per translation unit.
+// The blocks an SM holds of the instantiation launch_class<HIGH> launches
+// for these arguments, or -1.
+template <bool HIGH>
+int occupancy_class(int is_u8, int three_mult, int n1, int wb) {
+  const int nmt = wb * ((n1 + 15) / 16);
+  if (n1 < 2 || n1 > 128 || wb < 1 || nmt > 8) return -1;
+#define KSPEC_TC_OCCUPANCY(T, TM, MT) occupancy_one<T, HIGH, TM, MT>(n1, wb)
+  return KSPEC_TC_DISPATCH(KSPEC_TC_OCCUPANCY);
+#undef KSPEC_TC_OCCUPANCY
+}
+#undef KSPEC_TC_DISPATCH
+#undef KSPEC_TC_MT
+
+// The launchers and occupancy queries of the two classes, one class per
+// translation unit.
 int launch_default(int is_u8, int three_mult, const void* re, const void* im,
                    void* out, void* part, const void* starts,
                    const void* weights, const void* window, const void* f1,
@@ -533,5 +736,7 @@ int launch_high(int is_u8, int three_mult, const void* re, const void* im,
                 const void* f2, const void* tw, int t, int full, int n,
                 int n1, int n_windows, int groups, int fold, int wb,
                 cudaStream_t stream);
+int occupancy_default(int is_u8, int three_mult, int n1, int wb);
+int occupancy_high(int is_u8, int three_mult, int n1, int wb);
 
 }  // namespace kspec_tc

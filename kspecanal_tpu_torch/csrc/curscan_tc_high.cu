@@ -17,4 +17,8 @@ int launch_high(int is_u8, int three_mult, const void* re, const void* im,
                             n_windows, groups, fold, wb, stream);
 }
 
+int occupancy_high(int is_u8, int three_mult, int n1, int wb) {
+  return occupancy_class<true>(is_u8, three_mult, n1, wb);
+}
+
 }  // namespace kspec_tc

@@ -142,12 +142,15 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "kspec_curscan_packed_tc": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_tc_smem": [i32, i32, i32, i32],
+        "kspec_curscan_tc_occupancy": [i32, i32, i32, i32, i32],
     }
+    restypes = {"kspec_curscan_tc_smem": ctypes.c_longlong}
     for name, args in types.items():
         if missing_ok and not hasattr(lib, name):
             continue
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = i32
+        fn.restype = restypes.get(name, i32)
     return lib
 

@@ -24,11 +24,13 @@ run these:
   ``|.|`` and the float32 fold in window order.
 
 Each real product rounds its float32 operands to bf16 (to nearest, ties to
-even) right before it and sums in float32 (``mma.sync`` bf16 -> f32), once
-at DEFAULT and as the bf16x3 split at HIGH.  A complex product is 4M (four
-real products) or 3M: ``T1 = Fr Xr``, ``T2 = Fi Xi``, ``T3 = (Fr + Fi)(Xr +
-Xi)``, ``Re = T1 - T2``, ``Im = T3 - T1 - T2``, the sum table precomputed
-and ``Xr + Xi`` formed in float32 before its rounding.  Both classes run 4M
+even) and sums in float32 (``mma.sync`` bf16 -> f32), once at DEFAULT and
+as the bf16x3 split at HIGH.  Kernel A rounds each operand once, where it
+stores it in shared memory (the windowed frame, then C), and every product
+reads the rounded planes; the values are those the plain version rounds.
+A complex product is 4M (four real products) or 3M: ``T1 = Fr Xr``,
+``T2 = Fi Xi``, ``T3 = (Fr + Fi)(Xr + Xi)``, ``Re = T1 - T2``,
+``Im = T3 - T1 - T2``, the sum table precomputed and ``Xr + Xi`` formed in float32 before its rounding.  Both classes run 4M
 (:func:`three_mult`).  The JAX gate (``pallas_curscan.py:456-472``) takes
 3M at HIGH everywhere and at DEFAULT but for misaligned window starts on u8
 planes.  That 3M misses its class's bound (the worst bin against the
@@ -77,12 +79,9 @@ from kspecanal_tpu_torch.ops.mxu_fft import (_dft_tables_for, class_matmul,
 FORMS = ("force3m", "no3m")
 _N2 = 128
 _MMA = 16                       # mma.sync m16n8k16: M and K tiles
-# Kernel A's shared memory: the frame (then C) planes of a pass's windows
-# and the fold, rows of 136 floats (128 + 8: conflict-free float2 fragment
-# loads).  A pass stacks at most TC_PASS_ROWS rows (n1 rounded up to 16 a
-# window).
-_ROW = 136
-_SMEM_LIMIT = 232448
+# Kernel A stacks at most TC_PASS_ROWS rows of frames a pass (n1 rounded up
+# to 16 a window); its shared-memory layout is layout() in
+# csrc/curscan_tc.cuh, which the library reports (kspec_curscan_tc_smem).
 TC_PASS_ROWS = 64
 # Kernel B: windows a staged chunk (a multiple of 16, the M tile).
 PACKED_CHUNK = 64
@@ -263,6 +262,19 @@ def _frag_b_index():
     return rows, np.repeat(g[:, None], 4, axis=1)
 
 
+def ldmatrix_lanes(trans: bool):
+    """(plane offset, row, column) of the 8 bf16 that lane l points
+    ``ldmatrix.x4`` at in Kernel A, relative to the fragment's tile: stage
+    1's B fragments (``trans``: row l % 16 of plane q + l // 16, so one x4
+    loads the fragments of planes q and q + 1) and stage 2's A fragments
+    (row l % 8 + 8 ((l // 8) % 2), column 8 (l // 16); registers a0..a3)."""
+    lane = np.arange(32)
+    if trans:
+        return lane // 16, lane % 16, np.zeros(32, int)
+    return (np.zeros(32, int), lane % 8 + 8 * ((lane // 8) % 2),
+            8 * (lane // 16))
+
+
 def bf16_halves(x: np.ndarray):
     """The bf16 bits (uint16) of the hi and lo halves of float32 ``x``."""
     hi, lo = split_bf16(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
@@ -350,14 +362,16 @@ def tc_windows_per_pass(n1: int, n_windows: int) -> int:
     return max(1, min(n_windows, TC_PASS_ROWS // _padded16(n1)))
 
 
-def tc_groups(t: int, n1: int, n_windows: int, sms: int) -> int:
-    """Kernel A's window groups per IQ block: enough thread blocks for two
-    waves of the blocks one SM holds by shared memory (at most 8), at most
-    one a window: ``G = min(W, ceil(2 * sms * per_sm / t))``."""
-    wb = tc_windows_per_pass(n1, n_windows)
-    smem = (2 * wb + 1) * _padded16(n1) * _ROW * 4
-    per_sm = max(1, min(8, _SMEM_LIMIT // (smem + 1024)))
-    return max(1, min(n_windows, -(-2 * sms * per_sm // max(1, t))))
+def tc_groups(t: int, n1: int, n_windows: int, sms: int,
+              per_sm: int) -> int:
+    """Kernel A's window groups per IQ block: the G in 1..W that minimises
+    ``ceil(t G / (sms per_sm)) (W / G + 1)``, waves of blocks times a
+    block's windows plus one window's worth of set-up, the smallest on a
+    tie.  ``per_sm`` is the blocks an SM holds (:func:`tc_occupancy`)."""
+    slots = max(1, sms * per_sm)
+    t = max(1, t)
+    return min(range(1, max(1, n_windows) + 1),
+               key=lambda g: (-(-t * g // slots) * (n_windows + g) / g, g))
 
 
 def packed_chunk(n_windows: int) -> int:
@@ -394,11 +408,27 @@ def curscan_tc(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig,
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def tc_occupancy(lib, u8: bool, n1: int, wb: int, high: bool,
+                 tm: bool) -> int:
+    """The blocks an SM holds of ``lib``'s Kernel A instantiation for these
+    arguments (the CUDA occupancy calculator: registers and shared
+    memory); raises where the library cannot say."""
+    blocks = lib.kspec_curscan_tc_occupancy(int(u8), n1, wb, int(high),
+                                            int(tm))
+    if blocks < 1:
+        raise RuntimeError(f"Kernel A's occupancy for n1 {n1}, {wb} "
+                           f"window(s) a pass: {blocks}")
+    return blocks
+
+
 def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
-              cfg: SpecConfig, tm: bool) -> torch.Tensor:
+              cfg: SpecConfig, tm: bool,
+              groups: Optional[int] = None) -> torch.Tensor:
     """Launch ``lib``'s Kernel A (the port's library, or a forensic build of
     the same sources, ``scripts/tc_stages.py``) on CUDA planes checked by
-    :func:`curscan_tc`; counts nothing."""
+    :func:`curscan_tc`, in ``groups`` window groups (default
+    :func:`tc_groups` at ``lib``'s occupancy); counts nothing."""
     dev = iq_re.device
     u8 = iq_re.dtype == torch.uint8
     t, n = iq_re.shape[0], cfg.fft_size
@@ -407,8 +437,12 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
         return out
     iq_re, iq_im = _aligned(iq_re), _aligned(iq_im)
     n1, w = n // _N2, cfg.num_windows
-    groups = tc_groups(t, n1, w, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    high = precision_class(cfg) == "HIGH"
+    wb = tc_windows_per_pass(n1, w)
+    if groups is None:
+        groups = tc_groups(t, n1, w, torch.cuda.get_device_properties(
+            dev).multi_processor_count, tc_occupancy(lib, u8, n1, wb, high,
+                                                     tm))
     part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
             if groups > 1 else None)
     starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
@@ -420,8 +454,7 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
             0 if part is None else part.data_ptr(), starts.data_ptr(),
             weights.data_ptr(), window.data_ptr(), f1.data_ptr(),
             f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n, n1, w, groups,
-            _FOLD[cfg.cur_scan_cumu_mode], tc_windows_per_pass(n1, w),
-            int(precision_class(cfg) == "HIGH"), int(tm),
+            _FOLD[cfg.cur_scan_cumu_mode], wb, int(high), int(tm),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib.kspec_curscan_tc)
     return out

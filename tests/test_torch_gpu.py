@@ -288,12 +288,18 @@ def test_packed_kernel_gives_identical_bits_twice(cuda):
 
 # The tensor-core kernels of the HIGH and DEFAULT classes (ops/cuda_tc.py)
 # against their plain versions on the card: every instantiation (class x
-# complex form x input), all four modes; Kernel A at odd and small n1 (fft
-# 1280: n1 = 10, padded to 16; fft 16256: n1 = 127), the main path's 2048
-# and the lane kernel's cell 16384, at aligned (50%) and misaligned (90%)
-# starts.  Tolerances: torch_parity.TC_TOL.
-TC_CASES = [(fft, nono) for fft in (256, 1280, 2048, 16256, 16384)
-            for nono in (0.5, 0.1)]
+# complex form x input x m-tiles a pass), all four modes; Kernel A at odd
+# and small n1 (fft 1280: n1 = 10, padded to 16; fft 16256: n1 = 127), the
+# main path's 2048, fft 4096 (two windows a pass), 8192 (four m-tiles of
+# one window), 10240-14336 (n1p 80-112: stage 1 by m-tiles with F1 in
+# shared memory or in L2, 3M HIGH folding in device memory from 112) and
+# the lane kernel's cell 16384, at aligned (50%) and misaligned (90%)
+# starts; and the pass sizes 1, 2 and 3 windows (fft 2048 with one, two
+# and three windows a block).  Tolerances: torch_parity.TC_TOL.
+TC_CASES = [(fft, nono, 8) for fft in (256, 1280, 2048, 4096, 8192, 10240,
+                                       12288, 14336, 16256, 16384)
+            for nono in (0.5, 0.1)] + [(2048, 1.0, 1), (2048, 0.75, 2),
+                                       (2048, 0.5, 2)]
 
 
 def class_planes(cuda, cfg, t, u8, seed):
@@ -310,9 +316,11 @@ def class_planes(cuda, cfg, t, u8, seed):
 @pytest.mark.parametrize("form", ["force3m", "no3m"])
 @pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("fft,nono", TC_CASES)
-def test_tc_kernel_matches_plain(cuda, fft, nono, mode, prec, form, u8):
-    cfg = zs_cfg(fft, nono, mode, tpu_precision=prec, x_res=512)
+@pytest.mark.parametrize("fft,nono,mult", TC_CASES)
+def test_tc_kernel_matches_plain(cuda, fft, nono, mult, mode, prec, form,
+                                 u8):
+    cfg = zs_cfg(fft, nono, mode, tpu_precision=prec, x_res=512,
+                 fft2full_mult4less=mult)
     re, im = class_planes(cuda, cfg, 48 if fft <= 2048 else 4, u8, fft)
     before = (cuda_tc.tc_launches, cuda_curscan.launches)
     got = cuda_tc.curscan_tc(re, im, cfg, form)
@@ -328,11 +336,16 @@ def test_tc_kernel_matches_plain(cuda, fft, nono, mode, prec, form, u8):
 
 @pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
 @pytest.mark.parametrize("fft,nono,t", [(2048, 0.5, 4096), (16384, 0.1, 16),
-                                        (2048, 0.1, 1)])
+                                        (2048, 0.1, 1), (4096, 0.5, 1024),
+                                        (8192, 0.1, 300), (10240, 0.1, 300),
+                                        (14336, 0.5, 300),
+                                        (16384, 0.1, 288)])
 def test_tc_kernel_window_groups(cuda, fft, nono, t, prec):
     """Through the dispatcher: one window group a block at the main cell's
-    T=4096, several (and the combine pass) for short batches; the
-    production (4M) form; two runs bit-identical."""
+    T=4096, several (and the combine pass) for short batches and where one
+    group would leave a wave part-empty (fmScan's 288 blocks at fft 16384),
+    at every pass size and stage-1 route of the production (4M) form; two
+    runs bit-identical."""
     cfg = zs_cfg(fft, nono, tpu_precision=prec, x_res=512)
     re, im = class_planes(cuda, cfg, t, False, t)
     got = tspec.curscan_auto_batched(re, im, cfg)
@@ -340,6 +353,60 @@ def test_tc_kernel_window_groups(cuda, fft, nono, t, prec):
     rows = slice(0, 64)
     assert_tc_close(got[rows].cpu().numpy(), cuda_tc.curscan_tc_plain(
         re[rows], im[rows], cfg).cpu().numpy(), prec)
+
+
+@pytest.mark.parametrize("form", ["force3m", "no3m"])
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("fft,nono,t", [(2048, 0.5, 300), (10240, 0.1, 64),
+                                        (14336, 0.1, 64), (16384, 0.1, 300)])
+def test_tc_kernel_gives_identical_bits_twice(cuda, fft, nono, t, prec,
+                                              form):
+    """Kernel A twice on the same planes, bit for bit: each output element
+    folded by one lane in window order, in shared memory or (3M HIGH from
+    n1p = 112) in device memory, the groups combined in order."""
+    cfg = zs_cfg(fft, nono, "MIN", tpu_precision=prec, x_res=512)
+    re, im = class_planes(cuda, cfg, t, False, fft + 1)
+    assert torch.equal(cuda_tc.curscan_tc(re, im, cfg, form),
+                       cuda_tc.curscan_tc(re, im, cfg, form))
+
+
+def test_tc_shared_memory_and_occupancy(cuda):
+    """Kernel A's shared memory a block (``kspec_curscan_tc_smem``): bf16
+    planes of 272-byte rows, the float32 fold of 544-byte rows and F1's
+    fragments, each where it fits; every instantiation fits a block and
+    holds at least one an SM, as many as an SM's shared memory allows at
+    most, the main cell's two."""
+    from kspecanal_tpu_torch.ops import _build
+    lib = _build.load()
+
+    def smem(n1, wb, high=False, tm=False):
+        return lib.kspec_curscan_tc_smem(n1, wb, int(high), int(tm))
+    # The main cell, 4 windows of 16 rows a pass: 2 planes (4 at HIGH).
+    assert smem(16, 4) == 2 * 64 * 272 + 16 * 544 + 2 * 512
+    assert smem(16, 4, high=True) == 4 * 64 * 272 + 16 * 544 + 4 * 512
+    assert smem(32, 2) == 34816 + 17408 + 4096
+    # n1 = 128: DEFAULT 4M keeps F1 (64 KiB); HIGH and 3M read it from L2;
+    # 3M HIGH from n1p = 112 also folds in device memory.
+    assert smem(128, 1) == 69632 + 69632 + 65536
+    assert smem(128, 1, high=True) == 139264 + 69632
+    assert smem(128, 1, tm=True) == 104448 + 69632
+    assert smem(128, 1, high=True, tm=True) == 208896
+    assert smem(112, 1, high=True, tm=True) == 182784
+    assert smem(96, 1, high=True, tm=True) == 156672 + 52224
+    for n1 in range(2, 129):
+        for w in (1, 2, 3, 15):
+            wb = cuda_tc.tc_windows_per_pass(n1, w)
+            for high in (False, True):
+                for tm in (False, True):
+                    b = smem(n1, wb, high, tm)
+                    assert (-(-n1 // 16) * 16 * wb * 272
+                            * (3 if tm else 2) * (2 if high else 1) <= b
+                            <= 232448)
+                    per_sm = cuda_tc.tc_occupancy(lib, False, n1, wb, high,
+                                                  tm)
+                    assert 1 <= per_sm and per_sm * (b + 1024) <= 233472
+    # The main cell's instantiation (DEFAULT 4M, 4 windows of n1 = 16).
+    assert cuda_tc.tc_occupancy(lib, False, 16, 4, False, False) == 2
 
 
 @pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])

@@ -459,13 +459,18 @@ def test_direct_dft_matches_jax_at_the_class(fft, prec):
 
 class _FakeLib:
     """A stand-in for the kernels' library: records each launch's entry
-    point and arguments and reports success."""
+    point and arguments and reports success; Kernel A's occupancy query
+    answers one block an SM and is not a launch."""
 
     def __init__(self):
         self.calls = []
         for name in ("kspec_curscan_tc", "kspec_curscan_packed_tc",
                      "kspec_curscan_fft", "kspec_curscan_packed"):
             setattr(self, name, self._entry(name))
+
+    @staticmethod
+    def kspec_curscan_tc_occupancy(*args):
+        return 1
 
     def _entry(self, name):
         def fn(*args):
@@ -511,7 +516,7 @@ def test_card_dispatch_launches_the_class_kernels(fake_card, dtype):
         assert out.shape == (t, fft)
         [(name, args)] = fake_card.calls
         assert name == "kspec_curscan_tc"
-        groups = cuda_tc.tc_groups(t, fft // 128, cfg.num_windows, 132)
+        groups = cuda_tc.tc_groups(t, fft // 128, cfg.num_windows, 132, 1)
         assert args[11:21] == (t, cfg.full_size, fft, fft // 128,
                                cfg.num_windows, groups,
                                cuda_curscan._FOLD["AVG"],
@@ -532,6 +537,23 @@ def test_card_dispatch_launches_the_class_kernels(fake_card, dtype):
                           64)
     assert (cuda_tc.packed_tc_launches, cuda_packed.launches) == (
         before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("groups", [None, 1, 3])
+def test_launch_tc_takes_the_groups(fake_card, groups):
+    """``cuda_tc.launch_tc`` launches the groups it is given (as
+    ``scripts/tc_stages.py`` gives every cut-off build the port's library's
+    groups), else those of ``tc_groups`` at the library's occupancy; it
+    counts nothing."""
+    cfg = zs_cfg(2048, 0.1, tpu_precision="DEFAULT", x_res=512)
+    planes = torch.empty((64, cfg.full_size), device="meta")
+    before = cuda_tc.tc_launches
+    out = cuda_tc.launch_tc(fake_card, planes, planes, cfg, False, groups)
+    assert out.shape == (64, 2048)
+    [(name, args)] = fake_card.calls
+    want = groups or cuda_tc.tc_groups(64, 16, cfg.num_windows, 132, 1)
+    assert name == "kspec_curscan_tc" and args[16] == want
+    assert cuda_tc.tc_launches == before
 
 
 def test_stage_variant_builds_kernel_a_with_its_cut_off(tmp_path,
@@ -568,15 +590,26 @@ def test_stage_variant_builds_kernel_a_with_its_cut_off(tmp_path,
 
 
 def test_window_groups_and_chunks():
-    """Kernel A's groups: one a block where T fills two waves of the card
-    (the zero-span main cell, fmScan's 288 blocks at fft 16384), more for
-    short batches, never more than the windows; its windows a pass: at most
-    64 stacked rows; Kernel B's chunk: the windows rounded up to 16, at most
-    64."""
-    assert cuda_tc.tc_groups(4096, 16, 15, 132) == 1
-    assert cuda_tc.tc_groups(288, 128, 71, 132) == 1
-    assert cuda_tc.tc_groups(1, 16, 15, 132) == 15
-    assert cuda_tc.tc_groups(16, 128, 71, 132) == 17
+    """Kernel A's groups at the blocks an SM holds: the count that fills
+    the card's waves best (one a block at the zero-span main cell's two
+    blocks an SM, five at fmScan's 288 blocks of fft 16384 at one, where
+    one group leaves a third wave of 24 blocks), more for short batches,
+    never more than the windows; its windows a pass: at most 64 stacked
+    rows; Kernel B's chunk: the windows rounded up to 16, at most 64.
+    (Kernel A's shared memory is the library's, held on the card by
+    ``test_torch_gpu.py::test_tc_shared_memory_and_occupancy``.)"""
+    assert cuda_tc.tc_groups(4096, 16, 15, 132, 2) == 1
+    assert cuda_tc.tc_groups(288, 128, 71, 132, 1) == 5
+    assert cuda_tc.tc_groups(1, 16, 15, 132, 2) == 15
+    assert cuda_tc.tc_groups(16, 128, 71, 132, 1) == 8
+    # Fewer blocks an SM, fewer groups for the same waves.
+    assert cuda_tc.tc_groups(64, 16, 15, 132, 2) == 4
+    assert cuda_tc.tc_groups(64, 16, 15, 132, 1) == 2
+    assert cuda_tc.tc_groups(4096, 16, 15, 132, 1) == 1
+    for t in (1, 7, 64, 288, 4096):
+        for w in (1, 3, 15, 71):
+            for per_sm in (1, 2, 5):
+                assert 1 <= cuda_tc.tc_groups(t, 16, w, 132, per_sm) <= w
     assert [cuda_tc.packed_chunk(w) for w in (1, 15, 16, 17, 71, 951)] == [
         16, 16, 16, 32, 64, 64]
     assert [cuda_tc.tc_windows_per_pass(n1, 15) for n1 in (2, 16, 17, 32,
@@ -599,3 +632,78 @@ def test_threemult_smoke_on_the_cpu(capsys):
         assert row["max_rel_err"] <= ORACLE_BOUND.get(job.precision, 5e-5)
         assert "ms_lo" not in row
     assert "no device time" in capsys.readouterr().out
+
+
+def _ldmatrix_x4(planes, lanes, trans):
+    """NumPy model of ``ldmatrix.sync.aligned.m8n8.x4[.trans].b16``:
+    ``planes`` (plane, row, column) values, ``lanes`` the (plane, row,
+    column) each lane points at (8 values from there); returns
+    ``[lane][register][2]``.  Matrix m is rows of lanes 8m..8m+7; lane i
+    gets row i // 4, columns 2 (i % 4).. of each (``trans``: rows 2 (i %
+    4).., column i // 4)."""
+    plane, row, col = lanes
+    mats = np.stack([planes[plane[l], row[l], col[l]:col[l] + 8]
+                     for l in range(32)]).reshape(4, 8, 8)
+    i = np.arange(32)[:, None]
+    pair = 2 * (i % 4) + np.arange(2)
+    if trans:
+        return np.stack([mats[m][pair, i // 4] for m in range(4)], axis=1)
+    return np.stack([mats[m][i // 4, pair] for m in range(4)], axis=1)
+
+
+@pytest.mark.parametrize("stage", ["stage1_frames", "stage2_c",
+                                   "tables"])
+def test_kernel_a_fragments_rebuild_the_product(stage):
+    """Kernel A's fragments, placed back by the m16n8k16 index maps
+    (``_frag_a_index`` / ``_frag_b_index``), rebuild the operand tiles, so
+    the tensor-core products are the NumPy products: stage 1's B fragments
+    loaded by ``ldmatrix.x4.trans`` from two planes (a 16 x 8 strip of the
+    frame's rows), stage 2's A fragments by ``ldmatrix.x4`` (a 16 x 16 tile
+    of C), and the wrapper's F1 and F2^T tables (``frag_a``, ``frag_b``)."""
+    rng = np.random.default_rng(7)
+    ar, ac = cuda_tc._frag_a_index()
+    br, bc = cuda_tc._frag_b_index()
+    if stage == "tables":
+        n = 2048
+        n1 = n // 128
+        f1r, f1i, f2r, f2i = mxu_fft._dft_tables_for(n, n1, 128)[:4]
+        f1 = cuda_tc.frag_a((f1r, f1i), 1, 1)       # [slot][mt][kc][l][8]
+        f2 = cuda_tc.frag_b((f2r.T,), 8, 16)         # [slot][kc][nt][l][4]
+        hi = cuda_tc.bf16_halves(f1r)[0]
+        got = np.zeros((16, 16), np.uint16)
+        got[ar, ac] = f1[0, 0, 0]
+        assert np.array_equal(got[:n1, :n1], hi)
+        assert not got[n1:].any() and not got[:, n1:].any()
+        t = np.zeros((128, 128), np.uint16)
+        for kc in range(8):
+            for nt in range(16):
+                t[kc * 16 + br, nt * 8 + bc] = f2[0, kc, nt]
+        assert np.array_equal(t, cuda_tc.bf16_halves(f2r.T)[0])
+        lo = np.zeros((16, 16), np.uint16)
+        lo[ar, ac] = f1[3, 0, 0]                      # F1i, lo
+        assert np.array_equal(lo[:n1, :n1], cuda_tc.bf16_halves(f1i)[1])
+        return
+    if stage == "stage1_frames":
+        # Two planes of 48 rows x 136; the strip at rows 16.., columns 24..
+        planes = rng.standard_normal((2, 48, 136))
+        frags = _ldmatrix_x4(planes, tuple(
+            np.asarray(v) + o for v, o in zip(
+                cuda_tc.ldmatrix_lanes(True), (0, 16, 24))), trans=True)
+        for q in range(2):
+            tile = planes[q, 16:32, 24:32]               # k x n
+            got = np.zeros((16, 8))
+            got[br, bc] = frags[:, 2 * q:2 * q + 2].reshape(32, 4)
+            assert np.array_equal(got, tile)
+            a = rng.standard_normal((16, 16))
+            np.testing.assert_allclose(a @ got, a @ tile, rtol=0, atol=0)
+        return
+    planes = rng.standard_normal((1, 64, 136))
+    frags = _ldmatrix_x4(planes, tuple(
+        np.asarray(v) + o for v, o in zip(cuda_tc.ldmatrix_lanes(False),
+                                          (0, 32, 48))), trans=False)
+    got = np.zeros((16, 16))
+    got[ar, ac] = frags.reshape(32, 8)
+    tile = planes[0, 32:48, 48:64]
+    assert np.array_equal(got, tile)
+    b = rng.standard_normal((16, 8))
+    np.testing.assert_allclose(got @ b, tile @ b, rtol=0, atol=0)
