@@ -108,17 +108,20 @@ Phases (any failure raises; the exit code is then non-zero):
      (fft 2048, 50%), fmScan's (fft 16384, ones, 90%), fft 10240 at 90%
      (stage 1 by m-tiles, F1 in shared memory), fft 1280 at 75% (n1 = 10,
      misaligned) and fft 2048 with one and two windows a block, Kernel B
-     (``csrc/curscan_packed_tc.cu``) at quickFullScan's (fft 64, ones, 90%)
-     and fft 128 kaiser 50%, u8 bit-identical to decoded float32 in each
-     form; each class against the float64 oracle at full size
+     (``csrc/curscan_packed_tc.cu``) at quickFullScan's (fft 64, ones, 90%),
+     fft 128 kaiser 50%, fft 8 hanning 50% and fft 32 ones 90% (every
+     instantiation), u8 bit-identical to decoded float32 in each form; each
+     class against the float64 oracle at full size
      (``scripts.threemult_smoke``'s eight jobs, 64 blocks, with their
-     marginal rates; fmScan and quickFullScan f32 and u8), within HIGH
-     5e-5 and DEFAULT 3.9e-2; the kernels' times beside the FFT kernels at
-     HIGHEST and the plain versions (each output held to the plain
-     version's: the main path's shapes, one window group a block), with
-     their bound
-     (the tensor-core flops at 989 TFLOP/s or the bytes at 3.35 TB/s) and
-     the FFT-flops bound; sessions through ``cli.main`` at tpuPrecision
+     marginal rates; fmScan and quickFullScan f32 and u8, quickFullScan
+     also at HIGH), within HIGH 5e-5 and DEFAULT 3.9e-2; the kernels'
+     times beside the FFT kernels at HIGHEST and the plain versions (each
+     output held to the plain version's: the main path's shapes, one
+     window group a block), with their bound (the tensor-core flops at 989
+     TFLOP/s or the bytes at 3.35 TB/s) and the FFT-flops bound; Kernel
+     B's stage table (``scripts.packed_tc_stages``: copy, products, full at
+     quickFullScan, T=19616 and 1226, f32/u8, DEFAULT/HIGH, with 10 rounds
+     against K2's FFT kernel); sessions through ``cli.main`` at tpuPrecision
      DEFAULT (zero-span devicesynth catch-up, also at HIGH, devicenoise u8,
      a u8 capture file, fmScan catch-up and from a u8 file, the lane
      kernel's cell, quickFullScan), each launching its tensor-core kernel
@@ -1318,13 +1321,18 @@ def phase_precision(cc, cp, spec, cli, gen, gpu, tmp):
                           f"{', u8 bit-identical' if u8 else ''} "
                           f"{'PASS' if worst <= 1 else 'FAIL'}")
                     check(worst <= 1, "Kernel A vs plain")
-    for fft, nono, window, t in ((64, 0.1, "WIN.ONES", 256),
-                                 (128, 0.5, "WIN.KAISER", 64)):
+    # Every Kernel B instantiation: k-chunks 1 (fft 8), 2 (32), 4 (64) and 8
+    # (128; at HIGH the table in shared memory), each fold, both classes.
+    for fft, nono, window, t, mult in ((64, 0.1, "WIN.ONES", 256, 8),
+                                       (128, 0.5, "WIN.KAISER", 64, 8),
+                                       (8, 0.5, "WIN.HANNING", 64, 32),
+                                       (32, 0.1, "WIN.ONES", 64, 8)):
         for prec in ("DEFAULT", "HIGH"):
             for u8 in (False, True):
                 worst = mx = 0.0
                 for mode in MODES:
-                    cfg = class_cfg(cfg_of(fft, nono, mode, window), prec)
+                    cfg = class_cfg(cfg_of(fft, nono, mode, window, mult),
+                                    prec)
                     re, im = noise(cfg, t, u8, gen)
                     e, sh = tc_compare(tc.curscan_packed_tc,
                                        tc.curscan_packed_tc_plain, cfg, re,
@@ -1350,7 +1358,11 @@ def phase_precision(cc, cp, spec, cli, gen, gpu, tmp):
             ("fmScan f32", 16384, 0.1, "WIN.ONES", False, "DEFAULT", 16),
             ("fmScan u8", 16384, 0.1, "WIN.ONES", True, "DEFAULT", 16),
             ("quickFullScan f32", 64, 0.1, "WIN.ONES", False, "DEFAULT", 256),
-            ("quickFullScan u8", 64, 0.1, "WIN.ONES", True, "DEFAULT", 256)):
+            ("quickFullScan u8", 64, 0.1, "WIN.ONES", True, "DEFAULT", 256),
+            ("quickFullScan HIGH f32", 64, 0.1, "WIN.ONES", False, "HIGH",
+             256),
+            ("quickFullScan HIGH u8", 64, 0.1, "WIN.ONES", True, "HIGH",
+             256)):
         cfg = threemult_smoke.job_cfg(fft, nono, prec, window)
         rows[name] = {"max_rel_err": threemult_smoke.oracle_error(
             cfg, u8, blocks, dev), "precision": prec}
@@ -1421,6 +1433,10 @@ def phase_precision(cc, cp, spec, cli, gen, gpu, tmp):
                          if rows_ < t else ""))
                 times[name, prec, kind] = (ks, ps, bms, by, fs)
                 del re, im
+
+    from kspecanal_tpu_torch.scripts import packed_tc_stages
+    print("== Kernel B's stage table (scripts.packed_tc_stages)")
+    packed_tc_stages.main([])
 
     print("== precision classes: sessions through kspecanal_tpu_torch.cli."
           "main at tpuPrecision DEFAULT (and HIGH)")

@@ -21,13 +21,19 @@ run these:
   per window one ``(1 x n) (n x n)`` complex DFT product of the raw frame
   with the table ``dft[j, k] * win[j] * winAdj*2/N`` (folded in float64,
   rounded to float32), in the 4M form at every class as in JAX, then
-  ``|.|`` and the float32 fold in window order.
+  ``|.|`` and the float32 fold from the accumulators: each lane folds the
+  windows it holds (8 nt + 2t and + 1 of every n-tile), then the 4 lanes of
+  a bin combine in one fixed order.  A thread block stages each IQ block's
+  span once (:func:`packed_tc_plan`: chunks of windows where a block does
+  not fit) and walks IQ blocks a grid apart (:func:`packed_tc_grid`).
 
 Each real product rounds its float32 operands to bf16 (to nearest, ties to
 even) and sums in float32 (``mma.sync`` bf16 -> f32), once at DEFAULT and
-as the bf16x3 split at HIGH.  Kernel A rounds each operand once, where it
-stores it in shared memory (the windowed frame, then C), and every product
-reads the rounded planes; the values are those the plain version rounds.
+as the bf16x3 split at HIGH.  Each kernel rounds each operand once, where
+it stores it in shared memory (Kernel A the windowed frame, then C; Kernel
+B the staged samples, beside a copy shifted by one sample for odd starts;
+both tables are rounded by the wrapper), and every product reads the
+rounded planes; the values are those the plain version rounds.
 A complex product is 4M (four real products) or 3M: ``T1 = Fr Xr``,
 ``T2 = Fi Xi``, ``T3 = (Fr + Fi)(Xr + Xi)``, ``Re = T1 - T2``,
 ``Im = T3 - T1 - T2``, the sum table precomputed and ``Xr + Xi`` formed in float32 before its rounding.  Both classes run 4M
@@ -52,13 +58,15 @@ meets every class's bound (ROADMAP.md B5).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version (:func:`curscan_tc_plain`, :func:`curscan_packed_tc_plain`), which
-rounds at the same points, in the same form and folds in the same order;
-only the order of the sums inside each product differs from the kernels'.
+rounds at the same points and in the same form.  The order of the sums
+inside each product differs from the kernels'; Kernel A folds the windows
+in the plain version's window order, Kernel B's AVG/RAW sums in its lanes'
+order (MAX/MIN are unaffected); ``torch_parity.TC_TOL`` holds both.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -83,8 +91,9 @@ _MMA = 16                       # mma.sync m16n8k16: M and K tiles
 # to 16 a window); its shared-memory layout is layout() in
 # csrc/curscan_tc.cuh, which the library reports (kspec_curscan_tc_smem).
 TC_PASS_ROWS = 64
-# Kernel B: windows a staged chunk (a multiple of 16, the M tile).
-PACKED_CHUNK = 64
+# Kernel B: bytes of a thread block's staging buffers and operand planes
+# (packed_tc_plan keeps a staged span within it by chunks of windows).
+PACKED_TC_STAGE_BYTES = 48 << 10
 
 tc_launches = 0             # Kernel A (csrc/curscan_tc.cu)
 packed_tc_launches = 0      # Kernel B (csrc/curscan_packed_tc.cu)
@@ -339,21 +348,116 @@ def tc_tables(n: int, device: torch.device):
 
 
 def packed_k_tiles(n: int) -> int:
-    """Kernel B's k-chunks of 16 for fft ``n`` (n padded to 16 on K)."""
+    """Kernel B's k-chunks of 16 for fft ``n`` (n padded to 16 on K), also
+    its m-tiles of 16 bins (n padded to 16 on M) and warps a block."""
     return max(1, n // _MMA)
 
 
 @functools.lru_cache(maxsize=32)
 def packed_tc_tables(n: int, window: str, mode: str, w_cnt: int,
                      device: torch.device):
-    """Kernel B's tables on ``device``: the DFT table's B fragments (Dr hi,
-    Dr lo, Di hi, Di lo; ``packed_k_tiles(n)`` x ceil(n/8) tiles, bf16 bits
-    as int16) and the float32 fold weights."""
+    """Kernel B's tables on ``device``: the A fragments of the transposed
+    DFT table ``Dt^T`` (bins x samples; slots Dr hi, Dr lo, Di hi, Di lo;
+    ``packed_k_tiles(n)`` m-tiles x as many k-chunks, bf16 bits as int16)
+    and the float32 fold weights."""
     dtr, dti, weights = _packed_plain_tables(n, window, mode, w_cnt,
                                              torch.device("cpu"))
-    dt = frag_b((dtr.numpy(), dti.numpy()), packed_k_tiles(n), -(-n // 8))
+    kc = packed_k_tiles(n)
+    dt = frag_a((dtr.numpy().T, dti.numpy().T), kc, kc)
     return (torch.as_tensor(np.ascontiguousarray(dt.view(np.int16))).to(
         device), weights.to(device))
+
+
+class PackedTcPlan(NamedTuple):
+    """How Kernel B stages one launch (``csrc/curscan_packed_tc.cu``)."""
+    chunk: int      # windows a staged span
+    n_chunks: int
+    stride: int     # samples a staging row: the widest chunk's span
+    smem: int       # shared memory a block, bytes
+
+
+def packed_tc_hold(n: int, high: bool) -> bool:
+    """Kernel B keeps the table's fragments of a warp's m-tile in registers
+    (at most 64 a thread): every fft but 128 at HIGH, which reads them from
+    a copy in shared memory."""
+    return packed_k_tiles(n) * (2 if high else 1) <= 8
+
+
+def packed_tc_plane_words(stride: int) -> int:
+    """32-bit words of one of Kernel B's operand planes for a staging row of
+    ``stride`` samples: the row's pairs and 16 samples past it, padded so a
+    shifted plane starts 16 banks from its unshifted one."""
+    return -(-(stride // 2 + 8) // 32) * 32 + 16
+
+
+def packed_tc_table_bytes(n: int, high: bool) -> int:
+    """Kernel B's copy of the table in shared memory: 4 slots of
+    ``packed_k_tiles(n)``^2 tiles of 32 lanes x 16 bytes, where
+    :func:`packed_tc_hold` is false, else none."""
+    kc = packed_k_tiles(n)
+    return 0 if packed_tc_hold(n, high) else 4 * kc * kc * 32 * 16
+
+
+def packed_tc_smem(n: int, stride: int, u8: bool, high: bool) -> int:
+    """Kernel B's shared memory a block: two staging buffers of both
+    planes, the operand planes (re, im; hi, HIGH lo; unshifted and
+    shifted) and the table's copy (:func:`packed_tc_table_bytes`)."""
+    return (4 * stride * (1 if u8 else 4)
+            + 16 * (2 if high else 1) * packed_tc_plane_words(stride)
+            + packed_tc_table_bytes(n, high))
+
+
+def packed_tc_spans(starts, n: int, chunk: int, u8: bool) -> np.ndarray:
+    """``(n_chunks, 2)``: the first sample and the length of each chunk's
+    staged span (from the chunk's first start rounded down to 16 bytes to
+    its last window's end rounded up)."""
+    align = 16 if u8 else 4
+    st = np.asarray(starts, np.int64)
+    a0 = st[0::chunk] // align * align
+    return np.stack([a0, cuda_packed.chunk_spans(st, n, chunk, align)], 1)
+
+
+@functools.lru_cache(maxsize=64)
+def packed_tc_plan(n: int, starts: tuple, u8: bool,
+                   high: bool) -> PackedTcPlan:
+    """Kernel B's chunks: all windows in one span when their float32
+    staging fits ``PACKED_TC_STAGE_BYTES``, else the most windows, a
+    multiple of 8 (an n-tile) where 8 fit, whose widest span fits.  The
+    chunk comes from float32 planes for both input types, so a u8 block
+    folds its windows on the same lanes, in the same order, as its decoded
+    float32."""
+    w = len(starts)
+
+    def fits(chunk):
+        stride = int(cuda_packed.chunk_spans(starts, n, chunk, 4).max())
+        return (packed_tc_smem(n, stride, False, high)
+                - packed_tc_table_bytes(n, high)) <= PACKED_TC_STAGE_BYTES
+
+    def most(hi, step):
+        """The largest m in [1, hi] with m * step windows fitting (1 if
+        none does)."""
+        lo = 1
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if fits(mid * step):
+                lo = mid
+            else:
+                hi = mid - 1
+        return lo
+
+    chunk = w
+    if not fits(w):
+        chunk = most(-(-w // 8) - 1, 8) * 8 if fits(8) else most(7, 1)
+    stride = int(packed_tc_spans(starts, n, chunk, u8)[:, 1].max())
+    return PackedTcPlan(chunk, -(-w // chunk), stride,
+                        packed_tc_smem(n, stride, u8, high))
+
+
+def packed_tc_grid(t: int, sms: int, per_sm: int) -> int:
+    """Kernel B's thread blocks: one an IQ block up to the card's resident
+    blocks (``sms`` x ``per_sm``), then that many, each walking IQ blocks a
+    grid apart."""
+    return max(1, min(t, sms * max(1, per_sm)))
 
 
 def tc_windows_per_pass(n1: int, n_windows: int) -> int:
@@ -372,12 +476,6 @@ def tc_groups(t: int, n1: int, n_windows: int, sms: int,
     t = max(1, t)
     return min(range(1, max(1, n_windows) + 1),
                key=lambda g: (-(-t * g // slots) * (n_windows + g) / g, g))
-
-
-def packed_chunk(n_windows: int) -> int:
-    """Kernel B's windows a staged chunk: the windows rounded up to 16, at
-    most ``PACKED_CHUNK``."""
-    return min(PACKED_CHUNK, -(-n_windows // _MMA) * _MMA)
 
 
 def _cuda_lib(dev: torch.device):
@@ -473,27 +571,64 @@ def curscan_packed_tc(iq_re: torch.Tensor, iq_im: torch.Tensor,
                          f"fft_size {cfg.fft_size}, full_size "
                          f"{cfg.full_size})")
     check_planes(iq_re, iq_im, cfg)
-    dev = iq_re.device
-    if dev.type == "cpu":
+    if iq_re.device.type == "cpu":
         return curscan_packed_tc_plain(iq_re, iq_im, cfg)
-    lib = _cuda_lib(dev)
-    t, n = iq_re.shape[0], cfg.fft_size
-    out = torch.empty((t, n), dtype=torch.float32, device=dev)
+    out = launch_packed_tc(_cuda_lib(iq_re.device), iq_re, iq_im, cfg)
+    packed_tc_launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def packed_tc_occupancy(lib, u8: bool, n: int, high: bool, mode: str,
+                        stride: int) -> int:
+    """The blocks an SM holds of ``lib``'s Kernel B instantiation for these
+    arguments (cumulate ``mode``; the CUDA occupancy calculator: registers
+    and shared memory); raises where the library cannot say."""
+    blocks = lib.kspec_curscan_packed_tc_occupancy(int(u8), n, int(high),
+                                                   _FOLD[mode], stride)
+    if blocks < 1:
+        raise RuntimeError(f"Kernel B's occupancy for fft {n}, a staging "
+                           f"row of {stride} samples: {blocks}")
+    return blocks
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_tc_args(lib, cfg: SpecConfig, t: int, u8: bool,
+                    device: torch.device):
+    """The device tables (starts, weights, table) and the integer arguments
+    from ``t`` on of one launch, computed once per library, config, T and
+    input type (``cfg.window_starts`` is a Python loop)."""
+    n, starts = cfg.fft_size, cfg.window_starts
+    mode, high = cfg.cur_scan_cumu_mode, precision_class(cfg) == "HIGH"
+    plan = packed_tc_plan(n, starts, u8, high)
+    grid = packed_tc_grid(t, torch.cuda.get_device_properties(
+        device).multi_processor_count, packed_tc_occupancy(
+            lib, u8, n, high, mode, plan.stride))
+    dt, weights = packed_tc_tables(n, cfg.window, mode, len(starts), device)
+    tables = (_tables(n, cfg.window, starts, mode, device)[0], weights, dt)
+    return tables, (t, cfg.full_size, n, len(starts), _FOLD[mode],
+                    int(high), plan.chunk, plan.stride, grid)
+
+
+def launch_packed_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
+                     cfg: SpecConfig) -> torch.Tensor:
+    """Launch ``lib``'s Kernel B (the port's library, or a forensic build of
+    the same source, ``scripts/packed_tc_stages.py``) on CUDA planes checked
+    by :func:`curscan_packed_tc`, as :func:`packed_tc_plan` and
+    :func:`packed_tc_grid` at the library's occupancy say; counts
+    nothing."""
+    dev = iq_re.device
+    t = iq_re.shape[0]
+    out = torch.empty((t, cfg.fft_size), dtype=torch.float32, device=dev)
     if t == 0:
         return out
-    w = cfg.num_windows
-    starts = _tables(n, cfg.window, cfg.window_starts,
-                     cfg.cur_scan_cumu_mode, dev)[0]
-    dt, weights = packed_tc_tables(n, cfg.window, cfg.cur_scan_cumu_mode, w,
-                                   dev)
+    iq_re, iq_im = _aligned(iq_re), _aligned(iq_im)
+    u8 = iq_re.dtype == torch.uint8
+    tables, ints = _packed_tc_args(lib, cfg, t, u8, dev)
     with torch.cuda.device(dev):
         err = lib.kspec_curscan_packed_tc(
-            iq_re.data_ptr(), iq_im.data_ptr(),
-            int(iq_re.dtype == torch.uint8), out.data_ptr(),
-            starts.data_ptr(), weights.data_ptr(), dt.data_ptr(), t,
-            cfg.full_size, n, w, _FOLD[cfg.cur_scan_cumu_mode],
-            int(precision_class(cfg) == "HIGH"), packed_chunk(w),
+            iq_re.data_ptr(), iq_im.data_ptr(), int(u8), out.data_ptr(),
+            *(x.data_ptr() for x in tables), *ints,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib.kspec_curscan_packed_tc)
-    packed_tc_launches += 1
     return out

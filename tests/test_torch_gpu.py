@@ -449,6 +449,64 @@ def test_packed_tc_kernel_chunks(cuda, fft, nono, mult, t, prec):
         re[rows], im[rows], cfg).cpu().numpy(), prec)
 
 
+# Kernel B's new shapes: T that leaves the persistent grid's last round
+# partial (1, 7, 1227 and 19617 blocks of quickFullScan), the ffts at both
+# ends (2: repeated starts at 90%; 128 at HIGH: the table in shared memory),
+# the 951-window block (fft 64 x 96, four or five staged spans) and fft 32
+# RAW at 25% non-overlap.
+PACKED_TC_SHAPES = [(64, 0.1, 8, "AVG", t) for t in (1, 7, 1227, 19617)] + [
+    (2, 0.1, 128, "MIN", 64), (128, 0.1, 8, "MAX", 64),
+    (128, 0.5, 8, "AVG", 64), (64, 0.1, 96, "AVG", 16),
+    (32, 0.25, 8, "RAW", 64)]
+
+
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("fft,nono,mult,mode,t", PACKED_TC_SHAPES)
+def test_packed_tc_kernel_shapes(cuda, fft, nono, mult, mode, t, prec, u8):
+    """Kernel B against its plain version (the first and last 64 blocks),
+    two runs bit-identical, u8 equal to decoded float32."""
+    cfg = zs_cfg(fft, nono, mode, tpu_precision=prec, x_res=fft,
+                 fft2full_mult4less=mult)
+    re, im = class_planes(cuda, cfg, t, u8, t + fft)
+    before = cuda_tc.packed_tc_launches
+    got = cuda_tc.curscan_packed_tc(re, im, cfg)
+    assert cuda_tc.packed_tc_launches == before + 1
+    assert torch.equal(got, cuda_tc.curscan_packed_tc(re, im, cfg))
+    for rows in (slice(0, 64), slice(max(0, t - 64), t)):
+        assert_tc_close(got[rows].cpu().numpy(),
+                        cuda_tc.curscan_packed_tc_plain(
+                            re[rows], im[rows], cfg).cpu().numpy(), prec)
+    if u8:
+        assert torch.equal(got, cuda_tc.curscan_packed_tc(
+            tspec.decode_u8(re), tspec.decode_u8(im), cfg))
+
+
+def test_packed_tc_shared_memory_and_occupancy(cuda):
+    """The library's shared memory a block (``kspec_curscan_packed_tc_smem``)
+    is ``cuda_tc.packed_tc_smem`` for every fft, class, input type and
+    staging row; every fold's instantiation at the plans' rows fits an SM
+    at least once, within the SM's shared memory."""
+    from kspecanal_tpu_torch.ops import _build
+    lib = _build.load()
+    for n in (2, 4, 8, 16, 32, 64, 128):
+        for u8 in (False, True):
+            for high in (False, True):
+                for stride in (256, 512, 2016, 4096):
+                    assert lib.kspec_curscan_packed_tc_smem(
+                        int(u8), n, int(high), stride) == \
+                        cuda_tc.packed_tc_smem(n, stride, u8, high)
+                plan = cuda_tc.packed_tc_plan(
+                    n, zs_cfg(n, 0.1, x_res=n, fft2full_mult4less=max(
+                        8, 256 // n)).window_starts, u8, high)
+                for mode in MODES:
+                    per_sm = cuda_tc.packed_tc_occupancy(lib, u8, n, high,
+                                                         mode, plan.stride)
+                    assert 1 <= per_sm and per_sm * (plan.smem + 1024) \
+                        <= 233472
+    assert lib.kspec_curscan_packed_tc_smem(0, 48, 0, 512) == -1
+
+
 def test_direct_dft_matches_chain_on_card(cuda):
     """fft 200 (no kernel takes it) runs the direct DFT matmul on the card."""
     cfg = zs_cfg(200, 0.5, window=WINDOW_HANNING, x_res=200)

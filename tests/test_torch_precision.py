@@ -298,10 +298,12 @@ def test_jax_high_3m_misses_its_bound_as_the_port_3m_does():
 
 
 def test_high_deep_overlap_fault_c4_is_open():
-    """Fault C4 (ROADMAP.md C, open): at 90% overlap with the ones window
-    and fft 16384 (fmScan's geometry), HIGH's worst bin passes 5e-5 in the
-    4M form too.  A fix makes this test fail: then hold the cell to the
-    bound in ``test_4m_meets_the_bound_where_3m_misses``."""
+    """Fault C4 (ROADMAP.md C, closed as a property of the bf16x3 class):
+    at 90% overlap with the ones window and fft 16384 (fmScan's geometry),
+    HIGH's worst bin passes 5e-5 in the 4M form too, as the JAX kernel's
+    does (``tests/test_torch_precision_c4.py`` holds the port within 1.05
+    of it).  A HIGH form beyond bf16x3 makes this test fail: then hold the
+    cell to the bound in ``test_4m_meets_the_bound_where_3m_misses``."""
     cfg = threemult_smoke.job_cfg(16384, 0.1, "HIGH", WINDOW_ONES)
     assert form_error(cfg, 16) > ORACLE_BOUND["HIGH"]
 
@@ -459,8 +461,8 @@ def test_direct_dft_matches_jax_at_the_class(fft, prec):
 
 class _FakeLib:
     """A stand-in for the kernels' library: records each launch's entry
-    point and arguments and reports success; Kernel A's occupancy query
-    answers one block an SM and is not a launch."""
+    point and arguments and reports success; Kernel A's and Kernel B's
+    occupancy queries answer one block an SM and are not launches."""
 
     def __init__(self):
         self.calls = []
@@ -470,6 +472,10 @@ class _FakeLib:
 
     @staticmethod
     def kspec_curscan_tc_occupancy(*args):
+        return 1
+
+    @staticmethod
+    def kspec_curscan_packed_tc_occupancy(*args):
         return 1
 
     def _entry(self, name):
@@ -501,8 +507,10 @@ def fake_card(monkeypatch):
 def test_card_dispatch_launches_the_class_kernels(fake_card, dtype):
     """On the card, HIGH/DEFAULT configs launch Kernel A (counted in
     ``tc_launches``) with the class, the gate's form and the window groups,
-    and K2's configs Kernel B (``packed_tc_launches``) with its chunk; the
-    FFT kernels' counters do not move."""
+    and K2's configs Kernel B (``packed_tc_launches``) with its plan (one
+    span of 71 windows, a staging row of 512 samples) and its persistent
+    grid (the SMs times the library's blocks an SM); the FFT kernels'
+    counters do not move."""
     u8 = dtype == torch.uint8
     for fft, nono, prec, t in ((2048, 0.5, "DEFAULT", 4096),
                                (2048, 0.1, "DEFAULT", 64),
@@ -533,8 +541,8 @@ def test_card_dispatch_launches_the_class_kernels(fake_card, dtype):
     tspec.curscan_auto_batched(planes, planes, cfg)
     [(name, args)] = fake_card.calls
     assert name == "kspec_curscan_packed_tc"
-    assert args[7:14] == (1226, 512, 64, 71, cuda_curscan._FOLD["AVG"], 0,
-                          64)
+    assert args[7:16] == (1226, 512, 64, 71, cuda_curscan._FOLD["AVG"], 0,
+                          71, 512, 132)
     assert (cuda_tc.packed_tc_launches, cuda_packed.launches) == (
         before[0] + 1, before[1])
 
@@ -589,13 +597,43 @@ def test_stage_variant_builds_kernel_a_with_its_cut_off(tmp_path,
     assert Path(lib.path).name != _build.library_path().name
 
 
+def test_stage_variant_builds_kernel_b_with_its_cut_off(tmp_path,
+                                                        monkeypatch):
+    """``scripts/packed_tc_stages.py``'s cut-offs: Kernel B's one source
+    compiled with ``-DKSPEC_PTC_STOP=1`` by a stand-in nvcc into a variant
+    library of its own, the port's library left alone."""
+    log = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$@\" >> {log}\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then touch \"$2\"; fi\n"
+                    "  shift\n"
+                    "done\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda path: types.SimpleNamespace(path=path))
+    from kspecanal_tpu_torch.scripts import packed_tc_stages
+    lib = _build.load_variant(packed_tc_stages.SOURCES,
+                              ("KSPEC_PTC_STOP=1",))
+    compiles = [c.split() for c in log.read_text().splitlines()
+                if " -c " in c]
+    assert [Path(c[-1]).name for c in compiles] == ["curscan_packed_tc.cu"]
+    assert "-DKSPEC_PTC_STOP=1" in compiles[0]
+    assert Path(lib.path).name.startswith("libkspec_variant_")
+    assert Path(lib.path).name != _build.library_path().name
+
+
 def test_window_groups_and_chunks():
     """Kernel A's groups at the blocks an SM holds: the count that fills
     the card's waves best (one a block at the zero-span main cell's two
     blocks an SM, five at fmScan's 288 blocks of fft 16384 at one, where
     one group leaves a third wave of 24 blocks), more for short batches,
     never more than the windows; its windows a pass: at most 64 stacked
-    rows; Kernel B's chunk: the windows rounded up to 16, at most 64.
+    rows; Kernel B's chunk (windows a staged span): all of quickFullScan's
+    71, the 951-window block in spans of 304, u8 as float32.
     (Kernel A's shared memory is the library's, held on the card by
     ``test_torch_gpu.py::test_tc_shared_memory_and_occupancy``.)"""
     assert cuda_tc.tc_groups(4096, 16, 15, 132, 2) == 1
@@ -610,8 +648,11 @@ def test_window_groups_and_chunks():
         for w in (1, 3, 15, 71):
             for per_sm in (1, 2, 5):
                 assert 1 <= cuda_tc.tc_groups(t, 16, w, 132, per_sm) <= w
-    assert [cuda_tc.packed_chunk(w) for w in (1, 15, 16, 17, 71, 951)] == [
-        16, 16, 16, 32, 64, 64]
+    for mult, chunk in ((8, 71), (96, 304)):
+        starts = zs_cfg(64, 0.1, x_res=64,
+                        fft2full_mult4less=mult).window_starts
+        assert {cuda_tc.packed_tc_plan(64, starts, u8, False).chunk
+                for u8 in (False, True)} == {chunk}
     assert [cuda_tc.tc_windows_per_pass(n1, 15) for n1 in (2, 16, 17, 32,
                                                            64, 128)] == [
         4, 4, 2, 2, 1, 1]
