@@ -1,16 +1,18 @@
 """Smoke test of the PyTorch/CUDA port (``kspecanal_tpu_torch``) on one
 NVIDIA card: builds the CUDA kernels from ``kspecanal_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, drives the
-zero-span waterfall path, the scan path and the performance-forensics path
-(device sources, ``tpuProfile``, the stage ablation K4) through their entry
+zero-span waterfall path, the scan path, the performance-forensics path
+(device sources, ``tpuProfile``, the stage ablation K4 at every class), the
+offline capture analyzer and the renderer's toggles through their entry
 points and checks the results.
 
     python3 chip_smoke.py
 
 Phases (any failure raises; the exit code is then non-zero):
   1. environment: torch, CUDA, nvcc, the card and its power limit;
-  2. build of the kernels (one nvcc per source, in parallel), with ptxas'
-     register/shared-memory report;
+  2. build of the kernels and of Kernel A's five K4 cut-offs (one nvcc per
+     source and cut-off, all in parallel), with ptxas' register/shared-
+     memory report;
   3. K1 against its plain version (``torch.fft``) run in float64 on the
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
@@ -83,6 +85,11 @@ Phases (any failure raises; the exit code is then non-zero):
      stages against its plain version at fft 2048 kaiser 50% AVG (T=256) and
      at fft 16384 (float64 and float32 sums), the 'full' stage bitwise equal
      to the direct kernel's production instantiation after the layout map;
+ 10b. K4 at HIGH and DEFAULT: each of Kernel A's cut-offs (read, frame,
+     s1, s1tw, s2; ``cuda_tc.stage_library``) against its plain version
+     within TC_TOL at fft 2048 (T=256) and fft 16384 (T=32, four window
+     groups), 'full' bitwise equal to Kernel A's production output after
+     the layout map;
  11. the ablate variants of the kernel-ablation script against their plain
      versions (f32, and u8 bit-identical to decoded f32), and the forensic
      instantiation with no ablate bit bitwise equal to the direct kernel in
@@ -93,11 +100,24 @@ Phases (any failure raises; the exit code is then non-zero):
      each launches K1 (u8 planes for devicenoise), writes a trace and logs
      the card's busy share; devicesynth puts its peaks on 91/92/93 MHz;
  13. the forensics scripts on the card: the stage table of
-     ``scripts.roofline_r2`` (fft 2048 T=4096; fft 16384 T=288 with float64
-     and float32 sums), the marginal table of ``scripts.kernel_ablate`` (u8
-     and f32, T=4096/8192) and ``scripts.session_ablate`` at k=4096 (cut
-     from 16384 to save time), with the launches of the forensic kernel and
-     of the direct kernel (their base) counted over them;
+     ``scripts.roofline_r2`` at HIGHEST (fft 2048 T=4096; fft 16384 T=288
+     with float64 and float32 sums), the marginal table of
+     ``scripts.kernel_ablate`` (u8 and f32, T=4096/8192) and
+     ``scripts.session_ablate`` at k=4096 (cut from 16384 to save time),
+     with the launches of the forensic kernel and of the direct kernel
+     (their base) counted over them, then ``roofline_r2``'s DEFAULT table
+     (Kernel A's cut-offs, fft 2048 T=4096, launches counted in
+     ``cuda_tc.tc_stage_launches``);
+ 13b. the offline analyzer: ``tools.main`` on a capture from
+     ``scripts.make_fixture`` (1,024,000 samples at 92 MHz) at fft 2048
+     (K1) and 128 (K2), with and without ``decimate 4``, each launching its
+     kernel, each spectrum against the float64 plain chain (BOUND), peaks
+     on the synth's tones;
+ 13c. the renderer's toggles: a renderer without matplotlib turns
+     b_data_min off after its second frame in the zero-span serial,
+     catch-up and replay sessions and in fmScan serial and catch-up; the
+     min curve freezes after the toggle; then a ``tpuRenderer png:`` session
+     where matplotlib is installed (the script says which case applied);
  14. ``scripts.qfs_ablate``: one quickFullScan sweep (1226 bands x 512)
      split into band curscans (K2), display chain, stitch and epilogue on
      the card, beside the serial session's whole sweep;
@@ -1122,11 +1142,13 @@ def phase_forensics(cc):
     from kspecanal_tpu_torch.scripts import kernel_ablate, roofline_r2, \
         session_ablate
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
+    from kspecanal_tpu_torch.ops import cuda_tc as tc
     print("== forensics scripts")
     cc.forensic_launches = cc.direct_launches = 0
-    rows = roofline_r2.main(["4096"])
-    roofline_r2.main(["--fft", "16384", "288"])
-    roofline_r2.main(["--fft", "16384", "--f32-sums", "288"])
+    rows = roofline_r2.main(["--precision", "HIGHEST", "4096"])
+    roofline_r2.main(["--precision", "HIGHEST", "--fft", "16384", "288"])
+    roofline_r2.main(["--precision", "HIGHEST", "--fft", "16384",
+                      "--f32-sums", "288"])
     kernel_ablate.main(["2048", "u8"])
     kernel_ablate.main(["2048", "f32"])
     launches, direct = cc.forensic_launches, cc.direct_launches
@@ -1139,7 +1161,250 @@ def phase_forensics(cc):
     print(f"  K4 'full' plain version, T=4096: {plain:.3f} ms (kernel "
           f"{rows[4096]['full']:.3f} ms, bound {bms:.4f} ms, {by}); launches "
           f"over the scripts: forensic {launches}, direct {direct}")
-    return launches, direct, rows[4096]["full"], plain, bms, by
+    # K4's class form: the JAX script's own table, DEFAULT at T=4096.
+    tc.tc_stage_launches = 0
+    crows = roofline_r2.main(["--precision", "DEFAULT", "4096"])
+    class_launches = tc.tc_stage_launches
+    ccfg = roofline_r2.stage_cfg(2048, "DEFAULT")
+    step = max(1, TC_PLAIN_FRAME_BYTES // (ccfg.num_windows * 2048 * 8))
+    cplain = cuda_ms(lambda: [tc.curscan_tc_stage_plain(
+        re_[i:i + step], im_[i:i + step], ccfg, "full")
+        for i in range(0, 4096, step)], warm=1, reps=3)
+    cbms, cby, _ = tc_bound(ccfg, 4096, False)
+    print(f"  K4 DEFAULT 'full' (Kernel A) {crows[4096]['full']:.3f} ms, "
+          f"plain version {cplain:.3f} ms in {-(-4096 // step)} calls, bound "
+          f"{cbms:.4f} ms ({cby}); Kernel A's cut-offs launched "
+          f"{class_launches} times")
+    return (launches, direct, rows[4096]["full"], plain, bms, by,
+            {"launches": class_launches, "ms": crows[4096]["full"],
+             "plain_ms": cplain, "bound_ms": cbms, "bound_by": cby})
+
+
+def phase_k4_class(cc, gen):
+    """K4 at HIGH and DEFAULT: each of Kernel A's cut-offs (the forensic
+    builds of ``cuda_tc.stage_library``) against its plain version within
+    TC_TOL at fft 2048 kaiser 50% AVG (T=256) and fft 16384 (T=32: four
+    window groups and their combine), one launch each, and 'full' after the
+    layout map bitwise equal to Kernel A's production output.  Returns the
+    worst max abs error at fft 2048."""
+    from kspecanal_tpu_torch.ops import cuda_tc as tc
+    print(f"== K4 at HIGH/DEFAULT (Kernel A's cut-offs) vs plain (per bin "
+          f"rtol, atol of the peak: {TC_TOL})")
+    worst = 0.0
+    for prec in ("DEFAULT", "HIGH"):
+        for fft, t in ((2048, 256), (16384, 32)):
+            cfg = class_cfg(cfg_of(fft), prec)
+            re_, im_ = noise(cfg, t, False, gen)
+            prod = tc.curscan_tc(re_, im_, cfg)
+            groups = tc.tc_launch_groups(tc._cuda_lib(re_.device), re_, cfg,
+                                         False)
+            for stage in cc.STAGES:
+                before = tc.tc_stage_launches
+                got = cc.curscan_stage_ablate(re_, im_, cfg, stage)
+                launched = tc.tc_stage_launches - before
+                want = tc.curscan_tc_stage_plain(re_, im_, cfg, stage)
+                torch.cuda.synchronize()
+                check(got.shape == (t, fft // 128, 128) and launched == 1
+                      and bool(got.isfinite().all()),
+                      "K4 class cut-off: one launch, shape, finite")
+                mx, sh = tc_share(got, want, cfg)
+                line = (f"  {prec} fft {fft} T={t} ({groups} window "
+                        f"group(s)) {stage:5s}: max abs {mx:.3e}, {sh:.3f} "
+                        f"of the tolerance")
+                if stage == "full":
+                    same = torch.equal(cc.stage_layout_to_spectrum(got), prod)
+                    line += (", after the layout map "
+                             f"{'bitwise equal' if same else 'DIFFERS'} to "
+                             f"Kernel A's production output")
+                print(f"{line} {'PASS' if sh <= 1 else 'FAIL'}")
+                check(sh <= 1, f"K4 {prec} {stage} at fft {fft} vs plain")
+                if stage == "full":
+                    check(same, "K4 class 'full' bitwise equal to Kernel A")
+                if fft == 2048:
+                    worst = max(worst, mx)
+    return worst
+
+
+class NoisySynth:
+    """The port's synth source plus seeded white noise (unit variance), so
+    every bin's min curve moves from block to block."""
+
+    def __init__(self, cfg, seed):
+        from kspecanal_tpu_torch.io.sources import SynthIQSource
+        self.inner = SynthIQSource(cfg.center_freq, cfg.sampling_rate,
+                                   seed=seed)
+        self.rng = np.random.default_rng(seed)
+
+    def read(self, n):
+        re, im = self.inner.read(n)
+        return tuple((p + self.rng.standard_normal(n)).astype(np.float32)
+                     for p in (re, im))
+
+    def retune(self, center_freq, sample_rate, gain):
+        return self.inner.retune(center_freq, sample_rate, gain)
+
+    def close(self):
+        pass
+
+
+class Toggler:
+    """A renderer without matplotlib that keeps each view's min curve and,
+    from its second frame on, has ``apply_toggles`` turn b_data_min off,
+    as a click on MinLvls does."""
+
+    def __init__(self):
+        self.mins = []
+
+    def __call__(self, sess, view, peaks, iteration, timestamp_str):
+        self.mins.append(np.array(view.min_lvls))
+
+    def apply_toggles(self, cfg):
+        import dataclasses
+        if len(self.mins) >= 2:
+            return dataclasses.replace(cfg, b_data_min=False)
+        return cfg
+
+
+def phase_toggles(cc, tmp):
+    """The renderer's step-boundary toggles on the card: a Toggler in the
+    serial, catch-up and replay zero-span sessions (fft 2048 kaiser 50%)
+    and the fmScan serial and catch-up sessions; after the toggle the
+    session's config has b_data_min off and every later view's min curve
+    equals the second view's (the fold on the card stopped), while it
+    moved before.  Returns the FFT kernel's launches."""
+    import dataclasses
+    from kspecanal_tpu_torch import session as sess_mod
+    from kspecanal_tpu_torch.cli import parse_args
+    print("== renderer toggles at step boundaries (b_data_min off after the "
+          "second frame)")
+    zs = cfg_of()
+    fm = parse_args(FM_ARGS)[0]
+    rec = os.path.join(tmp, "toggle.save")
+    save = sess_mod.Session(
+        dataclasses.replace(zs, prg_mode="ZEROSPANSAVE",
+                            zero_span_save_file=rec),
+        NoisySynth(zs, 30), device="cuda")
+    check(sess_mod.run_zero_span_save(save, 6) == 6, "toggle recording")
+    runs = [("zero-span serial", zs, dict(), 5, sess_mod.run_zero_span),
+            ("zero-span catch-up 2", zs, dict(catch_up=2), 8,
+             sess_mod.run_zero_span),
+            ("zero-span replay", zs, dict(), 6, sess_mod.run_zero_span_play),
+            ("fmScan serial", fm, dict(), 4, sess_mod.run_scan),
+            ("fmScan catch-up 2", fm, dict(catch_up=2), 8,
+             sess_mod.run_scan)]
+    launches = 0
+    for name, cfg, kw, n, run in runs:
+        if run is sess_mod.run_zero_span_play:
+            cfg = dataclasses.replace(cfg, prg_mode="ZEROSPANPLAY",
+                                      zero_span_play_file=rec)
+        r = Toggler()
+        sess = sess_mod.Session(cfg, None if run is sess_mod.run_zero_span_play
+                                else NoisySynth(cfg, 31), r, device="cuda",
+                                **kw)
+        before = cc.launches
+        run(sess, n)
+        torch.cuda.synchronize()
+        k1 = cc.launches - before
+        launches += k1
+        frozen = all(np.array_equal(m, r.mins[1]) for m in r.mins[2:])
+        moved = not np.array_equal(r.mins[0], r.mins[1])
+        ok = (len(r.mins) >= 3 and frozen and moved
+              and sess.cfg.b_data_min is False)
+        print(f"  {name}: {len(r.mins)} frames, K1 launches {k1}, min curve "
+              f"moved before the toggle {moved}, frozen after it {frozen} "
+              f"{'PASS' if ok else 'FAIL'}")
+        check(ok, f"{name}: min curve frozen after the toggle")
+        check(k1 > 0 or run is sess_mod.run_zero_span_play,
+              f"{name} launched K1")
+    return launches
+
+
+def phase_analyzer(cc, cp, spec, tmp):
+    """The offline capture analyzer (``tools.main``) on the card, on a
+    capture the port's ``scripts.make_fixture`` writes (1,024,000 samples
+    at 92 MHz, the reference's capture length): fft 2048 (K1's FFT kernel)
+    and fft 128 (K2), each with and without ``decimate 4``.  Each run
+    launches its kernel (a CUDA tensor has no plain route), each of the
+    four spectra agrees with the float64 plain chain on the same planes
+    (BOUND), and without decimation the complex spectrum's three strongest
+    bins sit on the synth's 91/92/93 MHz tones.  Returns the launches of
+    K1 and K2."""
+    from kspecanal_tpu_torch import tools
+    from kspecanal_tpu_torch.config import SpecConfig
+    from kspecanal_tpu_torch.io.sources import load_rtlsdr_capture
+    from kspecanal_tpu_torch.scripts import make_fixture
+    print(f"== offline analyzer (kspecanal_tpu_torch.tools) on the card "
+          f"({BOUND}; plain chain in float64)")
+    cap = os.path.join(tmp, "fixture.iq")
+    make_fixture.make_capture(cap, 1_024_000, 92e6)
+    re64, im64 = (torch.as_tensor(p, dtype=torch.float64)
+                  for p in load_rtlsdr_capture(cap))
+    k1 = k2 = 0
+    for fft in (2048, 128):
+        cfg = SpecConfig(prg_mode="ZEROSPAN", fft_size=fft,
+                         window="WIN.HANNING").finalize()
+        for dec in (None, 4):
+            out = os.path.join(tmp, f"spectra_{fft}_{dec}.npz")
+            before = (cc.launches, cp.launches)
+            rc = tools.main([cap, "fftSize", str(fft), "out", out]
+                            + (["decimate", str(dec)] if dec else []))
+            torch.cuda.synchronize()
+            n1, n2 = cc.launches - before[0], cp.launches - before[1]
+            k1, k2 = k1 + n1, k2 + n2
+            got = np.load(out)
+            re, im = re64, im64
+            if dec:
+                n = len(re) // dec * dec
+                re, im = (p[:n].reshape(-1, dec).sum(dim=1) for p in (re, im))
+            t = len(re) // cfg.full_size
+            re, im = (p[:t * cfg.full_size].reshape(t, -1).cuda()
+                      for p in (re, im))
+            zero = torch.zeros_like(re)
+            planes = {"complex": (re, im), "real": (re, zero),
+                      "imag": (im, zero),
+                      "abs": (torch.sqrt(re ** 2 + im ** 2), zero)}
+            worst, ok = 0.0, True
+            for key, (a, b) in planes.items():
+                want = spec.curscan_batched(a, b, cfg).mean(dim=0)
+                have = torch.as_tensor(got[f"{cap}:{key}"]).cuda()
+                if not want.any():    # the synth's I plane is all zero
+                    ok = ok and not have.any()
+                    continue
+                mx, mrel, _, fine = spectra_error(have, want)
+                worst, ok = max(worst, mrel), ok and fine and mrel < 1e-5
+            line = (f"  fft {fft} decimate {dec}: {t} blocks, launches K1 "
+                    f"{n1} K2 {n2}, worst max_rel {worst:.3e}")
+            if not dec:
+                freqs = spec.fft_freqs(cfg)
+                top = sorted(freqs[np.argsort(got[f"{cap}:complex"])[-3:]])
+                bin_hz = cfg.sampling_rate / fft
+                on = all(abs(f - w) <= bin_hz for f, w in zip(top, PEAKS_HZ))
+                line += f", peaks {[round(float(f) / 1e6, 4) for f in top]} MHz"
+                ok = ok and on
+            print(f"{line} {'PASS' if ok else 'FAIL'}")
+            check(rc == 0 and int(got[f"{cap}:num_blocks"]) == t,
+                  f"analyzer fft {fft} decimate {dec} ran")
+            check((n1 if fft == 2048 else n2) >= 4,
+                  f"analyzer fft {fft} launched its kernel")
+            check(ok, f"analyzer fft {fft} decimate {dec} vs plain, peaks")
+    return k1, k2
+
+
+def phase_png(cli, tmp):
+    """``tpuRenderer png:<dir>`` through ``cli.main``, where matplotlib is
+    installed (the renderer needs it); says which case applied."""
+    import importlib.util
+    if importlib.util.find_spec("matplotlib") is None:
+        print("== png: session: matplotlib is not installed here; the "
+              "session was not run (tests/test_torch_gui.py runs it on the "
+              "CPU)")
+        return
+    out = os.path.join(tmp, "Frames")
+    rc = cli.main(MAIN_ARGS + ["tpuSource", "synth", "prgLoopCnt", "2",
+                               "tpuRenderer", f"png:{out}"])
+    frames = sorted(os.listdir(out))
+    print(f"== png: session: matplotlib present; rc {rc}, frames {frames}")
+    check(rc == 0 and len(frames) == 2, "png: session wrote two frames")
 
 
 # The mesh phase's full-width cases (scripts/dryrun_multichip.rank_main):
@@ -1545,9 +1810,13 @@ def main():
     print(gpu)
 
     t0 = time.perf_counter()
+    from kspecanal_tpu_torch.ops import cuda_tc
+    # the library and Kernel A's five K4 cut-offs, every source at once
+    _build.build(cuda_tc.stage_variants())
     _build.load()
     print(f"== build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds:.1f} s) -> {_build.library_path()}")
+          f"(nvcc {_build.build_seconds:.1f} s) -> {_build.library_path()} "
+          f"and {len(cuda_tc.stage_variants())} cut-off libraries")
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
             print(f"  {ln.strip()}")
@@ -1575,16 +1844,27 @@ def main():
     t0 = phase_done("device sources", t0)
     k4_err = phase_k4(cc, gen)
     t0 = phase_done("K4 vs plain", t0)
+    k4_class_err = phase_k4_class(cc, gen)
+    t0 = phase_done("K4 at HIGH/DEFAULT vs plain", t0)
     phase_ablate(cc, gen)
     t0 = phase_done("ablate variants vs plain", t0)
     with tempfile.TemporaryDirectory() as tmp:
         launches["2048"] += phase_device_sessions(cc, cli, tmp)
     t0 = phase_done("forensics sessions", t0)
-    k4_launches, direct_launches, k4_ms, k4_plain_ms, k4_bound, k4_by = \
-        phase_forensics(cc)
-    check(k4_launches > 0 and direct_launches > 0,
-          "the forensics scripts launched K4 and the direct kernel")
+    (k4_launches, direct_launches, k4_ms, k4_plain_ms, k4_bound, k4_by,
+     k4_class) = phase_forensics(cc)
+    check(k4_launches > 0 and direct_launches > 0
+          and k4_class["launches"] > 0,
+          "the forensics scripts launched K4 (both forms) and the direct "
+          "kernel")
     t0 = phase_done("forensics scripts", t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cc.launches = cp.launches = 0
+        phase_analyzer(cc, cp, spec, tmp)
+        t0 = phase_done("offline analyzer", t0)
+        phase_toggles(cc, tmp)
+        phase_png(cli, tmp)
+        t0 = phase_done("renderer toggles and png:", t0)
     from kspecanal_tpu_torch.scripts import qfs_ablate
     print("== qfs_ablate: one quickFullScan sweep split on the card")
     qfs_ablate.main([])
@@ -1667,6 +1947,15 @@ def main():
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None},
+        {"name": "curscan_tc_stage", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_tc.cuh",
+         "replaces": "scripts/roofline_r2.py:43",
+         "config": "K4 at HIGH/DEFAULT: Kernel A cut off after each stage "
+                   "(-DKSPEC_TC_STOP builds), fft 2048 kaiser 50% AVG f32: "
+                   "error the worst of six stages and both classes at "
+                   "T=256, times the DEFAULT 'full' stage at T=4096; "
+                   "launches over roofline_r2 --precision DEFAULT",
+         "max_abs_err": k4_class_err, **k4_class, "library_ms": None},
         tc_row("curscan_tc", "kspecanal_tpu_torch/csrc/curscan_tc.cu",
                sublane_423, "HIGH/DEFAULT classes (4M) of K1 and K3's cell on "
                "the 128 grid: times at zero-span fft 2048 kaiser 50% DEFAULT "

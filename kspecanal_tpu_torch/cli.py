@@ -24,7 +24,10 @@ holds them equal).
 
 ``tpuMeshTime N`` / ``tpuMeshBand N`` run one process a rank, launched by
 torchrun (``parallel/mesh.py``); rank 0 reads the source, prints and
-renders.
+renders.  ``tpuRenderer gui`` (the default without ``tpuHeadless true``)
+opens the matplotlib window (``gui.py``) where a display is available, else
+runs headless; ``tpuRenderer png:<dir>`` writes one PNG a rendered frame
+into ``<dir>`` and needs matplotlib; ``tpuRenderer term`` draws text.
 """
 from __future__ import annotations
 
@@ -261,13 +264,6 @@ def make_device_source(cfg, run: RunOptions, device):
     return None
 
 
-def _check_ported(run: RunOptions) -> None:
-    """Refuse run options whose machinery is not ported yet, before any
-    source is built."""
-    if run.renderer.startswith("png:"):
-        raise sess_mod.not_ported("tpuRenderer png:", sess_mod.TODO_GUI)
-
-
 def _mesh_of(run: RunOptions, device, mesh):
     """The session's mesh: ``mesh`` as given (its shape must be the run's
     ``tpuMeshTime`` x ``tpuMeshBand``), else one over the launched world
@@ -300,7 +296,6 @@ def main(argv: Optional[List[str]] = None, device=None, mesh=None) -> int:
                                "the card (pass device='cpu' to run its "
                                "plain PyTorch path)")
         device = "cuda"
-    _check_ported(run)
     try:
         mesh, joined = _mesh_of(run, device or "cuda", mesh)
     except mesh_mod.NoWorldError as e:
@@ -318,6 +313,25 @@ def main(argv: Optional[List[str]] = None, device=None, mesh=None) -> int:
     set_iter_logging(run.log_iter)
     if root:
         print_info(cfg)
+    # The renderer first: a png: run without matplotlib fails before any
+    # source is opened.
+    renderer = None
+    if root and run.renderer == "term":
+        from kspecanal_tpu_torch.render_term import TerminalRenderer
+        renderer = TerminalRenderer(cfg)
+    elif root and run.renderer.startswith("png:"):
+        # headless frame dumps: one PNG per iteration into the given dir
+        # (matplotlib's ImportError propagates where it is missing)
+        from kspecanal_tpu_torch.gui import MatplotlibRenderer
+        renderer = MatplotlibRenderer(cfg, interactive=False,
+                                      save_dir=run.renderer[4:])
+    elif root and not run.headless and run.renderer == "gui":
+        try:
+            from kspecanal_tpu_torch.gui import MatplotlibRenderer
+            renderer = MatplotlibRenderer(cfg)
+        except Exception as e:  # no display / no matplotlib backend
+            log_info(f"GUI unavailable ({e}); running headless")
+
     source = None
     sweep_prefetch = False
     if root and cfg.prg_mode != MODE_ZEROSPANPLAY:     # replay reads no IQ
@@ -341,14 +355,6 @@ def main(argv: Optional[List[str]] = None, device=None, mesh=None) -> int:
             else:
                 from kspecanal_tpu_torch.io.prefetch import PrefetchingSource
                 source = PrefetchingSource(source, block_size=cfg.full_size)
-
-    renderer = None
-    if root and run.renderer == "term":
-        from kspecanal_tpu_torch.render_term import TerminalRenderer
-        renderer = TerminalRenderer(cfg)
-    elif root and not run.headless and run.renderer == "gui":
-        log_info("GUI renderer not ported (ROADMAP.md 'Still to port' item "
-                 f"{sess_mod.TODO_GUI}); running headless")
 
     sess = sess_mod.Session(cfg, source, renderer, device=device, mesh=mesh,
                             state_file=run.state_file,
@@ -377,6 +383,12 @@ def main(argv: Optional[List[str]] = None, device=None, mesh=None) -> int:
             source.close()
         if root:
             sess.save_baseline()
+            # Interactive-GUI contract: hold the final figure until a
+            # keypress (kspecanal.py:1152-1155); only for a live window, so
+            # headless, term and png runs never block scripted use.
+            if renderer is not None and getattr(renderer, "interactive",
+                                                False):
+                renderer.hold_until_key()
             sess.timer.log_report()
     if mesh is not None:
         # rank 0's files are written before any rank leaves the world

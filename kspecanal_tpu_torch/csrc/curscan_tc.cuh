@@ -85,11 +85,26 @@
 
 #include <algorithm>
 
-// Forensic cut-offs (profiling only: scripts/tc_stages.py compiles these
-// sources with -DKSPEC_TC_STOP=1 or 2 into a library of its own; the port's
-// library leaves it 0).  1 stops each pass after its frames are staged, 2
-// after stage 1; the output then holds the first rows of the frame/C plane
-// (re) in place of the fold, wrong by construction.
+// Forensic cut-offs: K4's stages at HIGH and DEFAULT (profiling only; the
+// port's library leaves KSPEC_TC_STOP 0, and ops/cuda_tc.stage_library
+// builds these sources with -DKSPEC_TC_STOP=s into a library of its own).
+// Replaces: scripts/roofline_r2.py::_kernel_ablate (:43, K4; its stages
+// :56-124) at tpuPrecision HIGH and DEFAULT.  Each cut-off writes its
+// stage's reduction, as K4's reduce_to_out does, in place of the fold:
+//   1 read  every sample of the block read once: acc[r][c] = sum over the
+//           n-sample slabs j (of the block's window group's share) of
+//           re[j n + 128 r + c] + im[...], unweighted, float32;
+//   2 frame the staged frames as rounded (hi, plus lo at HIGH),
+//   3 s1    B = F1 A in float32, before the twiddle,
+//   4 s1tw  C = B o T in float32 (written over the frame, as stage 1 does),
+//   5 s2    D = C F2^T in float32:
+//           acc[r][c] = sum over windows w of weights[w] (x_re + x_im),
+//           in window order;
+// every element of the stage feeds the output, so no product can be
+// dropped.  A cut-off stores acc in K4's (n1, 128) layout, unshifted
+// (out[b][r * 128 + c]), and the combine kernel sums the groups' partials.
+// The cut-offs take the fold in shared memory (4M, AVG weights:
+// ops/cuda_tc.curscan_tc_stage).
 #ifndef KSPEC_TC_STOP
 #define KSPEC_TC_STOP 0
 #endif
@@ -379,6 +394,83 @@ __device__ __forceinline__ float fold_op(int fold, float acc, float v) {
          : fold == FOLD_MAX ? fmaxf(acc, v) : fminf(acc, v);
 }
 
+// A bf16 operand's value.
+__device__ __forceinline__ float bf16_value(uint16_t x) {
+  return __uint_as_float(uint32_t(x) << 16);
+}
+
+// Cut-off read: slabs [j0, j1) of n samples from the block's planes, re +
+// im summed slab by slab into acc (n1 rows of ROW), 4 samples a load.
+template <typename T>
+__device__ __forceinline__ void fold_slabs(const T* pre, const T* pim,
+                                           float* acc, int n, int j0,
+                                           int j1) {
+  for (int e = 4 * threadIdx.x; e < n; e += 4 * THREADS) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = j0; j < j1; ++j) {
+      const size_t o = static_cast<size_t>(j) * n + e;
+      const float4 r = sample4(pre + o), i = sample4(pim + o);
+      a[0] = __fadd_rn(__fadd_rn(a[0], r.x), i.x);
+      a[1] = __fadd_rn(__fadd_rn(a[1], r.y), i.y);
+      a[2] = __fadd_rn(__fadd_rn(a[2], r.z), i.z);
+      a[3] = __fadd_rn(__fadd_rn(a[3], r.w), i.w);
+    }
+    float* p = acc + (e >> 7) * ROW + (e & (N2 - 1));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p[q] = a[q];
+  }
+}
+
+// Cut-off frame: the nb windows staged in the planes (window k in rows
+// k n1p..), each element's value as rounded (hi, plus lo at HIGH), re + im
+// weighted and folded into acc in window order (window w + k; w0 first).
+template <bool HIGH>
+__device__ __forceinline__ void fold_planes(const uint16_t* pl, int ps,
+                                            float* acc,
+                                            const float* weights, int w,
+                                            int nb, int w0, int n1,
+                                            int n1p) {
+  constexpr int H = HIGH ? 2 : 1;
+  for (int e = threadIdx.x; e < n1 * N2; e += THREADS) {
+    const int r = e >> 7, c = e & (N2 - 1);
+    float* p = acc + r * ROW + c;
+    for (int k = 0; k < nb; ++k) {
+      const int o = (k * n1p + r) * RS + c;
+      float xr = bf16_value(pl[o]), xi = bf16_value(pl[H * ps + o]);
+      if (HIGH) {
+        xr = __fadd_rn(xr, bf16_value(pl[ps + o]));
+        xi = __fadd_rn(xi, bf16_value(pl[(H + 1) * ps + o]));
+      }
+      const float v = __fmul_rn(weights[w + k], __fadd_rn(xr, xi));
+      *p = w + k == w0 ? v : __fadd_rn(*p, v);
+    }
+  }
+}
+
+// Cut-offs s1 and s1tw: the 4 elements a lane holds of m-tile ml (its
+// window's rows ml*16..), column strip j (re in v[i], im in v[4 + i], as
+// twiddle() leaves them), weighted re + im folded into acc.
+__device__ __forceinline__ void fold_tile(float* acc, int ml, int j,
+                                          const float (&v)[8], float wgt,
+                                          bool first) {
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* p = acc + (ml * 16 + g8 + (i >> 1) * 8) * ROW + j * 8 + 2 * t4
+               + (i & 1);
+    const float x = __fmul_rn(wgt, __fadd_rn(v[i], v[4 + i]));
+    *p = first ? x : __fadd_rn(*p, x);
+  }
+}
+
+// Stage 1's tile before the twiddle (cut-off s1): B's 4 elements as
+// twiddle() lays out C's.
+template <bool HIGH, bool TM>
+__device__ __forceinline__ void untwiddled(const Acc<TM>& a, float (&c)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a.template complex<HIGH>(i, c[i], c[4 + i]);
+}
+
 // Kernel A.  Grid: t * groups thread blocks; block (b, g) folds windows
 // [g*W/G, (g+1)*W/G) of IQ block b, wb windows a pass: their frames are
 // stacked in the planes (window i of the pass in rows i*n1p..), so each
@@ -431,21 +523,30 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
       ? part + (static_cast<size_t>(b) * groups + g) * n
       : out + static_cast<size_t>(b) * n;
 
-  // Padded rows (n1..n1p-1 of each window) stay zero; C's are zero there.
-  // The planes' rows start on 16 bytes (the wrapper's check, full % 128
-  // == 0), so a start that is a multiple of 4 reads 4 samples a load.
-  for (int i = tid; i < FH * ps / 2; i += THREADS) pw[i] = 0u;
-  // F1's slots in use: plane q's from the wrapper's slot 2 f + h.
-  if (f1_smem) {
-    uint4* d = const_cast<uint4*>(f1s);
-    for (int i = tid; i < FH * f1n; i += THREADS) {
-      const int q = i / f1n;
-      d[i] = __ldg(f1 + (2 * (q / H) + q % H) * f1n + i % f1n);
+  if (KSPEC_TC_STOP == 1) {
+    // Cut-off read: group g sums its share of the block's slabs.
+    const int slabs = full / n;
+    fold_slabs(pre, pim, acc, n, g * slabs / groups,
+               (g + 1) * slabs / groups);
+  } else {
+    // Padded rows (n1..n1p-1 of each window) stay zero; C's are zero
+    // there.  The planes' rows start on 16 bytes (the wrapper's check,
+    // full % 128 == 0), so a start that is a multiple of 4 reads 4
+    // samples a load.
+    for (int i = tid; i < FH * ps / 2; i += THREADS) pw[i] = 0u;
+    // F1's slots in use: plane q's from the wrapper's slot 2 f + h.
+    if (f1_smem) {
+      uint4* d = const_cast<uint4*>(f1s);
+      for (int i = tid; i < FH * f1n; i += THREADS) {
+        const int q = i / f1n;
+        d[i] = __ldg(f1 + (2 * (q / H) + q % H) * f1n + i % f1n);
+      }
     }
   }
   __syncthreads();
 
-  for (int w = w0; w < w1; w += wb) {
+  const int w_end = KSPEC_TC_STOP == 1 ? w0 : w1;
+  for (int w = w0; w < w_end; w += wb) {
     const int nb = min(wb, w1 - w);  // windows in this pass
     const int mts = nb * nmt;        // m-tiles in this pass
     for (int k = 0; k < nb; ++k) {
@@ -474,7 +575,11 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
       }
     }
     __syncthreads();
-    if (KSPEC_TC_STOP == 1) continue;
+    if (KSPEC_TC_STOP == 2) {
+      fold_planes<HIGH>(pl, ps, acc, weights, w, nb, w0, n1, n1p);
+      __syncthreads();
+      continue;
+    }
 
     // Stage 1: B = F1 A, C = B o T written over the frame.  One window a
     // pass of 5-8 m-tiles (n1p >= 80; not 3M HIGH, whose F1 fragments
@@ -513,10 +618,15 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
               a.template products<HIGH>(fa[kc], x);
             }
           }
-          twiddle<HIGH>(a, t, cv);
+          if (KSPEC_TC_STOP == 3) untwiddled<HIGH>(a, cv);
+          else twiddle<HIGH>(a, t, cv);
         }
         __syncthreads();
-        if (warp < mts) PL::put_c(pw, ps, warp, j, cv);
+        if (warp < mts) {
+          if (KSPEC_TC_STOP != 3) PL::put_c(pw, ps, warp, j, cv);
+          if (KSPEC_TC_STOP == 3 || KSPEC_TC_STOP == 4)
+            fold_tile(acc, warp, j, cv, weights[w], w == w0);
+        }
       }
     } else {
       for (int j = warp; j < NT; j += WARPS) {
@@ -536,19 +646,31 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
               else PL::f1_frags(f, f1, f1n, i);
               a.template products<HIGH>(f, x);
             }
-            float2 t[4];
-            tw_load(t, tw, ml, j);
-            twiddle<HIGH>(a, t, cbuf[mt]);
+            if (KSPEC_TC_STOP == 3) {
+              untwiddled<HIGH>(a, cbuf[mt]);
+            } else {
+              float2 t[4];
+              tw_load(t, tw, ml, j);
+              twiddle<HIGH>(a, t, cbuf[mt]);
+            }
           }
         }
         __syncwarp();
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          if (mt < mts) PL::put_c(pw, ps, mt, j, cbuf[mt]);
+        for (int mt = 0; mt < MT; ++mt) {
+          if (mt < mts) {
+            if (KSPEC_TC_STOP != 3) PL::put_c(pw, ps, mt, j, cbuf[mt]);
+            if (KSPEC_TC_STOP == 3 || KSPEC_TC_STOP == 4) {
+              const int k = mt / nmt;   // window w + k, in window order
+              fold_tile(acc, mt % nmt, j, cbuf[mt], weights[w + k],
+                        w + k == w0);
+            }
+          }
+        }
       }
     }
     __syncthreads();
-    if (KSPEC_TC_STOP == 2) continue;
+    if (KSPEC_TC_STOP == 3 || KSPEC_TC_STOP == 4) continue;
 
     // Stage 2: D = C F2^T by output column tiles over the stacked rows, each
     // tile's F2^T fragments held in registers; |D| folded in place, window
@@ -596,8 +718,10 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
             for (int e = 0; e < 2; ++e) {
               float dr, di;
               a[u].template complex<HIGH>(2 * h + e, dr, di);
-              const float mag = __fsqrt_rn(
-                  __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(di, di)));
+              // cut-off s2: D's re + im in place of |D|
+              const float mag = KSPEC_TC_STOP == 5 ? __fadd_rn(dr, di)
+                  : __fsqrt_rn(__fadd_rn(__fmul_rn(dr, dr),
+                                         __fmul_rn(di, di)));
               v[e] = __fmul_rn(wgt, mag);
             }
             if (fold_smem) {
@@ -625,14 +749,13 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
     __syncthreads();
   }
 
-  // X[k1 + n1 k2] = acc[k1][k2], stored fftshifted.  The cut-offs store
-  // the first rows of plane 0 (re, hi) in its place.
-  if (fold_smem || KSPEC_TC_STOP) {
+  // X[k1 + n1 k2] = acc[k1][k2], stored fftshifted; a cut-off's reduction
+  // in K4's layout, acc[r][c] at r * 128 + c.
+  if (fold_smem) {
     for (int o = tid; o < n; o += THREADS) {
       const int x = (o + n / 2) % n;
-      const int r = x % n1, c = x / n1;
-      dst[o] = KSPEC_TC_STOP ? __uint_as_float(uint32_t(pl[r * RS + c]) << 16)
-                             : acc[r * ROW + c];
+      dst[o] = KSPEC_TC_STOP ? acc[(o >> 7) * ROW + (o & (N2 - 1))]
+                             : acc[(x % n1) * ROW + x / n1];
     }
   }
 }
@@ -645,7 +768,8 @@ int launch_one(const void* re, const void* im, void* out, void* part,
                int wb, cudaStream_t stream) {
   const Layout l = layout(n1, wb, HIGH, TM);
   const size_t smem = l.total();
-  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > SMEM_LIMIT || (KSPEC_TC_STOP && l.fold == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {        // above the default only on request
     const cudaError_t err = cudaFuncSetAttribute(
         curscan_tc_kernel<T, HIGH, TM, MT>,

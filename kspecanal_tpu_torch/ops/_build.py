@@ -8,7 +8,10 @@ and flags, so an edit rebuilds; the output goes to
 ``kspecanal_tpu_torch/build/``.  Only the installed CUDA toolkit is used.
 Nothing here runs at import time, and a CPU-only run never calls it.
 :func:`load_variant` builds a forensic library of some sources with extra
-``-D`` flags beside it (``scripts/tc_stages.py``).
+``-D`` flags beside it (``ops/cuda_tc.stage_library``,
+``scripts/tc_stages.py``); :func:`build` compiles the library and any such
+variants that are not built yet at once, one ``nvcc`` per source and
+variant, all started together.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
+_variants: dict = {}   # (names, defines) -> the loaded forensic library
 build_log = ""         # compiler output of the build this process ran
 build_seconds = 0.0    # 0.0 when the library was already built
 
@@ -73,24 +77,62 @@ def _run_all(cmds):
 
 
 def _compile(so: Path, sources=None, flags=()) -> None:
+    """Build the library ``so`` of ``sources`` (default every ``csrc/*.cu``)
+    with the extra nvcc ``flags``."""
+    _compile_many([(so, _sources() if sources is None else sources, flags)])
+
+
+def _compile_many(jobs) -> None:
+    """Build each ``(so, sources, flags)`` of ``jobs``: every object of
+    every job compiled at once, then the links."""
     global build_log, build_seconds
-    sources = _sources() if sources is None else sources
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    tag = f"{so.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    plans = []
+    for so, sources, flags in jobs:
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        plans.append((so, sources, flags, objs,
+                      so.with_name(f"{so.name}.{os.getpid()}.tmp")))
     t0 = time.perf_counter()
     try:
         build_log = _run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
-                               str(src)] for src, o in zip(sources, objs)])
+                               str(src)]
+                              for _, sources, flags, objs, _ in plans
+                              for src, o in zip(sources, objs)])
         build_log += _run_all([[nvcc, "-shared", "-o", str(tmp),
-                                *(str(o) for o in objs)]])
-        os.replace(tmp, so)
+                                *(str(o) for o in objs)]
+                               for _, _, _, objs, tmp in plans])
+        for so, _, _, _, tmp in plans:
+            os.replace(tmp, so)
     finally:
-        for f in (*objs, tmp):
-            f.unlink(missing_ok=True)
+        for _, _, _, objs, tmp in plans:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
         build_seconds = time.perf_counter() - t0
+
+
+def _variant(names, defines):
+    """``(library path, sources, flags)`` of a forensic build."""
+    flags = tuple(f"-D{d}" for d in defines)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
+    for p in sorted(CSRC_DIR.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return (BUILD_DIR / f"libkspec_variant_{h.hexdigest()[:16]}.so",
+            [CSRC_DIR / n for n in names], flags)
+
+
+def build(variants=(), library: bool = True) -> None:
+    """Compile, all at once, the kernels' library (where ``library``) and
+    the forensic ``variants`` (``(names, defines)`` pairs, as
+    :func:`load_variant` takes them) that are not built yet."""
+    jobs = [(library_path(), _sources(), ())] if library else []
+    jobs += [_variant(names, defines) for names, defines in variants]
+    jobs = [j for j in dict((j[0], j) for j in jobs).values()
+            if not j[0].exists()]
+    if jobs:
+        _compile_many(jobs)
 
 
 def load() -> ctypes.CDLL:
@@ -98,26 +140,22 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    so = library_path()
-    if not so.exists():
-        _compile(so)
-    _lib = _declare(ctypes.CDLL(str(so)))
+    build()
+    _lib = _declare(ctypes.CDLL(str(library_path())))
     return _lib
 
 
 def load_variant(names, defines) -> ctypes.CDLL:
     """A forensic library of the ``csrc`` sources ``names`` compiled with
     ``-D`` each of ``defines`` (e.g. ``("KSPEC_TC_STOP=1",)``), built on
-    first use under a name hashed from their text and the flags."""
-    flags = tuple(f"-D{d}" for d in defines)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
-    for p in sorted(CSRC_DIR.iterdir()):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    so = BUILD_DIR / f"libkspec_variant_{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        _compile(so, [CSRC_DIR / n for n in names], flags)
-    return _declare(ctypes.CDLL(str(so)), missing_ok=True)
+    first use under a name hashed from their text and the flags, and kept
+    for the process (a launch pays no lookup)."""
+    key = (tuple(names), tuple(defines))
+    if key not in _variants:
+        build([(names, defines)], library=False)
+        _variants[key] = _declare(
+            ctypes.CDLL(str(_variant(names, defines)[0])), missing_ok=True)
+    return _variants[key]
 
 
 def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:

@@ -43,7 +43,8 @@ kernel's ``ablate`` keys do (``scripts/kernel_ablate.py``), and
 ``scripts/roofline_r2.py``'s ``_kernel_ablate`` (K4).  Both follow the
 direct two-stage DFT, which is what the JAX scripts take apart.  Their
 plain versions (:func:`curscan_ablate_plain`, :func:`curscan_stage_plain`)
-are the same two-stage DFT in PyTorch.  :func:`curscan_mixed_stage` cuts
+are the same two-stage DFT in PyTorch.  At HIGH and DEFAULT K4 runs
+Kernel A's cut-offs instead (``cuda_tc.curscan_tc_stage``).  :func:`curscan_mixed_stage` cuts
 the FFT kernel's mixed-radix form off after one stage of ``MIXED_STAGES``
 (its stage table, ``scripts/mixed_stages.py``; plain version
 :func:`curscan_mixed_stage_plain`).  ``forensic_launches`` counts the
@@ -479,16 +480,28 @@ def check_stage_config(iq_re: torch.Tensor, cfg: SpecConfig, stage: str):
 def curscan_stage_ablate(iq_re: torch.Tensor, iq_im: torch.Tensor,
                          cfg: SpecConfig, stage: str, *,
                          f32_sums: bool = False) -> torch.Tensor:
-    """K4: the direct kernel cut off after ``stage`` (``STAGES``), each
-    block reduced to ``(fft_size/128, 128)``: ``(T, full_size)`` float32 ->
-    ``(T, n1, 128)`` in the JAX script's layout (row k1, or m1 for
-    'frame'; column m2 or k2; unshifted).  'full' equals
-    :func:`curscan_sublane_direct` under ``out[b, (k1 + n1*k2 + N/2) % N] =
-    K4[b, k1, k2]``.
+    """K4: the kernel of the config's class cut off after ``stage``
+    (``STAGES``), each block reduced to ``(fft_size/128, 128)``:
+    ``(T, full_size)`` float32 -> ``(T, n1, 128)`` in the JAX script's
+    layout (row k1, or m1 for 'frame'; column m2 or k2; unshifted).
+
+    At HIGHEST the direct kernel's forensic instantiation (counted in
+    ``forensic_launches``); 'full' equals :func:`curscan_sublane_direct`
+    under ``out[b, (k1 + n1*k2 + N/2) % N] = K4[b, k1, k2]``, and
     ``f32_sums`` sums in float32 above fft 8192 too, to price the float64
-    sums.  CPU tensors run :func:`curscan_stage_plain`."""
+    sums.  At HIGH and DEFAULT Kernel A's cut-offs
+    (``cuda_tc.curscan_tc_stage``, counted in ``cuda_tc.tc_stage_launches``;
+    they sum in float32 and take no ``f32_sums``).  CPU tensors run the
+    plain versions (:func:`curscan_stage_plain`,
+    ``cuda_tc.curscan_tc_stage_plain``)."""
     global forensic_launches
     check_stage_config(iq_re, cfg, stage)
+    if cfg.tpu_precision.upper() in TC_CLASSES:
+        if f32_sums:
+            raise ValueError("f32_sums prices the direct kernel's float64 "
+                             "sums; Kernel A sums in float32")
+        from kspecanal_tpu_torch.ops import cuda_tc
+        return cuda_tc.curscan_tc_stage(iq_re, iq_im, cfg, stage)
     check_planes(iq_re, iq_im, cfg)
     n1 = cfg.fft_size // _N2
     if iq_re.device.type == "cpu":
@@ -639,6 +652,14 @@ def stage_layout_to_spectrum(acc: torch.Tensor) -> torch.Tensor:
     t, n1, n2 = acc.shape
     return torch.fft.fftshift(acc.transpose(1, 2).reshape(t, n1 * n2),
                               dim=-1)
+
+
+def spectrum_to_stage_layout(spec: torch.Tensor, n1: int) -> torch.Tensor:
+    """The inverse of :func:`stage_layout_to_spectrum`: ``(T, N)`` ->
+    ``(T, n1, N / n1)``."""
+    t, n = spec.shape
+    return torch.fft.ifftshift(spec, dim=-1).view(t, n // n1,
+                                                  n1).transpose(1, 2)
 
 
 def curscan_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,

@@ -56,6 +56,13 @@ Where neither kernel takes a config (K3's cells off the 128 grid, and the
 grid above fft 16384), HIGH and DEFAULT keep the float64 FFT kernel, which
 meets every class's bound (ROADMAP.md B5).
 
+K4 (``scripts/roofline_r2.py``'s stage ablation) at HIGH and DEFAULT runs
+Kernel A cut off after each stage (:func:`curscan_tc_stage`, counted in
+``tc_stage_launches``): forensic builds of its sources with
+``-DKSPEC_TC_STOP`` (:func:`stage_library`), each writing its stage's
+reduction (``csrc/curscan_tc.cuh``; plain version
+:func:`curscan_tc_stage_plain`), and the port's library itself for 'full'.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version (:func:`curscan_tc_plain`, :func:`curscan_packed_tc_plain`), which
 rounds at the same points and in the same form.  The order of the sums
@@ -76,13 +83,16 @@ from kspecanal_tpu_torch.config import (CUMU_AVG, CUMU_MAX, CUMU_RAW,
                                         window_lut)
 from kspecanal_tpu_torch.ops import cuda_packed, spectrum
 from kspecanal_tpu_torch.ops.cuda_packed import _aligned
-from kspecanal_tpu_torch.ops.cuda_curscan import (_FOLD, TC_CLASSES,
-                                                  _raise_on, _tables,
+from kspecanal_tpu_torch.ops.cuda_curscan import (_FOLD, STAGES,
+                                                  TC_CLASSES, _raise_on,
+                                                  _tables, _two_stage_plain,
                                                   check_planes,
+                                                  check_stage_config,
                                                   kernel_route,
+                                                  spectrum_to_stage_layout,
                                                   stage_layout_to_spectrum)
 from kspecanal_tpu_torch.ops.mxu_fft import (_dft_tables_for, class_matmul,
-                                             split_bf16)
+                                             round_bf16, split_bf16)
 
 FORMS = ("force3m", "no3m")
 _N2 = 128
@@ -95,8 +105,13 @@ TC_PASS_ROWS = 64
 # (packed_tc_plan keeps a staged span within it by chunks of windows).
 PACKED_TC_STAGE_BYTES = 48 << 10
 
+# Kernel A's sources, which the forensic cut-offs (K4 at HIGH/DEFAULT,
+# scripts/tc_stages.py) build with -DKSPEC_TC_STOP.
+TC_SOURCES = ("curscan_tc.cu", "curscan_tc_high.cu")
+
 tc_launches = 0             # Kernel A (csrc/curscan_tc.cu)
 packed_tc_launches = 0      # Kernel B (csrc/curscan_packed_tc.cu)
+tc_stage_launches = 0       # Kernel A's K4 cut-offs (curscan_tc_stage)
 
 
 def precision_class(cfg: SpecConfig) -> str:
@@ -168,40 +183,86 @@ def _plain_tables(n: int, window: str, device: torch.device):
                  for a in tabs)
 
 
+def _two_stage_tc(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                  cfg: SpecConfig, stage: str, tm: bool) -> torch.Tensor:
+    """Kernel A's math in PyTorch at the config's class, cut off after
+    ``stage`` (``STAGES``): ``(T, n1, 128)``, row k1 (m1 for 'frame'),
+    column k2 (m2), unshifted.  'read' is the unweighted float32 sum of the
+    block's n-sample slabs of re + im, slab by slab; 'frame' (as rounded:
+    bf16, and hi + lo at HIGH), 's1' (B), 's1tw' (C) and 's2' (D) the sum
+    over windows, in window order, of weights[w] (x_re + x_im); 'full' the
+    cumulate mode's fold of weights[w] |D|."""
+    prec = _check_class(cfg)
+    n = cfg.fft_size
+    n1 = n // _N2
+    dev = iq_re.device
+    re, im = spectrum.decode_u8(iq_re), spectrum.decode_u8(iq_im)
+    t = re.shape[0]
+    if stage == "read":      # no rounding: the direct kernel's plain read
+        return _two_stage_plain(iq_re, iq_im, cfg, "read", frozenset())
+    f1r, f1i, f1s, f2r, f2i, f2s, twr, twi, win = _plain_tables(
+        n, cfg.window, dev)
+    weights = _tables(n, cfg.window, cfg.window_starts,
+                      cfg.cur_scan_cumu_mode, dev)[1]
+    fr = spectrum.frame_signal(re, cfg.window_starts, n).reshape(
+        t, -1, n1, _N2) * win
+    fi = spectrum.frame_signal(im, cfg.window_starts, n).reshape(
+        t, -1, n1, _N2) * win
+
+    def reduce(xr, xi):
+        acc = None
+        for j in range(xr.shape[1]):
+            acc = _fold(CUMU_AVG, acc, weights[j] * (xr[:, j] + xi[:, j]))
+        return acc
+
+    def dot(a, b):
+        return class_matmul(a, b, prec)
+
+    if stage == "frame":
+        return reduce(*(_operand_value(x, prec) for x in (fr, fi)))
+    br, bi = _complex_dot(dot, f1r, f1i, f1s, fr, fi, True, tm)
+    if stage == "s1":
+        return reduce(br, bi)
+    cr = br * twr - bi * twi
+    ci = br * twi + bi * twr
+    if stage == "s1tw":
+        return reduce(cr, ci)
+    dr, di = _complex_dot(dot, f2r, f2i, f2s, cr, ci, False, tm)
+    if stage == "s2":
+        return reduce(dr, di)
+    mag = torch.sqrt(dr * dr + di * di)                 # (T, W, n1, 128)
+    acc = None
+    for j in range(mag.shape[1]):
+        acc = _fold(cfg.cur_scan_cumu_mode, acc, weights[j] * mag[:, j])
+    return acc
+
+
+def _operand_value(x: torch.Tensor, prec: str) -> torch.Tensor:
+    """The value of float32 ``x`` as Kernel A stores it as an operand: bf16
+    at DEFAULT, hi + lo of the bf16x3 split at HIGH."""
+    if prec == "HIGH":
+        hi, lo = split_bf16(x)
+        return hi + lo
+    return round_bf16(x)
+
+
 def curscan_tc_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
                      cfg: SpecConfig, form: Optional[str] = None
                      ) -> torch.Tensor:
     """The plain PyTorch version of Kernel A: ``(T, full_size)`` float32 or
     raw-u8 planes -> ``(T, fft_size)`` fftshifted spectra, at the config's
     class, in the 4M form or ``form``'s, on the planes' device."""
-    prec = _check_class(cfg)
-    tm = three_mult(form)
-    n = cfg.fft_size
-    n1 = n // _N2
-    dev = iq_re.device
-    f1r, f1i, f1s, f2r, f2i, f2s, twr, twi, win = _plain_tables(
-        n, cfg.window, dev)
-    weights = _tables(n, cfg.window, cfg.window_starts,
-                      cfg.cur_scan_cumu_mode, dev)[1]
-    re, im = spectrum.decode_u8(iq_re), spectrum.decode_u8(iq_im)
-    t = re.shape[0]
-    fr = spectrum.frame_signal(re, cfg.window_starts, n).reshape(
-        t, -1, n1, _N2) * win
-    fi = spectrum.frame_signal(im, cfg.window_starts, n).reshape(
-        t, -1, n1, _N2) * win
+    return stage_layout_to_spectrum(
+        _two_stage_tc(iq_re, iq_im, cfg, "full", three_mult(form)))
 
-    def dot(a, b):
-        return class_matmul(a, b, prec)
 
-    br, bi = _complex_dot(dot, f1r, f1i, f1s, fr, fi, True, tm)
-    cr = br * twr - bi * twi
-    ci = br * twi + bi * twr
-    dr, di = _complex_dot(dot, f2r, f2i, f2s, cr, ci, False, tm)
-    mag = torch.sqrt(dr * dr + di * di)                 # (T, W, n1, 128)
-    acc = None
-    for j in range(mag.shape[1]):
-        acc = _fold(cfg.cur_scan_cumu_mode, acc, weights[j] * mag[:, j])
-    return stage_layout_to_spectrum(acc)
+def curscan_tc_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                           cfg: SpecConfig, stage: str) -> torch.Tensor:
+    """The plain PyTorch version of :func:`curscan_tc_stage` (4M, Kernel
+    A's rounding points): ``(T, full_size)`` float32 -> ``(T, n1, 128)``;
+    'full' is :func:`curscan_tc_plain` before the layout map."""
+    check_stage_config(iq_re, cfg, stage)
+    return _two_stage_tc(iq_re, iq_im, cfg, stage, False)
 
 
 @functools.lru_cache(maxsize=32)
@@ -485,6 +546,35 @@ def _cuda_lib(dev: torch.device):
     return _build.load()
 
 
+def tc_stage_stop(stage: str) -> int:
+    """``KSPEC_TC_STOP`` of K4's ``stage``: read 1 .. s2 5; 'full' is the
+    production kernel (0)."""
+    return (STAGES.index(stage) + 1) % len(STAGES)
+
+
+def stage_variants():
+    """``(sources, defines)`` of Kernel A's five cut-off builds, as
+    ``_build.build`` and ``_build.load_variant`` take them."""
+    return [(TC_SOURCES, (f"KSPEC_TC_STOP={tc_stage_stop(s)}",))
+            for s in STAGES[:-1]]
+
+
+def stage_library(stage: str):
+    """The forensic build of Kernel A cut off after ``stage`` (any but
+    'full'), built on first use (``build_stage_libraries`` builds all five
+    at once)."""
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load_variant(TC_SOURCES,
+                               (f"KSPEC_TC_STOP={tc_stage_stop(stage)}",))
+
+
+def build_stage_libraries() -> None:
+    """Build the five cut-off libraries that are not built yet at once (one
+    nvcc per source and cut-off, all started together)."""
+    from kspecanal_tpu_torch.ops import _build
+    _build.build(stage_variants(), library=False)
+
+
 def curscan_tc(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig,
                form: Optional[str] = None) -> torch.Tensor:
     """Kernel A: ``(T, full_size)`` float32 or raw-u8 planes ->
@@ -520,6 +610,52 @@ def tc_occupancy(lib, u8: bool, n1: int, wb: int, high: bool,
     return blocks
 
 
+def tc_launch_groups(lib, iq_re: torch.Tensor, cfg: SpecConfig,
+                     tm: bool) -> int:
+    """Kernel A's window groups for ``iq_re``'s blocks of ``cfg``:
+    :func:`tc_groups` at ``lib``'s occupancy on the planes' card."""
+    n1, w = cfg.fft_size // _N2, cfg.num_windows
+    return tc_groups(
+        iq_re.shape[0], n1, w,
+        torch.cuda.get_device_properties(
+            iq_re.device).multi_processor_count,
+        tc_occupancy(lib, iq_re.dtype == torch.uint8, n1,
+                     tc_windows_per_pass(n1, w),
+                     precision_class(cfg) == "HIGH", tm))
+
+
+def curscan_tc_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                     cfg: SpecConfig, stage: str) -> torch.Tensor:
+    """K4 at HIGH and DEFAULT: Kernel A (4M) cut off after ``stage``
+    (``STAGES``) on ``(T, full_size)`` float32 planes -> ``(T, n1, 128)``
+    in the layout of ``cuda_curscan.curscan_stage_ablate``.  Each cut-off is
+    a build of its own (:func:`stage_library`), 'full' the port's library;
+    all run the window groups of the port's library
+    (:func:`tc_launch_groups`), so 'full' after the layout map is Kernel
+    A's production output bit for bit (its map to K4's layout is a copy:
+    the cut-offs store that layout themselves).  CUDA tensors launch
+    (counted in ``tc_stage_launches``); CPU tensors run
+    :func:`curscan_tc_stage_plain`."""
+    global tc_stage_launches
+    check_stage_config(iq_re, cfg, stage)
+    if not supports_tc(cfg):
+        raise ValueError(f"config not supported by the tensor-core curscan "
+                         f"kernel (tpuPrecision {cfg.tpu_precision}, fft_size "
+                         f"{cfg.fft_size})")
+    check_planes(iq_re, iq_im, cfg)
+    if iq_re.device.type == "cpu":
+        return curscan_tc_stage_plain(iq_re, iq_im, cfg, stage)
+    prod = _cuda_lib(iq_re.device)
+    lib = prod if stage == "full" else stage_library(stage)
+    out = launch_tc(lib, iq_re, iq_im, cfg, False,
+                    tc_launch_groups(prod, iq_re, cfg, False))
+    tc_stage_launches += 1
+    n1 = cfg.fft_size // _N2
+    if stage == "full":
+        return spectrum_to_stage_layout(out, n1)
+    return out.view(-1, n1, _N2)       # a cut-off stores K4's layout
+
+
 def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
               cfg: SpecConfig, tm: bool,
               groups: Optional[int] = None) -> torch.Tensor:
@@ -538,9 +674,7 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
     high = precision_class(cfg) == "HIGH"
     wb = tc_windows_per_pass(n1, w)
     if groups is None:
-        groups = tc_groups(t, n1, w, torch.cuda.get_device_properties(
-            dev).multi_processor_count, tc_occupancy(lib, u8, n1, wb, high,
-                                                     tm))
+        groups = tc_launch_groups(lib, iq_re, cfg, tm)
     part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
             if groups > 1 else None)
     starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,

@@ -1,7 +1,6 @@
-"""Stage breakdown of the direct-DFT curscan kernel (K1 before its FFT
-redesign) on the card — the port of ``scripts/roofline_r2.py``, whose
-two-stage DFT it takes apart.  It runs the kernel's forensic instantiation
-(K4, ``cuda_curscan.curscan_stage_ablate``) cut off after each stage on the
+"""Stage breakdown of the two-stage DFT curscan on the card — the port of
+``scripts/roofline_r2.py``, whose stage ablation K4 it runs
+(``cuda_curscan.curscan_stage_ablate``), cut off after each stage on the
 same planes:
 
     read   read every sample once, sum the n1-row slabs (memory streaming)
@@ -9,20 +8,32 @@ same planes:
     s1     + stage 1, the length-n1 DFT down each column
     s1tw   + the twiddle multiply
     s2     + stage 2, the length-128 DFT along each row
-    full   + |.| and the weighted fold == the direct kernel's production
-           instantiation (``cuda_curscan.curscan_sublane_direct``)
+    full   + |.| and the weighted fold == the production kernel
 
-and prints per stage the time (CUDA events, median of 10), the delta from
-the previous stage and Gsamp/s, then on the same planes the direct kernel
-and the FFT kernel (``csrc/curscan_fft.cu``, what K1 runs for a power of
-two) and, for scale, one float32 ``torch.matmul`` at stage 2's shape
-``(T*W*n1, 128) @ (128, 128)`` with TF32 off.  The default cell is the main
-path's: fft 2048, kaiser, 50% overlap, AVG, float32 planes.
+Which kernel serves the table follows ``--precision`` (default DEFAULT, as
+in the JAX script):
 
-    python -m kspecanal_tpu_torch.scripts.roofline_r2 [--fft N] [--f32-sums] [T ...]
+* HIGH and DEFAULT: Kernel A (``csrc/curscan_tc.cuh``, 4M, float32 sums),
+  each cut-off a build of its own (``cuda_tc.stage_library``: every stage
+  below 'full' folds its weighted re + im into the output), 'full' the
+  port's library; beside them Kernel A itself and the FFT kernel at
+  HIGHEST, and one bf16 ``torch.matmul`` at stage 2's shape for scale;
+* HIGHEST: the direct kernel's forensic instantiation
+  (``csrc/curscan_sublane.cu``, float32); beside it the direct kernel, the
+  FFT kernel (``csrc/curscan_fft.cu``, what K1 runs for a power of two)
+  and one float32 ``torch.matmul`` at stage 2's shape ``(T*W*n1, 128) @
+  (128, 128)`` with TF32 off.
 
-``--f32-sums`` sums in float32 above fft 8192 too (production sums in
-float64 there), to price the float64 sums.
+Per stage the time (CUDA events around 10 back-to-back calls, median of 10,
+per call: ``utils.profiling.cuda_ms_each``, the card's time), the delta from
+the previous stage and Gsamp/s.  The default cell is the main path's: fft 2048,
+kaiser, 50% overlap, AVG, float32 planes.
+
+    python -m kspecanal_tpu_torch.scripts.roofline_r2 [--fft N]
+        [--precision HIGHEST|HIGH|DEFAULT] [--f32-sums] [T ...]
+
+``--f32-sums`` (HIGHEST only) sums in float32 above fft 8192 too
+(production sums in float64 there), to price the float64 sums.
 """
 from __future__ import annotations
 
@@ -34,47 +45,62 @@ import torch
 
 from kspecanal_tpu_torch.config import CUMU_AVG, WINDOW_KAISER, SpecConfig
 from kspecanal_tpu_torch.ops import cuda_curscan as cc
+from kspecanal_tpu_torch.ops import cuda_tc
 from kspecanal_tpu_torch.utils.profiling import card_line, cuda_ms, \
-    require_cuda
+    cuda_ms_each, require_cuda
 
 
-def stage_cfg(fft: int) -> SpecConfig:
+def stage_cfg(fft: int, precision: str = "HIGHEST") -> SpecConfig:
     return SpecConfig(prg_mode="ZEROSPAN", fft_size=fft, sampling_rate=2.4e6,
                       window=WINDOW_KAISER, cur_scan_non_overlap=0.5,
-                      cur_scan_cumu_mode=CUMU_AVG,
+                      cur_scan_cumu_mode=CUMU_AVG, tpu_precision=precision,
                       x_res=min(512, fft)).finalize()
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
     """Print the stage table for each T; returns ``{T: {stage: ms,
-    'direct': ms, 'fft': ms, 'matmul': ms}}``."""
+    'matmul': ms, 'fft': ms, and 'direct' (HIGHEST) or 'tc' (HIGH,
+    DEFAULT): ms}}``."""
     p = argparse.ArgumentParser(prog="roofline_r2", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--fft", type=int, default=2048)
+    p.add_argument("--precision", default="DEFAULT",
+                   choices=("HIGHEST", "HIGH", "DEFAULT"))
     p.add_argument("--f32-sums", action="store_true")
     p.add_argument("t", type=int, nargs="*", default=[4096])
     args = p.parse_args(argv)
+    tc_class = args.precision != "HIGHEST"
+    if args.f32_sums and tc_class:
+        p.error("--f32-sums prices the direct kernel's float64 sums "
+                "(--precision HIGHEST)")
     require_cuda("roofline_r2")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = stage_cfg(args.fft)
+    cfg = stage_cfg(args.fft, args.precision)
     n1 = cfg.fft_size // 128
-    sums = ("float64" if n1 > 64 and not args.f32_sums else "float32")
+    if tc_class:
+        cuda_tc.build_stage_libraries()
+        served = ("Kernel A's cut-offs (csrc/curscan_tc.cuh, one "
+                  "-DKSPEC_TC_STOP build a stage; 'full' the port's "
+                  "library), 4M, float32 sums")
+    else:
+        sums = ("float64" if n1 > 64 and not args.f32_sums else "float32")
+        served = (f"the direct kernel's forensic instantiation "
+                  f"(csrc/curscan_sublane.cu), float32, {sums} stage sums")
     print(f"device: {card_line()}; fft {cfg.fft_size} kaiser 50% AVG, "
-          f"W={cfg.num_windows}, full={cfg.full_size}; precision float32 "
-          f"(the forensic kernel's one form at every class; the JAX script "
-          f"ran DEFAULT), {sums} "
-          f"stage sums", flush=True)
+          f"W={cfg.num_windows}, full={cfg.full_size}; precision "
+          f"{args.precision}: K4 served by {served}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     results: Dict[int, Dict[str, float]] = {}
     for t in args.t:
         row: Dict[str, float] = {}
         samples = t * cfg.full_size
         rows = t * cfg.num_windows * n1
-        a = torch.randn((rows, 128), generator=gen, device="cuda")
-        b = torch.randn((128, 128), generator=gen, device="cuda")
+        dtype = torch.bfloat16 if tc_class else torch.float32
+        a = torch.randn((rows, 128), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((128, 128), generator=gen, device="cuda").to(dtype)
         row["matmul"] = cuda_ms(lambda: torch.matmul(a, b))
         print(f"T={t} torch.matmul stage-2 shape ({rows}, 128) @ (128, 128) "
-              f"fp32: {row['matmul']:9.3f} ms "
+              f"{'bf16' if tc_class else 'fp32'}: {row['matmul']:9.3f} ms "
               f"{2 * rows * 128 * 128 / row['matmul'] / 1e9:6.2f} TFLOP/s",
               flush=True)
         del a, b
@@ -82,17 +108,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
         im = torch.randn((t, cfg.full_size), generator=gen, device="cuda")
         prev = None
         for stage in cc.STAGES:
-            ms = cuda_ms(lambda s=stage: cc.curscan_stage_ablate(
+            ms = cuda_ms_each(lambda s=stage: cc.curscan_stage_ablate(
                 re, im, cfg, s, f32_sums=args.f32_sums))
             row[stage] = ms
             delta = "" if prev is None else f"delta {ms - prev:+9.3f} ms"
             print(f"T={t} {stage:5s} {ms:9.3f} ms {samples / ms / 1e6:7.3f} "
                   f"Gsamp/s  {delta}", flush=True)
             prev = ms
-        for key, fn, what in (
-                ("direct", cc.curscan_sublane_direct, "the direct kernel"),
-                ("fft", cc.curscan_fused_sublane, "K1, the FFT kernel")):
-            row[key] = cuda_ms(lambda: fn(re, im, cfg))
+        highest = stage_cfg(args.fft)
+        if tc_class:
+            base = ("tc", lambda: cuda_tc.curscan_tc(re, im, cfg),
+                    f"Kernel A at {args.precision}")
+        else:
+            base = ("direct", lambda: cc.curscan_sublane_direct(re, im, cfg),
+                    "the direct kernel")
+        for key, fn, what in (base, (
+                "fft", lambda: cc.curscan_fused_sublane(re, im, highest),
+                "K1, the FFT kernel, at HIGHEST")):
+            row[key] = cuda_ms_each(fn)
             print(f"T={t} {key:6s} {row[key]:9.3f} ms "
                   f"{samples / row[key] / 1e6:7.3f} Gsamp/s ({what})",
                   flush=True)

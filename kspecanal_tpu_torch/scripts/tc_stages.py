@@ -6,13 +6,17 @@ on the card: the kernel cut off after each stage on the same planes,
     stage1  + stage 1 (B = F1 A) and the twiddle, C written over the frame
     full    + stage 2 (D = C F2^T), |D| and the fold: the production kernel
 
+(frame and stage1 are K4's cut-offs 'frame' and 's1tw', each of which also
+folds its stage's weighted re + im into the output: the stage times include
+that reduction)
+
 in the production (4M) form, with each cell's shared memory a block
 (``layout()`` of ``csrc/curscan_tc.cuh``), the blocks an SM holds (the
 CUDA occupancy calculator: registers and shared memory), its window groups
 and windows a pass.  The cut-offs are builds of Kernel A's two
-sources with ``-DKSPEC_TC_STOP=1`` (frame) and ``2`` (stage1) into
-libraries of their own (``ops/_build.load_variant``; their spectra are
-wrong by construction); ``full`` is the port's library.  Every build runs
+sources with ``-DKSPEC_TC_STOP=2`` (frame) and ``4`` (stage1) into
+libraries of their own (``ops/cuda_tc.stage_library``); ``full`` is the
+port's library.  Every build runs
 the window groups that ``cuda_tc.tc_groups`` gives at the port's library's
 occupancy, so all three time the same grid; where those are more than one,
 the table is printed again at one group.  Each is timed with CUDA events
@@ -47,8 +51,8 @@ from kspecanal_tpu_torch.utils.profiling import card_line, cuda_ms, \
 CELLS = ("2048:0.5:WIN.KAISER:4096:DEFAULT", "2048:0.5:WIN.KAISER:4096:HIGH",
          "16384:0.1:WIN.ONES:288:DEFAULT", "16384:0.5:WIN.KAISER:288:DEFAULT",
          "16384:0.5:WIN.KAISER:288:HIGH")
-SOURCES = ("curscan_tc.cu", "curscan_tc_high.cu")
-STOPS = {"frame": 1, "stage1": 2}
+SOURCES = cuda_tc.TC_SOURCES
+STOPS = {"frame": "frame", "stage1": "s1tw"}     # name: K4's cut-off
 ROUNDS = 10
 
 
@@ -76,8 +80,9 @@ def main(argv: Optional[List[str]] = None
     require_cuda("tc_stages")
     print(f"device: {card_line()}; Kernel A stage table (4M, float32 "
           f"planes, CUDA events, median of 10)", flush=True)
-    libs = {stage: _build.load_variant(SOURCES, (f"KSPEC_TC_STOP={stop}",))
-            for stage, stop in STOPS.items()}
+    _build.build([(SOURCES, (f"KSPEC_TC_STOP={cuda_tc.tc_stage_stop(s)}",))
+                  for s in STOPS.values()], library=False)
+    libs = {name: cuda_tc.stage_library(s) for name, s in STOPS.items()}
     libs["full"] = _build.load()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)

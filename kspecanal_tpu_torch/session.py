@@ -8,8 +8,9 @@ Cooperative stop mirrors the reference's ``cmd.stop`` flag checked at loop
 tops (kspecanal.py:465); SIGINT wiring lives in cli.py.  ``zeroSpanSave``
 records the spectra, ``zeroSpanPlay`` replays a recording through the
 display fold, and ``tpuStateFile`` checkpoints the state a zero-span or
-scan session leaves behind (``io/state.py``).  Options not ported yet raise
-an error that names their ROADMAP.md item.
+scan session leaves behind (``io/state.py``).  A renderer with
+``apply_toggles`` (``gui.MatplotlibRenderer``) has its curve toggles folded
+into the config at each step or sweep boundary of the unsharded loops.
 
 With a mesh (``parallel/mesh.py``, one process a rank) the zero-span loop
 splits each capture over the ``time`` ranks and the scan loop splits each
@@ -40,16 +41,6 @@ from kspecanal_tpu_torch.models import scan as scan_mod
 from kspecanal_tpu_torch.models import zerospan as zs
 from kspecanal_tpu_torch.ops.peaks import find_peaks
 from kspecanal_tpu_torch.parallel import mesh as mesh_mod
-
-# Entries of the "Still to port" queue in ROADMAP.md named by the errors
-# of what is not ported yet.
-TODO_GUI = "8 (matplotlib renderer)"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to kspecanal_tpu_torch yet: ROADMAP.md "
-        f"'Still to port' item {item}")
 
 
 class Session:
@@ -141,6 +132,20 @@ class Session:
             save_sig_lvls(self.cfg.save_sig_lvls, self.cfg.start_freq,
                           self.cfg.end_freq, self.final_avg)
             log_info(f"_save_siglvls: success... {self.cfg.save_sig_lvls}")
+
+    def _apply_pending_toggles(self, cfg: SpecConfig) -> SpecConfig:
+        """Fold the renderer's pending toggles into the active config at a
+        step or sweep boundary (the reference's buttons mutate shared state
+        mid-loop, kspecanal.py:994-1053; here the config stays frozen for a
+        step, and the next step runs with the new one).  Toggles touch only
+        display and cumulate booleans, never the plan's geometry, so the
+        scan drivers keep their ScanPlan and read-ahead."""
+        if self.renderer is not None and hasattr(self.renderer,
+                                                 "apply_toggles"):
+            new_cfg = self.renderer.apply_toggles(cfg)
+            if new_cfg != cfg:
+                cfg = self.cfg = new_cfg
+        return cfg
 
     def _emit(self, view, iteration: int, timestamp_str: Optional[str] = None,
               with_peaks: bool = True):
@@ -235,6 +240,7 @@ def run_zero_span(sess: Session, max_iters: Optional[int] = None
                 state, view = zs.zero_span_step(state, re, im, cfg, adj)
         with sess.timer.stage("render"):
             sess._emit(view, i)
+        cfg = sess._apply_pending_toggles(cfg)
     sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
     sess._checkpoint_state(state, cfg)
     return state
@@ -389,6 +395,10 @@ def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
             done += k
             with sess.timer.stage("render"):
                 sess._emit(view, done - 1)
+            new_cfg = sess._apply_pending_toggles(cfg)
+            if new_cfg is not cfg:
+                cfg = new_cfg
+                want_view = sess.renderer is not None
     finally:
         if pending is not None:
             pending[0].cancel()
@@ -527,6 +537,10 @@ def run_zero_span_play(sess: Session, max_iters: Optional[int] = None
             with sess.timer.stage("render"):
                 sess._emit(view, i - 1,
                            ZeroSpanPlayer.format_timestamp(batch[-1][0]))
+            new_cfg = sess._apply_pending_toggles(cfg)
+            if new_cfg is not cfg:
+                cfg = new_cfg
+                want_view = sess.renderer is not None
     if state is not None:
         sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
     return state
@@ -699,6 +713,9 @@ def _run_scan_loop(sess: Session, state: scan_mod.ScanState, adj,
         if sess.renderer is not None:
             with sess.timer.stage("render"):
                 sess._emit(scan_mod.scan_view(state, cfg, plan, adj), i)
+        # The Max/Min toggles reach the sweep fold itself (the reference
+        # reads bDataMax/bDataMin per band, kspecanal.py:651-662).
+        cfg = sess._apply_pending_toggles(cfg)
     sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
     sess._checkpoint_state(state, cfg)
     return state
@@ -801,6 +818,7 @@ def _run_scan_catchup(sess: Session, state: scan_mod.ScanState, adj,
                 with sess.timer.stage("render"):
                     sess._emit(scan_mod.scan_view(state, cfg, plan, adj),
                                done - 1)
+            cfg = sess._apply_pending_toggles(cfg)
     finally:
         if pf is not None:
             pf.close()

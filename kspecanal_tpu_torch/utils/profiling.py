@@ -7,8 +7,9 @@
     activities), writes a Chrome trace into the directory given (``tpuProfile
     <dir>`` on the CLI, or ``KSPEC_TRACE_DIR``) and logs the card's busy
     share of the traced window, :func:`device_busy_share`;
-  * :func:`cuda_ms` and :func:`card_line` time work on the card and name
-    the card for the forensics scripts (``kspecanal_tpu_torch/scripts``).
+  * :func:`cuda_ms`, :func:`cuda_ms_each` and :func:`card_line` time work
+    on the card and name the card for the forensics scripts
+    (``kspecanal_tpu_torch/scripts``).
 """
 from __future__ import annotations
 
@@ -79,6 +80,14 @@ def cuda_ms(fn: Callable[[], object], warm: int = 3, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms_each(fn: Callable[[], object], calls: int = 10) -> float:
+    """Milliseconds a call of ``fn()`` keeps the card busy: :func:`cuda_ms`
+    of ``calls`` back-to-back calls, divided by ``calls``.  The host queues
+    each call while the card runs the one before, so a wrapper's host time
+    shows only where it exceeds the kernel's."""
+    return cuda_ms(lambda: [fn() for _ in range(calls)]) / calls
 
 
 def card_line() -> str:

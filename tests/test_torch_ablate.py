@@ -21,8 +21,10 @@ from jax.experimental import pallas as pl
 
 from kspecanal_tpu.ops import pallas_curscan as jpk
 from kspecanal_tpu_torch.ops import _build, cuda_curscan as cc
-from kspecanal_tpu_torch.scripts import kernel_ablate, qfs_ablate, \
-    roofline_r2, session_ablate, tc_stages, threemult_smoke
+from kspecanal_tpu_torch.scripts import fm_ablate, kernel_ablate, \
+    perf_followup, perf_probe, perf_r2, probe_membw, qfs_ablate, \
+    roofline_r2, session_ablate, session_file_ablate, tc_stages, \
+    threemult_smoke
 from torch_parity import assert_spectra_close, decoded, raw_planes, zs_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -182,7 +184,9 @@ def test_read_stage_sums_every_sample_once():
 @pytest.mark.parametrize("script,argv", [
     (roofline_r2, []), (kernel_ablate, []), (session_ablate, ["2"]),
     (qfs_ablate, ["--bands", "2"]), (threemult_smoke, []),
-    (tc_stages, [])])
+    (tc_stages, []), (probe_membw, []), (fm_ablate, ["--bands", "2"]),
+    (session_file_ablate, ["4", "2"]), (perf_followup, []), (perf_r2, []),
+    (perf_probe, []), (roofline_r2, ["--precision", "HIGH"])])
 def test_forensics_scripts_need_the_card(monkeypatch, script, argv):
     """A measurement never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -229,3 +233,35 @@ def test_qfs_ablate_parts_are_the_sweep_step():
     want = scan_mod.sweep_step(state, re, im, oks, cfg, plan)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_fm_ablate_splits_a_sweep_batch_on_the_cpu(capsys):
+    """The port of scripts/fm_ablate.py at 2 bands and 2 sweeps on the CPU
+    (the host clock): every row of the split."""
+    rows = fm_ablate.main(["--bands", "2", "--sweeps", "2", "--device",
+                           "cpu"])
+    assert list(rows) == ["curscans (K1)", "curscans + display",
+                          "curscans + stitch", "sweep_steps", "stitch alone",
+                          "gathers alone"]
+    assert all(ms > 0 for ms in rows.values())
+
+
+def test_session_file_ablate_reconciles_the_stages_on_the_cpu(capsys):
+    """The port of scripts/session_file_ablate.py at 16 blocks in batches of
+    4 on the CPU: every stage of both threads, and the main thread's stages
+    within the wall."""
+    out = session_file_ablate.main(["16", "4", "--device", "cpu"])
+    assert set(out) == {"wall", *session_file_ablate.MAIN_STAGES,
+                        *session_file_ablate.WORKER_STAGES}
+    assert 0 < sum(out[s] for s in session_file_ablate.MAIN_STAGES) \
+        <= out["wall"]
+    assert out["acquire.read"] > 0
+    assert "main-thread stages explain" in capsys.readouterr().out
+
+
+def test_roofline_class_refuses_f32_sums():
+    """``--f32-sums`` prices the direct kernel's float64 sums: an argument
+    error at HIGH and DEFAULT, before any card is asked for."""
+    with pytest.raises(SystemExit) as e:
+        roofline_r2.main(["--precision", "DEFAULT", "--f32-sums"])
+    assert e.value.code == 2

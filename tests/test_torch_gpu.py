@@ -640,3 +640,43 @@ def test_shared_card_world_matches_unsharded_port(shared_card_world, case):
         launched = [sum(v) for k, v in rank["launches"].items()
                     if k.startswith(case)]
         assert launched and min(launched) > 0, rank["launches"]
+
+
+@pytest.mark.parametrize("stage", cuda_curscan.STAGES)
+@pytest.mark.parametrize("fft,t", [(2048, 64), (16384, 32)])
+@pytest.mark.parametrize("prec", ["DEFAULT", "HIGH"])
+def test_tc_k4_cut_offs_match_plain(cuda, prec, fft, t, stage):
+    """K4 at HIGH and DEFAULT: each of Kernel A's cut-offs (one launch,
+    counted in ``tc_stage_launches``) within TC_TOL of its plain version;
+    'full' after the layout map bitwise equal to Kernel A (fft 16384 at
+    T=32 runs window groups and their combine)."""
+    cfg = zs_cfg(fft, tpu_precision=prec)
+    re, im = planes_on(cuda, cfg, t, seed=fft + t)
+    before = cuda_tc.tc_stage_launches
+    got = cuda_curscan.curscan_stage_ablate(re, im, cfg, stage)
+    assert cuda_tc.tc_stage_launches == before + 1
+    assert got.shape == (t, fft // 128, 128)
+    want = cuda_tc.curscan_tc_stage_plain(re, im, cfg, stage)
+    assert_tc_close(got.cpu().numpy(), want.cpu().numpy(), prec)
+    if stage == "full":
+        assert torch.equal(cuda_curscan.stage_layout_to_spectrum(got),
+                           cuda_tc.curscan_tc(re, im, cfg))
+
+
+@pytest.mark.parametrize("fft", [2048, 128])
+def test_analyzer_launches_its_kernel(cuda, tmp_path, fft):
+    """``tools.analyze_capture`` on the card: K1 at fft 2048, K2 at 128,
+    four spectra within the per-bin bound of the plain versions run on
+    the CPU on the same capture."""
+    from kspecanal_tpu_torch import tools
+    from kspecanal_tpu_torch.scripts import make_fixture
+    path = str(tmp_path / "cap.iq")
+    make_fixture.make_capture(path, 200_000)
+    before = (cuda_curscan.launches, cuda_packed.launches)
+    got = tools.analyze_capture(path, fft)
+    launched = (cuda_curscan.launches - before[0],
+                cuda_packed.launches - before[1])
+    assert launched == ((4, 0) if fft == 2048 else (0, 4))
+    want = tools.analyze_capture(path, fft, device="cpu")
+    for k in ("complex", "imag", "abs"):
+        assert_spectra_close(got[k], want[k])

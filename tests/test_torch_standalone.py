@@ -6,8 +6,10 @@ parser, host sources, replay, logging) stay equal to their originals.
     unimportable imports every module of the port and runs sessions through
     the port's ``cli.main`` on the CPU (zero-span serial, catch-up and from
     a u8 file, fmScan, quickFullScan, zeroSpanSave then zeroSpanPlay at
-    fftSize 3000, and ``tpuStateFile`` resumes), and a 2-rank gloo world
-    runs a ``tpuMeshTime 2`` session the same way;
+    fftSize 3000, ``tpuStateFile`` resumes and a ``tpuRenderer png:``
+    session), ``tools.main`` analyses a capture from the port's
+    ``make_fixture``, and a 2-rank gloo world runs a ``tpuMeshTime 2``
+    session the same way;
   * an AST walk finds no import of ``kspecanal_tpu`` (module level or inside
     a function) in the package (``parallel/`` and ``scripts/`` among it),
     ``chip_smoke.py``, ``tests/test_torch_gpu.py`` or the gloo worker
@@ -18,7 +20,8 @@ parser, host sources, replay, logging) stay equal to their originals.
     from one seed, the checkpoint fingerprint of ``io/state`` and the
     route's factor rule (``_factorize``, ``supports_fused``), and the
     sharded paths' copies (``make_time_shard_plan``, ``_dft_tables_for``,
-    ``supports_fft_sharding``)."""
+    ``supports_fft_sharding``), the matplotlib renderer ``gui.py`` (its
+    code, docstrings aside) and the fixture writer's ``make_capture``."""
 import ast
 import dataclasses
 import os
@@ -77,6 +80,8 @@ SESSIONS = {
     "fmscan-state-resume": [
         FM + ["prgLoopCnt", "1", "tpuStateFile", "ck"],
         FM + ["prgLoopCnt", "1", "tpuStateFile", "ck"]],
+    "zerospan-png-renderer": [ZS + ["prgLoopCnt", "2", "tpuSource", "synth",
+                                    "tpuRenderer", "png:Frames"]],
 }
 
 
@@ -113,6 +118,36 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path, name):
     assert "standalone ok" in proc.stdout
     if name.endswith("state-resume"):
         assert proc.stderr.count("resume: restored state from ck.npz") == 1
+    if name.endswith("png-renderer"):
+        assert sorted(os.listdir(tmp_path / "Frames")) == [
+            "frame_000000.png", "frame_000001.png"]
+
+
+def test_analyzer_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    """``python -m kspecanal_tpu_torch.tools`` on the CPU (its ``main``
+    with ``device="cpu"``), on a capture the port's ``make_fixture``
+    writes, with ``jax``, ``jaxlib`` and ``kspecanal_tpu`` unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'kspecanal_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from kspecanal_tpu_torch import tools\n"
+        "from kspecanal_tpu_torch.scripts import make_fixture\n"
+        "make_fixture.make_capture('cap.iq', 40000)\n"
+        "for a in ([], ['decimate', '2']):\n"
+        "    assert tools.main(['cap.iq', 'fftSize', '128', 'out',\n"
+        "                       'z.npz'] + a, device='cpu') == 0\n"
+        "assert not any(k == 'jax'\n"
+        "               or k.startswith(('jax.', 'kspecanal_tpu.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('analyzer ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "analyzer ok" in proc.stdout
+    assert (tmp_path / "z.npz").exists()
 
 
 def test_mesh_session_runs_with_jax_and_the_jax_package_blocked(tmp_path):
@@ -166,7 +201,16 @@ def test_no_file_of_the_port_imports_the_jax_package():
             "kspecanal_tpu_torch/parallel/bandshard.py",
             "kspecanal_tpu_torch/scripts/scaling_bench.py",
             "kspecanal_tpu_torch/scripts/collective_bytes.py",
-            "kspecanal_tpu_torch/scripts/dryrun_multichip.py"} <= rel
+            "kspecanal_tpu_torch/scripts/dryrun_multichip.py",
+            "kspecanal_tpu_torch/gui.py", "kspecanal_tpu_torch/tools.py",
+            "kspecanal_tpu_torch/scripts/render_demo.py",
+            "kspecanal_tpu_torch/scripts/make_fixture.py",
+            "kspecanal_tpu_torch/scripts/probe_membw.py",
+            "kspecanal_tpu_torch/scripts/fm_ablate.py",
+            "kspecanal_tpu_torch/scripts/session_file_ablate.py",
+            "kspecanal_tpu_torch/scripts/perf_followup.py",
+            "kspecanal_tpu_torch/scripts/perf_r2.py",
+            "kspecanal_tpu_torch/scripts/perf_probe.py"} <= rel
     found = {os.path.relpath(f, REPO): _imports_of_the_jax_package(f)
              for f in files}
     assert {f: v for f, v in found.items() if v} == {}
@@ -333,6 +377,44 @@ def test_factor_rule_copy_equals_the_original():
             jc, tc = (m.parse_args(argv + ["fftSize", fft])[0]
                       for m in (jcli, tcli))
             assert cuda_curscan.supports_fused(tc) == jpk.supports_fused(jc)
+
+
+def _code_without_docstrings(path, package):
+    """The module's syntax tree with every docstring removed and the
+    package's name in its imports written as ``kspecanal_tpu``."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(getattr(body[0], "value", None), ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        if isinstance(node, ast.ImportFrom) and node.module:
+            node.module = node.module.replace(package, "kspecanal_tpu")
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", ["gui.py", "scripts/make_fixture.py"])
+def test_renderer_and_fixture_copies_equal_the_original(module):
+    """``gui.py`` is the JAX package's matplotlib renderer with its imports
+    taken from the port: the same code, docstrings aside; ``make_capture``
+    of the fixture script is the JAX script's."""
+    if module == "gui.py":
+        got = _code_without_docstrings(
+            os.path.join(REPO, "kspecanal_tpu_torch", "gui.py"),
+            "kspecanal_tpu_torch")
+        want = _code_without_docstrings(
+            os.path.join(REPO, "kspecanal_tpu", "gui.py"), "kspecanal_tpu")
+        assert got == want
+        return
+
+    def make_capture(path):
+        fns = [n for n in ast.parse(open(path).read()).body
+               if isinstance(n, ast.FunctionDef) and n.name == "make_capture"]
+        return ast.dump(fns[0])
+    assert make_capture(os.path.join(
+        REPO, "kspecanal_tpu_torch", module)) == make_capture(
+        os.path.join(REPO, module))
 
 
 def test_replay_copy_reads_what_the_original_writes(tmp_path):
