@@ -146,6 +146,23 @@ Phases (any failure raises; the exit code is then non-zero):
      a u8 capture file, fmScan catch-up and from a u8 file, the lane
      kernel's cell, quickFullScan), each launching its tensor-core kernel
      and no FFT kernel, peaks on the synth tones;
+ 15b. Kernel C (``cuda_tc.curscan_tc_split``, ``csrc/curscan_tc_split.cu``,
+     the tensor-core two-stage DFT on the JAX dispatcher's split: K3 off
+     the 128 grid and the grid above fft 16384 at HIGH and DEFAULT) against
+     its plain version at every class x 3M/4M x f32/u8 x mode at fft 2050,
+     3000, 10000, 39800 and 131100 (lane splits), 32768 and 131072
+     (sublane split), 50% and 90%, and 65536 at 50% (256 x 256 on f32, 512
+     x 128 on u8), u8 bit-identical to decoded float32 on the same split;
+     the classes against the float64 oracle through the dispatcher at fft
+     3000, 10000, 32768 and 65536; its times at fft 3000 and 10000 (T=4096)
+     and 39800, 65536 and 32768 at 90% (T=64) beside the FFT kernel at
+     HIGHEST and the plain version, each output held to the plain
+     version's, with the bound (4M tensor-core flops of the split, x3 at
+     HIGH, at 989 TFLOP/s, or the bytes); zeroSpan through ``cli.main`` at
+     fft 3000 DEFAULT serial, fft 10000 HIGH catch-up, fft 65536 DEFAULT on
+     a u8 capture file (the sublane split) and on synth (the lane split),
+     each launching Kernel C on that split and no other curscan kernel,
+     peaks on 91/92/93 MHz;
  16. mesh: the sharded paths (``parallel/``) in worlds of ranks started by
      ``parallel/spawn.run_world`` after the build (the ranks only load the
      library): one rank on NCCL, 2 and 4 ranks sharing the card over gloo
@@ -244,22 +261,23 @@ def bound(cfg, t, u8):
                                    else "bytes")
 
 
-def tc_bound(cfg, t, u8):
+def tc_bound(cfg, t, u8, split=None):
     """The least time (ms) the card could take for one tensor-core kernel
     call, what bounds it, and the FFT-flops bound of :func:`bound` beside
     it.  Operations: the kernel's own tensor-core flops at 989 TFLOP/s bf16,
-    times 3 at HIGH (the bf16x3 split): Kernel A (fft n = 128 n1) 4 real
-    products (the production 4M form) a stage a window, each 2 n1 n1 128
-    flops in stage 1 and 2 n1 128 128 in stage 2; Kernel B (fft <= 128) 4
-    products of 2 n n.  Bytes: the planes read once plus the output
-    written once at 3.35 TB/s."""
+    times 3 at HIGH (the bf16x3 split): Kernels A and C (fft n = n1 n2;
+    Kernel A's n2 = 128, Kernel C's ``split``) 4 real products (the
+    production 4M form) a stage a window, each 2 n1 n1 n2 flops in stage 1
+    and 2 n1 n2 n2 in stage 2; Kernel B (fft <= 128) 4 products of 2 n n.
+    Bytes: the planes read once plus the output written once at 3.35
+    TB/s."""
     from kspecanal_tpu_torch.ops import cuda_tc
     n = cfg.fft_size
     if n <= 128:
         per_window = 4 * 2 * n * n
     else:
-        n1 = n // 128
-        per_window = 4 * 2 * n1 * 128 * (n1 + 128)
+        n1, n2 = split or (n // 128, 128)
+        per_window = 4 * 2 * n1 * n2 * (n1 + n2)
     if cuda_tc.precision_class(cfg) == "HIGH":
         per_window *= 3
     ops_ms = t * cfg.num_windows * per_window / BF16_FLOPS * 1e3
@@ -1778,6 +1796,209 @@ def phase_precision(cc, cp, spec, cli, gen, gpu, tmp):
     return errs, times, launches
 
 
+# Kernel C's cells against its plain version: K3 off the 128 grid (one
+# block: 2050 = 50 x 41 and 3000 = 60 x 50 with 4 m-tiles a block at
+# DEFAULT, 10000 = 100 x 100; 39800 = 200 x 199 with odd n2; 131100 = 380 x
+# 345, above 131072), the grid above fft 16384 (32768 and 131072 on the
+# sublane split n/128 x 128) at 50% and 90%, and fft 65536 at 50% (256 x
+# 256 on float32, 512 x 128 on u8 planes at DEFAULT).
+SPLIT_CELLS = ((2050, (0.5, 0.1)), (3000, (0.5, 0.1)), (10000, (0.5, 0.1)),
+               (39800, (0.5, 0.1)), (131100, (0.5, 0.1)),
+               (32768, (0.5, 0.1)), (131072, (0.5, 0.1)), (65536, (0.5,)))
+
+
+def phase_split(cc, spec, cli, gen, gpu, tmp):
+    """Kernel C, the tensor-core two-stage DFT on any split (K3 off the 128
+    grid, the grid above fft 16384, at HIGH and DEFAULT): against its plain
+    version at every class x form x input x mode of ``SPLIT_CELLS``, u8
+    bit-identical to decoded float32 on the same split; the classes against
+    the float64 oracle at fft 3000, 10000, 32768 and 65536 through the
+    dispatcher (the table of ``scripts.threemult_smoke``, extended); its
+    times at the Motivation cells beside the FFT kernel at HIGHEST and the
+    plain version (each output held to the plain version's); sessions
+    through ``cli.main``, each launching Kernel C and no FFT kernel, on the
+    split the JAX dispatcher takes.  Returns its errors, times and launches
+    (by the TPU kernel it stands in for: K3's lane split, K1's sublane
+    split)."""
+    from kspecanal_tpu_torch.cli import parse_args
+    from kspecanal_tpu_torch.ops import cuda_tc as tc
+    from kspecanal_tpu_torch.scripts import threemult_smoke
+    from kspecanal_tpu_torch.utils.profiling import cuda_ms
+    print(f"== Kernel C (csrc/curscan_tc_split.cu) vs plain (per bin rtol, "
+          f"atol of the peak: {TC_TOL})")
+    for fft, nonos in SPLIT_CELLS:
+        for nono in nonos:
+            t = 4 if fft <= 16384 else 2
+            for prec in ("DEFAULT", "HIGH"):
+                for form in ("force3m", "no3m"):
+                    for u8 in (False, True):
+                        worst = mx = 0.0
+                        for mode in MODES:
+                            cfg = class_cfg(cfg_of(fft, nono, mode), prec)
+                            split = cc.tc_split(cfg, u8)
+                            re, im = noise(cfg, t, u8, gen)
+                            e, sh = tc_compare(
+                                lambda a, b, c: tc.curscan_tc_split(a, b, c,
+                                                                    form),
+                                lambda a, b, c: tc.curscan_tc_split_plain(
+                                    a, b, c, form),
+                                cfg, re, im, "tc_split_launches")
+                            mx, worst = max(mx, e), max(worst, sh)
+                            if u8:
+                                check(torch.equal(
+                                    tc.curscan_tc_split(re, im, cfg, form),
+                                    tc.curscan_tc_split(
+                                        spec.decode_u8(re),
+                                        spec.decode_u8(im), cfg, form,
+                                        split)),
+                                    "Kernel C u8 bit-identical to decoded "
+                                    "f32")
+                        print(f"  Kernel C fft {fft} ({split[0]} x "
+                              f"{split[1]}) ovl {1 - nono:.1f} "
+                              f"{cfg.num_windows} windows {prec} "
+                              f"{'3M' if form == 'force3m' else '4M'} "
+                              f"{'u8' if u8 else 'f32'}, T={t}, 4 modes: max "
+                              f"abs {mx:.3e}, {worst:.3f} of the tolerance"
+                              f"{', u8 bit-identical' if u8 else ''} "
+                              f"{'PASS' if worst <= 1 else 'FAIL'}")
+                        check(worst <= 1, "Kernel C vs plain")
+
+    print(f"== Kernel C's classes against the float64 oracle through the "
+          f"dispatcher (threemult_smoke's measure; bounds {ORACLE_BOUND})")
+    dev = torch.device("cuda")
+    for fft, nono, prec, u8, blocks in (
+            (3000, 0.5, "DEFAULT", False, 64),
+            (3000, 0.5, "DEFAULT", True, 64), (3000, 0.1, "DEFAULT", True, 64),
+            (3000, 0.5, "HIGH", False, 64), (10000, 0.5, "DEFAULT", False, 64),
+            (10000, 0.5, "HIGH", False, 64),
+            (10000, 0.1, "DEFAULT", False, 64),
+            (32768, 0.5, "HIGH", False, 16), (32768, 0.5, "DEFAULT", True, 16),
+            (32768, 0.1, "DEFAULT", False, 16),
+            (65536, 0.5, "DEFAULT", False, 16),
+            (65536, 0.5, "DEFAULT", True, 16),
+            (65536, 0.5, "HIGH", False, 16)):
+        cfg = threemult_smoke.job_cfg(fft, nono, prec)
+        before = tc.tc_split_launches
+        err = threemult_smoke.oracle_error(cfg, u8, blocks, dev)
+        split = cc.tc_split(cfg, u8)
+        print(f"  fft{fft} {1 - nono:.0%} {prec} {'u8' if u8 else 'f32'} "
+              f"({threemult_smoke.route(cfg)}, {split[0]} x {split[1]}), "
+              f"{blocks} blocks: max_rel_err {err:.3e}")
+        check(tc.tc_split_launches > before and err <= ORACLE_BOUND[prec],
+              f"fft {fft} {prec}: Kernel C within {ORACLE_BOUND[prec]:g}")
+
+    print(f"== Kernel C: times (CUDA events, 3 warm-ups, median of 10) "
+          f"[{gpu}], each output against the plain version's")
+    times, errs = {}, {}
+    for name, base, t, cases in (
+            ("fft 3000 kaiser 50%", cfg_of(3000), 4096,
+             (("DEFAULT", False), ("DEFAULT", True), ("HIGH", False))),
+            ("fft 3000 kaiser 90%", cfg_of(3000, 0.1), 4096,
+             (("DEFAULT", False), ("HIGH", False))),
+            ("fft 10000 kaiser 50%", cfg_of(10000), 4096,
+             (("DEFAULT", False), ("HIGH", False))),
+            ("fft 39800 kaiser 50%", cfg_of(39800), 64,
+             (("DEFAULT", False), ("HIGH", False))),
+            ("fft 65536 kaiser 50%", cfg_of(65536), 64,
+             (("DEFAULT", False), ("DEFAULT", True), ("HIGH", False))),
+            ("fft 32768 kaiser 90%", cfg_of(32768, 0.1), 64,
+             (("DEFAULT", False), ("HIGH", False)))):
+        for prec, u8 in cases:
+            cfg = class_cfg(base, prec)
+            split = cc.tc_split(cfg, u8)
+            re, im = noise(cfg, t, u8, gen)
+            rows_ = max(1, min(t, TC_PLAIN_FRAME_BYTES
+                               // (cfg.num_windows * cfg.fft_size * 8)))
+
+            def chunks():
+                return [tc.curscan_tc_split_plain(re[i:i + rows_],
+                                                  im[i:i + rows_], cfg)
+                        for i in range(0, t, rows_)]
+            got = tc.curscan_tc_split(re, im, cfg)
+            e, sh = tc_share(got, torch.cat(chunks()), cfg)
+            check(bool(got.isfinite().all()) and sh <= 1,
+                  f"{name} {prec}: Kernel C within TC_TOL of plain")
+            del got
+            ks = cuda_ms(lambda: tc.curscan_tc_split(re, im, cfg))
+            fs = cuda_ms(lambda: cc.curscan_fused_sublane(re, im, base))
+            ps = cuda_ms(chunks, warm=1, reps=3)
+            bms, by, (fft_ms, fft_by) = tc_bound(cfg, t, u8, split)
+            kind = "u8" if u8 else "f32"
+            print(f"  {name} {prec} {kind} ({split[0]} x {split[1]}, "
+                  f"{cfg.num_windows} windows), T={t}: vs plain max abs "
+                  f"{e:.3e}, {sh:.3f} of the tolerance; Kernel C {ks:.3f} ms "
+                  f"= {t * cfg.full_size / ks / 1e6:.2f} Gsamp/s; bound "
+                  f"{bms:.4f} ms ({by}), {bms / ks:.4f} of it; FFT kernel at "
+                  f"HIGHEST {fs:.3f} ms ({fs / ks:.3f} of Kernel C's time; "
+                  f"its own bound {fft_ms:.4f} ms, {fft_by}); plain version "
+                  f"{ps:.3f} ms"
+                  + (f" in {-(-t // rows_)} calls of {rows_} blocks"
+                     if rows_ < t else ""))
+            times[name, prec, kind] = (ks, ps, bms, by, fs)
+            errs[name, prec, kind] = e
+            del re, im
+
+    print("== Kernel C: sessions through kspecanal_tpu_torch.cli.main")
+    cfg65 = cfg_of(65536)
+    cap = os.path.join(tmp, "split_capture.iq")
+    write_capture(cap, cfg65, 4 * cfg65.full_size, seed=19)
+    runs = [
+        ("zeroSpan fft 3000 DEFAULT serial", ZS_ARGS + [
+            "fftSize", "3000", "tpuPrecision", "DEFAULT", "tpuSource",
+            "synth", "prgLoopCnt", "8"]),
+        ("zeroSpan fft 10000 HIGH catch-up", ZS_ARGS + [
+            "fftSize", "10000", "tpuPrecision", "HIGH", "tpuSource", "synth",
+            "prgLoopCnt", "64", "tpuCatchUp", "16"]),
+        ("zeroSpan fft 65536 DEFAULT u8 capture file", ZS_ARGS + [
+            "fftSize", "65536", "tpuPrecision", "DEFAULT", "tpuSource",
+            f"file:{cap}", "prgLoopCnt", "4"]),
+        ("zeroSpan fft 65536 DEFAULT synth", ZS_ARGS + [
+            "fftSize", "65536", "tpuPrecision", "DEFAULT", "tpuSource",
+            "synth", "prgLoopCnt", "4"]),
+    ]
+    launches = {"lane": 0, "sublane": 0}
+    real_launch = tc.launch_tc_split
+    for i, (name, args) in enumerate(runs):
+        cfg = parse_args(args)[0]
+        lvls = os.path.join(tmp, f"split_lvls_{i}.bin")
+        splits = []
+
+        def recording(lib, re, im, c, tm, split):
+            splits.append(split)
+            return real_launch(lib, re, im, c, tm, split)
+        tc.tc_split_launches = tc.tc_launches = 0
+        cc.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(tc, "launch_tc_split", recording):
+            rc = cli.main(args + ["tpuHeadless", "true", "saveSigLvls", lvls])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_c, n_a, n_fft = tc.tc_split_launches, tc.tc_launches, cc.launches
+        check(rc == 0, f"{name} session rc")
+        avg = load_avg(lvls)
+        peaks = avg_peaks(cfg, avg)
+        cell = cfg.sampling_rate / cfg.x_res
+        on = len(peaks) == 3 and all(abs(p - w) <= cell
+                                     for p, w in zip(peaks, PEAKS_HZ))
+        want = {cc.tc_split(cfg, "file:" in " ".join(args))}
+        print(f"  {name}: {cfg.prg_loop_cnt} iterations in {dt:.3f} s, "
+              f"launches Kernel C {n_c} (splits {sorted(set(splits))}) "
+              f"Kernel A {n_a} FFT kernel {n_fft}, peaks "
+              f"{[round(p / 1e6, 4) for p in peaks]} MHz "
+              f"{'PASS' if on else 'FAIL'}")
+        check(avg.shape == (cfg.fft_size,) and not np.isnan(avg).any(),
+              f"{name} average")
+        check(n_c > 0 and n_c == len(splits) and n_a == 0 and n_fft == 0,
+              f"{name} launched Kernel C and no other curscan kernel")
+        check(set(splits) == want, f"{name} ran the JAX dispatcher's split")
+        check(on, f"{name} peaks on 91/92/93 MHz")
+        launches["sublane" if want == {(cfg.fft_size // 128, 128)}
+                 else "lane"] += n_c
+    torch.cuda.empty_cache()
+    return errs, times, launches
+
+
 def phase_done(name, t0):
     now = time.perf_counter()
     print(f"-- {name}: {now - t0:.1f} s")
@@ -1873,6 +2094,10 @@ def main():
         tc_errs, tc_times, tc_launches = phase_precision(cc, cp, spec, cli,
                                                          gen, gpu, tmp)
     t0 = phase_done("precision classes", t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        split_errs, split_times, split_launches = phase_split(
+            cc, spec, cli, gen, gpu, tmp)
+    t0 = phase_done("Kernel C", t0)
     with tempfile.TemporaryDirectory() as tmp:
         phase_mesh(gpu, tmp)
     phase_done("mesh", t0)
@@ -1973,7 +2198,28 @@ def main():
                "launches over the precision sessions",
                tc_launches["packed_tc"],
                tc_errs["packed_tc"],
-               tc_times["quickFullScan fft 64 ones 90%", "DEFAULT", "f32"])]}))
+               tc_times["quickFullScan fft 64 ones 90%", "DEFAULT", "f32"]),
+        tc_row("curscan_tc_split",
+               "kspecanal_tpu_torch/csrc/curscan_tc_split.cu",
+               "kspecanal_tpu/ops/pallas_curscan.py:116",
+               "Kernel C, the HIGH/DEFAULT classes (4M) of K3 off the 128 "
+               "grid and on the lane split above fft 16384: times and error "
+               "against the plain version at fft 3000 kaiser 50% DEFAULT "
+               "f32 (60 x 50), T=4096; launches over the fft 3000, 10000 and "
+               "65536 synth sessions",
+               split_launches["lane"],
+               split_errs["fft 3000 kaiser 50%", "DEFAULT", "f32"],
+               split_times["fft 3000 kaiser 50%", "DEFAULT", "f32"]),
+        tc_row("curscan_tc_split",
+               "kspecanal_tpu_torch/csrc/curscan_tc_split.cu", sublane_423,
+               "Kernel C, the HIGH/DEFAULT classes (4M) of K1 above fft "
+               "16384 (sublane split n/128 x 128): times and error against "
+               "the plain version at fft 65536 kaiser 50% HIGH f32 (512 x "
+               "128), T=64; launches over the fft 65536 u8 capture-file "
+               "session",
+               split_launches["sublane"],
+               split_errs["fft 65536 kaiser 50%", "HIGH", "f32"],
+               split_times["fft 65536 kaiser 50%", "HIGH", "f32"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -85,6 +85,8 @@
 
 #include <algorithm>
 
+#include "curscan_tc_common.cuh"
+
 // Forensic cut-offs: K4's stages at HIGH and DEFAULT (profiling only; the
 // port's library leaves KSPEC_TC_STOP 0, and ops/cuda_tc.stage_library
 // builds these sources with -DKSPEC_TC_STOP=s into a library of its own).
@@ -120,17 +122,6 @@ constexpr int NT = N2 / 8;       // 16 column strips / output column tiles
 constexpr int KC2 = N2 / 16;     // stage 2's 8 k-chunks
 constexpr size_t SMEM_LIMIT = 232448;   // a block's shared memory (H100)
 
-enum Fold { FOLD_SUM = 0, FOLD_MAX = 1, FOLD_MIN = 2 };
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Four 8x8 bf16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8.  Plain: lane i gets row i/4, columns 2(i%4)..
 // of each; .trans: rows 2(i%4).., column i/4.
@@ -149,25 +140,6 @@ __device__ __forceinline__ void ldsm2t(uint32_t& r0, uint32_t& r1,
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
       : "=r"(r0), "=r"(r1) : "r"(addr));
-}
-
-// Two floats as a bf16 pair (x0 in the low half), each to nearest even.
-__device__ __forceinline__ uint32_t pack(float x0, float x1) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// An operand pair rounded for the class: hi = bf16(x); at HIGH also
-// lo = bf16(x - hi), from the float32 value.
-template <bool HIGH>
-__device__ __forceinline__ void operand(float x0, float x1, uint32_t& hi,
-                                        uint32_t& lo) {
-  hi = pack(x0, x1);
-  if (HIGH) {
-    const float h0 = __uint_as_float(hi << 16);
-    const float h1 = __uint_as_float(hi & 0xffff0000u);
-    lo = pack(__fsub_rn(x0, h0), __fsub_rn(x1, h1));
-  }
 }
 
 // The operand planes of a class and form: forms re, im (and at 3M re + im)
@@ -274,67 +246,6 @@ inline Layout layout(int n1, int wb, bool high, bool tm) {
   return l;
 }
 
-// Products kept per tile: 3M T1, T2, T3; 4M rr, ii, ri, ir.  Each is
-// a_hi b_hi, and at HIGH also a_hi b_lo and a_lo b_hi, three independent
-// float32 sums (three mma chains) added as hh + (hl + lh), as dot3 adds them.
-template <bool TM>
-struct Acc {
-  static constexpr int P = TM ? 3 : 4;
-  float hh[P][4], hl[P][4], lh[P][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) hh[p][i] = hl[p][i] = lh[p][i] = 0.f;
-  }
-  // Product p's fragments at the class.
-  template <bool HIGH>
-  __device__ __forceinline__ void product(int p, const uint32_t (&ahi)[4],
-                                          const uint32_t (&alo)[4],
-                                          const uint32_t (&bhi)[2],
-                                          const uint32_t (&blo)[2]) {
-    mma(hh[p], ahi, bhi[0], bhi[1]);
-    if (HIGH) {
-      mma(hl[p], ahi, blo[0], blo[1]);
-      mma(lh[p], alo, bhi[0], bhi[1]);
-    }
-  }
-  // The complex product's real products from operand forms a[f][half] and
-  // b[f][half] (f: re, im, re + im).  3M: T1 = re re, T2 = im im, T3 = sum
-  // sum; 4M: rr, ii, ri (A re, B im), ir (A im, B re).
-  template <bool HIGH>
-  __device__ __forceinline__ void products(const uint32_t (&a)[3][2][4],
-                                           const uint32_t (&b)[3][2][2]) {
-    product<HIGH>(0, a[0][0], a[0][1], b[0][0], b[0][1]);
-    product<HIGH>(1, a[1][0], a[1][1], b[1][0], b[1][1]);
-    if (TM) {
-      product<HIGH>(2, a[2][0], a[2][1], b[2][0], b[2][1]);
-    } else {
-      product<HIGH>(2, a[0][0], a[0][1], b[1][0], b[1][1]);
-      product<HIGH>(3, a[1][0], a[1][1], b[0][0], b[0][1]);
-    }
-  }
-  template <bool HIGH>
-  __device__ __forceinline__ float value(int p, int i) const {
-    return HIGH ? __fadd_rn(hh[p][i], __fadd_rn(hl[p][i], lh[p][i]))
-                : hh[p][i];
-  }
-  // (Re, Im) of element i in the complex form.  4M: rr - ii, ri + ir.
-  template <bool HIGH>
-  __device__ __forceinline__ void complex(int i, float& re, float& im) const {
-    if (TM) {
-      const float t1 = value<HIGH>(0, i);
-      const float t2 = value<HIGH>(1, i);
-      const float t3 = value<HIGH>(2, i);
-      re = __fsub_rn(t1, t2);
-      im = __fsub_rn(__fsub_rn(t3, t1), t2);
-    } else {
-      re = __fsub_rn(value<HIGH>(0, i), value<HIGH>(1, i));
-      im = __fadd_rn(value<HIGH>(2, i), value<HIGH>(3, i));
-    }
-  }
-};
-
 // The twiddles of the 4 elements a lane holds of m-tile ml (its window's
 // rows ml*16..), column strip j.
 __device__ __forceinline__ void tw_load(float2 (&t)[4],
@@ -359,39 +270,6 @@ __device__ __forceinline__ void twiddle(const Acc<TM>& a,
     c[i] = __fsub_rn(__fmul_rn(br, t[i].x), __fmul_rn(bi, t[i].y));
     c[4 + i] = __fadd_rn(__fmul_rn(br, t[i].y), __fmul_rn(bi, t[i].x));
   }
-}
-
-template <typename T>
-__device__ __forceinline__ float sample(const T* p, size_t i);
-template <>
-__device__ __forceinline__ float sample<float>(const float* p, size_t i) {
-  return __ldg(p + i);
-}
-template <>
-__device__ __forceinline__ float sample<uint8_t>(const uint8_t* p, size_t i) {
-  return static_cast<float>(__ldg(p + i)) - 127.0f;
-}
-
-// Four consecutive samples from a 16-byte (float) or 4-byte (u8) aligned
-// address.
-template <typename T>
-__device__ __forceinline__ float4 sample4(const T* p);
-template <>
-__device__ __forceinline__ float4 sample4<float>(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-template <>
-__device__ __forceinline__ float4 sample4<uint8_t>(const uint8_t* p) {
-  const uchar4 v = __ldg(reinterpret_cast<const uchar4*>(p));
-  return make_float4(static_cast<float>(v.x) - 127.0f,
-                     static_cast<float>(v.y) - 127.0f,
-                     static_cast<float>(v.z) - 127.0f,
-                     static_cast<float>(v.w) - 127.0f);
-}
-
-__device__ __forceinline__ float fold_op(int fold, float acc, float v) {
-  return fold == FOLD_SUM ? __fadd_rn(acc, v)
-         : fold == FOLD_MAX ? fmaxf(acc, v) : fminf(acc, v);
 }
 
 // A bf16 operand's value.

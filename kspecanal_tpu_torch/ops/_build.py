@@ -184,6 +184,10 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "kspec_curscan_packed_tc_occupancy": [i32, i32, i32, i32, i32],
         "kspec_curscan_tc_smem": [i32, i32, i32, i32],
         "kspec_curscan_tc_occupancy": [i32, i32, i32, i32, i32],
+        "kspec_curscan_tc_split": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_tc_split_mt": [i32, i32, i32, i32],
     }
     restypes = {"kspec_curscan_tc_smem": ctypes.c_longlong,
                 "kspec_curscan_packed_tc_smem": ctypes.c_longlong}

@@ -9,9 +9,8 @@ decodes u8 planes in its loads, windows, takes the N-point DFT, takes
 ``|.|``, folds the windows (AVG/RAW weighted sum, MAX/MIN extrema,
 ``winAdj*2/N`` folded in) and writes the natural-order, fftshifted
 ``(fft_size,)`` spectrum, in float32.  The dispatcher
-(``spectrum.curscan_auto_batched``) sends them HIGHEST, and HIGH/DEFAULT
-where the tensor-core kernel of ``ops/cuda_tc.py`` does not take the config
-(:func:`kernel_route`).
+(``spectrum.curscan_auto_batched``) sends them HIGHEST; HIGH and DEFAULT go
+to the tensor-core kernels of ``ops/cuda_tc.py`` (:func:`kernel_route`).
 
 The FFT kernel ``csrc/curscan_fft.cu`` serves a CUDA tensor at every config
 the JAX dispatcher sends to a Pallas curscan kernel (:func:`kernel_route`):
@@ -105,10 +104,14 @@ _PRECISION_KEYS = ("force3m", "no3m")
 # argument: 0 runs in full, i + 1 stops after MIXED_STAGES[i].
 MIXED_STAGES = ("input", "odd", "pow2", "full")
 
-# The HIGH and DEFAULT classes' tensor-core kernel (ops/cuda_tc.py, Kernel
-# A) takes the sublane predicate up to n1 = fft/128 = 128.
+# The HIGH and DEFAULT classes' tensor-core kernels (ops/cuda_tc.py): Kernel
+# A takes the sublane predicate up to n1 = fft/128 = 128, Kernel C the rest
+# of what the JAX dispatcher sends to a Pallas kernel, on its split.
 TC_CLASSES = ("HIGH", "DEFAULT")
 TC_MAX_FFT_SIZE = 128 * _N2
+# The JAX dispatcher's fft from which the lane kernel may take a config that
+# the sublane kernel takes too (_fused_choice).
+LANE_OVER_SUBLANE_FFT_SIZE = 16384
 
 launches = 0            # the FFT kernel (csrc/curscan_fft.cu)
 direct_launches = 0     # the direct-DFT kernel's production instantiation
@@ -146,22 +149,46 @@ def supports_fused(cfg: SpecConfig) -> bool:
 def kernel_route(cfg: SpecConfig) -> Optional[str]:
     """Which kernel serves ``cfg`` on the card, wherever the JAX
     dispatcher's ``_fused_choice`` picks a Pallas curscan kernel (the
-    sublane predicate, or the lane predicate at fft >= 2048): ``"tc"``, the
-    tensor-core kernel of ``ops/cuda_tc.py``, at tpuPrecision HIGH and
-    DEFAULT for the sublane predicate up to fft ``TC_MAX_FFT_SIZE``;
-    ``"fft"``, the float64 FFT kernel, at HIGHEST and at every other such
-    config (K3's cells off the 128 grid, the grid above fft 16384); else
-    None."""
-    if (cfg.tpu_precision.upper() in TC_CLASSES and _jax_predicate(cfg)
-            and cfg.fft_size <= TC_MAX_FFT_SIZE):
-        return "tc"
+    sublane predicate, or the lane predicate at fft >= 2048).  At
+    tpuPrecision HIGH and DEFAULT a tensor-core kernel of ``ops/cuda_tc.py``:
+    ``"tc"`` (Kernel A) for the sublane predicate up to fft
+    ``TC_MAX_FFT_SIZE``, ``"tc_split"`` (Kernel C, on :func:`tc_split`'s
+    split) for every other such config (K3 off the 128 grid, the grid above
+    fft 16384); at HIGHEST ``"fft"``, the float64 FFT kernel; else None."""
     lane = cfg.fft_size >= LANE_MIN_FFT_SIZE and supports_fused(cfg)
-    return "fft" if lane or _jax_predicate(cfg) else None
+    if not (lane or _jax_predicate(cfg)):
+        return None
+    if cfg.tpu_precision.upper() not in TC_CLASSES:
+        return "fft"
+    if _jax_predicate(cfg) and cfg.fft_size <= TC_MAX_FFT_SIZE:
+        return "tc"
+    return "tc_split"
+
+
+def tc_split(cfg: SpecConfig, u8: bool = False) -> Tuple[int, int]:
+    """``(n1, n2)``: the split of the Pallas kernel that the JAX dispatcher's
+    ``_fused_choice`` picks for ``cfg`` on ``u8`` (raw u8) or float32 planes
+    (``spectrum.py:205-217``): ``(fft // 128, 128)`` where it takes the
+    sublane kernel, ``_factorize(fft)`` where it takes the lane kernel.
+    Where both predicates hold, the sublane kernel below fft 16384, and
+    from there at HIGH and on u8 planes at DEFAULT; the lane kernel
+    otherwise.  Raises where neither holds."""
+    n = cfg.fft_size
+    sub = _jax_predicate(cfg)
+    lane = n >= LANE_MIN_FFT_SIZE and supports_fused(cfg)
+    if not (sub or lane):
+        raise ValueError(f"no Pallas curscan kernel takes fft_size {n} with "
+                         f"these window starts")
+    if sub and lane and n >= LANE_OVER_SUBLANE_FFT_SIZE:
+        prec = cfg.tpu_precision.upper()
+        sub = prec == "HIGH" or (prec == "DEFAULT" and u8)
+    return (n // _N2, _N2) if sub else _factorize(n)
 
 
 def supports_fused_sublane(cfg: SpecConfig) -> bool:
     """The FFT kernel takes every config of the JAX sublane and lane
-    predicates.  Configs outside take the ``torch.fft`` chain."""
+    predicates, at every class (the dispatcher sends it HIGHEST).  Configs
+    outside take the ``torch.fft`` chain."""
     return kernel_route(cfg) is not None
 
 
@@ -388,8 +415,8 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
                           cfg: SpecConfig, *, ablate=()) -> torch.Tensor:
     """``(T, full_size)`` float32 or raw-u8 planes -> ``(T, fft_size)``
     fftshifted linear spectra from the FFT kernel, which computes every
-    class in float64 (the dispatcher sends HIGH and DEFAULT configs of the
-    tensor-core kernel to ``cuda_tc.curscan_tc``, :func:`kernel_route`).
+    class in float64 (the dispatcher sends it HIGHEST and HIGH/DEFAULT to
+    the tensor-core kernels of ``ops/cuda_tc.py``, :func:`kernel_route`).
     CUDA tensors launch the kernel on the current stream without
     synchronising; CPU tensors run its plain version.
 
@@ -410,8 +437,8 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
     if "force3m" in ablate:
         raise ValueError(
             "ablate key 'force3m' picks the 3M form of the tensor-core "
-            "kernel (cuda_tc.curscan_tc): the float64 FFT kernel and the "
-            "forensic kernel have no complex-matmul form")
+            "kernels (cuda_tc.curscan_tc, curscan_tc_split): the float64 FFT "
+            "kernel and the forensic kernel have no complex-matmul form")
     ablate = tuple(k for k in ablate if k not in _PRECISION_KEYS)
     if ablate and not supports_direct(cfg):
         raise ValueError(f"ablate cuts the direct-DFT kernel, which takes "

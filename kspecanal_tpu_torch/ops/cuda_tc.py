@@ -1,5 +1,5 @@
 """The HIGH and DEFAULT precision classes on the card: the wrappers of the
-two hand-written tensor-core curscan kernels and their plain versions.
+three hand-written tensor-core curscan kernels and their plain versions.
 
 ``tpuPrecision`` sets what the JAX package's Pallas kernels compute
 (``kspecanal_tpu.ops.pallas_curscan._make_dot``): DEFAULT is one bf16 pass
@@ -26,14 +26,25 @@ run these:
   a bin combine in one fixed order.  A thread block stages each IQ block's
   span once (:func:`packed_tc_plan`: chunks of windows where a block does
   not fit) and walks IQ blocks a grid apart (:func:`packed_tc_grid`).
+* **Kernel C**, ``csrc/curscan_tc_split.cu`` (:func:`curscan_tc_split`,
+  counted in ``tc_split_launches``): the two-stage DFT of every other
+  config the JAX dispatcher sends to K1 or K3 (K3 off the 128 grid, the
+  grid above fft 16384), on the split of the kernel it picks
+  (``cuda_curscan.tc_split``: ``(n / 128, 128)`` for the sublane kernel,
+  ``_factorize(n)`` for the lane kernel), with Kernel A's math and rounding
+  points for any ``n = n1 * n2`` and any window starts.  A thread block
+  takes one IQ block and 1-4 m-tiles of 16 rows k1 (as many as the
+  library's ``kspec_curscan_tc_split_mt`` says fit) through both stages
+  and the fold; F1 and F2^T stream from L2, C waits in shared memory.
 
 Each real product rounds its float32 operands to bf16 (to nearest, ties to
 even) and sums in float32 (``mma.sync`` bf16 -> f32), once at DEFAULT and
 as the bf16x3 split at HIGH.  Each kernel rounds each operand once, where
 it stores it in shared memory (Kernel A the windowed frame, then C; Kernel
 B the staged samples, beside a copy shifted by one sample for odd starts;
-both tables are rounded by the wrapper), and every product reads the
-rounded planes; the values are those the plain version rounds.
+both tables are rounded by the wrapper; Kernel C each frame element as it
+loads it, then C), and every product reads the rounded values; they are
+those the plain version rounds.
 A complex product is 4M (four real products) or 3M: ``T1 = Fr Xr``,
 ``T2 = Fi Xi``, ``T3 = (Fr + Fi)(Xr + Xi)``, ``Re = T1 - T2``,
 ``Im = T3 - T1 - T2``, the sum table precomputed and ``Xr + Xi`` formed in float32 before its rounding.  Both classes run 4M
@@ -52,9 +63,9 @@ float32 until each product rounds them.  u8 planes decode exactly (x - 127
 is exact in bf16), so u8 is bit-identical to decoded float32 in the same
 form.
 
-Where neither kernel takes a config (K3's cells off the 128 grid, and the
-grid above fft 16384), HIGH and DEFAULT keep the float64 FFT kernel, which
-meets every class's bound (ROADMAP.md B5).
+So at HIGH and DEFAULT every config the JAX dispatcher sends to a Pallas
+curscan kernel runs a tensor-core kernel; the float64 FFT kernels serve
+HIGHEST.
 
 K4 (``scripts/roofline_r2.py``'s stage ablation) at HIGH and DEFAULT runs
 Kernel A cut off after each stage (:func:`curscan_tc_stage`, counted in
@@ -64,16 +75,17 @@ reduction (``csrc/curscan_tc.cuh``; plain version
 :func:`curscan_tc_stage_plain`), and the port's library itself for 'full'.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-version (:func:`curscan_tc_plain`, :func:`curscan_packed_tc_plain`), which
-rounds at the same points and in the same form.  The order of the sums
-inside each product differs from the kernels'; Kernel A folds the windows
-in the plain version's window order, Kernel B's AVG/RAW sums in its lanes'
-order (MAX/MIN are unaffected); ``torch_parity.TC_TOL`` holds both.
+version (:func:`curscan_tc_plain`, :func:`curscan_packed_tc_plain`,
+:func:`curscan_tc_split_plain`), which rounds at the same points and in the
+same form.  The order of the sums inside each product differs from the
+kernels'; Kernels A and C fold the windows in the plain version's window
+order, Kernel B's AVG/RAW sums in its lanes' order (MAX/MIN are
+unaffected); ``torch_parity.TC_TOL`` holds all three.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,7 +102,8 @@ from kspecanal_tpu_torch.ops.cuda_curscan import (_FOLD, STAGES,
                                                   check_stage_config,
                                                   kernel_route,
                                                   spectrum_to_stage_layout,
-                                                  stage_layout_to_spectrum)
+                                                  stage_layout_to_spectrum,
+                                                  tc_split)
 from kspecanal_tpu_torch.ops.mxu_fft import (_dft_tables_for, class_matmul,
                                              round_bf16, split_bf16)
 
@@ -112,6 +125,7 @@ TC_SOURCES = ("curscan_tc.cu", "curscan_tc_high.cu")
 tc_launches = 0             # Kernel A (csrc/curscan_tc.cu)
 packed_tc_launches = 0      # Kernel B (csrc/curscan_packed_tc.cu)
 tc_stage_launches = 0       # Kernel A's K4 cut-offs (curscan_tc_stage)
+tc_split_launches = 0       # Kernel C (csrc/curscan_tc_split.cu)
 
 
 def precision_class(cfg: SpecConfig) -> str:
@@ -172,42 +186,46 @@ def _fold(mode: str, acc, v):
 
 
 @functools.lru_cache(maxsize=32)
-def _plain_tables(n: int, window: str, device: torch.device):
-    """Kernel A's float32 tables on ``device``: F1 (re, im, re + im), F2^T
-    (re, im, re + im), the twiddle (re, im) and the window, ``(n1, 128)``."""
-    n1 = n // _N2
-    f1r, f1i, f2r, f2i, twr, twi = _dft_tables_for(n, n1, _N2)
-    win = np.asarray(window_lut(window, n).reshape(n1, _N2), np.float32)
+def _plain_tables(n: int, window: str, device: torch.device,
+                  n2: int = _N2):
+    """The two-stage tables of the split ``n = n1 * n2`` (Kernel A's n2 =
+    128 by default) in float32 on ``device``: F1 (re, im, re + im), F2^T
+    (re, im, re + im), the twiddle (re, im) and the window, ``(n1, n2)``."""
+    n1 = n // n2
+    f1r, f1i, f2r, f2i, twr, twi = _dft_tables_for(n, n1, n2)
+    win = np.asarray(window_lut(window, n).reshape(n1, n2), np.float32)
     tabs = (f1r, f1i, f1r + f1i, f2r.T, f2i.T, (f2r + f2i).T, twr, twi, win)
     return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device)
                  for a in tabs)
 
 
 def _two_stage_tc(iq_re: torch.Tensor, iq_im: torch.Tensor,
-                  cfg: SpecConfig, stage: str, tm: bool) -> torch.Tensor:
-    """Kernel A's math in PyTorch at the config's class, cut off after
-    ``stage`` (``STAGES``): ``(T, n1, 128)``, row k1 (m1 for 'frame'),
-    column k2 (m2), unshifted.  'read' is the unweighted float32 sum of the
-    block's n-sample slabs of re + im, slab by slab; 'frame' (as rounded:
-    bf16, and hi + lo at HIGH), 's1' (B), 's1tw' (C) and 's2' (D) the sum
-    over windows, in window order, of weights[w] (x_re + x_im); 'full' the
-    cumulate mode's fold of weights[w] |D|."""
+                  cfg: SpecConfig, stage: str, tm: bool,
+                  split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The tensor-core kernels' two-stage math in PyTorch at the config's
+    class, on the split ``n = n1 * n2`` (default Kernel A's ``(n / 128,
+    128)``), cut off after ``stage`` (``STAGES``): ``(T, n1, n2)``, row k1
+    (m1 for 'frame'), column k2 (m2), unshifted.  'read' is the unweighted
+    float32 sum of the block's n-sample slabs of re + im, slab by slab;
+    'frame' (as rounded: bf16, and hi + lo at HIGH), 's1' (B), 's1tw' (C)
+    and 's2' (D) the sum over windows, in window order, of weights[w] (x_re
+    + x_im); 'full' the cumulate mode's fold of weights[w] |D|."""
     prec = _check_class(cfg)
     n = cfg.fft_size
-    n1 = n // _N2
+    n1, n2 = split or (n // _N2, _N2)
     dev = iq_re.device
     re, im = spectrum.decode_u8(iq_re), spectrum.decode_u8(iq_im)
     t = re.shape[0]
     if stage == "read":      # no rounding: the direct kernel's plain read
         return _two_stage_plain(iq_re, iq_im, cfg, "read", frozenset())
     f1r, f1i, f1s, f2r, f2i, f2s, twr, twi, win = _plain_tables(
-        n, cfg.window, dev)
+        n, cfg.window, dev, n2)
     weights = _tables(n, cfg.window, cfg.window_starts,
                       cfg.cur_scan_cumu_mode, dev)[1]
     fr = spectrum.frame_signal(re, cfg.window_starts, n).reshape(
-        t, -1, n1, _N2) * win
+        t, -1, n1, n2) * win
     fi = spectrum.frame_signal(im, cfg.window_starts, n).reshape(
-        t, -1, n1, _N2) * win
+        t, -1, n1, n2) * win
 
     def reduce(xr, xi):
         acc = None
@@ -230,7 +248,7 @@ def _two_stage_tc(iq_re: torch.Tensor, iq_im: torch.Tensor,
     dr, di = _complex_dot(dot, f2r, f2i, f2s, cr, ci, False, tm)
     if stage == "s2":
         return reduce(dr, di)
-    mag = torch.sqrt(dr * dr + di * di)                 # (T, W, n1, 128)
+    mag = torch.sqrt(dr * dr + di * di)                 # (T, W, n1, n2)
     acc = None
     for j in range(mag.shape[1]):
         acc = _fold(cfg.cur_scan_cumu_mode, acc, weights[j] * mag[:, j])
@@ -254,6 +272,21 @@ def curscan_tc_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
     class, in the 4M form or ``form``'s, on the planes' device."""
     return stage_layout_to_spectrum(
         _two_stage_tc(iq_re, iq_im, cfg, "full", three_mult(form)))
+
+
+def curscan_tc_split_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                           cfg: SpecConfig, form: Optional[str] = None,
+                           split: Optional[Tuple[int, int]] = None
+                           ) -> torch.Tensor:
+    """The plain PyTorch version of Kernel C: ``(T, full_size)`` float32 or
+    raw-u8 planes -> ``(T, fft_size)`` fftshifted spectra, at the config's
+    class, in the 4M form or ``form``'s, on ``split`` (default the JAX
+    dispatcher's for the planes' type, ``cuda_curscan.tc_split``), on the
+    planes' device.  Kernel A's plain version is this at ``(n / 128,
+    128)``."""
+    split = split or tc_split(cfg, iq_re.dtype == torch.uint8)
+    return stage_layout_to_spectrum(
+        _two_stage_tc(iq_re, iq_im, cfg, "full", three_mult(form), split))
 
 
 def curscan_tc_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
@@ -402,6 +435,25 @@ def tc_tables(n: int, device: torch.device):
     f2 = frag_b((f2r.T, f2i.T, (f2r + f2i).T), _N2 // _MMA, _N2 // 8)
     tw = np.zeros((n1p, _N2, 2), np.float32)
     tw[:n1, :, 0], tw[:n1, :, 1] = twr, twi
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+    return dev(f1.view(np.int16)), dev(f2.view(np.int16)), dev(tw)
+
+
+@functools.lru_cache(maxsize=32)
+def tc_split_tables(n1: int, n2: int, device: torch.device):
+    """Kernel C's tables for the split ``n = n1 * n2`` on ``device``: F1's A
+    fragments (F1r, F1i, F1r + F1i; 6 slots, ``(n1p/16)^2`` tiles), F2^T's
+    B fragments (F2r^T, F2i^T, (F2r + F2i)^T; 6 slots, ``n2p/16 x n2p/8``
+    tiles), both bf16 bits as int16, and the twiddles ``(n1p, n2p, 2)``
+    float32, zero outside ``(n1, n2)``."""
+    n1p, n2p = _padded16(n1), _padded16(n2)
+    f1r, f1i, f2r, f2i, twr, twi = _dft_tables_for(n1 * n2, n1, n2)
+    f1 = frag_a((f1r, f1i, f1r + f1i), n1p // _MMA, n1p // _MMA)
+    f2 = frag_b((f2r.T, f2i.T, (f2r + f2i).T), n2p // _MMA, n2p // 8)
+    tw = np.zeros((n1p, n2p, 2), np.float32)
+    tw[:n1, :n2, 0], tw[:n1, :n2, 1] = twr, twi
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device)
@@ -689,6 +741,75 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
             _FOLD[cfg.cur_scan_cumu_mode], wb, int(high), int(tm),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib.kspec_curscan_tc)
+    return out
+
+
+def supports_tc_split(cfg: SpecConfig) -> bool:
+    """Kernel C takes ``cfg`` (``cuda_curscan.kernel_route`` is
+    "tc_split"): class HIGH or DEFAULT and a config the JAX dispatcher sends
+    to a Pallas curscan kernel that Kernel A does not take."""
+    return kernel_route(cfg) == "tc_split"
+
+
+def curscan_tc_split(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                     cfg: SpecConfig, form: Optional[str] = None,
+                     split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Kernel C: ``(T, full_size)`` float32 or raw-u8 planes ->
+    ``(T, fft_size)`` fftshifted linear spectra at the config's class, in
+    the 4M complex form or ``form``'s, on ``split`` ``(n1, n2)`` (default
+    ``cuda_curscan.tc_split`` for the planes' type: the JAX dispatcher's).
+    CUDA tensors launch the kernel on the current stream without
+    synchronising; CPU tensors run :func:`curscan_tc_split_plain`."""
+    global tc_split_launches
+    if not supports_tc_split(cfg):
+        raise ValueError(f"config not supported by the split tensor-core "
+                         f"curscan kernel (tpuPrecision {cfg.tpu_precision}, "
+                         f"fft_size {cfg.fft_size}, full_size "
+                         f"{cfg.full_size})")
+    check_planes(iq_re, iq_im, cfg)
+    tm = three_mult(form)
+    n1, n2 = split or tc_split(cfg, iq_re.dtype == torch.uint8)
+    if n1 < 1 or n2 < 1 or n1 * n2 != cfg.fft_size:
+        raise ValueError(f"split {(n1, n2)} is not a factorisation of "
+                         f"fft_size {cfg.fft_size}")
+    if iq_re.device.type == "cpu":
+        return curscan_tc_split_plain(iq_re, iq_im, cfg, form, (n1, n2))
+    out = launch_tc_split(_cuda_lib(iq_re.device), iq_re, iq_im, cfg, tm,
+                          (n1, n2))
+    tc_split_launches += 1
+    return out
+
+
+def launch_tc_split(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
+                    cfg: SpecConfig, tm: bool,
+                    split: Tuple[int, int]) -> torch.Tensor:
+    """Launch ``lib``'s Kernel C on CUDA planes checked by
+    :func:`curscan_tc_split`; counts nothing.  Raises where 16 rows of C do
+    not fit a block's shared memory (the library's m-tiles a block are 0:
+    n2 above 1200 at 3M HIGH, 1808 at HIGH, 3616 at DEFAULT)."""
+    dev = iq_re.device
+    t, n = iq_re.shape[0], cfg.fft_size
+    out = torch.empty((t, n), dtype=torch.float32, device=dev)
+    if t == 0:
+        return out
+    n1, n2 = split
+    high = precision_class(cfg) == "HIGH"
+    if lib.kspec_curscan_tc_split_mt(n1, n2, int(high), int(tm)) < 1:
+        raise ValueError(f"Kernel C keeps 16 rows of C (n2 = {n2}) in a "
+                         f"block's shared memory, which they exceed at "
+                         f"{precision_class(cfg)} {'3M' if tm else '4M'}")
+    starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
+                                         cfg.cur_scan_cumu_mode, dev)
+    f1, f2, tw = tc_split_tables(n1, n2, dev)
+    with torch.cuda.device(dev):
+        err = lib.kspec_curscan_tc_split(
+            iq_re.data_ptr(), iq_im.data_ptr(),
+            int(iq_re.dtype == torch.uint8), out.data_ptr(),
+            starts.data_ptr(), weights.data_ptr(), window.data_ptr(),
+            f1.data_ptr(), f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n,
+            n1, n2, cfg.num_windows, _FOLD[cfg.cur_scan_cumu_mode],
+            int(high), int(tm), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib.kspec_curscan_tc_split)
     return out
 
 

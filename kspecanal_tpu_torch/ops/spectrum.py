@@ -142,8 +142,10 @@ def curscan_auto_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
         every multiple of 128 from 256 up, and every fft >= 2048 that is
         not prime and whose window starts are multiples of n2 =
         ``_factorize(fft)[1]``, such as fft 3000, 10000 or 39800) goes, at
-        tpuPrecision HIGH and DEFAULT up to fft 16384 on the 128 grid, to
-        the tensor-core kernel ``cuda_tc.curscan_tc``, and otherwise to the
+        tpuPrecision HIGH and DEFAULT, to a tensor-core kernel: up to fft
+        16384 on the 128 grid to Kernel A ``cuda_tc.curscan_tc``, everywhere
+        else to Kernel C ``cuda_tc.curscan_tc_split`` on the JAX
+        dispatcher's split (``cuda_curscan.tc_split``); at HIGHEST to the
         float64 FFT kernel ``cuda_curscan.curscan_fused_sublane``;
       * else configs the packed kernel K2 supports (fft <= 128 dividing
         128 with blocks of a multiple of 128 samples, at least 256: every
@@ -164,6 +166,8 @@ def curscan_auto_batched(iq_re: torch.Tensor, iq_im: torch.Tensor,
     route = cuda_curscan.kernel_route(cfg)
     if route == "tc":
         return cuda_tc.curscan_tc(iq_re, iq_im, cfg)
+    if route == "tc_split":
+        return cuda_tc.curscan_tc_split(iq_re, iq_im, cfg)
     if route == "fft":
         return cuda_curscan.curscan_fused_sublane(iq_re, iq_im, cfg)
     if cuda_tc.supports_packed_tc(cfg):

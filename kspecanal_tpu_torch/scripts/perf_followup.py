@@ -51,6 +51,8 @@ def route(cfg) -> str:
     r = cuda_curscan.kernel_route(cfg)
     if r == "tc":
         return "Kernel A"
+    if r == "tc_split":
+        return "Kernel C"
     if r == "fft":
         return "K1 FFT kernel"
     return "K2" if cfg.fft_size <= 128 else "chain"

@@ -184,6 +184,8 @@ def route(cfg: SpecConfig) -> str:
     r = cuda_curscan.kernel_route(cfg)
     if r == "tc":
         return "tensor-core 4M"
+    if r == "tc_split":
+        return "tensor-core split 4M"
     return "FFT kernel (float64)"
 
 

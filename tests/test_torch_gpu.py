@@ -409,6 +409,101 @@ def test_tc_shared_memory_and_occupancy(cuda):
     assert cuda_tc.tc_occupancy(lib, False, 16, 4, False, False) == 2
 
 
+# Kernel C (``cuda_tc.curscan_tc_split``) on the JAX dispatcher's splits:
+# K3's cells off the 128 grid (2050 = 50 x 41 and 39800 = 200 x 199 with
+# odd n2; 3000 = 60 x 50; 10000 = 100 x 100; 131100 = 380 x 345) and the
+# grid above fft 16384 (32768 = 256 x 128 at 50% and 90%; 65536, which
+# takes 256 x 256 on float32 and 512 x 128 on u8 planes at DEFAULT; 131072
+# = 1024 x 128 at 90%).
+TC_SPLIT_CASES = [(2050, 0.5), (2050, 0.1), (3000, 0.5), (3000, 0.1),
+                  (10000, 0.5), (10000, 0.1), (39800, 0.5), (131100, 0.5),
+                  (32768, 0.5), (32768, 0.1), (65536, 0.5), (131072, 0.1)]
+
+
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+@pytest.mark.parametrize("form", ["force3m", "no3m"])
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("fft,nono", TC_SPLIT_CASES)
+def test_tc_split_kernel_matches_plain(cuda, fft, nono, mode, prec, form,
+                                       u8):
+    """One launch of Kernel C (no FFT kernel, no Kernel A) within TC_TOL of
+    its plain version on the same split; u8 bit-identical to decoded
+    float32 on the split u8 takes."""
+    cfg = zs_cfg(fft, nono, mode, tpu_precision=prec, x_res=500)
+    re, im = class_planes(cuda, cfg, 4 if fft <= 16384 else 2, u8, fft)
+    before = (cuda_tc.tc_split_launches, cuda_tc.tc_launches,
+              cuda_curscan.launches)
+    got = cuda_tc.curscan_tc_split(re, im, cfg, form)
+    torch.cuda.synchronize()
+    assert (cuda_tc.tc_split_launches, cuda_tc.tc_launches,
+            cuda_curscan.launches) == (before[0] + 1, before[1], before[2])
+    assert_tc_close(got.cpu().numpy(), cuda_tc.curscan_tc_split_plain(
+        re, im, cfg, form).cpu().numpy(), prec)
+    if u8:
+        assert torch.equal(got, cuda_tc.curscan_tc_split(
+            tspec.decode_u8(re), tspec.decode_u8(im), cfg, form,
+            cuda_curscan.tc_split(cfg, True)))
+
+
+@pytest.mark.parametrize("form", ["force3m", "no3m"])
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("split", [(60, 50), (50, 60), (10, 300), (300, 10),
+                                   (1, 3000)])
+def test_tc_split_kernel_takes_any_split(cuda, split, prec, form):
+    """fft 3000 on splits of either shape, one m-tile a block (n1 <= 16)
+    and n2 padded from 10; n2 = 3000 at DEFAULT 4M alone fits a block's
+    shared memory (one m-tile, 193,024 bytes), elsewhere the wrapper
+    refuses it."""
+    cfg = zs_cfg(3000, 0.1, "MIN", tpu_precision=prec, x_res=500)
+    re, im = class_planes(cuda, cfg, 3, False, split[0])
+    high, tm = prec == "HIGH", form == "force3m"
+    if split[1] == 3000 and (high or tm):
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_tc.curscan_tc_split(re, im, cfg, form, split)
+        return
+    got = cuda_tc.curscan_tc_split(re, im, cfg, form, split)
+    assert_tc_close(got.cpu().numpy(), cuda_tc.curscan_tc_split_plain(
+        re, im, cfg, form, split).cpu().numpy(), prec)
+
+
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("fft,nono,t", [(3000, 0.5, 4096), (10000, 0.1, 16),
+                                        (65536, 0.5, 64), (2050, 0.1, 1)])
+def test_tc_split_kernel_through_the_dispatcher(cuda, fft, nono, t, prec):
+    """HIGH/DEFAULT configs of K3 off the grid and of the grid above 16384
+    launch Kernel C and never the FFT kernel; two runs bit-identical (each
+    element folded by one lane in window order)."""
+    cfg = zs_cfg(fft, nono, tpu_precision=prec, x_res=500)
+    re, im = class_planes(cuda, cfg, t, False, t)
+    before = (cuda_tc.tc_split_launches, cuda_curscan.launches)
+    got = tspec.curscan_auto_batched(re, im, cfg)
+    assert torch.equal(got, tspec.curscan_auto_batched(re, im, cfg))
+    assert (cuda_tc.tc_split_launches, cuda_curscan.launches) == (
+        before[0] + 2, before[1])
+    rows = slice(0, 16)
+    assert_tc_close(got[rows].cpu().numpy(), cuda_tc.curscan_tc_split_plain(
+        re[rows], im[rows], cfg).cpu().numpy(), prec)
+
+
+def test_tc_split_m_tiles(cuda):
+    """The library's m-tiles a block (``kspec_curscan_tc_split_mt``): 4 at
+    DEFAULT and 2 at HIGH where C's bf16 planes (forms x halves x 16 rows a
+    tile x (n2p + 8) x 2 bytes) fit a block's 232,448 bytes, halved while
+    half covers n1's m-tiles, 0 where one tile does not fit."""
+    from kspecanal_tpu_torch.ops import _build
+    lib = _build.load()
+    for (n1, n2, high, tm), want in (
+            ((10, 128, 0, 0), 1), ((32, 128, 0, 0), 2), ((48, 128, 0, 0), 4),
+            ((256, 128, 0, 0), 4), ((256, 128, 1, 0), 2),
+            ((256, 256, 1, 1), 2), ((1024, 1024, 0, 0), 2),
+            ((1024, 1024, 1, 0), 1), ((1024, 1024, 1, 1), 1),
+            ((1, 3000, 0, 0), 1), ((1, 3000, 1, 0), 0), ((1, 3000, 0, 1), 0),
+            ((0, 128, 0, 0), 0)):
+        assert lib.kspec_curscan_tc_split_mt(n1, n2, high, tm) == want, (
+            n1, n2, high, tm)
+
+
 @pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
 @pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
 @pytest.mark.parametrize("mode", MODES)

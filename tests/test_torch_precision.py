@@ -348,15 +348,23 @@ def test_highest_is_unchanged(fft, nono, window):
 
 
 def test_forms_outside_the_tensor_core_kernel():
-    """HIGH/DEFAULT configs the FFT kernel keeps (K3 off the grid) and the
-    stage ablation take ``no3m`` as their own form and refuse
-    ``force3m``."""
+    """The FFT kernel's wrapper, given a HIGH/DEFAULT config directly (K3
+    off the grid, which the dispatcher sends to Kernel C, where both forms
+    exist), and the stage ablation take ``no3m`` as their own form and
+    refuse ``force3m``."""
     off_grid = zs_cfg(3000, 0.5, tpu_precision="DEFAULT")
-    assert cuda_curscan.kernel_route(off_grid) == "fft"
+    assert cuda_curscan.kernel_route(off_grid) == "tc_split"
     z = torch.zeros((1, off_grid.full_size))
     with pytest.raises(ValueError, match="force3m"):
         cuda_curscan.curscan_fused_sublane(z, z, off_grid,
                                            ablate=("force3m",))
+    np.testing.assert_array_equal(
+        cuda_curscan.curscan_fused_sublane(z, z, off_grid,
+                                           ablate=("no3m",)).numpy(),
+        cuda_curscan.curscan_fused_sublane(z, z, off_grid).numpy())
+    for form in ("force3m", "no3m"):
+        assert cuda_tc.curscan_tc_split(z, z, off_grid, form).shape == (
+            1, 3000)
     cfg = zs_cfg(512, tpu_precision="HIGH")
     z = torch.zeros((1, cfg.full_size))
     with pytest.raises(ValueError, match="force3m"):
@@ -371,8 +379,8 @@ def test_forms_outside_the_tensor_core_kernel():
 def test_route_sets():
     """At HIGH and DEFAULT Kernel A takes exactly the sublane predicate up to
     fft 16384 (every multiple of 128 from 256) and Kernel B exactly K2's;
-    the rest of what JAX sends to a Pallas kernel keeps the FFT kernel; at
-    HIGHEST nothing changes."""
+    Kernel C the rest of what JAX sends to a Pallas kernel; at HIGHEST
+    nothing changes: the FFT kernel takes it all."""
     jcfg = pytest.importorskip("kspecanal_tpu.config")
     for fft in list(range(128, 20000, 128)) + [2500, 3000, 10000, 16256,
                                                16500, 20480, 32768]:
@@ -384,8 +392,8 @@ def test_route_sets():
                 pallas = jspec._fused_choice(jc) is not None
                 sub = jpk.supports_fused_sublane(jc)
                 want = (None if not pallas else
-                        "tc" if prec != "HIGHEST" and sub and fft <= 16384
-                        else "fft")
+                        "fft" if prec == "HIGHEST" else
+                        "tc" if sub and fft <= 16384 else "tc_split")
                 assert cuda_curscan.kernel_route(cfg) == want, (fft, nono,
                                                                 prec)
     for fft in (2, 4, 8, 16, 32, 64, 128, 48, 96, 200, 256):
@@ -397,17 +405,19 @@ def test_route_sets():
 
 def test_dispatcher_takes_the_class_route(monkeypatch):
     """``curscan_auto_batched`` hands HIGH/DEFAULT configs to the
-    tensor-core wrappers and HIGHEST ones to the FFT kernels' plain
-    versions."""
+    tensor-core wrappers (K3 off the grid to Kernel C's) and HIGHEST ones to
+    the FFT kernels' plain versions."""
     calls = []
-    for name in ("curscan_tc_plain", "curscan_packed_tc_plain"):
+    for name in ("curscan_tc_plain", "curscan_packed_tc_plain",
+                 "curscan_tc_split_plain"):
         real = getattr(cuda_tc, name)
         monkeypatch.setattr(cuda_tc, name, lambda *a, _r=real, _n=name,
                             **k: calls.append(_n) or _r(*a, **k))
     for fft, prec, want in ((2048, "DEFAULT", "curscan_tc_plain"),
                             (16384, "HIGH", "curscan_tc_plain"),
                             (64, "DEFAULT", "curscan_packed_tc_plain"),
-                            (2048, "HIGHEST", None), (3000, "DEFAULT", None),
+                            (2048, "HIGHEST", None),
+                            (3000, "DEFAULT", "curscan_tc_split_plain"),
                             (64, "HIGHEST", None)):
         calls.clear()
         cfg = zs_cfg(fft, 0.5, tpu_precision=prec, x_res=min(512, fft))
