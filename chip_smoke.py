@@ -10,9 +10,9 @@ points and checks the results.
 
 Phases (any failure raises; the exit code is then non-zero):
   1. environment: torch, CUDA, nvcc, the card and its power limit;
-  2. build of the kernels and of Kernel A's five K4 cut-offs (one nvcc per
-     source and cut-off, all in parallel), with ptxas' register/shared-
-     memory report;
+  2. build of the kernels, of Kernel A's five K4 cut-offs and of Kernel
+     C's four stage cut-offs (one nvcc per source and cut-off, all in
+     parallel), with ptxas' register/shared-memory report;
   3. K1 against its plain version (``torch.fft``) run in float64 on the
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
@@ -156,9 +156,12 @@ Phases (any failure raises; the exit code is then non-zero):
      the classes against the float64 oracle through the dispatcher at fft
      3000, 10000, 32768 and 65536; its times at fft 3000 and 10000 (T=4096)
      and 39800, 65536 and 32768 at 90% (T=64) beside the FFT kernel at
-     HIGHEST and the plain version, each output held to the plain
-     version's, with the bound (4M tensor-core flops of the split, x3 at
-     HIGH, at 989 TFLOP/s, or the bytes); zeroSpan through ``cli.main`` at
+     HIGHEST, the float32 ``torch.fft`` chain and the plain version, each
+     output held to the plain version's, with the bound (4M tensor-core
+     flops of the split, x3 at HIGH, at 989 TFLOP/s, or the bytes), each
+     cell's stage table (Kernel C's ``-DKSPEC_TCS_STOP`` cut-offs, as
+     ``scripts/tc_split_stages.py`` times them), its shared memory a block,
+     blocks an SM and window groups; zeroSpan through ``cli.main`` at
      fft 3000 DEFAULT serial, fft 10000 HIGH catch-up, fft 65536 DEFAULT on
      a u8 capture file (the sublane split) and on synth (the lane split),
      each launching Kernel C on that split and no other curscan kernel,
@@ -1823,6 +1826,7 @@ def phase_split(cc, spec, cli, gen, gpu, tmp):
     from kspecanal_tpu_torch.cli import parse_args
     from kspecanal_tpu_torch.ops import cuda_tc as tc
     from kspecanal_tpu_torch.scripts import threemult_smoke
+    from kspecanal_tpu_torch.scripts.tc_split_stages import torch_fft_chain
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
     print(f"== Kernel C (csrc/curscan_tc_split.cu) vs plain (per bin rtol, "
           f"atol of the peak: {TC_TOL})")
@@ -1889,6 +1893,8 @@ def phase_split(cc, spec, cli, gen, gpu, tmp):
 
     print(f"== Kernel C: times (CUDA events, 3 warm-ups, median of 10) "
           f"[{gpu}], each output against the plain version's")
+    from kspecanal_tpu_torch.ops import _build
+    lib = _build.load()
     times, errs = {}, {}
     for name, base, t, cases in (
             ("fft 3000 kaiser 50%", cfg_of(3000), 4096,
@@ -1921,19 +1927,36 @@ def phase_split(cc, spec, cli, gen, gpu, tmp):
             del got
             ks = cuda_ms(lambda: tc.curscan_tc_split(re, im, cfg))
             fs = cuda_ms(lambda: cc.curscan_fused_sublane(re, im, base))
+            chain = cuda_ms(lambda: torch_fft_chain(re, im, base), warm=1,
+                            reps=3)
             ps = cuda_ms(chunks, warm=1, reps=3)
+            stages = {s: cuda_ms(lambda s=s: tc.curscan_tc_split_stage(
+                re, im, cfg, s)) for s in tc.TC_SPLIT_STAGES[:-1]}
+            stages["full"] = ks
+            high = prec == "HIGH"
+            smem = lib.kspec_curscan_tc_split_smem(*split, int(high), 0)
+            per_sm = tc.tc_split_occupancy(lib, u8, *split, high, False)
+            groups = tc.tc_split_launch_groups(lib, re, cfg, False, split)
             bms, by, (fft_ms, fft_by) = tc_bound(cfg, t, u8, split)
             kind = "u8" if u8 else "f32"
+            prev, parts = 0.0, []
+            for stage, v in stages.items():
+                parts.append(f"{stage} +{v - prev:.3f}")
+                prev = v
             print(f"  {name} {prec} {kind} ({split[0]} x {split[1]}, "
                   f"{cfg.num_windows} windows), T={t}: vs plain max abs "
                   f"{e:.3e}, {sh:.3f} of the tolerance; Kernel C {ks:.3f} ms "
                   f"= {t * cfg.full_size / ks / 1e6:.2f} Gsamp/s; bound "
                   f"{bms:.4f} ms ({by}), {bms / ks:.4f} of it; FFT kernel at "
                   f"HIGHEST {fs:.3f} ms ({fs / ks:.3f} of Kernel C's time; "
-                  f"its own bound {fft_ms:.4f} ms, {fft_by}); plain version "
+                  f"its own bound {fft_ms:.4f} ms, {fft_by}); float32 "
+                  f"torch.fft chain {chain:.3f} ms; plain version "
                   f"{ps:.3f} ms"
                   + (f" in {-(-t // rows_)} calls of {rows_} blocks"
-                     if rows_ < t else ""))
+                     if rows_ < t else "")
+                  + f"\n    stage table (tc_split_stages' cut-offs, ms): "
+                  + "; ".join(parts) + f"; {smem} B of shared memory a "
+                  f"block, {per_sm} blocks an SM, {groups} window group(s)")
             times[name, prec, kind] = (ks, ps, bms, by, fs)
             errs[name, prec, kind] = e
             del re, im
@@ -2032,12 +2055,14 @@ def main():
 
     t0 = time.perf_counter()
     from kspecanal_tpu_torch.ops import cuda_tc
-    # the library and Kernel A's five K4 cut-offs, every source at once
-    _build.build(cuda_tc.stage_variants())
+    # the library, Kernel A's five K4 cut-offs and Kernel C's four, every
+    # source at once
+    variants = cuda_tc.stage_variants() + cuda_tc.tc_split_stage_variants()
+    _build.build(variants)
     _build.load()
     print(f"== build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s) -> {_build.library_path()} "
-          f"and {len(cuda_tc.stage_variants())} cut-off libraries")
+          f"and {len(variants)} cut-off libraries")
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
             print(f"  {ln.strip()}")

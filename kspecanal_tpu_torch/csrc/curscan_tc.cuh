@@ -122,26 +122,6 @@ constexpr int NT = N2 / 8;       // 16 column strips / output column tiles
 constexpr int KC2 = N2 / 16;     // stage 2's 8 k-chunks
 constexpr size_t SMEM_LIMIT = 232448;   // a block's shared memory (H100)
 
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.  Plain: lane i gets row i/4, columns 2(i%4)..
-// of each; .trans: rows 2(i%4).., column i/4.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm2t(uint32_t& r0, uint32_t& r1,
-                                       uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r0), "=r"(r1) : "r"(addr));
-}
-
 // The operand planes of a class and form: forms re, im (and at 3M re + im)
 // times halves hi (and at HIGH lo); plane q = form * H + half.
 template <bool HIGH, bool TM>

@@ -2,6 +2,7 @@
 // (curscan_tc.cuh) and Kernel C (curscan_tc_split.cuh).  The bf16 tensor-core
 // product (mma.sync m16n8k16, float32 sums), the rounding of float32 operand
 // pairs for a class (DEFAULT bf16; HIGH the bf16x3 split's hi and lo), the
+// ldmatrix loads of bf16 fragments from shared memory, the
 // per-tile products of the 3M and 4M complex forms, the u8/float32 sample
 // loads and the cumulate folds.
 
@@ -22,6 +23,26 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  Plain: lane i gets row i/4, columns 2(i%4)..
+// of each; .trans: rows 2(i%4).., column i/4.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm2t(uint32_t& r0, uint32_t& r1,
+                                       uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r0), "=r"(r1) : "r"(addr));
 }
 
 // Two floats as a bf16 pair (x0 in the low half), each to nearest even.

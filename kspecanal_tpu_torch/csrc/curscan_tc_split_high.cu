@@ -8,13 +8,18 @@
 namespace kspec_tcs {
 
 int launch_high(int is_u8, int three_mult, const void* re, const void* im,
-                void* out, const void* starts, const void* weights,
-                const void* window, const void* f1, const void* f2,
-                const void* tw, int t, int full, int n, int n1, int n2,
-                int n_windows, int fold, cudaStream_t stream) {
-  return launch_class<true>(is_u8, three_mult, re, im, out, starts, weights,
-                           window, f1, f2, tw, t, full, n, n1, n2, n_windows,
-                           fold, stream);
+                void* out, void* part, const void* starts,
+                const void* weights, const void* window, const void* f1,
+                const void* f2, const void* tw, int t, int full, int n,
+                int n1, int n2, int n_windows, int groups, int fold,
+                cudaStream_t stream) {
+  return launch_class<true>(is_u8, three_mult, re, im, out, part, starts,
+                            weights, window, f1, f2, tw, t, full, n, n1, n2,
+                            n_windows, groups, fold, stream);
+}
+
+int occupancy_high(int is_u8, int three_mult, int n1, int n2) {
+  return occupancy_class<true>(is_u8, three_mult, n1, n2);
 }
 
 }  // namespace kspec_tcs

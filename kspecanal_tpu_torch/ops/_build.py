@@ -185,12 +185,15 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "kspec_curscan_tc_smem": [i32, i32, i32, i32],
         "kspec_curscan_tc_occupancy": [i32, i32, i32, i32, i32],
         "kspec_curscan_tc_split": [
-            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
         "kspec_curscan_tc_split_mt": [i32, i32, i32, i32],
+        "kspec_curscan_tc_split_smem": [i32, i32, i32, i32],
+        "kspec_curscan_tc_split_occupancy": [i32, i32, i32, i32, i32],
     }
     restypes = {"kspec_curscan_tc_smem": ctypes.c_longlong,
-                "kspec_curscan_packed_tc_smem": ctypes.c_longlong}
+                "kspec_curscan_packed_tc_smem": ctypes.c_longlong,
+                "kspec_curscan_tc_split_smem": ctypes.c_longlong}
     for name, args in types.items():
         if missing_ok and not hasattr(lib, name):
             continue

@@ -33,9 +33,14 @@ run these:
   (``cuda_curscan.tc_split``: ``(n / 128, 128)`` for the sublane kernel,
   ``_factorize(n)`` for the lane kernel), with Kernel A's math and rounding
   points for any ``n = n1 * n2`` and any window starts.  A thread block
-  takes one IQ block and 1-4 m-tiles of 16 rows k1 (as many as the
-  library's ``kspec_curscan_tc_split_mt`` says fit) through both stages
-  and the fold; F1 and F2^T stream from L2, C waits in shared memory.
+  takes one IQ block, 1-4 m-tiles of 16 rows k1 (the library's
+  ``kspec_curscan_tc_split_mt``) and a window group
+  (:func:`tc_split_groups` at the library's occupancy) through both stages
+  and the fold: the frame staged once a block in chunks of 16 rows (32 or
+  64 at HIGH) as bf16 operand planes, the next chunk's loads in flight;
+  F1's rows, the fold, the twiddles and F2^T in shared memory where they
+  fit; C in bf16 planes; cut-offs after each stage for its stage table
+  (:func:`curscan_tc_split_stage`, ``scripts/tc_split_stages.py``).
 
 Each real product rounds its float32 operands to bf16 (to nearest, ties to
 even) and sums in float32 (``mma.sync`` bf16 -> f32), once at DEFAULT and
@@ -43,8 +48,10 @@ as the bf16x3 split at HIGH.  Each kernel rounds each operand once, where
 it stores it in shared memory (Kernel A the windowed frame, then C; Kernel
 B the staged samples, beside a copy shifted by one sample for odd starts;
 both tables are rounded by the wrapper; Kernel C each frame element as it
-loads it, then C), and every product reads the rounded values; they are
-those the plain version rounds.
+stages it, then C), and every product reads the rounded values; they are
+those the plain version rounds.  (At HIGH, Kernel C sums a product's two
+correction terms in one float32 chain, Kernel A in two: an order of float32
+sums, as inside each product.)
 A complex product is 4M (four real products) or 3M: ``T1 = Fr Xr``,
 ``T2 = Fi Xi``, ``T3 = (Fr + Fi)(Xr + Xi)``, ``Re = T1 - T2``,
 ``Im = T3 - T1 - T2``, the sum table precomputed and ``Xr + Xi`` formed in float32 before its rounding.  Both classes run 4M
@@ -121,11 +128,17 @@ PACKED_TC_STAGE_BYTES = 48 << 10
 # Kernel A's sources, which the forensic cut-offs (K4 at HIGH/DEFAULT,
 # scripts/tc_stages.py) build with -DKSPEC_TC_STOP.
 TC_SOURCES = ("curscan_tc.cu", "curscan_tc_high.cu")
+# Kernel C's sources, which its forensic cut-offs (scripts/tc_split_stages.py)
+# build with -DKSPEC_TCS_STOP; its stages, each cut-off's name (csrc/
+# curscan_tc_split.cuh), 'full' the production kernel.
+TC_SPLIT_SOURCES = ("curscan_tc_split.cu", "curscan_tc_split_high.cu")
+TC_SPLIT_STAGES = ("frame", "s1", "s1tw", "s2", "full")
 
 tc_launches = 0             # Kernel A (csrc/curscan_tc.cu)
 packed_tc_launches = 0      # Kernel B (csrc/curscan_packed_tc.cu)
 tc_stage_launches = 0       # Kernel A's K4 cut-offs (curscan_tc_stage)
 tc_split_launches = 0       # Kernel C (csrc/curscan_tc_split.cu)
+tc_split_stage_launches = 0  # Kernel C's cut-offs (curscan_tc_split_stage)
 
 
 def precision_class(cfg: SpecConfig) -> str:
@@ -287,6 +300,21 @@ def curscan_tc_split_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
     split = split or tc_split(cfg, iq_re.dtype == torch.uint8)
     return stage_layout_to_spectrum(
         _two_stage_tc(iq_re, iq_im, cfg, "full", three_mult(form), split))
+
+
+def curscan_tc_split_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                                 cfg: SpecConfig, stage: str,
+                                 form: Optional[str] = None,
+                                 split: Optional[Tuple[int, int]] = None
+                                 ) -> torch.Tensor:
+    """The plain PyTorch version of :func:`curscan_tc_split_stage`: Kernel
+    C's math cut off after ``stage`` (``TC_SPLIT_STAGES``), each element's
+    weighted re + im summed over the windows, in the production layout
+    ``(T, fft_size)``; 'full' is :func:`curscan_tc_split_plain`."""
+    check_tc_split_stage(stage)
+    split = split or tc_split(cfg, iq_re.dtype == torch.uint8)
+    return stage_layout_to_spectrum(
+        _two_stage_tc(iq_re, iq_im, cfg, stage, three_mult(form), split))
 
 
 def curscan_tc_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
@@ -744,6 +772,82 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
     return out
 
 
+def check_tc_split_stage(stage: str) -> None:
+    if stage not in TC_SPLIT_STAGES:
+        raise ValueError(f"unknown Kernel C stage {stage!r}; stages: "
+                         f"{TC_SPLIT_STAGES}")
+
+
+def tc_split_stage_stop(stage: str) -> int:
+    """``KSPEC_TCS_STOP`` of Kernel C's ``stage``: frame 1 .. s2 4; 'full'
+    is the production kernel (0)."""
+    check_tc_split_stage(stage)
+    return (TC_SPLIT_STAGES.index(stage) + 1) % len(TC_SPLIT_STAGES)
+
+
+def tc_split_stage_variants():
+    """``(sources, defines)`` of Kernel C's four cut-off builds, as
+    ``_build.build`` and ``_build.load_variant`` take them."""
+    return [(TC_SPLIT_SOURCES, (f"KSPEC_TCS_STOP={tc_split_stage_stop(s)}",))
+            for s in TC_SPLIT_STAGES[:-1]]
+
+
+def tc_split_stage_library(stage: str):
+    """The forensic build of Kernel C cut off after ``stage`` (any but
+    'full'), built on first use."""
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load_variant(
+        TC_SPLIT_SOURCES, (f"KSPEC_TCS_STOP={tc_split_stage_stop(stage)}",))
+
+
+def curscan_tc_split_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                           cfg: SpecConfig, stage: str,
+                           form: Optional[str] = None,
+                           split: Optional[Tuple[int, int]] = None
+                           ) -> torch.Tensor:
+    """Kernel C cut off after ``stage`` (``TC_SPLIT_STAGES``, forensics):
+    ``(T, full_size)`` planes -> ``(T, fft_size)`` in the production
+    layout, each element of the stage's weighted re + im summed over the
+    windows ('full' is the production kernel).  Each cut-off is a build of
+    its own (:func:`tc_split_stage_library`), and all run the window groups
+    of the port's library (:func:`tc_split_launch_groups`), so 'full' is
+    Kernel C's production output bit for bit.  CUDA tensors launch (counted
+    in ``tc_split_stage_launches``); CPU tensors run
+    :func:`curscan_tc_split_stage_plain`."""
+    global tc_split_stage_launches
+    check_tc_split_stage(stage)
+    if not supports_tc_split(cfg):
+        raise ValueError(f"config not supported by the split tensor-core "
+                         f"curscan kernel (tpuPrecision {cfg.tpu_precision}, "
+                         f"fft_size {cfg.fft_size})")
+    check_planes(iq_re, iq_im, cfg)
+    split = split or tc_split(cfg, iq_re.dtype == torch.uint8)
+    if iq_re.device.type == "cpu":
+        return curscan_tc_split_stage_plain(iq_re, iq_im, cfg, stage, form,
+                                            split)
+    prod = _cuda_lib(iq_re.device)
+    lib = prod if stage == "full" else tc_split_stage_library(stage)
+    tm = three_mult(form)
+    out = launch_tc_split(lib, iq_re, iq_im, cfg, tm, split,
+                          tc_split_launch_groups(prod, iq_re, cfg, tm, split))
+    tc_split_stage_launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def tc_split_occupancy(lib, u8: bool, n1: int, n2: int, high: bool,
+                       tm: bool) -> int:
+    """The blocks an SM holds of ``lib``'s Kernel C instantiation for the
+    split ``n1 x n2`` (the CUDA occupancy calculator: registers and shared
+    memory); raises where the library cannot say."""
+    blocks = lib.kspec_curscan_tc_split_occupancy(int(u8), n1, n2,
+                                                  int(high), int(tm))
+    if blocks < 1:
+        raise RuntimeError(f"Kernel C's occupancy for the split {n1} x "
+                           f"{n2}: {blocks}")
+    return blocks
+
+
 def supports_tc_split(cfg: SpecConfig) -> bool:
     """Kernel C takes ``cfg`` (``cuda_curscan.kernel_route`` is
     "tc_split"): class HIGH or DEFAULT and a config the JAX dispatcher sends
@@ -780,13 +884,47 @@ def curscan_tc_split(iq_re: torch.Tensor, iq_im: torch.Tensor,
     return out
 
 
+def tc_split_tiles(lib, n1: int, n2: int, high: bool, tm: bool) -> int:
+    """Kernel C's k1 tiles a block of the split ``n1 x n2``: n1's m-tiles
+    of 16 over the library's m-tiles a block (0 where none fits)."""
+    mt = lib.kspec_curscan_tc_split_mt(n1, n2, int(high), int(tm))
+    nmt = -(-n1 // _MMA)
+    return -(-nmt // mt) if mt > 0 else 0
+
+
+def tc_split_groups(t: int, tiles: int, n_windows: int, sms: int,
+                    per_sm: int) -> int:
+    """Kernel C's window groups per IQ block and k1 tile: :func:`tc_groups`
+    over its ``t * tiles`` thread blocks (the G in 1..W that minimises
+    waves of blocks times a block's windows plus one window's set-up)."""
+    return tc_groups(t * tiles, 0, n_windows, sms, per_sm)
+
+
+def tc_split_launch_groups(lib, iq_re: torch.Tensor, cfg: SpecConfig,
+                           tm: bool, split: Tuple[int, int]) -> int:
+    """Kernel C's window groups for ``iq_re``'s blocks of ``cfg`` on
+    ``split``: :func:`tc_split_groups` at ``lib``'s occupancy on the
+    planes' card."""
+    n1, n2 = split
+    high = precision_class(cfg) == "HIGH"
+    return tc_split_groups(
+        iq_re.shape[0], tc_split_tiles(lib, n1, n2, high, tm),
+        cfg.num_windows,
+        torch.cuda.get_device_properties(iq_re.device).multi_processor_count,
+        tc_split_occupancy(lib, iq_re.dtype == torch.uint8, n1, n2, high,
+                           tm))
+
+
 def launch_tc_split(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
-                    cfg: SpecConfig, tm: bool,
-                    split: Tuple[int, int]) -> torch.Tensor:
-    """Launch ``lib``'s Kernel C on CUDA planes checked by
-    :func:`curscan_tc_split`; counts nothing.  Raises where 16 rows of C do
-    not fit a block's shared memory (the library's m-tiles a block are 0:
-    n2 above 1200 at 3M HIGH, 1808 at HIGH, 3616 at DEFAULT)."""
+                    cfg: SpecConfig, tm: bool, split: Tuple[int, int],
+                    groups: Optional[int] = None) -> torch.Tensor:
+    """Launch ``lib``'s Kernel C (the port's library, or a forensic build of
+    the same sources, ``scripts/tc_split_stages.py``) on CUDA planes checked
+    by :func:`curscan_tc_split`, in ``groups`` window groups (default
+    :func:`tc_split_launch_groups` at ``lib``'s occupancy); counts nothing.
+    Raises where 16 rows of C do not fit a block's shared memory (the
+    library's m-tiles a block are 0: n2 above 1200 at 3M HIGH, 1808 at
+    HIGH, 3616 at DEFAULT)."""
     dev = iq_re.device
     t, n = iq_re.shape[0], cfg.fft_size
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
@@ -798,6 +936,10 @@ def launch_tc_split(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
         raise ValueError(f"Kernel C keeps 16 rows of C (n2 = {n2}) in a "
                          f"block's shared memory, which they exceed at "
                          f"{precision_class(cfg)} {'3M' if tm else '4M'}")
+    if groups is None:
+        groups = tc_split_launch_groups(lib, iq_re, cfg, tm, split)
+    part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
+            if groups > 1 else None)
     starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
                                          cfg.cur_scan_cumu_mode, dev)
     f1, f2, tw = tc_split_tables(n1, n2, dev)
@@ -805,9 +947,10 @@ def launch_tc_split(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
         err = lib.kspec_curscan_tc_split(
             iq_re.data_ptr(), iq_im.data_ptr(),
             int(iq_re.dtype == torch.uint8), out.data_ptr(),
-            starts.data_ptr(), weights.data_ptr(), window.data_ptr(),
-            f1.data_ptr(), f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n,
-            n1, n2, cfg.num_windows, _FOLD[cfg.cur_scan_cumu_mode],
+            0 if part is None else part.data_ptr(), starts.data_ptr(),
+            weights.data_ptr(), window.data_ptr(), f1.data_ptr(),
+            f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n, n1, n2,
+            cfg.num_windows, groups, _FOLD[cfg.cur_scan_cumu_mode],
             int(high), int(tm), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib.kspec_curscan_tc_split)
     return out

@@ -487,21 +487,137 @@ def test_tc_split_kernel_through_the_dispatcher(cuda, fft, nono, t, prec):
 
 
 def test_tc_split_m_tiles(cuda):
-    """The library's m-tiles a block (``kspec_curscan_tc_split_mt``): 4 at
-    DEFAULT and 2 at HIGH where C's bf16 planes (forms x halves x 16 rows a
-    tile x (n2p + 8) x 2 bytes) fit a block's 232,448 bytes, halved while
-    half covers n1's m-tiles, 0 where one tile does not fit."""
+    """The library's m-tiles a block (``kspec_curscan_tc_split_mt``, each
+    warp a strip of 8 columns for all of them): 4, halved while C's bf16
+    planes (forms x halves x 16 rows a tile x (n2p + 8) x 2 bytes) and the
+    frame buffers do not fit a block's 232,448 bytes and while half covers
+    n1's m-tiles, 0 where one tile's C planes do not fit: n2 up to 3616 at
+    DEFAULT 4M, 1808 at HIGH 4M, 1200 at 3M HIGH."""
     from kspecanal_tpu_torch.ops import _build
     lib = _build.load()
     for (n1, n2, high, tm), want in (
             ((10, 128, 0, 0), 1), ((32, 128, 0, 0), 2), ((48, 128, 0, 0), 4),
-            ((256, 128, 0, 0), 4), ((256, 128, 1, 0), 2),
+            ((256, 128, 0, 0), 4), ((256, 128, 1, 0), 4),
             ((256, 256, 1, 1), 2), ((1024, 1024, 0, 0), 2),
             ((1024, 1024, 1, 0), 1), ((1024, 1024, 1, 1), 1),
+            ((60, 50, 0, 0), 4), ((60, 50, 1, 0), 4), ((16, 64, 0, 0), 1),
+            ((100, 100, 0, 0), 4), ((100, 100, 1, 0), 4),
+            ((128, 128, 0, 0), 4), ((200, 199, 0, 0), 4),
             ((1, 3000, 0, 0), 1), ((1, 3000, 1, 0), 0), ((1, 3000, 0, 1), 0),
+            ((5, 3616, 0, 0), 1), ((1, 3632, 0, 0), 0),
+            ((9, 1808, 1, 0), 1), ((1, 1824, 1, 0), 0),
+            ((2, 1200, 1, 1), 1), ((1, 1216, 1, 1), 0),
             ((0, 128, 0, 0), 0)):
         assert lib.kspec_curscan_tc_split_mt(n1, n2, high, tm) == want, (
             n1, n2, high, tm)
+
+
+def test_tc_split_shared_memory_and_occupancy(cuda):
+    """Kernel C's shared memory a block (``kspec_curscan_tc_split_smem``,
+    ``layout()``): the C planes and the frame's two chunk buffers, then
+    F1's rows, the fold, the twiddles, F2^T and the window while they fit
+    half an SM (DEFAULT, where F1's rows and the fold fit it: two blocks
+    an SM) or a block's share; every split of the timing cells and the
+    boundaries fits a block and holds at least one an SM, fft 3000 and
+    10000 DEFAULT two."""
+    from kspecanal_tpu_torch.ops import _build
+    lib = _build.load()
+
+    def smem(n1, n2, high=False, tm=False):
+        return lib.kspec_curscan_tc_split_smem(n1, n2, int(high), int(tm))
+    # fft 3000 DEFAULT 4M (4 m-tiles): C 18,432 + frame 9,216 + F1 16,384 +
+    # fold 18,432 + twiddles 32,768 + F2^T 16,384.
+    assert smem(60, 50) == 18432 + 9216 + 16384 + 18432 + 32768 + 16384
+    # fft 10000 DEFAULT 4M: C 30,720 + frame 9,216 + F1 28,672 + fold
+    # 30,720 (the twiddles, F2^T and the window do not fit half an SM).
+    assert smem(100, 100) == 30720 + 9216 + 28672 + 30720
+    # fft 3000 HIGH 4M (chunks of 64 rows): C 36,864 + frame 73,728 + F1
+    # 32,768 + fold 18,432 + twiddles 32,768 + F2^T 32,768.
+    assert smem(60, 50, high=True) == (36864 + 73728 + 32768 + 18432
+                                       + 32768 + 32768)
+    for n1, n2 in ((60, 50), (100, 100), (200, 199), (256, 256), (512, 128),
+                   (256, 128), (50, 41), (5, 3616), (9, 1808), (2, 1200)):
+        for high in (False, True):
+            for tm in (False, True):
+                if lib.kspec_curscan_tc_split_mt(n1, n2, high, tm) < 1:
+                    continue
+                b = smem(n1, n2, high, tm)
+                assert 0 < b <= 232448
+                for u8 in (False, True):
+                    per_sm = cuda_tc.tc_split_occupancy(lib, u8, n1, n2,
+                                                        high, tm)
+                    assert 1 <= per_sm and per_sm * (b + 1024) <= 233472
+    for split in ((60, 50), (100, 100)):
+        assert cuda_tc.tc_split_occupancy(lib, False, *split, False,
+                                          False) == 2
+
+
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("fft,nono,t", [(10000, 0.1, 16), (3000, 0.5, 1),
+                                        (2050, 0.1, 3)])
+def test_tc_split_kernel_window_groups(cuda, fft, nono, t, prec):
+    """Through the dispatcher at short batches, where Kernel C splits each
+    IQ block's windows into G > 1 groups (combined in group order): within
+    TC_TOL of the plain version, and two runs bit-identical."""
+    from kspecanal_tpu_torch.ops import _build
+    cfg = zs_cfg(fft, nono, "MIN" if t == 3 else "AVG", tpu_precision=prec,
+                 x_res=500)
+    re, im = class_planes(cuda, cfg, t, False, fft + t)
+    split = cuda_curscan.tc_split(cfg)
+    groups = cuda_tc.tc_split_launch_groups(_build.load(), re, cfg, False,
+                                            split)
+    assert groups > 1
+    before = cuda_tc.tc_split_launches
+    got = tspec.curscan_auto_batched(re, im, cfg)
+    assert torch.equal(got, tspec.curscan_auto_batched(re, im, cfg))
+    assert cuda_tc.tc_split_launches == before + 2
+    assert_tc_close(got.cpu().numpy(), cuda_tc.curscan_tc_split_plain(
+        re, im, cfg).cpu().numpy(), prec)
+
+
+@pytest.mark.parametrize("fft,split,prec,form", [
+    (18080, (5, 3616), "DEFAULT", None), (16272, (9, 1808), "HIGH", None),
+    (2400, (2, 1200), "HIGH", "force3m")])
+def test_tc_split_kernel_at_the_shared_memory_limit(cuda, fft, split, prec,
+                                                    form):
+    """The widest n2 Kernel C takes at each class and form (ROADMAP G1),
+    where one m-tile's C planes fill a block's shared memory and each lane
+    loads its B fragments from the planes: it launches, within TC_TOL of
+    the plain version; 16 columns more raise."""
+    cfg = zs_cfg(fft, 0.5, "MAX", tpu_precision=prec, x_res=500)
+    assert cuda_curscan.kernel_route(cfg) == "tc_split"
+    re, im = class_planes(cuda, cfg, 2, False, split[1])
+    before = cuda_tc.tc_split_launches
+    got = cuda_tc.curscan_tc_split(re, im, cfg, form, split)
+    torch.cuda.synchronize()
+    assert cuda_tc.tc_split_launches == before + 1
+    assert_tc_close(got.cpu().numpy(), cuda_tc.curscan_tc_split_plain(
+        re, im, cfg, form, split).cpu().numpy(), prec)
+    from kspecanal_tpu_torch.ops import _build
+    high, tm = prec == "HIGH", form == "force3m"
+    assert _build.load().kspec_curscan_tc_split_mt(1, split[1] + 16,
+                                                   int(high), int(tm)) == 0
+
+
+@pytest.mark.parametrize("prec", ["HIGH", "DEFAULT"])
+def test_tc_split_cut_offs(cuda, prec):
+    """Kernel C's forensic cut-offs (``-DKSPEC_TCS_STOP`` builds) at the fft
+    3000 timing cell: each within TC_TOL of its plain version on 8 blocks,
+    'full' Kernel C's output bit for bit, and their times (T=4096, CUDA
+    events) rising stage by stage, up to the noise of one call (5%)."""
+    from kspecanal_tpu_torch.utils.profiling import cuda_ms
+    cfg = zs_cfg(3000, 0.5, tpu_precision=prec, x_res=500)
+    re, im = class_planes(cuda, cfg, 4096, False, 3000)
+    sub = (re[:8], im[:8])
+    ms = []
+    for stage in cuda_tc.TC_SPLIT_STAGES:
+        got = cuda_tc.curscan_tc_split_stage(*sub, cfg, stage)
+        want = cuda_tc.curscan_tc_split_stage_plain(*sub, cfg, stage)
+        assert_tc_close(got.cpu().numpy(), want.cpu().numpy(), prec)
+        ms.append(cuda_ms(lambda s=stage: cuda_tc.curscan_tc_split_stage(
+            re, im, cfg, s)))
+    assert torch.equal(got, cuda_tc.curscan_tc_split(*sub, cfg))
+    assert all(b >= 0.95 * a for a, b in zip(ms, ms[1:])), ms
 
 
 @pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])

@@ -24,10 +24,17 @@ wrapper runs its plain version ``curscan_tc_split_plain``.
     exactly where JAX's ``_fused_choice`` picks a Pallas kernel, and
     ``tc_split`` is the split of the kernel it picks, for every fft
     2048-40000 at 50/75/90% and sampled sizes to 2^20, u8 and float32;
-  * the card dispatch with a stand-in library.
+  * the card dispatch with a stand-in library: the split, the window
+    groups at the library's occupancy, the cut-off builds and their
+    launches;
+  * the cut-offs' plain version (``curscan_tc_split_stage_plain``) and the
+    stage-table script's pieces that need no card.
 """
 import dataclasses
 import functools
+import stat
+import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,9 +45,10 @@ from kspecanal_tpu.ops import mxu_fft as jmxu
 from kspecanal_tpu.ops import pallas_curscan as jpk
 from kspecanal_tpu.ops import spectrum as jspec
 from kspecanal_tpu_torch.config import WINDOW_ONES, SpecConfig
-from kspecanal_tpu_torch.ops import cuda_curscan, cuda_tc
+from kspecanal_tpu_torch.ops import _build, cuda_curscan, cuda_tc
 from kspecanal_tpu_torch.ops import spectrum as tspec
-from kspecanal_tpu_torch.scripts import threemult_smoke
+from kspecanal_tpu_torch.ops.mxu_fft import round_bf16, split_bf16
+from kspecanal_tpu_torch.scripts import tc_split_stages, threemult_smoke
 from test_torch_lane import SAMPLED
 from test_torch_precision import (ORACLE_BOUND, assert_class_close,
                                   fake_card, gauss, jax_form, oracle_error,
@@ -288,6 +296,8 @@ def test_card_dispatch_launches_kernel_c(fake_card, dtype):
         "kspec_curscan_tc_split")
     fake_card.kspec_curscan_tc_split_mt = lambda n1, n2, high, tm: int(
         n2 < 1000)
+    fake_card.kspec_curscan_tc_split_occupancy = (
+        lambda u8, n1, n2, high, tm: 2)
     u8 = dtype == torch.uint8
     for fft, nono, prec, t, split in (
             (3000, 0.5, "DEFAULT", 4096, (60, 50)),
@@ -305,8 +315,11 @@ def test_card_dispatch_launches_kernel_c(fake_card, dtype):
         [(name, args)] = fake_card.calls
         assert name == "kspec_curscan_tc_split"
         assert args[2] == int(u8)
-        assert args[10:19] == (t, cfg.full_size, fft, *split,
-                               cfg.num_windows, cuda_curscan._FOLD["AVG"],
+        groups = cuda_tc.tc_split_groups(t, -(-split[0] // 16),
+                                         cfg.num_windows, 132, 2)
+        assert args[11:21] == (t, cfg.full_size, fft, *split,
+                               cfg.num_windows, groups,
+                               cuda_curscan._FOLD["AVG"],
                                int(prec == "HIGH"), 0)
         assert (cuda_tc.tc_split_launches, cuda_tc.tc_launches,
                 cuda_curscan.launches) == (before[0] + 1, *before[1:])
@@ -316,3 +329,208 @@ def test_card_dispatch_launches_kernel_c(fake_card, dtype):
     with pytest.raises(ValueError, match="shared memory"):
         cuda_tc.curscan_tc_split(planes, planes, cfg, split=(1, 3000))
     assert fake_card.calls == []
+
+
+def _kernel_c_card(fake_card, mt=lambda n1, n2, high, tm: int(n2 < 1000),
+                   per_sm=2):
+    fake_card.kspec_curscan_tc_split = fake_card._entry(
+        "kspec_curscan_tc_split")
+    fake_card.kspec_curscan_tc_split_mt = mt
+    fake_card.kspec_curscan_tc_split_occupancy = (
+        lambda u8, n1, n2, high, tm: per_sm)
+    return fake_card
+
+
+def test_window_groups_of_kernel_c():
+    """Kernel C's window groups per IQ block and k1 tile
+    (``tc_split_groups``): Kernel A's choice over t x tiles blocks; one at
+    the T=4096 cells, one a window for the serial zero-span session's T=1,
+    four at fft 10000 90% T=16 on DEFAULT's 4 tiles at two blocks an SM,
+    one at HIGH's 7 tiles at one (112 blocks fill the card), never more
+    than the windows."""
+    assert cuda_tc.tc_split_groups(4096, 1, 15, 132, 2) == 1
+    assert cuda_tc.tc_split_groups(4096, 2, 15, 132, 1) == 1
+    assert cuda_tc.tc_split_groups(1, 1, 15, 132, 2) == 15
+    assert cuda_tc.tc_split_groups(1, 2, 15, 132, 1) == 15
+    assert cuda_tc.tc_split_groups(16, 4, 71, 132, 2) == 4
+    assert cuda_tc.tc_split_groups(16, 7, 71, 132, 1) == 7
+    assert cuda_tc.tc_split_groups(3, 2, 71, 132, 1) == 22
+    assert cuda_tc.tc_split_groups(64, 16, 15, 132, 2) == 1
+    assert cuda_tc.tc_split_groups(64, 32, 15, 132, 1) == 1
+    assert cuda_tc.tc_split_groups(64, 8, 71, 132, 2) == 1
+    for t in (1, 3, 16, 64, 4096):
+        for tiles in (1, 2, 7, 32):
+            for w in (1, 15, 71):
+                for per_sm in (1, 2):
+                    g = cuda_tc.tc_split_groups(t, tiles, w, 132, per_sm)
+                    assert 1 <= g <= w
+                    assert g == cuda_tc.tc_groups(t * tiles, 0, w, 132,
+                                                  per_sm)
+
+
+@pytest.mark.parametrize("t,fft,nono,prec,mt,per_sm,tiles,groups", [
+    (4096, 3000, 0.5, "DEFAULT", 4, 2, 1, 1),
+    (1, 3000, 0.5, "DEFAULT", 4, 2, 1, 15),
+    (16, 10000, 0.1, "DEFAULT", 2, 2, 4, 4),
+    (16, 10000, 0.1, "HIGH", 1, 1, 7, 7),
+    (3, 2050, 0.1, "HIGH", 2, 1, 2, 22)])
+def test_card_dispatch_launches_kernel_c_in_window_groups(
+        fake_card, t, fft, nono, prec, mt, per_sm, tiles, groups):
+    """The dispatcher launches Kernel C with the groups of
+    ``tc_split_groups`` over the library's tiles (n1's m-tiles over its
+    m-tiles a block) at its occupancy, and a (T, G, fft) partial buffer
+    where G > 1; ``launch_tc_split`` takes groups it is given."""
+    lib = _kernel_c_card(fake_card, lambda n1, n2, high, tm: mt, per_sm)
+    cfg = zs_cfg(fft, nono, tpu_precision=prec, x_res=500)
+    planes = torch.empty((t, cfg.full_size), device="meta")
+    split = cuda_curscan.tc_split(cfg)
+    assert cuda_tc.tc_split_tiles(lib, *split, prec == "HIGH", False) == tiles
+    lib.calls.clear()
+    tspec.curscan_auto_batched(planes, planes, cfg)
+    [(name, args)] = lib.calls
+    assert name == "kspec_curscan_tc_split" and args[17] == groups
+    lib.calls.clear()
+    before = cuda_tc.tc_split_launches
+    out = cuda_tc.launch_tc_split(lib, planes, planes, cfg, False, split, 3)
+    assert out.shape == (t, fft) and cuda_tc.tc_split_launches == before
+    [(name, args)] = lib.calls
+    assert args[17] == 3
+
+
+def test_kernel_c_cut_offs_launch_their_builds(fake_card, monkeypatch):
+    """``curscan_tc_split_stage`` on the card: each cut-off launches its
+    own build (``tc_split_stage_library``, ``KSPEC_TCS_STOP`` 1-4) with
+    the production library's window groups; 'full' launches the port's
+    library; each counts in ``tc_split_stage_launches`` and not in
+    ``tc_split_launches``."""
+    prod = _kernel_c_card(fake_card, per_sm=1)
+    builds = {}
+
+    def build(stage):
+        lib = types.SimpleNamespace(calls=[])
+        lib.kspec_curscan_tc_split = lambda *args: lib.calls.append(args) \
+            or 0
+        lib.kspec_curscan_tc_split.__name__ = "kspec_curscan_tc_split"
+        lib.kspec_curscan_tc_split_mt = prod.kspec_curscan_tc_split_mt
+        return builds.setdefault(stage, lib)
+    monkeypatch.setattr(cuda_tc, "tc_split_stage_library", build)
+    cfg = zs_cfg(3000, 0.5, tpu_precision="HIGH", x_res=500)
+    planes = torch.empty((2, cfg.full_size), device="meta")
+    groups = cuda_tc.tc_split_groups(2, 4, 15, 132, 1)
+    assert [cuda_tc.tc_split_stage_stop(s) for s in
+            cuda_tc.TC_SPLIT_STAGES] == [1, 2, 3, 4, 0]
+    for stage in cuda_tc.TC_SPLIT_STAGES:
+        prod.calls.clear()
+        before = (cuda_tc.tc_split_stage_launches, cuda_tc.tc_split_launches)
+        out = cuda_tc.curscan_tc_split_stage(planes, planes, cfg, stage)
+        assert out.shape == (2, 3000)
+        assert (cuda_tc.tc_split_stage_launches,
+                cuda_tc.tc_split_launches) == (before[0] + 1, before[1])
+        if stage == "full":
+            [(_, args)] = prod.calls
+        else:
+            assert prod.calls == []
+            [args] = builds[stage].calls
+        assert args[14:18] == (60, 50, 15, groups)
+    with pytest.raises(ValueError, match="unknown Kernel C stage"):
+        cuda_tc.curscan_tc_split_stage(planes, planes, cfg, "s1x")
+
+
+def test_stage_variant_builds_kernel_c_with_its_cut_off(tmp_path,
+                                                        monkeypatch):
+    """``_build.load_variant`` of Kernel C's cut-off (``scripts/
+    tc_split_stages.py``) with a stand-in nvcc that logs its arguments:
+    Kernel C's two sources, each compiled with ``-DKSPEC_TCS_STOP=s``,
+    linked into a variant library of its own name beside the port's;
+    ``tc_split_stage_variants`` lists the four cut-offs."""
+    log = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$@\" >> {log}\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then touch \"$2\"; fi\n"
+                    "  shift\n"
+                    "done\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda path: types.SimpleNamespace(path=path))
+    monkeypatch.setattr(_build, "_variants", {})
+    lib = cuda_tc.tc_split_stage_library("s1")
+    calls = log.read_text().splitlines()
+    compiles = [c.split() for c in calls if " -c " in c]
+    assert sorted(Path(c[-1]).name for c in compiles) == [
+        "curscan_tc_split.cu", "curscan_tc_split_high.cu"]
+    assert all("-DKSPEC_TCS_STOP=2" in c for c in compiles)
+    assert calls[-1].startswith("-shared")
+    assert Path(lib.path).name.startswith("libkspec_variant_")
+    assert Path(lib.path).name != _build.library_path().name
+    assert cuda_tc.tc_split_stage_variants() == [
+        (cuda_tc.TC_SPLIT_SOURCES, (f"KSPEC_TCS_STOP={s}",))
+        for s in (1, 2, 3, 4)]
+
+
+@pytest.mark.parametrize("prec", CLASSES)
+def test_cut_off_frame_is_the_rounded_windowed_frame(prec):
+    """The 'frame' cut-off's plain version, on the CPU: the sum over windows
+    of weights[w] (x_re win + x_im win as rounded: bf16, hi + lo at HIGH)
+    at (m1, m2) in the production layout, from numpy framing; 'full' is
+    ``curscan_tc_split`` bit for bit."""
+    cfg = zs_cfg(3000, 0.5, tpu_precision=prec, x_res=500)
+    re, im = gauss(cfg, 1, seed=3)
+    got = cuda_tc.curscan_tc_split_stage(torch.from_numpy(re),
+                                         torch.from_numpy(im), cfg, "frame")
+    _, weights, win, _ = cuda_curscan._tables(
+        3000, cfg.window, cfg.window_starts, cfg.cur_scan_cumu_mode,
+        torch.device("cpu"))
+
+    def rounded(x):
+        if prec == "HIGH":
+            hi, lo = split_bf16(x)
+            return hi + lo
+        return round_bf16(x)
+    acc = torch.zeros(3000)
+    for j, s in enumerate(cfg.window_starts):
+        fr = rounded(torch.from_numpy(re[0, s:s + 3000]) * win)
+        fi = rounded(torch.from_numpy(im[0, s:s + 3000]) * win)
+        acc = acc + weights[j] * (fr + fi)
+    want = cuda_curscan.stage_layout_to_spectrum(acc.view(1, 60, 50))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    planes = (torch.from_numpy(re), torch.from_numpy(im))
+    assert torch.equal(cuda_tc.curscan_tc_split_stage(*planes, cfg, "full"),
+                       cuda_tc.curscan_tc_split(*planes, cfg))
+
+
+def test_tc_split_stages_script_pieces_on_the_cpu():
+    """``scripts/tc_split_stages.py`` measures the card only: without one it
+    exits before any timing; its bound is the 4M tensor-core flops (x3 at
+    HIGH) or the bytes; it reads ptxas' lines of Kernel C's instantiations
+    (the first build of each) from a build log."""
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            tc_split_stages.main([])
+    cfg = tc_split_stages.cell_cfg(10000, 0.5, "DEFAULT")
+    ms, by = tc_split_stages.bound_ms(cfg, 4096, False, (100, 100))
+    assert by == "operations"
+    assert ms == pytest.approx(8 * 100 * 100 * 200 * 4096 * 15 / 989e12 * 1e3)
+    high = tc_split_stages.cell_cfg(10000, 0.5, "HIGH")
+    assert tc_split_stages.bound_ms(high, 4096, False, (100, 100))[0] == \
+        pytest.approx(3 * ms)
+    cfg = tc_split_stages.cell_cfg(3000, 0.5, "DEFAULT")
+    assert tc_split_stages.bound_ms(cfg, 4096, False, (60, 50))[1] == "bytes"
+    name = "_ZN9kspec_tcs23curscan_tc_split_kernelIfLb0ELb0ELi4ELi1ELb1EEEv"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 120 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN8kspec_tc5otherE' for "
+        "'sm_90a'",
+        "ptxas info    : Used 40 registers",
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        "ptxas info    : Used 99 registers, used 1 barriers"])
+    assert tc_split_stages.ptxas_lines(log) == [
+        f"{name}: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads", f"{name}: Used 120 registers, used 1 barriers"]
+    assert len(tc_split_stages.CELLS) == 14
