@@ -10,9 +10,10 @@ points and checks the results.
 
 Phases (any failure raises; the exit code is then non-zero):
   1. environment: torch, CUDA, nvcc, the card and its power limit;
-  2. build of the kernels, of Kernel A's five K4 cut-offs and of Kernel
-     C's four stage cut-offs (one nvcc per source and cut-off, all in
-     parallel), with ptxas' register/shared-memory report;
+  2. build of the kernels, of Kernel A's five K4 cut-offs, of Kernel C's
+     four stage cut-offs and of Kernels A and C's ablate builds (one nvcc
+     per source and build, all in parallel), with ptxas'
+     register/shared-memory report;
   3. K1 against its plain version (``torch.fft``) run in float64 on the
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
@@ -93,7 +94,13 @@ Phases (any failure raises; the exit code is then non-zero):
  11. the ablate variants of the kernel-ablation script against their plain
      versions (f32, and u8 bit-identical to decoded f32), and the forensic
      instantiation with no ablate bit bitwise equal to the direct kernel in
-     all four cumulate modes;
+     all four cumulate modes; then at HIGH and DEFAULT every variant on
+     Kernel A's ablate build (fft 2048, T=256, DEFAULT u8 and f32, HIGH
+     f32) and on Kernel C's (fft 32768 on (256, 128), T=16, HIGH f32 and
+     DEFAULT u8) within TC_TOL of its plain version, one launch of its
+     build and none of the direct kernel's, u8 bit-identical to decoded
+     f32, no key and 'concat' bitwise equal to the production kernel in
+     all four modes;
  12. the forensics path's sessions through ``cli.main`` at fft 2048 kaiser
      50%: devicesynth and devicenoise with ``tpuCatchUp 1024`` (8 batches),
      then again with ``tpuProfile``, and the host synth with ``tpuProfile``:
@@ -102,12 +109,18 @@ Phases (any failure raises; the exit code is then non-zero):
  13. the forensics scripts on the card: the stage table of
      ``scripts.roofline_r2`` at HIGHEST (fft 2048 T=4096; fft 16384 T=288
      with float64 and float32 sums), the marginal table of
-     ``scripts.kernel_ablate`` (u8 and f32, T=4096/8192) and
+     ``scripts.kernel_ablate`` at HIGHEST (u8 and f32, T=4096/8192) and
      ``scripts.session_ablate`` at k=4096 (cut from 16384 to save time),
      with the launches of the forensic kernel and of the direct kernel
      (their base) counted over them, then ``roofline_r2``'s DEFAULT table
      (Kernel A's cut-offs, fft 2048 T=4096, launches counted in
-     ``cuda_tc.tc_stage_launches``);
+     ``cuda_tc.tc_stage_launches``) and its HIGH table with the plain
+     version's time, ``kernel_ablate``'s class tables
+     (fft 2048 DEFAULT u8 and HIGH f32 on Kernel A, T=4096/8192; fft 32768
+     DEFAULT u8 on Kernel C, T=64/128) with the launches of each ablate
+     build and of the direct kernel's forensic instantiation (none), and
+     each ablate build's time with no stage removed beside its plain
+     version and bound;
  13b. the offline analyzer: ``tools.main`` on a capture from
      ``scripts.make_fixture`` (1,024,000 samples at 92 MHz) at fft 2048
      (K1) and 128 (K2), with and without ``decimate 4``, each launching its
@@ -1078,6 +1091,80 @@ def phase_ablate(cc, gen):
         check(same, f"forensic instantiation == direct kernel ({mode})")
 
 
+def phase_ablate_class(cc, gen):
+    """K1's ablate keys at HIGH and DEFAULT: every variant of the
+    kernel-ablation script on Kernel A's ablate build (fft 2048, T=256: DEFAULT
+    u8 and f32, HIGH f32) and on Kernel C's (fft 32768 on (256, 128), T=16:
+    HIGH f32, DEFAULT u8), each one launch of its build and none of the
+    direct kernel's forensic instantiation, within TC_TOL of its plain
+    version; u8 bit-identical to decoded float32; no key and 'concat'
+    bitwise equal to the production kernel in every mode.  Returns the
+    worst max abs error of each build."""
+    from kspecanal_tpu_torch.ops import cuda_tc as tc
+    from kspecanal_tpu_torch.ops.spectrum import decode_u8
+    from kspecanal_tpu_torch.scripts.kernel_ablate import VARIANTS
+    print(f"== ablate variants at HIGH/DEFAULT (Kernels A and C's ablate "
+          f"builds) vs plain (per bin rtol, atol of the peak: {TC_TOL})")
+    worst = {"A": 0.0, "C": 0.0}
+    for kernel, fft, t, cases in (
+            ("A", 2048, 256, (("DEFAULT", True), ("DEFAULT", False),
+                              ("HIGH", False))),
+            ("C", 32768, 16, (("HIGH", False), ("DEFAULT", True)))):
+        split = (fft // 128, 128)
+        counter = "tc_ablate_launches" if kernel == "A" else \
+            "tc_split_ablate_launches"
+
+        def class_ablate(re_, im_, cfg, keys):
+            if kernel == "A":
+                return tc.curscan_tc(re_, im_, cfg, ablate=keys)
+            return tc.curscan_tc_split(re_, im_, cfg, split=split,
+                                       ablate=keys)
+
+        def plain(re_, im_, cfg, keys):
+            return tc.curscan_tc_split_plain(re_, im_, cfg, None, split, keys)
+
+        for prec, u8 in cases:
+            cfg = class_cfg(cfg_of(fft), prec)
+            re_, im_ = noise(cfg, t, u8, gen)
+            for name, keys in VARIANTS:
+                before = (getattr(tc, counter), cc.forensic_launches)
+                got = class_ablate(re_, im_, cfg, keys)
+                launched = (getattr(tc, counter) - before[0],
+                            cc.forensic_launches - before[1])
+                want = plain(re_, im_, cfg, keys)
+                torch.cuda.synchronize()
+                mx, sh = tc_share(got, want, cfg)
+                line = (f"  Kernel {kernel} fft {fft} {prec} "
+                        f"{'u8' if u8 else 'f32'} T={t} {name:34s} max abs "
+                        f"{mx:.3e}, {sh:.3f} of the tolerance")
+                ok = (launched == (1, 0) and sh <= 1
+                      and bool(got.isfinite().all()))
+                if u8:
+                    same = torch.equal(got, class_ablate(
+                        decode_u8(re_), decode_u8(im_), cfg, keys))
+                    line += (f", u8 vs f32 "
+                             f"{'bit-identical' if same else 'DIFFER'}")
+                    ok = ok and same
+                print(f"{line} {'PASS' if ok else 'FAIL'}")
+                check(ok, f"Kernel {kernel} ablate {name} at {prec}: one "
+                      f"launch of its build, within TC_TOL of plain")
+                worst[kernel] = max(worst[kernel], mx)
+        for mode in MODES:
+            prec = cases[0][0]
+            cfg = class_cfg(cfg_of(fft, 0.5, mode), prec)
+            re_, im_ = noise(cfg, t, False, gen)
+            prod = (tc.curscan_tc(re_, im_, cfg) if kernel == "A" else
+                    tc.curscan_tc_split(re_, im_, cfg, split=split))
+            same = all(torch.equal(class_ablate(re_, im_, cfg, keys), prod)
+                       for keys in ((), ("concat",)))
+            print(f"  Kernel {kernel} ablate build, no key and 'concat', "
+                  f"{prec} {mode}: {'bitwise equal' if same else 'DIFFER'} "
+                  f"to the production kernel")
+            check(same, f"Kernel {kernel} ablate build with no key == the "
+                  f"production kernel ({mode})")
+    return worst
+
+
 class LogLines(logging.Handler):
     """Collects the package's log messages."""
 
@@ -1170,8 +1257,8 @@ def phase_forensics(cc):
     roofline_r2.main(["--precision", "HIGHEST", "--fft", "16384", "288"])
     roofline_r2.main(["--precision", "HIGHEST", "--fft", "16384",
                       "--f32-sums", "288"])
-    kernel_ablate.main(["2048", "u8"])
-    kernel_ablate.main(["2048", "f32"])
+    kernel_ablate.main(["2048", "HIGHEST", "u8"])
+    kernel_ablate.main(["2048", "HIGHEST", "f32"])
     launches, direct = cc.forensic_launches, cc.direct_launches
     session_ablate.main(["4096"])
     cfg = roofline_r2.stage_cfg(2048)
@@ -1196,9 +1283,62 @@ def phase_forensics(cc):
           f"plain version {cplain:.3f} ms in {-(-4096 // step)} calls, bound "
           f"{cbms:.4f} ms ({cby}); Kernel A's cut-offs launched "
           f"{class_launches} times")
+    hrows = roofline_r2.main(["--precision", "HIGH", "4096"])
+    hcfg = roofline_r2.stage_cfg(2048, "HIGH")
+    hplain = cuda_ms(lambda: [tc.curscan_tc_stage_plain(
+        re_[i:i + step], im_[i:i + step], hcfg, "full")
+        for i in range(0, 4096, step)], warm=1, reps=3)
+    hbms, hby, _ = tc_bound(hcfg, 4096, False)
+    print(f"  K4 HIGH 'full' (Kernel A) {hrows[4096]['full']:.3f} ms, plain "
+          f"version {hplain:.3f} ms in {-(-4096 // step)} calls, bound "
+          f"{hbms:.4f} ms ({hby})")
+    # K1's ablate keys at the classes: the JAX script's own cell (DEFAULT
+    # u8) and HIGH f32 on Kernel A, and Kernel C above fft 16384.
+    tc.tc_ablate_launches = tc.tc_split_ablate_launches = 0
+    forensic0 = cc.forensic_launches
+    kernel_ablate.main(["2048", "DEFAULT", "u8"])
+    kernel_ablate.main(["2048", "HIGH", "f32"])
+    a_launches = tc.tc_ablate_launches
+    kernel_ablate.main(["32768", "DEFAULT", "u8", "64", "128"])
+    c_launches = tc.tc_split_ablate_launches
+    print(f"  kernel_ablate at HIGH/DEFAULT: Kernel A's ablate build "
+          f"launched {a_launches} times, Kernel C's {c_launches}, the "
+          f"direct kernel's forensic instantiation "
+          f"{cc.forensic_launches - forensic0}")
+    check(a_launches > 0 and c_launches > 0
+          and cc.forensic_launches == forensic0,
+          "kernel_ablate at HIGH/DEFAULT ran the class kernels' ablate "
+          "builds and never the direct kernel")
+    ablate = {}
+    for kernel, fft, t, u8, launched in (("A", 2048, 4096, True, a_launches),
+                                         ("C", 32768, 64, True, c_launches)):
+        acfg = class_cfg(cfg_of(fft), "DEFAULT")
+        gen_ = torch.Generator(device="cuda").manual_seed(5)
+        are, aim = noise(acfg, t, u8, gen_)
+        split = (fft // 128, 128)
+        step = max(1, TC_PLAIN_FRAME_BYTES // (acfg.num_windows * fft * 8))
+
+        def build_call(are=are, aim=aim, acfg=acfg, kernel=kernel,
+                       split=split):
+            if kernel == "A":
+                return tc.curscan_tc(are, aim, acfg, ablate=("concat",))
+            return tc.curscan_tc_split(are, aim, acfg, split=split,
+                                       ablate=("concat",))
+        ams = cuda_ms(build_call)
+        aplain = cuda_ms(lambda: [tc.curscan_tc_split_plain(
+            are[i:i + step], aim[i:i + step], acfg, None, split,
+            ("concat",)) for i in range(0, t, step)], warm=1, reps=3)
+        abms, aby, _ = tc_bound(acfg, t, u8, split)
+        print(f"  Kernel {kernel}'s ablate build, no stage removed, fft {fft} "
+              f"DEFAULT u8 T={t}: {ams:.3f} ms, plain version {aplain:.3f} "
+              f"ms, bound {abms:.4f} ms ({aby})")
+        ablate[kernel] = {"launches": launched, "ms": ams,
+                          "plain_ms": aplain, "bound_ms": abms,
+                          "bound_by": aby}
+        del are, aim
     return (launches, direct, rows[4096]["full"], plain, bms, by,
             {"launches": class_launches, "ms": crows[4096]["full"],
-             "plain_ms": cplain, "bound_ms": cbms, "bound_by": cby})
+             "plain_ms": cplain, "bound_ms": cbms, "bound_by": cby}, ablate)
 
 
 def phase_k4_class(cc, gen):
@@ -2055,14 +2195,16 @@ def main():
 
     t0 = time.perf_counter()
     from kspecanal_tpu_torch.ops import cuda_tc
-    # the library, Kernel A's five K4 cut-offs and Kernel C's four, every
-    # source at once
-    variants = cuda_tc.stage_variants() + cuda_tc.tc_split_stage_variants()
+    # the library, Kernel A's five K4 cut-offs, Kernel C's four and the two
+    # ablate builds, every source at once
+    variants = (cuda_tc.stage_variants() + cuda_tc.tc_split_stage_variants()
+                + cuda_tc.ablate_variants())
     _build.build(variants)
     _build.load()
     print(f"== build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s) -> {_build.library_path()} "
-          f"and {len(variants)} cut-off libraries")
+          f"and {len(variants)} forensic libraries (cut-offs, ablate "
+          f"builds)")
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
             print(f"  {ln.strip()}")
@@ -2093,12 +2235,13 @@ def main():
     k4_class_err = phase_k4_class(cc, gen)
     t0 = phase_done("K4 at HIGH/DEFAULT vs plain", t0)
     phase_ablate(cc, gen)
+    ablate_errs = phase_ablate_class(cc, gen)
     t0 = phase_done("ablate variants vs plain", t0)
     with tempfile.TemporaryDirectory() as tmp:
         launches["2048"] += phase_device_sessions(cc, cli, tmp)
     t0 = phase_done("forensics sessions", t0)
     (k4_launches, direct_launches, k4_ms, k4_plain_ms, k4_bound, k4_by,
-     k4_class) = phase_forensics(cc)
+     k4_class, ablate_class) = phase_forensics(cc)
     check(k4_launches > 0 and direct_launches > 0
           and k4_class["launches"] > 0,
           "the forensics scripts launched K4 (both forms) and the direct "
@@ -2206,6 +2349,31 @@ def main():
                    "T=256, times the DEFAULT 'full' stage at T=4096; "
                    "launches over roofline_r2 --precision DEFAULT",
          "max_abs_err": k4_class_err, **k4_class, "library_ms": None},
+        {"name": "curscan_tc_ablate", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_tc.cuh",
+         "replaces": "kspecanal_tpu/ops/pallas_curscan.py:427",
+         "config": "K1's ablate keys at HIGH/DEFAULT up to fft 16384: Kernel "
+                   "A's ablate build (-DKSPEC_TC_ABLATE=1); error the worst "
+                   "of the ten kernel_ablate variants at fft 2048 kaiser 50% "
+                   "(DEFAULT u8 and f32, HIGH f32, T=256; variants without "
+                   "sqrt or the weights fold unnormalised magnitudes, so "
+                   "the largest errors are theirs); times with no "
+                   "stage removed at DEFAULT u8, T=4096; launches over "
+                   "kernel_ablate 2048 DEFAULT u8 and HIGH f32",
+         "max_abs_err": ablate_errs["A"], **ablate_class["A"],
+         "library_ms": None},
+        {"name": "curscan_tc_split_ablate", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_tc_split.cuh",
+         "replaces": "kspecanal_tpu/ops/pallas_curscan.py:427",
+         "config": "K1's ablate keys at HIGH/DEFAULT above fft 16384: Kernel "
+                   "C's ablate build (-DKSPEC_TCS_ABLATE=1) on (fft/128, "
+                   "128); error the worst of the ten variants at fft 32768 "
+                   "kaiser 50% (HIGH f32, DEFAULT u8, T=16; unnormalised as "
+                   "above); times with no "
+                   "stage removed at DEFAULT u8, T=64; launches over "
+                   "kernel_ablate 32768 DEFAULT u8 (T=64/128)",
+         "max_abs_err": ablate_errs["C"], **ablate_class["C"],
+         "library_ms": None},
         tc_row("curscan_tc", "kspecanal_tpu_torch/csrc/curscan_tc.cu",
                sublane_423, "HIGH/DEFAULT classes (4M) of K1 and K3's cell on "
                "the 128 grid: times at zero-span fft 2048 kaiser 50% DEFAULT "

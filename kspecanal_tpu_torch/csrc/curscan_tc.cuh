@@ -111,6 +111,30 @@
 #define KSPEC_TC_STOP 0
 #endif
 
+// The ablate build (forensics only; the port's library leaves
+// KSPEC_TC_ABLATE 0, and ops/cuda_tc.tc_ablate_library builds these sources
+// with -DKSPEC_TC_ABLATE=1, entry kspec_curscan_tc_ablate).  Replaces: the
+// `ablate` keys of kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane
+// (:427, :534-636; scripts/kernel_ablate.py) at tpuPrecision HIGH and
+// DEFAULT.  A run-time mask (curscan_tc_common.cuh, Ablate) removes stages:
+//   AB_WIN       the window: the frame is staged unwindowed (its load
+//                skipped), rounded as ever;
+//   AB_STAGE1    stage 1's products: B = the frame as staged (hi + lo at
+//                HIGH), read from the planes;
+//   AB_TWIDDLE   the twiddle (and its loads): C = B;
+//   AB_STAGE2    stage 2's products: D = C as staged for stage 2;
+//   AB_SQRT      the square root: the fold takes |D|^2;
+//   AB_CUMULATE  the weighted fold: |D| summed over the windows, unweighted,
+//                whatever the mode, and the window groups' partials summed.
+// What a removed stage leaves still feeds the output, and the mask is known
+// only at run time, so no variant lets the compiler drop other work.  With
+// no bit set the build runs the production kernel's operations: its output
+// equals the port's library's bit for bit.  Plain version:
+// ops/cuda_tc.curscan_tc_plain(..., ablate).
+#ifndef KSPEC_TC_ABLATE
+#define KSPEC_TC_ABLATE 0
+#endif
+
 namespace kspec_tc {
 
 constexpr int THREADS = 256;
@@ -321,6 +345,39 @@ __device__ __forceinline__ void fold_tile(float* acc, int ml, int j,
   }
 }
 
+// The ablate build's C of the 4 elements a lane holds of the pass's m-tile
+// mt (its stacked rows mt*16..), column strip j, as twiddle() lays them
+// out: B from stage 1's products, or (no_s1) the frame as staged in the
+// planes; C = B o T, or (no_tw) B.
+template <bool HIGH, bool TM>
+__device__ __forceinline__ void ablated_c(const Acc<TM>& a, bool no_s1,
+                                          bool no_tw, const uint16_t* pl,
+                                          int ps, int mt, int j,
+                                          const float2 (&t)[4],
+                                          float (&c)[8]) {
+  constexpr int H = HIGH ? 2 : 1;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float br, bi;
+    if (no_s1) {
+      const int o = (mt * 16 + g8 + (i >> 1) * 8) * RS + j * 8 + 2 * t4 +
+                    (i & 1);
+      br = operand_value<HIGH>(pl, ps, o);
+      bi = operand_value<HIGH>(pl + H * ps, ps, o);
+    } else {
+      a.template complex<HIGH>(i, br, bi);
+    }
+    if (no_tw) {
+      c[i] = br;
+      c[4 + i] = bi;
+    } else {
+      c[i] = __fsub_rn(__fmul_rn(br, t[i].x), __fmul_rn(bi, t[i].y));
+      c[4 + i] = __fadd_rn(__fmul_rn(br, t[i].y), __fmul_rn(bi, t[i].x));
+    }
+  }
+}
+
 // Stage 1's tile before the twiddle (cut-off s1): B's 4 elements as
 // twiddle() lays out C's.
 template <bool HIGH, bool TM>
@@ -337,7 +394,8 @@ __device__ __forceinline__ void untwiddled(const Acc<TM>& a, float (&c)[8]) {
 // fragments [slot][mt][kc][lane] (uint4, slot = 2 * form + half), f2 F2^T's
 // B fragments [slot][kc][nt][lane] (uint2), tw the (n1p, 128) twiddles
 // (zero rows from n1).  fold_smem and f1_smem say which regions layout()
-// kept in shared memory.
+// kept in shared memory.  The ablate build takes its mask in `fold`'s bits
+// from AB_SHIFT up.
 template <typename T, bool HIGH, bool TM, int MT>
 __global__ void __launch_bounds__(THREADS, min_blocks(MT))
 curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
@@ -380,6 +438,16 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
   float* dst = groups > 1
       ? part + (static_cast<size_t>(b) * groups + g) * n
       : out + static_cast<size_t>(b) * n;
+  // The ablate build's stages to remove (all false in the port's library).
+  const int ab = KSPEC_TC_ABLATE ? fold >> AB_SHIFT : 0;
+  if (KSPEC_TC_ABLATE) fold = ablated_fold(fold & ((1 << AB_SHIFT) - 1), ab);
+  const bool no_win = KSPEC_TC_ABLATE && (ab & AB_WIN);
+  const bool no_s1 = KSPEC_TC_ABLATE && (ab & AB_STAGE1);
+  const bool no_tw = KSPEC_TC_ABLATE && (ab & AB_TWIDDLE);
+  const bool no_s2 = KSPEC_TC_ABLATE && (ab & AB_STAGE2);
+  const bool no_sqrt = KSPEC_TC_ABLATE && (ab & AB_SQRT);
+  const bool no_cum = KSPEC_TC_ABLATE && (ab & AB_CUMULATE);
+  const int nk1 = no_s1 ? 0 : nmt;   // stage 1's k-chunks
 
   if (KSPEC_TC_STOP == 1) {
     // Cut-off read: group g sums its share of the block's slabs.
@@ -413,7 +481,8 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
       if ((s & 3) == 0) {   // 4 samples a thread a load (planes aligned)
         for (int e = 4 * tid; e < frame; e += 4 * THREADS) {
           const int o = ((e >> 7) * RS + (e & (N2 - 1))) >> 1;
-          const float4 wv = __ldg(reinterpret_cast<const float4*>(window + e));
+          const float4 wv = no_win ? make_float4(1.f, 1.f, 1.f, 1.f)
+              : __ldg(reinterpret_cast<const float4*>(window + e));
           const float4 a = sample4(pre + s + e), c = sample4(pim + s + e);
           PL::put(fw, ps / 2, o, __fmul_rn(a.x, wv.x), __fmul_rn(a.y, wv.y),
                   __fmul_rn(c.x, wv.x), __fmul_rn(c.y, wv.y));
@@ -424,7 +493,8 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
       } else {              // 2 samples a thread (a row holds 128)
         for (int e = 2 * tid; e < frame; e += 2 * THREADS) {
           const int o = ((e >> 7) * RS + (e & (N2 - 1))) >> 1;
-          const float2 wv = __ldg(reinterpret_cast<const float2*>(window + e));
+          const float2 wv = no_win ? make_float2(1.f, 1.f)
+              : __ldg(reinterpret_cast<const float2*>(window + e));
           PL::put(fw, ps / 2, o, __fmul_rn(sample(pre, s + e), wv.x),
                   __fmul_rn(sample(pre, s + e + 1), wv.y),
                   __fmul_rn(sample(pim, s + e), wv.x),
@@ -451,7 +521,7 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
       if (warp < mts) {
 #pragma unroll
         for (int kc = 0; kc < MT; ++kc) {
-          if (kc < nmt) {
+          if (kc < nk1) {
             const int i = (warp * nmt + kc) * 32 + lane;
             if (f1_smem) PL::f1_frags_smem(fa[kc], f1s, f1n, i);
             else PL::f1_frags(fa[kc], f1, f1n, i);
@@ -459,17 +529,17 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
         }
       }
       float2 tn[4];            // the next strip's twiddles, loaded ahead
-      if (warp < mts) tw_load(tn, tw, warp, 0);
+      if (warp < mts && !no_tw) tw_load(tn, tw, warp, 0);
       for (int j = 0; j < NT; ++j) {
         float cv[8];
         if (warp < mts) {
           const float2 t[4] = {tn[0], tn[1], tn[2], tn[3]};
-          if (j + 1 < NT) tw_load(tn, tw, warp, j + 1);
+          if (j + 1 < NT && !no_tw) tw_load(tn, tw, warp, j + 1);
           Acc<TM> a;
           a.zero();
 #pragma unroll
           for (int kc = 0; kc < MT; ++kc) {
-            if (kc < nmt) {
+            if (kc < nk1) {
               uint32_t x[3][2][2];
               PL::b_frags(x, pl_s + 2u * ((lane >> 4) * ps +
                           (kc * 16 + (lane & 15)) * RS + j * 8), ps);
@@ -477,6 +547,8 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
             }
           }
           if (KSPEC_TC_STOP == 3) untwiddled<HIGH>(a, cv);
+          else if (no_s1 || no_tw)
+            ablated_c<HIGH>(a, no_s1, no_tw, pl, ps, warp, j, t, cv);
           else twiddle<HIGH>(a, t, cv);
         }
         __syncthreads();
@@ -495,7 +567,7 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
             const int ml = mt % nmt, base = (mt - ml) * 16;  // window's row 0
             Acc<TM> a;
             a.zero();
-            for (int kc = 0; kc < nmt; ++kc) {
+            for (int kc = 0; kc < nk1; ++kc) {
               uint32_t x[3][2][2], f[3][2][4];
               PL::b_frags(x, pl_s + 2u * ((lane >> 4) * ps +
                           (base + kc * 16 + (lane & 15)) * RS + j * 8), ps);
@@ -508,8 +580,10 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
               untwiddled<HIGH>(a, cbuf[mt]);
             } else {
               float2 t[4];
-              tw_load(t, tw, ml, j);
-              twiddle<HIGH>(a, t, cbuf[mt]);
+              if (!no_tw) tw_load(t, tw, ml, j);
+              if (no_s1 || no_tw)
+                ablated_c<HIGH>(a, no_s1, no_tw, pl, ps, mt, j, t, cbuf[mt]);
+              else twiddle<HIGH>(a, t, cbuf[mt]);
             }
           }
         }
@@ -535,17 +609,19 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
     // by window in order (a window's tiles come after the previous one's).
     for (int nt0 = warp; nt0 < NT; nt0 += NTW * WARPS) {
       uint32_t fb[NTW][KC2][3][2][2];
+      if (!no_s2) {
 #pragma unroll
-      for (int u = 0; u < NTW; ++u)
+        for (int u = 0; u < NTW; ++u)
 #pragma unroll
-        for (int kc = 0; kc < KC2; ++kc)
+          for (int kc = 0; kc < KC2; ++kc)
 #pragma unroll
-          for (int q = 0; q < FH; ++q) {
-            const uint2 v = __ldg(f2 + (2 * (q / H) + q % H) * F2N +
-                                  (kc * NT + nt0 + u * WARPS) * 32 + lane);
-            fb[u][kc][q / H][q % H][0] = v.x;
-            fb[u][kc][q / H][q % H][1] = v.y;
-          }
+            for (int q = 0; q < FH; ++q) {
+              const uint2 v = __ldg(f2 + (2 * (q / H) + q % H) * F2N +
+                                    (kc * NT + nt0 + u * WARPS) * 32 + lane);
+              fb[u][kc][q / H][q % H][0] = v.x;
+              fb[u][kc][q / H][q % H][1] = v.y;
+            }
+      }
       for (int mt = 0; mt < mts; ++mt) {
         const int ml = mt % nmt, k = mt / nmt;   // tile of window w + k
         Acc<TM> a[NTW];
@@ -555,15 +631,17 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
         // row l % 8 + 8 ((l / 8) % 2), column 8 (l / 16).
         const uint32_t addr = pl_s + 2u * ((mt * 16 + (lane & 7) +
             ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8);
+        if (!no_s2) {
 #pragma unroll
-        for (int kc = 0; kc < KC2; ++kc) {
-          uint32_t c[3][2][4];
-          PL::a_frags(c, addr + 2u * kc * 16, ps);
+          for (int kc = 0; kc < KC2; ++kc) {
+            uint32_t c[3][2][4];
+            PL::a_frags(c, addr + 2u * kc * 16, ps);
 #pragma unroll
-          for (int u = 0; u < NTW; ++u)
-            a[u].template products<HIGH>(c, fb[u][kc]);
+            for (int u = 0; u < NTW; ++u)
+              a[u].template products<HIGH>(c, fb[u][kc]);
+          }
         }
-        const float wgt = weights[w + k];
+        const float wgt = no_cum ? 1.f : weights[w + k];
         const bool first = w + k == w0;
 #pragma unroll
         for (int u = 0; u < NTW; ++u) {
@@ -575,11 +653,19 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               float dr, di;
-              a[u].template complex<HIGH>(2 * h + e, dr, di);
+              if (no_s2) {   // D = C as staged for stage 2
+                const int o = (mt * 16 + g8 + h * 8) * RS + nt * 8 + 2 * t4
+                              + e;
+                dr = operand_value<HIGH>(pl, ps, o);
+                di = operand_value<HIGH>(pl + H * ps, ps, o);
+              } else {
+                a[u].template complex<HIGH>(2 * h + e, dr, di);
+              }
+              const float sq = __fadd_rn(__fmul_rn(dr, dr),
+                                         __fmul_rn(di, di));
               // cut-off s2: D's re + im in place of |D|
               const float mag = KSPEC_TC_STOP == 5 ? __fadd_rn(dr, di)
-                  : __fsqrt_rn(__fadd_rn(__fmul_rn(dr, dr),
-                                         __fmul_rn(di, di)));
+                  : no_sqrt ? sq : __fsqrt_rn(sq);
               v[e] = __fmul_rn(wgt, mag);
             }
             if (fold_smem) {

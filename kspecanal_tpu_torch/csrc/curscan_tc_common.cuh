@@ -16,6 +16,34 @@ namespace kspec_tc {
 
 enum Fold { FOLD_SUM = 0, FOLD_MAX = 1, FOLD_MIN = 2 };
 
+// The ablate builds (forensics only: Kernel A with -DKSPEC_TC_ABLATE=1,
+// Kernel C with -DKSPEC_TCS_ABLATE=1) remove stages at run time, one bit a
+// stage, the keys of ops/cuda_curscan.ABLATE_KEYS.  Their C entry points
+// hand the mask to the kernel in the bits of `fold` from AB_SHIFT up, so the
+// production kernels' arguments and code stay as they are.
+enum Ablate {
+  AB_WIN = 1, AB_STAGE1 = 2, AB_TWIDDLE = 4, AB_STAGE2 = 8, AB_SQRT = 16,
+  AB_CUMULATE = 32
+};
+constexpr int AB_SHIFT = 2;
+
+// The fold of an ablate build's mask: a plain sum of the magnitudes under
+// 'cumulate', whatever the mode (the window groups' partials too).
+__host__ __device__ inline int ablated_fold(int fold, int ablate) {
+  return (ablate & AB_CUMULATE) ? FOLD_SUM : fold;
+}
+
+// The value of the bf16 operand at element o of plane p: hi, plus at HIGH
+// its lo, `half` elements on.
+template <bool HIGH>
+__device__ __forceinline__ float operand_value(const uint16_t* p, int half,
+                                               int o) {
+  const float hi = __uint_as_float(static_cast<uint32_t>(p[o]) << 16);
+  return HIGH ? __fadd_rn(hi, __uint_as_float(
+                                  static_cast<uint32_t>(p[half + o]) << 16))
+              : hi;
+}
+
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -42,6 +42,33 @@ __global__ void combine_groups(const float* __restrict__ part,
 
 }  // namespace kspec_tcs
 
+namespace {
+
+// kspec_curscan_tc_split's launches; the combine folds the groups by
+// `combine_fold` (`fold` may carry an ablate build's mask).
+int run(const void* re, const void* im, int is_u8, void* out, void* part,
+        const void* starts, const void* weights, const void* window,
+        const void* f1, const void* f2, const void* tw, int t, int full,
+        int n, int n1, int n2, int n_windows, int groups, int fold,
+        int precision, int three_mult, int combine_fold, cudaStream_t s) {
+  if (groups < 1 || groups > n_windows || (groups > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch =
+      precision ? kspec_tcs::launch_high : kspec_tcs::launch_default;
+  const int err = launch(is_u8, three_mult, re, im, out, part, starts,
+                         weights, window, f1, f2, tw, t, full, n, n1, n2,
+                         n_windows, groups, fold, s);
+  if (err || groups == 1) return err;
+  const long long total = static_cast<long long>(t) * n;
+  kspec_tcs::combine_groups<<<static_cast<unsigned>((total + 255) / 256),
+                              256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), t, n,
+      groups, KSPEC_TCS_STOP ? kspec_tc::FOLD_SUM : combine_fold);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Plain C entry point (bound with ctypes).  Planes are (t, full) row-major,
 // float32 or uint8 (is_u8); out is (t, n) float32, part (t, groups, n)
 // float32 scratch when groups > 1; starts (n_windows,) int32, weights
@@ -62,21 +89,30 @@ extern "C" int kspec_curscan_tc_split(const void* re, const void* im,
                                       int n_windows, int groups, int fold,
                                       int precision, int three_mult,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (groups < 1 || groups > n_windows || (groups > 1 && part == nullptr))
+  return run(re, im, is_u8, out, part, starts, weights, window, f1, f2, tw,
+             t, full, n, n1, n2, n_windows, groups, fold, precision,
+             three_mult, fold, static_cast<cudaStream_t>(stream));
+}
+
+// The ablate build's entry point (-DKSPEC_TCS_ABLATE=1, forensics): the
+// arguments of kspec_curscan_tc_split and `ablate`, a mask of
+// kspec_tc::Ablate bits (0 runs the production kernel's operations).  Any
+// other build refuses it (cudaErrorInvalidValue), as the ablate build
+// refuses a split whose frame it cannot stage.
+extern "C" int kspec_curscan_tc_split_ablate(
+    const void* re, const void* im, int is_u8, void* out, void* part,
+    const void* starts, const void* weights, const void* window,
+    const void* f1, const void* f2, const void* tw, int t, int full, int n,
+    int n1, int n2, int n_windows, int groups, int fold, int precision,
+    int three_mult, int ablate, void* stream) {
+  using namespace kspec_tc;
+  if (!KSPEC_TCS_ABLATE || ablate < 0 || ablate >= 2 * AB_CUMULATE ||
+      fold < 0 || fold >= (1 << AB_SHIFT))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto launch =
-      precision ? kspec_tcs::launch_high : kspec_tcs::launch_default;
-  const int err = launch(is_u8, three_mult, re, im, out, part, starts,
-                         weights, window, f1, f2, tw, t, full, n, n1, n2,
-                         n_windows, groups, fold, s);
-  if (err || groups == 1) return err;
-  const long long total = static_cast<long long>(t) * n;
-  kspec_tcs::combine_groups<<<static_cast<unsigned>((total + 255) / 256),
-                              256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), t, n,
-      groups, KSPEC_TCS_STOP ? kspec_tc::FOLD_SUM : fold);
-  return static_cast<int>(cudaGetLastError());
+  return run(re, im, is_u8, out, part, starts, weights, window, f1, f2, tw,
+             t, full, n, n1, n2, n_windows, groups, fold | ablate << AB_SHIFT,
+             precision, three_mult, ablated_fold(fold, ablate),
+             static_cast<cudaStream_t>(stream));
 }
 
 // Kernel C's m-tiles a block for the split n1 x n2 at the class and form

@@ -117,14 +117,41 @@
 #define KSPEC_TCS_STOP 0
 #endif
 
+// The ablate build (forensics only; the port's library leaves
+// KSPEC_TCS_ABLATE 0, and ops/cuda_tc.tc_split_ablate_library builds these
+// sources with -DKSPEC_TCS_ABLATE=1, entry kspec_curscan_tc_split_ablate).
+// Replaces: the `ablate` keys of
+// kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane (:427, :534-636) at
+// tpuPrecision HIGH and DEFAULT above fft 16384, on its split (n / 128,
+// 128).  A run-time mask (curscan_tc_common.cuh, Ablate) removes stages as
+// Kernel A's ablate build does (curscan_tc.cuh): the window (its loads),
+// stage 1's products (B = the staged frame, read from the chunk buffers),
+// the twiddle (and its loads), stage 2's products (D = C as staged), the
+// square root, the weighted fold (an unweighted sum over the windows and
+// the groups, whatever the mode).  The frame is staged as ever; the build
+// takes the staged frame only (the launch fails where it does not fit).
+// With no bit set it runs the production kernel's operations.  Plain
+// version: ops/cuda_tc.curscan_tc_split_plain(..., ablate).
+#ifndef KSPEC_TCS_ABLATE
+#define KSPEC_TCS_ABLATE 0
+#endif
+
 namespace kspec_tcs {
 
+using kspec_tc::AB_CUMULATE;
+using kspec_tc::AB_SHIFT;
+using kspec_tc::AB_SQRT;
+using kspec_tc::AB_STAGE1;
+using kspec_tc::AB_STAGE2;
+using kspec_tc::AB_TWIDDLE;
+using kspec_tc::AB_WIN;
 using kspec_tc::fold_op;
 using kspec_tc::ldsm2t;
 using kspec_tc::ldsm4;
 using kspec_tc::ldsm4t;
 using kspec_tc::mma;
 using kspec_tc::operand;
+using kspec_tc::operand_value;
 using kspec_tc::sample;
 
 constexpr int THREADS = 256;
@@ -334,7 +361,8 @@ __device__ __forceinline__ float bf16_value(uint16_t x) {
 // slot = 2 * form + half (form re, im, re + im); tw the (n1p, n2p)
 // twiddles, zero outside (n1, n2).  STAGED: the frame goes through the
 // chunk buffers of KR rows (else each lane loads its B fragments'
-// samples).
+// samples).  The ablate build takes its mask in `fold`'s bits from AB_SHIFT
+// up.
 template <typename T, bool HIGH, bool TM, int MT, int KR, bool STAGED>
 __global__ void __launch_bounds__(THREADS, min_blocks(HIGH))
 curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
@@ -351,7 +379,17 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
   constexpr int KS = KR / 16;                    // a chunk's k-chunks
   constexpr int FPE = KR * FR;                   // a chunk plane's elements
   constexpr int PAIRS = KR * PW / 2 / THREADS;   // pairs a thread stages
-  const int fk = KSPEC_TCS_STOP ? kspec_tc::FOLD_SUM : fold;
+  // The ablate build's stages to remove (all false in the port's library).
+  const int ab = KSPEC_TCS_ABLATE ? fold >> AB_SHIFT : 0;
+  const int fk = KSPEC_TCS_STOP ? kspec_tc::FOLD_SUM
+      : KSPEC_TCS_ABLATE
+          ? kspec_tc::ablated_fold(fold & ((1 << AB_SHIFT) - 1), ab) : fold;
+  const bool no_win = KSPEC_TCS_ABLATE && (ab & AB_WIN);
+  const bool no_s1 = KSPEC_TCS_ABLATE && (ab & AB_STAGE1);
+  const bool no_tw = KSPEC_TCS_ABLATE && (ab & AB_TWIDDLE);
+  const bool no_s2 = KSPEC_TCS_ABLATE && (ab & AB_STAGE2);
+  const bool no_sqrt = KSPEC_TCS_ABLATE && (ab & AB_SQRT);
+  const bool no_cum = KSPEC_TCS_ABLATE && (ab & AB_CUMULATE);
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = layout(n1, n2, HIGH, TM, MT);
   const int n1p = pad16(n1), n2p = pad16(n2);
@@ -443,7 +481,7 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
         const int o = m1 * n2 + m2 + e;
         px[k][e] = ok ? sample(xr, o) : 0.f;
         py[k][e] = ok ? sample(xi, o) : 0.f;
-        pw[k][e] = ok ? __ldg(window + o) : 0.f;
+        pw[k][e] = ok ? (no_win ? 1.f : __ldg(window + o)) : 0.f;
       }
     }
   };
@@ -504,6 +542,24 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
         x[(q + 1) / H][(q + 1) % H][1] = r[3];
       } else {
         ldsm2t(x[q / H][q % H][0], x[q / H][q % H][1], addr + 2u * q * FPE);
+      }
+    }
+  };
+  // The ablate build's B without stage 1: the frame as staged in chunk
+  // buffer buf (rows kc*KR..), at the elements of the lane's C (rows u*16 +
+  // g8 (+ 8) of the block, columns 2t, 2t + 1 of this warp's strip), into
+  // a[u]'s first two products' accumulators (re, im).
+  auto frame_rows = [&](Acc<TM> (&a)[MT], int buf, int kc) {
+    const uint16_t* fb = fpl + buf * (FH * FPE);
+#pragma unroll
+    for (int u = 0; u < MT; ++u) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + u * 16 + g8 + (i >> 1) * 8 - kc * KR;
+        if (r < 0 || r >= KR) continue;
+        const int o = r * FR + warp * 8 + 2 * t4 + (i & 1);
+        a[u].hh[0][i] = operand_value<HIGH>(fb, FPE, o);
+        a[u].hh[1][i] = operand_value<HIGH>(fb + H * FPE, FPE, o);
       }
     }
   };
@@ -594,6 +650,10 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
           }
         }
         if (!on) continue;
+        if (no_s1) {
+          frame_rows(a, buf, kc);
+          continue;
+        }
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           const int kk = kc * KS + ks;    // the k-chunk of 16 rows m1
@@ -624,11 +684,21 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
           for (int e = 0; e < 2; ++e) {
             const int col = j * 8 + 2 * t4 + e;
             float br, bi;
-            a[u].template complex<HIGH>(2 * h + e, br, bi);
-            const float2 t = l.tw ? tws[rl * n2p + col]
-                : __ldg(tw + static_cast<size_t>(r0 + rl) * n2p + col);
-            cr[e] = __fsub_rn(__fmul_rn(br, t.x), __fmul_rn(bi, t.y));
-            ci_[e] = __fadd_rn(__fmul_rn(br, t.y), __fmul_rn(bi, t.x));
+            if (no_s1) {
+              br = a[u].hh[0][2 * h + e];
+              bi = a[u].hh[1][2 * h + e];
+            } else {
+              a[u].template complex<HIGH>(2 * h + e, br, bi);
+            }
+            if (no_tw) {
+              cr[e] = br;
+              ci_[e] = bi;
+            } else {
+              const float2 t = l.tw ? tws[rl * n2p + col]
+                  : __ldg(tw + static_cast<size_t>(r0 + rl) * n2p + col);
+              cr[e] = __fsub_rn(__fmul_rn(br, t.x), __fmul_rn(bi, t.y));
+              ci_[e] = __fadd_rn(__fmul_rn(br, t.y), __fmul_rn(bi, t.x));
+            }
             if ((KSPEC_TCS_STOP == 2 || KSPEC_TCS_STOP == 3) &&
                 r0 + rl < n1 && col < n2)
               fold_at(rl, col, __fmul_rn(wgt, KSPEC_TCS_STOP == 2
@@ -655,8 +725,8 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
 #pragma unroll
       for (int u = 0; u < MT; ++u) a[u].zero();
       uint32_t fn[3][2][2];
-      f2_frags(fn, 0, j);
-      for (int kc = 0; kc < kc2; ++kc) {
+      if (!no_s2) f2_frags(fn, 0, j);
+      for (int kc = 0; kc < (no_s2 ? 0 : kc2); ++kc) {
         uint32_t fb[3][2][2];
 #pragma unroll
         for (int q = 0; q < FH; ++q) {
@@ -687,12 +757,18 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
           const int k2 = j * 8 + 2 * t4 + (i & 1);
           if (r0 + rl < n1 && k2 < n2) {
             float dr, di;
-            a[u].template complex<HIGH>(i, dr, di);
+            if (no_s2) {   // D = C as staged for stage 2
+              const uint16_t* cp = reinterpret_cast<const uint16_t*>(cw);
+              dr = operand_value<HIGH>(cp, cpe, rl * crs + k2);
+              di = operand_value<HIGH>(cp + H * cpe, cpe, rl * crs + k2);
+            } else {
+              a[u].template complex<HIGH>(i, dr, di);
+            }
+            const float sq = __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(di, di));
             // cut-off s2: D's re + im in place of |D|, summed
             const float mag = KSPEC_TCS_STOP == 4 ? __fadd_rn(dr, di)
-                : __fsqrt_rn(__fadd_rn(__fmul_rn(dr, dr),
-                                       __fmul_rn(di, di)));
-            fold_at(rl, k2, __fmul_rn(wgt, mag), first);
+                : no_sqrt ? sq : __fsqrt_rn(sq);
+            fold_at(rl, k2, __fmul_rn(no_cum ? 1.f : wgt, mag), first);
           }
         }
       }
@@ -722,8 +798,9 @@ int launch_one(const void* re, const void* im, void* out, void* part,
                const void* f1, const void* f2, const void* tw, int t,
                int full, int n, int n1, int n2, int n_windows, int groups,
                int fold, cudaStream_t stream) {
-  if constexpr (KSPEC_TCS_STOP != 0 && !STAGED) {
-    return static_cast<int>(cudaErrorInvalidValue);   // cut-offs: staged
+  if constexpr ((KSPEC_TCS_STOP != 0 || KSPEC_TCS_ABLATE) && !STAGED) {
+    // cut-offs and the ablate build: staged only
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     const size_t smem = layout(n1, n2, HIGH, TM, MT).total();
     if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);

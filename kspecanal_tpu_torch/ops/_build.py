@@ -177,6 +177,9 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "kspec_curscan_tc": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_tc_ablate": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
         "kspec_curscan_packed_tc": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
@@ -187,6 +190,9 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "kspec_curscan_tc_split": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_tc_split_ablate": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
         "kspec_curscan_tc_split_mt": [i32, i32, i32, i32],
         "kspec_curscan_tc_split_smem": [i32, i32, i32, i32],
         "kspec_curscan_tc_split_occupancy": [i32, i32, i32, i32, i32],

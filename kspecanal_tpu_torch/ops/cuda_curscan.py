@@ -42,17 +42,20 @@ kernel's ``ablate`` keys do (``scripts/kernel_ablate.py``), and
 ``scripts/roofline_r2.py``'s ``_kernel_ablate`` (K4).  Both follow the
 direct two-stage DFT, which is what the JAX scripts take apart.  Their
 plain versions (:func:`curscan_ablate_plain`, :func:`curscan_stage_plain`)
-are the same two-stage DFT in PyTorch.  At HIGH and DEFAULT K4 runs
-Kernel A's cut-offs instead (``cuda_tc.curscan_tc_stage``).  :func:`curscan_mixed_stage` cuts
-the FFT kernel's mixed-radix form off after one stage of ``MIXED_STAGES``
-(its stage table, ``scripts/mixed_stages.py``; plain version
+are the same two-stage DFT in PyTorch, whose removals of stages
+(:func:`two_stage_chain`) every class's plain version shares.  At HIGH and
+DEFAULT K4 runs Kernel A's cut-offs instead (``cuda_tc.curscan_tc_stage``)
+and the ``ablate`` keys the ablate builds of Kernels A and C.
+:func:`curscan_mixed_stage` cuts the FFT kernel's mixed-radix form off
+after one stage of ``MIXED_STAGES`` (its stage table,
+``scripts/mixed_stages.py``; plain version
 :func:`curscan_mixed_stage_plain`).  ``forensic_launches`` counts the
 launches of both.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -420,26 +423,36 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
     CUDA tensors launch the kernel on the current stream without
     synchronising; CPU tensors run its plain version.
 
-    ``ablate``: the FFT kernel and the forensic kernel have no
-    complex-matmul form, so ``no3m`` is their own form and changes nothing,
-    and ``force3m`` raises ValueError (the tensor-core kernel takes its
-    form as ``cuda_tc.curscan_tc(..., form)``).  The other keys (forensics
-    only, fft <= 16384) name stages to remove (``ABLATE_KEYS``) from the
-    direct kernel: the spectra are then wrong by construction, and its
-    forensic instantiation runs (plain version
-    :func:`curscan_ablate_plain`)."""
+    ``ablate`` (forensics only): keys naming stages to remove
+    (``ABLATE_KEYS``; the spectra are then wrong by construction) run the
+    kernel that serves the config's class with those stages removed, on
+    the JAX kernel's configs (the sublane predicate).  At HIGHEST that is
+    the direct kernel's forensic instantiation (fft <= 16384, counted in
+    ``forensic_launches``; plain version :func:`curscan_ablate_plain`).  At
+    HIGH and DEFAULT it is the ablate build of Kernel A up to fft 16384,
+    else of Kernel C on the split ``(n / 128, 128)``
+    (``cuda_tc.curscan_tc`` / ``curscan_tc_split(..., ablate)``, counted in
+    ``cuda_tc.tc_ablate_launches`` / ``tc_split_ablate_launches``), with
+    ``force3m`` / ``no3m`` picking the complex form (``force3m`` first, as
+    in JAX).  Without a stage key the FFT kernel runs, which has no
+    complex-matmul form: ``no3m`` is its own form and changes nothing, and
+    ``force3m`` raises ValueError (the tensor-core kernels take their form
+    as ``cuda_tc.curscan_tc(..., form)``)."""
     global launches, forensic_launches
     mask = ablate_mask(ablate)
     if kernel_route(cfg) is None:
         raise ValueError(f"config not supported by the curscan kernels "
                          f"(fft_size {cfg.fft_size}, full_size "
                          f"{cfg.full_size})")
+    stages = tuple(k for k in ablate if k not in _PRECISION_KEYS)
+    if stages and cfg.tpu_precision.upper() in TC_CLASSES:
+        return _class_ablate(iq_re, iq_im, cfg, ablate, stages)
     if "force3m" in ablate:
         raise ValueError(
             "ablate key 'force3m' picks the 3M form of the tensor-core "
             "kernels (cuda_tc.curscan_tc, curscan_tc_split): the float64 FFT "
             "kernel and the forensic kernel have no complex-matmul form")
-    ablate = tuple(k for k in ablate if k not in _PRECISION_KEYS)
+    ablate = stages
     if ablate and not supports_direct(cfg):
         raise ValueError(f"ablate cuts the direct-DFT kernel, which takes "
                          f"fft <= {DIRECT_MAX_FFT_SIZE}, not {cfg.fft_size}")
@@ -458,6 +471,22 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
     out = _launch_fft(lib, iq_re, iq_im, cfg)
     launches += 1
     return out
+
+
+def _class_ablate(iq_re, iq_im, cfg, ablate, stages) -> torch.Tensor:
+    """``curscan_fused_sublane(..., ablate)`` at HIGH and DEFAULT with stage
+    keys ``stages``: Kernel A's or Kernel C's ablate build (see there)."""
+    from kspecanal_tpu_torch.ops import cuda_tc
+    if not _jax_predicate(cfg):
+        raise ValueError(f"ablate takes the sublane kernel's configs (fft a "
+                         f"multiple of 128 from 256), not fft "
+                         f"{cfg.fft_size}")
+    form = ("force3m" if "force3m" in ablate else
+            "no3m" if "no3m" in ablate else None)
+    if cfg.fft_size <= TC_MAX_FFT_SIZE:
+        return cuda_tc.curscan_tc(iq_re, iq_im, cfg, form, stages)
+    return cuda_tc.curscan_tc_split(iq_re, iq_im, cfg, form,
+                                    (cfg.fft_size // _N2, _N2), stages)
 
 
 def curscan_sublane_direct(iq_re: torch.Tensor, iq_im: torch.Tensor,
@@ -617,15 +646,64 @@ def curscan_mixed_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
     return out
 
 
+class TwoStageSteps(NamedTuple):
+    """The steps of a plain two-stage DFT for :func:`two_stage_chain`.  A
+    value is what the steps pass on (a complex tensor, or an (re, im) pair)
+    of shape ``(T, W, n1, n2)``."""
+    start: Callable     # (re, im) of the windowed frames -> value
+    keep: Callable      # a removed product's output: its input as staged
+    stage1: Callable    # B = F1 A
+    twiddle: Callable   # C = B o T
+    stage2: Callable    # D = C F2^T
+    reduce: Callable    # value -> (T, n1, n2): weighted window sum of re + im
+    square: Callable    # value -> |value|^2
+    total: Callable     # (T, W, n1, n2) -> its unweighted window sum
+    fold: Callable      # (T, W, n1, n2) -> the cumulate mode's weighted fold
+
+
+def two_stage_chain(fr: torch.Tensor, fi: torch.Tensor, win: torch.Tensor,
+                    stop: str, ablate, steps: TwoStageSteps) -> torch.Tensor:
+    """The two-stage DFT of framed planes ``(T, W, n1, n2)`` cut off at
+    ``stop`` (``STAGES`` but 'read'), with the ``ablate`` stages
+    (``ABLATE_KEYS``) passed through, as the JAX kernel's keys and the
+    forensic kernels remove them; the plain versions of every class run it
+    with their own ``steps``.  'win' skips the window ``win`` ``(n1, n2)``;
+    'stage1' makes B the frame as staged, 'twiddle' C = B, 'stage2' D = C
+    as staged; below 'full' the result is the weighted window sum of re +
+    im of the stage's value; at 'full' the mode's fold of |D| ('sqrt':
+    |D|^2), or ('cumulate') its unweighted sum, whatever the mode.
+    Returns ``(T, n1, n2)``."""
+    if "win" not in ablate:
+        fr, fi = fr * win, fi * win
+    x = steps.start(fr, fi)
+    if stop == "frame":
+        return steps.reduce(steps.keep(x))
+    x = steps.keep(x) if "stage1" in ablate else steps.stage1(x)
+    if stop == "s1":
+        return steps.reduce(x)
+    if "twiddle" not in ablate:
+        x = steps.twiddle(x)
+    if stop == "s1tw":
+        return steps.reduce(x)
+    x = steps.keep(x) if "stage2" in ablate else steps.stage2(x)
+    if stop == "s2":
+        return steps.reduce(x)
+    mag = steps.square(x)
+    if "sqrt" not in ablate:
+        mag = torch.sqrt(mag)
+    return steps.total(mag) if "cumulate" in ablate else steps.fold(mag)
+
+
 def _two_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
                      cfg: SpecConfig, stop: str,
                      ablate: frozenset) -> torch.Tensor:
     """The kernel's math in PyTorch, in float32 on the planes' device: frame
     and window ``a[m1, m2]``, stage 1 (einsum over m1), twiddle, stage 2
     (einsum over m2), cut off at ``stop`` and with the ``ablate`` stages
-    passed through, as the forensic kernel does.  Returns ``(T, n1, 128)``:
-    below 'full' the AVG-weighted window sum of ``x.re + x.im``; at 'full'
-    the cumulate mode's fold of the magnitudes."""
+    passed through (:func:`two_stage_chain`), as the forensic kernel does.
+    Returns ``(T, n1, 128)``: below 'full' the AVG-weighted window sum of
+    ``x.re + x.im``; at 'full' the cumulate mode's fold of the
+    magnitudes."""
     n = cfg.fft_size
     n1 = n // _N2
     re, im = spectrum.decode_u8(iq_re), spectrum.decode_u8(iq_im)
@@ -645,32 +723,28 @@ def _two_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
     f1 = root[(torch.outer(k1, k1) % n1) * _N2]          # (k1, m1)
     tw = root[torch.outer(k1, c128) % n]                  # (k1, m2)
     f2 = root[(torch.outer(c128, c128) % _N2) * n1]      # (k2, m2)
-    fr = spectrum.frame_signal(re, cfg.window_starts, n)
-    fi = spectrum.frame_signal(im, cfg.window_starts, n)
-    if "win" not in ablate:
-        fr, fi = fr * window, fi * window
-    x = torch.complex(fr, fi).reshape(t, -1, n1, _N2)    # (t, w, m1, m2)
-    if stop != "frame":
-        if "stage1" not in ablate:
-            x = torch.einsum("km,twmc->twkc", f1, x)
-        if stop != "s1" and "twiddle" not in ablate:
-            x = x * tw
-        if stop not in ("s1", "s1tw") and "stage2" not in ablate:
-            x = torch.einsum("twkc,jc->twkj", x, f2)
-    if stop != "full":
-        return torch.einsum("w,twkc->tkc", weights, x.real + x.imag)
-    mag = x.real * x.real + x.imag * x.imag
-    if "sqrt" not in ablate:
-        mag = torch.sqrt(mag)
-    if "cumulate" in ablate:
-        return mag.sum(dim=1)
-    mag = weights[None, :, None, None] * mag
     mode = cfg.cur_scan_cumu_mode
-    if mode == CUMU_MAX:
-        return mag.amax(dim=1)
-    if mode == CUMU_MIN:
-        return mag.amin(dim=1)
-    return mag.sum(dim=1)
+
+    def fold(mag):
+        mag = weights[None, :, None, None] * mag
+        if mode == CUMU_MAX:
+            return mag.amax(dim=1)
+        if mode == CUMU_MIN:
+            return mag.amin(dim=1)
+        return mag.sum(dim=1)
+
+    frame = (spectrum.frame_signal(p, cfg.window_starts, n).reshape(
+        t, -1, n1, _N2) for p in (re, im))
+    return two_stage_chain(*frame, window.reshape(n1, _N2), stop, ablate,
+                           TwoStageSteps(
+        start=torch.complex, keep=lambda x: x,
+        stage1=lambda x: torch.einsum("km,twmc->twkc", f1, x),
+        twiddle=lambda x: x * tw,
+        stage2=lambda x: torch.einsum("twkc,jc->twkj", x, f2),
+        reduce=lambda x: torch.einsum("w,twkc->tkc", weights,
+                                      x.real + x.imag),
+        square=lambda x: x.real * x.real + x.imag * x.imag,
+        total=lambda mag: mag.sum(dim=1), fold=fold))
 
 
 def stage_layout_to_spectrum(acc: torch.Tensor) -> torch.Tensor:

@@ -80,6 +80,11 @@ Kernel A cut off after each stage (:func:`curscan_tc_stage`, counted in
 ``-DKSPEC_TC_STOP`` (:func:`stage_library`), each writing its stage's
 reduction (``csrc/curscan_tc.cuh``; plain version
 :func:`curscan_tc_stage_plain`), and the port's library itself for 'full'.
+K1's ``ablate`` keys at HIGH and DEFAULT (``scripts/kernel_ablate.py``)
+run the ablate builds of Kernel A and Kernel C (:func:`ablate_variants`,
+``-DKSPEC_TC_ABLATE`` / ``-DKSPEC_TCS_ABLATE``: one build each, the mask a
+run-time argument; ``curscan_tc`` / ``curscan_tc_split(..., ablate)``,
+counted in ``tc_ablate_launches`` / ``tc_split_ablate_launches``).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version (:func:`curscan_tc_plain`, :func:`curscan_packed_tc_plain`,
@@ -92,7 +97,7 @@ unaffected); ``torch_parity.TC_TOL`` holds all three.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,14 +108,15 @@ from kspecanal_tpu_torch.config import (CUMU_AVG, CUMU_MAX, CUMU_RAW,
 from kspecanal_tpu_torch.ops import cuda_packed, spectrum
 from kspecanal_tpu_torch.ops.cuda_packed import _aligned
 from kspecanal_tpu_torch.ops.cuda_curscan import (_FOLD, STAGES,
-                                                  TC_CLASSES, _raise_on,
+                                                  TC_CLASSES, TwoStageSteps,
+                                                  _jax_predicate, _raise_on,
                                                   _tables, _two_stage_plain,
-                                                  check_planes,
+                                                  ablate_mask, check_planes,
                                                   check_stage_config,
                                                   kernel_route,
                                                   spectrum_to_stage_layout,
                                                   stage_layout_to_spectrum,
-                                                  tc_split)
+                                                  tc_split, two_stage_chain)
 from kspecanal_tpu_torch.ops.mxu_fft import (_dft_tables_for, class_matmul,
                                              round_bf16, split_bf16)
 
@@ -133,12 +139,19 @@ TC_SOURCES = ("curscan_tc.cu", "curscan_tc_high.cu")
 # curscan_tc_split.cuh), 'full' the production kernel.
 TC_SPLIT_SOURCES = ("curscan_tc_split.cu", "curscan_tc_split_high.cu")
 TC_SPLIT_STAGES = ("frame", "s1", "s1tw", "s2", "full")
+# The ablate builds (sources, defines): Kernels A and C with a run-time mask
+# of stages to remove (the JAX kernel's ablate keys at HIGH and DEFAULT,
+# scripts/kernel_ablate.py).
+TC_ABLATE = (TC_SOURCES, ("KSPEC_TC_ABLATE=1",))
+TC_SPLIT_ABLATE = (TC_SPLIT_SOURCES, ("KSPEC_TCS_ABLATE=1",))
 
 tc_launches = 0             # Kernel A (csrc/curscan_tc.cu)
 packed_tc_launches = 0      # Kernel B (csrc/curscan_packed_tc.cu)
 tc_stage_launches = 0       # Kernel A's K4 cut-offs (curscan_tc_stage)
 tc_split_launches = 0       # Kernel C (csrc/curscan_tc_split.cu)
 tc_split_stage_launches = 0  # Kernel C's cut-offs (curscan_tc_split_stage)
+tc_ablate_launches = 0      # Kernel A's ablate build (curscan_tc, ablate)
+tc_split_ablate_launches = 0  # Kernel C's (curscan_tc_split, ablate)
 
 
 def precision_class(cfg: SpecConfig) -> str:
@@ -214,15 +227,20 @@ def _plain_tables(n: int, window: str, device: torch.device,
 
 def _two_stage_tc(iq_re: torch.Tensor, iq_im: torch.Tensor,
                   cfg: SpecConfig, stage: str, tm: bool,
-                  split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                  split: Optional[Tuple[int, int]] = None,
+                  ablate: frozenset = frozenset()) -> torch.Tensor:
     """The tensor-core kernels' two-stage math in PyTorch at the config's
     class, on the split ``n = n1 * n2`` (default Kernel A's ``(n / 128,
-    128)``), cut off after ``stage`` (``STAGES``): ``(T, n1, n2)``, row k1
-    (m1 for 'frame'), column k2 (m2), unshifted.  'read' is the unweighted
-    float32 sum of the block's n-sample slabs of re + im, slab by slab;
-    'frame' (as rounded: bf16, and hi + lo at HIGH), 's1' (B), 's1tw' (C)
-    and 's2' (D) the sum over windows, in window order, of weights[w] (x_re
-    + x_im); 'full' the cumulate mode's fold of weights[w] |D|."""
+    128)``), cut off after ``stage`` (``STAGES``), with the ``ablate``
+    stages passed through (``cuda_curscan.two_stage_chain``): ``(T, n1,
+    n2)``, row k1 (m1 for 'frame'), column k2 (m2), unshifted.  'read' is
+    the unweighted float32 sum of the block's n-sample slabs of re + im,
+    slab by slab; 'frame' (as rounded: bf16, and hi + lo at HIGH), 's1'
+    (B), 's1tw' (C) and 's2' (D) the sum over windows, in window order, of
+    weights[w] (x_re + x_im); 'full' the cumulate mode's fold of weights[w]
+    |D| in window order.  A removed stage 1 leaves B the frame as rounded, a
+    removed stage 2 D = C as rounded for stage 2 (the operands the kernels
+    stage); 'cumulate' sums |D| over the windows in window order."""
     prec = _check_class(cfg)
     n = cfg.fft_size
     n1, n2 = split or (n // _N2, _N2)
@@ -235,37 +253,49 @@ def _two_stage_tc(iq_re: torch.Tensor, iq_im: torch.Tensor,
         n, cfg.window, dev, n2)
     weights = _tables(n, cfg.window, cfg.window_starts,
                       cfg.cur_scan_cumu_mode, dev)[1]
-    fr = spectrum.frame_signal(re, cfg.window_starts, n).reshape(
-        t, -1, n1, n2) * win
-    fi = spectrum.frame_signal(im, cfg.window_starts, n).reshape(
-        t, -1, n1, n2) * win
-
-    def reduce(xr, xi):
-        acc = None
-        for j in range(xr.shape[1]):
-            acc = _fold(CUMU_AVG, acc, weights[j] * (xr[:, j] + xi[:, j]))
-        return acc
 
     def dot(a, b):
         return class_matmul(a, b, prec)
 
-    if stage == "frame":
-        return reduce(*(_operand_value(x, prec) for x in (fr, fi)))
-    br, bi = _complex_dot(dot, f1r, f1i, f1s, fr, fi, True, tm)
-    if stage == "s1":
-        return reduce(br, bi)
-    cr = br * twr - bi * twi
-    ci = br * twi + bi * twr
-    if stage == "s1tw":
-        return reduce(cr, ci)
-    dr, di = _complex_dot(dot, f2r, f2i, f2s, cr, ci, False, tm)
-    if stage == "s2":
-        return reduce(dr, di)
-    mag = torch.sqrt(dr * dr + di * di)                 # (T, W, n1, n2)
-    acc = None
-    for j in range(mag.shape[1]):
-        acc = _fold(cfg.cur_scan_cumu_mode, acc, weights[j] * mag[:, j])
-    return acc
+    def over_windows(mode, x, w):
+        acc = None
+        for j in range(x.shape[1]):
+            acc = _fold(mode, acc, x[:, j] if w is None else w[j] * x[:, j])
+        return acc
+
+    def rounded(x):
+        return tuple(_operand_value(v, prec) for v in x)
+
+    def twiddle(x):
+        br, bi = x
+        return br * twr - bi * twi, br * twi + bi * twr
+
+    frame = (spectrum.frame_signal(p, cfg.window_starts, n).reshape(
+        t, -1, n1, n2) for p in (re, im))
+    return two_stage_chain(*frame, win, stage, ablate, TwoStageSteps(
+        start=lambda fr, fi: (fr, fi), keep=rounded,
+        stage1=lambda x: _complex_dot(dot, f1r, f1i, f1s, *x, True, tm),
+        twiddle=twiddle,
+        stage2=lambda x: _complex_dot(dot, f2r, f2i, f2s, *x, False, tm),
+        reduce=lambda x: over_windows(CUMU_AVG, x[0] + x[1], weights),
+        square=lambda x: x[0] * x[0] + x[1] * x[1],
+        total=lambda mag: over_windows(CUMU_AVG, mag, None),
+        fold=lambda mag: over_windows(cfg.cur_scan_cumu_mode, mag,
+                                      weights)))
+
+
+def _stage_keys(ablate: Optional[Sequence[str]]) -> frozenset:
+    """The stage keys of a class kernel's ``ablate`` (``ABLATE_KEYS``; None
+    is none); raises on others, the form keys among them (the form is the
+    kernel's ``form``)."""
+    if ablate is None:
+        return frozenset()
+    ablate_mask(ablate)
+    forms = [k for k in ablate if k in FORMS]
+    if forms:
+        raise ValueError(f"ablate takes stage keys; {forms} pick the form, "
+                         f"which is the form argument")
+    return frozenset(ablate)
 
 
 def _operand_value(x: torch.Tensor, prec: str) -> torch.Tensor:
@@ -278,28 +308,33 @@ def _operand_value(x: torch.Tensor, prec: str) -> torch.Tensor:
 
 
 def curscan_tc_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
-                     cfg: SpecConfig, form: Optional[str] = None
-                     ) -> torch.Tensor:
+                     cfg: SpecConfig, form: Optional[str] = None,
+                     ablate: Optional[Sequence[str]] = None) -> torch.Tensor:
     """The plain PyTorch version of Kernel A: ``(T, full_size)`` float32 or
     raw-u8 planes -> ``(T, fft_size)`` fftshifted spectra, at the config's
-    class, in the 4M form or ``form``'s, on the planes' device."""
-    return stage_layout_to_spectrum(
-        _two_stage_tc(iq_re, iq_im, cfg, "full", three_mult(form)))
+    class, in the 4M form or ``form``'s, on the planes' device, with the
+    ``ablate`` stages removed (:func:`curscan_tc`)."""
+    return stage_layout_to_spectrum(_two_stage_tc(
+        iq_re, iq_im, cfg, "full", three_mult(form),
+        ablate=_stage_keys(ablate)))
 
 
 def curscan_tc_split_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
                            cfg: SpecConfig, form: Optional[str] = None,
-                           split: Optional[Tuple[int, int]] = None
+                           split: Optional[Tuple[int, int]] = None,
+                           ablate: Optional[Sequence[str]] = None
                            ) -> torch.Tensor:
     """The plain PyTorch version of Kernel C: ``(T, full_size)`` float32 or
     raw-u8 planes -> ``(T, fft_size)`` fftshifted spectra, at the config's
     class, in the 4M form or ``form``'s, on ``split`` (default the JAX
     dispatcher's for the planes' type, ``cuda_curscan.tc_split``), on the
-    planes' device.  Kernel A's plain version is this at ``(n / 128,
-    128)``."""
+    planes' device, with the ``ablate`` stages removed
+    (:func:`curscan_tc_split`).  Kernel A's plain version is this at
+    ``(n / 128, 128)``."""
     split = split or tc_split(cfg, iq_re.dtype == torch.uint8)
-    return stage_layout_to_spectrum(
-        _two_stage_tc(iq_re, iq_im, cfg, "full", three_mult(form), split))
+    return stage_layout_to_spectrum(_two_stage_tc(
+        iq_re, iq_im, cfg, "full", three_mult(form), split,
+        _stage_keys(ablate)))
 
 
 def curscan_tc_split_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
@@ -655,24 +690,61 @@ def build_stage_libraries() -> None:
     _build.build(stage_variants(), library=False)
 
 
+def ablate_variants():
+    """``(sources, defines)`` of the two ablate builds (Kernels A and C), as
+    ``_build.build`` and ``_build.load_variant`` take them."""
+    return [TC_ABLATE, TC_SPLIT_ABLATE]
+
+
+def tc_ablate_library():
+    """Kernel A's ablate build (``-DKSPEC_TC_ABLATE=1``), built on first
+    use."""
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load_variant(*TC_ABLATE)
+
+
+def tc_split_ablate_library():
+    """Kernel C's ablate build (``-DKSPEC_TCS_ABLATE=1``), built on first
+    use."""
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load_variant(*TC_SPLIT_ABLATE)
+
+
 def curscan_tc(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig,
-               form: Optional[str] = None) -> torch.Tensor:
+               form: Optional[str] = None,
+               ablate: Optional[Sequence[str]] = None) -> torch.Tensor:
     """Kernel A: ``(T, full_size)`` float32 or raw-u8 planes ->
     ``(T, fft_size)`` fftshifted linear spectra at the config's class, in
     the 4M complex form or ``form``'s ("force3m" 3M, "no3m" 4M).  CUDA
     tensors launch the kernel on the current stream without synchronising;
-    CPU tensors run :func:`curscan_tc_plain`."""
-    global tc_launches
+    CPU tensors run :func:`curscan_tc_plain`.
+
+    ``ablate`` (forensics; the JAX kernel's keys at the class): a sequence
+    of stage keys (``cuda_curscan.ABLATE_KEYS``) launches Kernel A's ablate
+    build (:func:`tc_ablate_library`) with those stages removed, at the
+    port's library's window groups, counted in ``tc_ablate_launches``; the
+    spectra are then wrong by construction.  No key, or 'concat' alone,
+    runs the production kernel's operations: its output equals the
+    production launch's bit for bit."""
+    global tc_launches, tc_ablate_launches
     if not supports_tc(cfg):
         raise ValueError(f"config not supported by the tensor-core curscan "
                          f"kernel (tpuPrecision {cfg.tpu_precision}, fft_size "
                          f"{cfg.fft_size}, full_size {cfg.full_size})")
     check_planes(iq_re, iq_im, cfg)
     tm = three_mult(form)
+    stages = _stage_keys(ablate)
     if iq_re.device.type == "cpu":
-        return curscan_tc_plain(iq_re, iq_im, cfg, form)
-    out = launch_tc(_cuda_lib(iq_re.device), iq_re, iq_im, cfg, tm)
-    tc_launches += 1
+        return curscan_tc_plain(iq_re, iq_im, cfg, form, ablate)
+    prod = _cuda_lib(iq_re.device)
+    if ablate is None:
+        out = launch_tc(prod, iq_re, iq_im, cfg, tm)
+        tc_launches += 1
+        return out
+    out = launch_tc(tc_ablate_library(), iq_re, iq_im, cfg, tm,
+                    tc_launch_groups(prod, iq_re, cfg, tm),
+                    ablate_mask(stages))
+    tc_ablate_launches += 1
     return out
 
 
@@ -737,12 +809,13 @@ def curscan_tc_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
 
 
 def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
-              cfg: SpecConfig, tm: bool,
-              groups: Optional[int] = None) -> torch.Tensor:
+              cfg: SpecConfig, tm: bool, groups: Optional[int] = None,
+              ablate: Optional[int] = None) -> torch.Tensor:
     """Launch ``lib``'s Kernel A (the port's library, or a forensic build of
     the same sources, ``scripts/tc_stages.py``) on CUDA planes checked by
     :func:`curscan_tc`, in ``groups`` window groups (default
-    :func:`tc_groups` at ``lib``'s occupancy); counts nothing."""
+    :func:`tc_groups` at ``lib``'s occupancy), through the ablate build's
+    entry with the mask ``ablate`` where given; counts nothing."""
     dev = iq_re.device
     u8 = iq_re.dtype == torch.uint8
     t, n = iq_re.shape[0], cfg.fft_size
@@ -760,15 +833,18 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
     starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
                                          cfg.cur_scan_cumu_mode, dev)
     f1, f2, tw = tc_tables(n, dev)
+    fn = lib.kspec_curscan_tc if ablate is None else \
+        lib.kspec_curscan_tc_ablate
     with torch.cuda.device(dev):
-        err = lib.kspec_curscan_tc(
+        err = fn(
             iq_re.data_ptr(), iq_im.data_ptr(), int(u8), out.data_ptr(),
             0 if part is None else part.data_ptr(), starts.data_ptr(),
             weights.data_ptr(), window.data_ptr(), f1.data_ptr(),
             f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n, n1, w, groups,
             _FOLD[cfg.cur_scan_cumu_mode], wb, int(high), int(tm),
+            *(() if ablate is None else (ablate,)),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, lib.kspec_curscan_tc)
+    _raise_on(err, fn)
     return out
 
 
@@ -857,14 +933,18 @@ def supports_tc_split(cfg: SpecConfig) -> bool:
 
 def curscan_tc_split(iq_re: torch.Tensor, iq_im: torch.Tensor,
                      cfg: SpecConfig, form: Optional[str] = None,
-                     split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                     split: Optional[Tuple[int, int]] = None,
+                     ablate: Optional[Sequence[str]] = None) -> torch.Tensor:
     """Kernel C: ``(T, full_size)`` float32 or raw-u8 planes ->
     ``(T, fft_size)`` fftshifted linear spectra at the config's class, in
     the 4M complex form or ``form``'s, on ``split`` ``(n1, n2)`` (default
     ``cuda_curscan.tc_split`` for the planes' type: the JAX dispatcher's).
     CUDA tensors launch the kernel on the current stream without
-    synchronising; CPU tensors run :func:`curscan_tc_split_plain`."""
-    global tc_split_launches
+    synchronising; CPU tensors run :func:`curscan_tc_split_plain`.
+    ``ablate``: as :func:`curscan_tc`'s, on Kernel C's ablate build
+    (:func:`tc_split_ablate_library`, which takes the splits whose frame it
+    stages), counted in ``tc_split_ablate_launches``."""
+    global tc_split_launches, tc_split_ablate_launches
     if not supports_tc_split(cfg):
         raise ValueError(f"config not supported by the split tensor-core "
                          f"curscan kernel (tpuPrecision {cfg.tpu_precision}, "
@@ -876,11 +956,20 @@ def curscan_tc_split(iq_re: torch.Tensor, iq_im: torch.Tensor,
     if n1 < 1 or n2 < 1 or n1 * n2 != cfg.fft_size:
         raise ValueError(f"split {(n1, n2)} is not a factorisation of "
                          f"fft_size {cfg.fft_size}")
+    stages = _stage_keys(ablate)
     if iq_re.device.type == "cpu":
-        return curscan_tc_split_plain(iq_re, iq_im, cfg, form, (n1, n2))
-    out = launch_tc_split(_cuda_lib(iq_re.device), iq_re, iq_im, cfg, tm,
-                          (n1, n2))
-    tc_split_launches += 1
+        return curscan_tc_split_plain(iq_re, iq_im, cfg, form, (n1, n2),
+                                      ablate)
+    prod = _cuda_lib(iq_re.device)
+    if ablate is None:
+        out = launch_tc_split(prod, iq_re, iq_im, cfg, tm, (n1, n2))
+        tc_split_launches += 1
+        return out
+    out = launch_tc_split(tc_split_ablate_library(), iq_re, iq_im, cfg, tm,
+                          (n1, n2), tc_split_launch_groups(
+                              prod, iq_re, cfg, tm, (n1, n2)),
+                          ablate_mask(stages))
+    tc_split_ablate_launches += 1
     return out
 
 
@@ -917,11 +1006,14 @@ def tc_split_launch_groups(lib, iq_re: torch.Tensor, cfg: SpecConfig,
 
 def launch_tc_split(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
                     cfg: SpecConfig, tm: bool, split: Tuple[int, int],
-                    groups: Optional[int] = None) -> torch.Tensor:
+                    groups: Optional[int] = None,
+                    ablate: Optional[int] = None) -> torch.Tensor:
     """Launch ``lib``'s Kernel C (the port's library, or a forensic build of
     the same sources, ``scripts/tc_split_stages.py``) on CUDA planes checked
     by :func:`curscan_tc_split`, in ``groups`` window groups (default
-    :func:`tc_split_launch_groups` at ``lib``'s occupancy); counts nothing.
+    :func:`tc_split_launch_groups` at ``lib``'s occupancy), through the
+    ablate build's entry with the mask ``ablate`` where given; counts
+    nothing.
     Raises where 16 rows of C do not fit a block's shared memory (the
     library's m-tiles a block are 0: n2 above 1200 at 3M HIGH, 1808 at
     HIGH, 3616 at DEFAULT)."""
@@ -943,16 +1035,19 @@ def launch_tc_split(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
     starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
                                          cfg.cur_scan_cumu_mode, dev)
     f1, f2, tw = tc_split_tables(n1, n2, dev)
+    fn = lib.kspec_curscan_tc_split if ablate is None else \
+        lib.kspec_curscan_tc_split_ablate
     with torch.cuda.device(dev):
-        err = lib.kspec_curscan_tc_split(
+        err = fn(
             iq_re.data_ptr(), iq_im.data_ptr(),
             int(iq_re.dtype == torch.uint8), out.data_ptr(),
             0 if part is None else part.data_ptr(), starts.data_ptr(),
             weights.data_ptr(), window.data_ptr(), f1.data_ptr(),
             f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n, n1, n2,
             cfg.num_windows, groups, _FOLD[cfg.cur_scan_cumu_mode],
-            int(high), int(tm), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, lib.kspec_curscan_tc_split)
+            int(high), int(tm), *(() if ablate is None else (ablate,)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, fn)
     return out
 
 

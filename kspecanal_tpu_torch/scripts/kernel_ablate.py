@@ -1,18 +1,25 @@
 """Stage ablation of the sublane curscan kernel (K1) on the card — the port
-of ``scripts/kernel_ablate.py``.  It times the kernel at fft 2048 (or the
-fft given), kaiser, 50% overlap, with stages removed through
-``cuda_curscan.curscan_fused_sublane(..., ablate=keys)`` (the direct-DFT
-kernel's forensic instantiation; 'base' is its production instantiation,
-``cuda_curscan.curscan_sublane_direct``), and prints marginal rates
-between T_lo and T_hi blocks (default 4096 and 8192), which cancel the fixed
-cost of a launch.  (time(base) - time(variant)) at fixed work is the cost of
-the removed stages.
+of ``scripts/kernel_ablate.py``.  It times the kernel that serves the
+precision class at fft 2048 (or the fft given), kaiser, 50% overlap, with
+stages removed through ``cuda_curscan.curscan_fused_sublane(...,
+ablate=keys)``, and prints marginal rates between T_lo and T_hi blocks
+(default 4096 and 8192), which cancel the fixed cost of a launch.
+(time(base) - time(variant)) at fixed work is the cost of the removed
+stages; beside it, each variant's saving against the forensic build's own
+time with no stage removed, since the run-time mask costs time of its
+own.
 
-    python -m kspecanal_tpu_torch.scripts.kernel_ablate [fft] [u8|f32] [T_lo T_hi]
+    python -m kspecanal_tpu_torch.scripts.kernel_ablate [fft] [precision] \
+        [u8|f32] [T_lo T_hi]
 
-The port computes in float32 only, where the JAX script took a precision
-class; 'per-block (no cross-block concat)' is the base kernel on Hopper,
-which never restacks blocks.
+The defaults are the JAX script's cell: fft 2048, DEFAULT, u8.  At HIGH and
+DEFAULT the variants run the ablate build of Kernel A (fft <= 16384) or of
+Kernel C on the split (fft / 128, 128), and 'base' the production kernel
+(``cuda_tc.curscan_tc`` / ``curscan_tc_split``), both in the 4M form; at
+HIGHEST the direct-DFT kernel's forensic instantiation, and 'base' its
+production instantiation (``cuda_curscan.curscan_sublane_direct``).
+'per-block (no cross-block concat)' removes nothing on Hopper, whose
+kernels never restack blocks: it is the forensic build with an empty mask.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch
 
 from kspecanal_tpu_torch.config import WINDOW_KAISER, SpecConfig
 from kspecanal_tpu_torch.ops import cuda_curscan as cc
+from kspecanal_tpu_torch.ops import cuda_tc
+from kspecanal_tpu_torch.ops.mxu_fft import PRECISIONS
 from kspecanal_tpu_torch.utils.profiling import card_line, cuda_ms, \
     require_cuda
 
@@ -39,6 +48,8 @@ VARIANTS = [
     ("floor (decode+frame+reduce)",
      ("win", "stage1", "twiddle", "stage2", "sqrt", "cumulate")),
 ]
+# The forensic build with no stage removed (Hopper's kernels never restack).
+NO_KEY = "per-block (no cross-block concat)"
 
 
 def planes(cfg: SpecConfig, t: int, u8: bool, gen: torch.Generator):
@@ -57,18 +68,23 @@ def main(argv: Optional[List[str]] = None
     T_hi, marginal samples/s)}``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     fft = int(argv[0]) if argv else 2048
-    dtype = argv[1] if len(argv) > 1 else "u8"
+    prec = argv[1].upper() if len(argv) > 1 else "DEFAULT"
+    dtype = argv[2] if len(argv) > 2 else "u8"
+    if prec not in PRECISIONS:
+        raise SystemExit(f"precision must be one of {PRECISIONS}, got "
+                         f"{argv[1]!r}")
     if dtype not in ("u8", "f32"):
         raise SystemExit(f"dtype must be u8 or f32, got {dtype!r}")
-    t_lo, t_hi = ((int(argv[2]), int(argv[3])) if len(argv) > 3
+    t_lo, t_hi = ((int(argv[3]), int(argv[4])) if len(argv) > 4
                   else (4096, 8192))
     require_cuda("kernel_ablate")
     cfg = SpecConfig(prg_mode="ZEROSPAN", fft_size=fft, sampling_rate=2.4e6,
                      window=WINDOW_KAISER, cur_scan_non_overlap=0.5,
-                     x_res=min(512, fft)).finalize()
-    print(f"device: {card_line()}; fft{fft} 50% float32 {dtype}: "
-          f"T={t_lo}/{t_hi} marginal ablation (num_windows="
-          f"{cfg.num_windows}, full={cfg.full_size})", flush=True)
+                     x_res=min(512, fft), tpu_precision=prec).finalize()
+    print(f"device: {card_line()}; fft{fft} 50% {prec} {dtype} on "
+          f"{base_kernel(cfg)}: T={t_lo}/{t_hi} marginal ablation "
+          f"(num_windows={cfg.num_windows}, full={cfg.full_size})",
+          flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     lo_planes = planes(cfg, t_lo, dtype == "u8", gen)
     hi_planes = planes(cfg, t_hi, dtype == "u8", gen)
@@ -77,20 +93,45 @@ def main(argv: Optional[List[str]] = None
     for name, ab in VARIANTS:
         def run(p, ab=ab):
             if not ab:
-                return cc.curscan_sublane_direct(*p, cfg)
+                return base(*p, cfg)
             return cc.curscan_fused_sublane(*p, cfg, ablate=ab)
         lo = cuda_ms(lambda: run(lo_planes), warm=2, reps=5)
         hi = cuda_ms(lambda: run(hi_planes), warm=2, reps=5)
         marg = (w_hi - w_lo) / ((hi - lo) * 1e-3) if hi > lo \
             else float("inf")
         rows[name] = (lo, hi, marg)
-        base_hi = rows["base"][1]
+    # The forensic build with no stage removed: what each removal saves
+    # within the build, whose mask costs time of its own.
+    base_hi, nokey_hi = rows["base"][1], rows[NO_KEY][1]
+    for name, (lo, hi, marg) in rows.items():
         print(f"  {name:34s} T{t_lo} {lo:8.3f} ms  T{t_hi} {hi:8.3f} ms  "
               f"marginal {marg / 1e9:6.2f} Gsamp/s  (removes "
-              f"{(base_hi - hi) / base_hi * 100:+5.1f}% of base T{t_hi} "
-              f"time)", flush=True)
-    print(f"\nbase marginal: {rows['base'][2] / 1e9:.2f} Gsamp/s", flush=True)
+              f"{(base_hi - hi) / base_hi * 100:+5.1f}% of base, "
+              f"{(nokey_hi - hi) / nokey_hi * 100:+5.1f}% of the no-key "
+              f"build's T{t_hi} time)", flush=True)
+    print(f"\nbase marginal: {rows['base'][2] / 1e9:.2f} Gsamp/s; the "
+          f"forensic build with no stage removed takes "
+          f"{nokey_hi / base_hi:.3f} of base's time", flush=True)
     return rows
+
+
+def base_kernel(cfg: SpecConfig) -> str:
+    """The kernel the variants of ``cfg``'s class take apart."""
+    if cfg.tpu_precision.upper() == "HIGHEST":
+        return "the direct kernel"
+    if cfg.fft_size <= cc.TC_MAX_FFT_SIZE:
+        return "Kernel A"
+    return f"Kernel C ({cfg.fft_size // 128} x 128)"
+
+
+def base(re: torch.Tensor, im: torch.Tensor, cfg: SpecConfig):
+    """'base': the production kernel of ``cfg``'s class (no ablation)."""
+    if cfg.tpu_precision.upper() == "HIGHEST":
+        return cc.curscan_sublane_direct(re, im, cfg)
+    if cfg.fft_size <= cc.TC_MAX_FFT_SIZE:
+        return cuda_tc.curscan_tc(re, im, cfg)
+    return cuda_tc.curscan_tc_split(re, im, cfg,
+                                    split=(cfg.fft_size // 128, 128))
 
 
 if __name__ == "__main__":

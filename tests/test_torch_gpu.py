@@ -891,3 +891,50 @@ def test_analyzer_launches_its_kernel(cuda, tmp_path, fft):
     want = tools.analyze_capture(path, fft, device="cpu")
     for k in ("complex", "imag", "abs"):
         assert_spectra_close(got[k], want[k])
+
+
+@pytest.mark.parametrize("key", sorted(cuda_curscan.ABLATE_KEYS))
+@pytest.mark.parametrize("mode", ["AVG", "MIN"])
+@pytest.mark.parametrize("prec", ["DEFAULT", "HIGH"])
+def test_tc_ablate_key_matches_plain(cuda, prec, mode, key):
+    """K1's ablate keys at HIGH and DEFAULT: Kernel A's ablate build (one
+    launch, counted in ``tc_ablate_launches``; the direct kernel's forensic
+    instantiation never) within TC_TOL of its plain version at fft 2048,
+    T=8 (window groups and their combine), u8 bit-identical to decoded
+    float32; 'concat' bitwise equal to Kernel A's production output."""
+    cfg = zs_cfg(2048, mode=mode, tpu_precision=prec)
+    re, im = (torch.from_numpy(p).to(cuda)
+              for p in raw_planes(cfg, 8, seed=80 + len(key)))
+    before = (cuda_tc.tc_ablate_launches, cuda_curscan.forensic_launches)
+    got = cuda_curscan.curscan_fused_sublane(re, im, cfg, ablate=(key,))
+    assert (cuda_tc.tc_ablate_launches, cuda_curscan.forensic_launches) == (
+        before[0] + 1, before[1])
+    want = cuda_tc.curscan_tc_plain(re, im, cfg, ablate=(key,))
+    assert_tc_close(got.cpu().numpy(), want.cpu().numpy(), prec)
+    assert torch.equal(got, cuda_curscan.curscan_fused_sublane(
+        tspec.decode_u8(re), tspec.decode_u8(im), cfg, ablate=(key,)))
+    if key == "concat":
+        assert torch.equal(got, cuda_tc.curscan_tc(re, im, cfg))
+
+
+@pytest.mark.parametrize("prec,key", [("DEFAULT", "stage1"),
+                                      ("HIGH", "stage2")])
+def test_tc_split_ablate_key_matches_plain(cuda, prec, key):
+    """Above fft 16384 the keys run Kernel C's ablate build on the split
+    (fft / 128, 128) (counted in ``tc_split_ablate_launches``) within
+    TC_TOL of its plain version, u8 bit-identical to decoded float32; no
+    key ('concat') bitwise equal to Kernel C's production output on that
+    split."""
+    cfg = zs_cfg(32768, tpu_precision=prec)
+    re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 8, 81))
+    split = (256, 128)
+    before = cuda_tc.tc_split_ablate_launches
+    got = cuda_curscan.curscan_fused_sublane(re, im, cfg, ablate=(key,))
+    assert cuda_tc.tc_split_ablate_launches == before + 1
+    want = cuda_tc.curscan_tc_split_plain(re, im, cfg, None, split, (key,))
+    assert_tc_close(got.cpu().numpy(), want.cpu().numpy(), prec)
+    assert torch.equal(got, cuda_curscan.curscan_fused_sublane(
+        tspec.decode_u8(re), tspec.decode_u8(im), cfg, ablate=(key,)))
+    assert torch.equal(
+        cuda_curscan.curscan_fused_sublane(re, im, cfg, ablate=("concat",)),
+        cuda_tc.curscan_tc_split(re, im, cfg, split=split))
