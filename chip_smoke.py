@@ -11,9 +11,12 @@ points and checks the results.
 Phases (any failure raises; the exit code is then non-zero):
   1. environment: torch, CUDA, nvcc, the card and its power limit;
   2. build of the kernels, of Kernel A's five K4 cut-offs, of Kernel C's
-     four stage cut-offs and of Kernels A and C's ablate builds (one nvcc
-     per source and build, all in parallel), with ptxas'
-     register/shared-memory report;
+     four stage cut-offs, of Kernels A and C's ablate builds and of the
+     HIGHEST forensic builds (``cuda_tc.highest_variants``: Kernel A whole,
+     its cut-offs and ablate build, Kernel C's ablate build, all with
+     ``-DKSPEC_TC_HIGHEST=1``; one nvcc per source and build, all in
+     parallel), with ptxas' register/shared-memory report and the time the
+     forensic builds' compiles took;
   3. K1 against its plain version (``torch.fft``) run in float64 on the
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
@@ -82,45 +85,50 @@ Phases (any failure raises; the exit code is then non-zero):
   9. the on-device sources: devicesynth planes against the same start times
      synthesised on the CPU, its tone purity (>= 120 dB, peaks on 91/92/93
      MHz), devicenoise's u8 planes (mean 127.5 +- 0.5);
- 10. K4, the forensic instantiation of the direct kernel: each of its six
-     stages against its plain version at fft 2048 kaiser 50% AVG (T=256) and
-     at fft 16384 (float64 and float32 sums), the 'full' stage bitwise equal
-     to the direct kernel's production instantiation after the layout map;
+ 10. K4 and K1's ablate keys at HIGHEST, on the six-pass forensic builds:
+     each of Kernel A's cut-offs against its plain version within TC_TOL at
+     fft 2048 kaiser 50% AVG (T=256) and fft 16384 (T=32, the fold in the
+     output rows), one launch each, 'full' after the layout map bitwise
+     equal to the no-key ablate build; every variant of the kernel-ablation
+     script on Kernel A's HIGHEST ablate build (fft 2048, T=256, u8 and
+     f32) and Kernel C's (fft 32768 on (256, 128), T=16, f32 and u8),
+     within TC_TOL of its plain version, one launch of its build, u8
+     bit-identical to decoded f32; the no-key builds against the float64
+     oracle at fft 2048 and 32768 beside HIGH's;
  10b. K4 at HIGH and DEFAULT: each of Kernel A's cut-offs (read, frame,
      s1, s1tw, s2; ``cuda_tc.stage_library``) against its plain version
      within TC_TOL at fft 2048 (T=256) and fft 16384 (T=32, four window
      groups), 'full' bitwise equal to Kernel A's production output after
      the layout map;
- 11. the ablate variants of the kernel-ablation script against their plain
-     versions (f32, and u8 bit-identical to decoded f32), and the forensic
-     instantiation with no ablate bit bitwise equal to the direct kernel in
-     all four cumulate modes; then at HIGH and DEFAULT every variant on
+ 11. at HIGH and DEFAULT every variant of the kernel-ablation script on
      Kernel A's ablate build (fft 2048, T=256, DEFAULT u8 and f32, HIGH
      f32) and on Kernel C's (fft 32768 on (256, 128), T=16, HIGH f32 and
      DEFAULT u8) within TC_TOL of its plain version, one launch of its
-     build and none of the direct kernel's, u8 bit-identical to decoded
-     f32, no key and 'concat' bitwise equal to the production kernel in
-     all four modes;
+     build and none of the FFT kernel's, u8 bit-identical to decoded f32,
+     no key and 'concat' bitwise equal to the production kernel in all four
+     modes;
  12. the forensics path's sessions through ``cli.main`` at fft 2048 kaiser
      50%: devicesynth and devicenoise with ``tpuCatchUp 1024`` (8 batches),
      then again with ``tpuProfile``, and the host synth with ``tpuProfile``:
      each launches K1 (u8 planes for devicenoise), writes a trace and logs
      the card's busy share; devicesynth puts its peaks on 91/92/93 MHz;
  13. the forensics scripts on the card: the stage table of
-     ``scripts.roofline_r2`` at HIGHEST (fft 2048 T=4096; fft 16384 T=288
-     with float64 and float32 sums), the marginal table of
-     ``scripts.kernel_ablate`` at HIGHEST (u8 and f32, T=4096/8192) and
+     ``scripts.roofline_r2`` at HIGHEST (Kernel A's six-pass cut-offs, fft
+     2048 T=4096; fft 16384 T=288), the marginal tables of
+     ``scripts.kernel_ablate`` at HIGHEST (fft 2048 u8 and f32,
+     T=4096/8192; fft 32768 u8, T=64/128; 'base' the FFT kernel) and
      ``scripts.session_ablate`` at k=4096 (cut from 16384 to save time),
-     with the launches of the forensic kernel and of the direct kernel
-     (their base) counted over them, then ``roofline_r2``'s DEFAULT table
+     with the launches of the HIGHEST builds and of the direct kernel (the
+     roofline table's yardstick) counted over them, K4 HIGHEST 'full' and
+     each HIGHEST ablate build with no stage removed beside its plain
+     version and bound, then ``roofline_r2``'s DEFAULT table
      (Kernel A's cut-offs, fft 2048 T=4096, launches counted in
      ``cuda_tc.tc_stage_launches``) and its HIGH table with the plain
      version's time, ``kernel_ablate``'s class tables
      (fft 2048 DEFAULT u8 and HIGH f32 on Kernel A, T=4096/8192; fft 32768
      DEFAULT u8 on Kernel C, T=64/128) with the launches of each ablate
-     build and of the direct kernel's forensic instantiation (none), and
-     each ablate build's time with no stage removed beside its plain
-     version and bound;
+     build, and each ablate build's time with no stage removed beside its
+     plain version and bound;
  13b. the offline analyzer: ``tools.main`` on a capture from
      ``scripts.make_fixture`` (1,024,000 samples at 92 MHz) at fft 2048
      (K1) and 128 (K2), with and without ``decimate 4``, each launching its
@@ -256,9 +264,11 @@ BF16_FLOPS = 989e12           # H100 SXM bf16 tensor cores, dense
 # of the peak) by class (tests/torch_parity.TC_TOL): only the order of the
 # float32 sums inside each product differs, which at DEFAULT can move a
 # stage-1 value across a bf16 rounding boundary.
-TC_TOL = {"DEFAULT": (1e-2, 1e-2), "HIGH": (5e-5, 5e-5)}
-# The classes' worst-bin bounds against the float64 oracle (ROADMAP.md C).
-ORACLE_BOUND = {"HIGH": 5e-5, "DEFAULT": 3.9e-2}
+TC_TOL = {"DEFAULT": (1e-2, 1e-2), "HIGH": (5e-5, 5e-5),
+          "HIGHEST": (5e-5, 1e-6)}
+# The classes' worst-bin bounds against the float64 oracle (ROADMAP.md C);
+# HIGHEST: the six-pass forensic builds, held to HIGH's bound.
+ORACLE_BOUND = {"HIGH": 5e-5, "DEFAULT": 3.9e-2, "HIGHEST": 5e-5}
 # The tensor-core plain versions hold some twenty (T, W, N) float32
 # intermediates: they are timed in chunks of this many frame bytes.
 TC_PLAIN_FRAME_BYTES = 1 << 30
@@ -281,7 +291,8 @@ def tc_bound(cfg, t, u8, split=None):
     """The least time (ms) the card could take for one tensor-core kernel
     call, what bounds it, and the FFT-flops bound of :func:`bound` beside
     it.  Operations: the kernel's own tensor-core flops at 989 TFLOP/s bf16,
-    times 3 at HIGH (the bf16x3 split): Kernels A and C (fft n = n1 n2;
+    times 3 at HIGH (the bf16x3 split) and 6 at HIGHEST (the forensic
+    builds' six passes): Kernels A and C (fft n = n1 n2;
     Kernel A's n2 = 128, Kernel C's ``split``) 4 real products (the
     production 4M form) a stage a window, each 2 n1 n1 n2 flops in stage 1
     and 2 n1 n2 n2 in stage 2; Kernel B (fft <= 128) 4 products of 2 n n.
@@ -294,8 +305,8 @@ def tc_bound(cfg, t, u8, split=None):
     else:
         n1, n2 = split or (n // 128, 128)
         per_window = 4 * 2 * n1 * n2 * (n1 + n2)
-    if cuda_tc.precision_class(cfg) == "HIGH":
-        per_window *= 3
+    per_window *= {"HIGH": 3, "HIGHEST": 6}.get(cuda_tc.precision_class(cfg),
+                                               1)
     ops_ms = t * cfg.num_windows * per_window / BF16_FLOPS * 1e3
     nbytes = 2 * t * cfg.full_size * (1 if u8 else 4) + 4 * t * n
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1027,68 +1038,132 @@ def phase_device_sources(gen):
     check(ok, "devicenoise u8 planes of mean 127.5 +- 0.5")
 
 
-def phase_k4(cc, gen):
-    """K4's stages against their plain versions; returns the worst max abs
-    error over the six stages at fft 2048."""
-    print(f"== K4 (forensic stage ablation) vs plain ({BOUND})")
-    worst = 0.0
-    for fft, t, f32_sums in ((2048, 256, False), (16384, 32, False),
-                             (16384, 32, True)):
-        cfg = cfg_of(fft)
-        re_, im_ = noise(cfg, t, False, gen)
-        prod = cc.curscan_sublane_direct(re_, im_, cfg)
-        for stage in cc.STAGES:
-            got = cc.curscan_stage_ablate(re_, im_, cfg, stage,
-                                          f32_sums=f32_sums)
-            want = cc.curscan_stage_plain(re_, im_, cfg, stage)
-            torch.cuda.synchronize()
-            check(got.shape == (t, fft // 128, 128)
-                  and bool(got.isfinite().all()), "K4 output shape/finite")
-            mx, mrel, _, ok = spectra_error(got, want)
-            ok = ok and mrel < 1e-5
-            print(f"  fft {fft} T={t} {'f32' if f32_sums else 'auto'} sums "
-                  f"{stage:5s}: max_abs {mx:.3e} max_rel {mrel:.3e} "
-                  f"{'PASS' if ok else 'FAIL'}")
-            check(ok, f"K4 {stage} at fft {fft} vs plain")
-            if fft == 2048:
-                worst = max(worst, mx)
-            if stage == "full" and not f32_sums:
-                same = torch.equal(cc.stage_layout_to_spectrum(got), prod)
-                print(f"  fft {fft} 'full' vs the direct kernel after the "
-                      f"layout map: {'bitwise equal' if same else 'DIFFER'}")
-                check(same, "K4 full bitwise equal to the direct kernel")
-    return worst
-
-
-def phase_ablate(cc, gen):
-    """The direct kernel's ablate variants against their plain versions."""
+def phase_highest(cc, gen):
+    """K4 and K1's ablate keys at HIGHEST on the six-pass forensic builds:
+    each of Kernel A's cut-offs at fft 2048 kaiser 50% AVG (T=256) and fft
+    16384 (T=32), one launch, within TC_TOL of its plain version, 'full'
+    after the layout map bitwise equal to the no-key ablate build; every
+    kernel_ablate variant on Kernel A's ablate build (fft 2048, T=256, u8
+    and f32) and on Kernel C's (fft 32768 on (256, 128), T=16, f32 and
+    u8), one launch of its build, within TC_TOL of its plain version, u8
+    bit-identical to decoded float32; then the no-key builds' worst bin
+    against the float64 oracle beside HIGH's dispatcher at fft 2048 and
+    32768.  Returns the worst max abs errors {"k4", "A", "C"}."""
+    from kspecanal_tpu_torch.ops import cuda_tc as tc
     from kspecanal_tpu_torch.ops.spectrum import decode_u8
+    from kspecanal_tpu_torch.scripts import threemult_smoke
     from kspecanal_tpu_torch.scripts.kernel_ablate import VARIANTS
-    print(f"== direct kernel's ablate variants vs plain ({BOUND})")
-    cfg = cfg_of()
-    re_, im_ = noise(cfg, 256, True, gen)
-    for name, keys in VARIANTS:
-        got = cc.curscan_fused_sublane(re_, im_, cfg, ablate=keys)
-        want = cc.curscan_ablate_plain(re_, im_, cfg, keys)
-        dec = cc.curscan_fused_sublane(decode_u8(re_), decode_u8(im_), cfg,
-                                       ablate=keys)
-        torch.cuda.synchronize()
-        mx, mrel, _, ok = spectra_error(got, want)
-        ok = ok and mrel < 1e-5
-        same = torch.equal(got, dec)
-        print(f"  {name:34s} max_abs {mx:.3e} max_rel {mrel:.3e} u8 vs f32 "
-              f"{'bit-identical' if same else 'DIFFER'} "
-              f"{'PASS' if ok and same else 'FAIL'}")
-        check(ok and same, f"ablate {name} vs plain")
-    for mode in ("AVG", "MAX", "MIN", "RAW"):
-        cfg = cfg_of(2048, 0.5, mode)
-        re_, im_ = noise(cfg, 256, False, gen)
-        same = torch.equal(cc.curscan_fused_sublane(re_, im_, cfg,
-                                                    ablate=("concat",)),
-                           cc.curscan_sublane_direct(re_, im_, cfg))
-        print(f"  forensic, no ablate bit, {mode}: "
-              f"{'bitwise equal' if same else 'DIFFER'} to the direct kernel")
-        check(same, f"forensic instantiation == direct kernel ({mode})")
+    print(f"== K4 and the ablate keys at HIGHEST (six-pass forensic builds) "
+          f"vs plain (per bin rtol, atol of the peak: {TC_TOL['HIGHEST']})")
+    worst = {"k4": 0.0, "A": 0.0, "C": 0.0}
+    lib, clib = tc.highest_library(), tc.tc_split_ablate_library(highest=True)
+    for fft in (2048, 16384):
+        n1 = fft // 128
+        wb = tc.tc_windows_per_pass(n1, 15)
+        for tm in (False, True):
+            smem = lib.kspec_curscan_tc_smem(n1, wb, 2, int(tm))
+            print(f"  Kernel A HIGHEST fft {fft} {'3M' if tm else '4M'}: "
+                  f"{smem} B of shared memory a block, {wb} window(s) a "
+                  f"pass, " + (f"{tc.tc_occupancy(lib, False, n1, wb, 2, tm)}"
+                               f" block(s) an SM" if smem <= tc.TC_SMEM_LIMIT
+                               else "over a block's limit: the wrapper "
+                               "raises"))
+    for tm in (False, True):
+        print(f"  Kernel C HIGHEST (256, 128) {'3M' if tm else '4M'}: "
+              f"{clib.kspec_curscan_tc_split_smem(256, 128, 2, int(tm))} B "
+              f"of shared memory a block, "
+              f"{clib.kspec_curscan_tc_split_mt(256, 128, 2, int(tm))} "
+              f"m-tiles a block, "
+              f"{tc.tc_split_occupancy(clib, False, 256, 128, 2, tm)} "
+              f"block(s) an SM")
+    for fft, t in ((2048, 256), (16384, 32)):
+        cfg = class_cfg(cfg_of(fft), "HIGHEST")
+        re_, im_ = noise(cfg, t, False, gen)
+        groups = tc.tc_launch_groups(lib, re_, cfg, False)
+        nokey = cc.curscan_fused_sublane(re_, im_, cfg, ablate=("concat",))
+        for stage in cc.STAGES:
+            before = tc.tc_stage_launches
+            got = cc.curscan_stage_ablate(re_, im_, cfg, stage)
+            launched = tc.tc_stage_launches - before
+            want = tc.curscan_tc_stage_plain(re_, im_, cfg, stage)
+            torch.cuda.synchronize()
+            check(got.shape == (t, fft // 128, 128) and launched == 1
+                  and bool(got.isfinite().all()),
+                  "K4 HIGHEST cut-off: one launch, shape, finite")
+            mx, sh = tc_share(got, want, cfg)
+            line = (f"  K4 HIGHEST fft {fft} T={t} ({groups} window "
+                    f"group(s)) {stage:5s}: max abs {mx:.3e}, {sh:.3f} of "
+                    f"the tolerance")
+            if stage == "full":
+                same = torch.equal(cc.stage_layout_to_spectrum(got), nokey)
+                line += (", after the layout map "
+                         f"{'bitwise equal' if same else 'DIFFERS'} to the "
+                         f"no-key ablate build")
+                check(same, "K4 HIGHEST 'full' bitwise equal to the no-key "
+                      "ablate build")
+            print(f"{line} {'PASS' if sh <= 1 else 'FAIL'}")
+            check(sh <= 1, f"K4 HIGHEST {stage} at fft {fft} vs plain")
+            if fft == 2048:
+                worst["k4"] = max(worst["k4"], mx)
+        del re_, im_
+    for kernel, fft, t, inputs in (("A", 2048, 256, (True, False)),
+                                   ("C", 32768, 16, (False, True))):
+        cfg = class_cfg(cfg_of(fft), "HIGHEST")
+        split = (fft // 128, 128)
+        counter = "tc_ablate_launches" if kernel == "A" else \
+            "tc_split_ablate_launches"
+        for u8 in inputs:
+            re_, im_ = noise(cfg, t, u8, gen)
+            for name, keys in VARIANTS[1:]:
+                before = (getattr(tc, counter), cc.launches)
+                got = cc.curscan_fused_sublane(re_, im_, cfg, ablate=keys)
+                launched = (getattr(tc, counter) - before[0],
+                            cc.launches - before[1])
+                want = tc.curscan_tc_split_plain(re_, im_, cfg, None, split,
+                                                 keys)
+                torch.cuda.synchronize()
+                mx, sh = tc_share(got, want, cfg)
+                ok = (launched == (1, 0) and sh <= 1
+                      and bool(got.isfinite().all()))
+                line = (f"  Kernel {kernel} HIGHEST fft {fft} "
+                        f"{'u8' if u8 else 'f32'} T={t} {name:34s} max abs "
+                        f"{mx:.3e}, {sh:.3f} of the tolerance")
+                if u8:
+                    same = torch.equal(got, cc.curscan_fused_sublane(
+                        decode_u8(re_), decode_u8(im_), cfg, ablate=keys))
+                    line += (f", u8 vs f32 "
+                             f"{'bit-identical' if same else 'DIFFER'}")
+                    ok = ok and same
+                print(f"{line} {'PASS' if ok else 'FAIL'}")
+                check(ok, f"Kernel {kernel} HIGHEST ablate {name}: one "
+                      f"launch of its build, within TC_TOL of plain")
+                worst[kernel] = max(worst[kernel], mx)
+            del re_, im_
+    print(f"== the HIGHEST no-key ablate builds against the float64 oracle "
+          f"beside HIGH's kernels (threemult_smoke's measure; bounds "
+          f"{ORACLE_BOUND})")
+    dev = torch.device("cuda")
+    oracle = {}
+    for fft, blocks in ((2048, 64), (32768, 16)):
+        for prec in ("HIGHEST", "HIGH"):
+            cfg = threemult_smoke.job_cfg(fft, 0.5, prec)
+
+            def nokey(re_, im_, cfg_):
+                return cc.curscan_fused_sublane(re_, im_, cfg_,
+                                                ablate=("concat",))
+            err = threemult_smoke.oracle_error(
+                cfg, False, blocks, dev,
+                **({"fn": nokey} if prec == "HIGHEST" else {}))
+            oracle[fft, prec] = err
+            what = ("the no-key ablate build" if prec == "HIGHEST"
+                    else "the dispatcher")
+            print(f"  fft{fft} 50% AVG {prec} f32, {blocks} blocks ({what}): "
+                  f"max_rel_err {err:.3e}")
+            check(err <= ORACLE_BOUND[prec],
+                  f"fft {fft} {prec} within {ORACLE_BOUND[prec]:g}")
+        check(oracle[fft, "HIGHEST"] <= oracle[fft, "HIGH"],
+              f"fft {fft}: the six passes no worse than HIGH")
+    return worst
 
 
 def phase_ablate_class(cc, gen):
@@ -1096,7 +1171,7 @@ def phase_ablate_class(cc, gen):
     kernel-ablation script on Kernel A's ablate build (fft 2048, T=256: DEFAULT
     u8 and f32, HIGH f32) and on Kernel C's (fft 32768 on (256, 128), T=16:
     HIGH f32, DEFAULT u8), each one launch of its build and none of the
-    direct kernel's forensic instantiation, within TC_TOL of its plain
+    FFT kernel's, within TC_TOL of its plain
     version; u8 bit-identical to decoded float32; no key and 'concat'
     bitwise equal to the production kernel in every mode.  Returns the
     worst max abs error of each build."""
@@ -1127,10 +1202,10 @@ def phase_ablate_class(cc, gen):
             cfg = class_cfg(cfg_of(fft), prec)
             re_, im_ = noise(cfg, t, u8, gen)
             for name, keys in VARIANTS:
-                before = (getattr(tc, counter), cc.forensic_launches)
+                before = (getattr(tc, counter), cc.launches)
                 got = class_ablate(re_, im_, cfg, keys)
                 launched = (getattr(tc, counter) - before[0],
-                            cc.forensic_launches - before[1])
+                            cc.launches - before[1])
                 want = plain(re_, im_, cfg, keys)
                 torch.cuda.synchronize()
                 mx, sh = tc_share(got, want, cfg)
@@ -1242,39 +1317,89 @@ def phase_device_sessions(cc, cli, tmp):
     return launches
 
 
+def ablate_build_times(tc, prec, cases, launches):
+    """Each ablate build with no stage removed ('concat') at fft 2048 (Kernel
+    A) and 32768 (Kernel C, (256, 128)) on u8 planes at ``prec``: ms, its
+    plain version's ms (in chunks), its bound; ``cases`` (kernel, fft, T),
+    ``launches`` each build's launches over the scripts."""
+    from kspecanal_tpu_torch.utils.profiling import cuda_ms
+    out = {}
+    for kernel, fft, t in cases:
+        acfg = class_cfg(cfg_of(fft), prec)
+        gen_ = torch.Generator(device="cuda").manual_seed(5)
+        are, aim = noise(acfg, t, True, gen_)
+        split = (fft // 128, 128)
+        step = max(1, TC_PLAIN_FRAME_BYTES // (acfg.num_windows * fft * 8))
+
+        def build_call(are=are, aim=aim, acfg=acfg, kernel=kernel,
+                       split=split):
+            if kernel == "A":
+                return tc.curscan_tc(are, aim, acfg, ablate=("concat",))
+            return tc.curscan_tc_split(are, aim, acfg, split=split,
+                                       ablate=("concat",))
+        ams = cuda_ms(build_call)
+        aplain = cuda_ms(lambda: [tc.curscan_tc_split_plain(
+            are[i:i + step], aim[i:i + step], acfg, None, split,
+            ("concat",)) for i in range(0, t, step)], warm=1, reps=3)
+        abms, aby, _ = tc_bound(acfg, t, True, split)
+        print(f"  Kernel {kernel}'s {prec} ablate build, no stage removed, "
+              f"fft {fft} u8 T={t}: {ams:.3f} ms, plain version "
+              f"{aplain:.3f} ms, bound {abms:.4f} ms ({aby}), share "
+              f"{abms / ams:.3f}")
+        out[kernel] = {"launches": launches[kernel], "ms": ams,
+                       "plain_ms": aplain, "bound_ms": abms,
+                       "bound_by": aby}
+        del are, aim
+    return out
+
+
 def phase_forensics(cc):
-    """The forensics scripts on the card.  Returns the launches of the
-    forensic kernel and of the direct kernel (the scripts' base) over them,
-    K4 'full' and its plain version's ms at fft 2048 T=4096, and the
-    bound there."""
+    """The forensics scripts on the card.  Returns the launches of K4's
+    HIGHEST builds and of the direct kernel (the HIGHEST table's yardstick)
+    over them, K4 HIGHEST 'full' and its plain version's ms at fft 2048
+    T=4096 with the bound there, the DEFAULT form's row, and the ablate
+    builds' rows at DEFAULT and HIGHEST."""
     from kspecanal_tpu_torch.scripts import kernel_ablate, roofline_r2, \
         session_ablate
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
     from kspecanal_tpu_torch.ops import cuda_tc as tc
     print("== forensics scripts")
-    cc.forensic_launches = cc.direct_launches = 0
+    cc.direct_launches = tc.tc_stage_launches = 0
+    tc.tc_ablate_launches = tc.tc_split_ablate_launches = 0
     rows = roofline_r2.main(["--precision", "HIGHEST", "4096"])
     roofline_r2.main(["--precision", "HIGHEST", "--fft", "16384", "288"])
-    roofline_r2.main(["--precision", "HIGHEST", "--fft", "16384",
-                      "--f32-sums", "288"])
+    launches, direct = tc.tc_stage_launches, cc.direct_launches
     kernel_ablate.main(["2048", "HIGHEST", "u8"])
     kernel_ablate.main(["2048", "HIGHEST", "f32"])
-    launches, direct = cc.forensic_launches, cc.direct_launches
+    h_launches = {"A": tc.tc_ablate_launches}
+    kernel_ablate.main(["32768", "HIGHEST", "u8", "64", "128"])
+    h_launches["C"] = tc.tc_split_ablate_launches
     session_ablate.main(["4096"])
     cfg = roofline_r2.stage_cfg(2048)
+    step = max(1, TC_PLAIN_FRAME_BYTES // (cfg.num_windows * 2048 * 8))
     gen = torch.Generator(device="cuda").manual_seed(4)
     re_, im_ = noise(cfg, 4096, False, gen)
-    plain = cuda_ms(lambda: cc.curscan_stage_plain(re_, im_, cfg, "full"))
-    bms, by = bound(cfg, 4096, False)
-    print(f"  K4 'full' plain version, T=4096: {plain:.3f} ms (kernel "
-          f"{rows[4096]['full']:.3f} ms, bound {bms:.4f} ms, {by}); launches "
-          f"over the scripts: forensic {launches}, direct {direct}")
+    plain = cuda_ms(lambda: [tc.curscan_tc_stage_plain(
+        re_[i:i + step], im_[i:i + step], cfg, "full")
+        for i in range(0, 4096, step)], warm=1, reps=3)
+    bms, by, _ = tc_bound(cfg, 4096, False)
+    print(f"  K4 HIGHEST 'full' (Kernel A's HIGHEST build) "
+          f"{rows[4096]['full']:.3f} ms, plain version {plain:.3f} ms in "
+          f"{-(-4096 // step)} calls, bound {bms:.4f} ms ({by}), share "
+          f"{bms / rows[4096]['full']:.3f}; launches over the scripts: K4's "
+          f"HIGHEST builds {launches}, the direct kernel {direct}, Kernel "
+          f"A's HIGHEST ablate build {h_launches['A']}, Kernel C's "
+          f"{h_launches['C']}")
+    check(h_launches["A"] > 0 and h_launches["C"] > 0,
+          "kernel_ablate at HIGHEST ran the HIGHEST ablate builds")
+    highest = ablate_build_times(tc, "HIGHEST", (("A", 2048, 4096),
+                                                 ("C", 32768, 64)),
+                                 h_launches)
     # K4's class form: the JAX script's own table, DEFAULT at T=4096.
     tc.tc_stage_launches = 0
     crows = roofline_r2.main(["--precision", "DEFAULT", "4096"])
     class_launches = tc.tc_stage_launches
     ccfg = roofline_r2.stage_cfg(2048, "DEFAULT")
-    step = max(1, TC_PLAIN_FRAME_BYTES // (ccfg.num_windows * 2048 * 8))
     cplain = cuda_ms(lambda: [tc.curscan_tc_stage_plain(
         re_[i:i + step], im_[i:i + step], ccfg, "full")
         for i in range(0, 4096, step)], warm=1, reps=3)
@@ -1295,50 +1420,27 @@ def phase_forensics(cc):
     # K1's ablate keys at the classes: the JAX script's own cell (DEFAULT
     # u8) and HIGH f32 on Kernel A, and Kernel C above fft 16384.
     tc.tc_ablate_launches = tc.tc_split_ablate_launches = 0
-    forensic0 = cc.forensic_launches
+    fft0 = cc.launches
     kernel_ablate.main(["2048", "DEFAULT", "u8"])
     kernel_ablate.main(["2048", "HIGH", "f32"])
     a_launches = tc.tc_ablate_launches
     kernel_ablate.main(["32768", "DEFAULT", "u8", "64", "128"])
     c_launches = tc.tc_split_ablate_launches
     print(f"  kernel_ablate at HIGH/DEFAULT: Kernel A's ablate build "
-          f"launched {a_launches} times, Kernel C's {c_launches}, the "
-          f"direct kernel's forensic instantiation "
-          f"{cc.forensic_launches - forensic0}")
-    check(a_launches > 0 and c_launches > 0
-          and cc.forensic_launches == forensic0,
+          f"launched {a_launches} times, Kernel C's {c_launches}, the FFT "
+          f"kernel {cc.launches - fft0}")
+    check(a_launches > 0 and c_launches > 0 and cc.launches == fft0,
           "kernel_ablate at HIGH/DEFAULT ran the class kernels' ablate "
-          "builds and never the direct kernel")
-    ablate = {}
-    for kernel, fft, t, u8, launched in (("A", 2048, 4096, True, a_launches),
-                                         ("C", 32768, 64, True, c_launches)):
-        acfg = class_cfg(cfg_of(fft), "DEFAULT")
-        gen_ = torch.Generator(device="cuda").manual_seed(5)
-        are, aim = noise(acfg, t, u8, gen_)
-        split = (fft // 128, 128)
-        step = max(1, TC_PLAIN_FRAME_BYTES // (acfg.num_windows * fft * 8))
-
-        def build_call(are=are, aim=aim, acfg=acfg, kernel=kernel,
-                       split=split):
-            if kernel == "A":
-                return tc.curscan_tc(are, aim, acfg, ablate=("concat",))
-            return tc.curscan_tc_split(are, aim, acfg, split=split,
-                                       ablate=("concat",))
-        ams = cuda_ms(build_call)
-        aplain = cuda_ms(lambda: [tc.curscan_tc_split_plain(
-            are[i:i + step], aim[i:i + step], acfg, None, split,
-            ("concat",)) for i in range(0, t, step)], warm=1, reps=3)
-        abms, aby, _ = tc_bound(acfg, t, u8, split)
-        print(f"  Kernel {kernel}'s ablate build, no stage removed, fft {fft} "
-              f"DEFAULT u8 T={t}: {ams:.3f} ms, plain version {aplain:.3f} "
-              f"ms, bound {abms:.4f} ms ({aby})")
-        ablate[kernel] = {"launches": launched, "ms": ams,
-                          "plain_ms": aplain, "bound_ms": abms,
-                          "bound_by": aby}
-        del are, aim
-    return (launches, direct, rows[4096]["full"], plain, bms, by,
+          "builds and never the FFT kernel")
+    ablate = ablate_build_times(tc, "DEFAULT", (("A", 2048, 4096),
+                                                ("C", 32768, 64)),
+                                {"A": a_launches, "C": c_launches})
+    return (launches, direct, {"launches": launches,
+                               "ms": rows[4096]["full"], "plain_ms": plain,
+                               "bound_ms": bms, "bound_by": by},
             {"launches": class_launches, "ms": crows[4096]["full"],
-             "plain_ms": cplain, "bound_ms": cbms, "bound_by": cby}, ablate)
+             "plain_ms": cplain, "bound_ms": cbms, "bound_by": cby},
+            ablate, highest)
 
 
 def phase_k4_class(cc, gen):
@@ -2195,16 +2297,21 @@ def main():
 
     t0 = time.perf_counter()
     from kspecanal_tpu_torch.ops import cuda_tc
-    # the library, Kernel A's five K4 cut-offs, Kernel C's four and the two
-    # ablate builds, every source at once
+    # the library, Kernel A's five K4 cut-offs, Kernel C's four, the two
+    # ablate builds and the HIGHEST forensic builds, every source at once
     variants = (cuda_tc.stage_variants() + cuda_tc.tc_split_stage_variants()
-                + cuda_tc.ablate_variants())
+                + cuda_tc.ablate_variants() + cuda_tc.highest_variants())
     _build.build(variants)
     _build.load()
+    forensic = max((v for so, v in _build.build_job_seconds.items()
+                    if so != _build.library_path()), default=0.0)
     print(f"== build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s) -> {_build.library_path()} "
           f"and {len(variants)} forensic libraries (cut-offs, ablate "
-          f"builds)")
+          f"builds, HIGHEST builds); the library's compiles took "
+          f"{_build.build_job_seconds.get(_build.library_path(), 0.0):.1f} "
+          f"s, the "
+          f"forensic builds' {forensic:.1f} s (all started together)")
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
             print(f"  {ln.strip()}")
@@ -2230,22 +2337,21 @@ def main():
     t0 = phase_done("timing", t0)
     phase_device_sources(gen)
     t0 = phase_done("device sources", t0)
-    k4_err = phase_k4(cc, gen)
-    t0 = phase_done("K4 vs plain", t0)
+    highest_errs = phase_highest(cc, gen)
+    t0 = phase_done("K4 and ablate keys at HIGHEST vs plain", t0)
     k4_class_err = phase_k4_class(cc, gen)
     t0 = phase_done("K4 at HIGH/DEFAULT vs plain", t0)
-    phase_ablate(cc, gen)
     ablate_errs = phase_ablate_class(cc, gen)
     t0 = phase_done("ablate variants vs plain", t0)
     with tempfile.TemporaryDirectory() as tmp:
         launches["2048"] += phase_device_sessions(cc, cli, tmp)
     t0 = phase_done("forensics sessions", t0)
-    (k4_launches, direct_launches, k4_ms, k4_plain_ms, k4_bound, k4_by,
-     k4_class, ablate_class) = phase_forensics(cc)
+    (k4_launches, direct_launches, k4_highest, k4_class, ablate_class,
+     ablate_highest) = phase_forensics(cc)
     check(k4_launches > 0 and direct_launches > 0
           and k4_class["launches"] > 0,
-          "the forensics scripts launched K4 (both forms) and the direct "
-          "kernel")
+          "the forensics scripts launched K4 (HIGHEST and DEFAULT) and the "
+          "direct kernel")
     t0 = phase_done("forensics scripts", t0)
     with tempfile.TemporaryDirectory() as tmp:
         cc.launches = cp.launches = 0
@@ -2319,9 +2425,9 @@ def main():
         {"name": "curscan_sublane", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu",
          "replaces": sublane_423,
-         "config": "the direct DFT, no session's kernel: the forensics "
-                   "scripts' base (launches over them) and K1's yardstick, "
-                   "timed at zero-span fft 1280 kaiser 50%, T=4096",
+         "config": "the direct DFT, no session's kernel: K1's yardstick "
+                   "(launches over the HIGHEST roofline tables), timed at "
+                   "zero-span fft 1280 kaiser 50%, T=4096",
          "launches": direct_launches, "max_abs_err": k1_errs["direct"],
          **timed("zero-span fft 1280 kaiser 50%", direct=True)},
         {"name": "curscan_packed", "route": "cuda",
@@ -2330,16 +2436,40 @@ def main():
          "config": "quickFullScan fft 64 ones 90%, T=1226*16",
          "launches": scan_launches["qfs"], "max_abs_err": scan_errs["packed"],
          **timed("quickFullScan fft 64 ones 90%")},
-        {"name": "curscan_sublane_forensic", "route": "cuda",
-         "source": "kspecanal_tpu_torch/csrc/curscan_sublane.cu",
+        {"name": "curscan_tc_stage_highest", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_tc.cuh",
          "replaces": "scripts/roofline_r2.py:43",
-         "config": "K4 stage ablation, fft 2048 kaiser 50% AVG f32: error "
-                   "the worst of six stages at T=256, times the 'full' "
-                   "stage at T=4096; launches over the roofline and "
-                   "kernel-ablation scripts",
-         "launches": k4_launches, "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-         "bound_by": k4_by, "library_ms": None},
+         "config": "K4 at HIGHEST: Kernel A's six-pass forensic builds "
+                   "(-DKSPEC_TC_HIGHEST=1, cut off with -DKSPEC_TC_STOP), "
+                   "fft 2048 kaiser 50% AVG f32: error the worst of six "
+                   "stages at T=256, times the 'full' stage at T=4096; "
+                   "launches over roofline_r2 --precision HIGHEST",
+         "max_abs_err": highest_errs["k4"], **k4_highest,
+         "library_ms": None},
+        {"name": "curscan_tc_ablate_highest", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_tc.cuh",
+         "replaces": "kspecanal_tpu/ops/pallas_curscan.py:427",
+         "config": "K1's ablate keys at HIGHEST up to fft 16384: Kernel A's "
+                   "six-pass ablate build (-DKSPEC_TC_HIGHEST=1 "
+                   "-DKSPEC_TC_ABLATE=1); error the worst of the nine "
+                   "variants with a key at fft 2048 kaiser 50% (u8 and f32, "
+                   "T=256; unnormalised as below); times with no stage "
+                   "removed on u8, T=4096; launches over kernel_ablate 2048 "
+                   "HIGHEST u8 and f32",
+         "max_abs_err": highest_errs["A"], **ablate_highest["A"],
+         "library_ms": None},
+        {"name": "curscan_tc_split_ablate_highest", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_tc_split.cuh",
+         "replaces": "kspecanal_tpu/ops/pallas_curscan.py:427",
+         "config": "K1's ablate keys at HIGHEST above fft 16384: Kernel C's "
+                   "six-pass ablate build (-DKSPEC_TC_HIGHEST=1 "
+                   "-DKSPEC_TCS_ABLATE=1) on (fft/128, 128); error the worst "
+                   "of the nine variants with a key at fft 32768 kaiser 50% "
+                   "(f32 and u8, T=16); times with no stage removed on u8, "
+                   "T=64; launches over kernel_ablate 32768 HIGHEST u8 "
+                   "(T=64/128)",
+         "max_abs_err": highest_errs["C"], **ablate_highest["C"],
+         "library_ms": None},
         {"name": "curscan_tc_stage", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_tc.cuh",
          "replaces": "scripts/roofline_r2.py:43",

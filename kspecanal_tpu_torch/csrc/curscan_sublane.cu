@@ -5,8 +5,11 @@
 // sublane-layout curscan kernel of the JAX package, entry
 // curscan_fused_sublane) at the ffts that are multiples of 128 but not
 // powers of two, up to 16384; the powers of two run the FFT kernel
-// curscan_fft.cu.  It computes the TPU kernels' own two-stage DFT, which is
-// why K4 (the forensic instantiation below) is built on it.
+// curscan_fft.cu.  It computes the TPU kernels' own two-stage DFT.  No
+// session runs it: it is the FFT kernel's yardstick
+// (ops/cuda_curscan.curscan_sublane_direct).  K4 and K1's ablate keys at
+// HIGHEST run the six-pass forensic builds of the tensor-core kernels
+// (curscan_tc.cuh, curscan_tc_split.cuh).
 //
 // What it computes, per IQ block b:
 //   for every window start s = starts[w] (any static offset, aligned or not):
@@ -63,29 +66,6 @@
 // the largest fft_size this kernel takes
 // (ops/cuda_curscan.DIRECT_MAX_FFT_SIZE).
 //
-// Forensic instantiation (FORENSIC = true; profiling only, never on a
-// session's path).  Replaces scripts/roofline_r2.py::_kernel_ablate (the
-// stage-ablation Pallas kernel) and the `ablate` keys of _kernel_sublane
-// (kspecanal_tpu/ops/pallas_curscan.py, used by scripts/kernel_ablate.py).
-// Two warp-uniform runtime arguments cut the production math:
-//   stop    STOP_READ   sum the n1-row slabs of the block, x.re + x.im
-//           STOP_FRAME  fold the windowed frame a[m1][m2]
-//           STOP_S1     fold stage 1's B[k1][m2]
-//           STOP_S1TW   fold the twiddled C[k1][m2]
-//           STOP_S2     fold stage 2's D[k1][k2]
-//           STOP_FULL   the production fold of |D|
-//           Below FULL the fold is acc += weights[w] * (x.re + x.im), the
-//           AVG weights carrying winAdj*2/N, as the Pallas script reduces
-//           each stage so that nothing is dead code.
-//   ablate  bit mask removing one stage each (AB_*): window, stage 1,
-//           twiddle, stage 2 (each passes its input through), sqrt (fold
-//           |D|^2), cumulate (a plain sum of the magnitudes).
-// raw_out writes the (T, n1, 128) layout of the Pallas script, out[b][k1][c]
-// with c = m2 or k2, unshifted; otherwise the production layout.  With
-// stop = STOP_FULL and no ablate bit the forensic kernel computes exactly the
-// production kernel's sequence of operations.  FORENSIC = false compiles
-// none of this: its branches are `if constexpr`.
-
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -98,11 +78,6 @@ constexpr int MAX_GROUPS = 4;  // 128-thread row groups per block (<= 512 thread
 constexpr int F32_MAX_N1 = 64; // float32 stage sums up to n1 = 64 (fft 8192)
 
 enum Fold { FOLD_SUM = 0, FOLD_MAX = 1, FOLD_MIN = 2 };
-enum Stop { STOP_READ = 0, STOP_FRAME, STOP_S1, STOP_S1TW, STOP_S2, STOP_FULL };
-enum Ablate {
-  AB_WIN = 1, AB_STAGE1 = 2, AB_TWIDDLE = 4, AB_STAGE2 = 8, AB_SQRT = 16,
-  AB_CUMULATE = 32
-};
 
 template <typename A> struct Vec2;
 template <> struct Vec2<float> { using type = float2; };
@@ -139,13 +114,7 @@ __device__ __forceinline__ V cmul(V x, V f) {
   return r;
 }
 
-// Forensic fold of a stage's product: acc += w * (x.re + x.im).
-template <typename V>
-__device__ __forceinline__ float stage_fold(float acc, float w, V x) {
-  return acc + w * static_cast<float>(x.x + x.y);
-}
-
-template <typename T, typename A, bool FORENSIC>
+template <typename T, typename A>
 __global__ void __launch_bounds__(N2 * MAX_GROUPS)
 curscan_sublane_kernel(const T* __restrict__ re, const T* __restrict__ im,
                        float* __restrict__ out,
@@ -153,8 +122,7 @@ curscan_sublane_kernel(const T* __restrict__ re, const T* __restrict__ im,
                        const float* __restrict__ weights,
                        const float* __restrict__ window,
                        const float2* __restrict__ roots,
-                       int full_size, int n, int n_windows, int fold,
-                       int stop, int ablate, int raw_out) {
+                       int full_size, int n, int n_windows, int fold) {
   using A2 = typename Vec2<A>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n1 = n / N2;
@@ -178,36 +146,9 @@ curscan_sublane_kernel(const T* __restrict__ re, const T* __restrict__ im,
   const T* xr = re + base;
   const T* xi = im + base;
 
-  if constexpr (FORENSIC) {
-    if (stop == STOP_READ) {
-      // Every sample once: the block's full_size / n slabs of n1 rows,
-      // summed in order as (acc + re) + im.
-      float* o = out + static_cast<size_t>(blockIdx.x) * n;
-      const int slabs = full_size / n;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int k1 = row0 + grp + r * ngrp;
-        if (k1 < n1) {
-          float s = 0.0f;
-          for (int j = 0; j < slabs; ++j) {
-            const int i = (j * n1 + k1) * N2 + col;
-            s = s + sample(xr, i);
-            s = s + sample(xi, i);
-          }
-          o[k1 * N2 + col] = s;
-        }
-      }
-      return;
-    }
-  }
-
   float acc[ROWS];
-  float init = fold == FOLD_MAX ? -CUDART_INF_F
-             : fold == FOLD_MIN ? CUDART_INF_F : 0.0f;
-  if constexpr (FORENSIC) {
-    // Stage cut-offs and 'cumulate' sum, whatever the fold.
-    if (stop != STOP_FULL || (ablate & AB_CUMULATE)) init = 0.0f;
-  }
+  const float init = fold == FOLD_MAX ? -CUDART_INF_F
+                   : fold == FOLD_MIN ? CUDART_INF_F : 0.0f;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = init;
 
@@ -218,151 +159,64 @@ curscan_sublane_kernel(const T* __restrict__ re, const T* __restrict__ im,
     // Load + decode + window.  a[] was last read in the previous window's
     // stage 1, which every thread finished before that window's 2nd barrier.
     for (int m = tid; m < n; m += nthreads) {
-      float g;
-      if constexpr (FORENSIC)
-        g = (ablate & AB_WIN) ? 1.0f : __ldg(window + m);
-      else
-        g = __ldg(window + m);
+      const float g = __ldg(window + m);
       a[m] = make_float2(sample(xr, s + m) * g, sample(xi, s + m) * g);
     }
     __syncthreads();
 
-    if constexpr (FORENSIC) {
-      if (stop == STOP_FRAME) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const int k1 = row0 + grp + r * ngrp;
-          if (k1 < n1) acc[r] = stage_fold(acc[r], wt, a[k1 * N2 + col]);
-        }
-        __syncthreads();   // the next window's load rewrites a[]
-        continue;
-      }
-    }
-
     // Stage 1 (length-n1 DFT down each of the 128 columns, own rows only)
     // + twiddle.
     A2 b[ROWS];
-    bool skip_stage1 = false;
-    if constexpr (FORENSIC) skip_stage1 = ablate & AB_STAGE1;
-    if (skip_stage1) {
+    int e[ROWS];   // (m1 * k1) mod n1, stepped without an integer division
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      b[r].x = 0;
+      b[r].y = 0;
+      e[r] = 0;
+    }
+    for (int m1 = 0; m1 < n1; ++m1) {
+      const A2 x = widen<A2>(a[m1 * N2 + col]);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const int k1 = row0 + grp + r * ngrp;
-        b[r] = widen<A2>(a[(k1 < n1 ? k1 : 0) * N2 + col]);
-      }
-    } else {
-      int e[ROWS];   // (m1 * k1) mod n1, stepped without an integer division
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        b[r].x = 0;
-        b[r].y = 0;
-        e[r] = 0;
-      }
-      for (int m1 = 0; m1 < n1; ++m1) {
-        const A2 x = widen<A2>(a[m1 * N2 + col]);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const int k1 = row0 + grp + r * ngrp;
-          if (k1 < n1) {
-            cmac(b[r], x, w1[e[r]]);
-            e[r] += k1;
-            if (e[r] >= n1) e[r] -= n1;
-          }
+        if (k1 < n1) {
+          cmac(b[r], x, w1[e[r]]);
+          e[r] += k1;
+          if (e[r] >= n1) e[r] -= n1;
         }
-      }
-    }
-    if constexpr (FORENSIC) {
-      if (stop == STOP_S1 || stop == STOP_S1TW) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const int k1 = row0 + grp + r * ngrp;
-          if (k1 < n1) {
-            A2 v = b[r];
-            if (stop == STOP_S1TW && !(ablate & AB_TWIDDLE))
-              v = cmul(v, widen<A2>(__ldg(roots + (col * k1) % n)));
-            acc[r] = stage_fold(acc[r], wt, v);
-          }
-        }
-        __syncthreads();   // the next window's load rewrites a[]
-        continue;
       }
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int lr = grp + r * ngrp;
       const int k1 = row0 + lr;
-      if (k1 < n1) {
-        if constexpr (FORENSIC) {
-          c[lr * N2 + col] =
-              (ablate & AB_TWIDDLE)
-                  ? b[r]
-                  : cmul(b[r], widen<A2>(__ldg(roots + (col * k1) % n)));
-        } else {
-          c[lr * N2 + col] =
-              cmul(b[r], widen<A2>(__ldg(roots + (col * k1) % n)));
-        }
-      }
+      if (k1 < n1)
+        c[lr * N2 + col] =
+            cmul(b[r], widen<A2>(__ldg(roots + (col * k1) % n)));
     }
     __syncthreads();
 
     // Stage 2 (length-128 DFT along each own row), |.|, fold.
     A2 d[ROWS];
-    bool skip_stage2 = false;
-    if constexpr (FORENSIC) skip_stage2 = ablate & AB_STAGE2;
-    if (skip_stage2) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      d[r].x = 0;
+      d[r].y = 0;
+    }
+    for (int m2 = 0; m2 < N2; ++m2) {
+      const A2 f = w_128[(m2 * col) & (N2 - 1)];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const int lr = grp + r * ngrp;
-        d[r] = c[(row0 + lr < n1 ? lr : 0) * N2 + col];
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        d[r].x = 0;
-        d[r].y = 0;
-      }
-      for (int m2 = 0; m2 < N2; ++m2) {
-        const A2 f = w_128[(m2 * col) & (N2 - 1)];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const int lr = grp + r * ngrp;
-          if (row0 + lr < n1) cmac(d[r], c[lr * N2 + m2], f);
-        }
-      }
-    }
-    if constexpr (FORENSIC) {
-      if (stop == STOP_S2) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = stage_fold(acc[r], wt, d[r]);
-        continue;
+        if (row0 + lr < n1) cmac(d[r], c[lr * N2 + m2], f);
       }
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      bool forensic_fold = false;
-      if constexpr (FORENSIC) forensic_fold = ablate & (AB_SQRT | AB_CUMULATE);
-      if (forensic_fold) {
-        // Rounded intrinsics: this branch shares no add with the one below,
-        // which the compiler could otherwise merge, losing its fused
-        // multiply-add.
-        const A sq = d[r].x * d[r].x + d[r].y * d[r].y;
-        const float m = (ablate & AB_SQRT) ? static_cast<float>(sq)
-                                           : static_cast<float>(sqrt(sq));
-        if (ablate & AB_CUMULATE) {
-          acc[r] = __fadd_rn(acc[r], m);
-        } else {
-          const float mag = __fmul_rn(wt, m);
-          acc[r] = fold == FOLD_SUM ? __fadd_rn(acc[r], mag)
-                 : fold == FOLD_MAX ? fmaxf(acc[r], mag) : fminf(acc[r], mag);
-        }
-      } else {
-        // The production fold, the same source in both instantiations so
-        // that both contract it into the same fused multiply-adds.
-        const float mag =
-            wt * static_cast<float>(sqrt(d[r].x * d[r].x + d[r].y * d[r].y));
-        acc[r] = fold == FOLD_SUM ? acc[r] + mag
-               : fold == FOLD_MAX ? fmaxf(acc[r], mag) : fminf(acc[r], mag);
-      }
+      const float mag =
+          wt * static_cast<float>(sqrt(d[r].x * d[r].x + d[r].y * d[r].y));
+      acc[r] = fold == FOLD_SUM ? acc[r] + mag
+             : fold == FOLD_MAX ? fmaxf(acc[r], mag) : fminf(acc[r], mag);
     }
   }
 
@@ -370,20 +224,15 @@ curscan_sublane_kernel(const T* __restrict__ re, const T* __restrict__ im,
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int k1 = row0 + grp + r * ngrp;
-    if (k1 < n1) {
-      if (FORENSIC && raw_out)
-        o[k1 * N2 + col] = acc[r];
-      else
-        o[(k1 + n1 * col + n / 2) % n] = acc[r];
-    }
+    if (k1 < n1) o[(k1 + n1 * col + n / 2) % n] = acc[r];
   }
 }
 
-template <typename T, typename A, bool FORENSIC>
+template <typename T, typename A>
 int launch(const void* re, const void* im, void* out, const void* starts,
            const void* weights, const void* window, const void* roots,
-           int t, int full_size, int n, int n_windows, int fold, int stop,
-           int ablate, int raw_out, cudaStream_t stream) {
+           int t, int full_size, int n, int n_windows, int fold,
+           cudaStream_t stream) {
   const int n1 = n / N2;
   int groups = (n1 + ROWS - 1) / ROWS;
   if (groups > MAX_GROUPS) groups = MAX_GROUPS;
@@ -392,32 +241,28 @@ int launch(const void* re, const void* im, void* out, const void* starts,
   const size_t smem = static_cast<size_t>(n) * sizeof(float2) +
                       (rows * N2 + n1 + N2) * sizeof(typename Vec2<A>::type);
   cudaError_t err = cudaFuncSetAttribute(
-      curscan_sublane_kernel<T, A, FORENSIC>,
+      curscan_sublane_kernel<T, A>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  curscan_sublane_kernel<T, A, FORENSIC><<<grid, N2 * groups, smem, stream>>>(
+  curscan_sublane_kernel<T, A><<<grid, N2 * groups, smem, stream>>>(
       static_cast<const T*>(re), static_cast<const T*>(im),
       static_cast<float*>(out), static_cast<const int*>(starts),
       static_cast<const float*>(weights), static_cast<const float*>(window),
-      static_cast<const float2*>(roots), full_size, n, n_windows, fold, stop,
-      ablate, raw_out);
+      static_cast<const float2*>(roots), full_size, n, n_windows, fold);
   return static_cast<int>(cudaGetLastError());
 }
 
-// float64 stage sums above fft 8192 (see "Accuracy" above), unless the
-// forensic caller asks for float32 sums to measure what float64 costs.
-template <typename T, bool FORENSIC>
+// float64 stage sums above fft 8192 (see "Accuracy" above).
+template <typename T>
 int launch_acc(const void* re, const void* im, void* out, const void* starts,
                const void* weights, const void* window, const void* roots,
-               int t, int full_size, int n, int n_windows, int fold, int stop,
-               int ablate, int raw_out, int f32_sums, cudaStream_t stream) {
-  if (n / N2 > F32_MAX_N1 && !f32_sums)
-    return launch<T, double, FORENSIC>(re, im, out, starts, weights, window,
-                                       roots, t, full_size, n, n_windows,
-                                       fold, stop, ablate, raw_out, stream);
-  return launch<T, float, FORENSIC>(re, im, out, starts, weights, window,
-                                    roots, t, full_size, n, n_windows, fold,
-                                    stop, ablate, raw_out, stream);
+               int t, int full_size, int n, int n_windows, int fold,
+               cudaStream_t stream) {
+  if (n / N2 > F32_MAX_N1)
+    return launch<T, double>(re, im, out, starts, weights, window, roots, t,
+                             full_size, n, n_windows, fold, stream);
+  return launch<T, float>(re, im, out, starts, weights, window, roots, t,
+                          full_size, n, n_windows, fold, stream);
 }
 
 }  // namespace
@@ -434,30 +279,8 @@ extern "C" int kspec_curscan_sublane(const void* re, const void* im, int is_u8,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_u8)
-    return launch_acc<uint8_t, false>(re, im, out, starts, weights, window,
-                                      roots, t, full_size, n, n_windows, fold,
-                                      STOP_FULL, 0, 0, 0, s);
-  return launch_acc<float, false>(re, im, out, starts, weights, window, roots,
-                                  t, full_size, n, n_windows, fold, STOP_FULL,
-                                  0, 0, 0, s);
-}
-
-// The forensic instantiation (see the header): `stop` in 0..5 (read, frame,
-// s1, s1tw, s2, full), `ablate` a mask of AB_* bits, `raw_out` selects the
-// (t, n/128, 128) unshifted layout, `f32_sums` float32 stage sums at every
-// fft.  Same planes, tables, output size and return value as above.
-extern "C" int kspec_curscan_sublane_forensic(
-    const void* re, const void* im, int is_u8, void* out, const void* starts,
-    const void* weights, const void* window, const void* roots, int t,
-    int full_size, int n, int n_windows, int fold, int stop, int ablate,
-    int raw_out, int f32_sums, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stop < STOP_READ || stop > STOP_FULL) return cudaErrorInvalidValue;
-  if (is_u8)
-    return launch_acc<uint8_t, true>(re, im, out, starts, weights, window,
-                                     roots, t, full_size, n, n_windows, fold,
-                                     stop, ablate, raw_out, f32_sums, s);
-  return launch_acc<float, true>(re, im, out, starts, weights, window, roots,
-                                 t, full_size, n, n_windows, fold, stop,
-                                 ablate, raw_out, f32_sums, s);
+    return launch_acc<uint8_t>(re, im, out, starts, weights, window, roots,
+                               t, full_size, n, n_windows, fold, s);
+  return launch_acc<float>(re, im, out, starts, weights, window, roots, t,
+                           full_size, n, n_windows, fold, s);
 }

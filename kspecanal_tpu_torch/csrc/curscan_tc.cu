@@ -1,6 +1,7 @@
 // Tensor-core two-stage DFT curscan (Kernel A), DEFAULT instantiations and
 // the C entry point; the kernel is in curscan_tc.cuh, the HIGH
-// instantiations in curscan_tc_high.cu.
+// instantiations in curscan_tc_high.cu.  A -DKSPEC_TC_HIGHEST=1 build
+// (forensics) instantiates no DEFAULT kernel here and HIGHEST there.
 //
 // Replaces: kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane (:423) and
 // ::_kernel (:116) at tpuPrecision HIGH and DEFAULT (see curscan_tc.cuh).
@@ -15,13 +16,21 @@ int launch_default(int is_u8, int three_mult, const void* re, const void* im,
                    const void* f2, const void* tw, int t, int full, int n,
                    int n1, int n_windows, int groups, int fold, int wb,
                    cudaStream_t stream) {
-  return launch_class<false>(is_u8, three_mult, re, im, out, part, starts,
-                             weights, window, f1, f2, tw, t, full, n, n1,
-                             n_windows, groups, fold, wb, stream);
+#if KSPEC_TC_HIGHEST
+  return static_cast<int>(cudaErrorInvalidValue);
+#else
+  return launch_class<1>(is_u8, three_mult, re, im, out, part, starts,
+                         weights, window, f1, f2, tw, t, full, n, n1,
+                         n_windows, groups, fold, wb, stream);
+#endif
 }
 
 int occupancy_default(int is_u8, int three_mult, int n1, int wb) {
-  return occupancy_class<false>(is_u8, three_mult, n1, wb);
+#if KSPEC_TC_HIGHEST
+  return -1;
+#else
+  return occupancy_class<1>(is_u8, three_mult, n1, wb);
+#endif
 }
 
 // out[b][o] = the fold of part[b][0..G-1][o], in group order.
@@ -42,6 +51,12 @@ __global__ void combine_groups(const float* __restrict__ part,
 
 namespace {
 
+// Whether this build serves `precision` (0 DEFAULT, 1 HIGH, 2 HIGHEST): the
+// port's library DEFAULT and HIGH, a -DKSPEC_TC_HIGHEST=1 build HIGHEST.
+bool serves(int precision) {
+  return KSPEC_TC_HIGHEST ? precision == 2 : precision == 0 || precision == 1;
+}
+
 // kspec_curscan_tc's launches; the combine folds the groups by
 // `combine_fold` (`fold` may carry an ablate build's mask).
 int run(const void* re, const void* im, int is_u8, void* out, void* part,
@@ -49,7 +64,7 @@ int run(const void* re, const void* im, int is_u8, void* out, void* part,
         const void* f1, const void* f2, const void* tw, int t, int full,
         int n, int n1, int n_windows, int groups, int fold, int wb,
         int precision, int three_mult, int combine_fold, cudaStream_t s) {
-  if (groups < 1 || (groups > 1 && part == nullptr))
+  if (groups < 1 || (groups > 1 && part == nullptr) || !serves(precision))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto launch =
       precision ? kspec_tc::launch_high : kspec_tc::launch_default;
@@ -73,7 +88,8 @@ int run(const void* re, const void* im, int is_u8, void* out, void* part,
 // (n_windows,) float32 (the decay weights times winAdj*2/n; the scale alone
 // for MAX/MIN), window (n,) float32; f1, f2, tw the fragment-ordered tables
 // of ops/cuda_tc.tc_tables; wb the windows a pass (wb * n1 rounded up to
-// 16 at most 128); precision 0 DEFAULT, 1 HIGH; three_mult picks the 3M
+// 16 at most 128); precision 0 DEFAULT, 1 HIGH (the port's library), 2
+// HIGHEST (a -DKSPEC_TC_HIGHEST=1 build only); three_mult picks the 3M
 // complex form.  Returns the CUDA error code of the launches (0 on
 // success); the kernels run asynchronously on `stream`.
 extern "C" int kspec_curscan_tc(const void* re, const void* im, int is_u8,
@@ -114,17 +130,20 @@ extern "C" int kspec_curscan_tc_ablate(const void* re, const void* im,
 }
 
 // Kernel A's shared memory a block (bytes) for fft n1 * 128, wb windows a
-// pass, precision and form as kspec_curscan_tc takes them.
+// pass, precision (0-2, any build) and form as kspec_curscan_tc takes them.
 extern "C" long long kspec_curscan_tc_smem(int n1, int wb, int precision,
                                            int three_mult) {
+  if (precision < 0 || precision > 2) return -1;
   return static_cast<long long>(
-      kspec_tc::layout(n1, wb, precision != 0, three_mult != 0).total());
+      kspec_tc::layout(n1, wb, precision + 1, three_mult != 0).total());
 }
 
 // The blocks an SM holds of the instantiation kspec_curscan_tc launches for
-// these arguments (registers and shared memory), or -1.
+// these arguments (registers and shared memory), or -1 (also for a class
+// the build does not serve).
 extern "C" int kspec_curscan_tc_occupancy(int is_u8, int n1, int wb,
                                           int precision, int three_mult) {
+  if (!serves(precision)) return -1;
   return precision ? kspec_tc::occupancy_high(is_u8, three_mult, n1, wb)
                    : kspec_tc::occupancy_default(is_u8, three_mult, n1, wb);
 }

@@ -1,7 +1,11 @@
 // Tensor-core two-stage DFT curscan kernel (Kernel A) for NVIDIA Hopper
 // (sm_90a): the HIGH and DEFAULT precision classes of K1 and of K3's cell on
-// the 128 grid.  Device code, instantiated by curscan_tc.cu (DEFAULT, and the
-// C entry point) and curscan_tc_high.cu (HIGH): two nvcc runs in parallel.
+// the 128 grid, and in forensic builds the six-pass HIGHEST class (K4 and
+// K1's ablate keys at HIGHEST).  Device code, instantiated by curscan_tc.cu
+// (DEFAULT, and the C entry point) and curscan_tc_high.cu (HIGH, or HIGHEST
+// in a -DKSPEC_TC_HIGHEST=1 build): two nvcc runs in parallel.  The class is
+// the template argument S, the bf16 parts an operand: 1 DEFAULT, 2 HIGH, 3
+// HIGHEST.
 //
 // Replaces: kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane (:423, K1,
 // entry curscan_fused_sublane) and ::_kernel (:116, K3) at tpuPrecision HIGH
@@ -15,10 +19,13 @@
 //   acc[k1][k2] = fold(acc, weights[w] * |D[k1][k2]|)   float32, window order
 //   out[b][(k1 + n1 k2 + n/2) % n] = acc[k1][k2]
 // Every real product rounds its float32 operands to bf16 (to nearest even)
-// and sums in float32 on mma.sync m16n8k16: once at DEFAULT, and at HIGH as
+// and sums in float32 on mma.sync m16n8k16: once at DEFAULT, at HIGH as
 // the bf16x3 split a_hi b_hi + (a_hi b_lo + a_lo b_hi), the hi/lo halves of
-// B's operand C taken from its float32 value.  The complex products are 3M
-// (T1 = Fr Xr, T2 = Fi Xi, T3 = (Fr + Fi)(Xr + Xi); Re = T1 - T2,
+// B's operand C taken from its float32 value, and at HIGHEST (forensic
+// builds; JAX's HIGHEST inside its kernels, Mosaic's six bf16 passes) as
+// the three-part split hi + mid + lo, its six products whose orders sum to
+// at most 2 (curscan_tc_common.cuh, Acc::products6).  The complex products
+// are 3M (T1 = Fr Xr, T2 = Fi Xi, T3 = (Fr + Fi)(Xr + Xi); Re = T1 - T2,
 // Im = (T3 - T1) - T2, Xr + Xi added in float32 before its rounding) or 4M,
 // as the wrapper's gate says (ops/cuda_tc.three_mult).  The element-wise
 // steps use the _rn intrinsics, so no multiply-add is contracted and each
@@ -30,7 +37,8 @@
 //
 // What bounds it on the H100: operations at HIGH and where the window count
 // is high (4 products of 2 * n1 * 128 * (n1 + 128) flops a window at 4M,
-// times 3 at HIGH, at 989 TFLOP/s bf16), else the planes read once.
+// times 3 at HIGH and 6 at HIGHEST, at 989 TFLOP/s bf16), else the planes
+// read once.
 //
 // What the design does about it:
 //   * A thread block takes one IQ block and a group of its windows, 256
@@ -41,7 +49,8 @@
 //     frame element (float32 x * win, u8 decoded in the load; 4 samples a
 //     load where the start is a multiple of 4) as bf16 operand planes:
 //     re and im (and at 3M re + im, added in float32), each hi and at HIGH
-//     also lo, window i in rows i*n1p.. of every plane.  Stage 1 reads its
+//     also lo (HIGHEST: hi, mid, lo), window i in rows i*n1p.. of every
+//     plane.  Stage 1 reads its
 //     B fragments from them by ldmatrix.trans and writes C = B o T over the
 //     frame once, in the same planes and forms, each taken from C's
 //     float32 value.  Stage 2 reads its A fragments by ldmatrix: no float32
@@ -71,6 +80,11 @@
 //     copied once a block) where they fit.  At n1 = 128 DEFAULT 4M: 69,632
 //     + 69,632 + 65,536 bytes; at fft 2048 DEFAULT 4M 44,544, two blocks an
 //     SM (launch bounds: at most 128 registers up to n1p = 64).
+//   * HIGHEST (forensic builds) stages three parts a form: one block an SM
+//     (launch bounds: up to 255 registers; at fft 2048 two blocks' planes
+//     would not fit an SM), stage 1 by column strips, one output tile a
+//     warp; from n1p = 112 the fold lives in the output rows, the cut-offs'
+//     too (in K4's layout).  3M's nine planes fit up to n1p = 80.
 //   * n1 and K are padded to 16 with zero rows and columns of F1 (exact);
 //     padded rows of C are zero and never stored to the output.
 //   * Window groups: where T alone does not fill the card, G thread blocks
@@ -96,7 +110,8 @@
 //   1 read  every sample of the block read once: acc[r][c] = sum over the
 //           n-sample slabs j (of the block's window group's share) of
 //           re[j n + 128 r + c] + im[...], unweighted, float32;
-//   2 frame the staged frames as rounded (hi, plus lo at HIGH),
+//   2 frame the staged frames as rounded (hi, plus lo at HIGH; (hi + mid)
+//           + lo at HIGHEST),
 //   3 s1    B = F1 A in float32, before the twiddle,
 //   4 s1tw  C = B o T in float32 (written over the frame, as stage 1 does),
 //   5 s2    D = C F2^T in float32:
@@ -105,8 +120,11 @@
 // every element of the stage feeds the output, so no product can be
 // dropped.  A cut-off stores acc in K4's (n1, 128) layout, unshifted
 // (out[b][r * 128 + c]), and the combine kernel sums the groups' partials.
-// The cut-offs take the fold in shared memory (4M, AVG weights:
-// ops/cuda_tc.curscan_tc_stage).
+// The cut-offs take float32 planes, 4M and AVG weights (K4's and
+// scripts/tc_stages.py's form, ops/cuda_tc.curscan_tc_stage): a cut-off
+// build instantiates that alone.  Where the fold does not fit beside the
+// planes (HIGHEST from n1p = 112) each lane folds its elements in the output
+// (or partial) row, in K4's layout.
 #ifndef KSPEC_TC_STOP
 #define KSPEC_TC_STOP 0
 #endif
@@ -116,11 +134,12 @@
 // with -DKSPEC_TC_ABLATE=1, entry kspec_curscan_tc_ablate).  Replaces: the
 // `ablate` keys of kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane
 // (:427, :534-636; scripts/kernel_ablate.py) at tpuPrecision HIGH and
-// DEFAULT.  A run-time mask (curscan_tc_common.cuh, Ablate) removes stages:
+// DEFAULT, and with -DKSPEC_TC_HIGHEST=1 at HIGHEST.  A run-time mask
+// (curscan_tc_common.cuh, Ablate) removes stages:
 //   AB_WIN       the window: the frame is staged unwindowed (its load
 //                skipped), rounded as ever;
-//   AB_STAGE1    stage 1's products: B = the frame as staged (hi + lo at
-//                HIGH), read from the planes;
+//   AB_STAGE1    stage 1's products: B = the frame as staged (its parts
+//                summed, part_value), read from the planes;
 //   AB_TWIDDLE   the twiddle (and its loads): C = B;
 //   AB_STAGE2    stage 2's products: D = C as staged for stage 2;
 //   AB_SQRT      the square root: the fold takes |D|^2;
@@ -146,29 +165,41 @@ constexpr int NT = N2 / 8;       // 16 column strips / output column tiles
 constexpr int KC2 = N2 / 16;     // stage 2's 8 k-chunks
 constexpr size_t SMEM_LIMIT = 232448;   // a block's shared memory (H100)
 
-// The operand planes of a class and form: forms re, im (and at 3M re + im)
-// times halves hi (and at HIGH lo); plane q = form * H + half.
-template <bool HIGH, bool TM>
+// The operand planes of a class (S parts an operand) and form: forms re,
+// im (and at 3M re + im) times parts hi (and at HIGH lo; at HIGHEST mid,
+// lo); plane q = form * H + part.  The fragment arrays hold P2 parts and the
+// wrapper's tables P2 slots a matrix (slot P2 * form + part).
+template <int S, bool TM>
 struct Planes {
-  static constexpr int H = HIGH ? 2 : 1;
-  static constexpr int S = TM ? 3 : 2;
-  static constexpr int FH = S * H;
+  static constexpr bool HIGH = S == 2;
+  static constexpr int H = S;
+  static constexpr int P2 = parts(S);
+  static constexpr int F = TM ? 3 : 2;
+  static constexpr int FH = F * H;
   // Writes the operands of the pairs (r0, r1) and (i0, i1), adjacent
   // columns of one row, at word o (element 2 o) of every plane.
   static __device__ __forceinline__ void put(uint32_t* pl, int ps, int o,
                                              float r0, float r1, float i0,
                                              float i1) {
-    uint32_t hi, lo;
-    operand<HIGH>(r0, r1, hi, lo);
-    pl[o] = hi;
-    if (HIGH) pl[ps + o] = lo;
-    operand<HIGH>(i0, i1, hi, lo);
-    pl[H * ps + o] = hi;
-    if (HIGH) pl[(H + 1) * ps + o] = lo;
-    if (TM) {
-      operand<HIGH>(__fadd_rn(r0, i0), __fadd_rn(r1, i1), hi, lo);
-      pl[2 * H * ps + o] = hi;
-      if (HIGH) pl[(2 * H + 1) * ps + o] = lo;
+    if constexpr (S == 3) {
+      put_parts3(pl, ps, o, r0, r1);
+      put_parts3(pl + 3 * ps, ps, o, i0, i1);
+      if (TM)
+        put_parts3(pl + 6 * ps, ps, o, __fadd_rn(r0, i0),
+                   __fadd_rn(r1, i1));
+    } else {
+      uint32_t hi, lo;
+      operand<HIGH>(r0, r1, hi, lo);
+      pl[o] = hi;
+      if (HIGH) pl[ps + o] = lo;
+      operand<HIGH>(i0, i1, hi, lo);
+      pl[H * ps + o] = hi;
+      if (HIGH) pl[(H + 1) * ps + o] = lo;
+      if (TM) {
+        operand<HIGH>(__fadd_rn(r0, i0), __fadd_rn(r1, i1), hi, lo);
+        pl[2 * H * ps + o] = hi;
+        if (HIGH) pl[(2 * H + 1) * ps + o] = lo;
+      }
     }
   }
   // C's pairs of m-tile mt (its rows mt*16..) in column strip j, as
@@ -183,7 +214,7 @@ struct Planes {
   }
   // Stage 1's B fragments (16 rows x 8 columns) of every plane by
   // ldmatrix.trans; lane l's `addr` is row l % 16 of plane l / 16.
-  static __device__ __forceinline__ void b_frags(uint32_t (&x)[3][2][2],
+  static __device__ __forceinline__ void b_frags(uint32_t (&x)[3][P2][2],
                                                  uint32_t addr, int ps) {
 #pragma unroll
     for (int q = 0; q < FH; q += 2) {
@@ -200,22 +231,22 @@ struct Planes {
   }
   // Stage 2's A fragments (16 x 16) of every plane by ldmatrix; lane l's
   // `addr` is row l % 8 + 8 ((l / 8) % 2), column 8 (l / 16) of plane 0.
-  static __device__ __forceinline__ void a_frags(uint32_t (&c)[3][2][4],
+  static __device__ __forceinline__ void a_frags(uint32_t (&c)[3][P2][4],
                                                  uint32_t addr, int ps) {
 #pragma unroll
     for (int q = 0; q < FH; ++q) ldsm4(c[q / H][q % H], addr + 2u * q * ps);
   }
   // F1's A fragments, element i of each slot in use: from the wrapper's
-  // table (slot 2 f + h) or from its copy in shared memory (slot q).
-  static __device__ __forceinline__ void f1_frags(uint32_t (&f)[3][2][4],
+  // table (slot P2 f + h) or from its copy in shared memory (slot q).
+  static __device__ __forceinline__ void f1_frags(uint32_t (&f)[3][P2][4],
                                                   const uint4* f1, int f1n,
                                                   int i) {
 #pragma unroll
     for (int q = 0; q < FH; ++q)
-      set4(f[q / H][q % H], __ldg(f1 + (2 * (q / H) + q % H) * f1n + i));
+      set4(f[q / H][q % H], __ldg(f1 + (P2 * (q / H) + q % H) * f1n + i));
   }
   static __device__ __forceinline__ void f1_frags_smem(
-      uint32_t (&f)[3][2][4], const uint4* f1s, int f1n, int i) {
+      uint32_t (&f)[3][P2][4], const uint4* f1s, int f1n, int i) {
 #pragma unroll
     for (int q = 0; q < FH; ++q) set4(f[q / H][q % H], f1s[q * f1n + i]);
   }
@@ -224,10 +255,13 @@ struct Planes {
   }
 };
 
+
 // The blocks an SM is to hold of an instantiation with mt m-tiles a pass
 // (its launch bounds): two up to 4 (n1p <= 64; 128 registers a thread),
-// else one.
-constexpr int min_blocks(int mt) { return mt <= 4 ? 2 : 1; }
+// else one; one at HIGHEST (s = 3), whose planes take an SM's share.
+constexpr int min_blocks(int s, int mt) {
+  return s > 2 ? 1 : mt <= 4 ? 2 : 1;
+}
 
 // Bytes of each shared-memory region for (n1, wb, class, form), in this
 // order: the planes; the fold where it fits beside them (else it lives in
@@ -238,9 +272,10 @@ struct Layout {
   size_t planes, fold, f1;
   size_t total() const { return planes + fold + f1; }
 };
-inline Layout layout(int n1, int wb, bool high, bool tm) {
+// s: the class's parts an operand (1 DEFAULT, 2 HIGH, 3 HIGHEST).
+inline Layout layout(int n1, int wb, int s, bool tm) {
   const size_t n1p = (n1 + 15) & ~15, nmt = n1p / 16;
-  const size_t fh = (tm ? 3 : 2) * (high ? 2 : 1);
+  const size_t fh = static_cast<size_t>(tm ? 3 : 2) * s;
   Layout l;
   l.planes = fh * wb * n1p * RS * 2;
   l.fold = n1p * ROW * sizeof(float);
@@ -263,29 +298,24 @@ __device__ __forceinline__ void tw_load(float2 (&t)[4],
 }
 
 // C = B o T of those 4 elements: c[i] = Re, c[4 + i] = Im, in float32.
-template <bool HIGH, bool TM>
+template <int S, bool TM>
 __device__ __forceinline__ void twiddle(const Acc<TM>& a,
                                         const float2 (&t)[4],
                                         float (&c)[8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float br, bi;
-    a.template complex<HIGH>(i, br, bi);
+    a.template complex<(S > 1)>(i, br, bi);
     c[i] = __fsub_rn(__fmul_rn(br, t[i].x), __fmul_rn(bi, t[i].y));
     c[4 + i] = __fadd_rn(__fmul_rn(br, t[i].y), __fmul_rn(bi, t[i].x));
   }
 }
 
-// A bf16 operand's value.
-__device__ __forceinline__ float bf16_value(uint16_t x) {
-  return __uint_as_float(uint32_t(x) << 16);
-}
-
 // Cut-off read: slabs [j0, j1) of n samples from the block's planes, re +
-// im summed slab by slab into acc (n1 rows of ROW), 4 samples a load.
+// im summed slab by slab into acc (n1 rows of rs floats), 4 samples a load.
 template <typename T>
 __device__ __forceinline__ void fold_slabs(const T* pre, const T* pim,
-                                           float* acc, int n, int j0,
+                                           float* acc, int rs, int n, int j0,
                                            int j1) {
   for (int e = 4 * threadIdx.x; e < n; e += 4 * THREADS) {
     float a[4] = {0.f, 0.f, 0.f, 0.f};
@@ -297,32 +327,29 @@ __device__ __forceinline__ void fold_slabs(const T* pre, const T* pim,
       a[2] = __fadd_rn(__fadd_rn(a[2], r.z), i.z);
       a[3] = __fadd_rn(__fadd_rn(a[3], r.w), i.w);
     }
-    float* p = acc + (e >> 7) * ROW + (e & (N2 - 1));
+    float* p = acc + (e >> 7) * rs + (e & (N2 - 1));
 #pragma unroll
     for (int q = 0; q < 4; ++q) p[q] = a[q];
   }
 }
 
 // Cut-off frame: the nb windows staged in the planes (window k in rows
-// k n1p..), each element's value as rounded (hi, plus lo at HIGH), re + im
-// weighted and folded into acc in window order (window w + k; w0 first).
-template <bool HIGH>
+// k n1p..), each element's value as rounded (part_value), re + im weighted
+// and folded into acc (rows of rs floats) in window order (window w + k; w0
+// first).
+template <int S>
 __device__ __forceinline__ void fold_planes(const uint16_t* pl, int ps,
-                                            float* acc,
+                                            float* acc, int rs,
                                             const float* weights, int w,
                                             int nb, int w0, int n1,
                                             int n1p) {
-  constexpr int H = HIGH ? 2 : 1;
   for (int e = threadIdx.x; e < n1 * N2; e += THREADS) {
     const int r = e >> 7, c = e & (N2 - 1);
-    float* p = acc + r * ROW + c;
+    float* p = acc + r * rs + c;
     for (int k = 0; k < nb; ++k) {
       const int o = (k * n1p + r) * RS + c;
-      float xr = bf16_value(pl[o]), xi = bf16_value(pl[H * ps + o]);
-      if (HIGH) {
-        xr = __fadd_rn(xr, bf16_value(pl[ps + o]));
-        xi = __fadd_rn(xi, bf16_value(pl[(H + 1) * ps + o]));
-      }
+      const float xr = part_value<S>(pl, ps, o);
+      const float xi = part_value<S>(pl + S * ps, ps, o);
       const float v = __fmul_rn(weights[w + k], __fadd_rn(xr, xi));
       *p = w + k == w0 ? v : __fadd_rn(*p, v);
     }
@@ -331,14 +358,15 @@ __device__ __forceinline__ void fold_planes(const uint16_t* pl, int ps,
 
 // Cut-offs s1 and s1tw: the 4 elements a lane holds of m-tile ml (its
 // window's rows ml*16..), column strip j (re in v[i], im in v[4 + i], as
-// twiddle() leaves them), weighted re + im folded into acc.
-__device__ __forceinline__ void fold_tile(float* acc, int ml, int j,
+// twiddle() leaves them), weighted re + im folded into acc (rows of rs
+// floats).
+__device__ __forceinline__ void fold_tile(float* acc, int rs, int ml, int j,
                                           const float (&v)[8], float wgt,
                                           bool first) {
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float* p = acc + (ml * 16 + g8 + (i >> 1) * 8) * ROW + j * 8 + 2 * t4
+    float* p = acc + (ml * 16 + g8 + (i >> 1) * 8) * rs + j * 8 + 2 * t4
                + (i & 1);
     const float x = __fmul_rn(wgt, __fadd_rn(v[i], v[4 + i]));
     *p = first ? x : __fadd_rn(*p, x);
@@ -349,13 +377,13 @@ __device__ __forceinline__ void fold_tile(float* acc, int ml, int j,
 // mt (its stacked rows mt*16..), column strip j, as twiddle() lays them
 // out: B from stage 1's products, or (no_s1) the frame as staged in the
 // planes; C = B o T, or (no_tw) B.
-template <bool HIGH, bool TM>
+template <int S, bool TM>
 __device__ __forceinline__ void ablated_c(const Acc<TM>& a, bool no_s1,
                                           bool no_tw, const uint16_t* pl,
                                           int ps, int mt, int j,
                                           const float2 (&t)[4],
                                           float (&c)[8]) {
-  constexpr int H = HIGH ? 2 : 1;
+  constexpr int H = S;
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -363,10 +391,10 @@ __device__ __forceinline__ void ablated_c(const Acc<TM>& a, bool no_s1,
     if (no_s1) {
       const int o = (mt * 16 + g8 + (i >> 1) * 8) * RS + j * 8 + 2 * t4 +
                     (i & 1);
-      br = operand_value<HIGH>(pl, ps, o);
-      bi = operand_value<HIGH>(pl + H * ps, ps, o);
+      br = part_value<S>(pl, ps, o);
+      bi = part_value<S>(pl + H * ps, ps, o);
     } else {
-      a.template complex<HIGH>(i, br, bi);
+      a.template complex<(S > 1)>(i, br, bi);
     }
     if (no_tw) {
       c[i] = br;
@@ -380,10 +408,10 @@ __device__ __forceinline__ void ablated_c(const Acc<TM>& a, bool no_s1,
 
 // Stage 1's tile before the twiddle (cut-off s1): B's 4 elements as
 // twiddle() lays out C's.
-template <bool HIGH, bool TM>
+template <int S, bool TM>
 __device__ __forceinline__ void untwiddled(const Acc<TM>& a, float (&c)[8]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) a.template complex<HIGH>(i, c[i], c[4 + i]);
+  for (int i = 0; i < 4; ++i) a.template complex<(S > 1)>(i, c[i], c[4 + i]);
 }
 
 // Kernel A.  Grid: t * groups thread blocks; block (b, g) folds windows
@@ -391,13 +419,13 @@ __device__ __forceinline__ void untwiddled(const Acc<TM>& a, float (&c)[8]) {
 // stacked in the planes (window i of the pass in rows i*n1p..), so each
 // stage is one product over wb * n1p rows.  MT >= wb * n1p / 16 (a power of
 // two, at most 8) sizes stage 1's register buffer.  f1 holds F1's A
-// fragments [slot][mt][kc][lane] (uint4, slot = 2 * form + half), f2 F2^T's
-// B fragments [slot][kc][nt][lane] (uint2), tw the (n1p, 128) twiddles
+// fragments [slot][mt][kc][lane] (uint4, slot = P2 * form + part), f2
+// F2^T's B fragments [slot][kc][nt][lane] (uint2), tw the (n1p, 128) twiddles
 // (zero rows from n1).  fold_smem and f1_smem say which regions layout()
 // kept in shared memory.  The ablate build takes its mask in `fold`'s bits
 // from AB_SHIFT up.
-template <typename T, bool HIGH, bool TM, int MT>
-__global__ void __launch_bounds__(THREADS, min_blocks(MT))
+template <typename T, int S, bool TM, int MT>
+__global__ void __launch_bounds__(THREADS, min_blocks(S, MT))
 curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
                   float* __restrict__ out, float* __restrict__ part,
                   const int* __restrict__ starts,
@@ -407,11 +435,11 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
                   const float2* __restrict__ tw, int full, int n, int n1,
                   int n_windows, int groups, int fold, int wb, int fold_smem,
                   int f1_smem) {
-  using PL = Planes<HIGH, TM>;
-  constexpr int H = PL::H, FH = PL::FH;
+  using PL = Planes<S, TM>;
+  constexpr int H = PL::H, FH = PL::FH, P2 = PL::P2;
   // Output tiles a warp takes at once: two at DEFAULT from n1p = 80 (one
   // block an SM), else one (the 128 registers of two blocks an SM).
-  constexpr int NTW = (HIGH || MT <= 4) ? 1 : 2;
+  constexpr int NTW = (S > 1 || MT <= 4) ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n1p = (n1 + 15) & ~15;
   const int nmt = n1p / 16;          // m-tiles of a window, stage 1's K
@@ -438,6 +466,14 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
   float* dst = groups > 1
       ? part + (static_cast<size_t>(b) * groups + g) * n
       : out + static_cast<size_t>(b) * n;
+#if KSPEC_TC_STOP
+  // A cut-off whose fold does not fit beside the planes folds in dst, in
+  // K4's layout; ars is the fold's row stride.
+  if (!fold_smem) acc = dst;
+  const int ars = fold_smem ? ROW : N2;
+#else
+  constexpr int ars = ROW;
+#endif
   // The ablate build's stages to remove (all false in the port's library).
   const int ab = KSPEC_TC_ABLATE ? fold >> AB_SHIFT : 0;
   if (KSPEC_TC_ABLATE) fold = ablated_fold(fold & ((1 << AB_SHIFT) - 1), ab);
@@ -452,7 +488,7 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
   if (KSPEC_TC_STOP == 1) {
     // Cut-off read: group g sums its share of the block's slabs.
     const int slabs = full / n;
-    fold_slabs(pre, pim, acc, n, g * slabs / groups,
+    fold_slabs(pre, pim, acc, ars, n, g * slabs / groups,
                (g + 1) * slabs / groups);
   } else {
     // Padded rows (n1..n1p-1 of each window) stay zero; C's are zero
@@ -465,7 +501,7 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
       uint4* d = const_cast<uint4*>(f1s);
       for (int i = tid; i < FH * f1n; i += THREADS) {
         const int q = i / f1n;
-        d[i] = __ldg(f1 + (2 * (q / H) + q % H) * f1n + i % f1n);
+        d[i] = __ldg(f1 + (P2 * (q / H) + q % H) * f1n + i % f1n);
       }
     }
   }
@@ -504,20 +540,20 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
     }
     __syncthreads();
     if (KSPEC_TC_STOP == 2) {
-      fold_planes<HIGH>(pl, ps, acc, weights, w, nb, w0, n1, n1p);
+      fold_planes<S>(pl, ps, acc, ars, weights, w, nb, w0, n1, n1p);
       __syncthreads();
       continue;
     }
 
     // Stage 1: B = F1 A, C = B o T written over the frame.  One window a
-    // pass of 5-8 m-tiles (n1p >= 80; not 3M HIGH, whose F1 fragments
-    // would take up to 192 registers): by m-tiles, warp w keeping m-tile w's F1
-    // fragments in registers, loaded once a pass, the warps walking the
-    // strips together and writing each after a barrier.  Else by column
-    // strips: warp j % 8 owns strip j of every row, reads only it and
-    // writes C over it.
+    // pass of 5-8 m-tiles (n1p >= 80; not 3M HIGH nor HIGHEST, whose F1
+    // fragments would take up to 192 registers or more): by m-tiles, warp
+    // w keeping m-tile w's F1 fragments in registers, loaded once a pass,
+    // the warps walking the strips together and writing each after a
+    // barrier.  Else by column strips: warp j % 8 owns strip j of every
+    // row, reads only it and writes C over it.
     if (MT == 8 && FH <= 4 && wb == 1) {
-      uint32_t fa[MT][3][2][4];
+      uint32_t fa[MT][3][P2][4];
       if (warp < mts) {
 #pragma unroll
         for (int kc = 0; kc < MT; ++kc) {
@@ -540,22 +576,22 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
 #pragma unroll
           for (int kc = 0; kc < MT; ++kc) {
             if (kc < nk1) {
-              uint32_t x[3][2][2];
+              uint32_t x[3][P2][2];
               PL::b_frags(x, pl_s + 2u * ((lane >> 4) * ps +
                           (kc * 16 + (lane & 15)) * RS + j * 8), ps);
-              a.template products<HIGH>(fa[kc], x);
+              KSPEC_CLASS_PRODUCTS(a, fa[kc], x);
             }
           }
-          if (KSPEC_TC_STOP == 3) untwiddled<HIGH>(a, cv);
+          if (KSPEC_TC_STOP == 3) untwiddled<S>(a, cv);
           else if (no_s1 || no_tw)
-            ablated_c<HIGH>(a, no_s1, no_tw, pl, ps, warp, j, t, cv);
-          else twiddle<HIGH>(a, t, cv);
+            ablated_c<S>(a, no_s1, no_tw, pl, ps, warp, j, t, cv);
+          else twiddle<S>(a, t, cv);
         }
         __syncthreads();
         if (warp < mts) {
           if (KSPEC_TC_STOP != 3) PL::put_c(pw, ps, warp, j, cv);
           if (KSPEC_TC_STOP == 3 || KSPEC_TC_STOP == 4)
-            fold_tile(acc, warp, j, cv, weights[w], w == w0);
+            fold_tile(acc, ars, warp, j, cv, weights[w], w == w0);
         }
       }
     } else {
@@ -568,22 +604,22 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
             Acc<TM> a;
             a.zero();
             for (int kc = 0; kc < nk1; ++kc) {
-              uint32_t x[3][2][2], f[3][2][4];
+              uint32_t x[3][P2][2], f[3][P2][4];
               PL::b_frags(x, pl_s + 2u * ((lane >> 4) * ps +
                           (base + kc * 16 + (lane & 15)) * RS + j * 8), ps);
               const int i = (ml * nmt + kc) * 32 + lane;
               if (f1_smem) PL::f1_frags_smem(f, f1s, f1n, i);
               else PL::f1_frags(f, f1, f1n, i);
-              a.template products<HIGH>(f, x);
+              KSPEC_CLASS_PRODUCTS(a, f, x);
             }
             if (KSPEC_TC_STOP == 3) {
-              untwiddled<HIGH>(a, cbuf[mt]);
+              untwiddled<S>(a, cbuf[mt]);
             } else {
               float2 t[4];
               if (!no_tw) tw_load(t, tw, ml, j);
               if (no_s1 || no_tw)
-                ablated_c<HIGH>(a, no_s1, no_tw, pl, ps, mt, j, t, cbuf[mt]);
-              else twiddle<HIGH>(a, t, cbuf[mt]);
+                ablated_c<S>(a, no_s1, no_tw, pl, ps, mt, j, t, cbuf[mt]);
+              else twiddle<S>(a, t, cbuf[mt]);
             }
           }
         }
@@ -594,7 +630,7 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
             if (KSPEC_TC_STOP != 3) PL::put_c(pw, ps, mt, j, cbuf[mt]);
             if (KSPEC_TC_STOP == 3 || KSPEC_TC_STOP == 4) {
               const int k = mt / nmt;   // window w + k, in window order
-              fold_tile(acc, mt % nmt, j, cbuf[mt], weights[w + k],
+              fold_tile(acc, ars, mt % nmt, j, cbuf[mt], weights[w + k],
                         w + k == w0);
             }
           }
@@ -608,7 +644,7 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
     // tile's F2^T fragments held in registers; |D| folded in place, window
     // by window in order (a window's tiles come after the previous one's).
     for (int nt0 = warp; nt0 < NT; nt0 += NTW * WARPS) {
-      uint32_t fb[NTW][KC2][3][2][2];
+      uint32_t fb[NTW][KC2][3][P2][2];
       if (!no_s2) {
 #pragma unroll
         for (int u = 0; u < NTW; ++u)
@@ -616,7 +652,7 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
           for (int kc = 0; kc < KC2; ++kc)
 #pragma unroll
             for (int q = 0; q < FH; ++q) {
-              const uint2 v = __ldg(f2 + (2 * (q / H) + q % H) * F2N +
+              const uint2 v = __ldg(f2 + (P2 * (q / H) + q % H) * F2N +
                                     (kc * NT + nt0 + u * WARPS) * 32 + lane);
               fb[u][kc][q / H][q % H][0] = v.x;
               fb[u][kc][q / H][q % H][1] = v.y;
@@ -634,11 +670,11 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
         if (!no_s2) {
 #pragma unroll
           for (int kc = 0; kc < KC2; ++kc) {
-            uint32_t c[3][2][4];
+            uint32_t c[3][P2][4];
             PL::a_frags(c, addr + 2u * kc * 16, ps);
 #pragma unroll
             for (int u = 0; u < NTW; ++u)
-              a[u].template products<HIGH>(c, fb[u][kc]);
+              KSPEC_CLASS_PRODUCTS(a[u], c, fb[u][kc]);
           }
         }
         const float wgt = no_cum ? 1.f : weights[w + k];
@@ -656,10 +692,10 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
               if (no_s2) {   // D = C as staged for stage 2
                 const int o = (mt * 16 + g8 + h * 8) * RS + nt * 8 + 2 * t4
                               + e;
-                dr = operand_value<HIGH>(pl, ps, o);
-                di = operand_value<HIGH>(pl + H * ps, ps, o);
+                dr = part_value<S>(pl, ps, o);
+                di = part_value<S>(pl + H * ps, ps, o);
               } else {
-                a[u].template complex<HIGH>(2 * h + e, dr, di);
+                a[u].template complex<(S > 1)>(2 * h + e, dr, di);
               }
               const float sq = __fadd_rn(__fmul_rn(dr, dr),
                                          __fmul_rn(di, di));
@@ -681,8 +717,12 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
             } else if (k1 < n1) {   // fold in dst, fftshifted
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
+#if KSPEC_TC_STOP                   // cut-off s2: K4's layout
+                float* p = dst + k1 * N2 + nt * 8 + 2 * t4 + e;
+#else
                 const int x = k1 + n1 * (nt * 8 + 2 * t4 + e);
                 float* p = dst + (x + n / 2) % n;
+#endif
                 *p = first ? v[e] : fold_op(fold, *p, v[e]);
               }
             }
@@ -704,23 +744,22 @@ curscan_tc_kernel(const T* __restrict__ re, const T* __restrict__ im,
   }
 }
 
-template <typename T, bool HIGH, bool TM, int MT>
+template <typename T, int S, bool TM, int MT>
 int launch_one(const void* re, const void* im, void* out, void* part,
                const void* starts, const void* weights, const void* window,
                const void* f1, const void* f2, const void* tw, int t,
                int full, int n, int n1, int n_windows, int groups, int fold,
                int wb, cudaStream_t stream) {
-  const Layout l = layout(n1, wb, HIGH, TM);
+  const Layout l = layout(n1, wb, S, TM);
   const size_t smem = l.total();
-  if (smem > SMEM_LIMIT || (KSPEC_TC_STOP && l.fold == 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {        // above the default only on request
     const cudaError_t err = cudaFuncSetAttribute(
-        curscan_tc_kernel<T, HIGH, TM, MT>,
+        curscan_tc_kernel<T, S, TM, MT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  curscan_tc_kernel<T, HIGH, TM, MT><<<t * groups, THREADS, smem, stream>>>(
+  curscan_tc_kernel<T, S, TM, MT><<<t * groups, THREADS, smem, stream>>>(
       static_cast<const T*>(re), static_cast<const T*>(im),
       static_cast<float*>(out), static_cast<float*>(part),
       static_cast<const int*>(starts), static_cast<const float*>(weights),
@@ -731,35 +770,43 @@ int launch_one(const void* re, const void* im, void* out, void* part,
 }
 
 // Blocks an SM holds of the instantiation (registers and shared memory).
-template <typename T, bool HIGH, bool TM, int MT>
+template <typename T, int S, bool TM, int MT>
 int occupancy_one(int n1, int wb) {
   int blocks = 0;
-  const size_t smem = layout(n1, wb, HIGH, TM).total();
+  const size_t smem = layout(n1, wb, S, TM).total();
+  if (smem > SMEM_LIMIT) return -1;
   if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(curscan_tc_kernel<T, HIGH, TM, MT>,
+      cudaFuncSetAttribute(curscan_tc_kernel<T, S, TM, MT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess)
     return -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, curscan_tc_kernel<T, HIGH, TM, MT>, THREADS, smem) !=
+          &blocks, curscan_tc_kernel<T, S, TM, MT>, THREADS, smem) !=
       cudaSuccess)
     return -1;
   return blocks;
 }
 
 // CALL(T, TM, MT) for the instantiation of (is_u8, three_mult) with nmt
-// m-tiles a pass.
+// m-tiles a pass; a cut-off build has float32 4M alone (`fails` for the
+// rest).
 #define KSPEC_TC_MT(CALL, T, TM)                                            \
   (nmt <= 1 ? CALL(T, TM, 1) : nmt <= 2 ? CALL(T, TM, 2)                   \
    : nmt <= 4 ? CALL(T, TM, 4) : CALL(T, TM, 8))
+#if KSPEC_TC_STOP
+#define KSPEC_TC_DISPATCH(CALL)                                             \
+  (is_u8 || three_mult ? fails : KSPEC_TC_MT(CALL, float, false))
+#else
 #define KSPEC_TC_DISPATCH(CALL)                                             \
   (is_u8 ? (three_mult ? KSPEC_TC_MT(CALL, uint8_t, true)                  \
                        : KSPEC_TC_MT(CALL, uint8_t, false))                \
          : (three_mult ? KSPEC_TC_MT(CALL, float, true)                    \
                        : KSPEC_TC_MT(CALL, float, false)))
+#endif
 
-// The instantiation for (input, form, MT) at one class.
-template <bool HIGH>
+// The instantiation for (input, form, MT) at one class (S parts an
+// operand).
+template <int S>
 int launch_class(int is_u8, int three_mult, const void* re, const void* im,
                  void* out, void* part, const void* starts,
                  const void* weights, const void* window, const void* f1,
@@ -767,23 +814,24 @@ int launch_class(int is_u8, int three_mult, const void* re, const void* im,
                  int n1, int n_windows, int groups, int fold, int wb,
                  cudaStream_t stream) {
   const int nmt = wb * ((n1 + 15) / 16);   // m-tiles of a pass
-  if (n1 < 2 || n1 > 128 || n != n1 * N2 || wb < 1 || nmt > 8)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int fails = static_cast<int>(cudaErrorInvalidValue);
+  if (n1 < 2 || n1 > 128 || n != n1 * N2 || wb < 1 || nmt > 8) return fails;
 #define KSPEC_TC_LAUNCH(T, TM, MT)                                          \
-  launch_one<T, HIGH, TM, MT>(re, im, out, part, starts, weights, window,  \
-                              f1, f2, tw, t, full, n, n1, n_windows,       \
-                              groups, fold, wb, stream)
+  launch_one<T, S, TM, MT>(re, im, out, part, starts, weights, window,     \
+                           f1, f2, tw, t, full, n, n1, n_windows, groups,  \
+                           fold, wb, stream)
   return KSPEC_TC_DISPATCH(KSPEC_TC_LAUNCH);
 #undef KSPEC_TC_LAUNCH
 }
 
-// The blocks an SM holds of the instantiation launch_class<HIGH> launches
+// The blocks an SM holds of the instantiation launch_class<S> launches
 // for these arguments, or -1.
-template <bool HIGH>
+template <int S>
 int occupancy_class(int is_u8, int three_mult, int n1, int wb) {
   const int nmt = wb * ((n1 + 15) / 16);
-  if (n1 < 2 || n1 > 128 || wb < 1 || nmt > 8) return -1;
-#define KSPEC_TC_OCCUPANCY(T, TM, MT) occupancy_one<T, HIGH, TM, MT>(n1, wb)
+  const int fails = -1;
+  if (n1 < 2 || n1 > 128 || wb < 1 || nmt > 8) return fails;
+#define KSPEC_TC_OCCUPANCY(T, TM, MT) occupancy_one<T, S, TM, MT>(n1, wb)
   return KSPEC_TC_DISPATCH(KSPEC_TC_OCCUPANCY);
 #undef KSPEC_TC_OCCUPANCY
 }
@@ -791,7 +839,8 @@ int occupancy_class(int is_u8, int three_mult, int n1, int wb) {
 #undef KSPEC_TC_MT
 
 // The launchers and occupancy queries of the two classes, one class per
-// translation unit.
+// translation unit (in a -DKSPEC_TC_HIGHEST=1 build launch_high and
+// occupancy_high run HIGHEST and the DEFAULT ones refuse).
 int launch_default(int is_u8, int three_mult, const void* re, const void* im,
                    void* out, void* part, const void* starts,
                    const void* weights, const void* window, const void* f1,

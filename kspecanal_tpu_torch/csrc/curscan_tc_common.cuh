@@ -1,10 +1,10 @@
 // Device helpers shared by the tensor-core curscan kernels: Kernel A
 // (curscan_tc.cuh) and Kernel C (curscan_tc_split.cuh).  The bf16 tensor-core
 // product (mma.sync m16n8k16, float32 sums), the rounding of float32 operand
-// pairs for a class (DEFAULT bf16; HIGH the bf16x3 split's hi and lo), the
-// ldmatrix loads of bf16 fragments from shared memory, the
-// per-tile products of the 3M and 4M complex forms, the u8/float32 sample
-// loads and the cumulate folds.
+// pairs for a class into S bf16 parts (S = 1 DEFAULT; 2 HIGH, the bf16x3
+// split's hi and lo; 3 HIGHEST, hi, mid and lo), the ldmatrix loads of bf16
+// fragments from shared memory, the per-tile products of the 3M and 4M
+// complex forms, the u8/float32 sample loads and the cumulate folds.
 
 #pragma once
 
@@ -27,6 +27,23 @@ enum Ablate {
 };
 constexpr int AB_SHIFT = 2;
 
+// The six-pass HIGHEST class (S = 3) is compiled only in the forensic builds
+// (-DKSPEC_TC_HIGHEST=1, ops/cuda_tc.highest_variants): there the HIGH
+// translation units (curscan_tc_high.cu, curscan_tc_split_high.cu)
+// instantiate S = 3 in place of S = 2, the DEFAULT ones none, and the entry
+// points take precision 2 only.  The port's library leaves it 0.
+#ifndef KSPEC_TC_HIGHEST
+#define KSPEC_TC_HIGHEST 0
+#endif
+// The parts an operand of the class that the HIGH translation units
+// instantiate.
+constexpr int HIGH_PARTS = KSPEC_TC_HIGHEST ? 3 : 2;
+
+// The parts of a bf16 operand that the arrays of fragments hold: 2 (hi, lo;
+// lo unused at DEFAULT) up to HIGH, 3 at HIGHEST.  The wrappers' tables hold
+// as many slots a matrix (ops/cuda_tc.tc_tables).
+__host__ __device__ constexpr int parts(int s) { return s > 2 ? 3 : 2; }
+
 // The fold of an ablate build's mask: a plain sum of the magnitudes under
 // 'cumulate', whatever the mode (the window groups' partials too).
 __host__ __device__ inline int ablated_fold(int fold, int ablate) {
@@ -42,6 +59,20 @@ __device__ __forceinline__ float operand_value(const uint16_t* p, int half,
   return HIGH ? __fadd_rn(hi, __uint_as_float(
                                   static_cast<uint32_t>(p[half + o]) << 16))
               : hi;
+}
+
+// The same at a class of S parts an operand: at HIGHEST (hi + mid) + lo,
+// mid and lo one and two planes on.
+template <int S>
+__device__ __forceinline__ float part_value(const uint16_t* p, int half,
+                                            int o) {
+  if constexpr (S == 3) {
+    return __fadd_rn(operand_value<true>(p, half, o),
+                     __uint_as_float(static_cast<uint32_t>(p[2 * half + o])
+                                     << 16));
+  } else {
+    return operand_value<S == 2>(p, half, o);
+  }
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
@@ -92,9 +123,46 @@ __device__ __forceinline__ void operand(float x0, float x1, uint32_t& hi,
   }
 }
 
+// An operand pair in HIGHEST's three parts: hi = bf16(x), mid = bf16(x -
+// hi), lo = bf16(x - hi - mid), each difference in float32 (exact: the part
+// taken off is x's leading bits).
+__device__ __forceinline__ void operand3(float x0, float x1, uint32_t& hi,
+                                         uint32_t& mid, uint32_t& lo) {
+  hi = pack(x0, x1);
+  const float r0 = __fsub_rn(x0, __uint_as_float(hi << 16));
+  const float r1 = __fsub_rn(x1, __uint_as_float(hi & 0xffff0000u));
+  mid = pack(r0, r1);
+  lo = pack(__fsub_rn(r0, __uint_as_float(mid << 16)),
+            __fsub_rn(r1, __uint_as_float(mid & 0xffff0000u)));
+}
+
+// HIGHEST's three parts of a form's pair (x0, x1) stored at word o of the
+// planes at words 0, ps and 2 ps.
+__device__ __forceinline__ void put_parts3(uint32_t* pl, int ps, int o,
+                                           float x0, float x1) {
+  uint32_t hi, mid, lo;
+  operand3(x0, x1, hi, mid, lo);
+  pl[o] = hi;
+  pl[ps + o] = mid;
+  pl[2 * ps + o] = lo;
+}
+
+// Inside a kernel templated on S (the class's bf16 parts an operand): the
+// real products of one complex product into the accumulators a,
+// Acc::products up to HIGH and Acc::products6 at HIGHEST.
+#define KSPEC_CLASS_PRODUCTS(a, f, x)                                       \
+  do {                                                                       \
+    if constexpr (S == 3) (a).products6(f, x);                               \
+    else (a).template products<S == 2>(f, x);                                \
+  } while (0)
+
 // Products kept per tile: 3M T1, T2, T3; 4M rr, ii, ri, ir.  Each is
 // a_hi b_hi, and at HIGH also a_hi b_lo and a_lo b_hi, three independent
 // float32 sums (three mma chains) added as hh + (hl + lh), as dot3 adds them.
+// At HIGHEST (six passes: the products of parts whose orders sum to at most
+// 2) hl sums the first-order terms a_hi b_mid and a_mid b_hi in one chain
+// and lh the second-order a_hi b_lo, a_mid b_mid and a_lo b_hi in another,
+// added as hh + (hl + lh), the smaller terms first.
 template <bool TM>
 struct Acc {
   static constexpr int P = TM ? 3 : 4;
@@ -132,6 +200,30 @@ struct Acc {
       product<HIGH>(3, a[1][0], a[1][1], b[0][0], b[0][1]);
     }
   }
+  // HIGHEST's six passes of product p from parts a[part], b[part] (hi,
+  // mid, lo): hl the first-order terms, lh the second-order ones.
+  __device__ __forceinline__ void product6(int p, const uint32_t (&a)[3][4],
+                                           const uint32_t (&b)[3][2]) {
+    mma(hh[p], a[0], b[0][0], b[0][1]);
+    mma(hl[p], a[0], b[1][0], b[1][1]);
+    mma(hl[p], a[1], b[0][0], b[0][1]);
+    mma(lh[p], a[0], b[2][0], b[2][1]);
+    mma(lh[p], a[1], b[1][0], b[1][1]);
+    mma(lh[p], a[2], b[0][0], b[0][1]);
+  }
+  // products() at HIGHEST, the forms' three parts each.
+  __device__ __forceinline__ void products6(const uint32_t (&a)[3][3][4],
+                                            const uint32_t (&b)[3][3][2]) {
+    product6(0, a[0], b[0]);
+    product6(1, a[1], b[1]);
+    if (TM) {
+      product6(2, a[2], b[2]);
+    } else {
+      product6(2, a[0], b[1]);
+      product6(3, a[1], b[0]);
+    }
+  }
+  // A product's value: hh, or hh + (hl + lh) at HIGH and HIGHEST.
   template <bool HIGH>
   __device__ __forceinline__ float value(int p, int i) const {
     return HIGH ? __fadd_rn(hh[p][i], __fadd_rn(hl[p][i], lh[p][i]))

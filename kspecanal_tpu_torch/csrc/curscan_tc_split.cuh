@@ -1,8 +1,11 @@
 // Tensor-core two-stage DFT curscan for any split n = n1 * n2 (Kernel C) for
 // NVIDIA Hopper (sm_90a): the HIGH and DEFAULT precision classes of K1 above
-// fft 16384 and of K3 on every split.  Device code, instantiated by
-// curscan_tc_split.cu (DEFAULT, and the C entry points) and
-// curscan_tc_split_high.cu (HIGH): two nvcc runs in parallel.
+// fft 16384 and of K3 on every split, and in its HIGHEST ablate build the
+// six-pass class of K1's ablate keys above fft 16384.  Device code,
+// instantiated by curscan_tc_split.cu (DEFAULT, and the C entry points) and
+// curscan_tc_split_high.cu (HIGH, or HIGHEST in a -DKSPEC_TC_HIGHEST=1
+// build): two nvcc runs in parallel.  The class is the template argument S,
+// the bf16 parts an operand: 1 DEFAULT, 2 HIGH, 3 HIGHEST.
 //
 // Replaces: kspecanal_tpu/ops/pallas_curscan.py::_kernel (:116, K3, entry
 // curscan_fused, split _factorize(n)) and ::_kernel_sublane (:423, K1, entry
@@ -21,7 +24,8 @@
 //   out[b][(k1 + n1 k2 + n/2) % n] = acc[k1][k2]
 // with the rounding of Kernel A: every real product rounds its operands to
 // bf16 (to nearest even) and sums in float32 on mma.sync m16n8k16, once at
-// DEFAULT and as the bf16x3 split at HIGH; the complex products in the 3M or
+// DEFAULT, as the bf16x3 split at HIGH and in six passes at HIGHEST; the
+// complex products in the 3M or
 // 4M form (curscan_tc_common.cuh, Acc); each operand (the windowed frame,
 // C) rounded once from its float32 value; the element-wise steps with the
 // _rn intrinsics, so each rounds where the plain version
@@ -49,17 +53,20 @@
 //     accumulators of its strip for all MT m-tiles (8 m-tiles at one block
 //     an SM ran 25% slower at fft 10000 DEFAULT than 4 at two).  At HIGH a
 //     product's two correction terms (a_hi b_lo, a_lo b_hi) sum in one
-//     float32 chain, not two, which is what makes 4 m-tiles fit.
+//     float32 chain, not two, which is what makes 4 m-tiles fit; at HIGHEST
+//     its five (the second-order terms first, then a_hi b_mid, a_mid b_hi).
 //   * Both stages run in panels of 64 columns: warp w takes the panel's
 //     strip of 8 columns w for all MT m-tiles, so each F1 fragment feeds
 //     the products of one strip and each frame fragment those of MT tiles;
 //     a strip past n2 leaves its warp idle in that panel only.
 //   * Stage 1 walks the frame in chunks of rows m1 (chunk_rows: 16 at
-//     DEFAULT; at HIGH, one block an SM, 64 up to n1p 128 and 32 above).
+//     DEFAULT; at HIGH, one block an SM, 64 up to n1p 128 and 32 above;
+//     at HIGHEST 32).
 //     All threads stage a chunk's panel once a block: coalesced loads
 //     along rows of the planes
 //     (u8 decoded in the load), windowed in float32 and rounded once into
-//     bf16 operand planes (re, im, at 3M re + im; hi, at HIGH lo) in one of
+//     bf16 operand planes (re, im, at 3M re + im; hi, at HIGH lo, at
+//     HIGHEST mid and lo) in one of
 //     two buffers; the next chunk's loads (the next window's first, after
 //     the last) are in flight in registers while the warps run the current
 //     chunk's products, B fragments read by ldmatrix.trans.  One barrier a
@@ -85,7 +92,10 @@
 //     from the planes; where the fold does not fit, each lane folds its
 //     elements in the output (or partial) row in device memory.  One
 //     m-tile's C planes fit up to n2p 1200 at 3M HIGH, 1808 at HIGH and
-//     3616 at DEFAULT (lane splits of fft 1.4M, 3.2M and 13M).
+//     3616 at DEFAULT (lane splits of fft 1.4M, 3.2M and 13M), and at
+//     HIGHEST up to n2p 1200 at 4M and 784 at 3M: the sublane split's n2 =
+//     128 fits at every n1 (C planes and frame buffers 159,744 bytes at 4
+//     m-tiles, 4M).
 //   * n1 and n2 are padded to 16 with zero rows and columns of F1, F2^T and
 //     the twiddles (exact); padded rows and columns are never stored.
 
@@ -104,7 +114,7 @@
 // windows, in window order, of weights[w] (re + im) of every element of
 // that stage into the output, at the element's (row, column) as the
 // production kernel stores D (fftshifted k1 + n1 k2):
-//   1 frame  the windowed frame as staged (hi, plus lo at HIGH), (m1, m2)
+//   1 frame  the windowed frame as staged (its parts summed), (m1, m2)
 //   2 s1     B = F1 A in float32, (k1, m2)
 //   3 s1tw   C = B o T in float32, written to the planes as stage 2 reads it
 //   4 s2     D = C F2^T in float32, (k1, k2)
@@ -123,12 +133,12 @@
 // Replaces: the `ablate` keys of
 // kspecanal_tpu/ops/pallas_curscan.py::_kernel_sublane (:427, :534-636) at
 // tpuPrecision HIGH and DEFAULT above fft 16384, on its split (n / 128,
-// 128).  A run-time mask (curscan_tc_common.cuh, Ablate) removes stages as
-// Kernel A's ablate build does (curscan_tc.cuh): the window (its loads),
-// stage 1's products (B = the staged frame, read from the chunk buffers),
-// the twiddle (and its loads), stage 2's products (D = C as staged), the
-// square root, the weighted fold (an unweighted sum over the windows and
-// the groups, whatever the mode).  The frame is staged as ever; the build
+// 128), and with -DKSPEC_TC_HIGHEST=1 at HIGHEST.  A run-time mask
+// (curscan_tc_common.cuh, Ablate) removes stages as Kernel A's ablate build
+// does (curscan_tc.cuh): the window (its loads), stage 1's products (B = the
+// staged frame, read from the chunk buffers), the twiddle (and its loads),
+// stage 2's products (D = C as staged), the square root, the weighted fold
+// (an unweighted sum over the windows and the groups, whatever the mode).  The frame is staged as ever; the build
 // takes the staged frame only (the launch fails where it does not fit).
 // With no bit set it runs the production kernel's operations.  Plain
 // version: ops/cuda_tc.curscan_tc_split_plain(..., ablate).
@@ -151,7 +161,11 @@ using kspec_tc::ldsm4;
 using kspec_tc::ldsm4t;
 using kspec_tc::mma;
 using kspec_tc::operand;
+using kspec_tc::operand3;
 using kspec_tc::operand_value;
+using kspec_tc::part_value;
+using kspec_tc::put_parts3;
+using kspec_tc::parts;
 using kspec_tc::sample;
 
 constexpr int THREADS = 256;
@@ -166,33 +180,35 @@ constexpr size_t SMEM_HALF = 233472 / 2 - 1024;
 __host__ __device__ inline int pad16(int x) { return (x + 15) & ~15; }
 __host__ __device__ inline size_t up16(size_t x) { return (x + 15) & ~15; }
 
-// The blocks an SM is to hold (launch bounds): two at DEFAULT (128
-// registers a thread), one at HIGH (its two sums a product).
-__host__ __device__ constexpr int min_blocks(bool high) {
-  return high ? 1 : 2;
+// The blocks an SM is to hold (launch bounds) at a class of s parts an
+// operand: two at DEFAULT (128 registers a thread), one at HIGH and HIGHEST
+// (their two sums a product).
+__host__ __device__ constexpr int min_blocks(int s) {
+  return s > 1 ? 1 : 2;
 }
 
 // Rows m1 of a frame chunk: 16 at DEFAULT; at HIGH, whose block holds its
 // SM alone, 64 where n1p is at most 128 (fft 3000, 10000: a window's frame
 // in one or two chunks) and 32 above (its registers hold a chunk's loads
-// of 8 or 4 pairs a thread; 64 rows ran slower there).
-__host__ __device__ inline int chunk_rows(bool high, int n1) {
-  return !high ? 16 : pad16(n1) <= 128 ? 64 : 32;
+// of 8 or 4 pairs a thread; 64 rows ran slower there); at HIGHEST, whose
+// route is the sublane split above fft 16384 (n1p above 128), 32.
+__host__ __device__ inline int chunk_rows(int s, int n1) {
+  return s == 1 ? 16 : s == 2 && pad16(n1) <= 128 ? 64 : 32;
 }
 
-// Bytes of a block's C planes: forms x halves planes of 16 mt rows of
-// n2p + 8 bf16.
-__host__ __device__ inline size_t c_bytes(int n2, int mt, bool high,
-                                          bool tm) {
-  return static_cast<size_t>(tm ? 3 : 2) * (high ? 2 : 1) * 16 * mt *
-         (pad16(n2) + 8) * 2;
+// Bytes of a block's C planes: forms x parts planes of 16 mt rows of
+// n2p + 8 bf16 (s: the class's parts an operand, 1 DEFAULT, 2 HIGH, 3
+// HIGHEST).
+__host__ __device__ inline size_t c_bytes(int n2, int mt, int s, bool tm) {
+  return static_cast<size_t>(tm ? 3 : 2) * s * 16 * mt * (pad16(n2) + 8) *
+         2;
 }
 
-// Bytes of the frame's two chunk buffers: forms x halves planes of
+// Bytes of the frame's two chunk buffers: forms x parts planes of
 // chunk_rows rows of PW + 8 bf16 each.
-__host__ __device__ inline size_t frame_bytes(int n1, bool high, bool tm) {
-  return 2 * static_cast<size_t>(tm ? 3 : 2) * (high ? 2 : 1) *
-         chunk_rows(high, n1) * FR * 2;
+__host__ __device__ inline size_t frame_bytes(int n1, int s, bool tm) {
+  return 2 * static_cast<size_t>(tm ? 3 : 2) * s * chunk_rows(s, n1) * FR *
+         2;
 }
 
 // Bytes of the fold (16 mt rows of n2p + 8 floats) and of F1's rows of a
@@ -200,23 +216,21 @@ __host__ __device__ inline size_t frame_bytes(int n1, bool high, bool tm) {
 __host__ __device__ inline size_t fold_bytes(int n2, int mt) {
   return static_cast<size_t>(16) * mt * (pad16(n2) + 8) * 4;
 }
-__host__ __device__ inline size_t f1_bytes(int n1, int mt, bool high,
-                                           bool tm) {
-  return static_cast<size_t>(tm ? 3 : 2) * (high ? 2 : 1) * mt *
-         (pad16(n1) / 16) * 512;
+__host__ __device__ inline size_t f1_bytes(int n1, int mt, int s, bool tm) {
+  return static_cast<size_t>(tm ? 3 : 2) * s * mt * (pad16(n1) / 16) * 512;
 }
 
 // A block's m-tiles: 4, halved while the C planes and the frame buffers
 // do not fit a block, 0 where one m-tile's C planes alone do not (one that
 // fits without the buffers loads the frame lane by lane); then halved
 // while half still covers n1's m-tiles.
-inline int pick(int n1, int n2, bool high, bool tm) {
+inline int pick(int n1, int n2, int s, bool tm) {
   if (n1 < 1 || n2 < 1) return 0;
   int mt = 4;
   while (mt > 1 &&
-         c_bytes(n2, mt, high, tm) + frame_bytes(n1, high, tm) > SMEM_LIMIT)
+         c_bytes(n2, mt, s, tm) + frame_bytes(n1, s, tm) > SMEM_LIMIT)
     mt /= 2;
-  if (c_bytes(n2, mt, high, tm) > SMEM_LIMIT) return 0;
+  if (c_bytes(n2, mt, s, tm) > SMEM_LIMIT) return 0;
   while (mt > 1 && mt / 2 >= pad16(n1) / 16) mt /= 2;
   return mt;
 }
@@ -245,22 +259,22 @@ __host__ __device__ inline size_t take(size_t& used, size_t budget,
   return want;
 }
 
-__host__ __device__ inline Layout layout(int n1, int n2, bool high, bool tm,
+__host__ __device__ inline Layout layout(int n1, int n2, int s, bool tm,
                                          int mt) {
-  const size_t fh = static_cast<size_t>(tm ? 3 : 2) * (high ? 2 : 1);
+  const size_t fh = static_cast<size_t>(tm ? 3 : 2) * s;
   const size_t n2p = pad16(n2);
   Layout l{};
-  l.c = c_bytes(n2, mt, high, tm);
-  l.frame = frame_bytes(n1, high, tm);
+  l.c = c_bytes(n2, mt, s, tm);
+  l.frame = frame_bytes(n1, s, tm);
   if (l.c + l.frame > SMEM_LIMIT) l.frame = 0;
   size_t used = l.c + l.frame;
   const size_t budget =
-      min_blocks(high) == 2 &&
-              used + up16(f1_bytes(n1, mt, high, tm)) + fold_bytes(n2, mt) <=
+      min_blocks(s) == 2 &&
+              used + up16(f1_bytes(n1, mt, s, tm)) + fold_bytes(n2, mt) <=
                   SMEM_HALF
           ? SMEM_HALF
           : SMEM_LIMIT;
-  l.f1 = take(used, budget, f1_bytes(n1, mt, high, tm));
+  l.f1 = take(used, budget, f1_bytes(n1, mt, s, tm));
   l.fold = take(used, budget, fold_bytes(n2, mt));
   l.tw = take(used, budget, 16 * mt * n2p * 8);
   l.f2 = take(used, budget, fh * n2p * n2p * 2);
@@ -271,7 +285,9 @@ __host__ __device__ inline Layout layout(int n1, int n2, bool high, bool tm,
 // hh = a_hi b_hi and, at HIGH, lo = a_hi b_lo + a_lo b_hi summed in one
 // float32 chain (Kernel A's Acc keeps the two in chains of their own; one
 // chain saves a third of the accumulators, so a warp takes 4 m-tiles at
-// HIGH too), added as hh + lo.
+// HIGH too), added as hh + lo.  At HIGHEST lo sums the five other products
+// of the six passes (a_hi b_lo, a_mid b_mid, a_lo b_hi, then a_hi b_mid,
+// a_mid b_hi) in the one chain (product6).
 template <bool TM>
 struct Acc {
   static constexpr int P = TM ? 3 : 4;
@@ -305,6 +321,28 @@ struct Acc {
     } else {
       product<HIGH>(2, a[0][0], a[0][1], b[1][0], b[1][1]);
       product<HIGH>(3, a[1][0], a[1][1], b[0][0], b[0][1]);
+    }
+  }
+  // HIGHEST's six passes of product p from parts a[part], b[part] (hi,
+  // mid, lo), and of the complex product (as products).
+  __device__ __forceinline__ void product6(int p, const uint32_t (&a)[3][4],
+                                           const uint32_t (&b)[3][2]) {
+    mma(hh[p], a[0], b[0][0], b[0][1]);
+    mma(lo[p], a[0], b[2][0], b[2][1]);
+    mma(lo[p], a[1], b[1][0], b[1][1]);
+    mma(lo[p], a[2], b[0][0], b[0][1]);
+    mma(lo[p], a[0], b[1][0], b[1][1]);
+    mma(lo[p], a[1], b[0][0], b[0][1]);
+  }
+  __device__ __forceinline__ void products6(const uint32_t (&a)[3][3][4],
+                                            const uint32_t (&b)[3][3][2]) {
+    product6(0, a[0], b[0]);
+    product6(1, a[1], b[1]);
+    if (TM) {
+      product6(2, a[2], b[2]);
+    } else {
+      product6(2, a[0], b[1]);
+      product6(3, a[1], b[0]);
     }
   }
   template <bool HIGH>
@@ -348,23 +386,36 @@ __device__ __forceinline__ void put(uint32_t* pl, int pw, int o, float r0,
   }
 }
 
-// A bf16 operand's value.
-__device__ __forceinline__ float bf16_value(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+// HIGHEST's put: the three parts of each form, plane q = form * 3 + part.
+template <bool TM>
+__device__ __forceinline__ void put3(uint32_t* pl, int pw, int o, float r0,
+                                     float r1, float i0, float i1) {
+  put_parts3(pl, pw, o, r0, r1);
+  put_parts3(pl + 3 * pw, pw, o, i0, i1);
+  if (TM)
+    put_parts3(pl + 6 * pw, pw, o, __fadd_rn(r0, i0), __fadd_rn(r1, i1));
 }
+
+// The class's put, S parts an operand.
+#define KSPEC_TCS_PUT(...)                                                  \
+  do {                                                                       \
+    if constexpr (S == 3) put3<TM>(__VA_ARGS__);                             \
+    else put<HIGH, TM>(__VA_ARGS__);                                         \
+  } while (0)
 
 // Kernel C.  Grid: t * tiles * groups thread blocks, tiles = ceil(n1p / (16
 // MT)); block ((b * tiles + tile) * groups + g) computes rows k1 of m-tiles
 // tile*MT.. of IQ block b over windows [g W / G, (g + 1) W / G).  f1 holds
 // F1's A fragments [slot][mt][kc][lane] (uint4; n1p/16 squared tiles), f2
 // F2^T's B fragments [slot][kc][nt][lane] (uint2; n2p/16 x n2p/8 tiles),
-// slot = 2 * form + half (form re, im, re + im); tw the (n1p, n2p)
+// slot = P2 * form + part (form re, im, re + im; P2 = parts(S)); tw the
+// (n1p, n2p)
 // twiddles, zero outside (n1, n2).  STAGED: the frame goes through the
 // chunk buffers of KR rows (else each lane loads its B fragments'
 // samples).  The ablate build takes its mask in `fold`'s bits from AB_SHIFT
 // up.
-template <typename T, bool HIGH, bool TM, int MT, int KR, bool STAGED>
-__global__ void __launch_bounds__(THREADS, min_blocks(HIGH))
+template <typename T, int S, bool TM, int MT, int KR, bool STAGED>
+__global__ void __launch_bounds__(THREADS, min_blocks(S))
 curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
                         float* __restrict__ out, float* __restrict__ part,
                         const int* __restrict__ starts,
@@ -374,7 +425,9 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
                         const uint2* __restrict__ f2,
                         const float2* __restrict__ tw, int full, int n,
                         int n1, int n2, int n_windows, int groups, int fold) {
-  constexpr int H = HIGH ? 2 : 1;
+  constexpr bool HIGH = S > 1;                   // HIGH's value of a product
+  constexpr int H = S;
+  constexpr int P2 = parts(S);                   // table slots a matrix
   constexpr int FH = (TM ? 3 : 2) * H;
   constexpr int KS = KR / 16;                    // a chunk's k-chunks
   constexpr int FPE = KR * FR;                   // a chunk plane's elements
@@ -391,7 +444,7 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
   const bool no_sqrt = KSPEC_TCS_ABLATE && (ab & AB_SQRT);
   const bool no_cum = KSPEC_TCS_ABLATE && (ab & AB_CUMULATE);
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout l = layout(n1, n2, HIGH, TM, MT);
+  const Layout l = layout(n1, n2, S, TM, MT);
   const int n1p = pad16(n1), n2p = pad16(n2);
   const int nmt = n1p / 16;               // m-tiles of k1, k-chunks of m1
   const int tiles = (nmt + MT - 1) / MT;
@@ -435,14 +488,14 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
       const int q = i / (MT * nmt * 32), r = i % (MT * nmt * 32);
       const int u = r / (nmt * 32);
       f1s[i] = mt0 + u < nmt
-          ? __ldg(f1 + (2 * (q / H) + q % H) * f1n + mt0 * nmt * 32 + r)
+          ? __ldg(f1 + (P2 * (q / H) + q % H) * f1n + mt0 * nmt * 32 + r)
           : make_uint4(0u, 0u, 0u, 0u);
     }
   }
   if (l.f2) {
     for (int i = tid; i < FH * f2n; i += THREADS) {
       const int q = i / f2n;
-      f2s[i] = __ldg(f2 + (2 * (q / H) + q % H) * f2n + i % f2n);
+      f2s[i] = __ldg(f2 + (P2 * (q / H) + q % H) * f2n + i % f2n);
     }
   }
   if (l.tw) {
@@ -497,7 +550,7 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
         v[0][e] = __fmul_rn(px[k][e], pw[k][e]);
         v[1][e] = __fmul_rn(py[k][e], pw[k][e]);
       }
-      put<HIGH, TM>(fw, FPE / 2, (r * FR + c) >> 1, v[0][0], v[0][1],
+      KSPEC_TCS_PUT(fw, FPE / 2, (r * FR + c) >> 1, v[0][0], v[0][1],
                     v[1][0], v[1][1]);
     }
   };
@@ -515,11 +568,8 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
       for (int e = 0; e < 2; ++e) {
         const int m2 = p * PW + c + e, o = r * FR + c + e;
         if (m1 >= n1 || m2 >= n2) continue;
-        float xr = bf16_value(fb[o]), xi = bf16_value(fb[H * FPE + o]);
-        if (HIGH) {
-          xr = __fadd_rn(xr, bf16_value(fb[FPE + o]));
-          xi = __fadd_rn(xi, bf16_value(fb[(H + 1) * FPE + o]));
-        }
+        const float xr = part_value<S>(fb, FPE, o);
+        const float xi = part_value<S>(fb + H * FPE, FPE, o);
         fold_at(m1 - r0, m2, __fmul_rn(wgt, __fadd_rn(xr, xi)), first);
       }
     }
@@ -527,7 +577,7 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
   // Stage 1's B fragments (rows ks*16.. x 8 columns) of every plane of
   // buffer buf, this warp's strip of the panel, by ldmatrix.trans: lane l
   // addresses row l % 16 of plane l / 16, so one x4 loads planes q, q + 1.
-  auto b_frags = [&](uint32_t (&x)[3][2][2], int buf, int ks) {
+  auto b_frags = [&](uint32_t (&x)[3][P2][2], int buf, int ks) {
     const uint32_t addr = f_s + 2u * (buf * FH * FPE + (lane >> 4) * FPE +
                                       (ks * 16 + (lane & 15)) * FR +
                                       warp * 8);
@@ -558,15 +608,15 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
         const int r = r0 + u * 16 + g8 + (i >> 1) * 8 - kc * KR;
         if (r < 0 || r >= KR) continue;
         const int o = r * FR + warp * 8 + 2 * t4 + (i & 1);
-        a[u].hh[0][i] = operand_value<HIGH>(fb, FPE, o);
-        a[u].hh[1][i] = operand_value<HIGH>(fb + H * FPE, FPE, o);
+        a[u].hh[0][i] = part_value<S>(fb, FPE, o);
+        a[u].hh[1][i] = part_value<S>(fb + H * FPE, FPE, o);
       }
     }
   };
   // The same fragments loaded by the lane itself from the planes (frame
   // buffers that do not fit): rows m1 = kc*16 + 2t, 2t+1 (b0), 2t+8, 2t+9
   // (b1) of column m2.
-  auto b_direct = [&](uint32_t (&x)[3][2][2], int w, int m2, int kc) {
+  auto b_direct = [&](uint32_t (&x)[3][P2][2], int w, int m2, int kc) {
     const T* xr = pre + starts[w];
     const T* xi = pim + starts[w];
     float vr[4], vi[4];
@@ -583,20 +633,31 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      operand<HIGH>(vr[2 * h], vr[2 * h + 1], x[0][0][h], x[0][1][h]);
-      operand<HIGH>(vi[2 * h], vi[2 * h + 1], x[1][0][h], x[1][1][h]);
-      if (TM)
-        operand<HIGH>(__fadd_rn(vr[2 * h], vi[2 * h]),
-                      __fadd_rn(vr[2 * h + 1], vi[2 * h + 1]), x[2][0][h],
-                      x[2][1][h]);
+      if constexpr (S == 3) {
+        operand3(vr[2 * h], vr[2 * h + 1], x[0][0][h], x[0][1][h],
+                 x[0][2][h]);
+        operand3(vi[2 * h], vi[2 * h + 1], x[1][0][h], x[1][1][h],
+                 x[1][2][h]);
+        if (TM)
+          operand3(__fadd_rn(vr[2 * h], vi[2 * h]),
+                   __fadd_rn(vr[2 * h + 1], vi[2 * h + 1]), x[2][0][h],
+                   x[2][1][h], x[2][2][h]);
+      } else {
+        operand<HIGH>(vr[2 * h], vr[2 * h + 1], x[0][0][h], x[0][1][h]);
+        operand<HIGH>(vi[2 * h], vi[2 * h + 1], x[1][0][h], x[1][1][h]);
+        if (TM)
+          operand<HIGH>(__fadd_rn(vr[2 * h], vi[2 * h]),
+                        __fadd_rn(vr[2 * h + 1], vi[2 * h + 1]), x[2][0][h],
+                        x[2][1][h]);
+      }
     }
   };
-  auto f1_frags = [&](uint32_t (&f)[3][2][4], int u, int kc) {
+  auto f1_frags = [&](uint32_t (&f)[3][P2][4], int u, int kc) {
 #pragma unroll
     for (int q = 0; q < FH; ++q) {
       const uint4 v = l.f1
           ? f1s[((q * MT + u) * nmt + kc) * 32 + lane]
-          : __ldg(f1 + (2 * (q / H) + q % H) * f1n +
+          : __ldg(f1 + (P2 * (q / H) + q % H) * f1n +
                   ((mt0 + u) * nmt + kc) * 32 + lane);
       f[q / H][q % H][0] = v.x;
       f[q / H][q % H][1] = v.y;
@@ -605,12 +666,12 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
     }
   };
   // F2^T's B fragments of k-chunk kc, strip j.
-  auto f2_frags = [&](uint32_t (&fb)[3][2][2], int kc, int j) {
+  auto f2_frags = [&](uint32_t (&fb)[3][P2][2], int kc, int j) {
     const int i = (kc * strips + j) * 32 + lane;
 #pragma unroll
     for (int q = 0; q < FH; ++q) {
       const uint2 v = l.f2 ? f2s[q * f2n + i]
-                           : __ldg(f2 + (2 * (q / H) + q % H) * f2n + i);
+                           : __ldg(f2 + (P2 * (q / H) + q % H) * f2n + i);
       fb[q / H][q % H][0] = v.x;
       fb[q / H][q % H][1] = v.y;
     }
@@ -658,15 +719,15 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
         for (int ks = 0; ks < KS; ++ks) {
           const int kk = kc * KS + ks;    // the k-chunk of 16 rows m1
           if (kk >= nmt) break;
-          uint32_t x[3][2][2];
+          uint32_t x[3][P2][2];
           if (STAGED) b_frags(x, buf, ks);
           else b_direct(x, w, j * 8 + g8, kk);
 #pragma unroll
           for (int u = 0; u < MT; ++u) {
             if (mt0 + u >= nmt) continue;
-            uint32_t f[3][2][4];
+            uint32_t f[3][P2][4];
             f1_frags(f, u, kk);
-            a[u].template products<HIGH>(f, x);
+            KSPEC_CLASS_PRODUCTS(a[u], f, x);
           }
         }
       }
@@ -707,7 +768,7 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
                       first);
           }
           if (KSPEC_TCS_STOP != 2)
-            put<HIGH, TM>(cw, cpe / 2, (rl * crs + j * 8 + 2 * t4) >> 1,
+            KSPEC_TCS_PUT(cw, cpe / 2, (rl * crs + j * 8 + 2 * t4) >> 1,
                           cr[0], cr[1], ci_[0], ci_[1]);
         }
       }
@@ -724,10 +785,10 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
       Acc<TM> a[MT];
 #pragma unroll
       for (int u = 0; u < MT; ++u) a[u].zero();
-      uint32_t fn[3][2][2];
+      uint32_t fn[3][P2][2];
       if (!no_s2) f2_frags(fn, 0, j);
       for (int kc = 0; kc < (no_s2 ? 0 : kc2); ++kc) {
-        uint32_t fb[3][2][2];
+        uint32_t fb[3][P2][2];
 #pragma unroll
         for (int q = 0; q < FH; ++q) {
           fb[q / H][q % H][0] = fn[q / H][q % H][0];
@@ -742,11 +803,11 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
           const uint32_t addr = c_s + 2u * ((u * 16 + (lane & 7) +
                                              ((lane >> 3) & 1) * 8) * crs +
                                             kc * 16 + (lane >> 4) * 8);
-          uint32_t c[3][2][4];
+          uint32_t c[3][P2][4];
 #pragma unroll
           for (int q = 0; q < FH; ++q)
             ldsm4(c[q / H][q % H], addr + 2u * q * cpe);
-          a[u].template products<HIGH>(c, fb);
+          KSPEC_CLASS_PRODUCTS(a[u], c, fb);
         }
       }
 #pragma unroll
@@ -759,8 +820,8 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
             float dr, di;
             if (no_s2) {   // D = C as staged for stage 2
               const uint16_t* cp = reinterpret_cast<const uint16_t*>(cw);
-              dr = operand_value<HIGH>(cp, cpe, rl * crs + k2);
-              di = operand_value<HIGH>(cp + H * cpe, cpe, rl * crs + k2);
+              dr = part_value<S>(cp, cpe, rl * crs + k2);
+              di = part_value<S>(cp + H * cpe, cpe, rl * crs + k2);
             } else {
               a[u].template complex<HIGH>(i, dr, di);
             }
@@ -792,7 +853,7 @@ curscan_tc_split_kernel(const T* __restrict__ re, const T* __restrict__ im,
 // Blocks' tiles of a split: ceil(n1p / (16 mt)).
 inline int tiles_of(int n1, int mt) { return (pad16(n1) / 16 + mt - 1) / mt; }
 
-template <typename T, bool HIGH, bool TM, int MT, int KR, bool STAGED>
+template <typename T, int S, bool TM, int MT, int KR, bool STAGED>
 int launch_one(const void* re, const void* im, void* out, void* part,
                const void* starts, const void* weights, const void* window,
                const void* f1, const void* f2, const void* tw, int t,
@@ -802,18 +863,18 @@ int launch_one(const void* re, const void* im, void* out, void* part,
     // cut-offs and the ablate build: staged only
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const size_t smem = layout(n1, n2, HIGH, TM, MT).total();
+    const size_t smem = layout(n1, n2, S, TM, MT).total();
     if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
     if (smem > 48 * 1024) {      // above the default only on request
       const cudaError_t err = cudaFuncSetAttribute(
-          curscan_tc_split_kernel<T, HIGH, TM, MT, KR, STAGED>,
+          curscan_tc_split_kernel<T, S, TM, MT, KR, STAGED>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     const long long blocks =
         static_cast<long long>(t) * tiles_of(n1, MT) * groups;
-    curscan_tc_split_kernel<T, HIGH, TM, MT, KR, STAGED>
+    curscan_tc_split_kernel<T, S, TM, MT, KR, STAGED>
         <<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
             static_cast<const T*>(re), static_cast<const T*>(im),
             static_cast<float*>(out), static_cast<float*>(part),
@@ -828,18 +889,18 @@ int launch_one(const void* re, const void* im, void* out, void* part,
 }
 
 // Blocks an SM holds of the instantiation (registers and shared memory).
-template <typename T, bool HIGH, bool TM, int MT, int KR, bool STAGED>
+template <typename T, int S, bool TM, int MT, int KR, bool STAGED>
 int occupancy_one(int n1, int n2) {
   int blocks = 0;
-  const size_t smem = layout(n1, n2, HIGH, TM, MT).total();
+  const size_t smem = layout(n1, n2, S, TM, MT).total();
   if (smem > 48 * 1024 &&
       cudaFuncSetAttribute(
-          curscan_tc_split_kernel<T, HIGH, TM, MT, KR, STAGED>,
+          curscan_tc_split_kernel<T, S, TM, MT, KR, STAGED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess)
     return -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, curscan_tc_split_kernel<T, HIGH, TM, MT, KR, STAGED>,
+          &blocks, curscan_tc_split_kernel<T, S, TM, MT, KR, STAGED>,
           THREADS, smem) != cudaSuccess)
     return -1;
   return blocks;
@@ -847,10 +908,12 @@ int occupancy_one(int n1, int n2) {
 
 // CALL(T, TM, MT, KR, STAGED) for the instantiation of (is_u8, three_mult)
 // and pick's m-tiles and chunk_rows: the frame unstaged only at one m-tile,
-// where the C planes leave no room; chunks of 32 or 64 rows at HIGH only.
+// where the C planes leave no room; chunks of 64 rows at HIGH only, 32 at
+// HIGH and HIGHEST (both branches one instantiation at DEFAULT and
+// HIGHEST).
 #define KSPEC_TCS_KR(CALL, T, TM, MT)                                       \
-  (kr == 64 ? CALL(T, TM, MT, HIGH ? 64 : 16, true)                        \
-            : CALL(T, TM, MT, HIGH ? 32 : 16, true))
+  (kr == 64 ? CALL(T, TM, MT, (S == 2 ? 64 : S == 3 ? 32 : 16), true)      \
+            : CALL(T, TM, MT, (S > 1 ? 32 : 16), true))
 #define KSPEC_TCS_SHAPE(CALL, T, TM)                                        \
   (!staged ? CALL(T, TM, 1, 16, false)                                     \
    : mt == 4 ? KSPEC_TCS_KR(CALL, T, TM, 4)                                \
@@ -863,18 +926,19 @@ int occupancy_one(int n1, int n2) {
 
 // pick's m-tiles, whether the frame is staged and its chunk rows, or false
 // where no m-tile fits (pick leaves the frame unstaged only at one m-tile).
-template <bool HIGH>
+template <int S>
 bool shape_of(int n1, int n2, int three_mult, int& mt, bool& staged,
               int& kr) {
-  mt = pick(n1, n2, HIGH, three_mult);
+  mt = pick(n1, n2, S, three_mult);
   if (mt == 0) return false;
-  staged = layout(n1, n2, HIGH, three_mult, mt).frame > 0;
-  kr = chunk_rows(HIGH, n1);
+  staged = layout(n1, n2, S, three_mult, mt).frame > 0;
+  kr = chunk_rows(S, n1);
   return staged || mt == 1;
 }
 
-// The instantiation for (input, form, m-tiles) at one class.
-template <bool HIGH>
+// The instantiation for (input, form, m-tiles) at one class (S parts an
+// operand).
+template <int S>
 int launch_class(int is_u8, int three_mult, const void* re, const void* im,
                  void* out, void* part, const void* starts,
                  const void* weights, const void* window, const void* f1,
@@ -883,36 +947,38 @@ int launch_class(int is_u8, int three_mult, const void* re, const void* im,
                  cudaStream_t stream) {
   int mt, kr;
   bool staged;
-  if (!shape_of<HIGH>(n1, n2, three_mult, mt, staged, kr) ||
+  if (!shape_of<S>(n1, n2, three_mult, mt, staged, kr) ||
       static_cast<long long>(n1) * n2 != n || t < 1 || n_windows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
 #define KSPEC_TCS_LAUNCH(T, TM, MT, KR, STAGED)                             \
-  launch_one<T, HIGH, TM, MT, KR, STAGED>(re, im, out, part, starts,       \
-                                          weights, window, f1, f2, tw, t,  \
-                                          full, n, n1, n2, n_windows,      \
-                                          groups, fold, stream)
+  launch_one<T, S, TM, MT, KR, STAGED>(re, im, out, part, starts,          \
+                                       weights, window, f1, f2, tw, t, full, \
+                                       n, n1, n2, n_windows, groups, fold,   \
+                                       stream)
   return KSPEC_TCS_DISPATCH(KSPEC_TCS_LAUNCH);
 #undef KSPEC_TCS_LAUNCH
 }
 
-// The blocks an SM holds of the instantiation launch_class<HIGH> launches
+// The blocks an SM holds of the instantiation launch_class<S> launches
 // for these arguments, or -1.
-template <bool HIGH>
+template <int S>
 int occupancy_class(int is_u8, int three_mult, int n1, int n2) {
   int mt, kr;
   bool staged;
-  if (!shape_of<HIGH>(n1, n2, three_mult, mt, staged, kr)) return -1;
+  if (!shape_of<S>(n1, n2, three_mult, mt, staged, kr)) return -1;
 #define KSPEC_TCS_OCCUPANCY(T, TM, MT, KR, STAGED)                          \
-  occupancy_one<T, HIGH, TM, MT, KR, STAGED>(n1, n2)
+  occupancy_one<T, S, TM, MT, KR, STAGED>(n1, n2)
   return KSPEC_TCS_DISPATCH(KSPEC_TCS_OCCUPANCY);
 #undef KSPEC_TCS_OCCUPANCY
 }
 #undef KSPEC_TCS_DISPATCH
 #undef KSPEC_TCS_SHAPE
 #undef KSPEC_TCS_KR
+#undef KSPEC_TCS_PUT
 
 // The launchers and occupancy queries of the two classes, one class per
-// translation unit.
+// translation unit (in a -DKSPEC_TC_HIGHEST=1 build launch_high and
+// occupancy_high run HIGHEST and the DEFAULT ones refuse).
 int launch_default(int is_u8, int three_mult, const void* re, const void* im,
                    void* out, void* part, const void* starts,
                    const void* weights, const void* window, const void* f1,

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -34,6 +35,7 @@ _lib: Optional[ctypes.CDLL] = None
 _variants: dict = {}   # (names, defines) -> the loaded forensic library
 build_log = ""         # compiler output of the build this process ran
 build_seconds = 0.0    # 0.0 when the library was already built
+build_job_seconds: dict = {}   # library path -> s until its last compile
 
 
 def nvcc_path() -> str:
@@ -64,16 +66,28 @@ def library_path() -> Path:
 
 def _run_all(cmds):
     """Run the commands at once; raise with the output of the first that
-    fails.  Returns their combined output."""
+    fails.  Returns their combined output and each one's seconds from the
+    common start to its end."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    outs, ends = [None] * len(procs), [0.0] * len(procs)
+
+    def wait(i):
+        outs[i] = procs[i].communicate()[0]
+        ends[i] = time.perf_counter() - t0
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
     for c, p, o in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
                                f"{' '.join(c)}\n{o}")
-    return "".join(outs)
+    return "".join(outs), ends
 
 
 def _compile(so: Path, sources=None, flags=()) -> None:
@@ -96,13 +110,16 @@ def _compile_many(jobs) -> None:
                       so.with_name(f"{so.name}.{os.getpid()}.tmp")))
     t0 = time.perf_counter()
     try:
-        build_log = _run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
-                               str(src)]
-                              for _, sources, flags, objs, _ in plans
-                              for src, o in zip(sources, objs)])
+        build_log, ends = _run_all([
+            [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o), str(src)]
+            for _, sources, flags, objs, _ in plans
+            for src, o in zip(sources, objs)])
         build_log += _run_all([[nvcc, "-shared", "-o", str(tmp),
                                 *(str(o) for o in objs)]
-                               for _, _, _, objs, tmp in plans])
+                               for _, _, _, objs, tmp in plans])[0]
+        for so, sources, _, _, _ in plans:
+            build_job_seconds[so] = max(ends[:len(sources)])
+            ends = ends[len(sources):]
         for so, _, _, _, tmp in plans:
             os.replace(tmp, so)
     finally:
@@ -165,9 +182,6 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
     types = {
         "kspec_curscan_sublane": [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
                                   i32, i32, i32, i32, i32, ptr],
-        "kspec_curscan_sublane_forensic": [
-            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
         "kspec_curscan_packed": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],

@@ -26,31 +26,26 @@ window, else a radix-c step through a scratch buffer in device memory).
 
 The direct two-stage DFT kernel ``csrc/curscan_sublane.cu`` serves no
 session: :func:`curscan_sublane_direct` (counted in ``direct_launches``,
-fft <= ``DIRECT_MAX_FFT_SIZE``) is the base and the bitwise reference of
-the forensic kernel below, and the yardstick the FFT kernel is timed
+fft <= ``DIRECT_MAX_FFT_SIZE``) is the yardstick the FFT kernel is timed
 against.
 
 A CUDA tensor launches a kernel or raises; a CPU tensor runs
 :func:`curscan_fused_sublane_plain`, the ``torch.fft`` chain, and never
 builds anything.
 
-Performance forensics (profiling only; no session calls them): the direct
-kernel's source compiled with ``FORENSIC = true`` cuts its math.
+Performance forensics (profiling only; no session calls them):
 ``curscan_fused_sublane(..., ablate=keys)`` removes stages as the JAX
 kernel's ``ablate`` keys do (``scripts/kernel_ablate.py``), and
 :func:`curscan_stage_ablate` stops after one stage of ``STAGES``, the port of
-``scripts/roofline_r2.py``'s ``_kernel_ablate`` (K4).  Both follow the
-direct two-stage DFT, which is what the JAX scripts take apart.  Their
-plain versions (:func:`curscan_ablate_plain`, :func:`curscan_stage_plain`)
-are the same two-stage DFT in PyTorch, whose removals of stages
-(:func:`two_stage_chain`) every class's plain version shares.  At HIGH and
-DEFAULT K4 runs Kernel A's cut-offs instead (``cuda_tc.curscan_tc_stage``)
-and the ``ablate`` keys the ablate builds of Kernels A and C.
-:func:`curscan_mixed_stage` cuts the FFT kernel's mixed-radix form off
-after one stage of ``MIXED_STAGES`` (its stage table,
-``scripts/mixed_stages.py``; plain version
-:func:`curscan_mixed_stage_plain`).  ``forensic_launches`` counts the
-launches of both.
+``scripts/roofline_r2.py``'s ``_kernel_ablate`` (K4).  Both take apart the
+two-stage DFT that the JAX kernels compute, at the config's class: the
+tensor-core kernels' forensic builds (``ops/cuda_tc.py``: K4 on Kernel A's
+cut-offs, the keys on the ablate builds of Kernels A and C), at HIGHEST in
+their six-pass builds.  Their plain versions share the removals of stages
+of :func:`two_stage_chain`.  :func:`curscan_mixed_stage` cuts the FFT
+kernel's mixed-radix form off after one stage of ``MIXED_STAGES`` (its
+stage table, ``scripts/mixed_stages.py``; plain version
+:func:`curscan_mixed_stage_plain`), counted in ``forensic_launches``.
 """
 from __future__ import annotations
 
@@ -92,9 +87,10 @@ FACTOR_OVERRIDES: dict = {2048: (128, 16)}
 _BLOCKS_PER_SM = 8
 _FOLD = {CUMU_AVG: 0, CUMU_RAW: 0, CUMU_MAX: 1, CUMU_MIN: 2}
 
-# The forensic kernel's cut-off stages (its STOP_* values, in order) and
-# ablate keys (its AB_* bits).  'concat' restacks no blocks in the JAX
-# kernel; the Hopper kernel never restacks, so it is the base kernel.
+# K4's cut-off stages (Kernel A's KSPEC_TC_STOP values, in order) and the
+# ablate keys (the ablate builds' AB_* bits).  'concat' restacks no blocks
+# in the JAX kernel; the Hopper kernels never restack, so it removes
+# nothing.
 STAGES = ("read", "frame", "s1", "s1tw", "s2", "full")
 ABLATE_KEYS = {"win": 1, "stage1": 2, "twiddle": 4, "stage2": 8, "sqrt": 16,
                "cumulate": 32, "concat": 0}
@@ -117,8 +113,8 @@ TC_MAX_FFT_SIZE = 128 * _N2
 LANE_OVER_SUBLANE_FFT_SIZE = 16384
 
 launches = 0            # the FFT kernel (csrc/curscan_fft.cu)
-direct_launches = 0     # the direct-DFT kernel's production instantiation
-forensic_launches = 0   # its forensic instantiation, the mixed cut-offs
+direct_launches = 0     # the direct-DFT kernel (the FFT kernel's yardstick)
+forensic_launches = 0   # the mixed kernel's cut-offs
 
 
 def _jax_predicate(cfg: SpecConfig) -> bool:
@@ -324,7 +320,7 @@ def check_planes(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig):
 
 
 def ablate_mask(ablate) -> int:
-    """The forensic kernel's AB_* mask of ``ablate`` keys (the 3M/4M keys
+    """The ablate builds' AB_* mask of ``ablate`` keys (the 3M/4M keys
     ``force3m``/``no3m`` add no bit); raises on an unknown key."""
     if isinstance(ablate, str):
         raise TypeError(f"ablate takes a sequence of keys, not the string "
@@ -340,11 +336,11 @@ def ablate_mask(ablate) -> int:
     return mask
 
 
-def _launch(lib_fn, iq_re, iq_im, cfg, n_out, *extra) -> torch.Tensor:
-    """Launch one instantiation of the direct kernel on the planes' device
-    and current stream; raise on a launch error."""
+def _launch_direct(lib_fn, iq_re, iq_im, cfg) -> torch.Tensor:
+    """Launch the direct kernel on the planes' device and current stream;
+    raise on a launch error."""
     dev = iq_re.device
-    out = torch.empty((iq_re.shape[0], n_out), dtype=torch.float32,
+    out = torch.empty((iq_re.shape[0], cfg.fft_size), dtype=torch.float32,
                       device=dev)
     if iq_re.shape[0] == 0:
         return out
@@ -357,7 +353,7 @@ def _launch(lib_fn, iq_re, iq_im, cfg, n_out, *extra) -> torch.Tensor:
             int(iq_re.dtype == torch.uint8), out.data_ptr(),
             starts.data_ptr(), weights.data_ptr(), window.data_ptr(),
             roots.data_ptr(), iq_re.shape[0], cfg.full_size, n,
-            len(cfg.window_starts), _FOLD[cfg.cur_scan_cumu_mode], *extra,
+            len(cfg.window_starts), _FOLD[cfg.cur_scan_cumu_mode],
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib_fn)
     return out
@@ -425,57 +421,44 @@ def curscan_fused_sublane(iq_re: torch.Tensor, iq_im: torch.Tensor,
 
     ``ablate`` (forensics only): keys naming stages to remove
     (``ABLATE_KEYS``; the spectra are then wrong by construction) run the
-    kernel that serves the config's class with those stages removed, on
-    the JAX kernel's configs (the sublane predicate).  At HIGHEST that is
-    the direct kernel's forensic instantiation (fft <= 16384, counted in
-    ``forensic_launches``; plain version :func:`curscan_ablate_plain`).  At
-    HIGH and DEFAULT it is the ablate build of Kernel A up to fft 16384,
-    else of Kernel C on the split ``(n / 128, 128)``
-    (``cuda_tc.curscan_tc`` / ``curscan_tc_split(..., ablate)``, counted in
-    ``cuda_tc.tc_ablate_launches`` / ``tc_split_ablate_launches``), with
+    tensor-core kernel of the config's class with those stages removed, on
+    the JAX kernel's configs (the sublane predicate): the ablate build of
+    Kernel A up to fft 16384, else of Kernel C on the split ``(n / 128,
+    128)`` (``cuda_tc.curscan_tc`` / ``curscan_tc_split(..., ablate)``,
+    counted in ``cuda_tc.tc_ablate_launches`` /
+    ``tc_split_ablate_launches``; at HIGHEST their six-pass builds), with
     ``force3m`` / ``no3m`` picking the complex form (``force3m`` first, as
     in JAX).  Without a stage key the FFT kernel runs, which has no
     complex-matmul form: ``no3m`` is its own form and changes nothing, and
     ``force3m`` raises ValueError (the tensor-core kernels take their form
     as ``cuda_tc.curscan_tc(..., form)``)."""
-    global launches, forensic_launches
-    mask = ablate_mask(ablate)
+    global launches
+    ablate_mask(ablate)
     if kernel_route(cfg) is None:
         raise ValueError(f"config not supported by the curscan kernels "
                          f"(fft_size {cfg.fft_size}, full_size "
                          f"{cfg.full_size})")
     stages = tuple(k for k in ablate if k not in _PRECISION_KEYS)
-    if stages and cfg.tpu_precision.upper() in TC_CLASSES:
+    if stages:
         return _class_ablate(iq_re, iq_im, cfg, ablate, stages)
     if "force3m" in ablate:
         raise ValueError(
             "ablate key 'force3m' picks the 3M form of the tensor-core "
             "kernels (cuda_tc.curscan_tc, curscan_tc_split): the float64 FFT "
-            "kernel and the forensic kernel have no complex-matmul form")
-    ablate = stages
-    if ablate and not supports_direct(cfg):
-        raise ValueError(f"ablate cuts the direct-DFT kernel, which takes "
-                         f"fft <= {DIRECT_MAX_FFT_SIZE}, not {cfg.fft_size}")
+            "kernel has no complex-matmul form")
     check_planes(iq_re, iq_im, cfg)
     dev = iq_re.device
     if dev.type == "cpu":
-        if ablate:
-            return curscan_ablate_plain(iq_re, iq_im, cfg, ablate)
         return curscan_fused_sublane_plain(iq_re, iq_im, cfg)
-    lib = _cuda_lib(dev)
-    if ablate:
-        out = _launch(lib.kspec_curscan_sublane_forensic, iq_re, iq_im, cfg,
-                      cfg.fft_size, STAGES.index("full"), mask, 0, 0)
-        forensic_launches += 1
-        return out
-    out = _launch_fft(lib, iq_re, iq_im, cfg)
+    out = _launch_fft(_cuda_lib(dev), iq_re, iq_im, cfg)
     launches += 1
     return out
 
 
 def _class_ablate(iq_re, iq_im, cfg, ablate, stages) -> torch.Tensor:
-    """``curscan_fused_sublane(..., ablate)`` at HIGH and DEFAULT with stage
-    keys ``stages``: Kernel A's or Kernel C's ablate build (see there)."""
+    """``curscan_fused_sublane(..., ablate)`` with stage keys ``stages``:
+    Kernel A's or Kernel C's ablate build at the config's class (see
+    there)."""
     from kspecanal_tpu_torch.ops import cuda_tc
     if not _jax_predicate(cfg):
         raise ValueError(f"ablate takes the sublane kernel's configs (fft a "
@@ -491,10 +474,9 @@ def _class_ablate(iq_re, iq_im, cfg, ablate, stages) -> torch.Tensor:
 
 def curscan_sublane_direct(iq_re: torch.Tensor, iq_im: torch.Tensor,
                            cfg: SpecConfig) -> torch.Tensor:
-    """The direct two-stage DFT kernel (``csrc/curscan_sublane.cu``,
-    production instantiation) on ``(T, full_size)`` planes: no session runs
-    it; it is the reference of the forensic kernel's bitwise checks and the
-    FFT kernel's yardstick.  CPU tensors run the plain version."""
+    """The direct two-stage DFT kernel (``csrc/curscan_sublane.cu``) on
+    ``(T, full_size)`` planes: no session runs it; it is the FFT kernel's
+    yardstick.  CPU tensors run the plain version."""
     global direct_launches
     if not supports_direct(cfg):
         raise ValueError(f"config not supported by the direct curscan kernel "
@@ -504,21 +486,23 @@ def curscan_sublane_direct(iq_re: torch.Tensor, iq_im: torch.Tensor,
     if iq_re.device.type == "cpu":
         return curscan_fused_sublane_plain(iq_re, iq_im, cfg)
     lib = _cuda_lib(iq_re.device)
-    out = _launch(lib.kspec_curscan_sublane, iq_re, iq_im, cfg, cfg.fft_size)
+    out = _launch_direct(lib.kspec_curscan_sublane, iq_re, iq_im, cfg)
     direct_launches += 1
     return out
 
 
 def check_stage_config(iq_re: torch.Tensor, cfg: SpecConfig, stage: str):
-    """Raise unless K4 takes the case: a known stage, a config the direct
-    kernel supports, float32 planes, 128-aligned window starts, AVG weights
-    and ``full_size`` a multiple of ``fft_size`` (the JAX script frames by
-    ``s // 128`` and reads whole n1-row slabs)."""
+    """Raise unless K4 takes the case: a known stage, the JAX sublane
+    predicate up to fft ``TC_MAX_FFT_SIZE`` (Kernel A's), float32 planes,
+    128-aligned window starts, AVG weights and ``full_size`` a multiple of
+    ``fft_size`` (the JAX script frames by ``s // 128`` and reads whole
+    n1-row slabs)."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; stages: {STAGES}")
-    if not supports_direct(cfg):
-        raise ValueError(f"config not supported by the direct curscan "
-                         f"kernel (fft_size {cfg.fft_size})")
+    if not (_jax_predicate(cfg) and cfg.fft_size <= TC_MAX_FFT_SIZE):
+        raise ValueError(f"K4 takes Kernel A's configs (fft a multiple of "
+                         f"128 up to {TC_MAX_FFT_SIZE}), not fft_size "
+                         f"{cfg.fft_size}")
     if iq_re.dtype != torch.float32:
         raise TypeError(f"the stage ablation takes float32 planes, got "
                         f"{iq_re.dtype}")
@@ -534,39 +518,19 @@ def check_stage_config(iq_re: torch.Tensor, cfg: SpecConfig, stage: str):
 
 
 def curscan_stage_ablate(iq_re: torch.Tensor, iq_im: torch.Tensor,
-                         cfg: SpecConfig, stage: str, *,
-                         f32_sums: bool = False) -> torch.Tensor:
-    """K4: the kernel of the config's class cut off after ``stage``
+                         cfg: SpecConfig, stage: str) -> torch.Tensor:
+    """K4: Kernel A at the config's class cut off after ``stage``
     (``STAGES``), each block reduced to ``(fft_size/128, 128)``:
     ``(T, full_size)`` float32 -> ``(T, n1, 128)`` in the JAX script's
-    layout (row k1, or m1 for 'frame'; column m2 or k2; unshifted).
-
-    At HIGHEST the direct kernel's forensic instantiation (counted in
-    ``forensic_launches``); 'full' equals :func:`curscan_sublane_direct`
-    under ``out[b, (k1 + n1*k2 + N/2) % N] = K4[b, k1, k2]``, and
-    ``f32_sums`` sums in float32 above fft 8192 too, to price the float64
-    sums.  At HIGH and DEFAULT Kernel A's cut-offs
+    layout (row k1, or m1 for 'frame'; column m2 or k2; unshifted); 'full'
+    is Kernel A's output under ``out[b, (k1 + n1*k2 + N/2) % N] = K4[b, k1,
+    k2]`` (:func:`spectrum_to_stage_layout`).  Kernel A's cut-off builds
     (``cuda_tc.curscan_tc_stage``, counted in ``cuda_tc.tc_stage_launches``;
-    they sum in float32 and take no ``f32_sums``).  CPU tensors run the
-    plain versions (:func:`curscan_stage_plain`,
-    ``cuda_tc.curscan_tc_stage_plain``)."""
-    global forensic_launches
+    at HIGHEST the six-pass forensic builds).  CPU tensors run the plain
+    version (``cuda_tc.curscan_tc_stage_plain``)."""
     check_stage_config(iq_re, cfg, stage)
-    if cfg.tpu_precision.upper() in TC_CLASSES:
-        if f32_sums:
-            raise ValueError("f32_sums prices the direct kernel's float64 "
-                             "sums; Kernel A sums in float32")
-        from kspecanal_tpu_torch.ops import cuda_tc
-        return cuda_tc.curscan_tc_stage(iq_re, iq_im, cfg, stage)
-    check_planes(iq_re, iq_im, cfg)
-    n1 = cfg.fft_size // _N2
-    if iq_re.device.type == "cpu":
-        return curscan_stage_plain(iq_re, iq_im, cfg, stage)
-    lib = _cuda_lib(iq_re.device)
-    out = _launch(lib.kspec_curscan_sublane_forensic, iq_re, iq_im, cfg,
-                  cfg.fft_size, STAGES.index(stage), 0, 1, int(f32_sums))
-    forensic_launches += 1
-    return out.view(-1, n1, _N2)
+    from kspecanal_tpu_torch.ops import cuda_tc
+    return cuda_tc.curscan_tc_stage(iq_re, iq_im, cfg, stage)
 
 
 def runs_mixed_kernel(n: int) -> bool:
@@ -694,59 +658,6 @@ def two_stage_chain(fr: torch.Tensor, fi: torch.Tensor, win: torch.Tensor,
     return steps.total(mag) if "cumulate" in ablate else steps.fold(mag)
 
 
-def _two_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
-                     cfg: SpecConfig, stop: str,
-                     ablate: frozenset) -> torch.Tensor:
-    """The kernel's math in PyTorch, in float32 on the planes' device: frame
-    and window ``a[m1, m2]``, stage 1 (einsum over m1), twiddle, stage 2
-    (einsum over m2), cut off at ``stop`` and with the ``ablate`` stages
-    passed through (:func:`two_stage_chain`), as the forensic kernel does.
-    Returns ``(T, n1, 128)``: below 'full' the AVG-weighted window sum of
-    ``x.re + x.im``; at 'full' the cumulate mode's fold of the
-    magnitudes."""
-    n = cfg.fft_size
-    n1 = n // _N2
-    re, im = spectrum.decode_u8(iq_re), spectrum.decode_u8(iq_im)
-    t = re.shape[0]
-    if stop == "read":
-        slabs_re = re.reshape(t, -1, n1, _N2)
-        slabs_im = im.reshape(t, -1, n1, _N2)
-        acc = torch.zeros((t, n1, _N2), dtype=torch.float32, device=re.device)
-        for j in range(slabs_re.shape[1]):
-            acc = acc + slabs_re[:, j] + slabs_im[:, j]
-        return acc
-    _, weights, window, roots = _tables(n, cfg.window, cfg.window_starts,
-                                        cfg.cur_scan_cumu_mode, re.device)
-    root = torch.complex(roots[:, 0], roots[:, 1])
-    k1 = torch.arange(n1, device=re.device)
-    c128 = torch.arange(_N2, device=re.device)
-    f1 = root[(torch.outer(k1, k1) % n1) * _N2]          # (k1, m1)
-    tw = root[torch.outer(k1, c128) % n]                  # (k1, m2)
-    f2 = root[(torch.outer(c128, c128) % _N2) * n1]      # (k2, m2)
-    mode = cfg.cur_scan_cumu_mode
-
-    def fold(mag):
-        mag = weights[None, :, None, None] * mag
-        if mode == CUMU_MAX:
-            return mag.amax(dim=1)
-        if mode == CUMU_MIN:
-            return mag.amin(dim=1)
-        return mag.sum(dim=1)
-
-    frame = (spectrum.frame_signal(p, cfg.window_starts, n).reshape(
-        t, -1, n1, _N2) for p in (re, im))
-    return two_stage_chain(*frame, window.reshape(n1, _N2), stop, ablate,
-                           TwoStageSteps(
-        start=torch.complex, keep=lambda x: x,
-        stage1=lambda x: torch.einsum("km,twmc->twkc", f1, x),
-        twiddle=lambda x: x * tw,
-        stage2=lambda x: torch.einsum("twkc,jc->twkj", x, f2),
-        reduce=lambda x: torch.einsum("w,twkc->tkc", weights,
-                                      x.real + x.imag),
-        square=lambda x: x.real * x.real + x.imag * x.imag,
-        total=lambda mag: mag.sum(dim=1), fold=fold))
-
-
 def stage_layout_to_spectrum(acc: torch.Tensor) -> torch.Tensor:
     """``(T, n1, 128)`` -> the production ``(T, N)`` layout:
     ``out[(k1 + n1*k2 + N/2) % N] = acc[k1, k2]``."""
@@ -761,19 +672,3 @@ def spectrum_to_stage_layout(spec: torch.Tensor, n1: int) -> torch.Tensor:
     t, n = spec.shape
     return torch.fft.ifftshift(spec, dim=-1).view(t, n // n1,
                                                   n1).transpose(1, 2)
-
-
-def curscan_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
-                        cfg: SpecConfig, stage: str) -> torch.Tensor:
-    """The plain PyTorch version of :func:`curscan_stage_ablate`."""
-    check_stage_config(iq_re, cfg, stage)
-    return _two_stage_plain(iq_re, iq_im, cfg, stage, frozenset())
-
-
-def curscan_ablate_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
-                         cfg: SpecConfig, ablate) -> torch.Tensor:
-    """The plain PyTorch version of ``curscan_fused_sublane(...,
-    ablate=ablate)``: ``(T, fft_size)`` in the production layout."""
-    ablate_mask(ablate)
-    return stage_layout_to_spectrum(
-        _two_stage_plain(iq_re, iq_im, cfg, "full", frozenset(ablate)))

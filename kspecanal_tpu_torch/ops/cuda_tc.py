@@ -74,17 +74,25 @@ So at HIGH and DEFAULT every config the JAX dispatcher sends to a Pallas
 curscan kernel runs a tensor-core kernel; the float64 FFT kernels serve
 HIGHEST.
 
-K4 (``scripts/roofline_r2.py``'s stage ablation) at HIGH and DEFAULT runs
-Kernel A cut off after each stage (:func:`curscan_tc_stage`, counted in
+K4 (``scripts/roofline_r2.py``'s stage ablation) runs Kernel A cut off
+after each stage (:func:`curscan_tc_stage`, counted in
 ``tc_stage_launches``): forensic builds of its sources with
 ``-DKSPEC_TC_STOP`` (:func:`stage_library`), each writing its stage's
 reduction (``csrc/curscan_tc.cuh``; plain version
-:func:`curscan_tc_stage_plain`), and the port's library itself for 'full'.
-K1's ``ablate`` keys at HIGH and DEFAULT (``scripts/kernel_ablate.py``)
-run the ablate builds of Kernel A and Kernel C (:func:`ablate_variants`,
-``-DKSPEC_TC_ABLATE`` / ``-DKSPEC_TCS_ABLATE``: one build each, the mask a
-run-time argument; ``curscan_tc`` / ``curscan_tc_split(..., ablate)``,
-counted in ``tc_ablate_launches`` / ``tc_split_ablate_launches``).
+:func:`curscan_tc_stage_plain`), and for 'full' the port's library.  K1's
+``ablate`` keys (``scripts/kernel_ablate.py``) run the ablate builds of
+Kernel A and Kernel C (:func:`ablate_variants`, ``-DKSPEC_TC_ABLATE`` /
+``-DKSPEC_TCS_ABLATE``: one build each, the mask a run-time argument;
+``curscan_tc`` / ``curscan_tc_split(..., ablate)``, counted in
+``tc_ablate_launches`` / ``tc_split_ablate_launches``).
+
+Both forensic forms run HIGHEST too, as the JAX kernels compute it (Mosaic's
+six bf16 passes, ``pallas_curscan._make_dot``): the class of three parts an
+operand (:func:`six_pass_matmul`, ``mxu_fft.split3_bf16``), compiled only
+into forensic builds with ``-DKSPEC_TC_HIGHEST=1`` (:func:`highest_variants`:
+Kernel A whole, :func:`highest_library`, its five cut-offs and its ablate
+build, Kernel C's ablate build), counted on the same counters.  No session
+runs them: a HIGHEST session runs the float64 FFT kernels.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version (:func:`curscan_tc_plain`, :func:`curscan_packed_tc_plain`,
@@ -108,25 +116,35 @@ from kspecanal_tpu_torch.config import (CUMU_AVG, CUMU_MAX, CUMU_RAW,
 from kspecanal_tpu_torch.ops import cuda_packed, spectrum
 from kspecanal_tpu_torch.ops.cuda_packed import _aligned
 from kspecanal_tpu_torch.ops.cuda_curscan import (_FOLD, STAGES,
-                                                  TC_CLASSES, TwoStageSteps,
+                                                  TC_CLASSES,
+                                                  TC_MAX_FFT_SIZE,
+                                                  TwoStageSteps,
                                                   _jax_predicate, _raise_on,
-                                                  _tables, _two_stage_plain,
-                                                  ablate_mask, check_planes,
+                                                  _tables, ablate_mask,
+                                                  check_planes,
                                                   check_stage_config,
                                                   kernel_route,
                                                   spectrum_to_stage_layout,
                                                   stage_layout_to_spectrum,
                                                   tc_split, two_stage_chain)
 from kspecanal_tpu_torch.ops.mxu_fft import (_dft_tables_for, class_matmul,
-                                             round_bf16, split_bf16)
+                                             round_bf16, split3_bf16,
+                                             split_bf16)
 
 FORMS = ("force3m", "no3m")
+# The classes of the forensic forms (K4, the ablate keys): the production
+# classes and HIGHEST's six passes.  The kernels' `precision` argument.
+FORENSIC_CLASSES = ("HIGHEST",) + TC_CLASSES
+PREC_CODE = {"DEFAULT": 0, "HIGH": 1, "HIGHEST": 2}
 _N2 = 128
 _MMA = 16                       # mma.sync m16n8k16: M and K tiles
 # Kernel A stacks at most TC_PASS_ROWS rows of frames a pass (n1 rounded up
 # to 16 a window); its shared-memory layout is layout() in
 # csrc/curscan_tc.cuh, which the library reports (kspec_curscan_tc_smem).
 TC_PASS_ROWS = 64
+# A block's shared memory on the H100 (bytes), which Kernel A's planes must
+# fit: HIGHEST's nine 3M planes do up to n1p = 80 only.
+TC_SMEM_LIMIT = 232448
 # Kernel B: bytes of a thread block's staging buffers and operand planes
 # (packed_tc_plan keeps a staged span within it by chunks of windows).
 PACKED_TC_STAGE_BYTES = 48 << 10
@@ -144,13 +162,17 @@ TC_SPLIT_STAGES = ("frame", "s1", "s1tw", "s2", "full")
 # scripts/kernel_ablate.py).
 TC_ABLATE = (TC_SOURCES, ("KSPEC_TC_ABLATE=1",))
 TC_SPLIT_ABLATE = (TC_SPLIT_SOURCES, ("KSPEC_TCS_ABLATE=1",))
+# The define of the HIGHEST forensic builds: the HIGH translation units
+# instantiate the six-pass class, the DEFAULT ones none (csrc/
+# curscan_tc_common.cuh); the port's library never has it.
+HIGHEST_DEFINE = "KSPEC_TC_HIGHEST=1"
 
 tc_launches = 0             # Kernel A (csrc/curscan_tc.cu)
 packed_tc_launches = 0      # Kernel B (csrc/curscan_packed_tc.cu)
-tc_stage_launches = 0       # Kernel A's K4 cut-offs (curscan_tc_stage)
+tc_stage_launches = 0       # K4 on Kernel A (curscan_tc_stage; HIGHEST too)
 tc_split_launches = 0       # Kernel C (csrc/curscan_tc_split.cu)
 tc_split_stage_launches = 0  # Kernel C's cut-offs (curscan_tc_split_stage)
-tc_ablate_launches = 0      # Kernel A's ablate build (curscan_tc, ablate)
+tc_ablate_launches = 0      # Kernel A's ablate builds (curscan_tc, ablate)
 tc_split_ablate_launches = 0  # Kernel C's (curscan_tc_split, ablate)
 
 
@@ -182,12 +204,40 @@ def three_mult(form: Optional[str] = None) -> bool:
     return form == "force3m"
 
 
-def _check_class(cfg: SpecConfig) -> str:
+def _check_class(cfg: SpecConfig, classes=TC_CLASSES) -> str:
     prec = precision_class(cfg)
-    if prec not in TC_CLASSES:
-        raise ValueError(f"the tensor-core kernels serve tpuPrecision HIGH "
-                         f"and DEFAULT, not {cfg.tpu_precision}")
+    if prec not in classes:
+        raise ValueError(f"the tensor-core kernels serve tpuPrecision "
+                         f"{' and '.join(classes)}, not {cfg.tpu_precision}")
     return prec
+
+
+def supports_highest_forensics(cfg: SpecConfig) -> bool:
+    """The HIGHEST forensic builds take ``cfg``: class HIGHEST and the JAX
+    sublane predicate, whose kernel the ablate keys and K4 take apart
+    (Kernel A up to fft ``TC_MAX_FFT_SIZE``, Kernel C above)."""
+    return precision_class(cfg) == "HIGHEST" and _jax_predicate(cfg)
+
+
+def six_pass_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the HIGHEST forensic builds compute it: both operands
+    split in three bf16 parts (``mxu_fft.split3_bf16``), the six products
+    whose parts' orders sum to at most 2, each a float32 product (exact for
+    bf16 values), summed smallest first, ``hh + ((hm + mh) + ((hl + mm) +
+    lh))``.  Only the order of the float32 sums differs from the kernels'
+    (Kernel A sums the first- and second-order terms in two chains, Kernel
+    C in one)."""
+    ah, am, al = split3_bf16(a)
+    bh, bm, bl = split3_bf16(b)
+    return ah @ bh + ((ah @ bm + am @ bh) + ((ah @ bl + am @ bm) + al @ bh))
+
+
+def _class_dot(a: torch.Tensor, b: torch.Tensor, prec: str) -> torch.Tensor:
+    """A real product of the class kernels at ``prec``: the six passes at
+    HIGHEST (:func:`six_pass_matmul`), else ``mxu_fft.class_matmul``."""
+    if prec == "HIGHEST":
+        return six_pass_matmul(a, b)
+    return class_matmul(a, b, prec)
 
 
 def _complex_dot(dot, fr, fi, fs, xr, xi, left: bool, tm: bool):
@@ -230,32 +280,39 @@ def _two_stage_tc(iq_re: torch.Tensor, iq_im: torch.Tensor,
                   split: Optional[Tuple[int, int]] = None,
                   ablate: frozenset = frozenset()) -> torch.Tensor:
     """The tensor-core kernels' two-stage math in PyTorch at the config's
-    class, on the split ``n = n1 * n2`` (default Kernel A's ``(n / 128,
-    128)``), cut off after ``stage`` (``STAGES``), with the ``ablate``
-    stages passed through (``cuda_curscan.two_stage_chain``): ``(T, n1,
-    n2)``, row k1 (m1 for 'frame'), column k2 (m2), unshifted.  'read' is
-    the unweighted float32 sum of the block's n-sample slabs of re + im,
-    slab by slab; 'frame' (as rounded: bf16, and hi + lo at HIGH), 's1'
-    (B), 's1tw' (C) and 's2' (D) the sum over windows, in window order, of
-    weights[w] (x_re + x_im); 'full' the cumulate mode's fold of weights[w]
-    |D| in window order.  A removed stage 1 leaves B the frame as rounded, a
-    removed stage 2 D = C as rounded for stage 2 (the operands the kernels
-    stage); 'cumulate' sums |D| over the windows in window order."""
-    prec = _check_class(cfg)
+    class (HIGHEST: the forensic builds' six passes), on the split ``n = n1
+    * n2`` (default Kernel A's ``(n / 128, 128)``), cut off after ``stage``
+    (``STAGES``), with the ``ablate`` stages passed through
+    (``cuda_curscan.two_stage_chain``): ``(T, n1, n2)``, row k1 (m1 for
+    'frame'), column k2 (m2), unshifted.  'read' is the unweighted float32
+    sum of the block's n-sample slabs of re + im, slab by slab, in K4's
+    ``(n / 128, 128)`` layout; 'frame' (as rounded: :func:`_operand_value`),
+    's1' (B), 's1tw' (C) and 's2' (D) the sum over windows, in window order,
+    of weights[w] (x_re + x_im); 'full' the cumulate mode's fold of
+    weights[w] |D| in window order.  A removed stage 1 leaves B the frame
+    as rounded, a removed stage 2 D = C as rounded for stage 2 (the
+    operands the kernels stage); 'cumulate' sums |D| over the windows in
+    window order."""
+    prec = _check_class(cfg, FORENSIC_CLASSES)
     n = cfg.fft_size
     n1, n2 = split or (n // _N2, _N2)
     dev = iq_re.device
     re, im = spectrum.decode_u8(iq_re), spectrum.decode_u8(iq_im)
     t = re.shape[0]
-    if stage == "read":      # no rounding: the direct kernel's plain read
-        return _two_stage_plain(iq_re, iq_im, cfg, "read", frozenset())
+    if stage == "read":      # no rounding: every sample once
+        acc = torch.zeros((t, n // _N2, _N2), dtype=torch.float32,
+                          device=dev)
+        slabs = (p.reshape(t, -1, n // _N2, _N2) for p in (re, im))
+        for sr, si in zip(*(x.unbind(1) for x in slabs)):
+            acc = acc + sr + si
+        return acc
     f1r, f1i, f1s, f2r, f2i, f2s, twr, twi, win = _plain_tables(
         n, cfg.window, dev, n2)
     weights = _tables(n, cfg.window, cfg.window_starts,
                       cfg.cur_scan_cumu_mode, dev)[1]
 
     def dot(a, b):
-        return class_matmul(a, b, prec)
+        return _class_dot(a, b, prec)
 
     def over_windows(mode, x, w):
         acc = None
@@ -300,7 +357,11 @@ def _stage_keys(ablate: Optional[Sequence[str]]) -> frozenset:
 
 def _operand_value(x: torch.Tensor, prec: str) -> torch.Tensor:
     """The value of float32 ``x`` as Kernel A stores it as an operand: bf16
-    at DEFAULT, hi + lo of the bf16x3 split at HIGH."""
+    at DEFAULT, hi + lo of the bf16x3 split at HIGH, (hi + mid) + lo of the
+    three-part split at HIGHEST."""
+    if prec == "HIGHEST":
+        hi, mid, lo = split3_bf16(x)
+        return (hi + mid) + lo
     if prec == "HIGH":
         hi, lo = split_bf16(x)
         return hi + lo
@@ -355,8 +416,9 @@ def curscan_tc_split_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
 def curscan_tc_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
                            cfg: SpecConfig, stage: str) -> torch.Tensor:
     """The plain PyTorch version of :func:`curscan_tc_stage` (4M, Kernel
-    A's rounding points): ``(T, full_size)`` float32 -> ``(T, n1, 128)``;
-    'full' is :func:`curscan_tc_plain` before the layout map."""
+    A's rounding points, at every class of ``FORENSIC_CLASSES``): ``(T,
+    full_size)`` float32 -> ``(T, n1, 128)``; 'full' is
+    :func:`curscan_tc_plain` before the layout map."""
     check_stage_config(iq_re, cfg, stage)
     return _two_stage_tc(iq_re, iq_im, cfg, stage, False)
 
@@ -441,18 +503,21 @@ def ldmatrix_lanes(trans: bool):
             8 * (lane // 16))
 
 
-def bf16_halves(x: np.ndarray):
-    """The bf16 bits (uint16) of the hi and lo halves of float32 ``x``."""
-    hi, lo = split_bf16(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
+def bf16_halves(x: np.ndarray, parts: int = 2):
+    """The bf16 bits (uint16) of the hi and lo halves of float32 ``x``
+    (``parts`` 3: hi, mid and lo of ``mxu_fft.split3_bf16``)."""
+    x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
 
     def bits(v):
         return v.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
-    return bits(hi), bits(lo)
+    return tuple(bits(v) for v in (split3_bf16(x) if parts == 3
+                                   else split_bf16(x)))
 
 
-def frag_a(mats, m_tiles: int, k_tiles: int) -> np.ndarray:
+def frag_a(mats, m_tiles: int, k_tiles: int, parts: int = 2) -> np.ndarray:
     """A fragments of matrices padded to (16 m_tiles, 16 k_tiles):
-    ``[slot][mt][kc][lane][8]`` uint16, slot = 2 * matrix + (0 hi, 1 lo)."""
+    ``[slot][mt][kc][lane][8]`` uint16, slot = parts * matrix + part (0 hi,
+    1 lo; with 3 parts 1 mid, 2 lo)."""
     rows, cols = _frag_a_index()
     mt = np.arange(m_tiles)[:, None, None, None] * 16
     kc = np.arange(k_tiles)[None, :, None, None] * 16
@@ -460,14 +525,14 @@ def frag_a(mats, m_tiles: int, k_tiles: int) -> np.ndarray:
     for m in mats:
         pad = np.zeros((16 * m_tiles, 16 * k_tiles), np.float32)
         pad[:m.shape[0], :m.shape[1]] = m
-        for half in bf16_halves(pad):
+        for half in bf16_halves(pad, parts):
             out.append(half[mt + rows, kc + cols])
     return np.stack(out)
 
 
-def frag_b(mats, k_tiles: int, n_tiles: int) -> np.ndarray:
+def frag_b(mats, k_tiles: int, n_tiles: int, parts: int = 2) -> np.ndarray:
     """B fragments of matrices padded to (16 k_tiles, 8 n_tiles):
-    ``[slot][kc][nt][lane][4]`` uint16, slot = 2 * matrix + (0 hi, 1 lo)."""
+    ``[slot][kc][nt][lane][4]`` uint16, slot = parts * matrix + part."""
     rows, cols = _frag_b_index()
     kc = np.arange(k_tiles)[:, None, None, None] * 16
     nt = np.arange(n_tiles)[None, :, None, None] * 8
@@ -475,9 +540,15 @@ def frag_b(mats, k_tiles: int, n_tiles: int) -> np.ndarray:
     for m in mats:
         pad = np.zeros((16 * k_tiles, 8 * n_tiles), np.float32)
         pad[:m.shape[0], :m.shape[1]] = m
-        for half in bf16_halves(pad):
+        for half in bf16_halves(pad, parts):
             out.append(half[kc + rows, nt + cols])
     return np.stack(out)
+
+
+def table_parts(prec: str) -> int:
+    """The bf16 parts a matrix of the kernels' tables holds at ``prec``: 2
+    (hi, lo) up to HIGH, 3 at HIGHEST."""
+    return 3 if prec == "HIGHEST" else 2
 
 
 def _padded16(n1: int) -> int:
@@ -485,17 +556,17 @@ def _padded16(n1: int) -> int:
 
 
 @functools.lru_cache(maxsize=32)
-def tc_tables(n: int, device: torch.device):
+def tc_tables(n: int, device: torch.device, parts: int = 2):
     """Kernel A's tables for fft ``n`` on ``device``: F1's A fragments
-    (F1r, F1i, F1r + F1i; 6 slots, ``(n1p/16)^2`` tiles), F2^T's B
-    fragments (F2r^T, F2i^T, (F2r + F2i)^T; 6 slots, 8 x 16 tiles), both
-    bf16 bits as int16, and the twiddles ``(n1p, 128, 2)`` float32 with zero
-    rows from n1."""
+    (F1r, F1i, F1r + F1i; 6 slots, 9 with 3 ``parts``, ``(n1p/16)^2``
+    tiles), F2^T's B fragments (F2r^T, F2i^T, (F2r + F2i)^T; as many slots,
+    8 x 16 tiles), both bf16 bits as int16, and the twiddles ``(n1p, 128,
+    2)`` float32 with zero rows from n1."""
     n1 = n // _N2
     n1p = _padded16(n1)
     f1r, f1i, f2r, f2i, twr, twi = _dft_tables_for(n, n1, _N2)
-    f1 = frag_a((f1r, f1i, f1r + f1i), n1p // _MMA, n1p // _MMA)
-    f2 = frag_b((f2r.T, f2i.T, (f2r + f2i).T), _N2 // _MMA, _N2 // 8)
+    f1 = frag_a((f1r, f1i, f1r + f1i), n1p // _MMA, n1p // _MMA, parts)
+    f2 = frag_b((f2r.T, f2i.T, (f2r + f2i).T), _N2 // _MMA, _N2 // 8, parts)
     tw = np.zeros((n1p, _N2, 2), np.float32)
     tw[:n1, :, 0], tw[:n1, :, 1] = twr, twi
 
@@ -505,16 +576,16 @@ def tc_tables(n: int, device: torch.device):
 
 
 @functools.lru_cache(maxsize=32)
-def tc_split_tables(n1: int, n2: int, device: torch.device):
+def tc_split_tables(n1: int, n2: int, device: torch.device, parts: int = 2):
     """Kernel C's tables for the split ``n = n1 * n2`` on ``device``: F1's A
-    fragments (F1r, F1i, F1r + F1i; 6 slots, ``(n1p/16)^2`` tiles), F2^T's
-    B fragments (F2r^T, F2i^T, (F2r + F2i)^T; 6 slots, ``n2p/16 x n2p/8``
-    tiles), both bf16 bits as int16, and the twiddles ``(n1p, n2p, 2)``
-    float32, zero outside ``(n1, n2)``."""
+    fragments (F1r, F1i, F1r + F1i; 6 slots, 9 with 3 ``parts``,
+    ``(n1p/16)^2`` tiles), F2^T's B fragments (F2r^T, F2i^T, (F2r + F2i)^T;
+    as many slots, ``n2p/16 x n2p/8`` tiles), both bf16 bits as int16, and
+    the twiddles ``(n1p, n2p, 2)`` float32, zero outside ``(n1, n2)``."""
     n1p, n2p = _padded16(n1), _padded16(n2)
     f1r, f1i, f2r, f2i, twr, twi = _dft_tables_for(n1 * n2, n1, n2)
-    f1 = frag_a((f1r, f1i, f1r + f1i), n1p // _MMA, n1p // _MMA)
-    f2 = frag_b((f2r.T, f2i.T, (f2r + f2i).T), n2p // _MMA, n2p // 8)
+    f1 = frag_a((f1r, f1i, f1r + f1i), n1p // _MMA, n1p // _MMA, parts)
+    f2 = frag_b((f2r.T, f2i.T, (f2r + f2i).T), n2p // _MMA, n2p // 8, parts)
     tw = np.zeros((n1p, n2p, 2), np.float32)
     tw[:n1, :n2, 0], tw[:n1, :n2, 1] = twr, twi
 
@@ -674,20 +745,23 @@ def stage_variants():
             for s in STAGES[:-1]]
 
 
-def stage_library(stage: str):
+def stage_library(stage: str, highest: bool = False):
     """The forensic build of Kernel A cut off after ``stage`` (any but
-    'full'), built on first use (``build_stage_libraries`` builds all five
-    at once)."""
+    'full'; ``highest``: the HIGHEST build's), built on first use
+    (``build_stage_libraries`` builds all five at once)."""
     from kspecanal_tpu_torch.ops import _build
-    return _build.load_variant(TC_SOURCES,
-                               (f"KSPEC_TC_STOP={tc_stage_stop(stage)}",))
+    return _build.load_variant(
+        TC_SOURCES, (HIGHEST_DEFINE,) * highest
+        + (f"KSPEC_TC_STOP={tc_stage_stop(stage)}",))
 
 
-def build_stage_libraries() -> None:
+def build_stage_libraries(highest: bool = False) -> None:
     """Build the five cut-off libraries that are not built yet at once (one
-    nvcc per source and cut-off, all started together)."""
+    nvcc per source and cut-off, all started together); ``highest``: the
+    HIGHEST forensic builds (:func:`highest_variants`) instead."""
     from kspecanal_tpu_torch.ops import _build
-    _build.build(stage_variants(), library=False)
+    _build.build(highest_variants() if highest else stage_variants(),
+                 library=False)
 
 
 def ablate_variants():
@@ -696,18 +770,36 @@ def ablate_variants():
     return [TC_ABLATE, TC_SPLIT_ABLATE]
 
 
-def tc_ablate_library():
-    """Kernel A's ablate build (``-DKSPEC_TC_ABLATE=1``), built on first
-    use."""
-    from kspecanal_tpu_torch.ops import _build
-    return _build.load_variant(*TC_ABLATE)
+def highest_variants():
+    """``(sources, defines)`` of the HIGHEST forensic builds: Kernel A
+    whole (:func:`highest_library`), its five cut-offs and its ablate
+    build, and Kernel C's ablate build."""
+    return [(TC_SOURCES, (HIGHEST_DEFINE,))] + [
+        (names, (HIGHEST_DEFINE,) + defines)
+        for names, defines in stage_variants() + ablate_variants()]
 
 
-def tc_split_ablate_library():
-    """Kernel C's ablate build (``-DKSPEC_TCS_ABLATE=1``), built on first
-    use."""
+def highest_library():
+    """Kernel A at HIGHEST (``-DKSPEC_TC_HIGHEST=1``, forensics: K4's 'full'
+    and the window groups of the HIGHEST forms), built on first use."""
     from kspecanal_tpu_torch.ops import _build
-    return _build.load_variant(*TC_SPLIT_ABLATE)
+    return _build.load_variant(TC_SOURCES, (HIGHEST_DEFINE,))
+
+
+def tc_ablate_library(highest: bool = False):
+    """Kernel A's ablate build (``-DKSPEC_TC_ABLATE=1``; ``highest``: with
+    ``-DKSPEC_TC_HIGHEST=1``), built on first use."""
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load_variant(
+        TC_ABLATE[0], (HIGHEST_DEFINE,) * highest + TC_ABLATE[1])
+
+
+def tc_split_ablate_library(highest: bool = False):
+    """Kernel C's ablate build (``-DKSPEC_TCS_ABLATE=1``; ``highest``: with
+    ``-DKSPEC_TC_HIGHEST=1``), built on first use."""
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load_variant(
+        TC_SPLIT_ABLATE[0], (HIGHEST_DEFINE,) * highest + TC_SPLIT_ABLATE[1])
 
 
 def curscan_tc(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig,
@@ -725,9 +817,13 @@ def curscan_tc(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig,
     port's library's window groups, counted in ``tc_ablate_launches``; the
     spectra are then wrong by construction.  No key, or 'concat' alone,
     runs the production kernel's operations: its output equals the
-    production launch's bit for bit."""
+    production launch's bit for bit.  At HIGHEST (``ablate`` only; up to fft
+    ``TC_MAX_FFT_SIZE``) the HIGHEST ablate build runs, at the window
+    groups of :func:`highest_library`."""
     global tc_launches, tc_ablate_launches
-    if not supports_tc(cfg):
+    highest = ablate is not None and supports_highest_forensics(cfg) \
+        and cfg.fft_size <= TC_MAX_FFT_SIZE
+    if not (supports_tc(cfg) or highest):
         raise ValueError(f"config not supported by the tensor-core curscan "
                          f"kernel (tpuPrecision {cfg.tpu_precision}, fft_size "
                          f"{cfg.fft_size}, full_size {cfg.full_size})")
@@ -736,12 +832,21 @@ def curscan_tc(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig,
     stages = _stage_keys(ablate)
     if iq_re.device.type == "cpu":
         return curscan_tc_plain(iq_re, iq_im, cfg, form, ablate)
-    prod = _cuda_lib(iq_re.device)
+    prod = highest_library() if highest else _cuda_lib(iq_re.device)
     if ablate is None:
         out = launch_tc(prod, iq_re, iq_im, cfg, tm)
         tc_launches += 1
         return out
-    out = launch_tc(tc_ablate_library(), iq_re, iq_im, cfg, tm,
+    lib = tc_ablate_library(highest=True) if highest else tc_ablate_library()
+    n1 = cfg.fft_size // _N2
+    if highest and lib.kspec_curscan_tc_smem(
+            n1, tc_windows_per_pass(n1, cfg.num_windows), PREC_CODE["HIGHEST"],
+            int(tm)) > TC_SMEM_LIMIT:
+        raise ValueError(f"Kernel A's HIGHEST operand planes (n1 = {n1}, "
+                         f"{'3M' if tm else '4M'}) exceed a block's "
+                         f"{TC_SMEM_LIMIT} bytes of shared memory: 3M fits "
+                         f"up to n1 = 80")
+    out = launch_tc(lib, iq_re, iq_im, cfg, tm,
                     tc_launch_groups(prod, iq_re, cfg, tm),
                     ablate_mask(stages))
     tc_ablate_launches += 1
@@ -749,12 +854,13 @@ def curscan_tc(iq_re: torch.Tensor, iq_im: torch.Tensor, cfg: SpecConfig,
 
 
 @functools.lru_cache(maxsize=256)
-def tc_occupancy(lib, u8: bool, n1: int, wb: int, high: bool,
+def tc_occupancy(lib, u8: bool, n1: int, wb: int, prec: int,
                  tm: bool) -> int:
     """The blocks an SM holds of ``lib``'s Kernel A instantiation for these
-    arguments (the CUDA occupancy calculator: registers and shared
-    memory); raises where the library cannot say."""
-    blocks = lib.kspec_curscan_tc_occupancy(int(u8), n1, wb, int(high),
+    arguments (``prec`` the kernels' precision code, ``PREC_CODE``; the
+    CUDA occupancy calculator: registers and shared memory); raises where
+    the library cannot say."""
+    blocks = lib.kspec_curscan_tc_occupancy(int(u8), n1, wb, int(prec),
                                             int(tm))
     if blocks < 1:
         raise RuntimeError(f"Kernel A's occupancy for n1 {n1}, {wb} "
@@ -773,32 +879,35 @@ def tc_launch_groups(lib, iq_re: torch.Tensor, cfg: SpecConfig,
             iq_re.device).multi_processor_count,
         tc_occupancy(lib, iq_re.dtype == torch.uint8, n1,
                      tc_windows_per_pass(n1, w),
-                     precision_class(cfg) == "HIGH", tm))
+                     PREC_CODE[precision_class(cfg)], tm))
 
 
 def curscan_tc_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
                      cfg: SpecConfig, stage: str) -> torch.Tensor:
-    """K4 at HIGH and DEFAULT: Kernel A (4M) cut off after ``stage``
-    (``STAGES``) on ``(T, full_size)`` float32 planes -> ``(T, n1, 128)``
-    in the layout of ``cuda_curscan.curscan_stage_ablate``.  Each cut-off is
-    a build of its own (:func:`stage_library`), 'full' the port's library;
-    all run the window groups of the port's library
-    (:func:`tc_launch_groups`), so 'full' after the layout map is Kernel
-    A's production output bit for bit (its map to K4's layout is a copy:
-    the cut-offs store that layout themselves).  CUDA tensors launch
-    (counted in ``tc_stage_launches``); CPU tensors run
+    """K4: Kernel A (4M) cut off after ``stage`` (``STAGES``) at the
+    config's class (``FORENSIC_CLASSES``) on ``(T, full_size)`` float32
+    planes -> ``(T, n1, 128)`` in the layout of
+    ``cuda_curscan.curscan_stage_ablate``.  Each cut-off is a build of its
+    own (:func:`stage_library`), 'full' the port's library (HIGHEST:
+    :func:`highest_library`); all run that library's window groups
+    (:func:`tc_launch_groups`), so 'full' after the layout map is its
+    output bit for bit (its map to K4's layout is a copy: the cut-offs
+    store that layout themselves).  CUDA tensors launch (counted in
+    ``tc_stage_launches``); CPU tensors run
     :func:`curscan_tc_stage_plain`."""
     global tc_stage_launches
     check_stage_config(iq_re, cfg, stage)
-    if not supports_tc(cfg):
+    highest = supports_highest_forensics(cfg)
+    if not (supports_tc(cfg) or highest):
         raise ValueError(f"config not supported by the tensor-core curscan "
                          f"kernel (tpuPrecision {cfg.tpu_precision}, fft_size "
                          f"{cfg.fft_size})")
     check_planes(iq_re, iq_im, cfg)
     if iq_re.device.type == "cpu":
         return curscan_tc_stage_plain(iq_re, iq_im, cfg, stage)
-    prod = _cuda_lib(iq_re.device)
-    lib = prod if stage == "full" else stage_library(stage)
+    prod = highest_library() if highest else _cuda_lib(iq_re.device)
+    lib = prod if stage == "full" else (stage_library(stage, highest=True)
+                                        if highest else stage_library(stage))
     out = launch_tc(lib, iq_re, iq_im, cfg, False,
                     tc_launch_groups(prod, iq_re, cfg, False))
     tc_stage_launches += 1
@@ -824,7 +933,7 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
         return out
     iq_re, iq_im = _aligned(iq_re), _aligned(iq_im)
     n1, w = n // _N2, cfg.num_windows
-    high = precision_class(cfg) == "HIGH"
+    prec = precision_class(cfg)
     wb = tc_windows_per_pass(n1, w)
     if groups is None:
         groups = tc_launch_groups(lib, iq_re, cfg, tm)
@@ -832,7 +941,7 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
             if groups > 1 else None)
     starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
                                          cfg.cur_scan_cumu_mode, dev)
-    f1, f2, tw = tc_tables(n, dev)
+    f1, f2, tw = tc_tables(n, dev, table_parts(prec))
     fn = lib.kspec_curscan_tc if ablate is None else \
         lib.kspec_curscan_tc_ablate
     with torch.cuda.device(dev):
@@ -841,7 +950,7 @@ def launch_tc(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
             0 if part is None else part.data_ptr(), starts.data_ptr(),
             weights.data_ptr(), window.data_ptr(), f1.data_ptr(),
             f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n, n1, w, groups,
-            _FOLD[cfg.cur_scan_cumu_mode], wb, int(high), int(tm),
+            _FOLD[cfg.cur_scan_cumu_mode], wb, PREC_CODE[prec], int(tm),
             *(() if ablate is None else (ablate,)),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, fn)
@@ -911,13 +1020,14 @@ def curscan_tc_split_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=256)
-def tc_split_occupancy(lib, u8: bool, n1: int, n2: int, high: bool,
+def tc_split_occupancy(lib, u8: bool, n1: int, n2: int, prec: int,
                        tm: bool) -> int:
     """The blocks an SM holds of ``lib``'s Kernel C instantiation for the
-    split ``n1 x n2`` (the CUDA occupancy calculator: registers and shared
-    memory); raises where the library cannot say."""
+    split ``n1 x n2`` (``prec`` the precision code, ``PREC_CODE``; the CUDA
+    occupancy calculator: registers and shared memory); raises where the
+    library cannot say."""
     blocks = lib.kspec_curscan_tc_split_occupancy(int(u8), n1, n2,
-                                                  int(high), int(tm))
+                                                  int(prec), int(tm))
     if blocks < 1:
         raise RuntimeError(f"Kernel C's occupancy for the split {n1} x "
                            f"{n2}: {blocks}")
@@ -943,16 +1053,20 @@ def curscan_tc_split(iq_re: torch.Tensor, iq_im: torch.Tensor,
     synchronising; CPU tensors run :func:`curscan_tc_split_plain`.
     ``ablate``: as :func:`curscan_tc`'s, on Kernel C's ablate build
     (:func:`tc_split_ablate_library`, which takes the splits whose frame it
-    stages), counted in ``tc_split_ablate_launches``."""
+    stages), counted in ``tc_split_ablate_launches``; at HIGHEST (``ablate``
+    only, the sublane predicate; default split ``(n / 128, 128)``) its
+    HIGHEST build, at its own occupancy's window groups."""
     global tc_split_launches, tc_split_ablate_launches
-    if not supports_tc_split(cfg):
+    highest = ablate is not None and supports_highest_forensics(cfg)
+    if not (supports_tc_split(cfg) or highest):
         raise ValueError(f"config not supported by the split tensor-core "
                          f"curscan kernel (tpuPrecision {cfg.tpu_precision}, "
                          f"fft_size {cfg.fft_size}, full_size "
                          f"{cfg.full_size})")
     check_planes(iq_re, iq_im, cfg)
     tm = three_mult(form)
-    n1, n2 = split or tc_split(cfg, iq_re.dtype == torch.uint8)
+    n1, n2 = split or ((cfg.fft_size // _N2, _N2) if highest else
+                       tc_split(cfg, iq_re.dtype == torch.uint8))
     if n1 < 1 or n2 < 1 or n1 * n2 != cfg.fft_size:
         raise ValueError(f"split {(n1, n2)} is not a factorisation of "
                          f"fft_size {cfg.fft_size}")
@@ -960,23 +1074,40 @@ def curscan_tc_split(iq_re: torch.Tensor, iq_im: torch.Tensor,
     if iq_re.device.type == "cpu":
         return curscan_tc_split_plain(iq_re, iq_im, cfg, form, (n1, n2),
                                       ablate)
-    prod = _cuda_lib(iq_re.device)
-    if ablate is None:
-        out = launch_tc_split(prod, iq_re, iq_im, cfg, tm, (n1, n2))
-        tc_split_launches += 1
-        return out
-    out = launch_tc_split(tc_split_ablate_library(), iq_re, iq_im, cfg, tm,
-                          (n1, n2), tc_split_launch_groups(
-                              prod, iq_re, cfg, tm, (n1, n2)),
+    if highest:
+        lib = prod = tc_split_ablate_library(highest=True)
+    else:
+        prod = _cuda_lib(iq_re.device)
+        if ablate is None:
+            out = launch_tc_split(prod, iq_re, iq_im, cfg, tm, (n1, n2))
+            tc_split_launches += 1
+            return out
+        lib = tc_split_ablate_library()
+    out = launch_tc_split(lib, iq_re, iq_im, cfg, tm, (n1, n2),
+                          tc_split_launch_groups(prod, iq_re, cfg, tm,
+                                                 (n1, n2)),
                           ablate_mask(stages))
     tc_split_ablate_launches += 1
     return out
 
 
-def tc_split_tiles(lib, n1: int, n2: int, high: bool, tm: bool) -> int:
-    """Kernel C's k1 tiles a block of the split ``n1 x n2``: n1's m-tiles
-    of 16 over the library's m-tiles a block (0 where none fits)."""
-    mt = lib.kspec_curscan_tc_split_mt(n1, n2, int(high), int(tm))
+def tc_split_max_n2(prec: str, tm: bool = False) -> int:
+    """The widest n2 whose 16 rows of C fit a block's shared memory in
+    Kernel C at class ``prec`` and form (``tm``: 3M), as its ``pick``
+    (``csrc/curscan_tc_split.cuh``) decides: forms x parts planes of 16 rows
+    of n2 padded to 16, plus 8, bf16, within 232,448 bytes.  4M: 3616 at
+    DEFAULT, 1808 at HIGH, 1200 at HIGHEST (3M: 2400, 1200, 784; ROADMAP
+    G1).  The sublane split's n2 = 128 fits at every class, so the ablate
+    keys at HIGHEST take every fft of the sublane predicate above 16384."""
+    planes = (3 if tm else 2) * (PREC_CODE[prec] + 1)
+    return (232448 // (planes * 16 * 2) - 8) // _MMA * _MMA
+
+
+def tc_split_tiles(lib, n1: int, n2: int, prec: int, tm: bool) -> int:
+    """Kernel C's k1 tiles a block of the split ``n1 x n2`` at precision
+    code ``prec``: n1's m-tiles of 16 over the library's m-tiles a block (0
+    where none fits)."""
+    mt = lib.kspec_curscan_tc_split_mt(n1, n2, int(prec), int(tm))
     nmt = -(-n1 // _MMA)
     return -(-nmt // mt) if mt > 0 else 0
 
@@ -995,12 +1126,12 @@ def tc_split_launch_groups(lib, iq_re: torch.Tensor, cfg: SpecConfig,
     ``split``: :func:`tc_split_groups` at ``lib``'s occupancy on the
     planes' card."""
     n1, n2 = split
-    high = precision_class(cfg) == "HIGH"
+    prec = PREC_CODE[precision_class(cfg)]
     return tc_split_groups(
-        iq_re.shape[0], tc_split_tiles(lib, n1, n2, high, tm),
+        iq_re.shape[0], tc_split_tiles(lib, n1, n2, prec, tm),
         cfg.num_windows,
         torch.cuda.get_device_properties(iq_re.device).multi_processor_count,
-        tc_split_occupancy(lib, iq_re.dtype == torch.uint8, n1, n2, high,
+        tc_split_occupancy(lib, iq_re.dtype == torch.uint8, n1, n2, prec,
                            tm))
 
 
@@ -1015,26 +1146,26 @@ def launch_tc_split(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
     ablate build's entry with the mask ``ablate`` where given; counts
     nothing.
     Raises where 16 rows of C do not fit a block's shared memory (the
-    library's m-tiles a block are 0: n2 above 1200 at 3M HIGH, 1808 at
-    HIGH, 3616 at DEFAULT)."""
+    library's m-tiles a block are 0: n2 above :func:`tc_split_max_n2`)."""
     dev = iq_re.device
     t, n = iq_re.shape[0], cfg.fft_size
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
     if t == 0:
         return out
     n1, n2 = split
-    high = precision_class(cfg) == "HIGH"
-    if lib.kspec_curscan_tc_split_mt(n1, n2, int(high), int(tm)) < 1:
-        raise ValueError(f"Kernel C keeps 16 rows of C (n2 = {n2}) in a "
-                         f"block's shared memory, which they exceed at "
-                         f"{precision_class(cfg)} {'3M' if tm else '4M'}")
+    prec = precision_class(cfg)
+    if lib.kspec_curscan_tc_split_mt(n1, n2, PREC_CODE[prec], int(tm)) < 1:
+        raise ValueError(
+            f"Kernel C keeps 16 rows of C (n2 = {n2}) in a block's shared "
+            f"memory, which they exceed at {prec} {'3M' if tm else '4M'}: "
+            f"n2 <= {tc_split_max_n2(prec, tm)} fits")
     if groups is None:
         groups = tc_split_launch_groups(lib, iq_re, cfg, tm, split)
     part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
             if groups > 1 else None)
     starts, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
                                          cfg.cur_scan_cumu_mode, dev)
-    f1, f2, tw = tc_split_tables(n1, n2, dev)
+    f1, f2, tw = tc_split_tables(n1, n2, dev, table_parts(prec))
     fn = lib.kspec_curscan_tc_split if ablate is None else \
         lib.kspec_curscan_tc_split_ablate
     with torch.cuda.device(dev):
@@ -1045,7 +1176,7 @@ def launch_tc_split(lib, iq_re: torch.Tensor, iq_im: torch.Tensor,
             weights.data_ptr(), window.data_ptr(), f1.data_ptr(),
             f2.data_ptr(), tw.data_ptr(), t, cfg.full_size, n, n1, n2,
             cfg.num_windows, groups, _FOLD[cfg.cur_scan_cumu_mode],
-            int(high), int(tm), *(() if ablate is None else (ablate,)),
+            PREC_CODE[prec], int(tm), *(() if ablate is None else (ablate,)),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, fn)
     return out

@@ -36,6 +36,18 @@ def split_bf16(x: torch.Tensor):
     return hi, round_bf16(x - hi)
 
 
+def split3_bf16(x: torch.Tensor):
+    """The three-part bf16 split of float32 ``x`` that HIGHEST's six passes
+    take (``pallas_curscan._make_dot``, Mosaic's HIGHEST): ``(hi, mid,
+    lo)`` with ``hi`` = x rounded to bf16, ``mid`` = (x - hi) rounded to
+    bf16 and ``lo`` = (x - hi - mid) rounded to bf16, each difference in
+    float32 (exact), all three as float32."""
+    hi = round_bf16(x)
+    r = x - hi
+    mid = round_bf16(r)
+    return hi, mid, round_bf16(r - mid)
+
+
 def class_matmul(a: torch.Tensor, b: torch.Tensor,
                  precision: str) -> torch.Tensor:
     """``a @ b`` of float32 operands at a ``tpuPrecision`` class, summed in

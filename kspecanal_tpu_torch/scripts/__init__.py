@@ -1,7 +1,7 @@
 """Performance-forensics scripts of the port, run on the card:
 
-    python -m kspecanal_tpu_torch.scripts.roofline_r2 [--fft N] [--precision P] [--f32-sums] [T ...]
-    python -m kspecanal_tpu_torch.scripts.kernel_ablate [fft] [u8|f32] [T_lo T_hi]
+    python -m kspecanal_tpu_torch.scripts.roofline_r2 [--fft N] [--precision P] [T ...]
+    python -m kspecanal_tpu_torch.scripts.kernel_ablate [fft] [prec] [u8|f32] [T_lo T_hi]
     python -m kspecanal_tpu_torch.scripts.session_ablate [k]
     python -m kspecanal_tpu_torch.scripts.session_file_ablate [n_iters] [catch_up]
     python -m kspecanal_tpu_torch.scripts.qfs_ablate [--bands B] [--sweeps K]

@@ -12,14 +12,15 @@ own.
     python -m kspecanal_tpu_torch.scripts.kernel_ablate [fft] [precision] \
         [u8|f32] [T_lo T_hi]
 
-The defaults are the JAX script's cell: fft 2048, DEFAULT, u8.  At HIGH and
-DEFAULT the variants run the ablate build of Kernel A (fft <= 16384) or of
-Kernel C on the split (fft / 128, 128), and 'base' the production kernel
-(``cuda_tc.curscan_tc`` / ``curscan_tc_split``), both in the 4M form; at
-HIGHEST the direct-DFT kernel's forensic instantiation, and 'base' its
-production instantiation (``cuda_curscan.curscan_sublane_direct``).
-'per-block (no cross-block concat)' removes nothing on Hopper, whose
-kernels never restack blocks: it is the forensic build with an empty mask.
+The defaults are the JAX script's cell: fft 2048, DEFAULT, u8.  The
+variants run the ablate build of Kernel A (fft <= 16384) or of Kernel C on
+the split (fft / 128, 128), in the 4M form; 'base' is the kernel a session
+of the class runs: at HIGH and DEFAULT the production kernel
+(``cuda_tc.curscan_tc`` / ``curscan_tc_split``), at HIGHEST, whose variants
+run the six-pass builds (``-DKSPEC_TC_HIGHEST=1``), the FFT kernel
+(``cuda_curscan.curscan_fused_sublane``).  'per-block (no cross-block
+concat)' removes nothing on Hopper, whose kernels never restack blocks: it
+is the forensic build with an empty mask.
 """
 from __future__ import annotations
 
@@ -78,6 +79,8 @@ def main(argv: Optional[List[str]] = None
     t_lo, t_hi = ((int(argv[3]), int(argv[4])) if len(argv) > 4
                   else (4096, 8192))
     require_cuda("kernel_ablate")
+    if prec == "HIGHEST":
+        cuda_tc.build_stage_libraries(highest=True)
     cfg = SpecConfig(prg_mode="ZEROSPAN", fft_size=fft, sampling_rate=2.4e6,
                      window=WINDOW_KAISER, cur_scan_non_overlap=0.5,
                      x_res=min(512, fft), tpu_precision=prec).finalize()
@@ -117,17 +120,18 @@ def main(argv: Optional[List[str]] = None
 
 def base_kernel(cfg: SpecConfig) -> str:
     """The kernel the variants of ``cfg``'s class take apart."""
+    kernel = ("Kernel A" if cfg.fft_size <= cc.TC_MAX_FFT_SIZE
+              else f"Kernel C ({cfg.fft_size // 128} x 128)")
     if cfg.tpu_precision.upper() == "HIGHEST":
-        return "the direct kernel"
-    if cfg.fft_size <= cc.TC_MAX_FFT_SIZE:
-        return "Kernel A"
-    return f"Kernel C ({cfg.fft_size // 128} x 128)"
+        return f"{kernel}'s six-pass build (base: the FFT kernel)"
+    return kernel
 
 
 def base(re: torch.Tensor, im: torch.Tensor, cfg: SpecConfig):
-    """'base': the production kernel of ``cfg``'s class (no ablation)."""
+    """'base': the kernel a session of ``cfg``'s class runs (no
+    ablation)."""
     if cfg.tpu_precision.upper() == "HIGHEST":
-        return cc.curscan_sublane_direct(re, im, cfg)
+        return cc.curscan_fused_sublane(re, im, cfg)
     if cfg.fft_size <= cc.TC_MAX_FFT_SIZE:
         return cuda_tc.curscan_tc(re, im, cfg)
     return cuda_tc.curscan_tc_split(re, im, cfg,

@@ -8,8 +8,8 @@ At several T of float32 planes ``(T, 16384)`` (fft 2048's full_size):
   row-sum  ``sum(dim=1)`` of both planes (the kernels' output shape)
   copy     both planes copied (a read plus a write)
   K4 read  K4's 'read' stage, every sample read once into (T, 16, 128):
-           the direct kernel's forensic instantiation (HIGHEST) and
-           Kernel A's read cut-off (DEFAULT)
+           Kernel A's read cut-off, of the HIGHEST build and the DEFAULT
+           one
 
 each timed with CUDA events around 10 back-to-back calls (median of 10,
 per call: ``utils.profiling.cuda_ms_each``), with the
@@ -42,6 +42,7 @@ def main(argv: Optional[List[str]] = None
                                                              "DEFAULT")}
     full = cfgs["HIGHEST"].full_size
     cuda_tc.build_stage_libraries()
+    cuda_tc.build_stage_libraries(highest=True)
     print(f"device: {card_line()}; float32 planes (T, {full}), CUDA "
           f"events around 10 calls, median of 10", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -10,19 +10,21 @@ same planes:
     s2     + stage 2, the length-128 DFT along each row
     full   + |.| and the weighted fold == the production kernel
 
-Which kernel serves the table follows ``--precision`` (default DEFAULT, as
-in the JAX script):
+Kernel A (``csrc/curscan_tc.cuh``, 4M, float32 sums) serves the table at
+the class of ``--precision`` (default DEFAULT, as in the JAX script), each
+cut-off a build of its own (``cuda_tc.stage_library``: every stage below
+'full' folds its weighted re + im into the output):
 
-* HIGH and DEFAULT: Kernel A (``csrc/curscan_tc.cuh``, 4M, float32 sums),
-  each cut-off a build of its own (``cuda_tc.stage_library``: every stage
-  below 'full' folds its weighted re + im into the output), 'full' the
-  port's library; beside them Kernel A itself and the FFT kernel at
-  HIGHEST, and one bf16 ``torch.matmul`` at stage 2's shape for scale;
-* HIGHEST: the direct kernel's forensic instantiation
-  (``csrc/curscan_sublane.cu``, float32); beside it the direct kernel, the
-  FFT kernel (``csrc/curscan_fft.cu``, what K1 runs for a power of two)
-  and one float32 ``torch.matmul`` at stage 2's shape ``(T*W*n1, 128) @
-  (128, 128)`` with TF32 off.
+* HIGH and DEFAULT: 'full' the port's library; beside them Kernel A itself
+  and the FFT kernel at HIGHEST;
+* HIGHEST: the six-pass forensic builds (``-DKSPEC_TC_HIGHEST=1``), 'full'
+  Kernel A's HIGHEST build (``cuda_tc.highest_library``); beside them the
+  direct kernel (``csrc/curscan_sublane.cu``, the yardstick) and the FFT
+  kernel (``csrc/curscan_fft.cu``, what a HIGHEST session runs for a power
+  of two);
+
+and one bf16 ``torch.matmul`` at stage 2's shape ``(T*W*n1, 128) @ (128,
+128)`` for scale.
 
 Per stage the time (CUDA events around 10 back-to-back calls, median of 10,
 per call: ``utils.profiling.cuda_ms_each``, the card's time), the delta from
@@ -30,10 +32,7 @@ the previous stage and Gsamp/s.  The default cell is the main path's: fft 2048,
 kaiser, 50% overlap, AVG, float32 planes.
 
     python -m kspecanal_tpu_torch.scripts.roofline_r2 [--fft N]
-        [--precision HIGHEST|HIGH|DEFAULT] [--f32-sums] [T ...]
-
-``--f32-sums`` (HIGHEST only) sums in float32 above fft 8192 too
-(production sums in float64 there), to price the float64 sums.
+        [--precision HIGHEST|HIGH|DEFAULT] [T ...]
 """
 from __future__ import annotations
 
@@ -66,26 +65,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
     p.add_argument("--fft", type=int, default=2048)
     p.add_argument("--precision", default="DEFAULT",
                    choices=("HIGHEST", "HIGH", "DEFAULT"))
-    p.add_argument("--f32-sums", action="store_true")
     p.add_argument("t", type=int, nargs="*", default=[4096])
     args = p.parse_args(argv)
     tc_class = args.precision != "HIGHEST"
-    if args.f32_sums and tc_class:
-        p.error("--f32-sums prices the direct kernel's float64 sums "
-                "(--precision HIGHEST)")
     require_cuda("roofline_r2")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = stage_cfg(args.fft, args.precision)
     n1 = cfg.fft_size // 128
-    if tc_class:
-        cuda_tc.build_stage_libraries()
-        served = ("Kernel A's cut-offs (csrc/curscan_tc.cuh, one "
-                  "-DKSPEC_TC_STOP build a stage; 'full' the port's "
-                  "library), 4M, float32 sums")
-    else:
-        sums = ("float64" if n1 > 64 and not args.f32_sums else "float32")
-        served = (f"the direct kernel's forensic instantiation "
-                  f"(csrc/curscan_sublane.cu), float32, {sums} stage sums")
+    cuda_tc.build_stage_libraries(highest=not tc_class)
+    served = ("Kernel A's cut-offs (csrc/curscan_tc.cuh, one "
+              "-DKSPEC_TC_STOP build a stage; 'full' "
+              + ("the port's library), 4M" if tc_class else
+                 "Kernel A's HIGHEST build), six bf16 passes, 4M")
+              + ", float32 sums")
     print(f"device: {card_line()}; fft {cfg.fft_size} kaiser 50% AVG, "
           f"W={cfg.num_windows}, full={cfg.full_size}; precision "
           f"{args.precision}: K4 served by {served}", flush=True)
@@ -95,12 +87,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
         row: Dict[str, float] = {}
         samples = t * cfg.full_size
         rows = t * cfg.num_windows * n1
-        dtype = torch.bfloat16 if tc_class else torch.float32
-        a = torch.randn((rows, 128), generator=gen, device="cuda").to(dtype)
-        b = torch.randn((128, 128), generator=gen, device="cuda").to(dtype)
+        a = torch.randn((rows, 128), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        b = torch.randn((128, 128), generator=gen,
+                        device="cuda").to(torch.bfloat16)
         row["matmul"] = cuda_ms(lambda: torch.matmul(a, b))
         print(f"T={t} torch.matmul stage-2 shape ({rows}, 128) @ (128, 128) "
-              f"{'bf16' if tc_class else 'fp32'}: {row['matmul']:9.3f} ms "
+              f"bf16: {row['matmul']:9.3f} ms "
               f"{2 * rows * 128 * 128 / row['matmul'] / 1e9:6.2f} TFLOP/s",
               flush=True)
         del a, b
@@ -109,7 +102,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
         prev = None
         for stage in cc.STAGES:
             ms = cuda_ms_each(lambda s=stage: cc.curscan_stage_ablate(
-                re, im, cfg, s, f32_sums=args.f32_sums))
+                re, im, cfg, s))
             row[stage] = ms
             delta = "" if prev is None else f"delta {ms - prev:+9.3f} ms"
             print(f"T={t} {stage:5s} {ms:9.3f} ms {samples / ms / 1e6:7.3f} "
@@ -121,7 +114,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, Dict[str, float]]:
                     f"Kernel A at {args.precision}")
         else:
             base = ("direct", lambda: cc.curscan_sublane_direct(re, im, cfg),
-                    "the direct kernel")
+                    "the direct kernel, the yardstick")
         for key, fn, what in (base, (
                 "fft", lambda: cc.curscan_fused_sublane(re, im, highest),
                 "K1, the FFT kernel, at HIGHEST")):

@@ -1,12 +1,13 @@
-"""Parity of the sublane kernel's forensic instantiation with the JAX package:
-K4, the stage ablation of ``scripts/roofline_r2.py`` (``_kernel_ablate``),
-and the ``ablate`` keys of ``pallas_curscan.curscan_fused_sublane``.
+"""Parity of the forensic forms at HIGHEST with the JAX package: K4, the
+stage ablation of ``scripts/roofline_r2.py`` (``_kernel_ablate``), and the
+``ablate`` keys of ``pallas_curscan.curscan_fused_sublane``, which the port
+runs on the six-pass HIGHEST builds of its tensor-core kernels.
 
 On the CPU the port's wrappers run their plain versions (the two-stage DFT
-in PyTorch); the JAX side runs its Pallas kernels in interpret mode at
-HIGHEST.  The roofline script is loaded from its path, and its module
-global ``pl`` is swapped for one whose ``pallas_call`` interprets; the
-script itself is unchanged.  Bounds: ``torch_parity.assert_spectra_close``.
+in PyTorch, six bf16 passes a product); the JAX side runs its Pallas
+kernels in interpret mode at HIGHEST.  The roofline script is loaded from
+its path, and its module global ``pl`` is swapped for one whose
+``pallas_call`` interprets; the script itself is unchanged.  Bounds: ``torch_parity.assert_spectra_close``.
 The card's tests are in test_torch_gpu.py."""
 import functools
 import importlib.util
@@ -75,8 +76,10 @@ def test_full_stage_is_the_kernel_under_the_layout_map():
     re, im = (torch.from_numpy(p) for p in planes(cfg, 3))
     full = cc.curscan_stage_ablate(re, im, cfg, "full")
     spec = cc.stage_layout_to_spectrum(full)
+    # the ablate keys' plain version with no stage removed
     np.testing.assert_array_equal(
-        spec.numpy(), cc.curscan_ablate_plain(re, im, cfg, ()).numpy())
+        spec.numpy(),
+        cc.curscan_fused_sublane(re, im, cfg, ablate=("concat",)).numpy())
     assert_spectra_close(spec.numpy(),
                          cc.curscan_fused_sublane_plain(re, im, cfg).numpy())
     # out[b, (k1 + n1*k2 + N/2) % N] = K4[b, k1, k2]
@@ -259,9 +262,11 @@ def test_session_file_ablate_reconciles_the_stages_on_the_cpu(capsys):
     assert "main-thread stages explain" in capsys.readouterr().out
 
 
-def test_roofline_class_refuses_f32_sums():
-    """``--f32-sums`` prices the direct kernel's float64 sums: an argument
-    error at HIGH and DEFAULT, before any card is asked for."""
+@pytest.mark.parametrize("prec", ["HIGHEST", "DEFAULT"])
+def test_roofline_class_refuses_f32_sums(prec):
+    """``--f32-sums`` priced the float64 sums of the direct kernel, which
+    no longer serves K4: an unknown option at every class, an argument
+    error before any card is asked for."""
     with pytest.raises(SystemExit) as e:
-        roofline_r2.main(["--precision", "DEFAULT", "--f32-sums"])
+        roofline_r2.main(["--precision", prec, "--f32-sums"])
     assert e.value.code == 2

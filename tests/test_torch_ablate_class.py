@@ -1,9 +1,10 @@
-"""K1's ``ablate`` keys at HIGH and DEFAULT: ``scripts/kernel_ablate.py``'s
+"""K1's ``ablate`` keys at every class: ``scripts/kernel_ablate.py``'s
 stage removals (``pallas_curscan.curscan_fused_sublane(..., ablate=keys)``)
-on the kernels that serve those classes, Kernel A up to fft 16384 and
-Kernel C on the sublane split above (``cuda_tc.curscan_tc`` /
-``curscan_tc_split(..., ablate)``, their ablate builds ``-DKSPEC_TC_ABLATE``
-and ``-DKSPEC_TCS_ABLATE``).
+on the tensor-core kernels, Kernel A up to fft 16384 and Kernel C on the
+sublane split above (``cuda_tc.curscan_tc`` / ``curscan_tc_split(...,
+ablate)``, their ablate builds ``-DKSPEC_TC_ABLATE`` and
+``-DKSPEC_TCS_ABLATE``; HIGHEST in their six-pass builds,
+``-DKSPEC_TC_HIGHEST``).
 
 On the CPU the class entries run their plain versions (Kernel A's rounding
 points, ``cuda_curscan.two_stage_chain``'s pass-throughs); the JAX side runs
@@ -26,7 +27,7 @@ from kspecanal_tpu_torch.ops import cuda_tc
 from kspecanal_tpu_torch.scripts import kernel_ablate
 from torch_parity import assert_tc_close, decoded, raw_planes, zs_cfg
 
-CLASSES = ("HIGH", "DEFAULT")
+CLASSES = ("HIGHEST", "HIGH", "DEFAULT")
 
 
 def planes(cfg, seed):
@@ -123,7 +124,7 @@ def test_no_stage_removed_is_the_production_plain_version(prec):
     re, im = raw_planes(cfg, 2, seed=75)
     r8, i8 = torch.from_numpy(re), torch.from_numpy(im)
     rf, i_f = torch.from_numpy(decoded(re)), torch.from_numpy(decoded(im))
-    prod = cuda_tc.curscan_tc(r8, i8, cfg)
+    prod = cuda_tc.curscan_tc_plain(r8, i8, cfg)
     for keys in ((), ("concat",)):
         assert torch.equal(cuda_tc.curscan_tc(r8, i8, cfg, ablate=keys), prod)
     for name, keys in kernel_ablate.VARIANTS:
@@ -132,10 +133,11 @@ def test_no_stage_removed_is_the_production_plain_version(prec):
 
 
 def test_removed_stages_take_the_staged_operands():
-    """Without stage 1 B is the frame as staged (bf16, or hi + lo at HIGH),
-    without stage 2 D is C as staged; with every stage but the fold
-    removed, the spectrum is the weighted fold of |rounded frame|^2 at
-    'sqrt' and the plain sum of |rounded frame| at 'cumulate'."""
+    """Without stage 1 B is the frame as staged (bf16, or its parts summed
+    at HIGH and HIGHEST), without stage 2 D is C as staged; with every
+    stage but the fold removed, the spectrum is the weighted fold of
+    |rounded frame|^2 at 'sqrt' and the plain sum of |rounded frame| at
+    'cumulate'."""
     for prec in CLASSES:
         cfg = zs_cfg(512, tpu_precision=prec)
         re, im = (torch.from_numpy(p) for p in planes(cfg, 76))
@@ -194,6 +196,10 @@ class _Lib:
         return 1
 
     @staticmethod
+    def kspec_curscan_tc_smem(*args):
+        return 0
+
+    @staticmethod
     def kspec_curscan_tc_split_occupancy(*args):
         return 1
 
@@ -207,16 +213,19 @@ class _Lib:
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """'meta' tensors routed as the card's: the port's library and the two
-    ablate builds are stand-ins."""
+    """'meta' tensors routed as the card's: the port's library (and Kernel
+    A's HIGHEST build) and the ablate builds are stand-ins."""
     prod = _Lib("production", "kspec_curscan_tc", "kspec_curscan_tc_split",
-                "kspec_curscan_fft", "kspec_curscan_sublane_forensic")
+                "kspec_curscan_fft", "kspec_curscan_sublane")
     a = _Lib("kernel A ablate", "kspec_curscan_tc_ablate")
     c = _Lib("kernel C ablate", "kspec_curscan_tc_split_ablate")
     for mod in (cc, cuda_tc):
         monkeypatch.setattr(mod, "_cuda_lib", lambda dev: prod)
-    monkeypatch.setattr(cuda_tc, "tc_ablate_library", lambda: a)
-    monkeypatch.setattr(cuda_tc, "tc_split_ablate_library", lambda: c)
+    monkeypatch.setattr(cuda_tc, "highest_library", lambda: prod)
+    monkeypatch.setattr(cuda_tc, "tc_ablate_library",
+                        lambda highest=False: a)
+    monkeypatch.setattr(cuda_tc, "tc_split_ablate_library",
+                        lambda highest=False: c)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -230,20 +239,21 @@ def fake_card(monkeypatch):
 def counters():
     return (cc.forensic_launches, cc.launches, cuda_tc.tc_launches,
             cuda_tc.tc_split_launches, cuda_tc.tc_ablate_launches,
-            cuda_tc.tc_split_ablate_launches)
+            cuda_tc.tc_split_ablate_launches, cc.direct_launches)
 
 
 @pytest.mark.parametrize("prec", CLASSES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
 def test_card_dispatch_never_reaches_the_direct_kernel(fake_card, prec,
                                                        dtype):
-    """At HIGH and DEFAULT every variant of the script but 'base' (no key:
-    the FFT kernel) launches the class
-    kernel's ablate build with its mask (Kernel A at fft 2048, Kernel C on
-    (256, 128) at fft 32768), at the production library's window groups and
-    the form its keys pick, counted in ``tc_ablate_launches`` /
-    ``tc_split_ablate_launches``; the direct kernel's forensic
-    instantiation and the production kernels launch nothing."""
+    """At every class every variant of the script but 'base' (no key: the
+    FFT kernel) launches the class kernel's ablate build with its mask
+    (Kernel A at fft 2048, Kernel C on (256, 128) at fft 32768), at the
+    precision code of the class, the window groups of the production
+    library (HIGHEST: Kernel A's HIGHEST build, Kernel C's ablate build)
+    and the form its keys pick, counted in ``tc_ablate_launches`` /
+    ``tc_split_ablate_launches``; the direct kernel, the FFT kernel and the
+    production kernels launch nothing."""
     prod, a, c = fake_card
     for fft, t, lib, entry, moves in (
             (2048, 64, a, "kspec_curscan_tc_ablate", 4),
@@ -264,7 +274,7 @@ def test_card_dispatch_never_reaches_the_direct_kernel(fake_card, prec,
                 x for i, x in enumerate(before) if i != moves]
             assert args[-2] == cc.ablate_mask(keys)
             assert args[-3] == int("force3m" in keys)
-            assert args[-4] == int(prec == "HIGH")
+            assert args[-4] == cuda_tc.PREC_CODE[prec]
             if lib is a:
                 groups = cuda_tc.tc_groups(t, fft // 128, cfg.num_windows,
                                            132, 1)

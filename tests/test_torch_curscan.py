@@ -280,8 +280,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     z = torch.zeros((1, big.full_size))
     with pytest.raises(ValueError):
         cuda_curscan.curscan_sublane_direct(z, z, big)
-    with pytest.raises(ValueError):
-        cuda_curscan.curscan_fused_sublane(z, z, big, ablate=("win",))
+    # The ablate keys take the sublane kernel's configs at every fft (fault
+    # C5: above fft 16384 they raised); off the 128 grid they raise.
+    lane = zs_cfg(3000)
+    z = torch.zeros((1, lane.full_size))
+    with pytest.raises(ValueError, match="sublane"):
+        cuda_curscan.curscan_fused_sublane(z, z, lane, ablate=("win",))
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -740,52 +740,62 @@ def test_waterfall_stream_u8_on_card(cuda):
                         getattr(want, k).numpy())
 
 
-STAGE_CASES = [(2048, False), (16384, False), (16384, True)]
+# K4 at HIGHEST on Kernel A's six-pass builds: the main cell, n1 = 96
+# (the fold in shared memory) and n1 = 128 (the fold in the output rows,
+# window groups).
+STAGE_CASES = [(2048, 64), (12288, 16), (16384, 32)]
 
 
-@pytest.mark.parametrize("fft,f32_sums", STAGE_CASES,
-                         ids=["2048", "16384", "16384-f32sums"])
+@pytest.mark.parametrize("fft,t", STAGE_CASES,
+                         ids=["2048", "12288", "16384"])
 @pytest.mark.parametrize("stage", cuda_curscan.STAGES)
-def test_stage_ablate_matches_plain(cuda, stage, fft, f32_sums):
-    """K4: each cut-off of the forensic kernel against its plain version."""
+def test_stage_ablate_matches_plain(cuda, stage, fft, t):
+    """K4 at HIGHEST: each of Kernel A's six-pass cut-offs (one launch,
+    counted in ``tc_stage_launches``) within ``TC_TOL["HIGHEST"]`` of its
+    plain version."""
     cfg = zs_cfg(fft, x_res=512)
+    assert cfg.tpu_precision == "HIGHEST"
     re, im = (torch.from_numpy(decoded(p)).to(cuda)
-              for p in raw_planes(cfg, 8, seed=15))
-    before = cuda_curscan.forensic_launches
-    got = cuda_curscan.curscan_stage_ablate(re, im, cfg, stage,
-                                            f32_sums=f32_sums)
-    want = cuda_curscan.curscan_stage_plain(re, im, cfg, stage)
+              for p in raw_planes(cfg, t, seed=15))
+    before = cuda_tc.tc_stage_launches
+    got = cuda_curscan.curscan_stage_ablate(re, im, cfg, stage)
+    want = cuda_tc.curscan_tc_stage_plain(re, im, cfg, stage)
     torch.cuda.synchronize()
-    assert cuda_curscan.forensic_launches == before + 1
-    assert got.shape == (8, fft // 128, 128)
-    assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+    assert cuda_tc.tc_stage_launches == before + 1
+    assert got.shape == (t, fft // 128, 128)
+    assert_tc_close(got.cpu().numpy(), want.cpu().numpy(), "HIGHEST")
 
 
 @pytest.mark.parametrize("fft", [2048, 16384])
 def test_full_stage_and_concat_equal_the_kernel_bitwise(cuda, fft):
-    """With no ablate bit the forensic kernel runs the direct kernel's
-    production operations: its 'full' stage under the layout map, and
-    'concat', equal :func:`curscan_sublane_direct` bit for bit."""
+    """At HIGHEST K4's 'full' (Kernel A's HIGHEST build) under the layout
+    map equals the HIGHEST ablate build with no stage removed ('concat')
+    bit for bit: the ablate build runs the same operations at the same
+    window groups."""
     cfg = zs_cfg(fft, x_res=512)
     re, im = (torch.from_numpy(decoded(p)).to(cuda)
               for p in raw_planes(cfg, 8, seed=16))
-    prod = cuda_curscan.curscan_sublane_direct(re, im, cfg)
     full = cuda_curscan.curscan_stage_ablate(re, im, cfg, "full")
-    assert torch.equal(cuda_curscan.stage_layout_to_spectrum(full), prod)
-    assert torch.equal(cuda_curscan.curscan_fused_sublane(
-        re, im, cfg, ablate=("concat",)), prod)
+    assert torch.equal(cuda_curscan.stage_layout_to_spectrum(full),
+                       cuda_curscan.curscan_fused_sublane(
+                           re, im, cfg, ablate=("concat",)))
 
 
 @pytest.mark.parametrize("name,keys", kernel_ablate.VARIANTS,
                          ids=[v[0] for v in kernel_ablate.VARIANTS])
 @pytest.mark.parametrize("mode", ["AVG", "MIN"])
 def test_ablate_variant_matches_plain(cuda, name, keys, mode):
+    """The ablation script's variants at HIGHEST: Kernel A's six-pass
+    ablate build ('base': the FFT kernel) within ``TC_TOL["HIGHEST"]`` of
+    the plain version, u8 bit-identical to decoded float32."""
     cfg = zs_cfg(2048, mode=mode)
     re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 8, 17))
+    before = cuda_tc.tc_ablate_launches
     got = cuda_curscan.curscan_fused_sublane(re, im, cfg, ablate=keys)
-    want = cuda_curscan.curscan_ablate_plain(re, im, cfg, keys)
+    assert cuda_tc.tc_ablate_launches == before + (1 if keys else 0)
+    want = cuda_tc.curscan_tc_plain(re, im, cfg, ablate=keys)
     torch.cuda.synchronize()
-    assert_spectra_close(got.cpu().numpy(), want.cpu().numpy())
+    assert_tc_close(got.cpu().numpy(), want.cpu().numpy(), "HIGHEST")
     dec = cuda_curscan.curscan_fused_sublane(
         tspec.decode_u8(re), tspec.decode_u8(im), cfg, ablate=keys)
     assert torch.equal(got, dec)
@@ -938,3 +948,74 @@ def test_tc_split_ablate_key_matches_plain(cuda, prec, key):
     assert torch.equal(
         cuda_curscan.curscan_fused_sublane(re, im, cfg, ablate=("concat",)),
         cuda_tc.curscan_tc_split(re, im, cfg, split=split))
+
+
+def test_highest_shared_memory_and_occupancy(cuda):
+    """The HIGHEST builds (``-DKSPEC_TC_HIGHEST=1``): Kernel A's shared
+    memory a block at precision 2 (three parts a form), every n1 and pass
+    size within a block and holding at least one an SM (3M's nine planes
+    up to n1p = 80; above it the wrapper raises), the fold in the output
+    rows from n1p = 112, the main cell's planes too big for two; Kernel
+    C's on the sublane split, 4 m-tiles at 4M at every n1, and its widest
+    n2 ``cuda_tc.tc_split_max_n2``."""
+    lib = cuda_tc.highest_library()
+    clib = cuda_tc.tc_split_ablate_library(highest=True)
+    # The main cell, 4 windows of 16 rows a pass: 6 planes, fold, F1.
+    assert lib.kspec_curscan_tc_smem(16, 4, 2, 0) == (6 * 64 * 272 + 16 * 544
+                                                      + 6 * 512)
+    assert lib.kspec_curscan_tc_smem(96, 1, 2, 0) == 156672 + 52224
+    assert lib.kspec_curscan_tc_smem(112, 1, 2, 0) == 182784
+    assert lib.kspec_curscan_tc_smem(128, 1, 2, 0) == 208896
+    for n1 in range(2, 129):
+        for w in (1, 2, 15):
+            wb = cuda_tc.tc_windows_per_pass(n1, w)
+            for tm in (False, True):
+                b = lib.kspec_curscan_tc_smem(n1, wb, 2, int(tm))
+                if tm and -(-n1 // 16) * 16 > 80:   # 9 planes: n1p <= 80
+                    assert b > 232448
+                    assert lib.kspec_curscan_tc_occupancy(0, n1, wb, 2,
+                                                          1) == -1
+                    continue
+                assert b <= 232448
+                per_sm = cuda_tc.tc_occupancy(lib, False, n1, wb, 2, tm)
+                assert 1 <= per_sm and per_sm * (b + 1024) <= 233472
+    assert cuda_tc.tc_occupancy(lib, False, 16, 4, 2, False) == 1
+    assert lib.kspec_curscan_tc_occupancy(0, 16, 4, 1, 0) == -1
+    cfg = zs_cfg(16384)
+    p = torch.zeros((1, cfg.full_size), device=cuda)
+    with pytest.raises(ValueError, match="3M fits up to n1 = 80"):
+        cuda_curscan.curscan_fused_sublane(p, p, cfg,
+                                           ablate=("win", "force3m"))
+    for n1 in (129, 256, 1024, 8192):
+        assert clib.kspec_curscan_tc_split_mt(n1, 128, 2, 0) == 4
+        assert clib.kspec_curscan_tc_split_mt(n1, 128, 2, 1) == 2
+        for u8 in (False, True):
+            assert cuda_tc.tc_split_occupancy(clib, u8, n1, 128, 2,
+                                              False) == 1
+    for tm in (False, True):
+        top = cuda_tc.tc_split_max_n2("HIGHEST", tm)
+        assert clib.kspec_curscan_tc_split_mt(1, top, 2, int(tm)) == 1
+        assert clib.kspec_curscan_tc_split_mt(1, top + 16, 2, int(tm)) == 0
+
+
+@pytest.mark.parametrize("key", sorted(cuda_curscan.ABLATE_KEYS))
+@pytest.mark.parametrize("fft,t", [(2048, 8), (16384, 4), (32768, 4),
+                                   (16512, 2)])
+def test_highest_ablate_key_matches_plain(cuda, fft, t, key):
+    """K1's ablate keys at HIGHEST: Kernel A's six-pass ablate build up to
+    fft 16384, Kernel C's on (fft / 128, 128) above (one launch of the
+    build), within ``TC_TOL["HIGHEST"]`` of the plain version, u8
+    bit-identical to decoded float32."""
+    cfg = zs_cfg(fft)
+    re, im = (torch.from_numpy(p).to(cuda)
+              for p in raw_planes(cfg, t, seed=90 + len(key)))
+    counter = "tc_ablate_launches" if fft <= 16384 else \
+        "tc_split_ablate_launches"
+    before = getattr(cuda_tc, counter)
+    got = cuda_curscan.curscan_fused_sublane(re, im, cfg, ablate=(key,))
+    assert getattr(cuda_tc, counter) == before + 1
+    want = cuda_tc.curscan_tc_split_plain(re, im, cfg, None,
+                                          (fft // 128, 128), (key,))
+    assert_tc_close(got.cpu().numpy(), want.cpu().numpy(), "HIGHEST")
+    assert torch.equal(got, cuda_curscan.curscan_fused_sublane(
+        tspec.decode_u8(re), tspec.decode_u8(im), cfg, ablate=(key,)))

@@ -1,7 +1,7 @@
-"""K4 at HIGH and DEFAULT: the stage ablation of ``scripts/roofline_r2.py``
+"""K4 at every class: the stage ablation of ``scripts/roofline_r2.py``
 (``_kernel_ablate``, which the JAX script runs at DEFAULT) on Kernel A's
 cut-offs (``cuda_tc.curscan_tc_stage``, ``csrc/curscan_tc.cuh`` built with
-``-DKSPEC_TC_STOP``).
+``-DKSPEC_TC_STOP``; HIGHEST in the six-pass builds, ``-DKSPEC_TC_HIGHEST``).
 
 On the CPU ``cuda_curscan.curscan_stage_ablate`` runs the plain version
 (``cuda_tc.curscan_tc_stage_plain``: Kernel A's rounding points, 4M); the
@@ -55,9 +55,12 @@ def planes(cfg, seed, t=2):
                  for _ in range(2))
 
 
+CLASSES = ("DEFAULT", "HIGH", "HIGHEST")
+
+
 @pytest.mark.parametrize("stage", cc.STAGES)
 @pytest.mark.parametrize("fft", [512, 2048])
-@pytest.mark.parametrize("prec", ["DEFAULT", "HIGH"])
+@pytest.mark.parametrize("prec", CLASSES)
 def test_class_stage_matches_jax_roofline_kernel(roofline, prec, fft, stage):
     cfg = zs_cfg(fft, tpu_precision=prec)
     re, im = planes(cfg, fft + 7 * cc.STAGES.index(stage))
@@ -69,7 +72,7 @@ def test_class_stage_matches_jax_roofline_kernel(roofline, prec, fft, stage):
     assert_tc_close(got.numpy(), want, prec)
 
 
-@pytest.mark.parametrize("prec", ["DEFAULT", "HIGH"])
+@pytest.mark.parametrize("prec", CLASSES)
 def test_class_full_is_kernel_a_plain_under_the_layout_map(prec):
     """'full' is Kernel A's plain version bit for bit after the layout map,
     and the inverse map takes it back."""
@@ -81,11 +84,12 @@ def test_class_full_is_kernel_a_plain_under_the_layout_map(prec):
     assert torch.equal(cc.spectrum_to_stage_layout(spec, 16), full)
 
 
-@pytest.mark.parametrize("prec", ["DEFAULT", "HIGH"])
+@pytest.mark.parametrize("prec", CLASSES)
 def test_class_frame_stage_holds_the_rounded_operands(prec):
     """The frame cut-off folds the frames as Kernel A stages them: a frame
-    of ones times the window, rounded (bf16; hi + lo at HIGH), weighted
-    over the windows; 'read' sums the raw slabs, unrounded."""
+    of ones times the window, rounded (bf16; hi + lo at HIGH; (hi + mid) +
+    lo at HIGHEST), weighted over the windows; 'read' sums the raw slabs,
+    unrounded."""
     cfg = zs_cfg(512, tpu_precision=prec)
     re = torch.full((1, cfg.full_size), 1.0 / 3.0)
     im = torch.zeros((1, cfg.full_size))
@@ -105,10 +109,10 @@ def test_class_frame_stage_holds_the_rounded_operands(prec):
 
 
 def test_class_stage_refusals():
-    """Every refusal of the HIGHEST form holds at the classes too, and the
-    float64-sums option belongs to the direct kernel alone."""
+    """K4 refuses the same cases at every class, and above fft 16384 (Kernel
+    A's configs) at every class."""
     f32 = torch.zeros((1, zs_cfg(2048).full_size))
-    for prec in ("DEFAULT", "HIGH"):
+    for prec in CLASSES:
         cfg = zs_cfg(2048, tpu_precision=prec)
         with pytest.raises(ValueError, match="unknown stage"):
             cc.curscan_stage_ablate(f32, f32, cfg, "s3")
@@ -118,8 +122,10 @@ def test_class_stage_refusals():
         with pytest.raises(ValueError, match="AVG"):
             cc.curscan_stage_ablate(f32, f32, zs_cfg(
                 2048, mode="MAX", tpu_precision=prec), "s1")
-        with pytest.raises(ValueError, match="f32_sums"):
-            cc.curscan_stage_ablate(f32, f32, cfg, "s2", f32_sums=True)
+        big = zs_cfg(32768, tpu_precision=prec)
+        z = torch.zeros((1, big.full_size))
+        with pytest.raises(ValueError, match="Kernel A's configs"):
+            cc.curscan_stage_ablate(z, z, big, "s2")
 
 
 def test_stage_stops_and_variants():
@@ -152,12 +158,15 @@ class _Lib:
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """'meta' tensors routed as the card's: the port's library answers one
-    block an SM, each cut-off build two."""
+    """'meta' tensors routed as the card's: the port's library (and at
+    HIGHEST Kernel A's HIGHEST build) answers one block an SM, each cut-off
+    build two."""
     prod = _Lib("production", 1)
     stages = {s: _Lib(s, 2) for s in cc.STAGES[:-1]}
     monkeypatch.setattr(cuda_tc, "_cuda_lib", lambda dev: prod)
-    monkeypatch.setattr(cuda_tc, "stage_library", lambda s: stages[s])
+    monkeypatch.setattr(cuda_tc, "highest_library", lambda: prod)
+    monkeypatch.setattr(cuda_tc, "stage_library",
+                        lambda s, highest=False: stages[s])
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -168,12 +177,13 @@ def fake_card(monkeypatch):
     return prod, stages
 
 
-@pytest.mark.parametrize("prec", ["DEFAULT", "HIGH"])
+@pytest.mark.parametrize("prec", CLASSES)
 def test_card_dispatch_launches_kernel_a_cut_offs(fake_card, prec):
     """On the card each stage below 'full' launches its cut-off build and
-    'full' the port's library, all at the window groups of the port's
-    library's occupancy, 4M, counted in ``tc_stage_launches`` (Kernel A's
-    own and the direct kernel's counters do not move)."""
+    'full' the port's library (HIGHEST: Kernel A's HIGHEST build), all at
+    the window groups of that library's occupancy, 4M, at the class's
+    precision code, counted in ``tc_stage_launches`` (Kernel A's own and the
+    mixed cut-offs' counters do not move)."""
     prod, stages = fake_card
     cfg = zs_cfg(16384, tpu_precision=prec)
     t = 32
@@ -190,7 +200,34 @@ def test_card_dispatch_launches_kernel_a_cut_offs(fake_card, prec):
         lib.calls.clear()
         assert args[11:21] == (t, cfg.full_size, 16384, 128, cfg.num_windows,
                                groups, cc._FOLD["AVG"], 1,
-                               int(prec == "HIGH"), 0)
+                               cuda_tc.PREC_CODE[prec], 0)
         assert (cuda_tc.tc_stage_launches, cuda_tc.tc_launches,
                 cc.forensic_launches) == (before[0] + 1, before[1],
                                           before[2])
+
+
+def test_highest_stage_variants_and_libraries(monkeypatch):
+    """The HIGHEST forensic builds: Kernel A whole, its five cut-offs and
+    its ablate build, and Kernel C's ablate build, each with
+    ``KSPEC_TC_HIGHEST=1``; the loaders ask ``_build.load_variant`` for
+    exactly those."""
+    hi = "KSPEC_TC_HIGHEST=1"
+    a = ("curscan_tc.cu", "curscan_tc_high.cu")
+    c = ("curscan_tc_split.cu", "curscan_tc_split_high.cu")
+    assert cuda_tc.highest_variants() == [(a, (hi,))] + [
+        (a, (hi, f"KSPEC_TC_STOP={i}")) for i in range(1, 6)] + [
+        (a, (hi, "KSPEC_TC_ABLATE=1")), (c, (hi, "KSPEC_TCS_ABLATE=1"))]
+    from kspecanal_tpu_torch.ops import _build
+    asked = []
+    monkeypatch.setattr(_build, "load_variant",
+                        lambda names, defines: asked.append((names, defines)))
+    cuda_tc.highest_library()
+    for stage in cc.STAGES[:-1]:
+        cuda_tc.stage_library(stage, highest=True)
+    cuda_tc.tc_ablate_library(highest=True)
+    cuda_tc.tc_split_ablate_library(highest=True)
+    assert asked == cuda_tc.highest_variants()
+    asked.clear()
+    cuda_tc.stage_library("s1")
+    cuda_tc.tc_ablate_library()
+    assert asked == [(a, ("KSPEC_TC_STOP=3",)), (a, ("KSPEC_TC_ABLATE=1",))]

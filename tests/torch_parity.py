@@ -102,8 +102,14 @@ def assert_spectra_close(got, want):
 # stage-1 value across a bf16 rounding boundary, one bf16 step of an
 # operand: a quarter of the class bound (3.9e-2) of the bin, plus a floor
 # of the peak for the near-zero bins of MIN and RAW folds.  HIGH: the class
-# bound 5e-5 of the bin and of the peak.
-TC_TOL = {"DEFAULT": (1e-2, 1e-2), "HIGH": (5e-5, 5e-5)}
+# bound 5e-5 of the bin and of the peak.  HIGHEST (the forensic builds' six
+# passes): the HIGHEST per-bin bound of assert_spectra_close, 5e-5 of the
+# bin plus 1e-6 of the peak, no looser: the products of the three bf16
+# parts are exact in float32 and their dropped terms are below float32's
+# rounding, so only the order of float32 sums differs, as in the float32
+# chain that bound was set for.
+TC_TOL = {"DEFAULT": (1e-2, 1e-2), "HIGH": (5e-5, 5e-5),
+          "HIGHEST": (5e-5, 1e-6)}
 
 
 def assert_tc_close(got, want, prec):
