@@ -11,17 +11,21 @@ points and checks the results.
 Phases (any failure raises; the exit code is then non-zero):
   1. environment: torch, CUDA, nvcc, the card and its power limit;
   2. build of the kernels, of Kernel A's five K4 cut-offs, of Kernel C's
-     four stage cut-offs, of Kernels A and C's ablate builds and of the
+     four stage cut-offs, of Kernels A and C's ablate builds, of the
      HIGHEST forensic builds (``cuda_tc.highest_variants``: Kernel A whole,
      its cut-offs and ablate build, Kernel C's ablate build, all with
-     ``-DKSPEC_TC_HIGHEST=1``; one nvcc per source and build, all in
-     parallel), with ptxas' register/shared-memory report and the time the
-     forensic builds' compiles took;
+     ``-DKSPEC_TC_HIGHEST=1``) and of the power-of-two FFT kernel's four
+     cut-offs and its parent form (``csrc/curscan_fft.cu`` alone with
+     ``-DKSPEC_FFT_STOP=1..4``, and ``-DKSPEC_FFT_PARENT=1``; one nvcc per
+     source and build, all in parallel), with ptxas' register/shared-memory
+     report and the time the forensic builds' compiles took;
   3. K1 against its plain version (``torch.fft``) run in float64 on the
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
-     90% overlap, fft 256 hanning, fft 16384, and the cluster sizes fft
-     32768, 65536 and 131072 at 50% and 90% overlap (AVG and MIN); its
+     90% overlap, fft 256 hanning, fft 16384, and the multi-block sizes fft
+     32768, 65536 and 131072 (a cluster) at 50% and 90% overlap (AVG and MIN), each
+     power of two with the parent form's share of the bound beside its own
+     (the float64 form's may not pass 1.1 times the parent's); its
      mixed-radix form at fft 384, 1280, 3072, 16256 (one block), 20480,
      98304, 130944 (clusters of 2, 8 and 8) and 262144 (the scratch route),
      all four modes at 50% and 90%; the float32 plain chain's own error
@@ -53,8 +57,8 @@ Phases (any failure raises; the exit code is then non-zero):
      2.4 Msps IQ made on the card) in chunks of 1024, against the plain
      path on the same data;
   6. the zero-span path: ``kspecanal_tpu_torch.cli.main`` serial, catch-up
-     and on a u8 capture file at fft 2048, serial at fft 65536 (a cluster
-     of four blocks), at fft 1280 and at fft 20480 (the mixed-radix form, in
+     and on a u8 capture file at fft 2048, serial at fft 65536 (eight
+     blocks of 8192 a window), at fft 1280 and at fft 20480 (the mixed-radix form, in
      one block and in a cluster of two); every run must launch the FFT
      kernel and never the direct kernel, and put the synth peaks of its
      final average on 91/92/93 MHz;
@@ -75,7 +79,14 @@ Phases (any failure raises; the exit code is then non-zero):
      and 90%), 130944 and 262144 (T=8), K3's fft 3000 and 10000 (T=4096,
      50% and 90%) and 39800 (T=64), with the mixed kernel's stage table
      (``scripts.mixed_stages``: cut off after its input, odd passes and
-     power-of-two passes) at fft 3000, 10000, 16256 and 39800; K2 and the
+     power-of-two passes) at fft 3000, 10000, 16256 and 39800; the
+     power-of-two kernel's parent form (``-DKSPEC_FFT_PARENT=1``) timed
+     beside it at the main, fmScan, lane and fft 65536 cells, and at every
+     power of two 256-131072 (T=64) by ``scripts.fft_stages
+     --versus-parent``, and its stage table (``scripts.fft_stages``: cut
+     off after the block input, pass 1 and the radix-16 passes, each
+     checked against its plain version) at the main cell (f32, u8) and
+     fmScan's; K2 and the
      plain chain at quickFullScan (T=19616 and 1226, f32 and u8), fft 128 kaiser 50% and fft 32 RAW at
      curScanNonOverlap 0.25 (T=4096), and at the C2 cell fft 128 mult 81
      (T=1024) with the direct-DFT matmul it took before beside them; each
@@ -364,10 +375,12 @@ def counts(cc):
     return cc.launches, cc.direct_launches
 
 
-def fft_kernel_case(cc, cfg, t, gen):
+def fft_kernel_case(cc, cfg, t, gen, parent_errs=None):
     """One FFT-kernel case on noise planes: one launch through the wrapper,
     held to the plain version in float64 (the float32 plain chain's share
-    of the bound beside it).  Returns the max abs error."""
+    of the bound beside it, and at a power of two the parent form's, which
+    the kernel's may not pass by more than 10%; its max abs error goes into
+    ``parent_errs`` by fft where given).  Returns the max abs error."""
     route = cc.kernel_route(cfg)
     re, im = noise(cfg, t, False, gen)
     before = counts(cc)
@@ -382,14 +395,25 @@ def fft_kernel_case(cc, cfg, t, gen):
     check(route == "fft" and launched == (1, 0),
           f"fft {cfg.fft_size} launched the FFT kernel once")
     mx, mrel, bin_rel, ok = spectra_error(got, want)
-    c, via_scratch = cc.fft_plan(cfg.fft_size)
+    share = bound_share(got, want)
+    pow2 = not cc.runs_mixed_kernel(cfg.fft_size)
+    if pow2:
+        c, via_scratch = cc.pow2_plan(cfg.fft_size)[0], False
+        old = cc.curscan_fft_stage(re, im, cfg, "full", True)
+        parent = bound_share(old, want)
+        ok = ok and share <= 1.1 * parent
+        if parent_errs is not None:
+            parent_errs.setdefault(cfg.fft_size, spectra_error(old, want)[0])
+    else:
+        c, via_scratch = cc.fft_plan(cfg.fft_size)
     print(f"{route} kernel: fft {cfg.fft_size} (c={c}"
           f"{', scratch' if via_scratch else ''}) ovl "
           f"{1 - cfg.cur_scan_non_overlap:.1f} {cfg.window} "
           f"{cfg.cur_scan_cumu_mode} W={cfg.num_windows} T={t}: max_abs "
           f"{mx:.3e} max_rel {mrel:.3e} worst_bin_rel {bin_rel:.3e}, "
-          f"{bound_share(got, want):.3f} of the bound (float32 plain "
-          f"{bound_share(f32, want):.3f}) "
+          f"{share:.4f} of the bound (float32 plain "
+          f"{bound_share(f32, want):.3f}"
+          f"{f', parent form {parent:.4f}' if pow2 else ''}) "
           f"{'PASS' if ok and mrel < 1e-5 else 'FAIL'}")
     check(ok and mrel < 1e-5, f"FFT kernel vs plain at {cfg.fft_size}/"
           f"{cfg.cur_scan_non_overlap}/{cfg.cur_scan_cumu_mode}")
@@ -425,10 +449,14 @@ def phase_kernels(cc, spec, gen):
               for nono in (0.5, 0.1) for m in ("AVG", "MIN")]
     cases += [(cfg_of(n, nono, m), 4 if n <= 16384 else 2) for n in MIXED
               for nono in (0.5, 0.1) for m in MODES]
+    parent = {}
     for cfg, t in cases:
-        mx = fft_kernel_case(cc, cfg, t, gen)
-        if cfg.cur_scan_non_overlap == 0.5 and cfg.cur_scan_cumu_mode == "AVG":
+        first = (cfg.cur_scan_non_overlap == 0.5
+                 and cfg.cur_scan_cumu_mode == "AVG")
+        mx = fft_kernel_case(cc, cfg, t, gen, parent if first else None)
+        if first:
             errs.setdefault(cfg.fft_size, mx)
+    errs["parent2048"] = parent[2048]
     for mode in ("AVG", "MIN"):
         cfg = cfg_of(1280, 0.5, mode, "WIN.HANNING")
         before = counts(cc)
@@ -687,7 +715,7 @@ def phase_sessions(cc, cli, tmp):
                                   "tpuCatchUp", "128"], 512),
             ("u8 file", "2048", ["tpuSource", f"file:{cap}", "prgLoopCnt",
                                  "64", "tpuCatchUp", "16"], 64),
-            ("serial, a cluster of 4 blocks", "65536",
+            ("serial, 8 blocks of 8192 a window", "65536",
              ["tpuSource", "synth", "prgLoopCnt", "4"], 4),
             ("serial, the mixed-radix kernel in one block", "1280",
              ["tpuSource", "synth", "prgLoopCnt", "8"], 8),
@@ -930,8 +958,14 @@ def phase_timing(cc, cp, spec, gen, gpu):
     (T=1024) with the direct-DFT matmul in the direct column.
     The plain chain runs in chunks of IQ blocks where its frames would
     pass ``PLAIN_FRAME_BYTES`` (fft 10000 at 90%).
+    At the powers of two the parent form's build times the same planes
+    after the kernel (``parent_ms``), then ``scripts.fft_stages`` runs its
+    T=64 sweep beside the parent form and its stage table at the main and
+    fmScan cells.
     Returns ``{(case, dtype): (kernel, direct, plain, bound, bound_by)}``,
-    direct None where no direct kernel runs."""
+    direct None where no direct kernel runs, and under ``"fft_stages"``
+    the stage table's rows, its launches, the parent form's times by case
+    and its launches."""
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
     k1 = (cc.curscan_fused_sublane, cc.curscan_sublane_direct,
           cc.curscan_fused_sublane_plain)
@@ -969,6 +1003,8 @@ def phase_timing(cc, cp, spec, gen, gpu):
                cfg_of(128, 0.5, mult=81), 1024,
                (k2[0], spec.curscan_direct_batched, k2[2]), (False,))]
     out = {}
+    parent_ms = {}
+    parent_before = cc.fft_parent_launches
     print(f"== timing (CUDA events, 3 warm-ups, median of 10) [{gpu}]")
     for name, cfg, t, (kernel, direct, plain), dtypes in cases:
         for u8 in dtypes:
@@ -980,6 +1016,11 @@ def phase_timing(cc, cp, spec, gen, gpu):
                               // (cfg.num_windows * cfg.fft_size * 8)))
             ps = cuda_ms(lambda: [plain(re[i:i + rows], im[i:i + rows], cfg)
                                   for i in range(0, t, rows)])
+            pms = None
+            if kernel is k1[0] and not cc.runs_mixed_kernel(cfg.fft_size):
+                pms = cuda_ms(lambda: cc.curscan_fft_stage(re, im, cfg,
+                                                           "full", True))
+                parent_ms[name, "u8" if u8 else "f32"] = pms
             bms, by = bound(cfg, t, u8)
             gs = t * cfg.full_size / 1e9
             gb = 2 * re.element_size() * gs
@@ -994,13 +1035,25 @@ def phase_timing(cc, cp, spec, gen, gpu):
                 line += f", {what} {ds:.3f} ms"
             chunks = (f" in {-(-t // rows)} calls of {rows} blocks"
                       if rows < t else "")
+            if pms is not None:
+                line += (f", parent form {pms:.3f} ms ({bms / pms:.3f} of "
+                         f"the bound)")
             print(f"{line}, plain {ps:.3f} ms{chunks} = "
                   f"{gs / ps * 1e3:.2f} Gsamp/s")
             out[name, kind] = (ks, ds, ps, bms, by)
             del re, im
-    from kspecanal_tpu_torch.scripts import mixed_stages
+    from kspecanal_tpu_torch.scripts import fft_stages, mixed_stages
     print("== the mixed kernel's stage table (scripts.mixed_stages)")
     mixed_stages.main([])
+    print("== the power-of-two kernel beside its parent form, T=64 "
+          "(scripts.fft_stages --versus-parent)")
+    fft_stages.main(["--versus-parent"] + [f"sweep{1 << e}"
+                                           for e in range(8, 18)])
+    print("== the power-of-two kernel's stage table (scripts.fft_stages)")
+    before = cc.fft_stage_launches
+    rows = fft_stages.main(["main", "main-u8", "fmScan"])
+    out["fft_stages"] = (rows, cc.fft_stage_launches - before, parent_ms,
+                         cc.fft_parent_launches - parent_before)
     return out
 
 
@@ -2300,7 +2353,8 @@ def main():
     # the library, Kernel A's five K4 cut-offs, Kernel C's four, the two
     # ablate builds and the HIGHEST forensic builds, every source at once
     variants = (cuda_tc.stage_variants() + cuda_tc.tc_split_stage_variants()
-                + cuda_tc.ablate_variants() + cuda_tc.highest_variants())
+                + cuda_tc.ablate_variants() + cuda_tc.highest_variants()
+                + cc.fft_stage_variants() + cc.fft_stage_variants(True)[-1:])
     _build.build(variants)
     _build.load()
     forensic = max((v for so, v in _build.build_job_seconds.items()
@@ -2308,7 +2362,8 @@ def main():
     print(f"== build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s) -> {_build.library_path()} "
           f"and {len(variants)} forensic libraries (cut-offs, ablate "
-          f"builds, HIGHEST builds); the library's compiles took "
+          f"builds, HIGHEST builds, the FFT kernel's cut-offs and parent "
+          f"form); the library's compiles took "
           f"{_build.build_job_seconds.get(_build.library_path(), 0.0):.1f} "
           f"s, the "
           f"forensic builds' {forensic:.1f} s (all started together)")
@@ -2385,9 +2440,18 @@ def main():
                 "bound_by": by, "library_ms": None,
                 **({} if ds is None or direct else {"direct_ms": ds})}
 
+    (stage_rows, stage_launches, parent_ms,
+     parent_launches) = times["fft_stages"]
+
     def k1(config, case, launched, err):
-        return {**fft_kernel, "replaces": sublane_423, "config": config,
-                "launches": launched, "max_abs_err": err, **timed(case)}
+        row = {**fft_kernel, "replaces": sublane_423, "config": config,
+               "launches": launched, "max_abs_err": err, **timed(case)}
+        if (case, "f32") in parent_ms:
+            row["parent_ms"] = parent_ms[case, "f32"]
+        return row
+
+    main_stages = stage_rows["main"]
+    fft_bound = bound(cfg_of(), 4096, False)
 
     def tc_row(name, source, replaces, config, launched, err, row):
         ks, ps, bms, by, _ = row
@@ -2399,7 +2463,8 @@ def main():
     print(json.dumps({"kernels": [
         k1("zero-span fft 2048 kaiser 50%, T=4096", "zero-span fft 2048 "
            "kaiser 50%", launches["2048"], k1_errs[2048]),
-        k1("zero-span fft 65536 kaiser 50% (a cluster of 4), T=64",
+        k1("zero-span fft 65536 kaiser 50% (8 blocks of 8192 a window), "
+           "T=64",
            "zero-span fft 65536 kaiser 50%", launches["65536"],
            k1_errs[65536]),
         k1("zero-span fft 1280 kaiser 50% (mixed radix, one block), T=4096",
@@ -2413,7 +2478,42 @@ def main():
          "config": "lane kernel's cell: fft 16384 kaiser 50% f32, T=288",
          "launches": scan_launches["lane_cell"],
          "max_abs_err": scan_errs["lane_cell"],
-         **timed("lane kernel's cell fft 16384 kaiser 50%")},
+         **timed("lane kernel's cell fft 16384 kaiser 50%"),
+         "parent_ms": parent_ms["lane kernel's cell fft 16384 kaiser 50%",
+                                "f32"]},
+        {**fft_kernel, "name": "curscan_fft_stage", "replaces": sublane_423,
+         "config": "the power-of-two FFT kernel's forensic builds "
+                   "(csrc/curscan_fft.cu alone, -DKSPEC_FFT_STOP=1..4): "
+                   "error the worst share of 1e-6 of the peak over the "
+                   "cut-offs input, pass1 and radix16 against their plain "
+                   "versions on 4 blocks of the main and fmScan cells "
+                   "(scaled by 1e-6 of the peak: a max abs error per unit "
+                   "peak); times 'full' at zero-span fft 2048 kaiser 50% "
+                   "f32, T=4096, with the cut-offs in stages_ms; launches "
+                   "over scripts.fft_stages in the timing phase",
+         "launches": stage_launches,
+         "max_abs_err": 1e-6 * max(stage_rows[c][f"share_{s}"]
+                                   for c in stage_rows
+                                   for s in cc.FFT_STAGES[:3]),
+         "ms": main_stages["full"], "plain_ms": timed(
+             "zero-span fft 2048 kaiser 50%")["plain_ms"],
+         "bound_ms": fft_bound[0], "bound_by": fft_bound[1],
+         "library_ms": None,
+         "stages_ms": {s: main_stages[s] for s in cc.FFT_STAGES}},
+        {**fft_kernel, "name": "curscan_fft_parent", "replaces": sublane_423,
+         "config": "the power-of-two FFT kernel's parent form (its first "
+                   "design; csrc/curscan_fft.cu with -DKSPEC_FFT_PARENT=1), "
+                   "the production kernel's yardstick: times at zero-span "
+                   "fft 2048 kaiser 50% f32, T=4096, on the production "
+                   "kernel's planes; error its max abs error against the "
+                   "float64 plain version at fft 2048 kaiser 50% AVG in "
+                   "phase 3; launches over the timing phase",
+         "launches": parent_launches,
+         "max_abs_err": k1_errs["parent2048"],
+         "ms": parent_ms["zero-span fft 2048 kaiser 50%", "f32"],
+         "plain_ms": timed("zero-span fft 2048 kaiser 50%")["plain_ms"],
+         "bound_ms": fft_bound[0], "bound_by": fft_bound[1],
+         "library_ms": None},
         {"name": "curscan_mixed", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_mixed.cuh",
          "replaces": "kspecanal_tpu/ops/pallas_curscan.py:116",

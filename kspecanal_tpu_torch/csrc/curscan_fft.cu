@@ -8,9 +8,9 @@
 // not prime, window starts multiples of n2 = _factorize(fft)[1]: fft 3000,
 // 10000, 39800, ... off the 128 grid, and fft >= 16384 on it).  The Pallas
 // kernels compute the DFT as two matrix products for the TPU's matrix unit;
-// on Hopper the same function is a radix FFT: curscan_fft_kernel below for
-// the powers of two up to 131072, curscan_mixed_kernel (curscan_mixed.cuh)
-// for every other size.
+// on Hopper the same function is a radix FFT: curscan_fft64_kernel and
+// curscan_fft_kernel below for the powers of two up to 131072,
+// curscan_mixed_kernel (curscan_mixed.cuh) for every other size.
 //
 // What it computes, per IQ block b (the contract of curscan_sublane.cu):
 //   for every window start s = starts[w] (any static offset, aligned or not):
@@ -21,81 +21,259 @@
 //            decay weights for AVG/RAW)
 //   out[b][(k + N/2) % N] = acc[k]        natural order, fftshifted
 //
-// The FFT (one thread block, M <= 16384 points, M/16 threads): a Stockham
+// The FFT (one thread block of M points, M/16 threads): a Stockham
 // decimation-in-time FFT, 16 complex values in each thread's registers.
 // Pass 1 has radix R0 = M / 16^Q in {2, 4, 8, 16} (16/R0 butterflies a
 // thread) and needs no twiddle; the Q passes after it have radix 16 (a 4 x 4
 // split in registers with constant W16 twiddles).  Pass p with Ns points
 // already combined: butterfly j reads elements j + r*M/16, multiplies
-// element r by roots[r * (j mod Ns) * N / (16 Ns)] (the one float32 table of
-// N roots that the wrapper builds in float64 and rounds once; no __sincosf),
-// and writes output k to (j div Ns)*16 Ns + (j mod Ns) + k Ns.  After the
-// last pass thread t holds bins t + k*M/16 in its registers, the same bins
-// in every window, so the fold stays in registers: no atomics, windows in
-// order, a deterministic result.  tests/test_torch_fft_kernel.py models this
-// index math in NumPy and holds it to np.fft.
+// element r by W^r, W = roots[(j mod Ns) * N / (16 Ns)] (the one table of
+// N roots that the wrapper builds in float64; no __sincosf), and writes
+// output k to (j div Ns)*16 Ns + (j mod Ns) + k Ns.  After the last pass
+// thread t holds bins t + k*M/16 in its registers, the same bins in every
+// window, so the fold stays in registers: no atomics, windows in order, a
+// deterministic result.  tests/test_torch_fft_kernel.py models this index
+// math in NumPy and holds it to np.fft.
 //
-// fft 32768..131072 (a thread-block cluster): c = N/16384 blocks (c <= 8,
-// the portable cluster size), decimation in frequency across the cluster.
-// Block j holds the contiguous chunk a[j*M .. (j+1)*M) (M = N/c) in its
-// shared memory; after cluster.sync() block q reads every chunk at its own
-// positions m through distributed shared memory (map_shared_rank) and
-// forms z_q[m] = W_N^(m q) * sum_j a[m + M j] W_c^(j q) in the registers of
-// its pass 1; a second cluster.sync() frees the chunks, and block q's
-// M-point FFT gives the bins X[c*k + q].
+// Above one block: c blocks of M = N/c points a window (c <= 8),
+// decimation in frequency: block q forms z_q[m] = W_N^(m q) * sum_j
+// a[m + M j] W_c^(j q) in the registers of its pass 1, and its M-point
+// FFT gives the bins X[c*k + q].
 //
-// Precision: HIGHEST, and HIGH/DEFAULT where the tensor-core kernel
-// (curscan_tc.cu) does not serve, with float32 planes, table,
-// registers between butterflies and shared memory.  Each butterfly (its
-// pass twiddles included) runs in float64 and rounds to float32 twice: after
-// its inner DFT-4 stage and at its end.  Why: the bound is per bin, 5e-5 of
-// the bin plus 1e-6 of the peak, and a MIN fold at 90% overlap keeps bins
-// near 1% of its peak.  There a float32 radix FFT (cuFFT's, in the plain
-// torch.fft chain, and this kernel with float32 butterflies) misses the
-// bound against float64 by up to 1.5 times at fft 32768; with float64
-// butterflies the kernel stays near a third of it.  Two roundings per pass
-// instead of one per operation is what buys that; the frame and the table
-// stay float32.  The HIGHEST class's bound is tighter than HIGH's and
-// DEFAULT's, so this serves all three.  Tensor cores are not used: TF32
-// keeps about three digits, and 3xTF32 would triple the work of passes
-// that shared memory already bounds.
+// Two forms (cuda_curscan.pow2_plan picks one per fft):
+//  * curscan_fft64_kernel, fft 256-65536: one block up to 8192 points, c =
+//    N/8192 blocks of 8192 above.  Everything between the loads and the
+//    magnitude is float64: the samples are converted once as they are
+//    loaded (u8 straight from the integer) and windowed by a float64
+//    window; each butterfly runs in float64 with float64 twiddles, and the
+//    values stay float64 in registers between a butterfly's inner and
+//    outer stage and in shared memory between passes (M double2, swizzled,
+//    see swz).  A pass looks its twiddle W up once a thread and forms W^r
+//    by recurrence (14 complex multiplies, errors near 1e-15); |X|^2 is
+//    narrowed once and its square root taken in float32.  The c blocks of
+//    a window each read the c chunks they need from device memory (L2),
+//    with no cluster.
+//  * curscan_fft_kernel (the first design, the parent form), fft 131072 as a
+//    cluster of 8 blocks of 16384, and every power of two in the forensic
+//    build -DKSPEC_FFT_PARENT=1 that times it beside the float64 form:
+//    float32 planes, table, registers between butterflies and shared
+//    memory, each butterfly in float64 rounded to float32 after its inner
+//    DFT-4 and at its end, its 15 twiddles gathered from the float32
+//    table, the cluster's chunks read through distributed shared memory
+//    (map_shared_rank).  fft 131072 keeps it: 16 blocks of 8192 would
+//    read 16 chunks a point from L2, more than the parent's cluster costs.
 //
-// What bounds it on the H100:
-//  * HBM bytes per sample: every sample is read from device memory about
-//    once (8 bytes of float32 planes, 2 of u8); overlapping windows re-read
-//    their shared samples from L2 (90% overlap reads each sample ~10 times
-//    there).  537 MB of float32 planes at the zero-span cell take 0.16 ms at
-//    3.35 TB/s.
-//  * Shared-memory traffic per pass: each pass but the last stores and
-//    loads the whole block (16 bytes per point), Q stores and loads per
-//    window.  The buffer is padded one float2 in 16 (index a + a/16), which
-//    makes every store and load of every pass free of bank conflicts (the
-//    model checks each half-warp's addresses).
-//  * Waves: at M = 16384 a block takes 204,800 bytes of shared memory (the
-//    padded buffer and the fold of its 1024 threads), so one block per SM.
-//    The windows of an IQ block are split into G groups in G thread blocks
-//    (G = min(W, ceil(8 * SMs / (T * c))), chosen by the wrapper), each
-//    writing a partial fold to a (T, G, N) scratch that a second small
+// Precision: HIGHEST, and HIGH/DEFAULT where the tensor-core kernels
+// (curscan_tc.cu, curscan_tc_split.cu) do not serve.  The bound is per bin,
+// 5e-5 of the bin plus 1e-6 of the peak, and a MIN fold at 90% overlap
+// keeps bins near 1% of its peak.  There a float32 radix FFT (cuFFT's, in
+// the plain torch.fft chain, and this kernel with float32 butterflies)
+// misses the bound against float64 by up to 1.5 times at fft 32768; the
+// parent form's float64 butterflies reach 0.36 of it on the card, the
+// float64 form 0.004.  Tensor cores are not used: TF32 keeps about three
+// digits, and the float64 tensor-core products (DMMA) would need the DFT
+// as matrices, N^(3/2) work.
+//
+// What bounded the parent form, and what bounds this one, on the H100
+// (scripts/fft_stages.py, PERF.md):
+//  * Not the 64-bit conversions: the card converts 16 values a clock an
+//    SM to or from a 64-bit type, and the parent form converts about 28 a
+//    point at fft 2048 (10 a radix-16 pass).  Cutting them to three a point
+//    alone left the radix-16 stage as slow as before (0.83 against 0.76
+//    ms at fft 2048, T=4096).
+//  * The twiddle gathers: roots[r * tw * stride] for r = 1..15 touches up
+//    to 4r cache lines a warp with double2 entries (2r with the parent's
+//    float2).  One lookup a pass and the recurrence took the radix-16
+//    stage to 0.34 ms and ended every spill.
+//  * Distributed shared memory: a thread's read of another block's chunk
+//    runs at about one a clock an SM; the parent's cluster step at fft
+//    65536 (4 reads a point) takes 0.97 ms.  The float64 form reads its
+//    chunks from L2 instead (4.0 TB/s at fmScan's two blocks a window).
+//  * Now: float64 arithmetic (64 a clock an SM: a radix-16 butterfly with
+//    its twiddles is about 290 operations), shared-memory traffic (32 bytes
+//    a point a pass, every quarter-warp's 16-byte access free of bank
+//    conflicts by the swizzle, checked by the model) and the loads.
+//  * Occupancy: the float64 form runs 128 registers at most (launch bounds
+//    of 16 warps an SM): 4 blocks of 128 threads at fft 2048, one block of
+//    512 (128 KB of shared memory) at 8192 and in the split sizes.
+//  * Waves: the windows of an IQ block are split into G groups in G thread
+//    blocks (G = min(W, ceil(8 * SMs / (T * c))), chosen by the wrapper),
+//    each writing a partial fold to a (T, G, N) scratch that a second small
 //    kernel combines in the order g = 0..G-1 (AVG stays deterministic;
 //    MAX/MIN combine exactly).
 //
-// Loads: the frame goes from device memory straight into the registers of
-// pass 1 (thread t reads samples t + e*M/16: consecutive threads,
-// consecutive addresses), so the frame is never staged in shared memory.
-// They are scalar loads (4-byte floats, 1-byte u8 decoded in registers),
-// which are coalesced at any start, so misaligned starts (90% overlap,
-// fmScan) need no aligned superset or shift; u8 decodes to exactly the
-// float32 values the decoded planes hold, so u8 is bit-identical to them.
-// Without a barrier between a window's fold and the next window's loads,
-// warps that finish early load the next frame while the rest still compute.
-// A cp.async / TMA staging buffer was left out: at fft 16384 the float32
-// frame (128 KB) and the exchange buffer (136 KB) do not both fit in a
-// block's 227 KB.
+// Loads: at one block a window (fft <= 8192) the float64 form copies the
+// next window's frame into shared memory (stage, after the exchange buffer:
+// 2M samples) by 16-byte cp.async while this window's passes run, one copy
+// group a window, waited for and made visible by a barrier before it is
+// read; where a frame's start is not 16-byte aligned (90% overlap at most
+// sizes) it loads the frame straight into registers.  Elsewhere, and in
+// the parent form, thread t reads samples t + e*M/16 (consecutive threads,
+// consecutive addresses) straight into registers, scalar loads coalesced at
+// any start.  u8 decodes to exactly the values the decoded float32 planes
+// hold, so u8 is bit-identical to them.
+//
+// Forensic builds of this file alone (cuda_curscan.fft_stage_library): with
+// -DKSPEC_FFT_STOP=1..3 both forms stop after the block input (loads,
+// window, u8 decode and the cluster's radix-c step), after pass 1, or after
+// the radix-16 passes, and fold weights[w] * (re + im) of each point in
+// place of its magnitude; 4 is the production kernel built alone, and
+// -DKSPEC_FFT_PARENT=1 serves every power of two with the parent form.
+
+#include <type_traits>
 
 #include "curscan_fft.cuh"
 
+// A forensic build (-DKSPEC_FFT_STOP or -DKSPEC_FFT_PARENT) holds this file
+// alone: the power-of-two kernel, no mixed route.
+#if defined(KSPEC_FFT_STOP) || defined(KSPEC_FFT_PARENT)
+#define KSPEC_FFT_FORENSIC 1
+#else
+#define KSPEC_FFT_FORENSIC 0
+#endif
+#ifndef KSPEC_FFT_STOP
+#define KSPEC_FFT_STOP 4
+#endif
+#ifndef KSPEC_FFT_PARENT
+#define KSPEC_FFT_PARENT 0
+#endif
+
 namespace {
 
+enum Stop { STOP_INPUT = 1, STOP_PASS1 = 2, STOP_RADIX16 = 3, STOP_FULL = 4 };
+constexpr int STOP = KSPEC_FFT_STOP;
+static_assert(STOP >= STOP_INPUT && STOP <= STOP_FULL, "KSPEC_FFT_STOP");
+
+// The float64 form's largest block; above it, N/8192 such blocks a window
+// up to FFT64_MAX_N.
+constexpr int LOG2_BLOCK64_N = 13;
+constexpr int FFT64_MAX_N = MAX_CLUSTER << LOG2_BLOCK64_N;
+
+// Shared-memory index of the float64 buffer: element a stays in its aligned
+// group of 8 double2 (128 bytes, all 32 banks), at position a ^ ((a >> 3)
+// ^ (a >> 4)) & 7 in it.  A quarter-warp's 16-byte accesses are
+// conflict-free when its 8 addresses fall in 8 distinct positions: the
+// stride-R0 stores of pass 1 (R0 = 2..16), the radix-16 loads (stride 1)
+// and stores (runs of Ns), at every block size.
+__device__ __forceinline__ int swz(int a) {
+  return a ^ (((a >> 3) ^ (a >> 4)) & 7);
+}
+
+__device__ __forceinline__ double sample64(const float* p, size_t i) {
+  return static_cast<double>(__ldg(p + i));
+}
+
+__device__ __forceinline__ double sample64(const uint8_t* p, size_t i) {
+  return static_cast<double>(__ldg(p + i)) - 127.0;
+}
+
+// The same from the shared-memory stage (no __ldg: it loads global memory
+// only).
+__device__ __forceinline__ double staged64(const float* p, int i) {
+  return static_cast<double>(p[i]);
+}
+
+__device__ __forceinline__ double staged64(const uint8_t* p, int i) {
+  return static_cast<double>(p[i]) - 127.0;
+}
+
+// 16-byte asynchronous copy from device to shared memory, bypassing L1.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+// Whether both planes' frames at this start can be copied in 16-byte
+// pieces (every block and window alike, so the test is uniform).
+template <typename T>
+__device__ __forceinline__ bool stageable(const T* xr, const T* xi, int s) {
+  return ((reinterpret_cast<uintptr_t>(xr + s) |
+           reinterpret_cast<uintptr_t>(xi + s)) & 15) == 0;
+}
+
+// Thread t's part of copying the M-sample frame at start s of both planes
+// into stage[0, M) (re) and stage[M, 2M) (im), 16 bytes a copy, as one
+// cp.async group.
+template <typename T, int M, int NT>
+__device__ __forceinline__ void stage_frame(T* stage, const T* xr,
+                                            const T* xi, int s, int t) {
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));  // samples a copy
+  constexpr int CH = M / PER;                           // copies a plane
+  static_assert((2 * CH) % NT == 0, "whole copies a thread");
+#pragma unroll
+  for (int e = 0; e < 2 * CH / NT; ++e) {
+    const int k = t + e * NT;
+    cp_async16(stage + k * PER,
+               (k < CH ? xr : xi) + s + (k < CH ? k : k - CH) * PER);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Natural-order DFT of the R float64 values x in place: 16 = 4 x 4 and
+// 8 = 4 x 2 (inner DFT-4 over stride-R/4 values, twiddle W16^(n2 k1 16/R),
+// outer DFT, transpose by renaming), nothing rounded in between.
+template <int R>
+__device__ __forceinline__ void dft64(double2 (&x)[R]) {
+  if constexpr (R == 2) {
+    dft2(x[0], x[1]);
+  } else if constexpr (R == 4) {
+    dft4(x[0], x[1], x[2], x[3]);
+  } else {
+    constexpr int N2S = R / 4;
+#pragma unroll
+    for (int n2 = 0; n2 < N2S; ++n2) {
+      dft4(x[n2], x[n2 + N2S], x[n2 + 2 * N2S], x[n2 + 3 * N2S]);
+#pragma unroll
+      for (int k1 = 1; k1 < 4; ++k1)
+        x[n2 + N2S * k1] = twiddle16(x[n2 + N2S * k1], n2 * k1 * (16 / R));
+    }
+    double2 y[R];
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) {
+      double2* d = x + N2S * k1;
+      if constexpr (N2S == 4) {
+        dft4(d[0], d[1], d[2], d[3]);
+      } else {
+        dft2(d[0], d[1]);
+      }
+#pragma unroll
+      for (int k2 = 0; k2 < N2S; ++k2) y[k1 + 4 * k2] = d[k2];
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = y[k];
+  }
+}
+
+// The fold of value `val` into slot k of thread t: registers, or
+// (FOLD_IN_SMEM, 1024 threads) fold_s[k * NT + t].
+template <bool FOLD_IN_SMEM, int NT>
+__device__ __forceinline__ void fold_slot(float (&acc)[RADIX], float* fold_s,
+                                          int k, int t, float val,
+                                          int fold) {
+  if constexpr (FOLD_IN_SMEM)
+    fold_s[k * NT + t] = fold_in(fold_s[k * NT + t], val, fold);
+  else
+    acc[k] = fold_in(acc[k], val, fold);
+}
+
+// Block position of slot k of thread t where the fold is written: bin (or
+// point) t + k*NT, and at the pass-1 cut-off output k % R0 of butterfly
+// t + (k / R0)*NT (the parent form's slots) or output k / NB of butterfly
+// t + (k % NB)*NT (the float64 form's, written in place).
+template <int NT, int R0, bool PARENT>
+__device__ __forceinline__ int slot_position(int t, int k) {
+  constexpr int NB = RADIX / R0;
+  if constexpr (STOP != STOP_PASS1)
+    return t + k * NT;
+  else if constexpr (PARENT)
+    return (t + (k / R0) * NT) * R0 + k % R0;
+  else
+    return (t + (k % NB) * NT) * R0 + k / NB;
+}
+
+// The parent form (see the header): float32 planes, table, registers and
+// shared memory, float64 butterflies rounded twice.
 template <typename T, int LOG2M, bool CLUSTER>
 __global__ void __launch_bounds__((1 << LOG2M) / RADIX)
 curscan_fft_kernel(const T* __restrict__ re, const T* __restrict__ im,
@@ -175,6 +353,13 @@ curscan_fft_kernel(const T* __restrict__ re, const T* __restrict__ im,
         v[e] = make_float2(sample(xr, s + i) * gw, sample(xi, s + i) * gw);
       }
     }
+    if constexpr (STOP == STOP_INPUT) {
+#pragma unroll
+      for (int k = 0; k < RADIX; ++k)
+        fold_slot<FOLD_IN_SMEM, NT>(acc, fold_s, k, t,
+                                    wt * (v[k].x + v[k].y), fold);
+      continue;
+    }
 
     // Pass 1 (Ns = 1): butterfly j = t + i*NT on elements i + r*NB (at
     // j + r*M/R0); output k to j*R0 + k.
@@ -187,6 +372,13 @@ curscan_fft_kernel(const T* __restrict__ re, const T* __restrict__ im,
       dft<R0>(x, roots, 0);
 #pragma unroll
       for (int k = 0; k < R0; ++k) y[i * R0 + k] = x[k];
+    }
+    if constexpr (STOP == STOP_PASS1) {
+#pragma unroll
+      for (int k = 0; k < RADIX; ++k)
+        fold_slot<FOLD_IN_SMEM, NT>(acc, fold_s, k, t,
+                                    wt * (y[k].x + y[k].y), fold);
+      continue;
     }
     if constexpr (!CLUSTER) __syncthreads();   // last pass has read buf
 #pragma unroll
@@ -218,11 +410,10 @@ curscan_fft_kernel(const T* __restrict__ re, const T* __restrict__ im,
     // v[k] = bin t + k*NT of this block's M-point FFT.
 #pragma unroll
     for (int k = 0; k < RADIX; ++k) {
-      const float mag = wt * sqrtf(v[k].x * v[k].x + v[k].y * v[k].y);
-      if constexpr (FOLD_IN_SMEM)
-        fold_s[k * NT + t] = fold_in(fold_s[k * NT + t], mag, fold);
-      else
-        acc[k] = fold_in(acc[k], mag, fold);
+      const float mag = STOP == STOP_RADIX16
+          ? wt * (v[k].x + v[k].y)
+          : wt * sqrtf(v[k].x * v[k].x + v[k].y * v[k].y);
+      fold_slot<FOLD_IN_SMEM, NT>(acc, fold_s, k, t, mag, fold);
     }
   }
 
@@ -231,12 +422,199 @@ curscan_fft_kernel(const T* __restrict__ re, const T* __restrict__ im,
   float* o = out + static_cast<size_t>(cb) * n;
 #pragma unroll
   for (int k = 0; k < RADIX; ++k) {
-    float* dst = o + ((c * (t + k * NT) + q + n / 2) & (n - 1));
+    float* dst =
+        o + ((c * slot_position<NT, R0, true>(t, k) + q + n / 2) & (n - 1));
     if constexpr (FOLD_IN_SMEM)
       *dst = fold_s[k * NT + t];
     else
       *dst = acc[k];
   }
+}
+
+// The float64 form (see the header): converted once at the load, float64
+// through every pass and in shared memory, narrowed once at |X|^2.  C == 1:
+// the next window's frame is copied into shared memory (stage, after the
+// exchange buffer) by cp.async while this window's passes run, where its
+// start is 16-byte aligned; else it is loaded straight into registers.
+// C > 1: block q of the C blocks of a window (q = blockIdx.x % C) reads the
+// C chunks it needs from device memory.  Launch bounds of 16 warps an SM (a
+// block of 16 threads holds a warp's registers): 128 registers a thread.
+template <typename T, int LOG2M, int C>
+__global__ void __launch_bounds__((1 << LOG2M) / RADIX,
+                                  512 / ((1 << LOG2M) / RADIX < 32
+                                             ? 32 : (1 << LOG2M) / RADIX))
+curscan_fft64_kernel(const T* __restrict__ re, const T* __restrict__ im,
+                     float* __restrict__ out,
+                     const int* __restrict__ starts,
+                     const float* __restrict__ weights,
+                     const double* __restrict__ window,
+                     const double2* __restrict__ roots, int full_size,
+                     int n_windows, int groups, int fold) {
+  constexpr int M = 1 << LOG2M;            // points of this block's FFT
+  constexpr int NT = M / RADIX;            // threads
+  constexpr int Q = (LOG2M - 1) / 4;       // radix-16 passes after pass 1
+  constexpr int R0 = 1 << (LOG2M - 4 * Q); // radix of pass 1
+  constexpr int NB = RADIX / R0;           // pass-1 butterflies per thread
+  constexpr int N = M * C;                 // points of the window's FFT
+  constexpr bool STAGE = C == 1;
+  static_assert(NT <= 512, "the float64 form holds its fold in registers");
+  extern __shared__ double2 buf64[];       // M double2, at swz(a)
+  T* stage = reinterpret_cast<T*>(buf64 + M);   // STAGE: 2M samples
+
+  const int t = threadIdx.x;
+  const int q = C > 1 ? static_cast<int>(blockIdx.x % C) : 0;
+  const int cb = blockIdx.x / C;           // (IQ block, window group)
+  const int b = cb / groups;
+  const int g = cb - b * groups;
+  const int w_lo = (g * n_windows) / groups;
+  const int w_hi = ((g + 1) * n_windows) / groups;
+  const T* xr = re + static_cast<size_t>(b) * full_size;
+  const T* xi = im + static_cast<size_t>(b) * full_size;
+
+  float acc[RADIX];
+  const float init = fold == FOLD_MAX ? -CUDART_INF_F
+                   : fold == FOLD_MIN ? CUDART_INF_F : 0.0f;
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k) acc[k] = init;
+  // Copies the frame of window w + 1 where it is stageable; called after
+  // a barrier that follows every read of the stage.
+  auto prefetch = [&](int w) {
+    if constexpr (STAGE) {
+      if (w + 1 < w_hi && stageable(xr, xi, starts[w + 1]))
+        stage_frame<T, M, NT>(stage, xr, xi, starts[w + 1], t);
+    }
+  };
+  if (w_lo < w_hi) prefetch(w_lo - 1);
+
+  for (int w = w_lo; w < w_hi; ++w) {
+    const int s = starts[w];
+    const float wt = weights[w];
+    double2 v[RADIX];   // v[e] = element t + e*NT of this block's sequence
+    if (STAGE && stageable(xr, xi, s)) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();   // every thread's copies have landed
+#pragma unroll
+      for (int e = 0; e < RADIX; ++e) {
+        const int i = t + e * NT;
+        const double gw = __ldg(window + i);
+        v[e] = make_double2(staged64(stage, i) * gw,
+                            staged64(stage + M, i) * gw);
+      }
+    } else if constexpr (C > 1) {
+      // z_q[m] = W_N^(m q) * sum_j a[m + M j] W_C^(j q), m = t + e*NT: the
+      // C chunks from device memory, W_N^(m q) = W_N^(t q) W_N^(NT q)^e.
+      double2 wm = __ldg(roots + t * q);
+      const double2 step = __ldg(roots + NT * q);
+#pragma unroll
+      for (int e = 0; e < RADIX; ++e) {
+        double2 z = make_double2(0.0, 0.0);
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const int i = j * M + t + e * NT;
+          const double gw = __ldg(window + i);
+          const double2 x = make_double2(sample64(xr, s + i) * gw,
+                                         sample64(xi, s + i) * gw);
+          z = cadd(z, j ? cmul(x, __ldg(roots + ((j * q) & (C - 1)) * M))
+                        : x);
+        }
+        v[e] = cmul(z, wm);
+        wm = cmul(wm, step);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < RADIX; ++e) {
+        const int i = t + e * NT;
+        const double gw = __ldg(window + i);
+        v[e] = make_double2(sample64(xr, s + i) * gw,
+                            sample64(xi, s + i) * gw);
+      }
+    }
+    if constexpr (STOP == STOP_INPUT) {
+#pragma unroll
+      for (int k = 0; k < RADIX; ++k)
+        acc[k] = fold_in(acc[k],
+                         wt * static_cast<float>(v[k].x + v[k].y), fold);
+      __syncthreads();
+      prefetch(w);
+      continue;
+    }
+
+    // Pass 1 (Ns = 1): butterfly j = t + i*NT on elements i + r*NB (at
+    // j + r*M/R0), in place: output k to slot i + k*NB, for position
+    // j*R0 + k.
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      double2 x[R0];
+#pragma unroll
+      for (int r = 0; r < R0; ++r) x[r] = v[i + r * NB];
+      dft64<R0>(x);
+#pragma unroll
+      for (int k = 0; k < R0; ++k) v[i + k * NB] = x[k];
+    }
+    if constexpr (STOP == STOP_PASS1) {
+#pragma unroll
+      for (int k = 0; k < RADIX; ++k)
+        acc[k] = fold_in(acc[k],
+                         wt * static_cast<float>(v[k].x + v[k].y), fold);
+      __syncthreads();
+      prefetch(w);
+      continue;
+    }
+    __syncthreads();   // the window before has read buf64, this one stage
+    prefetch(w);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int k = 0; k < R0; ++k)
+        buf64[swz((t + i * NT) * R0 + k)] = v[i + k * NB];
+
+    // Radix-16 passes; Ns = R0 * 16^p points combined before pass p.
+#pragma unroll
+    for (int p = 0; p < Q; ++p) {
+      int ns = R0;
+#pragma unroll
+      for (int i = 0; i < p; ++i) ns *= RADIX;
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < RADIX; ++r) v[r] = buf64[swz(t + r * NT)];
+      const int tw = t & (ns - 1);             // j mod Ns
+      // element r times W^r, W = roots[(j mod Ns) * N / (16 Ns)]: one
+      // lookup a pass, its powers by recurrence (a gather of the 15
+      // twiddles would touch up to 4r cache lines a warp for element r)
+      const double2 w1 = __ldg(roots + tw * (N / (ns * RADIX)));
+      double2 wr = w1;
+#pragma unroll
+      for (int r = 1; r < RADIX; ++r) {
+        v[r] = cmul(v[r], wr);
+        if (r < RADIX - 1) wr = cmul(wr, w1);
+      }
+      dft64<RADIX>(v);
+      if (p < Q - 1) {
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < RADIX; ++k)
+          buf64[swz((t - tw) * RADIX + tw + k * ns)] = v[k];
+      }
+    }
+
+    // v[k] = bin t + k*NT of this block's M-point FFT.
+#pragma unroll
+    for (int k = 0; k < RADIX; ++k) {
+      const float mag = STOP == STOP_RADIX16
+          ? wt * static_cast<float>(v[k].x + v[k].y)
+          : wt * sqrtf(static_cast<float>(v[k].x * v[k].x +
+                                          v[k].y * v[k].y));
+      acc[k] = fold_in(acc[k], mag, fold);
+    }
+  }
+
+  // Bin C*(t + k*NT) + q of the N-point FFT, fftshifted.  out is (T, N), or
+  // the (T, G, N) partials when groups > 1: row cb either way.
+  float* o = out + static_cast<size_t>(cb) * N;
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k)
+    o[(C * slot_position<NT, R0, false>(t, k) + q + N / 2) & (N - 1)] =
+        acc[k];
 }
 
 // out[b][i] = fold of part[b][g][i] over g = 0..groups-1, in that order.
@@ -257,67 +635,108 @@ combine_groups(const float* __restrict__ part, float* __restrict__ out,
   out[idx] = a;
 }
 
-template <typename T, int LOG2M, bool CLUSTER>
-int launch_fft(const void* re, const void* im, float* dst, const void* starts,
-               const void* weights, const void* window, const void* roots,
-               int t, int full_size, int n, int n_windows, int groups,
-               int fold, cudaStream_t stream) {
-  constexpr int M = 1 << LOG2M;
-  const int c = n / M;
-  const size_t smem = static_cast<size_t>(M + M / 16) * sizeof(float2) +
-                      (M / RADIX == 1024 ? M * sizeof(float) : 0);
-  auto kernel = curscan_fft_kernel<T, LOG2M, CLUSTER>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(t) * groups * c);
-  config.blockDim = dim3(M / RADIX);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  if constexpr (CLUSTER) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = c;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.attrs = attr;
-    config.numAttrs = 1;
+// One instantiation of a power-of-two form: blocks of 2^LOG2M points, C of
+// them a window (the parent form: a cluster when C > 1, whatever C; the
+// float64 form: C blocks reading their chunks from device memory), the
+// parent form (PARENT) or the float64 one.
+template <typename T, int LOG2M, int C, bool PARENT>
+struct Pow2 {
+  static constexpr int M = 1 << LOG2M;
+  static constexpr int NT = M / RADIX;
+  static constexpr bool CLUSTER = PARENT && C > 1;
+  using Window = std::conditional_t<PARENT, float, double>;
+  using Root = std::conditional_t<PARENT, float2, double2>;
+  static size_t smem() {
+    if constexpr (PARENT)
+      return static_cast<size_t>(M + M / 16) * sizeof(float2) +
+             (NT == 1024 ? M * sizeof(float) : 0);
+    else
+      return static_cast<size_t>(M) * sizeof(double2) +
+             (C == 1 ? 2 * M * sizeof(T) : 0);
   }
-  err = cudaLaunchKernelEx(
-      &config, kernel, static_cast<const T*>(re), static_cast<const T*>(im),
-      dst, static_cast<const int*>(starts),
-      static_cast<const float*>(weights), static_cast<const float*>(window),
-      static_cast<const float2*>(roots), full_size, n_windows, groups, fold);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  static auto kernel() {
+    if constexpr (PARENT)
+      return curscan_fft_kernel<T, LOG2M, CLUSTER>;
+    else
+      return curscan_fft64_kernel<T, LOG2M, C>;
+  }
+  // The kernel's maximum dynamic shared memory set to smem().
+  static cudaError_t prepare() {
+    return cudaFuncSetAttribute(kernel(),
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem()));
+  }
+};
+
+// Calls f(Pow2<...>{}) with the instantiation that serves an n-point
+// window (PARENT: the parent form at every n; else the float64 form up to
+// FFT64_MAX_N and the parent form above); an n it does not take returns
+// cudaErrorInvalidValue.
+template <typename T, bool PARENT, typename F>
+int by_size(int n, F&& f) {
+  constexpr int B64 = LOG2_BLOCK64_N;
+  switch (n) {
+    case 1 << 8: return f(Pow2<T, 8, 1, PARENT>{});
+    case 1 << 9: return f(Pow2<T, 9, 1, PARENT>{});
+    case 1 << 10: return f(Pow2<T, 10, 1, PARENT>{});
+    case 1 << 11: return f(Pow2<T, 11, 1, PARENT>{});
+    case 1 << 12: return f(Pow2<T, 12, 1, PARENT>{});
+    case 1 << 13: return f(Pow2<T, 13, 1, PARENT>{});
+    case 1 << 14:
+      if constexpr (PARENT) return f(Pow2<T, 14, 1, true>{});
+      else return f(Pow2<T, B64, 2, false>{});
+    case 1 << 15:
+      if constexpr (PARENT) return f(Pow2<T, LOG2_BLOCK_N, 2, true>{});
+      else return f(Pow2<T, B64, 4, false>{});
+    case 1 << 16:
+      if constexpr (PARENT) return f(Pow2<T, LOG2_BLOCK_N, 2, true>{});
+      else return f(Pow2<T, B64, 8, false>{});
+    case 1 << 17: return f(Pow2<T, LOG2_BLOCK_N, 2, true>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Points a block of the form that serves a power of two n.
+int pow2_block(int n) {
+  const int big = !KSPEC_FFT_PARENT && n <= FFT64_MAX_N
+                      ? 1 << LOG2_BLOCK64_N : 1 << LOG2_BLOCK_N;
+  return n < big ? n : big;
 }
 
 template <typename T>
-int launch_by_size(const void* re, const void* im, float* dst,
-                   const void* starts, const void* weights,
-                   const void* window, const void* roots, int t,
-                   int full_size, int n, int n_windows, int groups, int fold,
-                   cudaStream_t stream) {
-#define KSPEC_FFT_CASE(L, CL)                                                \
-  return launch_fft<T, L, CL>(re, im, dst, starts, weights, window, roots,  \
-                              t, full_size, n, n_windows, groups, fold,      \
-                              stream)
-  switch (n) {
-    case 1 << 8: KSPEC_FFT_CASE(8, false);
-    case 1 << 9: KSPEC_FFT_CASE(9, false);
-    case 1 << 10: KSPEC_FFT_CASE(10, false);
-    case 1 << 11: KSPEC_FFT_CASE(11, false);
-    case 1 << 12: KSPEC_FFT_CASE(12, false);
-    case 1 << 13: KSPEC_FFT_CASE(13, false);
-    case 1 << 14: KSPEC_FFT_CASE(14, false);
-    case 1 << 15:
-    case 1 << 16:
-    case 1 << 17: KSPEC_FFT_CASE(LOG2_BLOCK_N, true);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef KSPEC_FFT_CASE
+int launch_pow2(const void* re, const void* im, float* dst,
+                const void* starts, const void* weights, const void* window,
+                const void* roots, int t, int full_size, int n,
+                int n_windows, int groups, int fold, cudaStream_t stream) {
+  return by_size<T, KSPEC_FFT_PARENT != 0>(n, [&](auto form) {
+    using K = decltype(form);
+    cudaError_t err = K::prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int c = n / K::M;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(static_cast<unsigned>(t) * groups * c);
+    config.blockDim = dim3(K::NT);
+    config.dynamicSmemBytes = K::smem();
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    if (K::CLUSTER) {
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = c;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      config.attrs = attr;
+      config.numAttrs = 1;
+    }
+    err = cudaLaunchKernelEx(
+        &config, K::kernel(), static_cast<const T*>(re),
+        static_cast<const T*>(im), dst, static_cast<const int*>(starts),
+        static_cast<const float*>(weights),
+        static_cast<const typename K::Window*>(window),
+        static_cast<const typename K::Root*>(roots), full_size, n_windows,
+        groups, fold);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -325,22 +744,26 @@ int launch_by_size(const void* re, const void* im, float* dst,
 // Plain C entry point (bound with ctypes).  Planes are (t, full_size)
 // row-major, float32 or uint8 (is_u8); out is (t, n) float32; n any multiple
 // of c, and c thread blocks a window of n/c <= 16384 points each (the
-// wrapper's fft_plan):
-//  * n a power of two up to 131072, scratch null: curscan_fft_kernel, c =
-//    max(1, n/16384);
+// wrapper's fft_plan, pow2_plan for the powers of two):
+//  * n a power of two up to 131072, scratch null: the power-of-two kernel;
+//    up to 65536 the float64 form (c = max(1, n/8192)), whose window and
+//    roots are float64 tables (double, double2), above it the parent form
+//    (c = 8), whose tables are float32 (float, float2), as every n takes
+//    in the build -DKSPEC_FFT_PARENT=1 (c = max(1, n/16384));
 //  * another n, scratch null: curscan_mixed_kernel (curscan_mixed.cuh), c a
-//    power of two <= MAX_CLUSTER (a cluster when c > 1);
+//    power of two <= MAX_CLUSTER (a cluster when c > 1), float32 tables;
 //  * scratch not null (every n above 131072, and the n up to 131072 that
 //    no such power of two splits): its dif_split and curscan_mixed_kernel,
 //    `chunk` IQ blocks at a time through `scratch`, a (chunk, n_windows, n)
 //    float2 buffer.
+// The forensic builds of this file alone take the powers of two only.
 // pass_roots: the mixed kernel's float64 tables, one for each odd pass of
 // an (n/c)-point block in order (odd primes ascending, Ns = 1 first), pass
 // (Ns, p) holding W_{Ns p}^u for u < Ns p (cuda_curscan._pass_roots);
 // unused by the powers of two up to 131072.
 // stop: 0 in production; 1-3 cut the mixed kernel off after a stage for its
 // stage table (cuda_curscan.curscan_mixed_stage); the powers of two up to
-// 131072 take 0 only.
+// 131072 take 0 only (their cut-offs are the builds -DKSPEC_FFT_STOP).
 // With groups > 1, part is a (t, groups, n) float32 buffer for the groups'
 // partial folds, combined into out by a second kernel; with groups == 1
 // part is unused.  Returns the CUDA error code of the launches (0 on
@@ -362,23 +785,27 @@ extern "C" int kspec_curscan_fft(const void* re, const void* im, int is_u8,
       m_pts < 1 || m_pts > (1 << LOG2_BLOCK_N) ||
       (hbm ? chunk < 1
            : (c & (c - 1)) || c > MAX_CLUSTER ||
-             (pow2 && m_pts != (n < (1 << LOG2_BLOCK_N)
-                                    ? n : (1 << LOG2_BLOCK_N)))))
+             (pow2 && m_pts != pow2_block(n))) ||
+      (KSPEC_FFT_FORENSIC && (hbm || !pow2)))
     return static_cast<int>(cudaErrorInvalidValue);
   float* dst = static_cast<float*>(groups > 1 ? part : out);
   int err;
   if (pow2 && !hbm) {
-    err = is_u8 ? launch_by_size<uint8_t>(re, im, dst, starts, weights,
-                                          window, roots, t, full_size, n,
-                                          n_windows, groups, fold, s)
-                : launch_by_size<float>(re, im, dst, starts, weights, window,
-                                        roots, t, full_size, n, n_windows,
-                                        groups, fold, s);
+    err = is_u8 ? launch_pow2<uint8_t>(re, im, dst, starts, weights, window,
+                                       roots, t, full_size, n, n_windows,
+                                       groups, fold, s)
+                : launch_pow2<float>(re, im, dst, starts, weights, window,
+                                     roots, t, full_size, n, n_windows,
+                                     groups, fold, s);
   } else {
+#if KSPEC_FFT_FORENSIC
+    err = static_cast<int>(cudaErrorInvalidValue);
+#else
     err = kspec_fft::launch_mixed_route(re, im, is_u8, scratch, dst, starts,
                                         weights, window, roots, pass_roots, t,
                                         full_size, n, c, chunk, n_windows,
                                         groups, fold, stop, s);
+#endif
   }
   if (err || groups == 1) return err;
   const size_t total = static_cast<size_t>(t) * n;
@@ -388,4 +815,29 @@ extern "C" int kspec_curscan_fft(const void* re, const void* im, int is_u8,
                                             static_cast<float*>(out), n,
                                             groups, fold, total);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The power-of-two kernel that serves an n-point window in this build, on
+// uint8 (is_u8) or float32 planes: attrs[0..3] = its registers a thread,
+// local memory a thread (spills and stack), shared memory a block (dynamic
+// and static) and resident blocks an SM.  Returns the CUDA error code.
+extern "C" int kspec_curscan_fft_attrs(int n, int is_u8, int* attrs) {
+  auto query = [&](auto form) {
+    using K = decltype(form);
+    cudaError_t err = K::prepare();
+    cudaFuncAttributes fa;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, K::kernel());
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, K::kernel(), K::NT, K::smem());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attrs[0] = fa.numRegs;
+    attrs[1] = static_cast<int>(fa.localSizeBytes);
+    attrs[2] = static_cast<int>(fa.sharedSizeBytes + K::smem());
+    attrs[3] = blocks;
+    return 0;
+  };
+  return is_u8 ? by_size<uint8_t, KSPEC_FFT_PARENT != 0>(n, query)
+               : by_size<float, KSPEC_FFT_PARENT != 0>(n, query);
 }

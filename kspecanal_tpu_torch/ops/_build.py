@@ -188,6 +188,7 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "kspec_curscan_fft": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_fft_attrs": [i32, i32, ptr],
         "kspec_curscan_tc": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],

@@ -17,8 +17,10 @@ the JAX dispatcher sends to a Pallas curscan kernel (:func:`kernel_route`):
 the sublane predicate (every multiple of 128 from 256 up) and the lane
 predicate (fft >= 2048, not prime, window starts multiples of
 ``_factorize(fft)[1]``), counted in ``launches``.  The powers of two up to
-131072 run its radix-16 Stockham kernel (above fft 16384 a thread-block
-cluster), every other size its mixed-radix kernel (odd prime passes first,
+131072 run its radix-16 Stockham kernel (:func:`pow2_plan`: up to 65536
+its float64 form, above 8192 points n/8192 blocks a window; 131072 its
+parent form, a thread-block cluster), every other size its mixed-radix
+kernel (odd prime passes first,
 as symmetric float64 butterflies, large primes as float64 tensor-core
 products; a cluster above fft 16384 where a power of two <= 8 splits the
 window, else a radix-c step through a scratch buffer in device memory).
@@ -45,7 +47,11 @@ their six-pass builds.  Their plain versions share the removals of stages
 of :func:`two_stage_chain`.  :func:`curscan_mixed_stage` cuts the FFT
 kernel's mixed-radix form off after one stage of ``MIXED_STAGES`` (its
 stage table, ``scripts/mixed_stages.py``; plain version
-:func:`curscan_mixed_stage_plain`), counted in ``forensic_launches``.
+:func:`curscan_mixed_stage_plain`), counted in ``forensic_launches``, and
+:func:`curscan_fft_stage` the power-of-two kernel after one stage of
+``FFT_STAGES`` on its forensic builds (``scripts/fft_stages.py``; plain
+version :func:`curscan_fft_stage_plain`), counted in ``fft_stage_launches``
+(the parent form's build in ``fft_parent_launches``).
 """
 from __future__ import annotations
 
@@ -78,6 +84,12 @@ FFT_BLOCK_SIZE = 16384
 _RADIX = 16
 _MAX_CLUSTER = 8
 CLUSTER_MAX_FFT_SIZE = _MAX_CLUSTER * FFT_BLOCK_SIZE
+# The power-of-two kernel's float64 form (:func:`pow2_plan`): one block up
+# to FFT64_BLOCK_SIZE points (a float64 buffer of 128 KB), n/8192 such
+# blocks a window up to FFT64_MAX_FFT_SIZE; fft 131072 keeps the parent
+# form.
+FFT64_BLOCK_SIZE = 8192
+FFT64_MAX_FFT_SIZE = _MAX_CLUSTER * FFT64_BLOCK_SIZE
 SCRATCH_BYTES = 1 << 30
 # The lane kernel's smallest fft in the JAX dispatcher (_fused_choice).
 LANE_MIN_FFT_SIZE = 2048
@@ -102,6 +114,10 @@ _PRECISION_KEYS = ("force3m", "no3m")
 # passes, after the power-of-two passes, or in full.  The kernel's `stop`
 # argument: 0 runs in full, i + 1 stops after MIXED_STAGES[i].
 MIXED_STAGES = ("input", "odd", "pow2", "full")
+# The power-of-two kernel's cut-off stages (its forensic builds
+# -DKSPEC_FFT_STOP=1..4, in order): after the block input, after pass 1,
+# after the radix-16 passes, or in full.
+FFT_STAGES = ("input", "pass1", "radix16", "full")
 
 # The HIGH and DEFAULT classes' tensor-core kernels (ops/cuda_tc.py): Kernel
 # A takes the sublane predicate up to n1 = fft/128 = 128, Kernel C the rest
@@ -115,6 +131,8 @@ LANE_OVER_SUBLANE_FFT_SIZE = 16384
 launches = 0            # the FFT kernel (csrc/curscan_fft.cu)
 direct_launches = 0     # the direct-DFT kernel (the FFT kernel's yardstick)
 forensic_launches = 0   # the mixed kernel's cut-offs
+fft_stage_launches = 0  # the power-of-two kernel's cut-off builds
+fft_parent_launches = 0  # its parent form's build
 
 
 def _jax_predicate(cfg: SpecConfig) -> bool:
@@ -220,6 +238,29 @@ def fft_plan(n: int) -> Tuple[int, bool]:
     return c, True
 
 
+def pow2_plan(n: int, parent: bool = False) -> Tuple[int, bool]:
+    """``(c, float64)``: the thread blocks c of the power-of-two kernel for
+    one n-point window (n a power of two up to ``CLUSTER_MAX_FFT_SIZE``) and
+    whether its float64 form serves it: up to ``FFT64_MAX_FFT_SIZE`` one
+    block up to ``FFT64_BLOCK_SIZE`` points, else c = n/8192 blocks that
+    each read their chunks of the frame; fft 131072, and every n of the
+    forensic build ``parent`` (the parent form, -DKSPEC_FFT_PARENT=1), one
+    block up to ``FFT_BLOCK_SIZE`` points, else a cluster of c = n/16384."""
+    if n & (n - 1) or not 256 <= n <= CLUSTER_MAX_FFT_SIZE:
+        raise ValueError(f"fft {n} does not run the power-of-two kernel")
+    if parent or n > FFT64_MAX_FFT_SIZE:
+        return max(1, n // FFT_BLOCK_SIZE), False
+    return max(1, n // FFT64_BLOCK_SIZE), True
+
+
+def pass1_radix(m: int) -> int:
+    """The radix of the power-of-two kernel's first pass in an m-point
+    block: ``m / 16**q`` in {2, 4, 8, 16}, q = (log2 m - 1) // 4 radix-16
+    passes after it."""
+    log2m = m.bit_length() - 1
+    return m >> (4 * ((log2m - 1) // 4))
+
+
 def cluster_size(n: int) -> int:
     """The thread blocks c of the FFT kernel for one n-point window
     (:func:`fft_plan`)."""
@@ -238,7 +279,12 @@ def window_groups(t: int, n: int, n_windows: int, sms: int) -> int:
     window, at least 1, so ``G = min(W, ceil(8 * sms / (t * c)))``.  Group
     g folds the windows ``[g*W//G, (g+1)*W//G)`` in order; the groups'
     partial folds are combined in the order g = 0..G-1."""
-    want = -(-_BLOCKS_PER_SM * sms // (t * cluster_size(n)))
+    return groups_for(t, cluster_size(n), n_windows, sms)
+
+
+def groups_for(t: int, c: int, n_windows: int, sms: int) -> int:
+    """:func:`window_groups` for c thread blocks a window."""
+    want = -(-_BLOCKS_PER_SM * sms // (t * c))
     return max(1, min(n_windows, want))
 
 
@@ -268,6 +314,17 @@ def _tables(n: int, window: str, starts: tuple, mode: str,
     return (dev(starts, np.int32), dev(weights, np.float32),
             dev(window_lut(window, n), np.float32),
             dev(np.stack([roots.real, roots.imag], axis=-1), np.float32))
+
+
+@functools.lru_cache(maxsize=32)
+def _tables64(n: int, window: str, device: torch.device):
+    """The float64 form's own tables: the window (float64) and the N roots
+    of unity as ``(N, 2)`` float64 (re, im)."""
+    roots = np.exp(-2j * np.pi * np.arange(n) / n)
+    return (torch.as_tensor(window_lut(window, n), dtype=torch.float64
+                            ).to(device),
+            torch.as_tensor(np.stack([roots.real, roots.imag], axis=-1)
+                            ).to(device))
 
 
 def odd_primes(m: int) -> list:
@@ -365,28 +422,36 @@ def _raise_on(err: int, lib_fn) -> None:
                            f"error {err}")
 
 
-def _launch_fft(lib, iq_re, iq_im, cfg, stop: int = 0) -> torch.Tensor:
+def _launch_fft(lib, iq_re, iq_im, cfg, stop: int = 0,
+                parent: bool = False) -> torch.Tensor:
     """Launch the FFT kernel (and, with more than one window group, its
     combine pass; on the scratch route of :func:`fft_plan` its radix-c
     step, chunk by chunk) on the planes' device and current stream.
     ``stop`` > 0 cuts the mixed kernel off after ``MIXED_STAGES[stop - 1]``
-    (profiling only)."""
+    (profiling only).  The powers of two take :func:`pow2_plan`'s blocks
+    (``parent``: the library is a build of the parent form) and, in the
+    float64 form, its float64 tables."""
     dev = iq_re.device
     t, n = iq_re.shape[0], cfg.fft_size
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
     if t == 0:
         return out
     w = len(cfg.window_starts)
-    c, via_scratch = fft_plan(n)
+    if runs_mixed_kernel(n):
+        (c, via_scratch), f64 = fft_plan(n), False
+    else:
+        (c, f64), via_scratch = pow2_plan(n, parent), False
     chunk = scratch_chunk(t, n, w) if via_scratch else t
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = window_groups(chunk, n, w, sms)
+    groups = groups_for(chunk, c, w, sms)
     part = (torch.empty((t, groups, n), dtype=torch.float32, device=dev)
             if groups > 1 else None)
     scratch = (torch.empty((chunk, w, n, 2), dtype=torch.float32, device=dev)
                if via_scratch else None)
     starts, weights, window, roots = _tables(
         n, cfg.window, cfg.window_starts, cfg.cur_scan_cumu_mode, dev)
+    if f64:
+        window, roots = _tables64(n, cfg.window, dev)
     pass_roots = _pass_roots(n // c, dev)
     with torch.cuda.device(dev):
         err = lib.kspec_curscan_fft(
@@ -575,30 +640,49 @@ def curscan_mixed_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
     index (c*i + q + N/2) mod N.  'full' is
     :func:`curscan_fused_sublane_plain`."""
     if stage == "full":
-        return curscan_fused_sublane_plain(iq_re.double(), iq_im.double(),
-                                           cfg)
+        return curscan_fused_sublane_plain(
+            spectrum.decode_u8(iq_re).double(),
+            spectrum.decode_u8(iq_im).double(), cfg)
+    c = fft_plan(cfg.fft_size)[0]
+    m = cfg.fft_size // c
+    while m % 2 == 0:
+        m //= 2
+    return _block_stage_plain(iq_re, iq_im, cfg, c,
+                              {"input": 1, "odd": m, "pow2": None}[stage],
+                              False)
+
+
+def _block_stage_plain(iq_re, iq_im, cfg, c: int, radix,
+                       window64: bool) -> torch.Tensor:
+    """The fold of the FFT kernels' cut-offs, in float64: each window's c
+    blocks of M = N/c points z_q (see :func:`curscan_mixed_stage_plain`),
+    position i of a block holding z_q[i] (``radix`` 1), the Stockham order
+    after a first pass of radix r (position b*r + k holds sum_l z_q[b +
+    l*M/r] W_r^(lk); ``radix`` r) or bin i of its M-point DFT (None); the
+    window's weight times re + im of position i folded over the windows
+    into output index (c*i + q + N/2) mod N.  The window is the kernel's:
+    float64 (``window64``) or the float32 table widened."""
     n = cfg.fft_size
-    c = fft_plan(n)[0]
     m_pts = n // c
     dev = iq_re.device
     re, im = (spectrum.decode_u8(p).double() for p in (iq_re, iq_im))
     _, weights, window, _ = _tables(n, cfg.window, cfg.window_starts,
                                     cfg.cur_scan_cumu_mode, dev)
+    window = (_tables64(n, cfg.window, dev)[0] if window64
+              else window.double())
     a = torch.complex(spectrum.frame_signal(re, cfg.window_starts, n),
                       spectrum.frame_signal(im, cfg.window_starts, n))
-    a = a * window.double()                               # (T, W, N)
+    a = a * window                                        # (T, W, N)
     z = torch.fft.fft(a.reshape(a.shape[:2] + (c, m_pts)), dim=2)
     q = torch.arange(c, device=dev, dtype=torch.float64)
     i = torch.arange(m_pts, device=dev, dtype=torch.float64)
     z = z * torch.exp(-2j * np.pi * torch.outer(q, i) / n)   # (T, W, c, M)
-    if stage == "odd":
-        m = m_pts
-        while m % 2 == 0:
-            m //= 2
-        y = torch.fft.fft(z.reshape(z.shape[:3] + (m, m_pts // m)), dim=3)
-        z = y.transpose(3, 4).reshape(z.shape)
-    elif stage == "pow2":
+    if radix is None:
         z = torch.fft.fft(z, dim=3)
+    elif radix > 1:
+        y = torch.fft.fft(z.reshape(z.shape[:3] + (radix, m_pts // radix)),
+                          dim=3)
+        z = y.transpose(3, 4).reshape(z.shape)
     val = weights.double()[None, :, None, None] * (z.real + z.imag)
     mode = cfg.cur_scan_cumu_mode
     acc = (val.amax(dim=1) if mode == CUMU_MAX else
@@ -608,6 +692,95 @@ def curscan_mixed_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
         c, device=dev)[:, None]                           # (c, M)
     out[:, (bins.reshape(-1) + n // 2) % n] = acc.reshape(acc.shape[0], -1)
     return out
+
+
+def fft_stage_variants(parent: bool = False):
+    """The power-of-two kernel's forensic builds, one a stage of
+    ``FFT_STAGES`` (``csrc/curscan_fft.cu`` alone with
+    ``-DKSPEC_FFT_STOP=1..4``; ``parent``: the parent form, with
+    ``-DKSPEC_FFT_PARENT=1``), as ``_build.build`` and
+    ``_build.load_variant`` take them."""
+    return [(("curscan_fft.cu",), (f"KSPEC_FFT_STOP={i + 1}",)
+             + (("KSPEC_FFT_PARENT=1",) if parent else ()))
+            for i in range(len(FFT_STAGES))]
+
+
+def fft_stage_library(stage: str, parent: bool = False):
+    """The forensic build of ``stage`` (:func:`fft_stage_variants`), built
+    on first use."""
+    from kspecanal_tpu_torch.ops import _build
+    return _build.load_variant(
+        *fft_stage_variants(parent)[FFT_STAGES.index(stage)])
+
+
+def check_fft_stage(cfg: SpecConfig, stage: str) -> None:
+    """Raise unless ``stage`` is a cut-off of the power-of-two kernel and it
+    serves ``cfg``."""
+    if stage not in FFT_STAGES:
+        raise ValueError(f"unknown stage {stage!r}; stages: {FFT_STAGES}")
+    if kernel_route(cfg) is None or runs_mixed_kernel(cfg.fft_size):
+        raise ValueError(f"fft {cfg.fft_size} does not run the power-of-two "
+                         f"kernel")
+
+
+def curscan_fft_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                      cfg: SpecConfig, stage: str,
+                      parent: bool = False) -> torch.Tensor:
+    """The power-of-two kernel cut off after ``stage`` (``FFT_STAGES``), for
+    its stage table (profiling only; no session calls it): ``(T,
+    full_size)`` -> ``(T, fft_size)``, on its forensic build
+    (:func:`fft_stage_library`; ``parent``: the parent form's).  Below
+    'full' each point's re + im is folded in place of its magnitude, at the
+    output index of the point's position (:func:`curscan_fft_stage_plain`
+    defines the values); 'full' is the production kernel built alone (the
+    parent form's, with ``parent``).  Counted in ``fft_stage_launches``
+    (``parent``: ``fft_parent_launches``); CPU tensors run the plain
+    version."""
+    global fft_stage_launches, fft_parent_launches
+    check_fft_stage(cfg, stage)
+    check_planes(iq_re, iq_im, cfg)
+    if iq_re.device.type == "cpu":
+        return curscan_fft_stage_plain(iq_re, iq_im, cfg, stage, parent)
+    out = _launch_fft(fft_stage_library(stage, parent), iq_re, iq_im, cfg,
+                      parent=parent)
+    if parent:
+        fft_parent_launches += 1
+    else:
+        fft_stage_launches += 1
+    return out
+
+
+def curscan_fft_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
+                            cfg: SpecConfig, stage: str,
+                            parent: bool = False) -> torch.Tensor:
+    """The plain version of :func:`curscan_fft_stage`, in float64 on the
+    planes' device: the c = ``pow2_plan(n, parent)[0]`` blocks of M = N/c
+    points of :func:`_block_stage_plain`, position i holding after 'input'
+    z_q[i], after 'pass1' the Stockham order after the first pass (radix
+    ``pass1_radix(M)``), after 'radix16' bin i of the M-point DFT; 'full'
+    is :func:`curscan_fused_sublane_plain`."""
+    check_fft_stage(cfg, stage)
+    if stage == "full":
+        return curscan_fused_sublane_plain(
+            spectrum.decode_u8(iq_re).double(),
+            spectrum.decode_u8(iq_im).double(), cfg)
+    c, f64 = pow2_plan(cfg.fft_size, parent)
+    radix = {"input": 1, "pass1": pass1_radix(cfg.fft_size // c),
+             "radix16": None}[stage]
+    return _block_stage_plain(iq_re, iq_im, cfg, c, radix, f64)
+
+
+def fft_attrs(lib, n: int, u8: bool) -> dict:
+    """The library ``lib``'s power-of-two kernel for fft ``n`` on u8 or
+    float32 planes (``kspec_curscan_fft_attrs``): registers a thread, local
+    memory a thread (bytes of spills and stack), shared memory a block
+    (bytes) and resident blocks an SM."""
+    import ctypes
+    vals = (ctypes.c_int * 4)()
+    _raise_on(lib.kspec_curscan_fft_attrs(n, int(u8), vals),
+              lib.kspec_curscan_fft_attrs)
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), vals))
 
 
 class TwoStageSteps(NamedTuple):

@@ -225,9 +225,10 @@ def test_mixed_stage_launches_the_fft_kernel_with_its_cutoff(fake_card, fft):
 
 
 def test_mixed_stage_refuses_what_the_mixed_kernel_does_not_run():
-    """Powers of two up to 131072 run ``curscan_fft_kernel``, which has no
-    cut-offs; sizes no kernel takes and unknown stages raise.  On CPU
-    tensors 'full' is the plain version in float64."""
+    """Powers of two up to 131072 run the power-of-two kernel, whose
+    cut-offs are forensic builds of their own (``curscan_fft_stage``), not
+    the mixed kernel's; sizes no kernel takes and unknown stages raise.  On
+    CPU tensors 'full' is the plain version in float64."""
     for fft in (2048, 131072, 1000):
         cfg = zs_cfg(fft, 0.5, x_res=500)
         z = torch.zeros((1, cfg.full_size))

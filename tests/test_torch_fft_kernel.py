@@ -3,14 +3,18 @@
 ``np.fft`` and against the JAX package on the CPU.
 
 The model follows the kernel's decomposition.  Powers of two up to 131072
-(``curscan_fft_kernel``): the pass order and radices (a first pass of radix
-``m / 16**q`` in {2, 4, 8, 16}, then radix-16 passes), the 16 registers of
-each of the ``m/16`` threads, the radix-4/radix-2 split of the radix-16 and
+(``curscan_fft64_kernel``, the float64 form, up to 65536, one block up to
+8192 points and clusters of 8192 above; ``curscan_fft_kernel``, the parent
+form, at 131072 and in the build that times it): the pass order and radices
+(a first pass of radix ``m / 16**q`` in {2, 4, 8, 16}, then radix-16
+passes), the 16 registers of each of the ``m/16`` threads (the float64
+form's first pass in place), the radix-4/radix-2 split of the radix-16 and
 radix-8 butterflies, the twiddle-table indices into the one N-point roots
-table, the padded shared-memory index function and its banks, the Stockham
-output order (thread t ends with bins ``t + k*m/16``), the fftshift write,
-the window-group split with its fixed combine order, and the c-block
-cluster split above fft 16384.  Every other size the JAX dispatcher sends
+table, the shared-memory index functions (the float64 form's swizzled
+double2 buffer, the parent's padded float2 one) and their banks, the
+Stockham output order (thread t ends with bins ``t + k*m/16``), the
+fftshift write, the window-group split with its fixed combine order, and
+the c-block cluster split.  Every other size the JAX dispatcher sends
 to a Pallas kernel (``curscan_mixed_kernel``: the other multiples of 128,
 and the lane kernel's sizes off the 128 grid such as 2500, 3000, 10000 and
 39800): the block split (c blocks of M = N/c points, a cluster up to 131072
@@ -25,10 +29,15 @@ exchange between two buffers where they fit), their ragged thread loops,
 the power-of-two passes after them, the ragged plan where 16 does not
 divide M (ceil(M/16) threads, outputs t + e*nt < M, one last power-of-two
 pass of radix 2, 4 or 8), and the fftshift modulo.  It rounds where the
-kernel rounds: values are float32 in registers and shared memory, each
-power-of-two butterfly (with its pass twiddle from the float32 table) runs
-in float64 and rounds to float32 after its inner DFT-4 stage and at its
-end; an odd pass rounds once per output.
+kernel rounds.  The float64 form: the samples widened and windowed in
+float64, float64 through every butterfly (float64 roots) and between
+passes, |X|^2 rounded to float32 once and its square root taken there.
+The float64 form's staging of the next frame through shared memory changes
+no value and is not modelled.  The parent form and the mixed kernel: values
+are float32 in registers and
+shared memory, each power-of-two butterfly (with its pass twiddle from the
+float32 table) runs in float64 and rounds to float32 after its inner DFT-4
+stage and at its end; an odd pass rounds once per output.
 
 Tolerances: the model is held to ``np.fft`` in float64 at 1e-6 of the peak
 (a float32 radix FFT rounds like ``eps * log2 N``; the model's float64
@@ -42,6 +51,7 @@ import torch
 
 from kspecanal_tpu.config import CUMU_MAX, CUMU_MIN
 from kspecanal_tpu.ops import spectrum as jspec
+from kspecanal_tpu_torch.config import window_lut
 from kspecanal_tpu_torch.ops import cuda_curscan
 from torch_parity import MODES, assert_spectra_close, decoded, raw_planes, \
     zs_cfg
@@ -49,6 +59,8 @@ from torch_parity import MODES, assert_spectra_close, decoded, raw_planes, \
 RADIX = 16
 BLOCK_N = 16384
 CLUSTER_MAX_N = 8 * BLOCK_N
+F64_BLOCK_N = 8192                  # the float64 form's largest block
+F64_MAX_N = 8 * F64_BLOCK_N         # and its largest cluster
 POW2 = [1 << e for e in range(8, 18)]          # 256 .. 131072
 # Multiples of 128 that are not powers of two below 131072 (one block, then
 # clusters of 2 and 8) and sizes above it (the scratch route: c = 12, 16).
@@ -64,8 +76,26 @@ W16 = np.exp(-2j * np.pi * np.arange(16) / 16)      # float64 constants
 
 
 def pad(a):
-    """The kernel's shared-memory index: one float2 of padding per 16."""
+    """The parent form's shared-memory index: one float2 of padding per
+    16."""
     return a + (a >> 4)
+
+
+def swz(a):
+    """The float64 form's shared-memory index: element a stays in its
+    aligned group of 8 double2 (128 bytes), at a ^ ((a >> 3) ^ (a >> 4)) &
+    7 in it; no padding."""
+    return a ^ (((a >> 3) ^ (a >> 4)) & 7)
+
+
+def pow2_split(n, parent=False):
+    """(c, float64 form) of the power-of-two kernel for an n-point window:
+    the float64 form up to 65536, one block up to 8192 points, clusters of
+    8192 above; the parent form at 131072 (and everywhere in its own
+    build), one block up to 16384, clusters of 16384 above."""
+    if parent or n > F64_MAX_N:
+        return max(1, n // BLOCK_N), False
+    return max(1, n // F64_BLOCK_N), True
 
 
 def radices(m):
@@ -88,10 +118,16 @@ def f32(x):
     return x.astype(np.complex64).astype(np.complex128)
 
 
-def dft(x, tw=None):
-    """Natural-order DFT of the list ``x`` (2, 4, 8 or 16 complex64 register
-    columns), element r first multiplied by the float32 twiddle ``tw[r]``,
-    computed as the kernel computes it: in float64, rounded to float32 at
+def f64(x):
+    """The float64 form rounds nothing between its butterflies' stages."""
+    return np.asarray(x, np.complex128)
+
+
+def dft(x, tw=None, rnd=f32):
+    """Natural-order DFT of the list ``x`` (2, 4, 8 or 16 register columns),
+    element r first multiplied by the twiddle ``tw[r]``, computed as the
+    kernel computes it: in float64, rounded by ``rnd`` (to float32 in the
+    parent form and the mixed kernel, not at all in the float64 form) at
     the end and, for 16 = 4 x 4 and 8 = 4 x 2, once between the inner DFT-4
     (over stride-``r/4`` values, then ``W16^(e)``) and the outer DFT."""
     r = len(x)
@@ -100,44 +136,52 @@ def dft(x, tw=None):
         d = [v if i == 0 else v * np.asarray(tw[i], np.complex128)
              for i, v in enumerate(d)]
     if r == 2:
-        return [f32(d[0] + d[1]), f32(d[0] - d[1])]
+        return [rnd(d[0] + d[1]), rnd(d[0] - d[1])]
     if r == 4:
-        return [f32(v) for v in dft4(*d)]
+        return [rnd(v) for v in dft4(*d)]
     n2s = r // 4                                    # 4 for 16, 2 for 8
     y = {}
     for n2 in range(n2s):
         for k1, v in enumerate(dft4(*(d[n2 + n2s * i] for i in range(4)))):
-            y[n2, k1] = f32(v * W16[n2 * k1 * (16 // r)])
+            y[n2, k1] = rnd(v * W16[n2 * k1 * (16 // r)])
     out = [None] * r
     for k1 in range(4):
         col = [y[n2, k1] for n2 in range(n2s)]
         outer = dft4(*col) if n2s == 4 else [col[0] + col[1], col[0] - col[1]]
         for k2, v in enumerate(outer):
-            out[k1 + 4 * k2] = f32(v)
+            out[k1 + 4 * k2] = rnd(v)
     return out
 
 
 class Banks:
-    """Records each warp-wide shared-memory access (one address per thread)
-    and its bank conflict degree: 8-byte accesses are served a half-warp at
-    a time, and a half-warp's 16 addresses must fall on 16 distinct
-    8-byte bank pairs (``addr % 16``)."""
+    """Records each warp-wide shared-memory access (one address per thread,
+    in units of the access's ``width`` bytes) and its bank conflict degree:
+    the 32 banks of 4 bytes serve 128 bytes a wavefront, so 8-byte accesses
+    are served a half-warp at a time and a half-warp's 16 addresses must
+    fall on 16 distinct 8-byte bank pairs (``addr % 16``), 16-byte accesses
+    a quarter-warp at a time on 8 distinct groups of 4 banks (``addr %
+    8``)."""
 
-    def __init__(self):
+    def __init__(self, width=8):
+        self.lanes = 128 // width
         self.worst = 0
 
     def access(self, addr):
         addr = np.asarray(addr).ravel()
-        for i in range(0, len(addr), 16):        # the last may be partial
-            _, counts = np.unique(np.unique(addr[i:i + 16]) % 16,
+        step = self.lanes
+        for i in range(0, len(addr), step):      # the last may be partial
+            _, counts = np.unique(np.unique(addr[i:i + step]) % step,
                                   return_counts=True)
             self.worst = max(self.worst, int(counts.max()))
 
 
-def block_fft(v, m, n, roots, banks=None):
-    """One thread block's m-point FFT.  ``v[..., t, e]`` is element
-    ``t + e*m/16`` in thread t's registers; returns ``[..., t, k]`` = bin
-    ``t + k*m/16``.  Twiddles index the n-point table ``roots``."""
+def block_fft(v, m, n, roots, banks=None, stop=None):
+    """One thread block's m-point FFT in the parent form.  ``v[..., t, e]``
+    is element ``t + e*m/16`` in thread t's registers; returns ``[..., t,
+    k]`` = bin ``t + k*m/16``.  Twiddles index the n-point float32 table
+    ``roots``.  ``stop`` 'pass1' returns the registers after pass 1: slot
+    ``i*r0 + k`` holds output k of butterfly ``t + i*m/16`` (position
+    ``(t + i*m/16)*r0 + k``)."""
     nt = m // RADIX
     t = np.arange(nt)
     rad = radices(m)
@@ -147,6 +191,9 @@ def block_fft(v, m, n, roots, banks=None):
     # Pass 1 (Ns = 1): butterfly j = t + i*nt on elements i + r*nb, which sit
     # at j + r*m/r0; output k goes to j*r0 + k.
     outs = [dft([v[..., i + r * nb] for r in range(r0)]) for i in range(nb)]
+    if stop == "pass1":
+        return np.stack([outs[s // r0][s % r0] for s in range(RADIX)],
+                        axis=-1)
     for i in range(nb):
         for k in range(r0):
             addr = pad((t + i * nt) * r0 + k)
@@ -167,6 +214,54 @@ def block_fft(v, m, n, roots, banks=None):
             return np.stack(y, axis=-1)
         for k in range(RADIX):
             addr = pad((t // ns) * ns * RADIX + t % ns + k * ns)
+            banks.access(addr)
+            buf[..., addr] = y[k]
+        ns *= RADIX
+    raise AssertionError("unreachable: every block FFT has >= 2 passes")
+
+
+def block_fft64(v, m, n, roots, banks=None, stop=None):
+    """One thread block's m-point FFT in the float64 form (m <= 8192):
+    ``v[..., t, e]`` (complex128) is element ``t + e*m/16``; returns
+    ``[..., t, k]`` = bin ``t + k*m/16``.  Pass 1 runs in place: slot ``i +
+    k*nb`` (nb = 16/r0) takes output k of butterfly ``t + i*m/16`` (``stop``
+    'pass1' returns these slots); every exchange is a float64 buffer of m
+    double2 at ``swz``, 16-byte accesses counted by ``banks``; a pass's
+    twiddles are one lookup W = roots[(t mod ns) * n / (16 ns)] in the
+    n-point float64 table and its powers W^r by recurrence; nothing is
+    rounded."""
+    nt = m // RADIX
+    t = np.arange(nt)
+    rad = radices(m)
+    banks = banks or Banks(16)
+    buf = np.zeros(v.shape[:-2] + (m,), np.complex128)
+    r0, nb = rad[0], RADIX // rad[0]
+    slots = [None] * RADIX
+    for i in range(nb):
+        y = dft([v[..., i + r * nb] for r in range(r0)], rnd=f64)
+        for k in range(r0):
+            slots[i + k * nb] = y[k]
+    if stop == "pass1":
+        return np.stack(slots, axis=-1)
+    for i in range(nb):
+        for k in range(r0):
+            addr = swz((t + i * nt) * r0 + k)
+            banks.access(addr)
+            buf[..., addr] = slots[i + k * nb]
+    ns = r0
+    for p in range(len(rad) - 1):
+        x = []
+        for r in range(RADIX):
+            addr = swz(t + r * nt)
+            banks.access(addr)
+            x.append(buf[..., addr])
+        stride = n // (ns * RADIX)
+        y = dft(x, [None] + powers(roots[(t % ns) * stride], RADIX - 1),
+                rnd=f64)
+        if p == len(rad) - 2:
+            return np.stack(y, axis=-1)
+        for k in range(RADIX):
+            addr = swz((t // ns) * ns * RADIX + t % ns + k * ns)
             banks.access(addr)
             buf[..., addr] = y[k]
         ns *= RADIX
@@ -573,31 +668,73 @@ def mixed_fft(a, roots, banks=None, scratch=None):
     return out
 
 
-def kernel_fft(a, roots, banks=None):
-    """The kernel's n-point FFT of frames ``a[..., n]`` (complex64), natural
-    order; sizes other than the powers of two up to 131072 take
-    :func:`mixed_fft`.  n <= 16384: one block.  Above, a cluster of c =
-    n/16384 blocks: block j' holds the chunk ``a[j'*M : (j'+1)*M]`` (M =
-    n/c) in its shared memory; block q reads every chunk at its own
-    positions (distributed shared memory) and forms ``z_q[m] = W_N^(m q) *
-    sum_j' a[m + M j'] W_c^(j' q)`` in its registers, then its M-point FFT
-    gives the bins ``c*k + q``."""
+def runs_pow2(n):
+    """The power-of-two kernel serves n (else the mixed kernel)."""
+    return n & (n - 1) == 0 and n <= CLUSTER_MAX_N
+
+
+def roots64(n):
+    """The float64 form's n-point roots table."""
+    return np.exp(-2j * np.pi * np.arange(n) / n)
+
+
+def powers(w1, count):
+    """w1, w1^2, ..., w1^count by the float64 form's recurrence (each the
+    one before times w1)."""
+    out = [np.asarray(w1, np.complex128)]
+    for _ in range(count - 1):
+        out.append(out[-1] * w1)
+    return out
+
+
+def block_input(a, roots, c, q, rnd):
+    """Block q's input z_q of a window ``a[..., n]`` split over c blocks of
+    M = n/c points, as ``[..., t, e]`` (element t + e*M/16): the frame for c
+    = 1, else ``z_q[m] = W_N^(m q) * sum_j a[m + M j] W_c^(j q)``.  The
+    parent form (``rnd`` f32) reads the chunks of its cluster and the
+    twiddle roots[m q] and narrows z to float32; the float64 form (``rnd``
+    f64) reads the c chunks from device memory and takes W_N^(m q) =
+    W_N^(t q) W_N^(M/16 q)^e by recurrence, rounding nothing."""
     n = a.shape[-1]
-    if n & (n - 1) or n > CLUSTER_MAX_N:
-        return mixed_fft(a, roots, banks)
-    c = cluster_size(n)
     m = n // c
     nt = m // RADIX
     pos = np.arange(nt)[:, None] + np.arange(RADIX)[None, :] * nt
-    out = np.empty(a.shape, np.complex64)
+    z = a[..., pos].astype(np.complex128)
+    for j in range(1, c):
+        z = z + a[..., j * m + pos] * np.complex128(roots[((j * q) % c) * m])
+    if q and rnd is f64:
+        t = np.arange(nt)
+        wm = [roots[t * q]]
+        for _ in range(RADIX - 1):
+            wm.append(wm[-1] * roots[nt * q])
+        z = z * np.stack(wm, axis=-1)
+    elif q:
+        z = z * roots[pos * q].astype(np.complex128)
+    return rnd(z), pos
+
+
+def kernel_fft(a, roots, banks=None, parent=False):
+    """The kernel's n-point FFT of frames ``a[..., n]``, natural order;
+    sizes other than the powers of two up to 131072 take :func:`mixed_fft`
+    (complex64 frames, the float32 table ``roots``).  The powers of two take
+    :func:`pow2_split`'s c blocks of M = n/c points (``parent``: the parent
+    form's build): block q's input is :func:`block_input` and its M-point
+    FFT gives the bins ``c*k + q``; the float64 form (complex128 frames,
+    windowed in float64, its own float64 table, :func:`block_fft64`), the
+    parent form (complex64 frames, the float32 table, :func:`block_fft`)."""
+    n = a.shape[-1]
+    if not runs_pow2(n):
+        return mixed_fft(a, roots, banks)
+    c, float64 = pow2_split(n, parent)
+    m = n // c
+    out = np.empty(a.shape, np.complex128 if float64 else np.complex64)
     for q in range(c):
-        z = a[..., pos].astype(np.complex128)
-        for j in range(1, c):
-            z = z + a[..., j * m + pos] * np.complex128(
-                roots[((j * q) % c) * m])
-        if q:
-            z = z * roots[pos * q].astype(np.complex128)
-        out[..., c * pos + q] = block_fft(f32(z), m, n, roots, banks)
+        if float64:
+            z, pos = block_input(a, roots64(n), c, q, f64)
+            out[..., c * pos + q] = block_fft64(z, m, n, roots64(n), banks)
+        else:
+            z, pos = block_input(a, roots, c, q, f32)
+            out[..., c * pos + q] = block_fft(z, m, n, roots, banks)
     return out
 
 
@@ -609,17 +746,25 @@ def tables(cfg):
             (roots[:, 0] + 1j * roots[:, 1]).numpy().astype(np.complex64))
 
 
-def curscan_model(re, im, cfg, groups, chunk=None):
+def curscan_model(re, im, cfg, groups, chunk=None, parent=False):
     """The kernel on float32 planes ``(T, full_size)``: frame and window,
     FFT, ``weights[w] * |X|``, fold each group's windows in order, combine
     the groups' partials in the order g = 0..G-1, fftshift write (bin + N/2)
-    mod N.  Above fft 131072 the radix-c step fills a ``(chunk, W, c, M)``
-    scratch ``chunk`` IQ blocks at a time (``cuda_curscan.scratch_chunk``
-    by default) and the block kernel reads it."""
+    mod N.  The float64 form of the power-of-two kernel windows with the
+    float64 window and takes |X| as the float32 square root of |X|^2
+    rounded to float32; the other forms window and take |X| in float32.
+    Above fft 131072 the radix-c step fills a ``(chunk, W, c, M)`` scratch
+    ``chunk`` IQ blocks at a time (``cuda_curscan.scratch_chunk`` by
+    default) and the block kernel reads it."""
     n = cfg.fft_size
     starts, weights, window, roots = tables(cfg)
     idx = starts[:, None] + np.arange(n)[None, :]
     a = (re[:, idx] * window + 1j * (im[:, idx] * window)).astype(np.complex64)
+    float64 = runs_pow2(n) and pow2_split(n, parent)[1]
+    if float64:
+        w64 = window_lut(cfg.window, n)
+        a = (re[:, idx].astype(np.float64) * w64
+             + 1j * (im[:, idx].astype(np.float64) * w64))
     c, via_scratch = block_split(n)
     if via_scratch:
         chunk = chunk or cuda_curscan.scratch_chunk(len(re), n, len(starts))
@@ -630,8 +775,13 @@ def curscan_model(re, im, cfg, groups, chunk=None):
             x[b0:b0 + chunk] = mixed_fft(a[b0:b0 + chunk], roots,
                                          scratch=scratch)
     else:
-        x = kernel_fft(a, roots)
-    mag = weights[None, :, None] * np.sqrt(x.real * x.real + x.imag * x.imag)
+        x = kernel_fft(a, roots, parent=parent)
+    if float64:
+        mag = weights[None, :, None] * np.sqrt(
+            (x.real * x.real + x.imag * x.imag).astype(np.float32))
+    else:
+        mag = weights[None, :, None] * np.sqrt(x.real * x.real
+                                               + x.imag * x.imag)
     mode = cfg.cur_scan_cumu_mode
     op = (np.maximum if mode == CUMU_MAX else np.minimum if mode == CUMU_MIN
           else np.add)
@@ -761,8 +911,59 @@ def test_mixed_stage_plain_follows_the_model(fft):
             stage
 
 
+@pytest.mark.parametrize("parent", [False, True], ids=["float64", "parent"])
+@pytest.mark.parametrize("fft", [256, 2048, 16384, 65536, 131072])
+def test_fft_stage_plain_follows_the_model(fft, parent):
+    """``cuda_curscan.curscan_fft_stage_plain`` defines what the
+    power-of-two kernel cut off after each stage folds, in both forms (one
+    block; clusters of 2 and 8 blocks of 8192 in the float64 form, of 8
+    blocks of 16384 at 131072): its 'input' positions hold the model's
+    block input, its 'pass1' positions the model's registers after pass 1
+    (slot to position as each form holds them), its 'radix16' the block's
+    DFT; the fold of weights[w] * (re + im) agrees at 1e-6 of the peak."""
+    cfg = zs_cfg(fft, 0.5, "AVG", x_res=512)
+    re, im = (decoded(p) for p in raw_planes(cfg, 1, seed=fft + 11))
+    n = fft
+    c, float64 = pow2_split(n, parent)
+    m = n // c
+    nt = m // RADIX
+    r0 = radices(m)[0]
+    nb = RADIX // r0
+    starts, weights, window, roots = tables(cfg)
+    idx = starts[:, None] + np.arange(n)[None, :]
+    if float64:
+        w64 = window_lut(cfg.window, n)
+        a = (re[:, idx].astype(np.float64) * w64
+             + 1j * (im[:, idx].astype(np.float64) * w64))
+        rts, rnd, bfft = roots64(n), f64, block_fft64
+    else:
+        a = (re[:, idx] * window + 1j * (im[:, idx] * window)).astype(
+            np.complex64)
+        rts, rnd, bfft = roots, f32, block_fft
+    t = np.arange(nt)[:, None]
+    k = np.arange(RADIX)[None, :]
+    pass1_pos = ((t + (k % nb) * nt) * r0 + k // nb if float64
+                 else (t + (k // r0) * nt) * r0 + k % r0)
+    for stage in ("input", "pass1", "radix16"):
+        want = np.zeros((1, n))
+        for q in range(c):
+            z, pos = block_input(a, rts, c, q, rnd)        # (1, W, nt, 16)
+            if stage == "pass1":
+                z, pos = bfft(z, m, n, rts, stop="pass1"), pass1_pos
+            elif stage == "radix16":
+                z = bfft(z, m, n, rts)
+            acc = np.einsum("w,twij->tij", weights, z.real + z.imag)
+            want[:, (c * pos + q + n // 2) % n] = acc
+        got = cuda_curscan.curscan_fft_stage(
+            torch.from_numpy(re), torch.from_numpy(im), cfg, stage,
+            parent).numpy()
+        assert np.max(np.abs(got - want)) <= 1e-6 * np.max(np.abs(want)), \
+            stage
+
+
+@pytest.mark.parametrize("parent", [False, True], ids=["float64", "parent"])
 @pytest.mark.parametrize("fft", [2048, 16384, 32768])
-def test_float64_butterflies_beat_a_float32_fft(fft):
+def test_float64_butterflies_beat_a_float32_fft(fft, parent):
     """Why the butterflies run in float64: a MIN fold at 90% overlap keeps
     bins near 1% of its peak, where two float32 FFTs differ by up to ~2e-6
     of the peak against the 1e-6 the bound allows.  Held to the plain
@@ -778,24 +979,51 @@ def test_float64_butterflies_beat_a_float32_fft(fft):
     exact = cuda_curscan.curscan_fused_sublane_plain(
         torch.from_numpy(re).double(), torch.from_numpy(im).double(),
         cfg).numpy()
-    model = curscan_model(re, im, cfg, 1)
+    model = curscan_model(re, im, cfg, 1, parent=parent)
     bound = 5e-5 * np.abs(exact) + 1e-6 * np.max(np.abs(exact))
     assert np.max(np.abs(model - exact) / bound) <= 0.5
 
 
-@pytest.mark.parametrize("m", POW2[:7])
-def test_plan_and_shared_memory_banks(m):
+@pytest.mark.parametrize("m,form", [(m, "parent") for m in POW2[:7]]
+                         + [(m, "float64") for m in POW2[:6]])
+def test_plan_and_shared_memory_banks(m, form):
     """Every block size runs 16 elements a thread on m/16 threads, the last
     pass is radix 16, and no shared-memory access of any pass has a bank
-    conflict; the padded buffer holds m + m/16 float2."""
+    conflict: the parent form's padded buffer of m + m/16 float2 (8-byte
+    accesses, a half-warp a wavefront), the float64 form's swizzled buffer
+    of m double2 (16-byte accesses, a quarter-warp a wavefront; ``swz``
+    permutes each aligned group of 8, so the buffer is m double2 with no
+    padding)."""
     rad = radices(m)
     assert int(np.prod(rad)) == m and rad[0] in (2, 4, 8, 16)
     assert rad[1:] == [RADIX] * (len(rad) - 1) and len(rad) >= 2
-    assert pad(m - 1) + 1 <= m + m // 16
-    banks = Banks()
-    v = np.zeros((m // RADIX, RADIX), np.complex64)
-    block_fft(v, m, m, np.ones(m, np.complex64), banks)
+    if form == "parent":
+        assert pad(m - 1) + 1 <= m + m // 16
+        banks = Banks()
+        v = np.zeros((m // RADIX, RADIX), np.complex64)
+        block_fft(v, m, m, np.ones(m, np.complex64), banks)
+    else:
+        a = np.arange(m)
+        assert np.array_equal(np.sort(swz(a)), a)
+        assert np.array_equal(swz(a) >> 3, a >> 3)
+        banks = Banks(16)
+        v = np.zeros((m // RADIX, RADIX), np.complex128)
+        block_fft64(v, m, m, np.ones(m, np.complex128), banks)
     assert banks.worst == 1
+
+
+def test_the_parent_padding_conflicts_with_16_byte_accesses():
+    """Why the float64 form swizzles: the parent's padding (one in 16) with
+    double2 elements puts 2 of a quarter-warp's 8 stores of pass 1 on one
+    bank group at every block size but 256 and 4096 (pass 1 of radix 16)."""
+    worst = {}
+    for m in POW2[:6]:
+        nt, r0 = m // RADIX, radices(m)[0]
+        banks = Banks(16)
+        t = np.arange(nt)
+        banks.access(pad(t * r0))
+        worst[m] = banks.worst
+    assert worst == {256: 1, 512: 2, 1024: 2, 2048: 2, 4096: 1, 8192: 2}
 
 
 @pytest.mark.parametrize("m,in_regs,worst", [
@@ -839,6 +1067,25 @@ def test_cluster_split_covers_every_bin_once():
         assert np.array_equal(np.sort(shifted), np.arange(n))
         if n & (n - 1) == 0:
             assert np.array_equal(shifted, (bins + n // 2) & (n - 1))
+
+
+def test_pow2_split_rule_matches_the_wrapper():
+    """``cuda_curscan.pow2_plan`` is the model's rule at every power of two
+    256-131072, in both builds: the float64 form up to 65536 (one block up
+    to 8192, clusters of 2, 4 and 8 above), the parent form at 131072 and
+    in its own build (one block up to 16384, clusters of 2, 4 and 8 above);
+    a cluster is at most 8 blocks; every other size raises.  The first
+    pass's radix is the model's."""
+    for n in POW2:
+        for parent in (False, True):
+            c, float64 = cuda_curscan.pow2_plan(n, parent)
+            assert (c, float64) == pow2_split(n, parent)
+            assert c <= 8 and n // c <= (F64_BLOCK_N if float64 else BLOCK_N)
+            assert cuda_curscan.pass1_radix(n // c) == radices(n // c)[0]
+    assert [pow2_split(n)[0] for n in POW2] == [1] * 6 + [2, 4, 8, 8]
+    for n in (128, 3000, 262144):
+        with pytest.raises(ValueError):
+            cuda_curscan.pow2_plan(n)
 
 
 def test_block_split_rule_matches_the_wrapper():
@@ -927,6 +1174,8 @@ def test_window_groups_rule_and_split():
     """G = min(W, ceil(8 * SMs / (T * c))), at least 1; group g takes the
     windows [g*W//G, (g+1)*W//G): contiguous, in order, none empty."""
     wg = cuda_curscan.window_groups
+    assert cuda_curscan.groups_for(288, 2, 71, 132) == 2  # fmScan, c = 2
+    assert cuda_curscan.groups_for(64, 8, 15, 132) == 3   # fft 65536
     assert wg(4096, 2048, 15, 132) == 1          # zero-span main
     assert wg(288, 16384, 71, 132) == 4          # fmScan, 16 sweeps
     assert wg(288, 16384, 15, 132) == 4          # K3's cell

@@ -81,7 +81,7 @@ def test_kernel_matches_plain(cuda, fft, nono, window, mode):
 
 
 @pytest.mark.parametrize("nono", [0.5, 0.1])
-@pytest.mark.parametrize("fft", [2048, 16384, 65536])
+@pytest.mark.parametrize("fft", POW2)
 def test_kernel_u8_bit_identical(cuda, fft, nono):
     cfg = zs_cfg(fft, nono, x_res=min(fft, 512))
     re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 4, 9))
@@ -89,6 +89,84 @@ def test_kernel_u8_bit_identical(cuda, fft, nono):
     want = cuda_curscan.curscan_fused_sublane(tspec.decode_u8(re),
                                               tspec.decode_u8(im), cfg)
     assert torch.equal(got, want)
+
+
+def bound_share(got, want):
+    """The largest per-bin error as a share of the bound (5e-5 of the bin
+    plus 1e-6 of the peak)."""
+    err = (got.double() - want.double()).abs()
+    ref = want.double().abs()
+    return (err / (5e-5 * ref + 1e-6 * ref.max())).max().item()
+
+
+@pytest.mark.parametrize("parent", [False, True], ids=["float64", "parent"])
+@pytest.mark.parametrize("stage", cuda_curscan.FFT_STAGES)
+@pytest.mark.parametrize("fft", POW2)
+def test_fft_stage_matches_plain(cuda, fft, stage, parent):
+    """The power-of-two kernel cut off after each stage (its forensic
+    builds, both forms) against its plain version in float64, one launch
+    counted in ``fft_stage_launches`` (``fft_parent_launches``): below
+    'full' within 1e-6 of the peak, 'full' within the per-bin bound; the
+    float64 form's 'full' is the production kernel, bit for bit."""
+    cfg = zs_cfg(fft, 0.1, "MIN", x_res=min(fft, 512))
+    re, im = planes_on(cuda, cfg, 4 if fft <= 16384 else 2, seed=fft + 5)
+    before = (cuda_curscan.fft_stage_launches,
+              cuda_curscan.fft_parent_launches)
+    got = cuda_curscan.curscan_fft_stage(re, im, cfg, stage, parent)
+    want = cuda_curscan.curscan_fft_stage_plain(re, im, cfg, stage, parent)
+    torch.cuda.synchronize()
+    assert (cuda_curscan.fft_stage_launches,
+            cuda_curscan.fft_parent_launches) == (before[0] + (not parent),
+                                                  before[1] + parent)
+    if stage == "full":
+        assert bound_share(got, want) <= 1.0
+        if not parent:
+            assert torch.equal(
+                got, cuda_curscan.curscan_fused_sublane(re, im, cfg))
+    else:
+        err = (got.double() - want).abs().max().item()
+        assert err <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("nono", [0.5, 0.1])
+@pytest.mark.parametrize("fft", POW2)
+def test_kernel_no_less_accurate_than_its_parent_form(cuda, fft, nono):
+    """At every power of two the production kernel's worst share of the
+    per-bin bound on a MIN fold stays within 1.1 times the parent form's
+    (the float64 form rounds once, at |X|^2); fft 131072 runs the parent
+    form in both builds."""
+    cfg = zs_cfg(fft, nono, "MIN", x_res=min(fft, 512))
+    re, im = planes_on(cuda, cfg, 4 if fft <= 16384 else 2, seed=fft + 6)
+    want = plain64(re, im, cfg)
+    share = bound_share(cuda_curscan.curscan_fused_sublane(re, im, cfg),
+                        want)
+    parent = bound_share(
+        cuda_curscan.curscan_fft_stage(re, im, cfg, "full", True), want)
+    assert share <= 1.1 * parent
+
+
+def test_fft_kernel_registers_and_occupancy(cuda):
+    """The production power-of-two kernel (``kspec_curscan_fft_attrs``):
+    the float64 form at most 128 registers with 16 resident warps an SM at
+    every size it serves (fft 2048: 4 blocks of 128 threads; from 8192 one
+    block of 512), its shared memory m double2 plus, at one block a window,
+    the staged frame (2m samples); the parent form at fft 131072, one block
+    of 1024 threads an SM."""
+    from kspecanal_tpu_torch.ops import _build
+    lib = _build.load()
+    for fft in POW2:
+        for u8 in (False, True):
+            a = cuda_curscan.fft_attrs(lib, fft, u8)
+            c, float64 = cuda_curscan.pow2_plan(fft)
+            threads = fft // c // 16
+            if float64:
+                m = fft // c
+                stage = 2 * m * (1 if u8 else 4) if c == 1 else 0
+                assert a["registers"] <= 128
+                assert a["smem_bytes"] == 16 * m + stage
+                assert a["blocks_per_sm"] * max(threads, 32) // 32 >= 16
+            else:
+                assert a["blocks_per_sm"] == 1 and threads == 1024
 
 
 @pytest.mark.parametrize("nono", [0.5, 0.1])
