@@ -23,7 +23,8 @@ Phases (any failure raises; the exit code is then non-zero):
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
      90% overlap, fft 256 hanning, fft 16384, and the multi-block sizes fft
-     32768, 65536 and 131072 (a cluster) at 50% and 90% overlap (AVG and MIN), each
+     32768, 65536 and 131072 (2, 4, 8 and 16 blocks of 8192) at 50% and
+     90% overlap (AVG and MIN), each
      power of two with the parent form's share of the bound beside its own
      (the float64 form's may not pass 1.1 times the parent's); its
      mixed-radix form at fft 384, 1280, 3072, 16256 (one block), 20480,
@@ -397,15 +398,13 @@ def fft_kernel_case(cc, cfg, t, gen, parent_errs=None):
     mx, mrel, bin_rel, ok = spectra_error(got, want)
     share = bound_share(got, want)
     pow2 = not cc.runs_mixed_kernel(cfg.fft_size)
+    c, via_scratch = cc.fft_plan(cfg.fft_size)
     if pow2:
-        c, via_scratch = cc.pow2_plan(cfg.fft_size)[0], False
         old = cc.curscan_fft_stage(re, im, cfg, "full", True)
         parent = bound_share(old, want)
         ok = ok and share <= 1.1 * parent
         if parent_errs is not None:
             parent_errs.setdefault(cfg.fft_size, spectra_error(old, want)[0])
-    else:
-        c, via_scratch = cc.fft_plan(cfg.fft_size)
     print(f"{route} kernel: fft {cfg.fft_size} (c={c}"
           f"{', scratch' if via_scratch else ''}) ovl "
           f"{1 - cfg.cur_scan_non_overlap:.1f} {cfg.window} "
@@ -2484,17 +2483,16 @@ def main():
         {**fft_kernel, "name": "curscan_fft_stage", "replaces": sublane_423,
          "config": "the power-of-two FFT kernel's forensic builds "
                    "(csrc/curscan_fft.cu alone, -DKSPEC_FFT_STOP=1..4): "
-                   "error the worst share of 1e-6 of the peak over the "
-                   "cut-offs input, pass1 and radix16 against their plain "
-                   "versions on 4 blocks of the main and fmScan cells "
-                   "(scaled by 1e-6 of the peak: a max abs error per unit "
-                   "peak); times 'full' at zero-span fft 2048 kaiser 50% "
-                   "f32, T=4096, with the cut-offs in stages_ms; launches "
-                   "over scripts.fft_stages in the timing phase",
+                   "error the largest max abs error of the cut-offs "
+                   "input, pass1 and radix16 against their plain versions "
+                   "on 4 blocks of the main and fmScan cells; times the "
+                   "build 'full' (the production kernel built alone) at "
+                   "zero-span fft 2048 kaiser 50% f32, T=4096, with the "
+                   "cut-offs in stages_ms; launches over scripts.fft_stages "
+                   "in the timing phase",
          "launches": stage_launches,
-         "max_abs_err": 1e-6 * max(stage_rows[c][f"share_{s}"]
-                                   for c in stage_rows
-                                   for s in cc.FFT_STAGES[:3]),
+         "max_abs_err": max(stage_rows[c][f"err_{s}"] for c in stage_rows
+                            for s in cc.FFT_STAGES[:3]),
          "ms": main_stages["full"], "plain_ms": timed(
              "zero-span fft 2048 kaiser 50%")["plain_ms"],
          "bound_ms": fft_bound[0], "bound_by": fft_bound[1],

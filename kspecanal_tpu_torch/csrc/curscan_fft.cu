@@ -8,9 +8,10 @@
 // not prime, window starts multiples of n2 = _factorize(fft)[1]: fft 3000,
 // 10000, 39800, ... off the 128 grid, and fft >= 16384 on it).  The Pallas
 // kernels compute the DFT as two matrix products for the TPU's matrix unit;
-// on Hopper the same function is a radix FFT: curscan_fft64_kernel and
-// curscan_fft_kernel below for the powers of two up to 131072,
-// curscan_mixed_kernel (curscan_mixed.cuh) for every other size.
+// on Hopper the same function is a radix FFT: curscan_fft64_kernel below
+// for the powers of two up to 131072 (curscan_fft_kernel, the parent form,
+// in a forensic build), curscan_mixed_kernel (curscan_mixed.cuh) for every
+// other size.
 //
 // What it computes, per IQ block b (the contract of curscan_sublane.cu):
 //   for every window start s = starts[w] (any static offset, aligned or not):
@@ -35,33 +36,32 @@
 // deterministic result.  tests/test_torch_fft_kernel.py models this index
 // math in NumPy and holds it to np.fft.
 //
-// Above one block: c blocks of M = N/c points a window (c <= 8),
-// decimation in frequency: block q forms z_q[m] = W_N^(m q) * sum_j
-// a[m + M j] W_c^(j q) in the registers of its pass 1, and its M-point
-// FFT gives the bins X[c*k + q].
+// Above one block: c blocks of M = N/c points a window, decimation in
+// frequency: block q forms z_q[m] = W_N^(m q) * sum_j a[m + M j] W_c^(j q)
+// in the registers of its pass 1, and its M-point FFT gives the bins
+// X[c*k + q].
 //
-// Two forms (cuda_curscan.pow2_plan picks one per fft):
-//  * curscan_fft64_kernel, fft 256-65536: one block up to 8192 points, c =
-//    N/8192 blocks of 8192 above.  Everything between the loads and the
-//    magnitude is float64: the samples are converted once as they are
-//    loaded (u8 straight from the integer) and windowed by a float64
-//    window; each butterfly runs in float64 with float64 twiddles, and the
-//    values stay float64 in registers between a butterfly's inner and
-//    outer stage and in shared memory between passes (M double2, swizzled,
-//    see swz).  A pass looks its twiddle W up once a thread and forms W^r
-//    by recurrence (14 complex multiplies, errors near 1e-15); |X|^2 is
-//    narrowed once and its square root taken in float32.  The c blocks of
-//    a window each read the c chunks they need from device memory (L2),
-//    with no cluster.
-//  * curscan_fft_kernel (the first design, the parent form), fft 131072 as a
-//    cluster of 8 blocks of 16384, and every power of two in the forensic
-//    build -DKSPEC_FFT_PARENT=1 that times it beside the float64 form:
-//    float32 planes, table, registers between butterflies and shared
+// Two forms (cuda_curscan.fft_plan picks the blocks):
+//  * curscan_fft64_kernel, every power of two 256-131072: one block up to
+//    8192 points, c = N/8192 blocks of 8192 above (up to 16).  Everything
+//    between the loads and the magnitude is float64: the samples are
+//    converted once as they are loaded (u8 straight from the integer) and
+//    windowed by a float64 window; each butterfly runs in float64 with
+//    float64 twiddles, and the values stay float64 in registers between a
+//    butterfly's inner and outer stage and in shared memory between passes
+//    (M double2, swizzled, see swz).  A pass looks its twiddle W up once a
+//    thread and forms W^r by recurrence (14 complex multiplies, errors near
+//    1e-15); |X|^2 is narrowed once and its square root taken in float32.
+//    The c blocks of a window each read the c chunks they need from device
+//    memory (L2), with no cluster.
+//  * curscan_fft_kernel (the first design, the parent form), only in the
+//    forensic build -DKSPEC_FFT_PARENT=1 that times it beside the float64
+//    form: float32 planes, table, registers between butterflies and shared
 //    memory, each butterfly in float64 rounded to float32 after its inner
 //    DFT-4 and at its end, its 15 twiddles gathered from the float32
-//    table, the cluster's chunks read through distributed shared memory
-//    (map_shared_rank).  fft 131072 keeps it: 16 blocks of 8192 would
-//    read 16 chunks a point from L2, more than the parent's cluster costs.
+//    table; one block up to 16384 points, a cluster of c = N/16384 above,
+//    whose chunks are read through distributed shared memory
+//    (map_shared_rank).
 //
 // Precision: HIGHEST, and HIGH/DEFAULT where the tensor-core kernels
 // (curscan_tc.cu, curscan_tc_split.cu) do not serve.  The bound is per bin,
@@ -88,7 +88,10 @@
 //  * Distributed shared memory: a thread's read of another block's chunk
 //    runs at about one a clock an SM; the parent's cluster step at fft
 //    65536 (4 reads a point) takes 0.97 ms.  The float64 form reads its
-//    chunks from L2 instead (4.0 TB/s at fmScan's two blocks a window).
+//    chunks from L2 instead (4.0 TB/s at fmScan's two blocks a window);
+//    at fft 131072 its 16 blocks of 8192 a window, each reading all 16
+//    chunks, run 1.46 times the parent's cluster of 8 (4.12 against 6.02
+//    ms at T=64).
 //  * Now: float64 arithmetic (64 a clock an SM: a radix-16 butterfly with
 //    its twiddles is about 290 operations), shared-memory traffic (32 bytes
 //    a point a pass, every quarter-warp's 16-byte access free of bank
@@ -102,16 +105,22 @@
 //    kernel combines in the order g = 0..G-1 (AVG stays deterministic;
 //    MAX/MIN combine exactly).
 //
-// Loads: at one block a window (fft <= 8192) the float64 form copies the
-// next window's frame into shared memory (stage, after the exchange buffer:
-// 2M samples) by 16-byte cp.async while this window's passes run, one copy
-// group a window, waited for and made visible by a barrier before it is
-// read; where a frame's start is not 16-byte aligned (90% overlap at most
-// sizes) it loads the frame straight into registers.  Elsewhere, and in
-// the parent form, thread t reads samples t + e*M/16 (consecutive threads,
-// consecutive addresses) straight into registers, scalar loads coalesced at
-// any start.  u8 decodes to exactly the values the decoded float32 planes
-// hold, so u8 is bit-identical to them.
+// Loads: at one block a window, where a frame (both planes) is at most 8
+// KB (stages_frame: fft <= 1024 on float32 planes, <= 4096 on u8), the
+// float64 form copies the next window's frame into shared memory (stage,
+// after the exchange buffer: 2M samples) by 16-byte cp.async while this
+// window's passes run, one copy group a window, waited for and made
+// visible by a barrier before it is read; where a frame's start is not
+// 16-byte aligned (90% overlap at most sizes) it loads the frame straight
+// into registers.  Staged, u8 ran 2-9% faster at fft 256-4096 and float32
+// 1-6% at 256-1024; larger frames ran no faster or slower (float32 fft 8192
+// 2-5% slower: the copy adds 16 bytes of shared-memory traffic a point to
+// the exchanges' 64), and a staging block spills a few dozen bytes
+// (scripts/fft_stages.py --staging, PERF.md).  Elsewhere, and in the
+// parent form, thread t reads samples t + e*M/16 (consecutive threads,
+// consecutive addresses) straight into registers, scalar loads coalesced
+// at any start.  u8 decodes to exactly the values the decoded float32
+// planes hold, so u8 is bit-identical to them.
 //
 // Forensic builds of this file alone (cuda_curscan.fft_stage_library): with
 // -DKSPEC_FFT_STOP=1..3 both forms stop after the block input (loads,
@@ -137,6 +146,12 @@
 #ifndef KSPEC_FFT_PARENT
 #define KSPEC_FFT_PARENT 0
 #endif
+// The largest frame (bytes of both planes) that the float64 form stages
+// ahead; the forensic builds -DKSPEC_FFT_STAGE_BYTES=0 and =131072 stage
+// no frame and every frame (scripts/fft_stages.py --staging).
+#ifndef KSPEC_FFT_STAGE_BYTES
+#define KSPEC_FFT_STAGE_BYTES 8192
+#endif
 
 namespace {
 
@@ -144,10 +159,16 @@ enum Stop { STOP_INPUT = 1, STOP_PASS1 = 2, STOP_RADIX16 = 3, STOP_FULL = 4 };
 constexpr int STOP = KSPEC_FFT_STOP;
 static_assert(STOP >= STOP_INPUT && STOP <= STOP_FULL, "KSPEC_FFT_STOP");
 
-// The float64 form's largest block; above it, N/8192 such blocks a window
-// up to FFT64_MAX_N.
+// The float64 form's largest block; above it, N/8192 such blocks a window.
 constexpr int LOG2_BLOCK64_N = 13;
-constexpr int FFT64_MAX_N = MAX_CLUSTER << LOG2_BLOCK64_N;
+
+// Whether a float64 block of m points, c blocks a window, on planes of
+// `bytes`-byte samples stages its next frame in shared memory: at one block
+// a window, where the frame is at most KSPEC_FFT_STAGE_BYTES (fft 1024 on
+// float32, 4096 on u8 planes).
+__host__ __device__ constexpr bool stages_frame(int m, int c, int bytes) {
+  return c == 1 && 2 * m * bytes <= KSPEC_FFT_STAGE_BYTES;
+}
 
 // Shared-memory index of the float64 buffer: element a stays in its aligned
 // group of 8 double2 (128 bytes, all 32 banks), at position a ^ ((a >> 3)
@@ -432,10 +453,11 @@ curscan_fft_kernel(const T* __restrict__ re, const T* __restrict__ im,
 }
 
 // The float64 form (see the header): converted once at the load, float64
-// through every pass and in shared memory, narrowed once at |X|^2.  C == 1:
-// the next window's frame is copied into shared memory (stage, after the
-// exchange buffer) by cp.async while this window's passes run, where its
-// start is 16-byte aligned; else it is loaded straight into registers.
+// through every pass and in shared memory, narrowed once at |X|^2.  STAGE
+// (stages_frame): the next window's frame is copied into shared memory
+// (stage, after the exchange buffer) by cp.async while this window's passes
+// run, where its start is 16-byte aligned; else it is loaded straight into
+// registers.
 // C > 1: block q of the C blocks of a window (q = blockIdx.x % C) reads the
 // C chunks it needs from device memory.  Launch bounds of 16 warps an SM (a
 // block of 16 threads holds a warp's registers): 128 registers a thread.
@@ -456,7 +478,7 @@ curscan_fft64_kernel(const T* __restrict__ re, const T* __restrict__ im,
   constexpr int R0 = 1 << (LOG2M - 4 * Q); // radix of pass 1
   constexpr int NB = RADIX / R0;           // pass-1 butterflies per thread
   constexpr int N = M * C;                 // points of the window's FFT
-  constexpr bool STAGE = C == 1;
+  constexpr bool STAGE = stages_frame(M, C, sizeof(T));
   static_assert(NT <= 512, "the float64 form holds its fold in registers");
   extern __shared__ double2 buf64[];       // M double2, at swz(a)
   T* stage = reinterpret_cast<T*>(buf64 + M);   // STAGE: 2M samples
@@ -652,7 +674,7 @@ struct Pow2 {
              (NT == 1024 ? M * sizeof(float) : 0);
     else
       return static_cast<size_t>(M) * sizeof(double2) +
-             (C == 1 ? 2 * M * sizeof(T) : 0);
+             (stages_frame(M, C, sizeof(T)) ? 2 * M * sizeof(T) : 0);
   }
   static auto kernel() {
     if constexpr (PARENT)
@@ -669,9 +691,8 @@ struct Pow2 {
 };
 
 // Calls f(Pow2<...>{}) with the instantiation that serves an n-point
-// window (PARENT: the parent form at every n; else the float64 form up to
-// FFT64_MAX_N and the parent form above); an n it does not take returns
-// cudaErrorInvalidValue.
+// window (PARENT: the parent form, else the float64 form); an n it does
+// not take returns cudaErrorInvalidValue.
 template <typename T, bool PARENT, typename F>
 int by_size(int n, F&& f) {
   constexpr int B64 = LOG2_BLOCK64_N;
@@ -691,15 +712,16 @@ int by_size(int n, F&& f) {
     case 1 << 16:
       if constexpr (PARENT) return f(Pow2<T, LOG2_BLOCK_N, 2, true>{});
       else return f(Pow2<T, B64, 8, false>{});
-    case 1 << 17: return f(Pow2<T, LOG2_BLOCK_N, 2, true>{});
+    case 1 << 17:
+      if constexpr (PARENT) return f(Pow2<T, LOG2_BLOCK_N, 2, true>{});
+      else return f(Pow2<T, B64, 16, false>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Points a block of the form that serves a power of two n.
 int pow2_block(int n) {
-  const int big = !KSPEC_FFT_PARENT && n <= FFT64_MAX_N
-                      ? 1 << LOG2_BLOCK64_N : 1 << LOG2_BLOCK_N;
+  const int big = KSPEC_FFT_PARENT ? 1 << LOG2_BLOCK_N : 1 << LOG2_BLOCK64_N;
   return n < big ? n : big;
 }
 
@@ -744,12 +766,12 @@ int launch_pow2(const void* re, const void* im, float* dst,
 // Plain C entry point (bound with ctypes).  Planes are (t, full_size)
 // row-major, float32 or uint8 (is_u8); out is (t, n) float32; n any multiple
 // of c, and c thread blocks a window of n/c <= 16384 points each (the
-// wrapper's fft_plan, pow2_plan for the powers of two):
-//  * n a power of two up to 131072, scratch null: the power-of-two kernel;
-//    up to 65536 the float64 form (c = max(1, n/8192)), whose window and
-//    roots are float64 tables (double, double2), above it the parent form
-//    (c = 8), whose tables are float32 (float, float2), as every n takes
-//    in the build -DKSPEC_FFT_PARENT=1 (c = max(1, n/16384));
+// wrapper's fft_plan):
+//  * n a power of two up to 131072, scratch null: the power-of-two kernel,
+//    the float64 form (c = max(1, n/8192)), whose window and roots are
+//    float64 tables (double, double2); in the build -DKSPEC_FFT_PARENT=1
+//    the parent form (c = max(1, n/16384)), whose tables are float32
+//    (float, float2);
 //  * another n, scratch null: curscan_mixed_kernel (curscan_mixed.cuh), c a
 //    power of two <= MAX_CLUSTER (a cluster when c > 1), float32 tables;
 //  * scratch not null (every n above 131072, and the n up to 131072 that
@@ -784,8 +806,8 @@ extern "C" int kspec_curscan_fft(const void* re, const void* im, int is_u8,
       stop < 0 || stop > 3 || (stop && pow2 && !hbm) ||
       m_pts < 1 || m_pts > (1 << LOG2_BLOCK_N) ||
       (hbm ? chunk < 1
-           : (c & (c - 1)) || c > MAX_CLUSTER ||
-             (pow2 && m_pts != pow2_block(n))) ||
+           : pow2 ? m_pts != pow2_block(n)
+                  : (c & (c - 1)) || c > MAX_CLUSTER) ||
       (KSPEC_FFT_FORENSIC && (hbm || !pow2)))
     return static_cast<int>(cudaErrorInvalidValue);
   float* dst = static_cast<float*>(groups > 1 ? part : out);

@@ -17,10 +17,9 @@ the JAX dispatcher sends to a Pallas curscan kernel (:func:`kernel_route`):
 the sublane predicate (every multiple of 128 from 256 up) and the lane
 predicate (fft >= 2048, not prime, window starts multiples of
 ``_factorize(fft)[1]``), counted in ``launches``.  The powers of two up to
-131072 run its radix-16 Stockham kernel (:func:`pow2_plan`: up to 65536
-its float64 form, above 8192 points n/8192 blocks a window; 131072 its
-parent form, a thread-block cluster), every other size its mixed-radix
-kernel (odd prime passes first,
+131072 run its radix-16 Stockham kernel in float64 (above 8192 points
+n/8192 blocks a window, each reading its chunks of the frame from device
+memory), every other size its mixed-radix kernel (odd prime passes first,
 as symmetric float64 butterflies, large primes as float64 tensor-core
 products; a cluster above fft 16384 where a power of two <= 8 splits the
 window, else a radix-c step through a scratch buffer in device memory).
@@ -84,12 +83,10 @@ FFT_BLOCK_SIZE = 16384
 _RADIX = 16
 _MAX_CLUSTER = 8
 CLUSTER_MAX_FFT_SIZE = _MAX_CLUSTER * FFT_BLOCK_SIZE
-# The power-of-two kernel's float64 form (:func:`pow2_plan`): one block up
+# The power-of-two kernel's float64 form (:func:`fft_plan`): one block up
 # to FFT64_BLOCK_SIZE points (a float64 buffer of 128 KB), n/8192 such
-# blocks a window up to FFT64_MAX_FFT_SIZE; fft 131072 keeps the parent
-# form.
+# blocks a window above.
 FFT64_BLOCK_SIZE = 8192
-FFT64_MAX_FFT_SIZE = _MAX_CLUSTER * FFT64_BLOCK_SIZE
 SCRATCH_BYTES = 1 << 30
 # The lane kernel's smallest fft in the JAX dispatcher (_fused_choice).
 LANE_MIN_FFT_SIZE = 2048
@@ -216,14 +213,22 @@ def supports_direct(cfg: SpecConfig) -> bool:
 
 
 @functools.lru_cache(maxsize=64)
-def fft_plan(n: int) -> Tuple[int, bool]:
+def fft_plan(n: int, parent: bool = False) -> Tuple[int, bool]:
     """``(c, through_scratch)``: the thread blocks c of the FFT kernel for
     one n-point window, each an (n/c)-point FFT, n/c <= 16384, and whether
-    they read a scratch buffer.  1 up to fft 16384; up to
-    ``CLUSTER_MAX_FFT_SIZE`` the smallest power of two with n/c <= 16384
-    (a cluster, c <= 8) where it divides n; else the smallest divisor of n
-    with n/c <= 16384 (a multiple of 16 where 16 divides n), through the
-    scratch (a radix-c step in device memory)."""
+    they read a scratch buffer.  The powers of two up to
+    ``CLUSTER_MAX_FFT_SIZE`` (the power-of-two kernel's float64 form): one
+    block up to ``FFT64_BLOCK_SIZE`` points, else c = n/8192 blocks that
+    each read their chunks of the frame (``parent``: the parent form's
+    build, -DKSPEC_FFT_PARENT=1: one block up to ``FFT_BLOCK_SIZE``, else a
+    cluster of c = n/16384).  Every other n (the mixed kernel): 1 up to fft
+    16384; up to ``CLUSTER_MAX_FFT_SIZE`` the smallest power of two with
+    n/c <= 16384 (a cluster, c <= 8) where it divides n; else the smallest
+    divisor of n with n/c <= 16384 (a multiple of 16 where 16 divides n),
+    through the scratch (a radix-c step in device memory)."""
+    if not runs_mixed_kernel(n):
+        block = FFT_BLOCK_SIZE if parent else FFT64_BLOCK_SIZE
+        return max(1, n // block), False
     if n <= FFT_BLOCK_SIZE:
         return 1, False
     if n <= CLUSTER_MAX_FFT_SIZE:
@@ -236,21 +241,6 @@ def fft_plan(n: int) -> Tuple[int, bool]:
     while n % c or (n % _RADIX == 0 and (n // c) % _RADIX):
         c += 1
     return c, True
-
-
-def pow2_plan(n: int, parent: bool = False) -> Tuple[int, bool]:
-    """``(c, float64)``: the thread blocks c of the power-of-two kernel for
-    one n-point window (n a power of two up to ``CLUSTER_MAX_FFT_SIZE``) and
-    whether its float64 form serves it: up to ``FFT64_MAX_FFT_SIZE`` one
-    block up to ``FFT64_BLOCK_SIZE`` points, else c = n/8192 blocks that
-    each read their chunks of the frame; fft 131072, and every n of the
-    forensic build ``parent`` (the parent form, -DKSPEC_FFT_PARENT=1), one
-    block up to ``FFT_BLOCK_SIZE`` points, else a cluster of c = n/16384."""
-    if n & (n - 1) or not 256 <= n <= CLUSTER_MAX_FFT_SIZE:
-        raise ValueError(f"fft {n} does not run the power-of-two kernel")
-    if parent or n > FFT64_MAX_FFT_SIZE:
-        return max(1, n // FFT_BLOCK_SIZE), False
-    return max(1, n // FFT64_BLOCK_SIZE), True
 
 
 def pass1_radix(m: int) -> int:
@@ -428,7 +418,7 @@ def _launch_fft(lib, iq_re, iq_im, cfg, stop: int = 0,
     combine pass; on the scratch route of :func:`fft_plan` its radix-c
     step, chunk by chunk) on the planes' device and current stream.
     ``stop`` > 0 cuts the mixed kernel off after ``MIXED_STAGES[stop - 1]``
-    (profiling only).  The powers of two take :func:`pow2_plan`'s blocks
+    (profiling only).  The powers of two take :func:`fft_plan`'s blocks
     (``parent``: the library is a build of the parent form) and, in the
     float64 form, its float64 tables."""
     dev = iq_re.device
@@ -437,10 +427,8 @@ def _launch_fft(lib, iq_re, iq_im, cfg, stop: int = 0,
     if t == 0:
         return out
     w = len(cfg.window_starts)
-    if runs_mixed_kernel(n):
-        (c, via_scratch), f64 = fft_plan(n), False
-    else:
-        (c, f64), via_scratch = pow2_plan(n, parent), False
+    c, via_scratch = fft_plan(n, parent)
+    f64 = not parent and not runs_mixed_kernel(n)
     chunk = scratch_chunk(t, n, w) if via_scratch else t
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     groups = groups_for(chunk, c, w, sms)
@@ -705,6 +693,16 @@ def fft_stage_variants(parent: bool = False):
             for i in range(len(FFT_STAGES))]
 
 
+def fft_staging_variant(stage_bytes: int):
+    """The power-of-two kernel built alone (``csrc/curscan_fft.cu``, 'full')
+    with its next frame staged where the frame (both planes) is at most
+    ``stage_bytes`` (``-DKSPEC_FFT_STAGE_BYTES``; 0 stages no frame,
+    131072 every frame of one block a window), as ``_build.build`` and
+    ``_build.load_variant`` take it."""
+    return (("curscan_fft.cu",), ("KSPEC_FFT_STOP=4",
+                                  f"KSPEC_FFT_STAGE_BYTES={stage_bytes}"))
+
+
 def fft_stage_library(stage: str, parent: bool = False):
     """The forensic build of ``stage`` (:func:`fft_stage_variants`), built
     on first use."""
@@ -724,8 +722,8 @@ def check_fft_stage(cfg: SpecConfig, stage: str) -> None:
 
 
 def curscan_fft_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
-                      cfg: SpecConfig, stage: str,
-                      parent: bool = False) -> torch.Tensor:
+                      cfg: SpecConfig, stage: str, parent: bool = False,
+                      stage_bytes: Optional[int] = None) -> torch.Tensor:
     """The power-of-two kernel cut off after ``stage`` (``FFT_STAGES``), for
     its stage table (profiling only; no session calls it): ``(T,
     full_size)`` -> ``(T, fft_size)``, on its forensic build
@@ -733,16 +731,24 @@ def curscan_fft_stage(iq_re: torch.Tensor, iq_im: torch.Tensor,
     'full' each point's re + im is folded in place of its magnitude, at the
     output index of the point's position (:func:`curscan_fft_stage_plain`
     defines the values); 'full' is the production kernel built alone (the
-    parent form's, with ``parent``).  Counted in ``fft_stage_launches``
-    (``parent``: ``fft_parent_launches``); CPU tensors run the plain
-    version."""
+    parent form's, with ``parent``); ``stage_bytes`` (with 'full' only)
+    picks the build :func:`fft_staging_variant` instead.  Counted in
+    ``fft_stage_launches`` (``parent``: ``fft_parent_launches``); CPU
+    tensors run the plain version."""
     global fft_stage_launches, fft_parent_launches
     check_fft_stage(cfg, stage)
     check_planes(iq_re, iq_im, cfg)
+    if stage_bytes is not None and (stage != "full" or parent):
+        raise ValueError("stage_bytes picks a build of the production "
+                         "form's 'full' stage only")
     if iq_re.device.type == "cpu":
         return curscan_fft_stage_plain(iq_re, iq_im, cfg, stage, parent)
-    out = _launch_fft(fft_stage_library(stage, parent), iq_re, iq_im, cfg,
-                      parent=parent)
+    if stage_bytes is None:
+        lib = fft_stage_library(stage, parent)
+    else:
+        from kspecanal_tpu_torch.ops import _build
+        lib = _build.load_variant(*fft_staging_variant(stage_bytes))
+    out = _launch_fft(lib, iq_re, iq_im, cfg, parent=parent)
     if parent:
         fft_parent_launches += 1
     else:
@@ -754,7 +760,7 @@ def curscan_fft_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
                             cfg: SpecConfig, stage: str,
                             parent: bool = False) -> torch.Tensor:
     """The plain version of :func:`curscan_fft_stage`, in float64 on the
-    planes' device: the c = ``pow2_plan(n, parent)[0]`` blocks of M = N/c
+    planes' device: the c = ``fft_plan(n, parent)[0]`` blocks of M = N/c
     points of :func:`_block_stage_plain`, position i holding after 'input'
     z_q[i], after 'pass1' the Stockham order after the first pass (radix
     ``pass1_radix(M)``), after 'radix16' bin i of the M-point DFT; 'full'
@@ -764,10 +770,10 @@ def curscan_fft_stage_plain(iq_re: torch.Tensor, iq_im: torch.Tensor,
         return curscan_fused_sublane_plain(
             spectrum.decode_u8(iq_re).double(),
             spectrum.decode_u8(iq_im).double(), cfg)
-    c, f64 = pow2_plan(cfg.fft_size, parent)
+    c = fft_plan(cfg.fft_size, parent)[0]
     radix = {"input": 1, "pass1": pass1_radix(cfg.fft_size // c),
              "radix16": None}[stage]
-    return _block_stage_plain(iq_re, iq_im, cfg, c, radix, f64)
+    return _block_stage_plain(iq_re, iq_im, cfg, c, radix, not parent)
 
 
 def fft_attrs(lib, n: int, u8: bool) -> dict:

@@ -14,7 +14,7 @@
     python -m kspecanal_tpu_torch.scripts.tc_stages [FFT:NONO:WINDOW:T:PREC ...]
     python -m kspecanal_tpu_torch.scripts.packed_tc_stages [--kernel-only]
     python -m kspecanal_tpu_torch.scripts.mixed_stages [--nono X] [FFT:T ...]
-    python -m kspecanal_tpu_torch.scripts.fft_stages [--parent | --versus-parent [--kernel-only]] [CELL ...]
+    python -m kspecanal_tpu_torch.scripts.fft_stages [--parent | --versus-parent [--kernel-only] | --staging] [CELL ...]
 
 the sharded paths' scripts (worlds of ranks, ``parallel/spawn.py``;
 ``collective_bytes`` is host code):

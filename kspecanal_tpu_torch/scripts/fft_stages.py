@@ -36,8 +36,18 @@ share of the cell's bound: the default cells, the lane kernel's cell (fft
 build) in place of the library, so a tree (an older one unpacked with
 ``git archive``, a variant of this one) needs only this file's builds.
 
+``--staging`` times the production kernel built alone with no frame
+staged by ``cp.async`` (``-DKSPEC_FFT_STAGE_BYTES=0``) and with every
+frame of one block a window staged (``=131072``) on the same planes, in
+the order none, all, all, none for ``ROUNDS`` rounds (each CUDA events,
+median of 10), at every single-block power of two 256-8192, f32 and u8,
+and at fmScan's 90% overlap at fft 2048 (never staged: its starts are not
+16-byte aligned), printing every run: the rule that picks the staged
+frames (``KSPEC_FFT_STAGE_BYTES`` in ``csrc/curscan_fft.cu``) reads this
+table.
+
     python -m kspecanal_tpu_torch.scripts.fft_stages [--parent |
-        --versus-parent [--kernel-only]] [CELL ...]
+        --versus-parent [--kernel-only] | --staging] [CELL ...]
 
 A CELL is a default cell's name or ``FFT:T:NONO:WINDOW:f32|u8`` (e.g.
 ``2048:4096:0.5:WIN.KAISER:u8``).
@@ -72,6 +82,12 @@ FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # IQ blocks a cut-off is checked on against its plain version.
 CHECK_BLOCKS = 4
+# --staging: its cells (T = min(4096, 2^23 / fft)) and rounds.
+STAGING = {f"{n}{'-u8' * u8}": (n, min(4096, (1 << 23) // n), 0.5,
+                                WINDOW_KAISER, u8)
+           for n in (256, 512, 1024, 2048, 4096, 8192) for u8 in (False, True)}
+STAGING["2048-90"] = (2048, 4096, 0.1, WINDOW_ONES, False)
+ROUNDS = 4
 
 
 def stage_cfg(fft: int, nono: float, window: str,
@@ -85,6 +101,8 @@ def stage_cfg(fft: int, nono: float, window: str,
 def parse_cell(cell: str) -> Tuple[int, int, float, str, bool]:
     if cell in VERSUS:
         return VERSUS[cell]
+    if cell in STAGING:
+        return STAGING[cell]
     fft, t, nono, window, kind = cell.split(":")
     return int(fft), int(t), float(nono), window, kind == "u8"
 
@@ -92,8 +110,8 @@ def parse_cell(cell: str) -> Tuple[int, int, float, str, bool]:
 def conversions(n: int, parent: bool = False) -> Dict[str, int]:
     """The 64-bit conversions (float to double and back, integer to double)
     of one n-point window, counted from the code, cumulative by the end of
-    each stage of the production kernel (``parent``: the parent form, the
-    form of fft 131072).  Parent form, per point: the block input converts
+    each stage of the production kernel (``parent``: the parent form).
+    Parent form, per point: the block input converts
     nothing in one block, and in a cluster of c widens the c chunk values
     and their c - 1 twiddles, widens its own twiddle (blocks q > 0) and
     narrows; pass 1 of radix r <= 4 widens and narrows each point (4), of
@@ -102,15 +120,16 @@ def conversions(n: int, parent: bool = False) -> Dict[str, int]:
     a radix-16 pass widens each point and its twiddle (15 of 16), narrows
     and widens between its stages and narrows at its end (10 - 1/8); the
     magnitude runs in float32.  Float64 form: two a point at the load
-    (float32 or u8 to double), none in the passes or the cluster's step
-    (its chunks are staged as double2), one at the magnitude (|X|^2
+    (float32 or u8 to double) in each of the c blocks that read it (the c
+    chunks of a window in every block above 8192 points), none in the
+    passes or the blocks' radix-c step, one at the magnitude (|X|^2
     narrowed).  The parent form's u8 decode (u8 to float32, 2 a point) is
     not a 64-bit conversion and not counted."""
-    c, f64 = cc.pow2_plan(n, parent)
+    c, f64 = cc.fft_plan(n, parent)[0], not parent
     m = n // c
     if f64:
-        return {"input": 2 * n, "pass1": 2 * n, "radix16": 2 * n,
-                "full": 3 * n}
+        return {"input": 2 * n * c, "pass1": 2 * n * c,
+                "radix16": 2 * n * c, "full": 2 * n * c + n}
     r0 = cc.pass1_radix(m)
     q_passes = (m.bit_length() - 2) // 4
     cluster = 0 if c == 1 else sum(m * (4 * c + (2 if q else 0))
@@ -174,13 +193,44 @@ def versus_parent(cells: List[str], gen: torch.Generator,
     return out
 
 
+def staging(cells: List[str], gen: torch.Generator) -> Dict[str, Dict]:
+    """The production kernel built with no frame staged and with every
+    frame of one block a window staged, on the same planes, none, all,
+    all, none for ``ROUNDS`` rounds; returns ``{cell: {'none': [ms], 'all':
+    [ms]}}``."""
+    out = {}
+    for cell in cells:
+        fft, t, nono, window, u8 = parse_cell(cell)
+        cfg = stage_cfg(fft, nono, window)
+        re, im = planes(cfg, t, u8, gen)
+        runs: Dict[str, List[float]] = {"none": [], "all": []}
+        for _ in range(ROUNDS):
+            for key in ("none", "all", "all", "none"):
+                runs[key].append(cuda_ms(lambda k=key: cc.curscan_fft_stage(
+                    re, im, cfg, "full",
+                    stage_bytes=0 if k == "none" else 1 << 17)))
+        mean = {k: sum(v) / len(v) for k, v in runs.items()}
+        print(f"fft {fft} {window} {1 - nono:.0%} T={t} "
+              f"{'u8' if u8 else 'f32'}: " + "; ".join(
+                  f"{'unstaged' if k == 'none' else 'staged'} "
+                  + " ".join(f"{x:.3f}" for x in v)
+                  + f" (mean {mean[k]:.3f}, {min(v):.3f}-{max(v):.3f})"
+                  for k, v in runs.items())
+              + f"; unstaged / staged {mean['none'] / mean['all']:.3f}; bound "
+              f"{bound_ms(cfg, t, u8):.4f} ms", flush=True)
+        out[cell] = runs
+        del re, im
+    return out
+
+
 def check_stages(re, im, cfg, parent: bool) -> Dict[str, float]:
     """Each cut-off on the first ``CHECK_BLOCKS`` IQ blocks against its
-    plain version: the largest error as a share of 1e-6 of the peak below
-    'full', of the per-bin bound (5e-5 of the bin plus 1e-6 of the peak) at
-    'full'; raises where a share passes 1."""
+    plain version: ``share_<stage>``, the largest error as a share of 1e-6
+    of the peak below 'full', of the per-bin bound (5e-5 of the bin plus
+    1e-6 of the peak) at 'full', and ``err_<stage>``, the max abs error;
+    raises where a share passes 1."""
     re, im = re[:CHECK_BLOCKS], im[:CHECK_BLOCKS]
-    shares = {}
+    out = {}
     for stage in cc.FFT_STAGES:
         got = cc.curscan_fft_stage(re, im, cfg, stage, parent).double()
         want = cc.curscan_fft_stage_plain(re, im, cfg, stage, parent)
@@ -188,11 +238,12 @@ def check_stages(re, im, cfg, parent: bool) -> Dict[str, float]:
         peak = want.abs().max()
         bound = (1e-6 * peak if stage != "full"
                  else 5e-5 * want.abs() + 1e-6 * peak)
-        shares[stage] = (err / bound).max().item()
-        if not shares[stage] <= 1.0:
+        share = out[f"share_{stage}"] = (err / bound).max().item()
+        out[f"err_{stage}"] = err.max().item()
+        if not share <= 1.0:
             raise RuntimeError(f"fft {cfg.fft_size} cut-off {stage!r}: "
-                               f"{shares[stage]:.3f} of its bound")
-    return shares
+                               f"{share:.3f} of its bound")
+    return out
 
 
 def library_fft_ms(re, im, cfg) -> float:
@@ -210,9 +261,10 @@ def library_fft_ms(re, im, cfg) -> float:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, float]]:
     """Print the stage table of each cell; returns ``{cell: {stage: ms,
-    'kernel': ms, 'library_fft': ms, 'share_<stage>': the cut-off's share
-    of its bound, ...}}`` (``--versus-parent``: those of
-    :func:`versus_parent`)."""
+    'kernel': ms, 'library_fft': ms, 'share_<stage>' and 'err_<stage>':
+    the cut-off's share of its bound and max abs error, ...}}``
+    (``--versus-parent``: those of :func:`versus_parent`; ``--staging``:
+    those of :func:`staging`)."""
     p = argparse.ArgumentParser(prog="fft_stages", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     mode = p.add_mutually_exclusive_group()
@@ -220,6 +272,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, float]]:
                       help="the parent form's builds (-DKSPEC_FFT_PARENT=1)")
     mode.add_argument("--versus-parent", action="store_true",
                       help="time production beside the parent form")
+    mode.add_argument("--staging", action="store_true",
+                      help="time no frame staged against every frame "
+                           "staged")
     p.add_argument("--kernel-only", action="store_true",
                    help="with --versus-parent: the production kernel built "
                         "alone, no library build")
@@ -228,6 +283,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, float]]:
     require_cuda("fft_stages")
     from kspecanal_tpu_torch.ops import _build
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.staging:
+        _build.build([cc.fft_staging_variant(b) for b in (0, 1 << 17)],
+                     library=False)
+        print(f"device: {card_line()}; power-of-two FFT kernel, no frame "
+              f"staged and every frame staged, AVG", flush=True)
+        return staging(args.cells or list(STAGING), gen)
     if args.versus_parent:
         _build.build(cc.fft_stage_variants(True)[-1:]
                      + cc.fft_stage_variants()[-1:] * args.kernel_only,
@@ -245,15 +306,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, float]]:
         fft, t, nono, window, u8 = parse_cell(cell)
         cfg = stage_cfg(fft, nono, window)
         kind = "u8" if u8 else "f32"
-        c, f64 = cc.pow2_plan(fft, args.parent)
+        c, f64 = cc.fft_plan(fft, args.parent)[0], not args.parent
         re, im = planes(cfg, t, u8, gen)
         name = (f"fft {fft} {window} {1 - nono:.0%} T={t} {kind} (c={c}, "
                 f"{'float64' if f64 else 'parent'} form)")
-        shares = check_stages(re, im, cfg, args.parent)
+        checks = check_stages(re, im, cfg, args.parent)
         print(f"{name}: cut-offs vs plain on {CHECK_BLOCKS} blocks, share "
-              f"of the bound: " + ", ".join(f"{s} {v:.3f}"
-                                            for s, v in shares.items()),
-              flush=True)
+              f"of the bound (max abs error): " + ", ".join(
+                  f"{s} {checks['share_' + s]:.3f} ({checks['err_' + s]:.3e})"
+                  for s in cc.FFT_STAGES), flush=True)
         conv = conversions(fft, args.parent)
         row: Dict[str, float] = {}
         prev = 0.0
@@ -283,7 +344,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, float]]:
         results[cell] = {**row, **{f"{k}_{s}": v for s, d in
                                    (("form", attrs), ("prod", prod))
                                    for k, v in d.items()},
-                         **{f"share_{s}": v for s, v in shares.items()}}
+                         **checks}
         del re, im
     return results
 

@@ -60,7 +60,6 @@ RADIX = 16
 BLOCK_N = 16384
 CLUSTER_MAX_N = 8 * BLOCK_N
 F64_BLOCK_N = 8192                  # the float64 form's largest block
-F64_MAX_N = 8 * F64_BLOCK_N         # and its largest cluster
 POW2 = [1 << e for e in range(8, 18)]          # 256 .. 131072
 # Multiples of 128 that are not powers of two below 131072 (one block, then
 # clusters of 2 and 8) and sizes above it (the scratch route: c = 12, 16).
@@ -90,10 +89,10 @@ def swz(a):
 
 def pow2_split(n, parent=False):
     """(c, float64 form) of the power-of-two kernel for an n-point window:
-    the float64 form up to 65536, one block up to 8192 points, clusters of
-    8192 above; the parent form at 131072 (and everywhere in its own
-    build), one block up to 16384, clusters of 16384 above."""
-    if parent or n > F64_MAX_N:
+    the float64 form, one block up to 8192 points, n/8192 blocks above;
+    the parent form in its own build, one block up to 16384, clusters of
+    16384 above."""
+    if parent:
         return max(1, n // BLOCK_N), False
     return max(1, n // F64_BLOCK_N), True
 
@@ -269,10 +268,13 @@ def block_fft64(v, m, n, roots, banks=None, stop=None):
 
 
 def block_split(n):
-    """(c, through scratch) of one n-point window: one block up to 16384;
-    up to 131072 the smallest power of two with n/c <= 16384 (a cluster),
-    where it divides n; else the smallest divisor with n/c <= 16384 (and a
-    multiple of 16 where 16 divides n), through the scratch."""
+    """(c, through scratch) of one n-point window: the powers of two up to
+    131072 :func:`pow2_split`'s; else one block up to 16384; up to 131072
+    the smallest power of two with n/c <= 16384 (a cluster), where it
+    divides n; else the smallest divisor with n/c <= 16384 (and a multiple
+    of 16 where 16 divides n), through the scratch."""
+    if runs_pow2(n):
+        return pow2_split(n)[0], False
     if n <= BLOCK_N:
         return 1, False
     if n <= CLUSTER_MAX_N:
@@ -1050,8 +1052,9 @@ def test_mixed_plan_and_shared_memory_banks(m, in_regs, worst):
 def test_cluster_split_covers_every_bin_once():
     """The c thread blocks of a window write the bins c*k + q, k < n/c:
     every bin once, with n/c <= 16384, a multiple of 16 where n is a
-    multiple of 128; up to 131072 c is a power of two <= 8 (a cluster: c <=
-    8, the portable cluster size) where one divides n, else any divisor
+    multiple of 128; up to 131072 c is a power of two: n/8192 <= 16 blocks
+    that read device memory at the powers of two, else <= 8 (a cluster: c
+    <= 8, the portable cluster size) where one divides n, else any divisor
     (the scratch route).  The kernel's output index is the fftshift (bin +
     n/2) mod n, which is ``& (n - 1)`` only for powers of two."""
     for n in POW2 + MIXED + LANE + [128 * 2039, 1 << 20]:
@@ -1060,7 +1063,8 @@ def test_cluster_split_covers_every_bin_once():
         assert c * m == n and m <= BLOCK_N
         assert m % RADIX == 0 or n % 128
         if not via_scratch:
-            assert n <= CLUSTER_MAX_N and c <= 8 and c & (c - 1) == 0
+            assert n <= CLUSTER_MAX_N and c & (c - 1) == 0
+            assert c <= (16 if runs_pow2(n) else 8)
         bins = np.concatenate([c * np.arange(m) + q for q in range(c)])
         assert np.array_equal(np.sort(bins), np.arange(n))
         shifted = (bins + n // 2) % n
@@ -1070,22 +1074,24 @@ def test_cluster_split_covers_every_bin_once():
 
 
 def test_pow2_split_rule_matches_the_wrapper():
-    """``cuda_curscan.pow2_plan`` is the model's rule at every power of two
-    256-131072, in both builds: the float64 form up to 65536 (one block up
-    to 8192, clusters of 2, 4 and 8 above), the parent form at 131072 and
-    in its own build (one block up to 16384, clusters of 2, 4 and 8 above);
-    a cluster is at most 8 blocks; every other size raises.  The first
-    pass's radix is the model's."""
+    """``cuda_curscan.fft_plan`` is the model's rule at every power of two
+    256-131072, in both builds: the float64 form (one block up to 8192,
+    2, 4, 8 and 16 blocks above), the parent form in its own build (one
+    block up to 16384, clusters of 2, 4 and 8 above), never through the
+    scratch; the parent's build plans every other size as production
+    does.  The first pass's radix is the model's."""
     for n in POW2:
         for parent in (False, True):
-            c, float64 = cuda_curscan.pow2_plan(n, parent)
-            assert (c, float64) == pow2_split(n, parent)
-            assert c <= 8 and n // c <= (F64_BLOCK_N if float64 else BLOCK_N)
+            c, float64 = pow2_split(n, parent)
+            assert cuda_curscan.fft_plan(n, parent) == (c, False)
+            assert c <= (8 if parent else 16)
+            assert n // c <= (F64_BLOCK_N if float64 else BLOCK_N)
             assert cuda_curscan.pass1_radix(n // c) == radices(n // c)[0]
-    assert [pow2_split(n)[0] for n in POW2] == [1] * 6 + [2, 4, 8, 8]
-    for n in (128, 3000, 262144):
-        with pytest.raises(ValueError):
-            cuda_curscan.pow2_plan(n)
+    assert [pow2_split(n)[0] for n in POW2] == [1] * 6 + [2, 4, 8, 16]
+    assert [pow2_split(n, True)[0] for n in POW2] == [1] * 7 + [2, 4, 8]
+    for n in (3000, 98304, 262144):
+        assert cuda_curscan.fft_plan(n, True) == cuda_curscan.fft_plan(n) \
+            == block_split(n)
 
 
 def test_block_split_rule_matches_the_wrapper():
@@ -1177,9 +1183,11 @@ def test_window_groups_rule_and_split():
     assert cuda_curscan.groups_for(288, 2, 71, 132) == 2  # fmScan, c = 2
     assert cuda_curscan.groups_for(64, 8, 15, 132) == 3   # fft 65536
     assert wg(4096, 2048, 15, 132) == 1          # zero-span main
-    assert wg(288, 16384, 71, 132) == 4          # fmScan, 16 sweeps
-    assert wg(288, 16384, 15, 132) == 4          # K3's cell
-    assert wg(18, 16384, 71, 132) == 59          # fmScan, one sweep
+    assert wg(288, 16384, 71, 132) == 2          # fmScan, 16 sweeps
+    assert wg(288, 16384, 15, 132) == 2          # K3's cell
+    assert wg(18, 16384, 71, 132) == 30          # fmScan, one sweep
+    assert wg(64, 131072, 15, 132) == 2          # fft 131072, c = 16
+    assert wg(288, 20480, 15, 132) == 2          # the mixed kernel, c = 2
     assert wg(2, 65536, 15, 132) == 15
     assert wg(1, 2048, 1, 132) == 1
     for t, n, w in ((1, 2048, 15), (7, 131072, 71), (100, 16384, 71)):

@@ -121,13 +121,13 @@ def test_each_stage_launches_its_forensic_build(fake_card, fft, parent):
     """Each cut-off is one launch of its own forensic build's entry, counted
     in ``fft_stage_launches`` (the parent form's in ``fft_parent_launches``)
     and not in ``launches``, with the blocks of
-    ``pow2_plan`` (the parent form's in its builds), stop 0 (the cut-off is
+    ``fft_plan`` (the parent form's in its builds), stop 0 (the cut-off is
     compiled in) and the window groups of ``groups_for``; the production
     call launches the production library with the float64 form's plan."""
     cfg = zs_cfg(fft, 0.1, x_res=512)
     t = 3
     planes = torch.empty((t, cfg.full_size), device="meta")
-    c = cuda_curscan.pow2_plan(fft, parent)[0]
+    c = cuda_curscan.fft_plan(fft, parent)[0]
 
     def counts():
         return (cuda_curscan.launches, cuda_curscan.fft_stage_launches,
@@ -147,7 +147,7 @@ def test_each_stage_launches_its_forensic_build(fake_card, fft, parent):
         assert groups == cuda_curscan.groups_for(t, c, w, 132)
     cuda_curscan.curscan_fused_sublane(planes, planes, cfg)
     (args,) = fake_card["production"].args
-    assert args[14] == cuda_curscan.pow2_plan(fft)[0]
+    assert args[14] == cuda_curscan.fft_plan(fft)[0]
 
 
 def test_stage_variants_build_the_fft_kernel_alone(tmp_path, monkeypatch):
@@ -190,15 +190,18 @@ def test_conversions_counted_from_the_code():
     """The script's count of 64-bit conversions a window: the parent form
     at fft 2048 converts 16384 in its radix-8 pass 1 and 20224 in each of
     its two radix-16 passes (56832, none at the load or the magnitude);
-    the float64 form three a point at every size it serves; fft 131072
-    runs the parent form in both builds."""
+    the float64 form two a point at the load in each of the c blocks that
+    read it (c = n/8192 above 8192 points, 16 at fft 131072) and one at
+    the magnitude."""
     conv = fft_stages.conversions
     assert conv(2048, parent=True) == {"input": 0, "pass1": 16384,
                                        "radix16": 56832, "full": 56832}
-    for n in POW2[:-1]:
-        assert conv(n) == {"input": 2 * n, "pass1": 2 * n, "radix16": 2 * n,
-                           "full": 3 * n}
-    assert conv(131072) == conv(131072, parent=True)
+    for n in POW2:
+        c = max(1, n // 8192)
+        assert conv(n) == {"input": 2 * n * c, "pass1": 2 * n * c,
+                           "radix16": 2 * n * c, "full": (2 * c + 1) * n}
+    assert conv(2048)["full"] == 6144
+    assert conv(131072)["full"] == 33 * 131072
     for n in POW2:
         vals = list(conv(n, parent=True).values())
         assert vals == sorted(vals)
@@ -218,3 +221,57 @@ def test_script_measures_the_card_only(monkeypatch):
         "the script built without a card"))
     with pytest.raises(SystemExit):
         fft_stages.main([])
+
+
+@pytest.mark.parametrize("stage_bytes", [0, 1 << 17])
+def test_staging_builds_launch_the_full_stage(fake_card, monkeypatch,
+                                              stage_bytes):
+    """``curscan_fft_stage(..., 'full', stage_bytes=b)`` launches the build
+    ``-DKSPEC_FFT_STOP=4 -DKSPEC_FFT_STAGE_BYTES=b`` of ``curscan_fft.cu``
+    alone, once, counted in ``fft_stage_launches``, with the production
+    plan; any other stage, or the parent form, raises; on CPU tensors it
+    is the 'full' plain version."""
+    loaded = []
+
+    def load_variant(names, defines):
+        loaded.append((names, defines))
+        return fake_card.setdefault(("staging", defines), _FakeLib(defines))
+    monkeypatch.setattr(_build, "load_variant", load_variant)
+    cfg = zs_cfg(2048, 0.5, x_res=512)
+    planes = torch.empty((3, cfg.full_size), device="meta")
+    before = (cuda_curscan.launches, cuda_curscan.fft_stage_launches)
+    out = cuda_curscan.curscan_fft_stage(planes, planes, cfg, "full",
+                                         stage_bytes=stage_bytes)
+    assert out.shape == (3, 2048)
+    assert (cuda_curscan.launches, cuda_curscan.fft_stage_launches) == (
+        before[0], before[1] + 1)
+    defines = ("KSPEC_FFT_STOP=4", f"KSPEC_FFT_STAGE_BYTES={stage_bytes}")
+    assert loaded == [(("curscan_fft.cu",), defines)]
+    assert cuda_curscan.fft_staging_variant(stage_bytes) == loaded[0]
+    (args,) = fake_card["staging", defines].args
+    assert (args[14], args[19]) == (cuda_curscan.fft_plan(2048)[0], 0)
+    for stage, parent in (("radix16", False), ("full", True)):
+        with pytest.raises(ValueError, match="stage_bytes"):
+            cuda_curscan.curscan_fft_stage(planes, planes, cfg, stage,
+                                           parent, stage_bytes=stage_bytes)
+    re, im = (torch.from_numpy(p) for p in raw_planes(cfg, 1, seed=9))
+    assert torch.equal(
+        cuda_curscan.curscan_fft_stage(re, im, cfg, "full",
+                                       stage_bytes=stage_bytes),
+        cuda_curscan.curscan_fft_stage_plain(re, im, cfg, "full"))
+
+
+def test_staging_cells_are_the_single_block_sizes():
+    """The script's ``--staging`` cells: every power of two one block
+    serves (256-8192), f32 and u8, at 50% overlap with T = min(4096,
+    2^23/fft), and fmScan's 90% at fft 2048, whose starts no block
+    stages; each parses by name."""
+    cells = fft_stages.STAGING
+    assert sorted({v[0] for v in cells.values()}) == [
+        1 << e for e in range(8, 14)]
+    assert all(cuda_curscan.fft_plan(v[0])[0] == 1 for v in cells.values())
+    assert fft_stages.parse_cell("8192-u8") == (8192, 1024, 0.5,
+                                                "WIN.KAISER", True)
+    assert fft_stages.parse_cell("2048-90") == (2048, 4096, 0.1,
+                                                "WIN.ONES", False)
+    assert len(cells) == 13 and fft_stages.ROUNDS >= 4

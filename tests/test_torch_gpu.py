@@ -133,8 +133,7 @@ def test_fft_stage_matches_plain(cuda, fft, stage, parent):
 def test_kernel_no_less_accurate_than_its_parent_form(cuda, fft, nono):
     """At every power of two the production kernel's worst share of the
     per-bin bound on a MIN fold stays within 1.1 times the parent form's
-    (the float64 form rounds once, at |X|^2); fft 131072 runs the parent
-    form in both builds."""
+    (the float64 form rounds once, at |X|^2)."""
     cfg = zs_cfg(fft, nono, "MIN", x_res=min(fft, 512))
     re, im = planes_on(cuda, cfg, 4 if fft <= 16384 else 2, seed=fft + 6)
     want = plain64(re, im, cfg)
@@ -146,27 +145,44 @@ def test_kernel_no_less_accurate_than_its_parent_form(cuda, fft, nono):
 
 
 def test_fft_kernel_registers_and_occupancy(cuda):
-    """The production power-of-two kernel (``kspec_curscan_fft_attrs``):
-    the float64 form at most 128 registers with 16 resident warps an SM at
-    every size it serves (fft 2048: 4 blocks of 128 threads; from 8192 one
-    block of 512), its shared memory m double2 plus, at one block a window,
-    the staged frame (2m samples); the parent form at fft 131072, one block
-    of 1024 threads an SM."""
+    """The production power-of-two kernel (``kspec_curscan_fft_attrs``),
+    its float64 form at every power of two: at most 128 registers with 16
+    resident warps an SM (fft 2048: 4 blocks of 128 threads; from 8192 one
+    block of 512), its shared memory m double2 plus, at one block a window
+    where the frame is at most 8 KB (fft 1024 on float32, 4096 on u8), the
+    staged frame (2m samples)."""
     from kspecanal_tpu_torch.ops import _build
     lib = _build.load()
     for fft in POW2:
         for u8 in (False, True):
             a = cuda_curscan.fft_attrs(lib, fft, u8)
-            c, float64 = cuda_curscan.pow2_plan(fft)
-            threads = fft // c // 16
-            if float64:
-                m = fft // c
-                stage = 2 * m * (1 if u8 else 4) if c == 1 else 0
-                assert a["registers"] <= 128
-                assert a["smem_bytes"] == 16 * m + stage
-                assert a["blocks_per_sm"] * max(threads, 32) // 32 >= 16
-            else:
-                assert a["blocks_per_sm"] == 1 and threads == 1024
+            c = cuda_curscan.fft_plan(fft)[0]
+            m = fft // c
+            frame = 2 * m * (1 if u8 else 4)
+            stage = frame if c == 1 and frame <= 8192 else 0
+            assert a["registers"] <= 128
+            assert a["smem_bytes"] == 16 * m + stage
+            assert a["blocks_per_sm"] * max(m // 16, 32) // 32 >= 16
+
+
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+@pytest.mark.parametrize("fft", POW2[:6])
+def test_frame_staging_changes_no_bit(cuda, fft, u8):
+    """The builds that stage no frame and every frame of one block a
+    window (``cuda_curscan.fft_staging_variant``, timed by
+    ``scripts/fft_stages.py --staging``) give the production kernel's
+    output bit for bit, at 50% overlap (aligned starts: staged) and 90%
+    (not staged)."""
+    for nono in (0.5, 0.1):
+        cfg = zs_cfg(fft, nono, "MIN", x_res=min(fft, 512))
+        raw = raw_planes(cfg, 3, seed=fft + 13)
+        re, im = (torch.from_numpy(p if u8 else decoded(p)).to(cuda)
+                  for p in raw)
+        want = cuda_curscan.curscan_fused_sublane(re, im, cfg)
+        for stage_bytes in (0, 1 << 17):
+            got = cuda_curscan.curscan_fft_stage(re, im, cfg, "full",
+                                                 stage_bytes=stage_bytes)
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("nono", [0.5, 0.1])
