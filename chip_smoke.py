@@ -16,9 +16,12 @@ Phases (any failure raises; the exit code is then non-zero):
      its cut-offs and ablate build, Kernel C's ablate build, all with
      ``-DKSPEC_TC_HIGHEST=1``) and of the power-of-two FFT kernel's four
      cut-offs and its parent form (``csrc/curscan_fft.cu`` alone with
-     ``-DKSPEC_FFT_STOP=1..4``, and ``-DKSPEC_FFT_PARENT=1``; one nvcc per
-     source and build, all in parallel), with ptxas' register/shared-memory
-     report and the time the forensic builds' compiles took;
+     ``-DKSPEC_FFT_STOP=1..4``, and ``-DKSPEC_FFT_PARENT=1``) and of K2's
+     four cut-offs and its parent form (``csrc/curscan_packed.cu`` alone
+     with ``-DKSPEC_PACKED_STOP=1..4``, and ``-DKSPEC_PACKED_PARENT=1``; one
+     nvcc per source and build, all in parallel), with ptxas'
+     register/shared-memory report and the time the forensic builds'
+     compiles took;
   3. K1 against its plain version (``torch.fft``) run in float64 on the
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
@@ -50,8 +53,11 @@ Phases (any failure raises; the exit code is then non-zero):
      19616), every fft 2-128 in all four modes at curScanNonOverlap 0.5,
      0.75, 0.25 and 0.1, the two cells of fault C2 (fft 128 at 50% with
      fft2FullMult 81, fft 64 at 90% with 96) and fft 128 x 399 (the chunked
-     walk); u8 bit-identical to decoded float32 at quickFullScan and at the
-     C2 cells; two runs at quickFullScan bit-identical; K1 (float64 plain)
+     walk), each case beside the parent form (``-DKSPEC_PACKED_PARENT=1``)
+     on the same planes, whose worst share of the per-bin bound K2's may
+     not pass by more than 10%; u8 bit-identical to decoded float32 at
+     quickFullScan and at the C2 cells; two runs at quickFullScan
+     bit-identical; K1 (float64 plain)
      at fmScan's geometry (fft 16384, ones, 90%) and at the lane kernel's
      cell (fft 16384, kaiser, 50%);
   5. ``parallel.stream`` over 16384 blocks (268 M samples, ~112 s of
@@ -82,15 +88,19 @@ Phases (any failure raises; the exit code is then non-zero):
      (``scripts.mixed_stages``: cut off after its input, odd passes and
      power-of-two passes) at fft 3000, 10000, 16256 and 39800; the
      power-of-two kernel's parent form (``-DKSPEC_FFT_PARENT=1``) timed
-     beside it at the main, fmScan, lane and fft 65536 cells, and at every
-     power of two 256-131072 (T=64) by ``scripts.fft_stages
-     --versus-parent``, and its stage table (``scripts.fft_stages``: cut
+     beside it at the main, fmScan, lane and fft 65536 cells (its T=64
+     sweep over the powers of two is ``scripts.fft_stages
+     --versus-parent``'s), and its stage table (``scripts.fft_stages``: cut
      off after the block input, pass 1 and the radix-16 passes, each
      checked against its plain version) at the main cell (f32, u8) and
-     fmScan's; K2 and the
-     plain chain at quickFullScan (T=19616 and 1226, f32 and u8), fft 128 kaiser 50% and fft 32 RAW at
-     curScanNonOverlap 0.25 (T=4096), and at the C2 cell fft 128 mult 81
-     (T=1024) with the direct-DFT matmul it took before beside them; each
+     fmScan's; K2, its parent form (``-DKSPEC_PACKED_PARENT=1``) and the
+     plain chain at quickFullScan (T=19616 and 1226, f32 and u8), fft 128
+     kaiser 50% and fft 32 RAW at curScanNonOverlap 0.25 (T=4096), and at
+     the C2 cell fft 128 mult 81 (T=1024) with the direct-DFT matmul it
+     took before beside them, and K2's stage table (``scripts.
+     packed_stages``: cut off after its input, the FFT in registers and
+     the exchange across lanes, each checked against its plain version) at
+     quickFullScan T=19616 (f32, u8); each
      beside its bound: the larger of 5 N log2 N + 4 N flops a window at 67
      TFLOP/s and the planes read once plus the output written once at 3.35
      TB/s;
@@ -551,27 +561,59 @@ def packed_u8_case(cp, spec, cfg, t, gen):
     check(same, "K2 u8 input bit-identical to decoded f32")
 
 
+def packed_case(cp, spec, cfg, t, gen, what, shares):
+    """One K2 case on noise planes through the dispatcher (one launch, no
+    matmul), held to its plain version in float64 within the per-bin
+    bound, the parent form (``-DKSPEC_PACKED_PARENT=1``) on the same
+    planes beside it: K2's worst share of the bound may not pass 1.1 times
+    the parent's.  Appends (share, parent's share) to ``shares``; returns
+    the max abs errors of K2 and of the parent form."""
+    re, im = noise(cfg, t, False, gen)
+    got = via_dispatcher(cp, spec)(re, im, cfg)
+    want = cp.curscan_fused_packed_plain(re.double(), im.double(), cfg)
+    old = cp.curscan_packed_stage(re, im, cfg, "full", True)
+    torch.cuda.synchronize()
+    check(got.shape == (t, cfg.fft_size) and bool(got.isfinite().all()),
+          f"{what} output shape/finite")
+    mx, mrel, bin_rel, ok = spectra_error(got, want)
+    share, parent = bound_share(got, want), bound_share(old, want)
+    ok = ok and mrel < 1e-5 and share <= 1.1 * parent
+    print(f"{what}: fft {cfg.fft_size} ovl "
+          f"{1 - cfg.cur_scan_non_overlap:.2f} {cfg.window} "
+          f"{cfg.cur_scan_cumu_mode} W={cfg.num_windows} T={t}: max_abs "
+          f"{mx:.3e} max_rel {mrel:.3e} worst_bin_rel {bin_rel:.3e}, "
+          f"{share:.4f} of the bound (parent form {parent:.4f}) "
+          f"{'PASS' if ok else 'FAIL'}")
+    check(ok, f"{what} vs plain at {cfg.fft_size}/"
+          f"{cfg.cur_scan_non_overlap}/{cfg.cur_scan_cumu_mode}/T={t}")
+    shares.append((share, parent))
+    return mx, spectra_error(old, want)[0]
+
+
 def phase_scan_kernels(cc, cp, spec, gen):
     """The scan path's kernels vs plain (K1's in float64).  Returns the max
-    abs errors of K2 at quickFullScan (AVG, 16 sweeps), K1 at fmScan (AVG,
-    T=288) and at the lane kernel's cell."""
+    abs errors of K2 and its parent form at quickFullScan (AVG, 16
+    sweeps), K1 at fmScan (AVG, T=288) and at the lane kernel's cell, and
+    K2's largest share of the per-bin bound over the parent form's
+    ('packed_ratio')."""
     qfs = cfg_of(64, 0.1, "AVG", "WIN.ONES")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"== scan kernels vs plain ({BOUND64}); quickFullScan geometry: "
           f"{qfs.num_windows} windows over {qfs.full_size} samples, "
           f"{len({s % 64 for s in qfs.window_starts})} start residues")
-    packed = (via_dispatcher(cp, spec),
-              lambda re_, im_, cfg: cp.curscan_fused_packed_plain(
-                  re_.double(), im_.double(), cfg))
     sublane = (cc.curscan_fused_sublane,
                lambda re_, im_, cfg: plain64(cc, re_, im_, cfg))
-    errs = {}
+    errs, shares = {}, []
+
+    def plan(cfg, t):
+        return cp.plan_for(cfg, t, False, sms)
     for t in (1226, 1226 * 16):     # one and 16 quickFullScan sweeps
-        plan = cp.launch_plan(64, qfs.window_starts, t, False)
         for mode in MODES:
-            mx = compare(*packed, cfg_of(64, 0.1, mode, "WIN.ONES"), t, gen,
-                         f"K2 ({plan})")
+            cfg = cfg_of(64, 0.1, mode, "WIN.ONES")
+            mx = packed_case(cp, spec, cfg, t, gen, f"K2 ({plan(cfg, t)})",
+                             shares)
             if mode == "AVG":
-                errs["packed"] = mx
+                errs["packed"], errs["packed_parent"] = mx
         packed_u8_case(cp, spec, qfs, t, gen)
     re_, im_ = noise(qfs, 1226 * 16, False, gen)
     same = torch.equal(cp.curscan_fused_packed(re_, im_, qfs),
@@ -583,14 +625,19 @@ def phase_scan_kernels(cc, cp, spec, gen):
     for fft in PACKED_FFTS:
         for nono in (0.5, 0.75, 0.25, 0.1):
             for mode in MODES:
-                compare(*packed, cfg_of(fft, nono, mode,
-                                        mult=max(8, 256 // fft)), 256, gen,
-                        "K2")
+                packed_case(cp, spec, cfg_of(fft, nono, mode,
+                                             mult=max(8, 256 // fft)), 256,
+                            gen, "K2", shares)
     for fft, nono, mult in PACKED_C2 + (PACKED_WALK,):
         for mode in MODES:
             cfg = cfg_of(fft, nono, mode, mult=mult)
-            compare(*packed, cfg, 64, gen, f"K2 mult {mult} (plan "
-                    f"{cp.launch_plan(fft, cfg.window_starts, 64, False)})")
+            packed_case(cp, spec, cfg, 64, gen,
+                        f"K2 mult {mult} (plan {plan(cfg, 64)})", shares)
+    errs["packed_ratio"] = max(a / b for a, b in shares)
+    print(f"K2 over {len(shares)} cases: largest share of the per-bin bound "
+          f"{max(a for a, _ in shares):.4f} (parent form "
+          f"{max(b for _, b in shares):.4f}); largest ratio to the parent "
+          f"form's share on the same planes {errs['packed_ratio']:.3f}")
     for fft, nono, mult in PACKED_C2:
         packed_u8_case(cp, spec, cfg_of(fft, nono, mult=mult), 64, gen)
     for t in (18, 288):                # one and 16 fmScan sweeps
@@ -957,14 +1004,14 @@ def phase_timing(cc, cp, spec, gen, gpu):
     (T=1024) with the direct-DFT matmul in the direct column.
     The plain chain runs in chunks of IQ blocks where its frames would
     pass ``PLAIN_FRAME_BYTES`` (fft 10000 at 90%).
-    At the powers of two the parent form's build times the same planes
-    after the kernel (``parent_ms``), then ``scripts.fft_stages`` runs its
-    T=64 sweep beside the parent form and its stage table at the main and
-    fmScan cells.
+    At the powers of two, and at K2's cells, the parent form's build times
+    the same planes after the kernel (``parent_ms``), then
+    ``scripts.fft_stages`` runs its stage table at the main and fmScan
+    cells and ``scripts.packed_stages`` K2's at quickFullScan T=19616.
     Returns ``{(case, dtype): (kernel, direct, plain, bound, bound_by)}``,
     direct None where no direct kernel runs, and under ``"fft_stages"``
-    the stage table's rows, its launches, the parent form's times by case
-    and its launches."""
+    (``"packed_stages"``) the stage table's rows, its launches, the parent
+    form's times by case and its launches."""
     from kspecanal_tpu_torch.utils.profiling import cuda_ms
     k1 = (cc.curscan_fused_sublane, cc.curscan_sublane_direct,
           cc.curscan_fused_sublane_plain)
@@ -1002,8 +1049,9 @@ def phase_timing(cc, cp, spec, gen, gpu):
                cfg_of(128, 0.5, mult=81), 1024,
                (k2[0], spec.curscan_direct_batched, k2[2]), (False,))]
     out = {}
-    parent_ms = {}
+    parent_ms, packed_parent_ms = {}, {}
     parent_before = cc.fft_parent_launches
+    packed_parent_before = cp.parent_launches
     print(f"== timing (CUDA events, 3 warm-ups, median of 10) [{gpu}]")
     for name, cfg, t, (kernel, direct, plain), dtypes in cases:
         for u8 in dtypes:
@@ -1020,6 +1068,10 @@ def phase_timing(cc, cp, spec, gen, gpu):
                 pms = cuda_ms(lambda: cc.curscan_fft_stage(re, im, cfg,
                                                            "full", True))
                 parent_ms[name, "u8" if u8 else "f32"] = pms
+            elif kernel is k2[0]:
+                pms = cuda_ms(lambda: cp.curscan_packed_stage(
+                    re, im, cfg, "full", True))
+                packed_parent_ms[name, "u8" if u8 else "f32"] = pms
             bms, by = bound(cfg, t, u8)
             gs = t * cfg.full_size / 1e9
             gb = 2 * re.element_size() * gs
@@ -1041,18 +1093,21 @@ def phase_timing(cc, cp, spec, gen, gpu):
                   f"{gs / ps * 1e3:.2f} Gsamp/s")
             out[name, kind] = (ks, ds, ps, bms, by)
             del re, im
-    from kspecanal_tpu_torch.scripts import fft_stages, mixed_stages
+    from kspecanal_tpu_torch.scripts import (fft_stages, mixed_stages,
+                                             packed_stages)
     print("== the mixed kernel's stage table (scripts.mixed_stages)")
     mixed_stages.main([])
-    print("== the power-of-two kernel beside its parent form, T=64 "
-          "(scripts.fft_stages --versus-parent)")
-    fft_stages.main(["--versus-parent"] + [f"sweep{1 << e}"
-                                           for e in range(8, 18)])
     print("== the power-of-two kernel's stage table (scripts.fft_stages)")
     before = cc.fft_stage_launches
     rows = fft_stages.main(["main", "main-u8", "fmScan"])
     out["fft_stages"] = (rows, cc.fft_stage_launches - before, parent_ms,
                          cc.fft_parent_launches - parent_before)
+    print("== K2's stage table (scripts.packed_stages)")
+    before = cp.stage_launches
+    rows = packed_stages.main(["qfs", "qfs-u8"])
+    out["packed_stages"] = (rows, cp.stage_launches - before,
+                            packed_parent_ms,
+                            cp.parent_launches - packed_parent_before)
     return out
 
 
@@ -2353,7 +2408,8 @@ def main():
     # ablate builds and the HIGHEST forensic builds, every source at once
     variants = (cuda_tc.stage_variants() + cuda_tc.tc_split_stage_variants()
                 + cuda_tc.ablate_variants() + cuda_tc.highest_variants()
-                + cc.fft_stage_variants() + cc.fft_stage_variants(True)[-1:])
+                + cc.fft_stage_variants() + cc.fft_stage_variants(True)[-1:]
+                + cp.stage_variants() + cp.stage_variants(True)[-1:])
     _build.build(variants)
     _build.load()
     forensic = max((v for so, v in _build.build_job_seconds.items()
@@ -2361,8 +2417,8 @@ def main():
     print(f"== build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s) -> {_build.library_path()} "
           f"and {len(variants)} forensic libraries (cut-offs, ablate "
-          f"builds, HIGHEST builds, the FFT kernel's cut-offs and parent "
-          f"form); the library's compiles took "
+          f"builds, HIGHEST builds, the FFT kernel's and K2's cut-offs and "
+          f"parent forms); the library's compiles took "
           f"{_build.build_job_seconds.get(_build.library_path(), 0.0):.1f} "
           f"s, the "
           f"forensic builds' {forensic:.1f} s (all started together)")
@@ -2441,6 +2497,10 @@ def main():
 
     (stage_rows, stage_launches, parent_ms,
      parent_launches) = times["fft_stages"]
+    (packed_rows, packed_stage_launches, packed_parent_ms,
+     packed_parent_launches) = times["packed_stages"]
+    qfs_case = "quickFullScan fft 64 ones 90%"
+    qfs_bound = bound(cfg_of(64, 0.1, "AVG", "WIN.ONES"), 1226 * 16, False)
 
     def k1(config, case, launched, err):
         row = {**fft_kernel, "replaces": sublane_423, "config": config,
@@ -2533,7 +2593,43 @@ def main():
          "replaces": "kspecanal_tpu/ops/pallas_curscan.py:872",
          "config": "quickFullScan fft 64 ones 90%, T=1226*16",
          "launches": scan_launches["qfs"], "max_abs_err": scan_errs["packed"],
-         **timed("quickFullScan fft 64 ones 90%")},
+         **timed(qfs_case), "parent_ms": packed_parent_ms[qfs_case, "f32"],
+         "share_over_parent": scan_errs["packed_ratio"]},
+        {"name": "curscan_packed_stage", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_packed.cu",
+         "replaces": "kspecanal_tpu/ops/pallas_curscan.py:872",
+         "config": "K2's forensic builds (csrc/curscan_packed.cu alone, "
+                   "-DKSPEC_PACKED_STOP=1..4): error the largest max abs "
+                   "error of the cut-offs input, regs and lanes against "
+                   "their plain versions on 8 blocks of "
+                   "quickFullScan T=19616 f32 and u8; times the build "
+                   "'full' (the production kernel built alone) at that "
+                   "cell f32, with the cut-offs in stages_ms; launches over "
+                   "scripts.packed_stages in the timing phase",
+         "launches": packed_stage_launches,
+         "max_abs_err": max(packed_rows[c][f"err_{st}"]
+                            for c in packed_rows for st in cp.STAGES[:3]),
+         "ms": packed_rows["qfs"]["full"],
+         "plain_ms": timed(qfs_case)["plain_ms"],
+         "bound_ms": qfs_bound[0], "bound_by": qfs_bound[1],
+         "library_ms": None,
+         "stages_ms": {st: packed_rows["qfs"][st] for st in cp.STAGES}},
+        {"name": "curscan_packed_parent", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/curscan_packed.cu",
+         "replaces": "kspecanal_tpu/ops/pallas_curscan.py:872",
+         "config": "K2's parent form (its first design; "
+                   "csrc/curscan_packed.cu with -DKSPEC_PACKED_PARENT=1), "
+                   "the production kernel's yardstick: times at "
+                   "quickFullScan T=1226*16 f32 on the production kernel's "
+                   "planes; error its max abs error against the float64 "
+                   "plain version at quickFullScan AVG T=1226*16 in phase "
+                   "4; launches over the timing phase",
+         "launches": packed_parent_launches,
+         "max_abs_err": scan_errs["packed_parent"],
+         "ms": packed_parent_ms[qfs_case, "f32"],
+         "plain_ms": timed(qfs_case)["plain_ms"],
+         "bound_ms": qfs_bound[0], "bound_by": qfs_bound[1],
+         "library_ms": None},
         {"name": "curscan_tc_stage_highest", "route": "cuda",
          "source": "kspecanal_tpu_torch/csrc/curscan_tc.cuh",
          "replaces": "scripts/roofline_r2.py:43",

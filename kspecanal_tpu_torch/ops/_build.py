@@ -175,6 +175,12 @@ def load_variant(names, defines) -> ctypes.CDLL:
     return _variants[key]
 
 
+# Entries only a forensic build holds (K2's parent form,
+# -DKSPEC_PACKED_PARENT=1).
+_FORENSIC_ONLY = ("kspec_curscan_packed_parent",
+                  "kspec_curscan_packed_parent_attrs")
+
+
 def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
     """Set the C entry points' argument and result types (those ``lib``
     has, where ``missing_ok``)."""
@@ -188,6 +194,11 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "kspec_curscan_fft": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_packed_parent": [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_packed_attrs": [i32, i32, i32, i32, i32, i32, ptr],
+        "kspec_curscan_packed_parent_attrs": [i32, i32, i32, i32, i32, ptr],
         "kspec_curscan_fft_attrs": [i32, i32, ptr],
         "kspec_curscan_tc": [
             ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
@@ -216,7 +227,7 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
                 "kspec_curscan_packed_tc_smem": ctypes.c_longlong,
                 "kspec_curscan_tc_split_smem": ctypes.c_longlong}
     for name, args in types.items():
-        if missing_ok and not hasattr(lib, name):
+        if (missing_ok or name in _FORENSIC_ONLY) and not hasattr(lib, name):
             continue
         fn = getattr(lib, name)
         fn.argtypes = args

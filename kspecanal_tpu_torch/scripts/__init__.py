@@ -15,6 +15,7 @@
     python -m kspecanal_tpu_torch.scripts.packed_tc_stages [--kernel-only]
     python -m kspecanal_tpu_torch.scripts.mixed_stages [--nono X] [FFT:T ...]
     python -m kspecanal_tpu_torch.scripts.fft_stages [--parent | --versus-parent [--kernel-only] | --staging] [CELL ...]
+    python -m kspecanal_tpu_torch.scripts.packed_stages [--parent | --versus-parent [--kernel-only]] [CELL ...]
 
 the sharded paths' scripts (worlds of ranks, ``parallel/spawn.py``;
 ``collective_bytes`` is host code):

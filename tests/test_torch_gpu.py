@@ -360,11 +360,15 @@ def test_packed_kernel_takes_the_c2_cells(cuda, fft, nono, mult, mode):
     packed_case(cuda, cfg, 64, seed=mult)
 
 
-@pytest.mark.parametrize("fft,nono,mult", [(64, 0.1, 8), (128, 0.5, 81),
-                                           (64, 0.1, 96)])
-def test_packed_kernel_u8_bit_identical(cuda, fft, nono, mult):
+@pytest.mark.parametrize("fft,nono,mult,t", [
+    (64, 0.1, 8, 37), (128, 0.5, 81, 37), (64, 0.1, 96, 37),
+    (64, 0.1, 8, 19616)])
+def test_packed_kernel_u8_bit_identical(cuda, fft, nono, mult, t):
+    """u8 planes give the bits of their decoded float32, at quickFullScan's
+    catch-up batch too, where the smaller u8 spans must not change how the
+    plan splits the windows."""
     cfg = zs_cfg(fft, nono, x_res=fft, fft2full_mult4less=mult)
-    re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, 37, 13))
+    re, im = (torch.from_numpy(p).to(cuda) for p in raw_planes(cfg, t, 13))
     got = cuda_packed.curscan_fused_packed(re, im, cfg)
     want = cuda_packed.curscan_fused_packed(tspec.decode_u8(re),
                                             tspec.decode_u8(im), cfg)
@@ -378,6 +382,73 @@ def test_packed_kernel_gives_identical_bits_twice(cuda):
               for p in raw_planes(cfg, 19616, 21))
     assert torch.equal(cuda_packed.curscan_fused_packed(re, im, cfg),
                        cuda_packed.curscan_fused_packed(re, im, cfg))
+
+
+# K2's cut-offs (csrc/curscan_packed.cu with -DKSPEC_PACKED_STOP=1..4) of
+# both forms, every fft it takes, at a chunked plan (fft 64 x 96, MIN: 951
+# windows) and quickFullScan's catch-up geometry.
+PACKED_STAGE_CASES = [(fft, 0.25, "AVG", max(8, 256 // fft), 37)
+                      for fft in PACKED_FFTS] + [
+    (64, 0.1, "MIN", 96, 19), (64, 0.1, "RAW", 8, 1226)]
+
+
+@pytest.mark.parametrize("parent", [False, True], ids=["new", "parent"])
+@pytest.mark.parametrize("stage", cuda_packed.STAGES)
+@pytest.mark.parametrize("fft,nono,mode,mult,t", PACKED_STAGE_CASES)
+def test_packed_stage_matches_plain(cuda, fft, nono, mode, mult, t, stage,
+                                    parent):
+    """Each cut-off of both forms against its plain version in float64,
+    one launch counted in ``stage_launches`` (``parent_launches``), within
+    the per-bin bound (below 'full' the folded value is |re + im|); the
+    production form's 'full' is the production kernel, bit for bit."""
+    cfg = zs_cfg(fft, nono, mode, x_res=fft, fft2full_mult4less=mult)
+    re, im = planes_on(cuda, cfg, t, seed=fft + mult)
+    before = (cuda_packed.stage_launches, cuda_packed.parent_launches)
+    got = cuda_packed.curscan_packed_stage(re, im, cfg, stage, parent)
+    want = cuda_packed.curscan_packed_stage_plain(re, im, cfg, stage, parent)
+    torch.cuda.synchronize()
+    assert (cuda_packed.stage_launches, cuda_packed.parent_launches) == (
+        before[0] + (not parent), before[1] + parent)
+    assert bound_share(got, want) <= 1.0
+    if stage == "full" and not parent:
+        assert torch.equal(got, cuda_packed.curscan_fused_packed(re, im, cfg))
+
+
+@pytest.mark.parametrize("nono", [0.5, 0.1])
+@pytest.mark.parametrize("fft,mult", [(f, max(8, 256 // f))
+                                      for f in PACKED_FFTS]
+                         + [(64, 96), (128, 81), (128, 399)])
+def test_packed_kernel_no_less_accurate_than_its_parent_form(cuda, fft, mult,
+                                                             nono):
+    """On a MIN fold the production form's worst share of the per-bin
+    bound stays within 1.1 times the parent form's."""
+    cfg = zs_cfg(fft, nono, "MIN", x_res=fft, fft2full_mult4less=mult)
+    re, im = planes_on(cuda, cfg, 64, seed=fft + mult + 7)
+    want = cuda_packed.curscan_fused_packed_plain(re.double(), im.double(),
+                                                  cfg)
+    share = bound_share(cuda_packed.curscan_fused_packed(re, im, cfg), want)
+    parent = bound_share(
+        cuda_packed.curscan_packed_stage(re, im, cfg, "full", True), want)
+    assert share <= 1.1 * parent
+
+
+def test_packed_kernel_occupancy_against_its_parent_form(cuda):
+    """At quickFullScan's plans (T = 1226 and 19616, f32 and u8) and fft 32
+    the production form holds no fewer blocks an SM than the parent form
+    (four of 256 threads, 64 registers), and fft 128 (P = 16) at least
+    two where the parent held one."""
+    from kspecanal_tpu_torch.ops import _build
+    lib, parent = _build.load(), cuda_packed.stage_library("full", True)
+    for fft, t in ((64, 1226), (64, 19616), (32, 4096), (128, 4096)):
+        cfg = zs_cfg(fft, 0.1 if fft == 64 else 0.5, x_res=fft)
+        for u8 in (False, True):
+            new = cuda_packed.attrs(lib, cfg, t, u8)
+            old = cuda_packed.attrs(parent, cfg, t, u8, parent=True)
+            if fft == 128:
+                assert (old["blocks_per_sm"], new["blocks_per_sm"]) == (1, 2)
+            else:
+                assert new["blocks_per_sm"] >= old["blocks_per_sm"] == 4
+                assert new["registers"] <= 64
 
 
 # The tensor-core kernels of the HIGH and DEFAULT classes (ops/cuda_tc.py)

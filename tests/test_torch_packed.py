@@ -254,13 +254,16 @@ def test_packed_plain_matches_jax_matmul_where_only_the_port_takes_k2():
 
 
 # ---------------------------------------------------------------------------
-# A NumPy model of csrc/curscan_packed.cu's index plan: thread blocks of
-# `blocks` IQ blocks, G lane groups an IQ block, L lanes of P points a
-# window, the staged chunk spans, the radix-2 passes in registers and across
-# lanes (the exchange of __shfl_xor_sync), the bins each lane folds, and the
-# partial folds combined in group order; the FFT in float64 (complex128),
-# |X| as the float32 square root of |X|^2 rounded to float32, float32 folds.
-# It is held to the plain version run in float64, as the card's check is.
+# NumPy models of csrc/curscan_packed.cu's two forms: L lanes of P points a
+# window (N = P L), the radix-2 passes in registers and the exchange across
+# lanes, the bins each lane folds, the staged spans, and the partial folds
+# combined in group order; the FFT in float64 (complex128), |X| as the
+# float32 square root of |X|^2 rounded to float32, float32 folds.  Each is
+# held to the plain version run in float64, as the card's check is.
+#
+# The parent form (-DKSPEC_PACKED_PARENT=1): thread blocks of `blocks` IQ
+# blocks, G lane groups an IQ block, the cross-lane passes as the exchange
+# of __shfl_xor_sync.
 # ---------------------------------------------------------------------------
 
 def bitrev(x, bits):
@@ -284,12 +287,14 @@ def model_bins(p, lanes):
     return bitrev(rk, lp) + p * bitrev(pos, ll)
 
 
-def model_window(x, wsr, tw, p, lanes):
+def model_window(x, wsr, tw, p, lanes, stop="full"):
     """One window in registers: x (L, P) complex samples x[l + L*r] -> the
-    (L, P) values after the passes (register r of lane l)."""
+    (L, P) values after the cut-off ``stop`` (register r of lane l)."""
     n = p * lanes
     lane = np.arange(lanes)
     v = x * wsr
+    if stop == "input":
+        return v
     for s in range(p.bit_length() - 1):                  # fft_regs
         half = p >> (s + 1)
         for blk in range(0, p, 2 * half):
@@ -304,6 +309,8 @@ def model_window(x, wsr, tw, p, lanes):
     if lanes > 1:                                        # W_N^(l*k1)
         k1 = bitrev(np.arange(p), p.bit_length() - 1)
         v = v * tw[(lane[:, None] * k1[None, :]) % n]
+    if stop == "regs":
+        return v
     for s in range(lanes.bit_length() - 1):              # cross_lanes
         h, pb = lanes >> (s + 1), p >> (s + 1)
         hi = (lane & h) != 0
@@ -320,8 +327,21 @@ def model_window(x, wsr, tw, p, lanes):
     return v
 
 
-def model_kernel(re, im, cfg, plan):
-    """What the kernel writes for planes (T, full_size), float32 or u8."""
+def model_slots(p, lanes, stop="full"):
+    """slot_of: the output slot of register r of lane l at the cut-off
+    ``stop``, (L, P)."""
+    lane = np.arange(lanes)[:, None]
+    r = np.arange(p)[None, :]
+    if stop == "input":
+        return lane + lanes * r
+    if stop == "regs":
+        return lane + lanes * bitrev(r, p.bit_length() - 1)
+    return model_bins(p, lanes)
+
+
+def model_kernel(re, im, cfg, plan, stop="full"):
+    """What the parent form (cut off after ``stop``) writes for planes (T,
+    full_size), float32 or u8, at its plan (``parent_plan``)."""
     n, p, lanes = cfg.fft_size, plan.p, plan.lanes
     t = re.shape[0]
     align = 16 // re.itemsize
@@ -335,7 +355,7 @@ def model_kernel(re, im, cfg, plan):
              np.maximum(acc, x), lambda acc, wt, x: np.minimum(acc, x))[fold]
     lane = np.arange(lanes)
     wsr = wscale[lane[:, None] + lanes * np.arange(p)[None, :]]
-    bins = model_bins(p, lanes)
+    bins = model_slots(p, lanes, stop)
     assert sorted(bins.ravel()) == list(range(n))      # a permutation
     w_cnt = len(st)
     assert plan.blocks * plan.groups * lanes == cuda_packed.THREADS
@@ -358,9 +378,10 @@ def model_kernel(re, im, cfg, plan):
                     seen[b, w] += 1
                     off = st[w] - a0 + lane[:, None] + lanes * np.arange(p)
                     v = model_window(xr[off] + 1j * xi[off], wsr, tw, p,
-                                     lanes)
-                    mag = np.sqrt((v.real ** 2 + v.imag ** 2)
-                                  .astype(np.float32))
+                                     lanes, stop)
+                    mag = (np.sqrt((v.real ** 2 + v.imag ** 2)
+                                   .astype(np.float32)) if stop == "full"
+                           else np.abs(v.real + v.imag).astype(np.float32))
                     acc = fold1(acc, wts[w], mag).astype(np.float32)
             partial[g, bins] = acc
         res = partial[0]
@@ -371,6 +392,180 @@ def model_kernel(re, im, cfg, plan):
     return out
 
 
+
+# The production form: the four-step FFT with each lane's L-point DFTs
+# rotated by its lane index (inputs times W_L^(j2 j1)), the lane twiddle,
+# the select-free exchange (round q: lane k takes register q from lane
+# k - bitrev(q)) and an L-point DFT with exponent + on bit-reversed input;
+# one thread block a unit of IQ blocks, its chunks in order.
+
+def w16(k, conj=False):
+    """W_16^k (conj: W_16^-k), the kernel's constant twiddles."""
+    return np.exp((2j if conj else -2j) * np.pi * k / 16)
+
+
+def model_dif(v, m, base):
+    """dif<M, B>: radix-2 decimation in frequency of columns base..base+m
+    of v (L, P); column base + q ends as output bitrev(q)."""
+    half = m // 2
+    while half >= 1:
+        for blk in range(0, m, 2 * half):
+            for i in range(half):
+                a = v[:, base + blk + i].copy()
+                b = v[:, base + blk + i + half].copy()
+                v[:, base + blk + i] = a + b
+                v[:, base + blk + i + half] = (a - b) * w16(i * (8 // half))
+        half //= 2
+
+
+def model_dit_conj(v, m, base):
+    """dit_conj<M, B>: radix-2 decimation in time, exponent +, of columns
+    base..base+m holding input bitrev(q) in column base + q."""
+    half = 1
+    while half < m:
+        for blk in range(0, m, 2 * half):
+            for i in range(half):
+                a = v[:, base + blk + i].copy()
+                b = v[:, base + blk + i + half] * w16(i * (8 // half), True)
+                v[:, base + blk + i] = a + b
+                v[:, base + blk + i + half] = a - b
+        half *= 2
+
+
+def model_prod_window(x, wscale, tw, p, lanes, stop="full"):
+    """window<T, P, L>: x (L, P) complex samples x[l + L*r] -> the (L, P)
+    values of the lanes' registers after the cut-off ``stop``."""
+    n = p * lanes
+    c = p // lanes if lanes > 1 else 1
+    ll = lanes.bit_length() - 1
+    lane = np.arange(lanes)[:, None]
+    r = np.arange(p)[None, :]
+    ws = wscale[lane + lanes * r]
+    if c == 1 and lanes > 1:                # the window times the rotation
+        v = x * (ws * tw[((r * lane) % lanes) * (n // lanes)])
+    else:
+        v = x * ws
+    if stop == "input":
+        return v
+    if lanes == 1:
+        model_dif(v, p, 0)
+        return v
+    if c == 2:                              # the first pass, the rotation
+        for j in range(lanes):
+            a, b = v[:, j].copy(), v[:, j + lanes].copy()
+            v[:, j] = a + b
+            v[:, j + lanes] = (a - b) * w16(j * 16 // p)
+        um = tw[((np.arange(lanes)[None, :] * lane) % lanes) * (n // lanes)]
+        for e in range(2):
+            for j in range(1, lanes):
+                v[:, e * lanes + j] *= um[:, j]
+    for e in range(c):
+        model_dif(v, lanes, e * lanes)
+    k1 = c * ((bitrev(r % lanes, ll) + lane) % lanes) + r // lanes
+    v = v * tw[(lane * k1) % n]             # the lane twiddle W_N^(j1 k1)
+    if stop == "regs":
+        return v
+    for e in range(c):                      # the exchange
+        for q in range(1, lanes):
+            src = (np.arange(lanes) - bitrev(np.array(q), ll)) % lanes
+            v[:, e * lanes + q] = v[src, e * lanes + q]
+    for e in range(c):
+        model_dit_conj(v, lanes, e * lanes)
+    return v
+
+
+def model_prod_slots(p, lanes, stop="full"):
+    """slot<P, L>: the output slot of register r of lane l, (L, P)."""
+    lane = np.arange(lanes)[:, None]
+    r = np.arange(p)[None, :]
+    c = p // lanes if lanes > 1 else 1
+    if stop == "input":
+        return lane + lanes * r
+    if lanes == 1:
+        return bitrev(r, p.bit_length() - 1)
+    ll = lanes.bit_length() - 1
+    e, q = r // lanes, r % lanes
+    if stop == "regs":
+        return lane + lanes * (c * ((bitrev(q, ll) + lane) % lanes) + e)
+    return c * lane + e + p * q
+
+
+def model_walk(plan, t, starts, n, full_size, align):
+    """The production form's walk: thread block u serves unit u, IQ blocks
+    u * blocks onward, its chunks in order.  Yields (IQ blocks, w0,
+    windows, a0) of each chunk, after checking each staged span lies in
+    the planes and within ``stride``."""
+    for u in range(-(-t // plan.blocks)):
+        b = np.arange(u * plan.blocks, min(t, (u + 1) * plan.blocks))
+        for c in range(plan.n_chunks):
+            w0 = c * plan.chunk
+            cw = min(plan.chunk, len(starts) - w0)
+            a0 = starts[w0] // align * align
+            a1 = -(-(starts[w0 + cw - 1] + n) // align) * align
+            assert a1 - a0 <= plan.stride and a1 <= full_size
+            yield b, w0, cw, a0
+
+
+def model_prod_kernel(re, im, cfg, plan, stop="full"):
+    """What the production form (cut off after ``stop``) writes for planes
+    (T, full_size), float32 or u8, at ``plan``."""
+    n, p, lanes = cfg.fft_size, plan.p, plan.lanes
+    t = re.shape[0]
+    st, wts, wscale, tw = (a.numpy() for a in cuda_packed._tables(
+        n, cfg.window, cfg.window_starts, cfg.cur_scan_cumu_mode,
+        torch.device("cpu")))
+    tw = tw[:, 0] + 1j * tw[:, 1]
+    fold = cuda_curscan._FOLD[cfg.cur_scan_cumu_mode]
+    init = (0.0, -np.inf, np.inf)[fold]
+    slots = model_prod_slots(p, lanes, stop)
+    assert sorted(slots.ravel()) == list(range(n))      # a permutation
+    lane = np.arange(lanes)[:, None]
+    out = np.full((t, n), np.nan, np.float32)
+    seen = np.zeros((t, len(st)), int)
+    acc = {}
+    for blocks, w0, cw, a0 in model_walk(plan, t, st, n, cfg.full_size,
+                                         16 // re.itemsize):
+        for b in blocks:
+            xr, xi = (cuda_packed.spectrum.decode_u8(torch.from_numpy(
+                x[b])).numpy().astype(np.float64) for x in (re, im))
+            for g in range(plan.groups):
+                a = acc.setdefault((b, g), np.full((lanes, p), init,
+                                                   np.float32))
+                for w in range(w0 + g, w0 + cw, plan.groups):
+                    seen[b, w] += 1
+                    off = st[w] + lane + lanes * np.arange(p)
+                    v = model_prod_window(xr[off] + 1j * xi[off], wscale, tw,
+                                          p, lanes, stop)
+                    mag = (np.sqrt((v.real ** 2 + v.imag ** 2)
+                                   .astype(np.float32)) if stop == "full"
+                           else np.abs(v.real + v.imag).astype(np.float32))
+                    a[...] = ((np.float64(wts[w]) * mag + a)   # fmaf
+                              .astype(np.float32), np.maximum(a, mag),
+                              np.minimum(a, mag))[fold]
+            if w0 + cw == len(st):               # the unit's last chunk
+                part = np.full((plan.groups, n), init, np.float32)
+                for g in range(plan.groups):
+                    part[g, slots] = acc.pop((b, g))
+                res = part[0]
+                for g in range(1, plan.groups):             # group order
+                    res = (res + part[g], np.maximum(res, part[g]),
+                           np.minimum(res, part[g]))[fold].astype(np.float32)
+                out[b] = np.roll(res, n // 2)
+    assert (seen == 1).all() and not acc                # every window once
+    return out
+
+
+def forced(plan, cfg, groups, chunk, u8):
+    """``plan`` with a forced split: ``groups`` lane groups, chunks of
+    ``chunk`` windows."""
+    w = cfg.num_windows
+    return plan._replace(
+        groups=groups, blocks=cuda_packed.THREADS // plan.lanes // groups,
+        chunk=chunk, n_chunks=-(-w // chunk), stride=int(
+            cuda_packed.chunk_spans(cfg.window_starts, cfg.fft_size, chunk,
+                                    16 if u8 else 4).max()))
+
+
 MODEL_CASES = [  # (fft, overlap, mult, mode, window, T, groups, chunk)
     (2, 0.1, 128, "AVG", WINDOW_KAISER, 2, 32, 160),      # ragged chunks
     (2, 0.5, 192, "MIN", WINDOW_ONES, 2, 1, 0),
@@ -379,18 +574,20 @@ MODEL_CASES = [  # (fft, overlap, mult, mode, window, T, groups, chunk)
     (64, 0.1, 8, "AVG", WINDOW_ONES, 3, 4, 0),            # quickFullScan
     (64, 0.1, 8, "MIN", WINDOW_ONES, 2, 32, 0),
     (64, 0.5, 16, "AVG", WINDOW_KAISER, 3, 2, 6),
+    (32, 0.25, 16, "RAW", WINDOW_KAISER, 3, 8, 10),
     (128, 0.5, 12, "MAX", WINDOW_KAISER, 2, 4, 8),
     (128, 0.1, 4, "AVG", WINDOW_KAISER, 2, 8, 8),
     (128, 1.0, 3, "RAW", WINDOW_HANNING, 2, 1, 2),
     (64, 0.1, 96, "MIN", WINDOW_KAISER, 2, 32, 0)]     # 951 windows
 
 
+@pytest.mark.parametrize("form", ["new", "parent"])
 @pytest.mark.parametrize("fft,nono,mult,mode,window,t,groups,chunk",
                          MODEL_CASES)
 @pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
 def test_kernel_model_matches_plain(fft, nono, mult, mode, window, t,
-                                    groups, chunk, u8):
-    """The model of the kernel's index plan, with the wrapper's plan or a
+                                    groups, chunk, u8, form):
+    """The model of each form's index plan, with the wrapper's plan or a
     forced split (groups, and chunks whose last one is ragged), equals the
     plain version run in float64 within the per-bin bound; u8 planes stage
     as bytes."""
@@ -401,16 +598,15 @@ def test_kernel_model_matches_plain(fft, nono, mult, mode, window, t,
               for _ in range(2))
     if not u8:
         re, im = decoded(re), decoded(im)
-    plan = cuda_packed.launch_plan(fft, cfg.window_starts, t, u8)
+    if form == "parent":
+        plan = cuda_packed.parent_plan(fft, cfg.window_starts, t, u8)
+    else:
+        plan = cuda_packed.launch_plan(fft, cfg.window_starts, t, u8)
     if chunk:
-        w = cfg.num_windows
-        assert w % chunk                                  # ragged
-        plan = plan._replace(
-            groups=groups, blocks=cuda_packed.THREADS // plan.lanes // groups,
-            chunk=chunk, n_chunks=-(-w // chunk), stride=int(
-                cuda_packed.chunk_spans(cfg.window_starts, fft, chunk,
-                                        16 // re.itemsize).max()))
-    got = model_kernel(re, im, cfg, plan)
+        assert cfg.num_windows % chunk                    # ragged
+        plan = forced(plan, cfg, groups, chunk, u8)
+    model = model_kernel if form == "parent" else model_prod_kernel
+    got = model(re, im, cfg, plan)
     want = cuda_packed.curscan_fused_packed_plain(
         *(torch.from_numpy(decoded(x) if u8 else x).double()
           for x in (re, im)), cfg).numpy()
@@ -418,18 +614,44 @@ def test_kernel_model_matches_plain(fft, nono, mult, mode, window, t,
 
 
 def test_launch_plan_fills_the_card_and_walks_any_block():
-    """quickFullScan's serial sweep (T = 1226) gets 32 groups an IQ block,
-    one IQ block a thread block; catch-up's T = 19616 4 groups and 8 IQ
-    blocks; fft 128 x 399 walks its block in chunks; a thread block stages
-    at most about 80 KiB for every config the predicate takes."""
+    """The production plan on 132 SMs takes the parent form's groups, so the
+    groups fold in the parent's order: quickFullScan's catch-up T = 19616
+    gets 4 groups an IQ block and 8 IQ blocks a unit, its windows in one
+    buffer, on u8 as on float32; the serial sweep's T = 1226 32 groups, one
+    IQ block a unit; fft 128 x 399 walks its block in chunks of a multiple
+    of the groups; where one window of the group rule's IQ blocks would not
+    fit a chunk (fft 16 at 90% over a million blocks: 256 IQ blocks a unit,
+    spans of 20 samples), the groups double."""
     qfs = zs_cfg(64, 0.1, window=WINDOW_ONES, x_res=64)
-    serial = cuda_packed.launch_plan(64, qfs.window_starts, 1226, False)
-    assert (serial.groups, serial.blocks, serial.n_chunks) == (32, 1, 1)
-    catch_up = cuda_packed.launch_plan(64, qfs.window_starts, 19616, False)
-    assert (catch_up.groups, catch_up.blocks, catch_up.n_chunks) == (4, 8, 1)
+    for u8 in (False, True):
+        for t, want in ((19616, (4, 8, 1)), (1226, (32, 1, 1))):
+            pl = cuda_packed.launch_plan(64, qfs.window_starts, t, u8)
+            assert (pl.groups, pl.blocks, pl.n_chunks) == want
+            assert pl.groups == cuda_packed.parent_plan(
+                64, qfs.window_starts, t, u8).groups
     big = zs_cfg(128, 0.5, x_res=128, fft2full_mult4less=399)
     assert big.full_size == 51072
-    assert cuda_packed.launch_plan(128, big.window_starts, 1024,
+    pl = cuda_packed.launch_plan(128, big.window_starts, 64, False)
+    assert pl.n_chunks > 1 and pl.chunk % pl.groups == 0
+    tiny = zs_cfg(16, 0.1, x_res=16, fft2full_mult4less=16)
+    assert cuda_packed.groups_for(16, tiny.num_windows, 10 ** 6, 132) == 1
+    pl = cuda_packed.launch_plan(16, tiny.window_starts, 10 ** 6, False)
+    assert (pl.groups, pl.blocks) == (2, 128)
+
+
+def test_parent_plan_fills_the_card_and_walks_any_block():
+    """The parent form's plan: quickFullScan's serial sweep (T = 1226) gets
+    32 groups an IQ block, one IQ block a thread block; catch-up's T =
+    19616 4 groups and 8 IQ blocks; fft 128 x 399 walks its block in
+    chunks; a thread block stages at most about 80 KiB for every config
+    the predicate takes."""
+    qfs = zs_cfg(64, 0.1, window=WINDOW_ONES, x_res=64)
+    serial = cuda_packed.parent_plan(64, qfs.window_starts, 1226, False)
+    assert (serial.groups, serial.blocks, serial.n_chunks) == (32, 1, 1)
+    catch_up = cuda_packed.parent_plan(64, qfs.window_starts, 19616, False)
+    assert (catch_up.groups, catch_up.blocks, catch_up.n_chunks) == (4, 8, 1)
+    big = zs_cfg(128, 0.5, x_res=128, fft2full_mult4less=399)
+    assert cuda_packed.parent_plan(128, big.window_starts, 1024,
                                    False).n_chunks > 1
     for fft in cuda_packed.SPLIT:
         for nono in (0.5, 0.1, 2.0):
@@ -438,7 +660,7 @@ def test_launch_plan_fills_the_card_and_walks_any_block():
                 if not cuda_packed.supports_fused_packed(cfg):
                     continue
                 for t, u8 in ((1226, False), (19616, True), (19616, False)):
-                    pl = cuda_packed.launch_plan(fft, cfg.window_starts, t,
+                    pl = cuda_packed.parent_plan(fft, cfg.window_starts, t,
                                                  u8)
                     spans = cuda_packed.chunk_spans(
                         cfg.window_starts, fft, pl.chunk, 16 if u8 else 4)
@@ -447,3 +669,100 @@ def test_launch_plan_fills_the_card_and_walks_any_block():
                               * pl.stride * (1 if u8 else 4))
                     assert staged + cuda_packed.THREADS * pl.p * 4 \
                         <= 84 << 10, (fft, nono, mult, t, u8, pl)
+
+
+def shared_bytes(plan, u8):
+    """The production kernel's shared memory at ``plan`` as the source's
+    layout() adds it up: the lane constants (P L double2; at C = 2 also L L,
+    at L > 1 also P L), one chunk buffer or, with several chunks, two (both
+    planes of the unit's IQ blocks over ``stride`` samples, the chunk's
+    starts and weights, each rounded to 16 bytes), the partial folds
+    (THREADS P floats)."""
+    p, lanes = plan.p, plan.lanes
+    c = p // lanes if lanes > 1 else 1
+    consts = 16 * (p * lanes + (lanes * lanes if c == 2 else 0)
+                   + (p * lanes if lanes > 1 else 0))
+    staged = (-(-plan.blocks * 2 * plan.stride * (1 if u8 else 4) // 16)
+              * 16 + 2 * (-(-4 * plan.chunk // 16) * 16))
+    return (consts + (2 if plan.n_chunks > 1 else 1) * staged
+            + cuda_packed.THREADS * p * 4)
+
+
+@pytest.mark.parametrize("fft", sorted(cuda_packed.SPLIT))
+def test_launch_plan_covers_every_block_and_window_once(fft):
+    """For every config the predicate takes at fft 2-128, curScanNonOverlap
+    0.5, 0.25 and 0.1 and fft2FullMult 1-399 (u8 and f32 in turns, T from
+    1 to about 20000): the units (one thread block each) cover the T IQ
+    blocks once; the chunks of a unit cover its windows, each once, in
+    window order; every staged span lies in the planes and within
+    ``stride``; a chunk fits ``CHUNK_BYTES`` (twice at P = 16; a unit's
+    windows in one buffer twice that) and the kernel's shared memory the
+    share of four blocks an SM (P <= 8) or two (P = 16) of the H100's 228
+    KiB, less 1 KiB a block; the groups are the parent form's and a chunk a multiple of
+    them, so the folds add in the parent's order, for u8 and float32 planes
+    alike (u8 gives the bits of its decoded float32)."""
+    p, _ = cuda_packed.SPLIT[fft]
+    limit = (228 << 10) // (4 if p <= 8 else 2) - 1024
+    for nono in (0.5, 0.25, 0.1):
+        for mult in range(1, 400):
+            cfg = zs_cfg(fft, nono, x_res=fft, fft2full_mult4less=mult)
+            if not cuda_packed.supports_fused_packed(cfg):
+                continue
+            u8 = bool(mult % 2)
+            t = 1 + (mult * 4999 + int(nono * 100)) % 20000
+            starts = np.asarray(cfg.window_starts)
+            pl = cuda_packed.launch_plan(fft, cfg.window_starts, t, u8)
+            other = cuda_packed.launch_plan(fft, cfg.window_starts, t,
+                                            not u8)
+            assert (other.groups, other.chunk) == (pl.groups, pl.chunk)
+            assert pl.groups == cuda_packed.parent_plan(
+                fft, cfg.window_starts, t, u8).groups
+            assert pl.n_chunks == 1 or pl.chunk % pl.groups == 0
+            units = -(-t // pl.blocks)
+            assert units * pl.blocks >= t > (units - 1) * pl.blocks
+            assert pl.groups * pl.blocks * pl.lanes == cuda_packed.THREADS
+            w0 = np.arange(pl.n_chunks) * pl.chunk
+            cw = np.minimum(pl.chunk, len(starts) - w0)
+            assert (cw > 0).all() and cw.sum() == len(starts)
+            align = 16 if u8 else 4
+            a0 = starts[w0] // align * align
+            a1 = -(-(starts[w0 + cw - 1] + fft) // align) * align
+            assert (a1 - a0 <= pl.stride).all() \
+                and (a1 <= cfg.full_size).all()
+            staged = (-(-pl.blocks * 2 * pl.stride * (1 if u8 else 4) // 16)
+                      * 16 + 2 * (-(-4 * pl.chunk // 16) * 16))
+            assert staged <= cuda_packed.CHUNK_BYTES * (
+                2 if pl.n_chunks == 1 else 1) * (1 if p <= 8 else 2), \
+                (nono, mult, pl)
+            assert shared_bytes(pl, u8) <= limit, (nono, mult, pl)
+
+
+@pytest.mark.parametrize("form", ["new", "parent"])
+@pytest.mark.parametrize("stage", cuda_packed.STAGES)
+@pytest.mark.parametrize("fft,nono,mult,mode,t,groups,chunk", [
+    (64, 0.1, 8, "AVG", 3, 8, 0), (32, 0.25, 16, "RAW", 2, 4, 10),
+    (128, 0.5, 12, "MAX", 2, 8, 8), (16, 0.5, 32, "MIN", 2, 16, 0),
+    (2, 0.5, 128, "AVG", 2, 64, 0)])
+def test_stage_plain_matches_the_models(fft, nono, mult, mode, t, groups,
+                                        chunk, stage, form):
+    """Each cut-off's plain version (``curscan_packed_stage``'s on CPU
+    tensors, float64) against the model of its form cut off there, on u8
+    planes, within the per-bin bound (below 'full' the folded value is
+    |re + im| at the slot of the value's position)."""
+    cfg = zs_cfg(fft, nono, mode, x_res=fft, fft2full_mult4less=mult)
+    rng = np.random.default_rng(fft + mult)
+    re, im = (rng.integers(0, 256, (t, cfg.full_size), dtype=np.uint8)
+              for _ in range(2))
+    parent = form == "parent"
+    if parent:
+        plan = cuda_packed.parent_plan(fft, cfg.window_starts, t, True)
+    else:
+        plan = cuda_packed.launch_plan(fft, cfg.window_starts, t, True)
+    if chunk:
+        plan = forced(plan, cfg, groups, chunk, True)
+    model = model_kernel if parent else model_prod_kernel
+    got = model(re, im, cfg, plan, stage)
+    want = cuda_packed.curscan_packed_stage(
+        torch.from_numpy(re), torch.from_numpy(im), cfg, stage, parent)
+    assert want.dtype == torch.float64 and want.shape == (t, fft)
+    assert_spectra_close(got, want.numpy())
