@@ -67,7 +67,7 @@ class RunOptions:
     mesh_time: int = 1
     mesh_band: int = 1
     prefetch: bool = False   # background read-ahead pipeline (io/prefetch)
-    profile_dir: str = ""    # jax.profiler trace output directory
+    profile_dir: str = ""    # torch.profiler Chrome trace directory
     renderer: str = "gui"    # gui | term | none
     state_file: str = ""     # checkpoint/resume .npz (io/state)
     catch_up: int = 0        # zero-span blocks per dispatch (0/1 = serial)

@@ -26,6 +26,8 @@ from typing import Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from kspecanal_tpu_torch.utils.profiling import wait
+
 Planes = Tuple[np.ndarray, np.ndarray]
 
 # Chunked-read unit mirroring gSdrReadUnit = 2**18 (kspecanal.py:311).
@@ -532,7 +534,8 @@ class DeviceSynthIQSource:
 
     def read(self, n: int):
         re, im = self.read_device_batch(1, n)
-        return re[0].cpu().numpy(), im[0].cpu().numpy()
+        with wait("device_source"):
+            return re[0].cpu().numpy(), im[0].cpu().numpy()
 
     def retune(self, center_freq, sample_rate, gain) -> bool:
         self.center_freq = center_freq
@@ -578,7 +581,9 @@ class DeviceNoiseIQSource:
 
     def read(self, n: int):
         re, im = self.read_device_batch(1, n)
-        return tuple(p[0].cpu().numpy().astype(np.float32) - np.float32(127.0)
+        with wait("device_source"):
+            re, im = re[0].cpu().numpy(), im[0].cpu().numpy()
+        return tuple(p.astype(np.float32) - np.float32(127.0)
                      for p in (re, im))
 
     def retune(self, center_freq, sample_rate, gain) -> bool:

@@ -21,6 +21,7 @@ from kspecanal_tpu_torch.config import CUMU_AVG, HEATMAP_ROWS, SpecConfig, \
 from kspecanal_tpu_torch.ops import dsp
 from kspecanal_tpu_torch.ops.spectrum import (curscan_auto_batched,
                                               decode_u8, psd_welch)
+from kspecanal_tpu_torch.utils.profiling import span, wait
 
 
 class ZeroSpanState(NamedTuple):
@@ -134,8 +135,10 @@ def zero_span_step(state: ZeroSpanState, iq_re: torch.Tensor,
     if cfg.b_use_psd:
         spectrum = psd_welch(decode_u8(iq_re), decode_u8(iq_im), cfg)
     else:
-        spectrum = curscan_auto_batched(iq_re[None], iq_im[None], cfg)[0]
-    return display_update(state, spectrum, cfg, adj)
+        with span("curscan"):
+            spectrum = curscan_auto_batched(iq_re[None], iq_im[None], cfg)[0]
+    with span("display"):
+        return display_update(state, spectrum, cfg, adj)
 
 
 def zero_span_steps(state: ZeroSpanState, iq_re: torch.Tensor,
@@ -152,8 +155,10 @@ def zero_span_steps(state: ZeroSpanState, iq_re: torch.Tensor,
     if cfg.b_use_psd:
         spec_lin = psd_welch(decode_u8(iq_re), decode_u8(iq_im), cfg)
     else:
-        spec_lin = curscan_auto_batched(iq_re, iq_im, cfg)
-    return display_updates(state, spec_lin, cfg, adj, with_view)
+        with span("curscan"):
+            spec_lin = curscan_auto_batched(iq_re, iq_im, cfg)
+    with span("display"):
+        return display_updates(state, spec_lin, cfg, adj, with_view)
 
 
 def zero_span_steps_u8(state: ZeroSpanState, raw: torch.Tensor,
@@ -177,7 +182,9 @@ def display_updates(state: ZeroSpanState, spec_lin: torch.Tensor,
                                cfg.zero_span_disp_proc, gain=cfg.gain)
 
     def weights(w):
-        return torch.as_tensor(w, dtype=dbs.dtype).to(dbs.device)
+        host = torch.as_tensor(w, dtype=dbs.dtype)
+        with wait("display_weights"):   # a pageable copy: the host waits
+            return host.to(dbs.device)
 
     def fold(cur, mode, enabled, bit):
         if not enabled:

@@ -28,6 +28,7 @@ from kspecanal_tpu_torch.config import (
     CUMU_RAW,
     conv_kernel,
 )
+from kspecanal_tpu_torch.utils.profiling import wait
 
 # ---------------------------------------------------------------------------
 # data_proc transforms (kspecanal.py:88-121)
@@ -69,7 +70,9 @@ def conv_smooth(vals: torch.Tensor) -> torch.Tensor:
     """Smooth each row with the kaiser(128, 64) kernel, numpy's 'same'
     length, then overwrite the first/last 12 points with the row mean
     (kspecanal.py:113-120)."""
-    kern = torch.as_tensor(conv_kernel(), dtype=vals.dtype, device=vals.device)
+    kern = torch.as_tensor(conv_kernel(), dtype=vals.dtype)
+    with wait("conv_kernel"):   # a pageable copy: the host waits
+        kern = kern.to(vals.device)
     n, m = vals.shape[-1], kern.shape[0]
     rows = vals.reshape(-1, 1, n)
     # conv1d correlates; flipping the kernel makes it numpy's convolve.

@@ -7,9 +7,11 @@ reads a u8 capture file (64 blocks of random bytes, wrapping), with
 ``tpuCatchUp`` batches of ``catch_up`` blocks, after a warm-up session of
 one batch.  The port's ``StageTimer`` splits it:
 
-  main thread    acquire (waiting for the batch), dsp, render, drain
+  main thread    acquire (with wait.acquire_worker, waiting for the
+                 batch), dsp, render, wait.drain (the final read-back)
   worker thread  acquire.read (source pops), acquire.split (deinterleave),
-                 acquire.xfer (pinned upload on the copy stream)
+                 acquire.xfer (pinned upload on the copy stream, with
+                 wait.upload for its own copy)
 
 The worker overlaps the main thread, so the two columns are not summed:
 each must account for its own thread's time.  The table gives each
@@ -39,7 +41,7 @@ from kspecanal_tpu_torch.config import WINDOW_KAISER, SpecConfig
 from kspecanal_tpu_torch.io import sources
 from kspecanal_tpu_torch.utils.profiling import card_line, require_cuda
 
-MAIN_STAGES = ("acquire", "dsp", "render", "drain")
+MAIN_STAGES = ("acquire", "dsp", "render", "wait.drain")
 WORKER_STAGES = ("acquire.read", "acquire.split", "acquire.xfer")
 
 
@@ -87,15 +89,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         os.unlink(path)
     total = args.n_iters * cfg.full_size
     print(f"wall {wall:.3f} s = {total / wall / 1e6:.1f} Msamp/s", flush=True)
-    times = sess.timer.times
     out: Dict[str, float] = {"wall": wall}
     for group, names in (("main", MAIN_STAGES), ("worker", WORKER_STAGES)):
         tot = 0.0
         for name in names:
-            st = sum(times.get(name, []))
+            st = sess.timer.total(name)
             out[name] = st
             tot += st
-            rate = sess.timer.samples.get(name, 0) / st / 1e6 if st else 0.0
+            rate = sess.timer.rate(name) / 1e6
             print(f"  [{group}] {name:14s} {st:8.3f} s {st / wall:6.1%} of "
                   f"wall ({rate:.1f} Msamp/s)", flush=True)
         print(f"  [{group}] TOTAL          {tot:8.3f} s {tot / wall:6.1%} of "

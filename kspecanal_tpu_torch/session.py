@@ -35,7 +35,7 @@ from kspecanal_tpu_torch.io.replay import (ZeroSpanPlayer, ZeroSpanRecorder,
                                            load_sig_lvls, save_sig_lvls)
 from kspecanal_tpu_torch.io.sources import IQSource, split_u8_planes
 from kspecanal_tpu_torch.utils.logging import log_info, log_iter, log_warn
-from kspecanal_tpu_torch.utils.profiling import StageTimer
+from kspecanal_tpu_torch.utils.profiling import StageTimer, installed
 from kspecanal_tpu_torch.io.prefetch import SweepPrefetcher
 from kspecanal_tpu_torch.models import scan as scan_mod
 from kspecanal_tpu_torch.models import zerospan as zs
@@ -71,8 +71,7 @@ class Session:
         self.stop = False            # cmd.stop analog (kspecanal.py:970)
         self.adj: Optional[np.ndarray] = None   # Fft.Adj baseline
         self.final_avg: Optional[np.ndarray] = None
-        self.iter_times: list = []
-        self.timer = StageTimer()    # per-stage wall/throughput accounting
+        self.timer = StageTimer()    # host time by stage and wait site
         self.state_file = state_file  # checkpoint/resume (io/state)
         if cfg.adj_sig_lvls:
             self._load_baseline()
@@ -158,7 +157,8 @@ class Session:
         if self.renderer is None:
             return
         cfg = self.cfg
-        view = type(view)(*(v.cpu().numpy() for v in view))
+        with self.timer.wait("emit"):
+            view = type(view)(*(v.cpu().numpy() for v in view))
         peaks = []
         if with_peaks and cfg.b_plt_levels:
             lvls = None
@@ -180,14 +180,23 @@ class Session:
                     print("plotHighs:Marked: {}, {}".format(p.freq, p.level))
         self.renderer(self, view, peaks, iteration, timestamp_str)
 
+    def _drain(self, state) -> None:
+        """Read the final average back, which waits for every queued
+        step."""
+        with self.timer.wait("drain"):
+            self.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+
 
 # ---------------------------------------------------------------------------
 # Zero-span (kspecanal.py:426-506)
 # ---------------------------------------------------------------------------
 
 def _to_device(sess: Session, re: np.ndarray, im: np.ndarray):
-    return (torch.from_numpy(re).to(sess.device),
-            torch.from_numpy(im).to(sess.device))
+    """Host planes to ``sess.device``: pageable copies, which the host
+    waits for."""
+    with sess.timer.wait("upload"):
+        return (torch.from_numpy(re).to(sess.device),
+                torch.from_numpy(im).to(sess.device))
 
 
 def run_zero_span(sess: Session, max_iters: Optional[int] = None
@@ -218,30 +227,31 @@ def run_zero_span(sess: Session, max_iters: Optional[int] = None
     for i in range(n):
         if sess.stop:
             break
-        cur = time.time()
-        sess.iter_times.append(cur - prev)
-        log_iter(f"ZeroSpan:{i}:{cur - prev}")  # kspecanal.py:462
-        prev = cur
-        with sess.timer.stage("acquire", cfg.full_size):
-            if raw_read is not None:
-                re, im = split_u8_planes(raw_read(cfg.full_size))
-            else:
-                re, im = sess.source.read(cfg.full_size)
-            re, im = _to_device(sess, re, im)
-        if getattr(sess.source, "exhausted", False):
-            # A non-wrapping file ran dry: finish this (padded) block, stop.
-            log_warn("zeroSpan: source exhausted; stopping")
-            sess.stop = True
-        with sess.timer.stage("dsp", cfg.full_size):
-            if raw_read is not None:   # u8: the batched step at K=1
-                state, view = zs.zero_span_steps(state, re[None], im[None],
-                                                 cfg, adj)
-            else:
-                state, view = zs.zero_span_step(state, re, im, cfg, adj)
-        with sess.timer.stage("render"):
-            sess._emit(view, i)
-        cfg = sess._apply_pending_toggles(cfg)
-    sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+        with sess.timer.stage("step"):
+            cur = time.time()
+            log_iter("ZeroSpan:%s:%s", i, cur - prev)  # kspecanal.py:462
+            prev = cur
+            with sess.timer.stage("acquire", cfg.full_size):
+                if raw_read is not None:
+                    re, im = split_u8_planes(raw_read(cfg.full_size))
+                else:
+                    re, im = sess.source.read(cfg.full_size)
+                re, im = _to_device(sess, re, im)
+            if getattr(sess.source, "exhausted", False):
+                # A non-wrapping file ran dry: finish this (padded) block,
+                # stop.
+                log_warn("zeroSpan: source exhausted; stopping")
+                sess.stop = True
+            with sess.timer.stage("dsp", cfg.full_size):
+                if raw_read is not None:   # u8: the batched step at K=1
+                    state, view = zs.zero_span_steps(state, re[None],
+                                                     im[None], cfg, adj)
+                else:
+                    state, view = zs.zero_span_step(state, re, im, cfg, adj)
+            with sess.timer.stage("render"):
+                sess._emit(view, i)
+            cfg = sess._apply_pending_toggles(cfg)
+    sess._drain(state)
     sess._checkpoint_state(state, cfg)
     return state
 
@@ -261,8 +271,7 @@ def _run_zero_span_sharded(sess: Session, state, adj, n: int):
         re = im = None
         if root:
             cur = time.time()
-            sess.iter_times.append(cur - prev)
-            log_iter(f"ZeroSpan:{i}:{cur - prev}")
+            log_iter("ZeroSpan:%s:%s", i, cur - prev)
             prev = cur
             with sess.timer.stage("acquire", cfg.full_size):
                 re, im = _to_device(sess, *sess.source.read(cfg.full_size))
@@ -277,7 +286,7 @@ def _run_zero_span_sharded(sess: Session, state, adj, n: int):
             with sess.timer.stage("render"):
                 sess._emit(view, i)
     if root:
-        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+        sess._drain(state)
         sess._checkpoint_state(state, cfg)
     return state
 
@@ -311,7 +320,8 @@ def _upload(sess: Session, copy_stream, re: np.ndarray, im: np.ndarray):
         out = tuple(p.to(sess.device, non_blocking=True) for p in pinned)
         done = torch.cuda.Event()
         done.record(copy_stream)
-    done.synchronize()
+    with sess.timer.wait("upload"):
+        done.synchronize()
     return out
 
 
@@ -370,44 +380,44 @@ def _run_zero_span_catchup(sess: Session, state: zs.ZeroSpanState, adj,
     prev = time.time()
     try:
         while done < n and not sess.stop:
-            k = min(cap, n - done)
-            cur = time.time()
-            sess.iter_times.append(cur - prev)
-            log_iter(f"ZeroSpan:{done}:{cur - prev}")
-            prev = cur
-            with sess.timer.stage("acquire", k * cfg.full_size):
-                if pending is not None:
-                    payload, k = pending[0].result(), pending[1]
-                    pending = None
-                else:
-                    payload = acquire(k)
-                payload = _adopt(payload, copy_stream)
-            if getattr(sess.source, "exhausted", False):
-                log_warn("zeroSpan: source exhausted; stopping")
-                sess.stop = True
-            nxt = min(cap, n - done - k)
-            if ex is not None and nxt > 0 and not sess.stop:
-                pending = (ex.submit(acquire, nxt), nxt)
-            with sess.timer.stage("dsp", k * cfg.full_size):
-                state, view = zs.zero_span_steps(state, payload[0],
-                                                 payload[1], cfg, adj,
-                                                 want_view)
-            done += k
-            with sess.timer.stage("render"):
-                sess._emit(view, done - 1)
-            new_cfg = sess._apply_pending_toggles(cfg)
-            if new_cfg is not cfg:
-                cfg = new_cfg
-                want_view = sess.renderer is not None
+            with sess.timer.stage("step"):
+                k = min(cap, n - done)
+                cur = time.time()
+                log_iter("ZeroSpan:%s:%s", done, cur - prev)
+                prev = cur
+                with sess.timer.stage("acquire", k * cfg.full_size):
+                    if pending is not None:
+                        with sess.timer.wait("acquire_worker"):
+                            payload = pending[0].result()
+                        k, pending = pending[1], None
+                    else:
+                        payload = acquire(k)
+                    payload = _adopt(payload, copy_stream)
+                if getattr(sess.source, "exhausted", False):
+                    log_warn("zeroSpan: source exhausted; stopping")
+                    sess.stop = True
+                nxt = min(cap, n - done - k)
+                if ex is not None and nxt > 0 and not sess.stop:
+                    pending = (ex.submit(acquire, nxt), nxt)
+                with sess.timer.stage("dsp", k * cfg.full_size):
+                    state, view = zs.zero_span_steps(state, payload[0],
+                                                     payload[1], cfg, adj,
+                                                     want_view)
+                done += k
+                with sess.timer.stage("render"):
+                    sess._emit(view, done - 1)
+                new_cfg = sess._apply_pending_toggles(cfg)
+                if new_cfg is not cfg:
+                    cfg = new_cfg
+                    want_view = sess.renderer is not None
     finally:
         if pending is not None:
             pending[0].cancel()
         if ex is not None:
             ex.shutdown(wait=True)
-    # Reading the final state back waits for every queued step: its own
-    # stage, so the tail shows in the accounting.
-    with sess.timer.stage("drain"):
-        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    # The final read waits for every queued step: its own wait site, so
+    # the tail shows in the accounting.
+    sess._drain(state)
     sess._checkpoint_state(state, cfg)
     return state
 
@@ -437,10 +447,9 @@ def run_zero_span_save(sess: Session, max_iters: Optional[int] = None) -> int:
         while written < n and not sess.stop:
             k = min(chunk, n - written)
             cur = time.time()
-            sess.iter_times.append(cur - prev)
             # One line a chunk, the counterpart of the reference's line a
             # frame (kspecanal.py:519-522).
-            log_iter(f"ZeroSpanSave:{written}:{cur - prev}")
+            log_iter("ZeroSpanSave:%s:%s", written, cur - prev)
             prev = cur
             with sess.timer.stage("acquire", k * cfg.full_size):
                 # Each frame keeps its own capture time (kspecanal.py:516-
@@ -542,7 +551,7 @@ def run_zero_span_play(sess: Session, max_iters: Optional[int] = None
                 cfg = new_cfg
                 want_view = sess.renderer is not None
     if state is not None:
-        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+        sess._drain(state)
     return state
 
 
@@ -678,8 +687,7 @@ def _run_scan_loop(sess: Session, state: scan_mod.ScanState, adj,
         if sess.stop:
             break
         cur = time.time()
-        sess.iter_times.append(cur - prev)
-        log_iter(f"scanRange:{i}:{cur - prev}")  # kspecanal.py:723
+        log_iter("scanRange:%s:%s", i, cur - prev)  # kspecanal.py:723
         prev = cur
         with sess.timer.stage("acquire", samples):
             sweep = next_sweep()
@@ -716,7 +724,7 @@ def _run_scan_loop(sess: Session, state: scan_mod.ScanState, adj,
         # The Max/Min toggles reach the sweep fold itself (the reference
         # reads bDataMax/bDataMin per band, kspecanal.py:651-662).
         cfg = sess._apply_pending_toggles(cfg)
-    sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    sess._drain(state)
     sess._checkpoint_state(state, cfg)
     return state
 
@@ -741,8 +749,7 @@ def _run_scan_sharded(sess: Session, state, adj, plan: scan_mod.ScanPlan,
             re = im = oks = None
             if root:
                 cur = time.time()
-                sess.iter_times.append(cur - prev)
-                log_iter(f"scanRange:{i}:{cur - prev}")
+                log_iter("scanRange:%s:%s", i, cur - prev)
                 prev = cur
                 with sess.timer.stage("acquire", samples):
                     sweep = (pf.get() if pf is not None
@@ -765,7 +772,7 @@ def _run_scan_sharded(sess: Session, state, adj, plan: scan_mod.ScanPlan,
         if pf is not None:
             pf.close()
     if root:
-        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+        sess._drain(state)
         sess._checkpoint_state(state, cfg)
     return state
 
@@ -793,8 +800,7 @@ def _run_scan_catchup(sess: Session, state: scan_mod.ScanState, adj,
             s = min(sess.catch_up, _SCAN_BATCH_CAP, n - done)
             samples = s * plan.num_bands * cfg.full_size
             cur = time.time()
-            sess.iter_times.append(cur - prev)
-            log_iter(f"scanRange:{done}:{cur - prev}")
+            log_iter("scanRange:%s:%s", done, cur - prev)
             prev = cur
             with sess.timer.stage("acquire", samples):
                 if pf is not None:
@@ -822,9 +828,7 @@ def _run_scan_catchup(sess: Session, state: scan_mod.ScanState, adj,
     finally:
         if pf is not None:
             pf.close()
-    # Reading the final state back waits for every queued step.
-    with sess.timer.stage("drain"):
-        sess.final_avg = state.fft_avg.cpu().numpy().astype(np.float64)
+    sess._drain(state)
     sess._checkpoint_state(state, cfg)
     return state
 
@@ -839,10 +843,8 @@ def do_run(sess: Session, max_iters: Optional[int] = None):
     mode = sess.cfg.prg_mode
     if mode in (MODE_ZEROSPANSAVE, MODE_ZEROSPANPLAY) and not sess.is_root:
         return None
-    if mode == MODE_SCAN:
-        return run_scan(sess, max_iters)
-    if mode == MODE_ZEROSPANSAVE:
-        return run_zero_span_save(sess, max_iters)
-    if mode == MODE_ZEROSPANPLAY:
-        return run_zero_span_play(sess, max_iters)
-    return run_zero_span(sess, max_iters)
+    run = {MODE_SCAN: run_scan, MODE_ZEROSPANSAVE: run_zero_span_save,
+           MODE_ZEROSPANPLAY: run_zero_span_play}.get(mode, run_zero_span)
+    # Wait sites without a session handle record into this session's timer.
+    with installed(sess.timer):
+        return run(sess, max_iters)

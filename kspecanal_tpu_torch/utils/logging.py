@@ -45,8 +45,9 @@ def set_iter_logging(enabled: bool) -> None:
     _iter_logging = bool(enabled)
 
 
-def log_iter(msg: str) -> None:
-    """Per-iteration timing line, bare (no level prefix) for output
-    parity with the reference's prints."""
+def log_iter(fmt: str, *args) -> None:
+    """Per-iteration timing line ``fmt % args``, bare (no level prefix)
+    for output parity with the reference's prints; built only while
+    iteration logging is on."""
     if _iter_logging:
-        logger.info("%s", msg)
+        logger.info(fmt, *args)

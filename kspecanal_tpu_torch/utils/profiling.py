@@ -1,12 +1,20 @@
 """Tracing of the port's sessions — the counterpart of
 ``kspecanal_tpu.utils.profiling``.
 
-  * :class:`StageTimer` is a copy of the JAX package's (per-stage wall
-    times and samples/s rates);
+  * :func:`span` puts a ``torch.profiler`` range named ``kspec.<name>``
+    around a block; while no profiler records it costs one flag check and
+    calls nothing of torch's RecordFunction;
+  * :class:`StageTimer` counts and totals the host time of a session
+    loop's stages and of its waits (``timer.wait(site)``: the host blocked
+    on the card or on the acquire worker), each inside its own span
+    (``kspec.<stage>``, ``kspec.wait.<site>``); :func:`wait` is the wait
+    site of code without a session handle, recorded into the timer a
+    session installs (:func:`installed`);
   * :func:`trace` wraps a block in ``torch.profiler`` (CPU and CUDA
     activities), writes a Chrome trace into the directory given (``tpuProfile
     <dir>`` on the CLI, or ``KSPEC_TRACE_DIR``) and logs the card's busy
-    share of the traced window, :func:`device_busy_share`;
+    share of the traced window, :func:`device_busy_share`: the card's time
+    per layer is read from that trace, never from :class:`StageTimer`;
   * :func:`cuda_ms`, :func:`cuda_ms_each` and :func:`card_line` time work
     on the card and name the card for the forensics scripts
     (``kspecanal_tpu_torch/scripts``).
@@ -14,47 +22,110 @@
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import statistics
 import subprocess
 import time
-from collections import defaultdict
-from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
-                    Tuple)
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 from kspecanal_tpu_torch.utils.logging import log_info
 
+SPAN_PREFIX = "kspec."
+WAIT = "wait."
+_NO_SPAN = contextlib.nullcontext()
+_clock = time.perf_counter
+
+
+def span(name: str):
+    """A profiler range ``kspec.<name>`` around a ``with`` block, in the
+    same trace as the card's operations; a shared no-op while no profiler
+    records."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+class _Timed:
+    """One stage or wait of a :class:`StageTimer`: host seconds from entry
+    to exit, inside its span, added to ``st``, the stage's ``[count,
+    total s, longest s, samples]``."""
+    __slots__ = ("st", "name", "samples", "rf", "t0")
+
+    def __init__(self, st: list, name: str, samples: int):
+        self.st, self.name, self.samples = st, name, samples
+
+    def __enter__(self) -> None:
+        if _profiler_enabled():
+            self.rf = torch.profiler.record_function(SPAN_PREFIX + self.name)
+            self.rf.__enter__()
+        else:
+            self.rf = None
+        self.t0 = _clock()
+
+    def __exit__(self, et, ev, tb) -> bool:
+        dt = _clock() - self.t0
+        if self.rf is not None:
+            self.rf.__exit__(et, ev, tb)
+        st = self.st
+        st[0] += 1
+        st[1] += dt
+        if dt > st[2]:
+            st[2] = dt
+        st[3] += self.samples
+        return False
+
 
 class StageTimer:
-    """Per-stage wall-clock + throughput accounting."""
+    """Host time of a session loop, by stage: a count, a total and the
+    longest of each, and samples/s rates.  A stage times the host's own
+    work on it, the enqueue of the card's work and any wait inside it
+    (``dsp`` is the enqueue plus the waits inside it); each wait is also
+    kept on its own line, ``wait.<site>``.  The card's time per layer
+    comes from the ``tpuProfile`` trace."""
 
     def __init__(self):
-        self.times: Dict[str, List[float]] = defaultdict(list)
-        self.samples: Dict[str, int] = defaultdict(int)
+        # name -> [count, total s, longest s, samples]
+        self.stats: Dict[str, list] = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str, samples: int = 0) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times[name].append(time.perf_counter() - t0)
-            self.samples[name] += samples
+    def stage(self, name: str, samples: int = 0) -> _Timed:
+        """Time a ``with`` block as stage ``name``, in span
+        ``kspec.<name>``."""
+        st = self.stats.get(name)
+        if st is None:
+            st = self.stats.setdefault(name, [0, 0.0, 0.0, 0])
+        return _Timed(st, name, samples)
+
+    def wait(self, site: str) -> _Timed:
+        """Time a ``with`` block in which the host waits (for the card or
+        a worker thread) as ``wait.<site>``, in span
+        ``kspec.wait.<site>``."""
+        return self.stage(WAIT + site)
+
+    def count(self, name: str) -> int:
+        """Times stage (or ``wait.<site>``) ``name`` ran."""
+        return self.stats.get(name, (0,))[0]
+
+    def total(self, name: str) -> float:
+        """Host seconds of stage (or ``wait.<site>``) ``name``."""
+        return self.stats.get(name, (0, 0.0))[1]
 
     def rate(self, name: str) -> float:
         """Samples/s over everything recorded for a stage."""
-        total = sum(self.times[name])
-        return self.samples[name] / total if total else 0.0
+        _, total, _, samples = self.stats.get(name, (0, 0.0, 0.0, 0))
+        return samples / total if total else 0.0
 
     def report(self) -> str:
-        lines = []
-        for name, ts in self.times.items():
-            total = sum(ts)
-            line = (f"{name}: n={len(ts)} total={total:.3f}s "
-                    f"mean={total / len(ts) * 1e3:.2f}ms")
-            if self.samples[name]:
+        lines = ["host time by stage (the card's time is in the tpuProfile "
+                 "trace); a stage includes the waits inside it:"]
+        for name in sorted(self.stats, key=lambda k: k.startswith(WAIT)):
+            n, total, longest, samples = self.stats[name]
+            line = (f"{name}: n={n} total={total * 1e3:.3f}ms "
+                    f"mean={total / n * 1e3:.3f}ms max={longest * 1e3:.3f}ms")
+            if samples:
                 line += f" rate={self.rate(name) / 1e6:.2f} Msamp/s"
             lines.append(line)
         return "\n".join(lines)
@@ -62,6 +133,30 @@ class StageTimer:
     def log_report(self):
         for line in self.report().splitlines():
             log_info(f"profile: {line}")
+
+
+_installed: contextvars.ContextVar[Optional[StageTimer]] = (
+    contextvars.ContextVar("kspec_stage_timer", default=None))
+
+
+@contextlib.contextmanager
+def installed(timer: StageTimer) -> Iterator[StageTimer]:
+    """Make ``timer`` the one that :func:`wait` records into while the
+    block runs (a session loop installs its own)."""
+    token = _installed.set(timer)
+    try:
+        yield timer
+    finally:
+        _installed.reset(token)
+
+
+def wait(site: str):
+    """The wait site ``site`` of code without a session handle: recorded
+    into the installed :class:`StageTimer`, else the span alone."""
+    timer = _installed.get()
+    if timer is not None:
+        return timer.stage(WAIT + site)
+    return span(WAIT + site)
 
 
 def cuda_ms(fn: Callable[[], object], warm: int = 3, reps: int = 10) -> float:

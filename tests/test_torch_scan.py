@@ -241,7 +241,9 @@ def test_run_scan_synth_matches_jax(kw):
     ts_, tstate = run_both(cfg, lambda: SynthIQSource(
         sample_rate=cfg.sampling_rate, seed=41), span_db=30.0, **kw)
     assert int(tstate.sweep) == 4
-    assert len(ts_.iter_times) == {0: 4, 2: 2, 3: 2}[kw.get("catch_up", 0)]
+    # one acquire a step: a sweep, or a batch of catch-up sweeps
+    assert ts_.timer.count("acquire") == {0: 4, 2: 2, 3: 2}[
+        kw.get("catch_up", 0)]
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(catch_up=2),

@@ -55,7 +55,7 @@ def test_run_zero_span_synth_matches_jax(catch_up):
     under the peak; 1e-3 dB holds for bins within 30 dB of the peak."""
     ts = run_both(lambda: SynthIQSource(CFG.center_freq, CFG.sampling_rate,
                                         seed=21), catch_up, span_db=30.0)
-    assert len(ts.iter_times) == (4 if catch_up == 0 else 1)
+    assert ts.timer.count("step") == (4 if catch_up == 0 else 1)
 
 
 @pytest.mark.parametrize("catch_up", [0, 4], ids=["serial", "catchup4"])
