@@ -22,6 +22,10 @@ Phases (any failure raises; the exit code is then non-zero):
      nvcc per source and build, all in parallel), with ptxas'
      register/shared-memory report and the time the forensic builds'
      compiles took;
+ 2b. the display fold kernel (``csrc/display_fold.cu``) against its plain
+     version at both benchmark cells' shapes (K=4096 x fft 2048, K=512 x
+     fft 16384), and its times cold and warm beside its bound and the
+     plain chain's;
   3. K1 against its plain version (``torch.fft``) run in float64 on the
      same planes: the FFT kernel at the zero-span path's config (fft 2048,
      kaiser, 50% overlap, 2.4 Msps) in all four cumulate modes, fft 2048 at
@@ -64,11 +68,14 @@ Phases (any failure raises; the exit code is then non-zero):
      2.4 Msps IQ made on the card) in chunks of 1024, against the plain
      path on the same data;
   6. the zero-span path: ``kspecanal_tpu_torch.cli.main`` serial, catch-up
-     and on a u8 capture file at fft 2048, serial at fft 65536 (eight
-     blocks of 8192 a window), at fft 1280 and at fft 20480 (the mixed-radix form, in
-     one block and in a cluster of two); every run must launch the FFT
-     kernel and never the direct kernel, and put the synth peaks of its
-     final average on 91/92/93 MHz;
+     and on a u8 capture file at fft 2048, catch-up at fft 16384, serial
+     at fft 65536 (eight blocks of 8192 a window), at fft 1280 and at fft
+     20480 (the mixed-radix form, in one block and in a cluster of two);
+     every run must launch the FFT kernel and never the direct kernel, and
+     put the synth peaks of its final average on 91/92/93 MHz; every
+     catch-up run must launch the display fold kernel, and no step may
+     take the plain display chain on the card (``display_fold``'s
+     launches in the kernels line are these sessions');
  6b. K3's sizes through ``cli.main``: zeroSpan at fft 3000 serial and at
      fft 10000 with ``tpuCatchUp 16``, ``zeroSpanSave`` at fft 3000 from a
      u8 capture file and ``zeroSpanPlay`` of that recording, and a
@@ -750,9 +757,15 @@ def load_avg(path):
 
 
 def phase_sessions(cc, cli, tmp):
-    """The zero-span path through the entry point.  Returns the FFT
-    kernel's launches by fft (2048, 65536, 1280, 20480)."""
+    """The zero-span path through the entry point.  Every catch-up or u8
+    session folds its display half in the display fold kernel
+    (``models/zerospan.display_updates``): its launches rise and no step
+    takes the plain chain on the card.  Returns the FFT kernel's launches
+    by fft (2048, 16384, 65536, 1280, 20480) and the display fold kernel's
+    by fft (2048, 16384)."""
     from kspecanal_tpu_torch.cli import parse_args
+    from kspecanal_tpu_torch.models import zerospan as zs
+    from kspecanal_tpu_torch.ops import cuda_display as cd
     cfg = cfg_of()
     cap = os.path.join(tmp, "capture.iq")
     write_capture(cap, cfg, 64 * cfg.full_size, seed=7)
@@ -761,6 +774,8 @@ def phase_sessions(cc, cli, tmp):
                                   "tpuCatchUp", "128"], 512),
             ("u8 file", "2048", ["tpuSource", f"file:{cap}", "prgLoopCnt",
                                  "64", "tpuCatchUp", "16"], 64),
+            ("catch-up", "16384", ["tpuSource", "synth", "prgLoopCnt", "64",
+                                   "tpuCatchUp", "16"], 64),
             ("serial, 8 blocks of 8192 a window", "65536",
              ["tpuSource", "synth", "prgLoopCnt", "4"], 4),
             ("serial, the mixed-radix kernel in one block", "1280",
@@ -768,13 +783,15 @@ def phase_sessions(cc, cli, tmp):
             ("serial, the mixed-radix kernel in a cluster of 2", "20480",
              ["tpuSource", "synth", "prgLoopCnt", "4"], 4)]
     print("== zero-span sessions through kspecanal_tpu_torch.cli.main")
-    cc.launches = cc.direct_launches = 0
-    launches = {}
+    cc.launches = cc.direct_launches = cd.launches = 0
+    plain_before = zs.plain_cuda_steps
+    launches, display = {}, {}
     for name, fft, args, iters in runs:
         args = ZS_ARGS + ["fftSize", fft] + args
         run_cfg = parse_args(args)[0]
         lvls = os.path.join(tmp, f"lvls_{len(launches)}.bin")
         before = counts(cc)
+        folds = cd.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(args + ["tpuHeadless", "true", "saveSigLvls", lvls])
@@ -791,18 +808,26 @@ def phase_sessions(cc, cli, tmp):
         on = len(peaks) == 3 and all(abs(p - w) <= cell
                                      for p, w in zip(peaks, PEAKS_HZ))
         fft_n, direct_n = (a - b for a, b in zip(counts(cc), before))
+        fold_n = cd.launches - folds
         print(f"  fft {fft} {name}: {iters} iterations in {dt:.3f} s "
               f"({iters * run_cfg.full_size / dt / 1e6:.2f} Msamp/s end to "
               f"end, host source included), launches FFT kernel {fft_n} "
-              f"direct kernel {direct_n}, peaks "
+              f"direct kernel {direct_n} display fold {fold_n}, peaks "
               f"{[round(p / 1e6, 4) for p in peaks]} MHz "
               f"{'PASS' if on else 'FAIL'}")
         check(cc.kernel_route(run_cfg) == "fft" and fft_n > 0
               and direct_n == 0,
               f"fft {fft} {name} session launched the FFT kernel (only)")
         check(on, f"fft {fft} {name} peaks on 91/92/93 MHz")
+        if "tpuCatchUp" in args:
+            check(fold_n > 0, f"fft {fft} {name} session launched the "
+                  "display fold kernel")
+            display[fft] = display.get(fft, 0) + fold_n
         launches[fft] = launches.get(fft, 0) + fft_n
-    return launches
+    check(zs.plain_cuda_steps == plain_before,
+          f"no zero-span session step took the plain display chain on the "
+          f"card ({zs.plain_cuda_steps - plain_before} did)")
+    return launches, display
 
 
 def phase_lane_sessions(cc, cli, tmp):
@@ -2371,6 +2396,73 @@ def phase_split(cc, spec, cli, gen, gpu, tmp):
     return errs, times, launches
 
 
+def phase_display(gpu):
+    """The display fold kernel (``csrc/display_fold.cu``) at both
+    benchmark cells' shapes (K=4096 x fft 2048, K=512 x fft 16384;
+    LogNoGain, MAX heatmap, every curve seeded): each checked against its
+    plain version (max, min, cur, the heatmap and the counters
+    bit-identical, the average within 1e-3 dB), then timed alone on the
+    card: 8 calls captured in one CUDA graph, replayed between CUDA events
+    (median of 10), so the wrapper's host time drops out; beside its bound
+    (the spectra read once at 3.35 TB/s) and the plain chain's time
+    (``cuda_ms_each``; its copies wait for the host, so no graph).  Cold:
+    the calls read four spectra buffers in turn (128 MiB), so little of
+    each input is in the 50 MB L2; warm: one buffer again and again.
+    Returns each shape's numbers."""
+    from kspecanal_tpu_torch.models import zerospan as zs
+    from kspecanal_tpu_torch.ops import cuda_display as cd
+    from kspecanal_tpu_torch.utils.profiling import cuda_ms, cuda_ms_each
+
+    def graph_ms(calls):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for fn in calls:
+                fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for fn in calls:
+                fn()
+        return cuda_ms(graph.replay) / len(calls)
+    print(f"== display fold kernel vs plain ({gpu})")
+    rows = {}
+    for k, fft in ((4096, 2048), (512, 16384)):
+        cfg = cfg_of(fft)
+        gen = torch.Generator(device="cuda").manual_seed(k + fft)
+        specs = [torch.rand((k, fft), generator=gen, device="cuda") + 1e-6
+                 for _ in range(4)]
+        state = cd.display_fold_plain(zs.init_state(cfg, "cuda"), specs[1],
+                                      cfg)
+        before = cd.launches
+        got = cd.display_fold(state, specs[0], cfg)
+        want = cd.display_fold_plain(state, specs[0], cfg)
+        torch.cuda.synchronize()
+        check(cd.launches == before + 2, f"display fold {k}x{fft}: two "
+              "launches")
+        for key in ("fft_max", "fft_min", "fft_cur", "heatmap", "hm_index",
+                    "iteration", "seeded"):
+            check(torch.equal(getattr(got, key), getattr(want, key)),
+                  f"display fold {k}x{fft}: {key} bit-identical to plain")
+        err = float((got.fft_avg - want.fft_avg).abs().max())
+        check(err <= 1e-3, f"display fold {k}x{fft}: avg within 1e-3 dB "
+              f"({err})")
+        cold = graph_ms([lambda x=x: cd.display_fold(state, x, cfg)
+                         for x in specs * 2])
+        warm = graph_ms([lambda: cd.display_fold(state, specs[0], cfg)] * 8)
+        turn = iter(range(1 << 30))
+        plain = cuda_ms_each(lambda: cd.display_fold_plain(
+            state, specs[next(turn) % 4], cfg))
+        bound_ms = k * fft * 4 / HBM_BYTES_PER_S * 1e3
+        print(f"  K={k} fft {fft}: kernel {cold:.4f} ms cold, {warm:.4f} "
+              f"warm; bound {bound_ms:.4f} ms (bytes), share "
+              f"{bound_ms / cold:.3f} cold; plain chain {plain:.4f} ms; "
+              f"avg vs plain {err:.3g} dB")
+        rows[k, fft] = {"ms": cold, "warm_ms": warm, "plain_ms": plain,
+                        "bound_ms": bound_ms, "max_abs_err": err}
+    return rows
+
+
 def phase_done(name, t0):
     now = time.perf_counter()
     print(f"-- {name}: {now - t0:.1f} s")
@@ -2428,6 +2520,8 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(20260817)
     t0 = time.perf_counter()
+    display = phase_display(gpu)
+    t0 = phase_done("display fold vs plain", t0)
     k1_errs = phase_kernels(cc, spec, gen)
     t0 = phase_done("K1 vs plain", t0)
     lane_err = phase_lane_kernels(cc, spec, gen)
@@ -2437,7 +2531,7 @@ def main():
     phase_stream(cc, st, gen)
     t0 = phase_done("stream", t0)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_sessions(cc, cli, tmp)
+        launches, display_launches = phase_sessions(cc, cli, tmp)
         t0 = phase_done("zero-span sessions", t0)
         lane_launches = phase_lane_sessions(cc, cli, tmp)
         t0 = phase_done("K3's sessions", t0)
@@ -2519,7 +2613,19 @@ def main():
                 "max_abs_err": err, "ms": ks, "plain_ms": ps,
                 "bound_ms": bms, "bound_by": by, "library_ms": None}
 
-    print(json.dumps({"kernels": [
+    display_rows = [
+        {"name": "display_fold", "route": "cuda",
+         "source": "kspecanal_tpu_torch/csrc/display_fold.cu",
+         "replaces": None,
+         "config": f"the zero-span display chain (no TPU kernel: XLA's "
+                   f"fusion in JAX), K={k} x fft {fft}, LogNoGain, MAX "
+                   f"heatmap, seeded; ms cold (warm_ms: input in L2); "
+                   f"launches over the zero-span catch-up and u8 sessions "
+                   f"at fft {fft} (phase 6)",
+         "launches": display_launches[str(fft)], **row,
+         "bound_by": "bytes", "library_ms": None}
+        for (k, fft), row in display.items()]
+    print(json.dumps({"kernels": display_rows + [
         k1("zero-span fft 2048 kaiser 50%, T=4096", "zero-span fft 2048 "
            "kaiser 50%", launches["2048"], k1_errs[2048]),
         k1("zero-span fft 65536 kaiser 50% (8 blocks of 8192 a window), "

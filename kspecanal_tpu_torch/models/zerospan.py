@@ -6,7 +6,10 @@ One iteration is a plain function ``(state, iq) -> (state', view)`` on
 tensors; state is a NamedTuple of tensors on one device.  The functions
 return new tensors and never update their inputs in place.  Every curscan,
 serial or batched, goes through ``curscan_auto_batched``, so on the card
-every zero-span route runs the CUDA kernel.
+every zero-span route runs the CUDA kernel; every batched display half
+(catch-up, the serial u8 path at K = 1, replay) goes through
+:func:`display_updates`, which on the card runs the display fold kernel
+(``ops/cuda_display``).
 """
 from __future__ import annotations
 
@@ -16,12 +19,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from kspecanal_tpu_torch.config import CUMU_AVG, HEATMAP_ROWS, SpecConfig, \
-    cumu_weights
-from kspecanal_tpu_torch.ops import dsp
+from kspecanal_tpu_torch.config import HEATMAP_ROWS, SpecConfig
+from kspecanal_tpu_torch.ops import cuda_display, dsp
 from kspecanal_tpu_torch.ops.spectrum import (curscan_auto_batched,
                                               decode_u8, psd_welch)
-from kspecanal_tpu_torch.utils.profiling import span, wait
+from kspecanal_tpu_torch.utils.profiling import span, tally
+
+# display_updates calls that took the plain chain on a CUDA tensor.
+plain_cuda_steps = 0
 
 
 class ZeroSpanState(NamedTuple):
@@ -71,11 +76,6 @@ def _freqs(cfg: SpecConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(f).to(device)
 
 
-def _seeded_bits(cfg: SpecConfig) -> int:
-    return ((1 if cfg.b_data_max else 0) | (2 if cfg.b_data_min else 0)
-            | (4 if cfg.b_data_avg else 0))
-
-
 def _view(cfg: SpecConfig, curves, adj, heatmap, spectrum) -> ZeroSpanView:
     """Baseline-adjust, edge-skip and compress the four curves."""
     if adj is not None:
@@ -108,7 +108,7 @@ def display_update(state: ZeroSpanState, spectrum_linear: torch.Tensor,
     fft_min = cumu(state.fft_min, "MIN", cfg.b_data_min, 2)
     fft_avg = cumu(state.fft_avg, "AVG", cfg.b_data_avg, 4)
     fft_cur = fft_pr
-    seeded = state.seeded | _seeded_bits(cfg)
+    seeded = state.seeded | cuda_display.seeded_bits(cfg)
 
     a_cur = fft_cur if adj is None else fft_cur - adj
     a_cur = dsp.skip_edge_bins(a_cur, cfg.tpu_edge_skip_bins)
@@ -176,56 +176,25 @@ def display_updates(state: ZeroSpanState, spec_lin: torch.Tensor,
                     with_view: bool = True):
     """K display-half iterations over ``spec_lin`` (K, fft_size) linear
     spectra: display transform, seeded curve folds and the heatmap ring,
-    identical to K sequential :func:`display_update` calls."""
-    k = spec_lin.shape[0]
-    dbs = dsp.fftvals_dispproc(spec_lin.to(torch.float32),
-                               cfg.zero_span_disp_proc, gain=cfg.gain)
+    identical to K sequential :func:`display_update` calls.
 
-    def weights(w):
-        host = torch.as_tensor(w, dtype=dbs.dtype)
-        with wait("display_weights"):   # a pageable copy: the host waits
-            return host.to(dbs.device)
-
-    def fold(cur, mode, enabled, bit):
-        if not enabled:
-            return cur
-        first = (state.seeded & bit) == 0
-        if mode == "MAX":
-            batch = dbs.amax(dim=0)
-            return torch.where(first, batch, torch.maximum(cur, batch))
-        if mode == "MIN":
-            batch = dbs.amin(dim=0)
-            return torch.where(first, batch, torch.minimum(cur, batch))
-        # AVG: seeded: prev*2^-K + sum w_i x_i with w_i = 2^-(K-i);
-        # first copy: the closed-form cumu_weights.
-        i = np.arange(k)
-        seeded_avg = dsp.decay_avg(
-            weights(2.0 ** -(k - i.astype(np.float64))), dbs, cur,
-            weights(np.float64(2.0) ** -k))
-        fresh_avg = dsp.decay_avg(weights(cumu_weights(CUMU_AVG, k)), dbs)
-        return torch.where(first, fresh_avg, seeded_avg)
-
-    fft_max = fold(state.fft_max, "MAX", cfg.b_data_max, 1)
-    fft_min = fold(state.fft_min, "MIN", cfg.b_data_min, 2)
-    fft_avg = fold(state.fft_avg, "AVG", cfg.b_data_avg, 4)
-    fft_cur = dbs[-1]
-    seeded = state.seeded | _seeded_bits(cfg)
-
-    disp = dbs if adj is None else dbs - adj[None, :]
-    disp = dsp.skip_edge_bins(disp, cfg.tpu_edge_skip_bins)
-    # After k sequential writes only the LAST min(k, HEATMAP_ROWS) rows
-    # remain in the ring; writing exactly those keeps every index distinct
-    # (index_put with repeated indices has no ordering guarantee).
-    kw = min(k, HEATMAP_ROWS)
-    rows = dsp.compress_1d(disp[k - kw:], cfg.plt_compress_hm, cfg.x_res)
-    ring_idx = (state.hm_index.long() + (k - kw)
-                + torch.arange(kw, device=dbs.device)) % HEATMAP_ROWS
-    heatmap = state.heatmap.index_put((ring_idx,), rows)
-    hm_index = (state.hm_index + k) % HEATMAP_ROWS
-
-    new_state = ZeroSpanState(fft_max, fft_min, fft_avg, fft_cur, heatmap,
-                              hm_index, state.iteration + k, seeded)
+    A CUDA tensor under a configuration the display kernel covers takes
+    ``cuda_display.display_fold`` (two launches, no host wait); anything
+    else the plain chain ``cuda_display.display_fold_plain``
+    (``plain_cuda_steps`` counts its calls on a CUDA tensor).  The
+    session's report counts each route as ``display.fold`` /
+    ``display.plain``."""
+    global plain_cuda_steps
+    if cuda_display.covers(cfg, spec_lin.device):
+        tally("display.fold")
+        new_state = cuda_display.display_fold(state, spec_lin, cfg, adj)
+    else:
+        if spec_lin.is_cuda:
+            plain_cuda_steps += 1
+        tally("display.plain")
+        new_state = cuda_display.display_fold_plain(state, spec_lin, cfg,
+                                                    adj)
     if not with_view:
         return new_state, None
-    return new_state, _view(cfg, (fft_max, fft_min, fft_avg, fft_cur), adj,
-                            heatmap, spec_lin[-1])
+    return new_state, _view(cfg, new_state[:4], adj, new_state.heatmap,
+                            spec_lin[-1])

@@ -222,6 +222,9 @@ def _declare(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "kspec_curscan_tc_split_mt": [i32, i32, i32, i32],
         "kspec_curscan_tc_split_smem": [i32, i32, i32, i32],
         "kspec_curscan_tc_split_occupancy": [i32, i32, i32, i32, i32],
+        "kspec_display_fold": [
+            ptr, i32, i32, i32, ctypes.c_float, ptr, i32, i32, i32, i32, i32,
+            *[ptr] * 16, i32, i32, i32, ptr],
     }
     restypes = {"kspec_curscan_tc_smem": ctypes.c_longlong,
                 "kspec_curscan_packed_tc_smem": ctypes.c_longlong,

@@ -9,7 +9,8 @@
     on the card or on the acquire worker), each inside its own span
     (``kspec.<stage>``, ``kspec.wait.<site>``); :func:`wait` is the wait
     site of code without a session handle, recorded into the timer a
-    session installs (:func:`installed`);
+    session installs (:func:`installed`), as is :func:`tally`, a count
+    without time (the route each step's display chain took);
   * :func:`trace` wraps a block in ``torch.profiler`` (CPU and CUDA
     activities), writes a Chrome trace into the directory given (``tpuProfile
     <dir>`` on the CLI, or ``KSPEC_TRACE_DIR``) and logs the card's busy
@@ -84,12 +85,15 @@ class StageTimer:
     longest of each, and samples/s rates.  A stage times the host's own
     work on it, the enqueue of the card's work and any wait inside it
     (``dsp`` is the enqueue plus the waits inside it); each wait is also
-    kept on its own line, ``wait.<site>``.  The card's time per layer
-    comes from the ``tpuProfile`` trace."""
+    kept on its own line, ``wait.<site>``, and each tallied event (no
+    time) on its own line last.  The card's time per layer comes from the
+    ``tpuProfile`` trace."""
 
     def __init__(self):
         # name -> [count, total s, longest s, samples]
         self.stats: Dict[str, list] = {}
+        # name -> count of an untimed event (the display chain's route)
+        self.tallies: Dict[str, int] = {}
 
     def stage(self, name: str, samples: int = 0) -> _Timed:
         """Time a ``with`` block as stage ``name``, in span
@@ -105,9 +109,17 @@ class StageTimer:
         ``kspec.wait.<site>``."""
         return self.stage(WAIT + site)
 
+    def tally(self, name: str) -> None:
+        """Count one untimed ``name`` event (``display.fold`` or
+        ``display.plain``: the route a step's display chain took)."""
+        self.tallies[name] = self.tallies.get(name, 0) + 1
+
     def count(self, name: str) -> int:
-        """Times stage (or ``wait.<site>``) ``name`` ran."""
-        return self.stats.get(name, (0,))[0]
+        """Times stage (or ``wait.<site>``, or tallied event) ``name``
+        ran."""
+        if name in self.stats:
+            return self.stats[name][0]
+        return self.tallies.get(name, 0)
 
     def total(self, name: str) -> float:
         """Host seconds of stage (or ``wait.<site>``) ``name``."""
@@ -128,6 +140,7 @@ class StageTimer:
             if samples:
                 line += f" rate={self.rate(name) / 1e6:.2f} Msamp/s"
             lines.append(line)
+        lines += [f"{name}: n={n}" for name, n in sorted(self.tallies.items())]
         return "\n".join(lines)
 
     def log_report(self):
@@ -157,6 +170,14 @@ def wait(site: str):
     if timer is not None:
         return timer.stage(WAIT + site)
     return span(WAIT + site)
+
+
+def tally(name: str) -> None:
+    """Count one untimed ``name`` event into the installed
+    :class:`StageTimer`; nothing without one."""
+    timer = _installed.get()
+    if timer is not None:
+        timer.tally(name)
 
 
 def cuda_ms(fn: Callable[[], object], warm: int = 3, reps: int = 10) -> float:

@@ -17,7 +17,9 @@ import torch
 from kspecanal_tpu_torch.config import (WINDOW_HANNING, WINDOW_KAISER,
                                         WINDOW_ONES)
 from kspecanal_tpu_torch.io import sources as tsrc
-from kspecanal_tpu_torch.ops import cuda_curscan, cuda_packed, cuda_tc
+from kspecanal_tpu_torch.models import zerospan as tzs
+from kspecanal_tpu_torch.ops import (cuda_curscan, cuda_display, cuda_packed,
+                                     cuda_tc)
 from kspecanal_tpu_torch.ops import spectrum as tspec
 from kspecanal_tpu_torch.parallel import stream as tstream
 from kspecanal_tpu_torch.scripts import kernel_ablate
@@ -1184,3 +1186,171 @@ def test_highest_ablate_key_matches_plain(cuda, fft, t, key):
     assert_tc_close(got.cpu().numpy(), want.cpu().numpy(), "HIGHEST")
     assert torch.equal(got, cuda_curscan.curscan_fused_sublane(
         tspec.decode_u8(re), tspec.decode_u8(im), cfg, ablate=(key,)))
+
+
+# The display fold kernel (csrc/display_fold.cu) against its plain version
+# on the card: (K, F, seeded bits, ring index, config, baseline).  The
+# cells' shapes first; F = 2050 takes the kernel's scalar loads.
+DISPLAY_CASES = [
+    (4096, 2048, 7, 33, {}, False), (512, 16384, 7, 90, {}, False),
+    (1, 2048, 0, 0, {}, False),
+    (7, 2048, 5, 126, {"tpu_edge_skip_bins": 9}, True),
+    (300, 2048, 2, 100, {"plt_compress_hm": "AVG"}, True),
+    (128, 16384, 0, 64, {"plt_compress_hm": "MIN",
+                         "tpu_edge_skip_bins": 40}, False),
+    (300, 1024, 7, 127, {"plt_compress_hm": "RAW"}, True),
+    (37, 2050, 3, 5, {}, True),
+    (64, 64, 4, 0, {"zero_span_disp_proc": "Raw", "x_res": 64}, False),
+    (4096, 64, 1, 17, {"b_data_min": False, "b_data_avg": False}, False)]
+
+
+def display_state(cfg, seeded, hm, dev, gen):
+    st = tzs.init_state(cfg, dev)
+    f = cfg.fft_size
+
+    def normal(shape, mu):
+        return torch.randn(shape, generator=gen, device=dev) * 4 + mu
+    return st._replace(
+        fft_max=normal(f, -20), fft_min=normal(f, -70),
+        fft_avg=normal(f, -45), heatmap=normal(st.heatmap.shape, -50),
+        hm_index=torch.tensor(hm, dtype=torch.int32, device=dev),
+        iteration=torch.tensor(1000, dtype=torch.int32, device=dev),
+        seeded=torch.tensor(seeded, dtype=torch.int32, device=dev))
+
+
+def display_spectra(k, f, dev, gen):
+    """Uniform linear spectra with exactly-zero bins (-inf dB) in the
+    first, a middle and the last row."""
+    spec = torch.rand((k, f), generator=gen, device=dev) + 1e-6
+    for i, c in ((0, 1), (k // 2, 2), (k - 1, 3)):
+        spec[i, c] = 0.0
+    return spec
+
+
+def display_fold64(state, spec, cfg):
+    """The average's serial fold (old + new)/2 in float64."""
+    from kspecanal_tpu_torch.ops import dsp
+    d = dsp.fftvals_dispproc(spec, cfg.zero_span_disp_proc,
+                             gain=cfg.gain).double()
+    acc = state.fft_avg.double() if int(state.seeded) & 4 else d[0]
+    for row in d:
+        acc = (acc + row) / 2
+    return acc
+
+
+@pytest.mark.parametrize("k,f,seeded,hm,extra,with_adj", DISPLAY_CASES,
+                         ids=[f"k{c[0]}-f{c[1]}-s{c[2]}" for c in
+                              DISPLAY_CASES])
+def test_display_fold_matches_plain(cuda, k, f, seeded, hm, extra,
+                                    with_adj):
+    """Two launches; max, min, cur, the RAW/MAX/MIN heatmap and the three
+    counters bit-identical to the plain version.  The average: the plain
+    version rounds a float32 weighted sum, the kernel a float64 one once,
+    so they differ by the plain version's rounding: within 1e-3 dB, and
+    the kernel's no farther from the float64 serial fold than the plain
+    version's (plus one float32 step).  An AVG heatmap sums in float32 in
+    another order than torch.mean: within cols * 2^-23 of its largest
+    magnitude, the infinities equal."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 3 + f)
+    cfg = zs_cfg(f, **extra)
+    state = display_state(cfg, seeded, hm, cuda, gen)
+    spec = display_spectra(k, f, cuda, gen)
+    adj = (torch.randn(f, generator=gen, device=cuda) * 3 if with_adj
+           else None)
+    before = cuda_display.launches
+    got = cuda_display.display_fold(state, spec, cfg, adj)
+    want = cuda_display.display_fold_plain(state, spec, cfg, adj)
+    torch.cuda.synchronize()
+    assert cuda_display.launches == before + 2
+    for key in ("hm_index", "iteration", "seeded"):
+        assert int(getattr(got, key)) == int(getattr(want, key)), key
+    for key in ("fft_max", "fft_min", "fft_cur"):
+        assert torch.equal(getattr(got, key), getattr(want, key)), key
+    assert (got.fft_cur.untyped_storage().data_ptr()
+            != spec.untyped_storage().data_ptr())
+    if cfg.plt_compress_hm == "AVG":
+        inf = torch.isinf(want.heatmap)
+        assert torch.equal(got.heatmap[inf], want.heatmap[inf])
+        fin = torch.isfinite(want.heatmap)
+        tol = ((f // cfg.x_res) * 2.0 ** -23
+               * float(want.heatmap[fin].abs().max()))
+        assert float((got.heatmap[fin] - want.heatmap[fin]).abs().max()
+                     ) <= tol
+    else:
+        assert torch.equal(got.heatmap, want.heatmap)
+    g, w = got.fft_avg, want.fft_avg
+    assert torch.equal(torch.isneginf(g), torch.isneginf(w))
+    fin = torch.isfinite(w)
+    assert float((g[fin] - w[fin]).abs().max()) <= 1e-3
+    if cfg.b_data_avg:
+        ref = display_fold64(state, spec, cfg)[fin]
+        step = torch.finfo(torch.float32).eps * ref.abs()
+        assert bool(((g[fin].double() - ref).abs()
+                     <= (w[fin].double() - ref).abs() + step).all())
+
+
+def test_display_fold_keeps_nan_and_minus_inf(cuda):
+    """A NaN bin wins max, min and the average; a -inf bin or a -inf
+    seeded average wins the average over a NaN, as in the plain version;
+    and a second run gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    cfg = zs_cfg(2048, tpu_edge_skip_bins=4)
+    state = display_state(cfg, 7, 0, cuda, gen)
+    state = state._replace(fft_avg=state.fft_avg.index_fill(
+        0, torch.tensor([12], device=cuda), float("-inf")))
+    spec = display_spectra(400, 2048, cuda, gen)
+    spec[3, 10] = 0.0
+    spec[17, 9] = spec[300, 10] = spec[5, 12] = float("nan")
+    got = cuda_display.display_fold(state, spec, cfg)
+    want = cuda_display.display_fold_plain(state, spec, cfg)
+    for key in ("fft_max", "fft_min", "fft_avg", "heatmap"):
+        g, w = getattr(got, key), getattr(want, key)
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), key
+        assert torch.equal(torch.isneginf(g), torch.isneginf(w)), key
+    assert bool(got.fft_max[9].isnan()) and bool(got.fft_min[9].isnan())
+    assert bool(got.fft_avg[9].isnan()) and float(got.fft_avg[10]) < 0
+    assert torch.isneginf(got.fft_avg[10:13:2]).all()
+    again = cuda_display.display_fold(state, spec, cfg)
+    for a, b in zip(got, again):
+        assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def test_zero_span_steps_wait_for_nothing(cuda):
+    """A zero-span step at zs2048k50's configuration, K = 64 u8 blocks,
+    runs under set_sync_debug_mode("error") once warm: no sync, no
+    blocking copy, no .item(); each step launches the display kernel
+    twice and never the plain chain."""
+    cfg = zs_cfg(2048, x_res=512)
+    re, im = (torch.from_numpy(p).to(cuda)
+              for p in raw_planes(cfg, 64, seed=24))
+    state = tzs.init_state(cfg, cuda)
+    state, _ = tzs.zero_span_steps(state, re, im, cfg, with_view=False)
+    torch.cuda.synchronize()
+    before = cuda_display.launches, tzs.plain_cuda_steps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, _ = tzs.zero_span_steps(state, re, im, cfg,
+                                           with_view=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_display.launches == before[0] + 6
+    assert tzs.plain_cuda_steps == before[1]
+    assert int(state.iteration) == 4 * 64 and int(state.seeded) == 7
+
+
+def test_display_updates_routes_on_the_card(cuda):
+    """A covered configuration takes the kernel; a HistLowClip chain and a
+    CONV heatmap keep the plain chain on the card, counted."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    spec = display_spectra(9, 2048, cuda, gen)
+    for cfg, kernel in ((zs_cfg(2048), True),
+                        (zs_cfg(2048, zero_span_disp_proc="LogNoGain."
+                                "HistLowClip"), False),
+                        (zs_cfg(2048, plt_compress_hm="CONV"), False)):
+        before = cuda_display.launches, tzs.plain_cuda_steps
+        st, view = tzs.display_updates(tzs.init_state(cfg, cuda), spec, cfg)
+        torch.cuda.synchronize()
+        assert cuda_display.launches == before[0] + 2 * kernel
+        assert tzs.plain_cuda_steps == before[1] + (not kernel)
+        assert int(st.iteration) == 9 and view.max_lvls.is_cuda

@@ -207,7 +207,8 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
                        "curscan_mixed_planes.cu", "curscan_packed.cu",
                        "curscan_packed_tc.cu", "curscan_sublane.cu",
                        "curscan_tc.cu", "curscan_tc_high.cu",
-                       "curscan_tc_split.cu", "curscan_tc_split_high.cu"]
+                       "curscan_tc_split.cu", "curscan_tc_split_high.cu",
+                       "display_fold.cu"]
     compiles = [c for c in calls if " -c " in c]
     assert sorted(os.path.basename(c.split()[-1]) for c in compiles) \
         == sources
